@@ -1,0 +1,655 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`second_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py [--out detail.json]    # one card
+
+Phases, one line each (any failure ends the run with a non-zero exit):
+
+1. card: name and power limit, from nvidia-smi.
+2. build: compile the hand-written kernels in second_tpu_torch/csrc/, one
+   nvcc per source, all together.
+3. capture: one warm-up run of the main path (the SECOND car.fhd eval
+   forward: voxelize -> VFE-V3 -> SpMiddleFHD -> RPN -> decode + rotated
+   NMS, batch 4, 40 000 voxels, 30 000 points, bf16 as the config asks)
+   records the arguments of every kernel call.
+4. kernels: each recorded call goes through the kernel and through its
+   plain PyTorch version on the card, compared within the stated tolerance
+   and timed with CUDA events (median, L2 flushed before each launch), next
+   to one PyTorch library call that computes the same function where there
+   is one. The sparse convs are checked again with fp32 inputs, the dense
+   rotated-IoU matrix at 1000 x 1000 for each criterion.
+5. main path: launch counts reset, one forward, counts read: every kernel
+   of the path must have launched (the sparse gather-GEMM once per sparse
+   conv, 14). Then frames/s over timed forwards, and one forward under
+   torch.profiler: the device-busy share and the device time by kernel.
+6. reference: one fp32 example on the card and on the CPU (plain
+   versions): voxels exact, predictions within tolerance, the same `valid`
+   mask end to end, and predict on the same predictions with the same
+   `valid` mask and boxes/scores within tolerance.
+
+The line before the last is {"kernels": [...]}, the last
+{"ok": true, "device": {...}}. With --out, the per-call detail is written
+to that JSON file as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from contextlib import contextmanager
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from second_tpu_torch.config import load_pipeline_config
+from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
+from second_tpu_torch.models import build_voxelnet, detect, predict
+from second_tpu_torch.ops import cuda as kernels
+from second_tpu_torch.ops.cuda import gather, riou, subm
+from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
+                                              _signed_area, rbbox_to_corners)
+from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
+
+REPO = Path(__file__).resolve().parent
+CONFIG = REPO / "second_tpu_torch" / "configs" / "second_car_fhd.config"
+BATCH, MAX_VOXELS, MAX_POINTS = 4, 40000, 30000
+TIMED_FORWARDS = 12
+
+# H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and fp32
+# CUDA-core operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32 operations of one rotated-IoU pair, counted from the clip in
+# csrc/riou.cu (a sin, cos, compare or select counts as one operation):
+# the corners of two boxes (2 x (sin, cos, 4 corners x 11)), the clip
+# quad's winding sign (19) and the IoU from the two areas (6); each of the
+# four half-plane clips of an n-vertex polygon with e crossing edges takes
+# 2 + 7n + 13e, and the shoelace of the n >= 3 vertices left 4n + 2.
+RIOU_FIXED_OPS = 92 + 19 + 6
+
+# stated tolerances, kernel against plain version on the same inputs
+CONV_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 sums in another order
+RIOU_TOL = 1e-5                          # same arithmetic (-fmad=false)
+PRED_TOL = dict(atol=1e-3, rtol=1e-3)    # card vs CPU: cuDNN vs oneDNN sums
+DET_TOL = dict(atol=1e-4, rtol=1e-4)
+
+KERNELS = [
+    dict(name="sparse_gather_gemm", module=subm, fn="gather_gemm",
+         source="second_tpu_torch/csrc/subm.cu",
+         replaces="second_tpu/ops/pallas/subm.py:82"),
+    dict(name="row_gather", module=gather, fn="gather_rows",
+         source="second_tpu_torch/csrc/gather.cu",
+         replaces="second_tpu/ops/pallas/gather.py:57"),
+    dict(name="rotated_iou", module=riou, fn="riou_pairs",
+         source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/pallas/riou.py:149"),
+]
+SPARSE_CONVS = 14      # 10 submanifold + 4 strided convs in SpMiddleFHD
+
+
+def errors(got, want):
+    """(max abs error, max abs error over the largest |reference|)."""
+    if not want.numel():
+        return 0.0, 0.0
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def fail(msg):
+    print(f"FAIL {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode or not out.stdout.strip():
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- timing
+
+
+class Timer:
+    """Median device time of a callable by CUDA events, one pair per call,
+    with the L2 cache flushed (a 128 MiB write) before each launch."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(32 << 20, dtype=torch.float32,
+                                 device=device)
+
+    def __call__(self, fn, reps):
+        fn()                                        # warm-up
+        pairs = []
+        for _ in range(reps):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# -------------------------------------------------------- the main path
+
+
+def build_inputs(cfg, assigner, info, device):
+    """The bench's fhd input: one LiDAR-scan scene (seed 0, 512 azimuth
+    steps) prepared for eval and repeated BATCH times."""
+    prep = ExamplePrep(assigner, info.feature_map_size,
+                       PrepConfig(max_points=MAX_POINTS, training=False))
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    rng = np.random.default_rng(0)
+    p, b, n = lidar_scan_scene(rng, pc_range=pc_range, num_azimuth=512)
+    ex = prep({"points": p, "gt_boxes": b, "gt_names": n, "image_idx": 0},
+              rng)
+    batch = prep.collate([ex] * BATCH)
+    return [torch.as_tensor(batch[k], device=device)
+            for k in ("points", "points_mask", "anchors")]
+
+
+@contextmanager
+def recording():
+    """Record the arguments of every kernel-wrapper call made through the
+    port's modules (each module that imported a wrapper by name sees the
+    recording one)."""
+    calls = {k["fn"]: [] for k in KERNELS}
+    originals = {k["fn"]: getattr(k["module"], k["fn"]) for k in KERNELS}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    patched = []
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith("second_tpu_torch"):
+            continue
+        for name, fn in originals.items():
+            if getattr(mod, name, None) is fn:
+                patched.append((mod, name, fn))
+                setattr(mod, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
+# ------------------------------------------------- kernel versus plain
+
+
+def conv_library(features, tap_idx, found, weights):
+    """One gather of the tap stack plus a batched product over taps: the
+    library yardstick of the sparse gather-GEMM."""
+    B, N, C = features.shape
+    K, Q = tap_idx.shape[1:]
+    off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
+    rows = (tap_idx.long() + off).permute(1, 0, 2).reshape(-1)
+    taps = features.reshape(B * N, C).index_select(0, rows)
+    taps = taps * found.permute(1, 0, 2).reshape(-1, 1)
+    w = weights.to(features.dtype)
+    prod = torch.bmm(taps.view(K, B * Q, C), w)
+    return prod.float().sum(0).view(B, Q, -1)
+
+
+def conv_bound(features, tap_idx, found, weights):
+    """(bytes seconds, ops seconds) of one sparse conv, counted from what
+    this run's rulebook needs: the found mask (one byte a tap), the int32
+    row index of each found tap (the only ones read), each feature row
+    that some found tap references, once, the weights in the feature dtype
+    and the fp32 output, written once; 2*C*D operations per found tap."""
+    B, N, C = features.shape
+    D = weights.shape[2]
+    Q = tap_idx.shape[2]
+    n_found = int(found.sum())
+    off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
+    rows = int(torch.unique((tap_idx.long() + off)[found]).numel())
+    esz = features.element_size()
+    nbytes = (found.numel() + 4 * n_found + rows * C * esz +
+              weights.numel() * esz + B * Q * D * 4)
+    ops = 2.0 * C * D * n_found
+    return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[features.dtype]
+
+
+def riou_ops(boxes1, boxes2, i, j):
+    """fp32 operations that these pairs need (see RIOU_FIXED_OPS): each
+    pair's polygon is clipped as the plain version clips it, and each clip
+    is charged for the vertices it walks and the edges that cross."""
+    q1 = rbbox_to_corners(boxes1)[i.long()]
+    q2 = rbbox_to_corners(boxes2)[j.long()]
+    P = q1.shape[0]
+    poly = torch.cat([q1, q1.new_zeros(P, 4, 2)], 1)
+    cnt = torch.full((P,), 4, dtype=torch.int64, device=q1.device)
+    s = torch.sign(_signed_area(q2))
+    s = torch.where(s == 0, 1.0, s)
+    ops = torch.full((P,), RIOU_FIXED_OPS, dtype=torch.int64,
+                     device=q1.device)
+    slots = torch.arange(8, device=q1.device)
+    for k in range(4):
+        a, b = q2[:, k], q2[:, (k + 1) % 4]
+        ab = b - a
+
+        def side(p):
+            return s[:, None] * (ab[:, None, 0] * (p[..., 1] - a[:, None, 1])
+                                 - ab[:, None, 1] * (p[..., 0] -
+                                                     a[:, None, 0])) >= 0
+        crossing = (slots < cnt[:, None]) & \
+            (side(poly) != side(_next_vertex(poly, cnt)))
+        ops += 2 + 7 * cnt + 13 * crossing.sum(1)
+        poly, cnt = _clip_halfplane(poly, cnt, a, b, s)
+    ops += torch.where(cnt >= 3, 4 * cnt + 2, 0)
+    return int(ops.sum())
+
+
+def check_convs(calls, timer, detail):
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0,
+               err=0.0)
+    for i, (args, _) in enumerate(calls):
+        f, tap_idx, found, w = args
+        # the main path's own dtype, then fp32 inputs
+        for dtype in dict.fromkeys((f.dtype, torch.float32)):
+            fx = f.to(dtype)
+            got = subm.gather_gemm(fx, tap_idx, found, w)
+            want = subm.gather_gemm_plain(fx, tap_idx, found, w)
+            torch.cuda.synchronize()
+            err, rel = errors(got, want)
+            ok = torch.allclose(got, want, **CONV_TOL)
+            B, N, C = fx.shape
+            K, Q = tap_idx.shape[1:]
+            D = w.shape[2]
+            tag = (f"conv {i:2d} {str(dtype)[6:]:8s} B={B} N={N} Q={Q} "
+                   f"K={K} {C}->{D}")
+            if not ok:
+                fail(f"{tag}: kernel disagrees with plain, max abs err "
+                     f"{err:.3g} over {CONV_TOL}")
+            row = dict(call=i, dtype=str(dtype), B=B, N=N, Q=Q, K=K, C=C,
+                       D=D, max_abs_err=err, max_rel_err=rel,
+                       found=int(found.sum()))
+            if dtype == f.dtype:
+                row["ms"] = timer(lambda: subm.gather_gemm(fx, tap_idx, found,
+                                                           w), 20)
+                row["plain_ms"] = timer(lambda: subm.gather_gemm_plain(
+                    fx, tap_idx, found, w), 5)
+                row["library_ms"] = timer(lambda: conv_library(
+                    fx, tap_idx, found, w), 5)
+                bs, os_ = conv_bound(fx, tap_idx, found, w)
+                row["bound_ms"] = 1e3 * max(bs, os_)
+                for k in ("ms", "plain_ms", "library_ms"):
+                    agg[k] += row[k]
+                agg["bytes_s"] += bs
+                agg["ops_s"] += os_
+                say(f"{tag}: err {err:.2e} rel {rel:.2e}  kernel "
+                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                    f"library {row['library_ms']:.4f} ms  bound "
+                    f"{row['bound_ms']:.4f} ms")
+            else:
+                say(f"{tag}: err {err:.2e} rel {rel:.2e}")
+            agg["err"] = max(agg["err"], err)
+            detail.append(row)
+    return agg
+
+
+def check_gathers(calls, timer, detail):
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0,
+               err=0.0)
+    for i, (args, _) in enumerate(calls):
+        src, idx = args
+        got = gather.gather_rows(src, idx)
+        want = gather.gather_rows_plain(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather {i}: kernel disagrees with plain (must be exact)")
+        row_bytes = src.shape[1] * src.element_size()
+        M = idx.numel()
+        nbytes = M * 4 + int(torch.unique(idx).numel()) * row_bytes + \
+            M * row_bytes
+        row = dict(call=i, dtype=str(src.dtype), R=src.shape[0], M=M,
+                   row_bytes=row_bytes, max_abs_err=0.0,
+                   ms=timer(lambda: gather.gather_rows(src, idx), 20),
+                   plain_ms=timer(lambda: gather.gather_rows_plain(
+                       src, idx), 5),
+                   library_ms=timer(lambda: torch.index_select(
+                       src, 0, idx), 5),
+                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        for k in ("ms", "plain_ms", "library_ms"):
+            agg[k] += row[k]
+        agg["bytes_s"] += nbytes / HBM_BYTES_PER_S
+        detail.append(row)
+    say(f"gather: {len(calls)} calls exact; kernel {agg['ms']:.4f} ms  "
+        f"plain {agg['plain_ms']:.4f} ms  index_select "
+        f"{agg['library_ms']:.4f} ms")
+    return agg
+
+
+def check_riou(calls, timer, detail, device):
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes_s=0.0, ops_s=0.0,
+               err=0.0)
+    for i, (args, kwargs) in enumerate(calls):
+        b1, b2, pi, pj = args
+        got = riou.riou_pairs(b1, b2, pi, pj, **kwargs)
+        want = riou.riou_pairs_plain(b1, b2, pi, pj, **kwargs)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        if err > RIOU_TOL:
+            fail(f"riou pairs {i}: max abs err {err:.3g} > {RIOU_TOL}")
+        P = pi.numel()
+        boxes = b1.numel() * 4 + (0 if b2 is b1 else b2.numel() * 4)
+        bs = (boxes + P * 12) / HBM_BYTES_PER_S
+        ops = riou_ops(b1, b2, pi, pj)
+        os_ = ops / PEAK_OPS_PER_S[torch.float32]
+        row = dict(call=i, pairs=P, boxes=b1.shape[0], max_abs_err=err,
+                   max_rel_err=rel, ops_per_pair=ops / max(P, 1),
+                   ms=timer(lambda: riou.riou_pairs(b1, b2, pi, pj,
+                                                    **kwargs), 20),
+                   plain_ms=timer(lambda: riou.riou_pairs_plain(
+                       b1, b2, pi, pj, **kwargs), 5),
+                   bound_ms=1e3 * max(bs, os_))
+        agg["ms"] += row["ms"]
+        agg["plain_ms"] += row["plain_ms"]
+        agg["bytes_s"] += bs
+        agg["ops_s"] += os_
+        agg["err"] = max(agg["err"], err)
+        detail.append(row)
+        say(f"riou pairs {i}: P={P} err {err:.2e} rel {rel:.2e}  kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+            f"{row['bound_ms']:.6f} ms ({ops / max(P, 1):.1f} ops a pair)")
+    # the dense entry point, off the main path: crowded random boxes
+    g = torch.Generator().manual_seed(1)
+    n = 1000
+    boxes = torch.stack([torch.rand(n, generator=g) * 40,
+                         torch.rand(n, generator=g) * 40 - 20,
+                         0.5 + 2.5 * torch.rand(n, generator=g),
+                         0.5 + 5.5 * torch.rand(n, generator=g),
+                         (torch.rand(n, generator=g) - 0.5) * 2 * np.pi],
+                        1).to(device)
+    for crit in (-1, 0, 1):
+        got = riou.riou_matrix(boxes, boxes, crit)
+        want = riou.riou_matrix_plain(boxes, boxes, crit)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        if err > RIOU_TOL:
+            fail(f"riou matrix criterion {crit}: max abs err {err:.3g}")
+        agg["err"] = max(agg["err"], err)
+        ms = timer(lambda: riou.riou_matrix(boxes, boxes, crit), 10)
+        pms = timer(lambda: riou.riou_matrix_plain(boxes, boxes, crit), 3)
+        detail.append(dict(matrix=n, criterion=crit, max_abs_err=err, ms=ms,
+                           plain_ms=pms, overlapping=int((want > 0).sum())))
+        say(f"riou matrix {n}x{n} criterion {crit}: err {err:.2e} rel "
+            f"{rel:.2e}  kernel {ms:.4f} ms  plain {pms:.4f} ms")
+    return agg
+
+
+# ---------------------------------------------------------------- main
+
+
+def launch_counts():
+    return {k["name"]: k["module"].launches for k in KERNELS}
+
+
+def reset_counts():
+    for k in KERNELS:
+        k["module"].launches = 0
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", type=Path,
+                        help="also write the per-call detail to this JSON")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA card; none is available",
+              file=sys.stderr)
+        sys.exit(1)
+    run(torch.device("cuda", 0), args.out)
+
+
+@torch.no_grad()
+def run(dev, out=None):
+    # fp32 checks compare against full-fp32 products: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+
+    card = card_line()
+    say(f"card: {card}")
+    report["card"] = card
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    logs = kernels.build()
+    secs = time.perf_counter() - t0
+    say(f"build: {sorted(logs)} in {secs:.2f} s")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
+    report["build_s"] = secs
+    report["ptxas"] = logs
+
+    cfg = load_pipeline_config(CONFIG)
+    mixed = cfg.train_config.enable_mixed_precision
+    net, spec, info, assigner, _ = build_voxelnet(
+        cfg.model, device=dev, mixed_precision=mixed, seed=0)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    points, mask, anchors = build_inputs(cfg, assigner, info, dev)
+    say(f"inputs: points {tuple(points.shape)} ({int(mask.sum())} valid), "
+        f"anchors {tuple(anchors.shape)}, mixed precision {mixed}")
+
+    def forward():
+        return detect(net, spec, vspec, points, mask, anchors, device=dev)
+
+    with recording() as calls:
+        forward()
+        torch.cuda.synchronize()
+    say("capture: " + ", ".join(f"{k} {len(v)} calls"
+                                for k, v in calls.items()))
+    if len(calls["gather_gemm"]) != SPARSE_CONVS:
+        fail(f"expected {SPARSE_CONVS} sparse convs per forward, recorded "
+             f"{len(calls['gather_gemm'])}")
+
+    timer = Timer(dev)
+    detail = {"sparse_gather_gemm": [], "row_gather": [], "rotated_iou": []}
+    aggs = {
+        "sparse_gather_gemm": check_convs(calls["gather_gemm"], timer,
+                                          detail["sparse_gather_gemm"]),
+        "row_gather": check_gathers(calls["gather_rows"], timer,
+                                    detail["row_gather"]),
+        "rotated_iou": check_riou(calls["riou_pairs"], timer,
+                                  detail["rotated_iou"], dev),
+    }
+    del calls
+    report["calls"] = detail
+
+    # the main path, counted
+    reset_counts()
+    det, vox, preds = forward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    say(f"launches in one forward: {counts}")
+    if counts["sparse_gather_gemm"] != SPARSE_CONVS:
+        fail(f"sparse gather-GEMM launched {counts['sparse_gather_gemm']} "
+             f"times, expected {SPARSE_CONVS}")
+    if not all(counts.values()):
+        fail(f"a kernel of the main path never launched: {counts}")
+
+    A = anchors.shape[1]
+    for k, shape in (("box_preds", (BATCH, A, spec.box_code_size)),
+                     ("cls_preds", (BATCH, A, 1))):
+        if tuple(preds[k].shape) != shape or \
+                not torch.isfinite(preds[k]).all():
+            fail(f"{k}: shape {tuple(preds[k].shape)} (want {shape}) or "
+                 f"non-finite values")
+    n_valid = det["valid"].sum(1).tolist()
+    if not all(torch.isfinite(det[k]).all() for k in ("boxes", "scores")):
+        fail("non-finite detections")
+    say(f"forward: voxel_overflow {int(vox['voxel_overflow'])} "
+        f"stage_overflow {int(preds['stage_overflow'])} voxels "
+        f"{vox['voxel_valid'].sum(1).tolist()} valid detections {n_valid}")
+
+    times = []
+    for _ in range(TIMED_FORWARDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    # one forward split at its stage boundaries (synchronised)
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        v = device_voxelize(vspec, points, mask, dev)
+        torch.cuda.synchronize()
+        stages["voxelize_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        p = net(v["voxels"], v["num_points"], v["coordinates"],
+                v["voxel_valid"])
+        torch.cuda.synchronize()
+        stages["network_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        predict(spec, p, anchors)
+        torch.cuda.synchronize()
+        stages["predict_ms"] = 1e3 * (time.perf_counter() - t0)
+    report["forward"] = dict(
+        batch=BATCH, median_s=med, frames_per_s=BATCH / med, times_s=times,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(dev), **stages,
+        voxel_overflow=int(vox["voxel_overflow"]),
+        stage_overflow=int(preds["stage_overflow"]), valid=n_valid,
+        launches=counts)
+    say(f"frames/s {BATCH / med:.3f} (median {1e3 * med:.2f} ms of "
+        f"{TIMED_FORWARDS} batch-{BATCH} forwards; one split: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + ")")
+
+    report["profile"] = profile_forward(forward, med)
+    report["reference"] = check_reference(cfg, vspec, points, mask, anchors,
+                                          dev)
+
+    lines = []
+    for k in KERNELS:
+        a = aggs[k["name"]]
+        lines.append(dict(
+            name=k["name"], route="cuda", source=k["source"],
+            replaces=k["replaces"], launches=counts[k["name"]],
+            max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
+            bound_ms=1e3 * max(a["bytes_s"], a["ops_s"]),
+            bound_by="bytes" if a["bytes_s"] >= a["ops_s"] else "operations",
+            library_ms=a["library_ms"]))
+    report["kernels"] = lines
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=1, default=str))
+    say(f"card: {card}")
+    say(json.dumps({"kernels": lines}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def profile_forward(forward, median_s):
+    """One forward under torch.profiler: device-busy time (the union of the
+    kernels' intervals), its share of the median forward, and the device
+    time by kernel name. The profiler slows the host, not the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(device_busy_ms=busy_us / 1e3, profiled_wall_ms=wall * 1e3,
+               busy_share_of_median=busy_us / 1e6 / median_s,
+               kernels_launched=len(spans),
+               top_ms={k: v / 1e3 for k, v in top})
+    say(f"profile: device busy {busy_us / 1e3:.2f} ms in {len(spans)} "
+        f"kernels = {100 * out['busy_share_of_median']:.1f}% of the "
+        f"{1e3 * median_s:.2f} ms median forward (profiled wall "
+        f"{wall * 1e3:.2f} ms)")
+    for name, us in top:
+        say(f"  {us / 1e3:8.3f} ms  {name[:90]}")
+    return out
+
+
+def check_reference(cfg, vspec, points, mask, anchors, dev):
+    """One fp32 example through the port on the card and on the CPU, with
+    the same seeded weights."""
+    net_c, spec = build_voxelnet(cfg.model, device=dev,
+                                 mixed_precision=False, seed=0)[:2]
+    net_h = build_voxelnet(cfg.model, device="cpu", mixed_precision=False,
+                           seed=0)[0]
+    one = [t[:1] for t in (points, mask, anchors)]
+    det_c, vox_c, preds_c = detect(net_c, spec, vspec, *one, device=dev)
+    t0 = time.perf_counter()
+    det_h, vox_h, preds_h = detect(net_h, spec, vspec,
+                                   *[t.cpu() for t in one], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for k in ("voxels", "num_points", "coordinates", "voxel_valid"):
+        if not torch.equal(vox_c[k].cpu(), vox_h[k]):
+            fail(f"reference: voxelizer output {k} differs card vs CPU")
+    errs = {}
+    for k in ("box_preds", "cls_preds"):
+        a, b = preds_c[k].cpu(), preds_h[k]
+        errs[k] = (a - b).abs().max().item()
+        if not torch.allclose(a, b, **PRED_TOL):
+            fail(f"reference: {k} card vs CPU max abs err {errs[k]:.3g} "
+                 f"over {PRED_TOL}")
+    # predict on the same predictions: kernels against plain versions
+    preds_same = {k: v.cpu() for k, v in preds_c.items()}
+    det_p = predict(spec, preds_same, one[2].cpu())
+    valid = det_c["valid"].cpu()
+    if not torch.equal(valid, det_p["valid"]):
+        fail("reference: predict valid mask differs card vs CPU")
+    for k in ("boxes", "scores"):
+        a, b = det_c[k].cpu()[valid], det_p[k][valid]
+        errs[k] = (a - b).abs().max().item() if a.numel() else 0.0
+        if not torch.allclose(a, b, **DET_TOL):
+            fail(f"reference: predict {k} max abs err {errs[k]:.3g}")
+    if not torch.equal(valid, det_h["valid"]):
+        fail("reference: end-to-end valid mask differs card vs CPU")
+    for k in ("boxes", "scores"):      # printed: the preds differ already
+        a, b = det_c[k].cpu()[valid], det_h[k][valid]
+        errs[f"end_to_end_{k}"] = (a - b).abs().max().item() \
+            if a.numel() else 0.0
+    say(f"reference (fp32, 1 example, card vs CPU in {cpu_s:.1f} s): voxels "
+        f"exact; preds err box {errs['box_preds']:.2e} cls "
+        f"{errs['cls_preds']:.2e}; predict on the card's preds: valid equal "
+        f"({int(valid.sum())} detections), boxes err {errs['boxes']:.2e} "
+        f"scores err {errs['scores']:.2e}; end-to-end valid equal, boxes "
+        f"err {errs['end_to_end_boxes']:.2e} scores err "
+        f"{errs['end_to_end_scores']:.2e}")
+    return dict(cpu_s=cpu_s, errs=errs, n_valid=int(valid.sum()))
+
+
+if __name__ == "__main__":
+    main()

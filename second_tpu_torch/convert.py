@@ -1,0 +1,84 @@
+"""Carry the JAX model's weights across to the port.
+
+`state_dict_from_jax(variables)` takes the flax variables of
+`second_tpu.models.VoxelNet` as a nested dict of numpy arrays ({"params":
+..., "batch_stats": ...}) and returns the `state_dict` of this package's
+`VoxelNet`. Sparse kernels stay [K, Cin, Cout] in tap order; dense conv
+kernels go from HWIO to OIHW; transposed-conv kernels go from flax's
+(kh, kw, in, out), applied without a kernel transpose, to torch's
+(in, out, kh, kw) with the spatial axes flipped.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _numbered(tree, prefix):
+    """The children `prefix_0, prefix_1, ...` of a flax module, in order."""
+    idx = sorted(int(m.group(1)) for k in tree
+                 for m in [re.fullmatch(rf"{prefix}_(\d+)", k)] if m)
+    if idx != list(range(len(idx))):
+        raise ValueError(f"non-contiguous {prefix}_* modules: {idx}")
+    return [tree[f"{prefix}_{i}"] for i in idx]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _norm(out, name, params, stats):
+    """Flax BatchNorm / MaskedBatchNorm / GroupNorm → torch norm entries."""
+    out[f"{name}.weight"] = _t(params["scale"])
+    out[f"{name}.bias"] = _t(params["bias"])
+    if stats is not None:
+        out[f"{name}.running_mean"] = _t(stats["mean"])
+        out[f"{name}.running_var"] = _t(stats["var"])
+
+
+def state_dict_from_jax(variables) -> dict:
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = {}
+
+    mp, ms = params["middle"], stats.get("middle", {})
+    for kind, attr in (("SubMBlock", "subm"), ("DownBlock", "down")):
+        n = len(_numbered(mp, kind))
+        for i in range(n):
+            p, s = mp[f"{kind}_{i}"], ms[f"{kind}_{i}"]
+            out[f"middle.{attr}.{i}.weight"] = _t(p["kernel"])
+            _norm(out, f"middle.{attr}.{i}.bn", p["MaskedBatchNorm_0"],
+                  s["MaskedBatchNorm_0"])
+
+    tp = params["rpn"]["trunk"]
+    ts = stats.get("rpn", {}).get("trunk", {})
+    for kind, attr, conv in (("ConvBlock", "convs", "Conv_0"),
+                             ("DeconvBlock", "deconvs", "ConvTranspose_0")):
+        for i in range(len(_numbered(tp, kind))):
+            p = tp[f"{kind}_{i}"]
+            k = np.asarray(p[conv]["kernel"])
+            if conv == "Conv_0":
+                w = k.transpose(3, 2, 0, 1)                  # HWIO → OIHW
+            else:
+                w = k[::-1, ::-1].transpose(2, 3, 0, 1)      # → (I, O, H, W)
+            out[f"rpn.trunk.{attr}.{i}.conv.weight"] = _t(w)
+            name = f"rpn.trunk.{attr}.{i}.norm"
+            if "GroupNorm_0" in p:
+                _norm(out, name, p["GroupNorm_0"], None)
+            else:
+                _norm(out, name, p["BatchNorm_0"],
+                      ts[f"{kind}_{i}"]["BatchNorm_0"])
+                out[f"{name}.num_batches_tracked"] = torch.zeros(
+                    (), dtype=torch.int64)
+
+    hp = params["rpn"]["head"]
+    for i, attr in enumerate(("box", "cls", "dir")[:len(_numbered(hp,
+                                                                  "Conv"))]):
+        c = hp[f"Conv_{i}"]
+        out[f"rpn.head.{attr}.weight"] = _t(
+            np.asarray(c["kernel"]).transpose(3, 2, 0, 1))
+        out[f"rpn.head.{attr}.bias"] = _t(c["bias"])
+    return out

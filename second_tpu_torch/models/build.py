@@ -1,0 +1,136 @@
+"""Model builder: ModelConfig → (VoxelNet, DetectorSpec, NetInfo, target
+assigner, box coder) — the port of `second_tpu/models/build.py`
+`build_voxelnet`, plus seeded random weights for runs without a checkpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import schema
+from ..core.anchors import build_box_coder, build_target_assigner
+from ..device import resolve_device
+from .detector import VoxelNet, build_detector_spec
+from .sparse_middle import DownBlock, MaskedBatchNorm, SubMBlock
+
+
+@dataclasses.dataclass
+class NetInfo:
+    """Static shape info derived from the config."""
+    grid_size: Tuple[int, int, int]          # (nx, ny, nz)
+    dense_shape: Tuple[int, ...]             # (nz + 1, ny, nx) zyx
+    out_size_factor: int                     # BEV stride of the RPN output
+    feature_map_size: Tuple[int, int, int]   # (1, ny/f, nx/f)
+    num_anchors: int
+
+
+def _rpn_out_stride(rpn_cfg: schema.RPNConfig) -> int:
+    """Overall stride of the RPN output relative to its input BEV map."""
+    factors = []
+    for i in range(len(rpn_cfg.layer_nums)):
+        down = int(np.prod(rpn_cfg.layer_strides[:i + 1]))
+        if down % rpn_cfg.upsample_strides[i]:
+            raise ValueError("RPN upsample stride does not divide its stage "
+                             "stride")
+        factors.append(down // rpn_cfg.upsample_strides[i])
+    if any(f != factors[0] for f in factors):
+        raise ValueError(f"RPN stages end at different strides {factors}")
+    return int(factors[0])
+
+
+def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
+                   mixed_precision: bool = False, seed: int = 0):
+    """Returns (module, spec, info, target_assigner, box_coder); the module
+    is in eval mode on `device` (the CUDA card unless the caller asks for
+    the CPU), with weights drawn by `init_weights_` from `seed`.
+
+    Under `mixed_precision` the sparse middle and the RPN trunk compute in
+    bf16 (sparse-conv sums and normalisation stay fp32, the heads fp32)."""
+    dev = resolve_device(device)
+    middle_name = cfg.middle_feature_extractor.module_class_name
+    if middle_name != "SpMiddleFHD":
+        raise NotImplementedError(
+            f"middle {middle_name!r} is not ported yet (SpMiddleFHD is)")
+    vg = cfg.voxel_generator
+    nx, ny, nz = vg.grid_size
+    box_coder = build_box_coder(cfg.box_coder)
+    target_assigner = build_target_assigner(cfg.target_assigner, box_coder)
+    num_anchor_per_loc = target_assigner.num_anchors_per_location
+
+    dtype = torch.bfloat16 if mixed_precision else None
+    middle_kwargs = {
+        # dense zyx shape is grid + (1, 0, 0)
+        "output_shape": (nz + 1, ny, nx),
+        "num_input_features":
+            cfg.middle_feature_extractor.num_input_features,
+        "dtype": dtype,
+    }
+    out_size_factor = (cfg.middle_feature_extractor.downsample_factor *
+                       _rpn_out_stride(cfg.rpn))
+    fmap = (1, ny // out_size_factor, nx // out_size_factor)
+    rpn_kwargs = {
+        "dtype": dtype,
+        "layer_nums": tuple(cfg.rpn.layer_nums),
+        "layer_strides": tuple(cfg.rpn.layer_strides),
+        "num_filters": tuple(cfg.rpn.num_filters),
+        "upsample_strides": tuple(cfg.rpn.upsample_strides),
+        "num_upsample_filters": tuple(cfg.rpn.num_upsample_filters),
+        "num_class": max(1, len(cfg.target_assigner.anchor_generators)),
+        "num_anchor_per_loc": num_anchor_per_loc,
+        "box_code_size": box_coder.code_size,
+        "encode_background_as_zeros": cfg.encode_background_as_zeros,
+        "use_direction_classifier": cfg.use_direction_classifier,
+        "use_groupnorm": cfg.rpn.use_groupnorm,
+        "num_groups": cfg.rpn.num_groups,
+    }
+    vfe_kwargs = {
+        "num_filters": tuple(cfg.voxel_feature_extractor.num_filters),
+        "with_distance": cfg.voxel_feature_extractor.with_distance,
+    }
+    module = VoxelNet(cfg.voxel_feature_extractor.module_class_name,
+                      vfe_kwargs, middle_name, middle_kwargs, rpn_kwargs)
+    init_weights_(module, seed)
+    module = module.to(dev).eval()
+    info = NetInfo(grid_size=(nx, ny, nz), dense_shape=(nz + 1, ny, nx),
+                   out_size_factor=out_size_factor, feature_map_size=fmap,
+                   num_anchors=fmap[1] * fmap[2] * num_anchor_per_loc)
+    return module, build_detector_spec(cfg), info, target_assigner, \
+        box_coder
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, seed: int = 0) -> None:
+    """Random weights from a seeded CPU `torch.Generator`, so a seed gives
+    the same weights on every device: fan-in-scaled normal kernels, and
+    normalisation layers with non-trivial scales, shifts and running
+    statistics."""
+    g = torch.Generator().manual_seed(seed)
+
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=g) * std)
+
+    def uniform_(t, lo, hi):
+        t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+
+    for m in module.modules():
+        if isinstance(m, (SubMBlock, DownBlock)):
+            K, cin, _ = m.weight.shape
+            normal_(m.weight, (K * cin) ** -0.5)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else \
+                w.shape[0] * w.shape[2] * w.shape[3]
+            normal_(w, fan_in ** -0.5)
+            if m.bias is not None:
+                normal_(m.bias, 0.1)
+        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d, nn.GroupNorm)):
+            uniform_(m.weight, 0.5, 1.5)
+            normal_(m.bias, 0.1)
+        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d)):
+            normal_(m.running_mean, 0.1)
+            uniform_(m.running_var, 0.5, 2.0)

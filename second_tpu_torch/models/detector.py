@@ -1,0 +1,194 @@
+"""One-stage detector assembly — the port of `second_tpu/models/detector.py`
+(`DetectorSpec`, `VoxelNet`, `predict`, `build_detector_spec`; eval path,
+single-class NMS).
+
+`predict` keeps the JAX package's fixed-size outputs: [B, post_max_size]
+boxes, scores, labels and a valid mask. Top-k is a stable descending sort
+(ties resolve lowest index first, as `lax.top_k` does), and the candidate
+gathers go through the row-gather kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import box_ops
+from ..ops.cuda.gather import gather_rows
+from ..ops.nms import nearest_nms, nms, top_k
+from ..ops.voxelize import device_voxelize
+from .middle import MIDDLE_REGISTRY
+from .rpn import RPN
+from .voxel_encoder import VFE_REGISTRY
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorSpec:
+    """Static hyperparameters shared by loss and predict (from ModelConfig).
+    The loss callables stay None until training is ported."""
+    num_class: int = 1
+    box_code_size: int = 7
+    encode_background_as_zeros: bool = True
+    encode_rad_error_by_sin: bool = True
+    use_sigmoid_score: bool = True
+    use_direction_classifier: bool = False
+    direction_loss_weight: float = 0.2
+    pos_cls_weight: float = 1.0
+    neg_cls_weight: float = 1.0
+    loss_norm_type: str = "NormByNumPositives"
+    cls_loss_weight: float = 1.0
+    loc_loss_weight: float = 1.0
+    use_rotate_nms: bool = True
+    use_multi_class_nms: bool = False
+    nms_pre_max_size: int = 1000
+    nms_post_max_size: int = 100
+    nms_score_threshold: float = 0.3
+    nms_iou_threshold: float = 0.01
+    post_center_limit_range: Tuple[float, ...] = ()
+    cls_loss_fn: Callable = None
+    loc_loss_fn: Callable = None
+
+
+class VoxelNet(nn.Module):
+    """VFE → middle → RPN over batched fixed-capacity voxel tensors."""
+
+    def __init__(self, vfe_class_name, vfe_kwargs, middle_class_name,
+                 middle_kwargs, rpn_kwargs):
+        super().__init__()
+        self.vfe = VFE_REGISTRY[vfe_class_name](**vfe_kwargs)
+        self.middle = MIDDLE_REGISTRY[middle_class_name](**middle_kwargs)
+        self.rpn = RPN(self.middle.out_channels, **rpn_kwargs)
+
+    def forward(self, voxels, num_points, coords, voxel_valid):
+        """voxels [B, V, T, C], num_points [B, V], coords [B, V, 3] zyx,
+        voxel_valid [B, V] → dict of box_preds [B, A, code], cls_preds
+        [B, A, num_cls] (and dir_cls_preds), the trunk map and the
+        stage_overflow count (active sites cut by the stage capacities)."""
+        vf = self.vfe(voxels, num_points, coords)
+        vf = torch.where(voxel_valid[..., None], vf, 0.0)
+        bev, overflow = self.middle(vf, coords, voxel_valid)
+        out = self.rpn(bev)
+        out["stage_overflow"] = overflow
+        return out
+
+
+def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
+    """Decode + score + NMS per example, on the device of the predictions.
+
+    anchors [B, A, code] (array or tensor), anchors_mask [B, A] or None.
+    Returns boxes [B, P, code], scores [B, P], labels [B, P], valid [B, P]
+    with P = nms_post_max_size."""
+    if spec.use_multi_class_nms:
+        raise NotImplementedError("multi-class NMS is not ported yet")
+    box_preds = preds_dict["box_preds"]
+    dev = box_preds.device
+    anchors = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
+    B, A = anchors.shape[:2]
+    box_preds = box_preds.reshape(B, A, spec.box_code_size)
+    nc = spec.num_class if spec.encode_background_as_zeros \
+        else spec.num_class + 1
+    cls_preds = preds_dict["cls_preds"].reshape(B, A, nc)
+    if spec.encode_background_as_zeros:
+        scores_all = torch.sigmoid(cls_preds)
+    elif spec.use_sigmoid_score:
+        scores_all = torch.sigmoid(cls_preds)[..., 1:]
+    else:
+        scores_all = torch.softmax(cls_preds, dim=-1)[..., 1:]
+    if spec.use_direction_classifier:
+        dir_labels = preds_dict["dir_cls_preds"].reshape(B, A, 2).argmax(-1)
+    else:
+        dir_labels = torch.zeros((B, A), dtype=torch.int64, device=dev)
+    valid = torch.ones((B, A), dtype=torch.bool, device=dev) \
+        if anchors_mask is None else torch.as_tensor(anchors_mask, device=dev)
+
+    if scores_all.shape[-1] == 1:
+        top_scores = scores_all[..., 0]
+        top_labels = torch.zeros((B, A), dtype=torch.int64, device=dev)
+    else:
+        top_scores, top_labels = scores_all.max(-1)
+    ok = valid & (top_scores >= spec.nms_score_threshold)
+    masked = torch.where(ok, top_scores, float("-inf"))
+    k = min(spec.nms_pre_max_size, A)
+    # prefilter first, decode only the k candidates
+    cand_scores, cand_idx = top_k(masked, k)                     # [B, k]
+    cand_valid = torch.isfinite(cand_scores)
+    off = (torch.arange(B, device=dev) * A)[:, None]
+    flat_idx = (cand_idx + off).reshape(-1)
+    cand_boxes = box_ops.second_box_decode(
+        gather_rows(box_preds.reshape(B * A, -1), flat_idx),
+        gather_rows(anchors.reshape(B * A, -1), flat_idx)).reshape(B, k, -1)
+    nms_fn = nms if spec.use_rotate_nms else nearest_nms
+
+    boxes, scores, labels, keep = [], [], [], []
+    for b in range(B):
+        bev = cand_boxes[b][:, [0, 1, 3, 4, 6]]
+        rel_idx, sel_keep = nms_fn(
+            bev, torch.where(cand_valid[b], cand_scores[b], 0.0),
+            cand_valid[b], pre_max_size=k,
+            post_max_size=spec.nms_post_max_size,
+            iou_threshold=spec.nms_iou_threshold)
+        sel_idx = cand_idx[b][rel_idx]
+        sel_boxes = gather_rows(cand_boxes[b], rel_idx)
+        if spec.use_direction_classifier:
+            opp = (sel_boxes[..., -1] > 0) != (dir_labels[b][sel_idx] > 0)
+            yaw = sel_boxes[..., -1] + torch.where(opp, math.pi, 0.0)
+            sel_boxes = torch.cat([sel_boxes[..., :-1], yaw[..., None]], -1)
+        # scores follow the NMS keep mask, before the center-range cut
+        scores.append(torch.where(sel_keep, top_scores[b][sel_idx], 0.0))
+        if spec.post_center_limit_range:
+            lim = torch.as_tensor(spec.post_center_limit_range,
+                                  dtype=sel_boxes.dtype, device=dev)
+            inside = ((sel_boxes[..., :3] >= lim[:3]).all(-1) &
+                      (sel_boxes[..., :3] <= lim[3:]).all(-1))
+            sel_keep = sel_keep & inside
+        boxes.append(sel_boxes)
+        labels.append(top_labels[b][sel_idx])
+        keep.append(sel_keep)
+    return {"boxes": torch.stack(boxes), "scores": torch.stack(scores),
+            "labels": torch.stack(labels), "valid": torch.stack(keep)}
+
+
+@torch.no_grad()
+def detect(net, spec, vspec, points, points_mask, anchors, device="cuda"):
+    """The eval forward: voxelize → VFE → middle → RPN → predict.
+
+    points [B, P, C] and points_mask [B, P] (arrays or tensors) are moved to
+    `device`, the CUDA card unless the caller asks for the CPU; `net` must
+    already live there. Returns (detections, voxelizer output, preds)."""
+    vox = device_voxelize(vspec, points, points_mask, device)
+    preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                vox["voxel_valid"])
+    return predict(spec, preds, anchors), vox, preds
+
+
+def build_detector_spec(model_cfg) -> DetectorSpec:
+    """ModelConfig → DetectorSpec (static predict parameters)."""
+    num_class = max(1, len(model_cfg.target_assigner.anchor_generators))
+    code_size = 8 if model_cfg.box_coder.encode_angle_vector else 7
+    if model_cfg.box_coder.kind == "bev_box_coder":
+        code_size -= 2
+    return DetectorSpec(
+        num_class=num_class,
+        box_code_size=code_size,
+        encode_background_as_zeros=model_cfg.encode_background_as_zeros,
+        encode_rad_error_by_sin=model_cfg.encode_rad_error_by_sin,
+        use_sigmoid_score=model_cfg.use_sigmoid_score,
+        use_direction_classifier=model_cfg.use_direction_classifier,
+        direction_loss_weight=model_cfg.direction_loss_weight,
+        pos_cls_weight=model_cfg.pos_class_weight,
+        neg_cls_weight=model_cfg.neg_class_weight,
+        loss_norm_type=model_cfg.loss_norm_type,
+        cls_loss_weight=model_cfg.loss.classification_weight,
+        loc_loss_weight=model_cfg.loss.localization_weight,
+        use_rotate_nms=model_cfg.use_rotate_nms,
+        use_multi_class_nms=model_cfg.use_multi_class_nms,
+        nms_pre_max_size=model_cfg.nms_pre_max_size,
+        nms_post_max_size=model_cfg.nms_post_max_size,
+        nms_score_threshold=model_cfg.nms_score_threshold,
+        nms_iou_threshold=model_cfg.nms_iou_threshold,
+        post_center_limit_range=tuple(model_cfg.post_center_limit_range),
+    )

@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels in `second_tpu_torch/csrc/`.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by its own
+`nvcc` process into `second_tpu_torch/_build/lib<name>-<hash>.so` (the hash
+covers the source and the flags), then loaded with `ctypes`. `build()`
+starts one `nvcc` per missing library, all together, and waits for them;
+`library(name)` builds on first use. Nothing is compiled when this package
+is imported: the CPU tests import every module, and the CPU has no `nvcc`.
+
+The Python wrappers beside this file (`gather.py`, `riou.py`, `subm.py`)
+mirror `second_tpu/ops/pallas/` by name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("gather", "riou", "subm")
+
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# riou: no fused multiply-add, so the clip arithmetic rounds like the plain
+# PyTorch version's separate elementwise ops
+_EXTRA_FLAGS = {"riou": ["-fmad=false"]}
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return str(path)
+
+
+def _flags(name: str):
+    return _FLAGS + _EXTRA_FLAGS.get(name, [])
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every named source whose library is missing, one `nvcc` per
+    source, all started together. Returns {name: ptxas report} for what was
+    compiled; raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    reports, errors = {}, []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if it is missing."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build((name,))
+            lib = ctypes.CDLL(str(path))
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def function(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C launch function `name` of library `lib`, returning an int
+    CUDA error code, with its argument types declared."""
+    fn = getattr(library(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if rc:
+        msg = getattr(library(name), f"{name}_error_string")(rc)
+        raise RuntimeError(f"CUDA kernel {name} failed: {rc} "
+                           f"({msg.decode(errors='replace')})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
