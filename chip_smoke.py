@@ -14,14 +14,19 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    records the arguments of every kernel call.
 4. kernels: each recorded call goes through the kernel and through its
    plain PyTorch version on the card, compared within the stated tolerance
-   and timed with CUDA events (median, L2 flushed before each launch), next
-   to one PyTorch library call that computes the same function where there
-   is one. The sparse convs are checked again with fp32 inputs, the dense
-   rotated-IoU matrix at 1000 x 1000 for each criterion.
+   and timed with CUDA events (median, L2 flushed before each launch, host
+   time of the call included where it outlasts the flush), next to one
+   PyTorch library call that computes the same function where there is
+   one; beside each event time, the device-only time of the same call from
+   torch.profiler. Every row-gather call gets a line of its own. The sparse
+   convs are checked again with fp32 inputs (bf16 must take the
+   tensor-core path, fp32 the CUDA-core path), the dense rotated-IoU matrix
+   at 1000 x 1000 for each criterion.
 5. main path: launch counts reset, one forward, counts read: every kernel
    of the path must have launched (the sparse gather-GEMM once per sparse
-   conv, 14). Then frames/s over timed forwards, and one forward under
-   torch.profiler: the device-busy share and the device time by kernel.
+   conv, 14, each bf16 conv on the tensor-core path). Then frames/s over
+   timed forwards, and one forward under torch.profiler: the device-busy
+   share and the device time by kernel.
 6. reference: one fp32 example on the card and on the CPU (plain
    versions): voxels exact, predictions within tolerance, the same `valid`
    mask end to end, and predict on the same predictions with the same
@@ -145,6 +150,62 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+class DeviceTimer:
+    """Median device-only time of each of a list of callables, from
+    torch.profiler: each callable runs `reps` times, each time after an L2
+    flush (an int16 fill, a kernel none of the callables launches), and one
+    run's time is the sum of the device kernels between two flushes: no
+    host time, no gaps."""
+
+    PAD = 4
+
+    def __init__(self, device):
+        self.flush = torch.empty(64 << 20, dtype=torch.int16, device=device)
+        self.flush_name = None
+
+    def _kernels(self, run):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return sorted((e.time_range.start, e.time_range.end, e.name)
+                      for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def __call__(self, fns, reps=5):
+        if self.flush_name is None:
+            names = {n for _, _, n in
+                     self._kernels(lambda: self.flush.fill_(1))}
+            if len(names) != 1:
+                fail(f"device timer: the flush ran {sorted(names)}")
+            self.flush_name = names.pop()
+        for fn in fns:                               # warm-up
+            fn()
+
+        def run():
+            # leading flushes: the trace can miss the first kernels of a
+            # session, so the runs are counted from the end
+            for _ in range(self.PAD):
+                self.flush.fill_(1)
+            for fn in fns:
+                for _ in range(reps):
+                    self.flush.fill_(1)
+                    fn()
+        runs = []
+        for start, end, name in self._kernels(run):
+            if name == self.flush_name:
+                runs.append(0.0)
+            elif runs:
+                runs[-1] += (end - start) / 1e3
+        n = len(fns) * reps
+        if len(runs) < n or any(runs[-n - 1:-n]):
+            fail(f"device timer: {len(runs)} flushes for {len(fns)} x "
+                 f"{reps} runs after {self.PAD} leading ones")
+        runs = runs[-n:]
+        return [statistics.median(runs[i * reps:(i + 1) * reps])
+                for i in range(len(fns))]
+
+
 # -------------------------------------------------------- the main path
 
 
@@ -228,6 +289,21 @@ def conv_bound(features, tap_idx, found, weights):
     return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[features.dtype]
 
 
+def conv_occupancy(found):
+    """Shares of the found taps, and of the (16-row block, tap) and
+    (128-row tile, tap) pairs of the batch-flattened rows (m = b*Q + q) in
+    which some tap is found: the work the tensor-core kernel keeps after its
+    votes (it skips the other pairs)."""
+    B, K, Q = found.shape
+    f = found.permute(1, 0, 2).reshape(K, B * Q).to(torch.uint8)
+
+    def share(rows):
+        g = torch.nn.functional.pad(f, (0, -f.shape[1] % rows))
+        return g.view(K, -1, rows).amax(-1).float().mean().item()
+    return dict(found_share=f.float().mean().item(), block16_share=share(16),
+                tile128_share=share(128))
+
+
 def riou_ops(boxes1, boxes2, i, j):
     """fp32 operations that these pairs need (see RIOU_FIXED_OPS): each
     pair's polygon is clipped as the plain version clips it, and each clip
@@ -258,30 +334,38 @@ def riou_ops(boxes1, boxes2, i, j):
     return int(ops.sum())
 
 
-def check_convs(calls, timer, detail):
-    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0,
-               err=0.0)
+def check_convs(calls, timer, dtimer, detail):
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+               library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
+    timed = []
     for i, (args, _) in enumerate(calls):
         f, tap_idx, found, w = args
+        occupancy = conv_occupancy(found)
         # the main path's own dtype, then fp32 inputs
         for dtype in dict.fromkeys((f.dtype, torch.float32)):
             fx = f.to(dtype)
+            paths = (subm.launches_mma, subm.launches_fma)
             got = subm.gather_gemm(fx, tap_idx, found, w)
             want = subm.gather_gemm_plain(fx, tap_idx, found, w)
             torch.cuda.synchronize()
+            path = "mma" if dtype == torch.bfloat16 else "fma"
+            moved = (subm.launches_mma - paths[0], subm.launches_fma - paths[1])
+            if moved != ((1, 0) if path == "mma" else (0, 1)):
+                fail(f"conv {i} {dtype}: took the wrong kernel path "
+                     f"(mma, fma launches {moved}, expected the {path} one)")
             err, rel = errors(got, want)
             ok = torch.allclose(got, want, **CONV_TOL)
             B, N, C = fx.shape
             K, Q = tap_idx.shape[1:]
             D = w.shape[2]
-            tag = (f"conv {i:2d} {str(dtype)[6:]:8s} B={B} N={N} Q={Q} "
-                   f"K={K} {C}->{D}")
+            tag = (f"conv {i:2d} {str(dtype)[6:]:8s} {path} B={B} N={N} "
+                   f"Q={Q} K={K} {C}->{D}")
             if not ok:
                 fail(f"{tag}: kernel disagrees with plain, max abs err "
                      f"{err:.3g} over {CONV_TOL}")
-            row = dict(call=i, dtype=str(dtype), B=B, N=N, Q=Q, K=K, C=C,
-                       D=D, max_abs_err=err, max_rel_err=rel,
-                       found=int(found.sum()))
+            row = dict(call=i, dtype=str(dtype), path=path, B=B, N=N, Q=Q,
+                       K=K, C=C, D=D, max_abs_err=err, max_rel_err=rel,
+                       found=int(found.sum()), **occupancy)
             if dtype == f.dtype:
                 row["ms"] = timer(lambda: subm.gather_gemm(fx, tap_idx, found,
                                                            w), 20)
@@ -295,20 +379,36 @@ def check_convs(calls, timer, detail):
                     agg[k] += row[k]
                 agg["bytes_s"] += bs
                 agg["ops_s"] += os_
-                say(f"{tag}: err {err:.2e} rel {rel:.2e}  kernel "
-                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-                    f"library {row['library_ms']:.4f} ms  bound "
-                    f"{row['bound_ms']:.4f} ms")
+                timed.append((tag, row, (fx, tap_idx, found, w)))
             else:
                 say(f"{tag}: err {err:.2e} rel {rel:.2e}")
             agg["err"] = max(agg["err"], err)
             detail.append(row)
+    # device-only times of the same calls, kernel and library
+    kernel_dev = dtimer([lambda a=a: subm.gather_gemm(*a)
+                         for _, _, a in timed])
+    library_dev = dtimer([lambda a=a: conv_library(*a) for _, _, a in timed])
+    for (tag, row, _), kd, ld in zip(timed, kernel_dev, library_dev):
+        row["device_ms"], row["library_device_ms"] = kd, ld
+        agg["device_ms"] += kd
+        agg["library_device_ms"] += ld
+        say(f"{tag}: err {row['max_abs_err']:.2e} rel "
+            f"{row['max_rel_err']:.2e}  taps found {row['found_share']:.3f}"
+            f" blocks {row['block16_share']:.3f} tiles "
+            f"{row['tile128_share']:.3f}  kernel {row['ms']:.4f} ms "
+            f"(device {kd:.4f})  plain {row['plain_ms']:.4f} ms  library "
+            f"{row['library_ms']:.4f} ms (device {ld:.4f})  bound "
+            f"{row['bound_ms']:.4f} ms")
+    say(f"convs: {len(timed)} calls; kernel {agg['ms']:.4f} ms (device "
+        f"{agg['device_ms']:.4f})  library {agg['library_ms']:.4f} ms "
+        f"(device {agg['library_device_ms']:.4f})  bound "
+        f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms")
     return agg
 
 
-def check_gathers(calls, timer, detail):
-    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0,
-               err=0.0)
+def check_gathers(calls, timer, dtimer, detail):
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+               library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
     for i, (args, _) in enumerate(calls):
         src, idx = args
         got = gather.gather_rows(src, idx)
@@ -318,10 +418,12 @@ def check_gathers(calls, timer, detail):
             fail(f"gather {i}: kernel disagrees with plain (must be exact)")
         row_bytes = src.shape[1] * src.element_size()
         M = idx.numel()
-        nbytes = M * 4 + int(torch.unique(idx).numel()) * row_bytes + \
-            M * row_bytes
-        row = dict(call=i, dtype=str(src.dtype), R=src.shape[0], M=M,
-                   row_bytes=row_bytes, max_abs_err=0.0,
+        # the indices as the caller gives them, the referenced rows once,
+        # the output once
+        nbytes = M * idx.element_size() + \
+            int(torch.unique(idx).numel()) * row_bytes + M * row_bytes
+        row = dict(call=i, dtype=str(src.dtype), idx_dtype=str(idx.dtype),
+                   R=src.shape[0], M=M, row_bytes=row_bytes, max_abs_err=0.0,
                    ms=timer(lambda: gather.gather_rows(src, idx), 20),
                    plain_ms=timer(lambda: gather.gather_rows_plain(
                        src, idx), 5),
@@ -332,15 +434,43 @@ def check_gathers(calls, timer, detail):
             agg[k] += row[k]
         agg["bytes_s"] += nbytes / HBM_BYTES_PER_S
         detail.append(row)
-    say(f"gather: {len(calls)} calls exact; kernel {agg['ms']:.4f} ms  "
-        f"plain {agg['plain_ms']:.4f} ms  index_select "
-        f"{agg['library_ms']:.4f} ms")
+    kernel_dev = dtimer([lambda a=a: gather.gather_rows(*a)
+                         for a, _ in calls])
+    library_dev = dtimer([lambda a=a: torch.index_select(a[0], 0, a[1])
+                          for a, _ in calls])
+    big = dict(device_ms=0.0, library_device_ms=0.0, bound_ms=0.0, n=0)
+    for row, kd, ld in zip(detail, kernel_dev, library_dev):
+        row["device_ms"], row["library_device_ms"] = kd, ld
+        agg["device_ms"] += kd
+        agg["library_device_ms"] += ld
+        if row["M"] >= 1_000_000:
+            big["n"] += 1
+            for k in ("device_ms", "library_device_ms", "bound_ms"):
+                big[k] += row[k]
+        say(f"gather {row['call']:2d} {row['dtype'][6:]:8s} "
+            f"[{row['R']}, {row['row_bytes']} B] <- {row['M']} "
+            f"{row['idx_dtype'][6:]}: kernel {row['ms']:.4f} ms (device "
+            f"{kd:.4f})  index_select {row['library_ms']:.4f} ms (device "
+            f"{ld:.4f})  bound {row['bound_ms']:.4f} ms")
+    say(f"gather: {len(calls)} calls exact; kernel {agg['ms']:.4f} ms "
+        f"(device {agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms  "
+        f"index_select {agg['library_ms']:.4f} ms (device "
+        f"{agg['library_device_ms']:.4f})  bound "
+        f"{1e3 * agg['bytes_s']:.4f} ms")
+    if big["n"]:
+        say(f"gather: the {big['n']} calls of 1 M+ rows: kernel device "
+            f"{big['device_ms']:.4f} ms  index_select device "
+            f"{big['library_device_ms']:.4f} ms  bound "
+            f"{big['bound_ms']:.4f} ms  (kernel "
+            f"{big['device_ms'] / big['bound_ms']:.2f} x bound)")
     return agg
 
 
-def check_riou(calls, timer, detail, device):
-    agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes_s=0.0, ops_s=0.0,
-               err=0.0)
+def check_riou(calls, timer, dtimer, detail, device):
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
+               library_device_ms=None, bytes_s=0.0, ops_s=0.0, err=0.0)
+    kernel_dev = dtimer([lambda a=a, kw=kw: riou.riou_pairs(*a, **kw)
+                         for a, kw in calls])
     for i, (args, kwargs) in enumerate(calls):
         b1, b2, pi, pj = args
         got = riou.riou_pairs(b1, b2, pi, pj, **kwargs)
@@ -356,19 +486,22 @@ def check_riou(calls, timer, detail, device):
         os_ = ops / PEAK_OPS_PER_S[torch.float32]
         row = dict(call=i, pairs=P, boxes=b1.shape[0], max_abs_err=err,
                    max_rel_err=rel, ops_per_pair=ops / max(P, 1),
+                   device_ms=kernel_dev[i],
                    ms=timer(lambda: riou.riou_pairs(b1, b2, pi, pj,
                                                     **kwargs), 20),
                    plain_ms=timer(lambda: riou.riou_pairs_plain(
                        b1, b2, pi, pj, **kwargs), 5),
                    bound_ms=1e3 * max(bs, os_))
         agg["ms"] += row["ms"]
+        agg["device_ms"] += row["device_ms"]
         agg["plain_ms"] += row["plain_ms"]
         agg["bytes_s"] += bs
         agg["ops_s"] += os_
         agg["err"] = max(agg["err"], err)
         detail.append(row)
         say(f"riou pairs {i}: P={P} err {err:.2e} rel {rel:.2e}  kernel "
-            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})  plain "
+            f"{row['plain_ms']:.4f} ms  bound "
             f"{row['bound_ms']:.6f} ms ({ops / max(P, 1):.1f} ops a pair)")
     # the dense entry point, off the main path: crowded random boxes
     g = torch.Generator().manual_seed(1)
@@ -403,9 +536,14 @@ def launch_counts():
     return {k["name"]: k["module"].launches for k in KERNELS}
 
 
+def conv_path_counts():
+    return {"mma": subm.launches_mma, "fma": subm.launches_fma}
+
+
 def reset_counts():
     for k in KERNELS:
         k["module"].launches = 0
+    subm.launches_mma = subm.launches_fma = 0
 
 
 def main():
@@ -465,14 +603,15 @@ def run(dev, out=None):
         fail(f"expected {SPARSE_CONVS} sparse convs per forward, recorded "
              f"{len(calls['gather_gemm'])}")
 
-    timer = Timer(dev)
+    timer, dtimer = Timer(dev), DeviceTimer(dev)
     detail = {"sparse_gather_gemm": [], "row_gather": [], "rotated_iou": []}
     aggs = {
         "sparse_gather_gemm": check_convs(calls["gather_gemm"], timer,
+                                          dtimer,
                                           detail["sparse_gather_gemm"]),
-        "row_gather": check_gathers(calls["gather_rows"], timer,
+        "row_gather": check_gathers(calls["gather_rows"], timer, dtimer,
                                     detail["row_gather"]),
-        "rotated_iou": check_riou(calls["riou_pairs"], timer,
+        "rotated_iou": check_riou(calls["riou_pairs"], timer, dtimer,
                                   detail["rotated_iou"], dev),
     }
     del calls
@@ -483,10 +622,15 @@ def run(dev, out=None):
     det, vox, preds = forward()
     torch.cuda.synchronize()
     counts = launch_counts()
-    say(f"launches in one forward: {counts}")
+    paths = conv_path_counts()
+    say(f"launches in one forward: {counts}; sparse gather-GEMM by path: "
+        f"{paths}")
     if counts["sparse_gather_gemm"] != SPARSE_CONVS:
         fail(f"sparse gather-GEMM launched {counts['sparse_gather_gemm']} "
              f"times, expected {SPARSE_CONVS}")
+    if mixed and paths != {"mma": SPARSE_CONVS, "fma": 0}:
+        fail(f"not every bf16 sparse conv took the tensor-core path: "
+             f"{paths}")
     if not all(counts.values()):
         fail(f"a kernel of the main path never launched: {counts}")
 
@@ -534,7 +678,7 @@ def run(dev, out=None):
         peak_mem_bytes=torch.cuda.max_memory_allocated(dev), **stages,
         voxel_overflow=int(vox["voxel_overflow"]),
         stage_overflow=int(preds["stage_overflow"]), valid=n_valid,
-        launches=counts)
+        launches=counts, conv_paths=paths)
     say(f"frames/s {BATCH / med:.3f} (median {1e3 * med:.2f} ms of "
         f"{TIMED_FORWARDS} batch-{BATCH} forwards; one split: "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + ")")
@@ -552,7 +696,8 @@ def run(dev, out=None):
             max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
             bound_ms=1e3 * max(a["bytes_s"], a["ops_s"]),
             bound_by="bytes" if a["bytes_s"] >= a["ops_s"] else "operations",
-            library_ms=a["library_ms"]))
+            library_ms=a["library_ms"], device_ms=a["device_ms"],
+            library_device_ms=a["library_device_ms"]))
     report["kernels"] = lines
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -8,7 +8,9 @@ starts one `nvcc` per missing library, all together, and waits for them;
 is imported: the CPU tests import every module, and the CPU has no `nvcc`.
 
 The Python wrappers beside this file (`gather.py`, `riou.py`, `subm.py`)
-mirror `second_tpu/ops/pallas/` by name.
+mirror `second_tpu/ops/pallas/` by name. Each resolves its C launch
+functions once, at its first launch (`function`), and keeps them in a
+module global, so a launch takes no lock and looks nothing up.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -104,12 +108,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def function(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C launch function `name` of library `lib`, returning an int
-    CUDA error code, with its argument types declared."""
+    """The C launch function `name` of library `lib` (built and loaded
+    first if need be), returning an int CUDA error code, with its argument
+    types declared. A wrapper calls this once and keeps the result."""
     fn = getattr(library(lib), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -121,6 +125,6 @@ def check(name: str, rc: int) -> None:
                            f"({msg.decode(errors='replace')})")
 
 
-def stream_ptr(device) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """The raw handle of `device`'s current CUDA stream."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

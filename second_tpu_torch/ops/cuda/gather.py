@@ -3,7 +3,9 @@
 `gather_rows(src, idx)` launches `csrc/gather.cu` for a CUDA tensor and
 takes `gather_rows_plain` for a CPU tensor; `flat_rows` is the batch-
 flattened form the sparse convs and `predict` use (JAX `flat_rows`,
-`ops/sparse_conv.py:257`).
+`ops/sparse_conv.py:257`). The kernel reads int32 and int64 index lists as
+they are, so callers pass the indices `torch.sort`, `torch.searchsorted`
+and top-k give them, without a cast.
 """
 
 from __future__ import annotations
@@ -17,9 +19,17 @@ from . import check, function, stream_ptr
 # launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
 
-# src, idx, out, rows, row_bytes, src_rows, unit, stream
+# src, idx, out, rows, row_bytes, src_rows, idx_bytes, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + \
     [ctypes.c_int, ctypes.c_void_p]
+_INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
+_launch = None      # the C launch function, resolved at the first launch
+
+
+def _resolve():
+    global _launch
+    _launch = function("gather", "gather_rows", _ARGTYPES)
+    return _launch
 
 
 def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -29,36 +39,36 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """`gather_rows_plain` semantics; the CUDA kernel for CUDA tensors."""
-    if src.device.type == "cpu":
+    """`gather_rows_plain` semantics; the CUDA kernel for CUDA tensors, with
+    int32 or int64 indices."""
+    dev = src.device
+    if dev.type == "cpu":
         return gather_rows_plain(src, idx)
-    if src.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {src.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rows: unsupported device {dev}")
     if src.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"gather_rows: src must be [R, W] and idx [M], got "
                          f"{tuple(src.shape)} and {tuple(idx.shape)}")
-    if idx.device != src.device:
+    if idx.device != dev:
         raise ValueError("gather_rows: src and idx on different devices")
-    if idx.dtype != torch.int32:
-        idx = idx.to(torch.int32)
-    src = src.contiguous()
-    idx = idx.contiguous()
+    idx_bytes = _INDEX_BYTES.get(idx.dtype)
+    if idx_bytes is None:
+        raise ValueError(f"gather_rows: indices must be int32 or int64, got "
+                         f"{idx.dtype}")
+    if not src.is_contiguous():
+        src = src.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
     R, W = src.shape
-    if R >= 2 ** 31:
-        raise ValueError("gather_rows: the kernel indexes rows with int32")
     M = idx.shape[0]
-    out = torch.empty((M, W), dtype=src.dtype, device=src.device)
-    row_bytes = W * src.element_size()
-    if M == 0 or row_bytes == 0:
+    out = torch.empty((M, W), dtype=src.dtype, device=dev)
+    if M == 0 or W == 0:
         return out
-    unit = 16
-    while unit > 1 and (row_bytes % unit or src.data_ptr() % unit or
-                        out.data_ptr() % unit):
-        unit //= 2
-    rc = function("gather", "gather_rows", _ARGTYPES)(
-        src.data_ptr(), idx.data_ptr(), out.data_ptr(), M, row_bytes, R,
-        unit, stream_ptr(src.device))
-    check("gather", rc)
+    rc = (_launch or _resolve())(
+        src.data_ptr(), idx.data_ptr(), out.data_ptr(), M,
+        W * src.element_size(), R, idx_bytes, stream_ptr(dev))
+    if rc:
+        check("gather", rc)
     global launches
     launches += 1
     return out

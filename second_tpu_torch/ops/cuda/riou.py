@@ -26,6 +26,21 @@ _PAIRS_ARGTYPES = [ctypes.c_void_p] * 5 + \
 # b1, b2, out, n1, n2, criterion, stream
 _MATRIX_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# the C launch functions, resolved at their first launch
+_pairs_launch = None
+_matrix_launch = None
+
+
+def _resolve_pairs():
+    global _pairs_launch
+    _pairs_launch = function("riou", "riou_pairs", _PAIRS_ARGTYPES)
+    return _pairs_launch
+
+
+def _resolve_matrix():
+    global _matrix_launch
+    _matrix_launch = function("riou", "riou_matrix", _MATRIX_ARGTYPES)
+    return _matrix_launch
 
 
 def riou_pairs_plain(boxes1, boxes2, i, j, criterion=-1):
@@ -87,7 +102,7 @@ def riou_pairs(boxes1, boxes2, i, j, criterion=-1):
     out = torch.empty((P,), dtype=torch.float32, device=boxes1.device)
     if P == 0:
         return out
-    rc = function("riou", "riou_pairs", _PAIRS_ARGTYPES)(
+    rc = (_pairs_launch or _resolve_pairs())(
         boxes1.data_ptr(), boxes2.data_ptr(), i.data_ptr(), j.data_ptr(),
         out.data_ptr(), P, criterion, stream_ptr(boxes1.device))
     check("riou", rc)
@@ -112,7 +127,7 @@ def riou_matrix(boxes1, boxes2, criterion=-1):
     out = torch.empty((N, K), dtype=torch.float32, device=boxes1.device)
     if N * K == 0:
         return out
-    rc = function("riou", "riou_matrix", _MATRIX_ARGTYPES)(
+    rc = (_matrix_launch or _resolve_matrix())(
         boxes1.data_ptr(), boxes2.data_ptr(), out.data_ptr(), N, K,
         criterion, stream_ptr(boxes1.device))
     check("riou", rc)

@@ -184,6 +184,20 @@ class TestGather:
         got = gather.flat_rows(torch.from_numpy(src), torch.from_numpy(idx))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
+    @pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+    def test_flat_rows_index_dtypes_match_xla(self, idx_dtype):
+        """The row gather takes int32 and int64 indices as they come (the
+        sort orders, searchsorted positions and top-k indices the callers
+        pass are int64); both give JAX's flat_rows."""
+        rng = np.random.default_rng(23)
+        src = rng.standard_normal((4, 64, 3)).astype(np.float32)
+        idx = rng.integers(0, 64, size=(4, 50)).astype(idx_dtype)
+        want = jsp.flat_rows(jnp.asarray(src),
+                             jnp.asarray(idx.astype(np.int32)))
+        got = gather.flat_rows(torch.from_numpy(src), torch.from_numpy(idx))
+        assert got.shape == (4, 50, 3)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
     def test_kernel_wrapper_refuses_other_devices(self):
         """A tensor that is not on the CPU goes to the kernel or raises: the
         wrappers never fall back to the plain version."""

@@ -13,7 +13,8 @@ import torch
 
 from second_tpu.ops import sparse_conv as jsp
 from second_tpu_torch.ops import sparse_conv as sp
-from second_tpu_torch.ops.cuda.subm import gather_gemm, gather_gemm_plain
+from second_tpu_torch.ops.cuda.subm import (gather_gemm, gather_gemm_plain,
+                                            pack_weights, padded_widths)
 
 
 def make_batch(rng, grid, cap, cin, B=2, fill=(0.4, 0.9)):
@@ -170,6 +171,30 @@ def test_gather_gemm_plain_bf16_sums_in_fp32():
                              w.bfloat16().float())
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("C,D", [(4, 16), (5, 7), (16, 32), (33, 9),
+                                 (64, 64)])
+def test_pack_weights_round_trips(C, D):
+    """The tensor-core kernel's weight layout: [K, C, D] zero-padded to
+    [K, CP, DP] and walked as [K*CP, DP] rows, tap k's channels at rows
+    k*CP .. k*CP + C - 1; the unpadded corner gives the weights back, and at
+    the main path's widths packing copies nothing."""
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.normal(size=(27, C, D)).astype(np.float32)
+                         ).bfloat16()
+    CP, DP = padded_widths(C, D)
+    assert CP in (4, 8, 16, 32, 64) and C <= CP < max(2 * C, 5)
+    assert DP % 8 == 0 and D <= DP < D + 8
+    packed = pack_weights(w, CP, DP)
+    assert packed.shape == (27, CP, DP) and packed.is_contiguous()
+    assert torch.equal(packed[:, :C, :D], w)
+    rows = packed.reshape(27 * CP, DP)
+    for k in (0, 13, 26):
+        assert torch.equal(rows[k * CP:k * CP + C, :D], w[k])
+    assert not packed[:, C:].any() and not packed[:, :, D:].any()
+    if (C, D) == (CP, DP):
+        assert packed.data_ptr() == w.data_ptr()
 
 
 def test_densify_matches_jax():
