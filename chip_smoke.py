@@ -20,17 +20,25 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    one; beside each event time, the device-only time of the same call from
    torch.profiler. Every row-gather call gets a line of its own. The sparse
    convs are checked again with fp32 inputs (bf16 must take the
-   tensor-core path, fp32 the CUDA-core path), the dense rotated-IoU matrix
-   at 1000 x 1000 for each criterion.
+   tensor-core path, fp32 the CUDA-core path). The batched rotated NMS
+   call: pair counts and keep masks exact, overlap bits exact but at pairs
+   printed as within RIOU_TOL of the threshold, each cluster shape of the
+   overlap kernel timed, and the whole NMS against the per-example path it
+   replaced (a `nonzero` pair list, the pair kernel, frontier rounds on the
+   host). The dense rotated-IoU matrix at 1000 x 1000 for each criterion.
 5. main path: launch counts reset, one forward, counts read: every kernel
    of the path must have launched (the sparse gather-GEMM once per sparse
-   conv, 14, each bf16 conv on the tensor-core path). Then frames/s over
-   timed forwards, and one forward under torch.profiler: the device-busy
-   share and the device time by kernel.
-6. reference: one fp32 example on the card and on the CPU (plain
-   versions): voxels exact, predictions within tolerance, the same `valid`
-   mask end to end, and predict on the same predictions with the same
-   `valid` mask and boxes/scores within tolerance.
+   conv, 14, each bf16 conv on the tensor-core path; the overlap and the
+   suppression kernels once each for the batch). predict must run under
+   torch.cuda.set_sync_debug_mode("error"). Then frames/s over timed
+   forwards, and one forward under torch.profiler: the device-busy share
+   and the device time by kernel.
+6. reference: predict on the batch's 4 examples on the card and on the CPU
+   (plain versions): the same `valid` mask, and the batched NMS on the same
+   candidates with the same indices and keep mask; one fp32 example on the
+   card and on the CPU: voxels exact, predictions within tolerance, the
+   same `valid` mask end to end, and predict on the same predictions with
+   the same `valid` mask and boxes/scores within tolerance.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. With --out, the per-call detail is written
@@ -55,6 +63,7 @@ from second_tpu_torch.config import load_pipeline_config
 from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
 from second_tpu_torch.models import build_voxelnet, detect, predict
 from second_tpu_torch.ops import cuda as kernels
+from second_tpu_torch.ops import nms as nms_ops
 from second_tpu_torch.ops.cuda import gather, riou, subm
 from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
                                               _signed_area, rbbox_to_corners)
@@ -76,6 +85,13 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # four half-plane clips of an n-vertex polygon with e crossing edges takes
 # 2 + 7n + 13e, and the shoelace of the n >= 3 vertices left 4n + 2.
 RIOU_FIXED_OPS = 92 + 19 + 6
+# fp32 operations of one standup-bound test in nms_overlap (csrc/riou.cu),
+# counted the same way: the envelopes' 2 max, 2 min, 2 differences and 2
+# clamps, the product, the area sum, the union, its clamp, the quotient and
+# the comparison; and of each box staged: its corners (46, half of the
+# pair's 92), the envelope's 6 min/max and its area
+BOUND_TEST_OPS = 14
+STANDUP_BOX_OPS = 46 + 6 + 1
 
 # stated tolerances, kernel against plain version on the same inputs
 CONV_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 sums in another order
@@ -85,15 +101,20 @@ DET_TOL = dict(atol=1e-4, rtol=1e-4)
 
 KERNELS = [
     dict(name="sparse_gather_gemm", module=subm, fn="gather_gemm",
-         source="second_tpu_torch/csrc/subm.cu",
+         counter="launches", source="second_tpu_torch/csrc/subm.cu",
          replaces="second_tpu/ops/pallas/subm.py:82"),
     dict(name="row_gather", module=gather, fn="gather_rows",
-         source="second_tpu_torch/csrc/gather.cu",
+         counter="launches", source="second_tpu_torch/csrc/gather.cu",
          replaces="second_tpu/ops/pallas/gather.py:57"),
-    dict(name="rotated_iou", module=riou, fn="riou_pairs",
-         source="second_tpu_torch/csrc/riou.cu",
+    dict(name="rotated_iou", module=riou, fn="nms_overlap",
+         counter="launches", source="second_tpu_torch/csrc/riou.cu",
          replaces="second_tpu/ops/pallas/riou.py:149"),
+    dict(name="nms_suppress", module=riou, fn="nms_suppress",
+         counter="launches_suppress", source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/nms.py:44"),
 ]
+# the batched NMS is recorded too: its call is timed whole
+RECORDED = [(k["module"], k["fn"]) for k in KERNELS] + [(nms_ops, "nms")]
 SPARSE_CONVS = 14      # 10 submanifold + 4 strided convs in SpMiddleFHD
 
 
@@ -229,8 +250,8 @@ def recording():
     """Record the arguments of every kernel-wrapper call made through the
     port's modules (each module that imported a wrapper by name sees the
     recording one)."""
-    calls = {k["fn"]: [] for k in KERNELS}
-    originals = {k["fn"]: getattr(k["module"], k["fn"]) for k in KERNELS}
+    calls = {fn: [] for _, fn in RECORDED}
+    originals = {fn: getattr(mod, fn) for mod, fn in RECORDED}
 
     def recorder(name, fn):
         def call(*args, **kwargs):
@@ -466,43 +487,163 @@ def check_gathers(calls, timer, dtimer, detail):
     return agg
 
 
+def old_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
+            iou_threshold, max_pairs=8192):
+    """The rotated NMS that the batched one replaced, one example at a time:
+    a dense standup bound, a `nonzero` pair list cut at the cap, the pair
+    kernel `riou_pairs`, a dense overlap matrix and frontier rounds on the
+    host. The yardstick of the batched NMS, with the same results."""
+    idxs, keeps = [], []
+    for b in range(boxes.shape[0]):
+        masked = torch.where(valid[b], scores[b], float("-inf"))
+        k = min(pre_max_size, boxes.shape[1])
+        top_scores, top_idx = nms_ops.top_k(masked, k)
+        top_valid = torch.isfinite(top_scores)
+        cand = gather.gather_rows(boxes[b], top_idx)
+        maybe = riou.standup_maybe(cand[None], top_valid[None],
+                                   iou_threshold)[0]
+        plist = torch.nonzero(maybe.reshape(-1))[:min(max_pairs, k * k), 0]
+        iou = riou.riou_pairs(cand, cand, plist // k, plist % k)
+        over = torch.zeros((k * k,), dtype=torch.float32, device=cand.device)
+        over[plist] = (iou > iou_threshold).float()
+        over = over.reshape(k, k)
+        undecided, kept = top_valid.clone(), torch.zeros_like(top_valid)
+        while bool(undecided.any()):
+            blocked = (undecided.float() @ over) > 0.5
+            suppressed = (kept.float() @ over) > 0.5
+            newly_kept = undecided & ~blocked & ~suppressed
+            kept = kept | newly_kept
+            undecided = undecided & ~newly_kept & ~suppressed
+        out, sel = nms_ops.top_k(torch.where(kept, top_scores,
+                                             float("-inf")),
+                                 min(post_max_size, k))
+        idxs.append(top_idx[sel])
+        keeps.append(torch.isfinite(out))
+    return torch.stack(idxs), torch.stack(keeps)
+
+
 def check_riou(calls, timer, dtimer, detail, device):
-    agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
-               library_device_ms=None, bytes_s=0.0, ops_s=0.0, err=0.0)
-    kernel_dev = dtimer([lambda a=a, kw=kw: riou.riou_pairs(*a, **kw)
-                         for a, kw in calls])
-    for i, (args, kwargs) in enumerate(calls):
-        b1, b2, pi, pj = args
-        got = riou.riou_pairs(b1, b2, pi, pj, **kwargs)
-        want = riou.riou_pairs_plain(b1, b2, pi, pj, **kwargs)
-        torch.cuda.synchronize()
-        err, rel = errors(got, want)
-        if err > RIOU_TOL:
-            fail(f"riou pairs {i}: max abs err {err:.3g} > {RIOU_TOL}")
-        P = pi.numel()
-        boxes = b1.numel() * 4 + (0 if b2 is b1 else b2.numel() * 4)
-        bs = (boxes + P * 12) / HBM_BYTES_PER_S
-        ops = riou_ops(b1, b2, pi, pj)
-        os_ = ops / PEAK_OPS_PER_S[torch.float32]
-        row = dict(call=i, pairs=P, boxes=b1.shape[0], max_abs_err=err,
-                   max_rel_err=rel, ops_per_pair=ops / max(P, 1),
-                   device_ms=kernel_dev[i],
-                   ms=timer(lambda: riou.riou_pairs(b1, b2, pi, pj,
-                                                    **kwargs), 20),
-                   plain_ms=timer(lambda: riou.riou_pairs_plain(
-                       b1, b2, pi, pj, **kwargs), 5),
-                   bound_ms=1e3 * max(bs, os_))
-        agg["ms"] += row["ms"]
-        agg["device_ms"] += row["device_ms"]
-        agg["plain_ms"] += row["plain_ms"]
-        agg["bytes_s"] += bs
-        agg["ops_s"] += os_
-        agg["err"] = max(agg["err"], err)
-        detail.append(row)
-        say(f"riou pairs {i}: P={P} err {err:.2e} rel {rel:.2e}  kernel "
-            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})  plain "
-            f"{row['plain_ms']:.4f} ms  bound "
-            f"{row['bound_ms']:.6f} ms ({ops / max(P, 1):.1f} ops a pair)")
+    """The batched rotated NMS of the recorded forward: the overlap kernel
+    (`nms_overlap`, the rotated IoU) and the suppression kernel against
+    their plain versions on the same inputs, timed, and the whole NMS
+    against the per-example path it replaced; then the dense matrix entry
+    point. Returns the two kernels' aggregates."""
+    if len(calls["nms_overlap"]) != 1 or len(calls["nms_suppress"]) != 1 \
+            or len(calls["nms"]) != 1:
+        fail(f"expected one batched NMS call a forward, recorded "
+             f"{len(calls['nms'])} NMS, {len(calls['nms_overlap'])} "
+             f"overlap and {len(calls['nms_suppress'])} suppression calls")
+    (cand, valid, thr, max_pairs), _ = calls["nms_overlap"][0]
+    B, K = valid.shape
+    got, count = riou.nms_overlap(cand, valid, thr, max_pairs)
+    want, want_count = riou.nms_overlap_plain(cand, valid, thr, max_pairs)
+    torch.cuda.synchronize()
+    if not torch.equal(count, want_count):
+        fail(f"nms_overlap: pair counts {count.tolist()} against the plain "
+             f"version's {want_count.tolist()}")
+    diff = riou.unpack_bits(got, K) != riou.unpack_bits(want, K)
+    flat = cand.reshape(B * K, 5)
+    near = []
+    if diff.any():
+        b, i, j = diff.nonzero(as_tuple=True)
+        iou = riou.riou_pairs_plain(flat, flat, b * K + i, b * K + j)
+        near = [dict(b=int(x), i=int(y), j=int(z), iou=float(v),
+                     margin=float(v - thr))
+                for x, y, z, v in zip(b, i, j, iou)]
+    for pair in near:
+        say(f"nms_overlap: bit differs at example {pair['b']} pair "
+            f"({pair['i']}, {pair['j']}): plain IoU {pair['iou']:.9g}, "
+            f"{pair['margin']:+.3g} from the threshold")
+    if any(abs(pair["margin"]) > RIOU_TOL for pair in near):
+        fail(f"nms_overlap: a bit differs further than {RIOU_TOL} from the "
+             f"threshold")
+    keep = riou.nms_suppress(got, valid)
+    same_in = riou.nms_suppress_plain(got, valid)
+    plain_keep = riou.nms_suppress_plain(want, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, same_in):
+        fail("nms_suppress: keep differs from the plain version's on the "
+             "same bitmask")
+    if not torch.equal(keep, plain_keep):
+        fail("nms_suppress: keep differs from the all-plain chain's")
+    (sup_over, sup_valid), _ = calls["nms_suppress"][0]
+    if not torch.equal(sup_over, got) or not torch.equal(sup_valid, valid):
+        fail("nms_suppress: the recorded call's bitmask is not the overlap "
+             "kernel's")
+
+    # bounds, from this run's data: the valid pairs' bound tests, the boxes
+    # staged, and the capped pairs' clips; bytes: boxes, valid flags and
+    # counts in, bitmask out (the suppression reads it and the flags once
+    # and writes keep)
+    n_valid = valid.sum(1).double()
+    pb, lin, _ = riou.capped_pairs(cand, valid, thr, max_pairs)
+    clip_ops = riou_ops(flat, flat, pb * K + lin // K, pb * K + lin % K)
+    tests = float((n_valid * (n_valid - 1) / 2).sum())
+    ops = tests * BOUND_TEST_OPS + B * K * STANDUP_BOX_OPS + clip_ops
+    ov_bytes = cand.numel() * 4 + valid.numel() + got.numel() * 4 + B * 4
+    sup_bytes = got.numel() * 4 + 2 * valid.numel()
+    ov = dict(bytes_s=ov_bytes / HBM_BYTES_PER_S,
+              ops_s=ops / PEAK_OPS_PER_S[torch.float32])
+    sup = dict(bytes_s=sup_bytes / HBM_BYTES_PER_S, ops_s=0.0)
+
+    nms_args, nms_kwargs = calls["nms"][0]
+    new_idx, new_keep = nms_ops.nms(*nms_args, **nms_kwargs)
+    old_idx, old_keep = old_nms(*nms_args, **nms_kwargs)
+    if not (torch.equal(new_idx, old_idx) and torch.equal(new_keep,
+                                                          old_keep)):
+        fail("batched NMS differs from the per-example path")
+    fns = [lambda: riou.nms_overlap(cand, valid, thr, max_pairs),
+           lambda: riou.nms_suppress(got, valid),
+           lambda: nms_ops.nms(*nms_args, **nms_kwargs),
+           lambda: old_nms(*nms_args, **nms_kwargs)]
+    fns += [lambda c=c: riou.nms_overlap(cand, valid, thr, max_pairs, c)
+            for c in riou.NMS_CLUSTERS]
+    dev_ms = dtimer(fns)
+    for c in riou.NMS_CLUSTERS:
+        if not torch.equal(riou.nms_overlap(cand, valid, thr, max_pairs,
+                                            c)[0], got):
+            fail(f"nms_overlap: cluster {c} gives another bitmask")
+    cluster_ms = dict(zip(riou.NMS_CLUSTERS, dev_ms[4:]))
+    ov.update(ms=timer(fns[0], 20), device_ms=dev_ms[0],
+              plain_ms=timer(lambda: riou.nms_overlap_plain(
+                  cand, valid, thr, max_pairs), 5),
+              library_ms=None, library_device_ms=None, err=0.0)
+    sup.update(ms=timer(fns[1], 20), device_ms=dev_ms[1],
+               plain_ms=timer(lambda: riou.nms_suppress_plain(got, valid),
+                              5),
+               library_ms=None, library_device_ms=None, err=0.0)
+    whole = dict(ms=timer(fns[2], 20), device_ms=dev_ms[2],
+                 old_ms=timer(fns[3], 10), old_device_ms=dev_ms[3])
+    detail.append(dict(
+        B=B, K=K, max_pairs=max_pairs, threshold=thr,
+        pair_count=count.tolist(), clipped=int(pb.numel()),
+        overlaps=int(riou.unpack_bits(got, K).sum()),
+        kept=keep.sum(1).tolist(), near_threshold=near,
+        ops_per_clipped_pair=clip_ops / max(int(pb.numel()), 1),
+        bound_tests=tests,
+        cluster_device_ms={str(c): v for c, v in cluster_ms.items()},
+        nms_overlap={k: v for k, v in ov.items() if k != "err"},
+        nms_suppress={k: v for k, v in sup.items() if k != "err"},
+        whole_nms=whole))
+    say(f"nms_overlap B={B} K={K} cap={max_pairs}: pair counts "
+        f"{count.tolist()} exact, {int(pb.numel())} pairs clipped "
+        f"({clip_ops / max(int(pb.numel()), 1):.1f} ops a pair), "
+        f"{len(near)} bits differ near the threshold; kernel "
+        f"{ov['ms']:.4f} ms (device {ov['device_ms']:.4f})  plain "
+        f"{ov['plain_ms']:.4f} ms  bound "
+        f"{1e3 * max(ov['bytes_s'], ov['ops_s']):.6f} ms")
+    say("nms_overlap device ms by cluster shape: " + ", ".join(
+        f"{c} blocks {v:.4f}" for c, v in cluster_ms.items()) +
+        f" (the wrapper's default: {riou.NMS_CLUSTER})")
+    say(f"nms_suppress: keep exact ({keep.sum(1).tolist()} kept); kernel "
+        f"{sup['ms']:.4f} ms (device {sup['device_ms']:.4f})  plain "
+        f"{sup['plain_ms']:.4f} ms  bound "
+        f"{1e3 * sup['bytes_s']:.6f} ms")
+    say(f"whole NMS (batch {B}): batched {whole['ms']:.4f} ms (device "
+        f"{whole['device_ms']:.4f})  per-example path it replaced "
+        f"{whole['old_ms']:.4f} ms (device {whole['old_device_ms']:.4f}); "
+        f"same indices and keep")
+
     # the dense entry point, off the main path: crowded random boxes
     g = torch.Generator().manual_seed(1)
     n = 1000
@@ -513,27 +654,28 @@ def check_riou(calls, timer, dtimer, detail, device):
                          (torch.rand(n, generator=g) - 0.5) * 2 * np.pi],
                         1).to(device)
     for crit in (-1, 0, 1):
-        got = riou.riou_matrix(boxes, boxes, crit)
-        want = riou.riou_matrix_plain(boxes, boxes, crit)
+        got_m = riou.riou_matrix(boxes, boxes, crit)
+        want_m = riou.riou_matrix_plain(boxes, boxes, crit)
         torch.cuda.synchronize()
-        err, rel = errors(got, want)
+        err, rel = errors(got_m, want_m)
         if err > RIOU_TOL:
             fail(f"riou matrix criterion {crit}: max abs err {err:.3g}")
-        agg["err"] = max(agg["err"], err)
+        ov["err"] = max(ov["err"], err)
         ms = timer(lambda: riou.riou_matrix(boxes, boxes, crit), 10)
         pms = timer(lambda: riou.riou_matrix_plain(boxes, boxes, crit), 3)
         detail.append(dict(matrix=n, criterion=crit, max_abs_err=err, ms=ms,
-                           plain_ms=pms, overlapping=int((want > 0).sum())))
+                           plain_ms=pms,
+                           overlapping=int((want_m > 0).sum())))
         say(f"riou matrix {n}x{n} criterion {crit}: err {err:.2e} rel "
             f"{rel:.2e}  kernel {ms:.4f} ms  plain {pms:.4f} ms")
-    return agg
+    return ov, sup
 
 
 # ---------------------------------------------------------------- main
 
 
 def launch_counts():
-    return {k["name"]: k["module"].launches for k in KERNELS}
+    return {k["name"]: getattr(k["module"], k["counter"]) for k in KERNELS}
 
 
 def conv_path_counts():
@@ -542,7 +684,7 @@ def conv_path_counts():
 
 def reset_counts():
     for k in KERNELS:
-        k["module"].launches = 0
+        setattr(k["module"], k["counter"], 0)
     subm.launches_mma = subm.launches_fma = 0
 
 
@@ -599,6 +741,7 @@ def run(dev, out=None):
         torch.cuda.synchronize()
     say("capture: " + ", ".join(f"{k} {len(v)} calls"
                                 for k, v in calls.items()))
+    nms_call = calls["nms"][0]
     if len(calls["gather_gemm"]) != SPARSE_CONVS:
         fail(f"expected {SPARSE_CONVS} sparse convs per forward, recorded "
              f"{len(calls['gather_gemm'])}")
@@ -611,9 +754,9 @@ def run(dev, out=None):
                                           detail["sparse_gather_gemm"]),
         "row_gather": check_gathers(calls["gather_rows"], timer, dtimer,
                                     detail["row_gather"]),
-        "rotated_iou": check_riou(calls["riou_pairs"], timer, dtimer,
-                                  detail["rotated_iou"], dev),
     }
+    aggs["rotated_iou"], aggs["nms_suppress"] = check_riou(
+        calls, timer, dtimer, detail["rotated_iou"], dev)
     del calls
     report["calls"] = detail
 
@@ -631,8 +774,24 @@ def run(dev, out=None):
     if mixed and paths != {"mma": SPARSE_CONVS, "fma": 0}:
         fail(f"not every bf16 sparse conv took the tensor-core path: "
              f"{paths}")
+    if counts["rotated_iou"] != 1 or counts["nms_suppress"] != 1:
+        fail(f"the NMS kernels launched {counts['rotated_iou']} and "
+             f"{counts['nms_suppress']} times, expected once each for the "
+             f"batch")
     if not all(counts.values()):
         fail(f"a kernel of the main path never launched: {counts}")
+    say(f"row gathers in one forward: {counts['row_gather']}")
+    # predict without a host sync: torch raises on a synchronising call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        predict(spec, preds, anchors)
+    except RuntimeError as e:
+        fail(f"predict synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say("predict: no host sync (torch.cuda.set_sync_debug_mode('error'))")
 
     A = anchors.shape[1]
     for k, shape in (("box_preds", (BATCH, A, spec.box_code_size)),
@@ -685,7 +844,7 @@ def run(dev, out=None):
 
     report["profile"] = profile_forward(forward, med)
     report["reference"] = check_reference(cfg, vspec, points, mask, anchors,
-                                          dev)
+                                          dev, spec, preds, nms_call)
 
     lines = []
     for k in KERNELS:
@@ -746,9 +905,31 @@ def profile_forward(forward, median_s):
     return out
 
 
-def check_reference(cfg, vspec, points, mask, anchors, dev):
-    """One fp32 example through the port on the card and on the CPU, with
-    the same seeded weights."""
+def check_reference(cfg, vspec, points, mask, anchors, dev, spec4, preds4,
+                    nms_call):
+    """predict on the batch's 4 examples and the batched NMS on their
+    candidates, card against CPU; then one fp32 example through the port on
+    the card and on the CPU, with the same seeded weights."""
+    det4_c = predict(spec4, preds4, anchors)
+    det4_h = predict(spec4, {k: v.cpu() for k, v in preds4.items()},
+                     anchors.cpu())
+    valid4 = det4_c["valid"].cpu()
+    if not torch.equal(valid4, det4_h["valid"]):
+        fail("reference: predict over 4 examples, valid differs card vs CPU")
+    for k in ("boxes", "scores"):
+        a, b = det4_c[k].cpu()[valid4], det4_h[k][valid4]
+        if not torch.allclose(a, b, **DET_TOL):
+            fail(f"reference: predict over 4 examples, {k} card vs CPU max "
+                 f"abs err {(a - b).abs().max().item():.3g}")
+    args, kwargs = nms_call
+    idx_c, keep_c = nms_ops.nms(*args, **kwargs)
+    idx_h, keep_h = nms_ops.nms(*[a.cpu() for a in args], **kwargs)
+    if not (torch.equal(idx_c.cpu(), idx_h) and
+            torch.equal(keep_c.cpu(), keep_h)):
+        fail("reference: batched NMS indices or keep differ card vs CPU")
+    say(f"reference (4 examples, card vs CPU): predict valid equal "
+        f"({valid4.sum(1).tolist()} detections), NMS indices and keep "
+        f"equal")
     net_c, spec = build_voxelnet(cfg.model, device=dev,
                                  mixed_precision=False, seed=0)[:2]
     net_h = build_voxelnet(cfg.model, device="cpu", mixed_precision=False,

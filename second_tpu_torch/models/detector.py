@@ -3,9 +3,10 @@
 single-class NMS).
 
 `predict` keeps the JAX package's fixed-size outputs: [B, post_max_size]
-boxes, scores, labels and a valid mask. Top-k is a stable descending sort
-(ties resolve lowest index first, as `lax.top_k` does), and the candidate
-gathers go through the row-gather kernel.
+boxes, scores, labels and a valid mask, computed for the whole batch at
+once. Top-k is a stable descending sort (ties resolve lowest index first,
+as `lax.top_k` does), and the candidate gathers go through the row-gather
+kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops import box_ops
-from ..ops.cuda.gather import gather_rows
+from ..ops.cuda.gather import flat_rows
 from ..ops.nms import nearest_nms, nms, top_k
 from ..ops.voxelize import device_voxelize
 from .middle import MIDDLE_REGISTRY
@@ -77,7 +78,9 @@ class VoxelNet(nn.Module):
 
 
 def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
-    """Decode + score + NMS per example, on the device of the predictions.
+    """Decode + score + NMS for the whole batch, on the device of the
+    predictions, as JAX's `vmap` over examples does: batched top-k and row
+    gathers, and on the card no host sync (no Python loop over examples).
 
     anchors [B, A, code] (array or tensor), anchors_mask [B, A] or None.
     Returns boxes [B, P, code], scores [B, P], labels [B, P], valid [B, P]
@@ -98,10 +101,6 @@ def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
         scores_all = torch.sigmoid(cls_preds)[..., 1:]
     else:
         scores_all = torch.softmax(cls_preds, dim=-1)[..., 1:]
-    if spec.use_direction_classifier:
-        dir_labels = preds_dict["dir_cls_preds"].reshape(B, A, 2).argmax(-1)
-    else:
-        dir_labels = torch.zeros((B, A), dtype=torch.int64, device=dev)
     valid = torch.ones((B, A), dtype=torch.bool, device=dev) \
         if anchors_mask is None else torch.as_tensor(anchors_mask, device=dev)
 
@@ -116,40 +115,33 @@ def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
     # prefilter first, decode only the k candidates
     cand_scores, cand_idx = top_k(masked, k)                     # [B, k]
     cand_valid = torch.isfinite(cand_scores)
-    off = (torch.arange(B, device=dev) * A)[:, None]
-    flat_idx = (cand_idx + off).reshape(-1)
-    cand_boxes = box_ops.second_box_decode(
-        gather_rows(box_preds.reshape(B * A, -1), flat_idx),
-        gather_rows(anchors.reshape(B * A, -1), flat_idx)).reshape(B, k, -1)
+    cand_boxes = box_ops.second_box_decode(flat_rows(box_preds, cand_idx),
+                                           flat_rows(anchors, cand_idx))
+    # BEV (x, y, w, l, yaw), by slices: a list index would copy to the card
+    bev = torch.cat([cand_boxes[..., 0:2], cand_boxes[..., 3:5],
+                     cand_boxes[..., 6:7]], -1)
     nms_fn = nms if spec.use_rotate_nms else nearest_nms
-
-    boxes, scores, labels, keep = [], [], [], []
-    for b in range(B):
-        bev = cand_boxes[b][:, [0, 1, 3, 4, 6]]
-        rel_idx, sel_keep = nms_fn(
-            bev, torch.where(cand_valid[b], cand_scores[b], 0.0),
-            cand_valid[b], pre_max_size=k,
-            post_max_size=spec.nms_post_max_size,
-            iou_threshold=spec.nms_iou_threshold)
-        sel_idx = cand_idx[b][rel_idx]
-        sel_boxes = gather_rows(cand_boxes[b], rel_idx)
-        if spec.use_direction_classifier:
-            opp = (sel_boxes[..., -1] > 0) != (dir_labels[b][sel_idx] > 0)
-            yaw = sel_boxes[..., -1] + torch.where(opp, math.pi, 0.0)
-            sel_boxes = torch.cat([sel_boxes[..., :-1], yaw[..., None]], -1)
-        # scores follow the NMS keep mask, before the center-range cut
-        scores.append(torch.where(sel_keep, top_scores[b][sel_idx], 0.0))
-        if spec.post_center_limit_range:
-            lim = torch.as_tensor(spec.post_center_limit_range,
-                                  dtype=sel_boxes.dtype, device=dev)
-            inside = ((sel_boxes[..., :3] >= lim[:3]).all(-1) &
-                      (sel_boxes[..., :3] <= lim[3:]).all(-1))
-            sel_keep = sel_keep & inside
-        boxes.append(sel_boxes)
-        labels.append(top_labels[b][sel_idx])
-        keep.append(sel_keep)
-    return {"boxes": torch.stack(boxes), "scores": torch.stack(scores),
-            "labels": torch.stack(labels), "valid": torch.stack(keep)}
+    rel_idx, sel_keep = nms_fn(
+        bev, torch.where(cand_valid, cand_scores, 0.0), cand_valid,
+        pre_max_size=k, post_max_size=spec.nms_post_max_size,
+        iou_threshold=spec.nms_iou_threshold)                    # [B, P]
+    sel_idx = cand_idx.gather(1, rel_idx)
+    sel_boxes = flat_rows(cand_boxes, rel_idx)
+    if spec.use_direction_classifier:
+        dir_labels = preds_dict["dir_cls_preds"].reshape(B, A, 2).argmax(-1)
+        opp = (sel_boxes[..., -1] > 0) != (dir_labels.gather(1, sel_idx) > 0)
+        yaw = sel_boxes[..., -1] + torch.where(opp, math.pi, 0.0)
+        sel_boxes = torch.cat([sel_boxes[..., :-1], yaw[..., None]], -1)
+    # scores follow the NMS keep mask, before the center-range cut
+    scores = torch.where(sel_keep, top_scores.gather(1, sel_idx), 0.0)
+    lim = spec.post_center_limit_range
+    if lim:
+        # compared with Python floats: a tensor of them would copy to the card
+        for d in range(3):
+            sel_keep = sel_keep & (sel_boxes[..., d] >= lim[d]) & \
+                (sel_boxes[..., d] <= lim[3 + d])
+    return {"boxes": sel_boxes, "scores": scores,
+            "labels": top_labels.gather(1, sel_idx), "valid": sel_keep}
 
 
 @torch.no_grad()

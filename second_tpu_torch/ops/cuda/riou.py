@@ -1,10 +1,16 @@
 """Rotated BEV IoU kernel wrappers — the port of
-`second_tpu/ops/pallas/riou.py`.
+`second_tpu/ops/pallas/riou.py`, and the two kernels of batched rotated NMS.
 
-`riou_pairs` (a pair list into two box arrays: rotated NMS) and
-`riou_matrix` (dense [N, K] with a criterion) launch `csrc/riou.cu` for CUDA
-tensors and take their plain versions, built on `ops/rotated_iou.py`, for
-CPU tensors.
+`riou_pairs` (a pair list into two box arrays) and `riou_matrix` (dense
+[N, K] with a criterion) are the rotated IoU as such, off the main path.
+`nms_overlap` (the standup bound, the row-major pair list cut at
+`max_pairs`, the clip and the threshold: the rotated IoU as rotated NMS
+runs it, JAX `_sparse_rotated_over`) and `nms_suppress` (exact greedy
+suppression, JAX `_greedy_suppress_over`) take a whole batch and meet in an
+overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
+j // 32 of row i says that the higher-ranked box i suppresses box j. Each
+launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
+built on `ops/rotated_iou.py`, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,8 +23,15 @@ from ..rotated_iou import (iou_from_inter, quad_intersection_area,
                            rbbox_to_corners)
 from . import check, function, stream_ptr
 
-# launches of the CUDA kernel (either entry point) since the last reset
+# launches since the last reset (set to 0 to reset): of the rotated-IoU
+# kernels (`nms_overlap` on the main path, `riou_pairs`, `riou_matrix`), and
+# of the suppression kernel
 launches = 0
+launches_suppress = 0
+
+NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
+NMS_CLUSTERS = (1, 2, 4, 8, 16)
+NMS_CLUSTER = 16        # blocks (SMs) an example in nms_overlap: the fastest
 
 # b1, b2, i, j, out, pairs, criterion, stream
 _PAIRS_ARGTYPES = [ctypes.c_void_p] * 5 + \
@@ -26,9 +39,18 @@ _PAIRS_ARGTYPES = [ctypes.c_void_p] * 5 + \
 # b1, b2, out, n1, n2, criterion, stream
 _MATRIX_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# cand, valid, over, maybe, count, batch, k, thr, cap, cluster, stream
+_OVERLAP_ARGTYPES = [ctypes.c_void_p] * 5 + \
+    [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p]
+# over, valid, keep, batch, k, stream
+_SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # the C launch functions, resolved at their first launch
 _pairs_launch = None
 _matrix_launch = None
+_overlap_launch = None
+_suppress_launch = None
 
 
 def _resolve_pairs():
@@ -41,6 +63,18 @@ def _resolve_matrix():
     global _matrix_launch
     _matrix_launch = function("riou", "riou_matrix", _MATRIX_ARGTYPES)
     return _matrix_launch
+
+
+def _resolve_overlap():
+    global _overlap_launch
+    _overlap_launch = function("riou", "nms_overlap", _OVERLAP_ARGTYPES)
+    return _overlap_launch
+
+
+def _resolve_suppress():
+    global _suppress_launch
+    _suppress_launch = function("riou", "nms_suppress", _SUPPRESS_ARGTYPES)
+    return _suppress_launch
 
 
 def riou_pairs_plain(boxes1, boxes2, i, j, criterion=-1):
@@ -134,3 +168,163 @@ def riou_matrix(boxes1, boxes2, criterion=-1):
     global launches
     launches += 1
     return out
+
+
+# ------------------------------------------------------------ rotated NMS
+
+
+def pack_bits(mask):
+    """Bool [..., K] → int32 words [..., ceil(K / 32)]: bit t of word w is
+    mask[..., 32 w + t]."""
+    K = mask.shape[-1]
+    W = (K + 31) // 32
+    bits = torch.nn.functional.pad(mask.long(), (0, 32 * W - K))
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits.reshape(*mask.shape[:-1], W, 32) * weights).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_bits(words, K):
+    """`pack_bits` inverted: int32 words [..., W] → bool [..., K]."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :K].bool()
+
+
+def standup_maybe(cand, valid, iou_threshold):
+    """The pairs rotated NMS clips before its cap, [B, K, K] bool: i < j,
+    both valid, and the standup-envelope bound on their rotated IoU,
+    inter / max(a_i + a_j - inter, 1e-12), above the threshold."""
+    K = cand.shape[1]
+    corners = rbbox_to_corners(cand)                          # [B, K, 4, 2]
+    standup = torch.cat([corners.amin(-2), corners.amax(-2)], -1)
+    lt = torch.maximum(standup[:, :, None, :2], standup[:, None, :, :2])
+    rb = torch.minimum(standup[:, :, None, 2:], standup[:, None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    areas = cand[..., 2] * cand[..., 3]
+    asum = areas[:, :, None] + areas[:, None, :]
+    bound = inter / torch.clamp(asum - inter, min=1e-12)
+    upper = torch.ones((K, K), dtype=torch.bool, device=cand.device).triu(1)
+    return (bound > iou_threshold) & upper & valid[:, :, None] & \
+        valid[:, None, :]
+
+
+def capped_pairs(cand, valid, iou_threshold, max_pairs):
+    """The pairs rotated NMS clips: the first `max_pairs` of each example's
+    `standup_maybe` pairs in row-major order, as (example b, i * K + j),
+    and each example's pair count before the cap [B] int32."""
+    B, K = valid.shape
+    maybe = standup_maybe(cand, valid, iou_threshold).reshape(B, K * K)
+    capped = maybe & (torch.cumsum(maybe, 1) <= max_pairs)
+    b, lin = torch.nonzero(capped, as_tuple=True)
+    return b, lin, maybe.sum(1).to(torch.int32)
+
+
+def nms_overlap_plain(cand, valid, iou_threshold, max_pairs):
+    """cand [B, K, 5] fp32 (sorted by descending score), valid [B, K] bool
+    → (over bitmask [B, K, ceil(K / 32)] int32, pair count [B] int32): a
+    bit for each of `capped_pairs` whose rotated IoU exceeds the threshold;
+    the count is of `standup_maybe`'s pairs before the cap."""
+    B, K = valid.shape
+    b, lin, count = capped_pairs(cand, valid, iou_threshold, max_pairs)
+    flat = cand.reshape(B * K, 5)
+    iou = riou_pairs_plain(flat, flat, b * K + lin // K, b * K + lin % K)
+    over = torch.zeros(B * K * K, dtype=torch.bool, device=cand.device)
+    over[(b * K * K + lin)[iou > iou_threshold]] = True
+    return pack_bits(over.view(B, K, K)), count
+
+
+def nms_suppress_plain(over_bits, valid):
+    """Exact greedy NMS over boxes sorted by descending score: over bitmask
+    [B, K, W] (strictly upper), valid [B, K] → keep [B, K]. Frontier rounds,
+    as a host loop: each round decides every box whose higher-ranked
+    overlapping boxes are all decided (kept if none of those was kept)."""
+    over_f = unpack_bits(over_bits, valid.shape[-1]).float()
+    undecided = valid.clone()
+    kept = torch.zeros_like(valid)
+    while bool(undecided.any()):
+        blocked = torch.bmm(undecided.float()[:, None], over_f)[:, 0] > 0.5
+        suppressed = torch.bmm(kept.float()[:, None], over_f)[:, 0] > 0.5
+        newly_kept = undecided & ~blocked & ~suppressed
+        newly_removed = undecided & suppressed
+        kept = kept | newly_kept
+        undecided = undecided & ~newly_kept & ~newly_removed
+    return kept
+
+
+def _check_batch(name, tensor, valid, inner):
+    if valid.dim() != 2 or tensor.shape[:2] != valid.shape or \
+            tuple(tensor.shape[2:]) != inner:
+        raise ValueError(f"{name}: expected [B, K, {', '.join(map(str, inner))}]"
+                         f" and valid [B, K] bool, got {tuple(tensor.shape)} "
+                         f"and {tuple(valid.shape)}")
+    if valid.dtype != torch.bool or valid.device != tensor.device:
+        raise ValueError(f"{name}: valid must be bool on {tensor.device}")
+    K = valid.shape[1]
+    if K > NMS_MAX_K:
+        raise ValueError(f"{name}: {K} candidates an example; the kernel "
+                         f"takes at most {NMS_MAX_K}")
+
+
+def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
+    """`nms_overlap_plain` semantics; the CUDA kernel for CUDA tensors, with
+    `cluster` blocks an example (default NMS_CLUSTER)."""
+    dev = cand.device
+    if dev.type == "cpu":
+        return nms_overlap_plain(cand, valid, iou_threshold, max_pairs)
+    if dev.type != "cuda":
+        raise ValueError(f"nms_overlap: unsupported device {dev}")
+    if cand.dtype != torch.float32 or cand.dim() != 3:
+        raise ValueError(f"nms_overlap: cand must be [B, K, 5] float32, got "
+                         f"{tuple(cand.shape)} {cand.dtype}")
+    _check_batch("nms_overlap", cand, valid, (5,))
+    if not 0 <= max_pairs < 2 ** 31:
+        raise ValueError(f"nms_overlap: max_pairs {max_pairs} outside "
+                         f"[0, 2**31)")
+    cluster = NMS_CLUSTER if cluster is None else cluster
+    if cluster not in NMS_CLUSTERS:
+        raise ValueError(f"nms_overlap: cluster must be one of {NMS_CLUSTERS}")
+    B, K = valid.shape
+    W = (K + 31) // 32
+    over = torch.empty((B, K, W), dtype=torch.int32, device=dev)
+    count = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if B * K == 0:
+        return over, count
+    cand, valid = cand.contiguous(), valid.contiguous()
+    maybe = torch.empty_like(over)
+    rc = (_overlap_launch or _resolve_overlap())(
+        cand.data_ptr(), valid.data_ptr(), over.data_ptr(),
+        maybe.data_ptr(), count.data_ptr(), B, K,
+        iou_threshold, max_pairs, cluster, stream_ptr(dev))
+    check("riou", rc)
+    global launches
+    launches += 1
+    return over, count
+
+
+def nms_suppress(over_bits, valid):
+    """`nms_suppress_plain` semantics; the CUDA kernel for CUDA tensors."""
+    dev = over_bits.device
+    if dev.type == "cpu":
+        return nms_suppress_plain(over_bits, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"nms_suppress: unsupported device {dev}")
+    if over_bits.dtype != torch.int32 or over_bits.dim() != 3:
+        raise ValueError(f"nms_suppress: over_bits must be [B, K, W] int32, "
+                         f"got {tuple(over_bits.shape)} {over_bits.dtype}")
+    _check_batch("nms_suppress", over_bits, valid,
+                 ((valid.shape[-1] + 31) // 32,))
+    B, K = valid.shape
+    keep = torch.empty((B, K), dtype=torch.bool, device=dev)
+    if B * K == 0:
+        return keep
+    over_bits, valid = over_bits.contiguous(), valid.contiguous()
+    rc = (_suppress_launch or _resolve_suppress())(
+        over_bits.data_ptr(), valid.data_ptr(), keep.data_ptr(), B, K,
+        stream_ptr(dev))
+    check("riou", rc)
+    global launches_suppress
+    launches_suppress += 1
+    return keep

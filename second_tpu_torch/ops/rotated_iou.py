@@ -128,13 +128,14 @@ def rotated_iou_matrix(rbboxes1, rbboxes2, criterion=-1):
 
 
 def standup_iou_matrix(boxes1, boxes2, eps=0.0):
-    """Pairwise IoU of axis-aligned [N, 4] x [K, 4] xyxy boxes."""
-    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    """Pairwise IoU of axis-aligned [..., N, 4] x [..., K, 4] xyxy boxes →
+    [..., N, K]."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = rb - lt + eps
     inter = torch.where((wh > 0).all(-1), wh[..., 0] * wh[..., 1], 0.0)
-    a1 = ((boxes1[:, 2] - boxes1[:, 0] + eps) *
-          (boxes1[:, 3] - boxes1[:, 1] + eps))[:, None]
-    a2 = ((boxes2[:, 2] - boxes2[:, 0] + eps) *
-          (boxes2[:, 3] - boxes2[:, 1] + eps))[None, :]
+    a1 = ((boxes1[..., 2] - boxes1[..., 0] + eps) *
+          (boxes1[..., 3] - boxes1[..., 1] + eps))[..., :, None]
+    a2 = ((boxes2[..., 2] - boxes2[..., 0] + eps) *
+          (boxes2[..., 3] - boxes2[..., 1] + eps))[..., None, :]
     return torch.where(inter > 0, inter / (a1 + a2 - inter), 0.0)

@@ -6,13 +6,15 @@ has no nvcc and no kernel), and run on the card with
 
 The main path's shapes are checked by `chip_smoke.py`; these are small
 shapes with the edges (row widths, index types, channel counts, tap counts,
-fills, tiles across examples, criteria) the kernels branch on. This file
-imports torch and the port only."""
+fills, tiles across examples, criteria, candidate counts, pair caps,
+cluster shapes, ties) the kernels branch on. This file imports torch and
+the port only."""
 
 import numpy as np
 import pytest
 import torch
 
+from second_tpu_torch.ops import nms
 from second_tpu_torch.ops.cuda import gather, riou, subm
 
 pytestmark = pytest.mark.cuda
@@ -230,3 +232,183 @@ def test_riou_matches_plain(dev, criterion):
     j = torch.randint(0, 90, (500,), generator=g).to(dev)
     torch.testing.assert_close(riou.riou_pairs(b1, b2, i, j, criterion),
                                want[i, j], atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ rotated NMS
+
+
+def _nms_boxes(g, B, K):
+    """B examples of K BEV boxes over a square whose side grows with
+    sqrt(K), so each box has a few standup-overlapping neighbours."""
+    side = 3.0 * max(K, 1) ** 0.5
+    return torch.stack([torch.rand(B, K, generator=g) * side,
+                        torch.rand(B, K, generator=g) * side,
+                        0.5 + 2.5 * torch.rand(B, K, generator=g),
+                        0.5 + 5.5 * torch.rand(B, K, generator=g),
+                        (torch.rand(B, K, generator=g) - 0.5) * 2 * np.pi],
+                       -1)
+
+
+def _nms_valid(g, B, K):
+    """80% valid; the second example, where there is one, has no valid
+    candidate."""
+    valid = torch.rand(B, K, generator=g) > 0.2
+    if B > 1:
+        valid[1] = False
+    return valid
+
+
+def _check_overlap(cand, valid, thr, max_pairs, cluster=None):
+    """The kernel's bitmask against the plain version's: the pair counts
+    exact, the bits exact but at pairs whose plain IoU lies within 1e-5
+    (the kernel's tolerance against its plain version) of the threshold."""
+    before = riou.launches
+    got, count = riou.nms_overlap(cand, valid, thr, max_pairs, cluster)
+    assert riou.launches == before + 1
+    want, want_count = riou.nms_overlap_plain(cand, valid, thr, max_pairs)
+    assert torch.equal(count, want_count)
+    B, K = valid.shape
+    assert got.shape == (B, K, (K + 31) // 32) and got.dtype == torch.int32
+    diff = riou.unpack_bits(got, K) != riou.unpack_bits(want, K)
+    if diff.any():
+        b, i, j = diff.nonzero(as_tuple=True)
+        flat = cand.reshape(-1, 5)
+        iou = riou.riou_pairs_plain(flat, flat, b * K + i, b * K + j)
+        assert ((iou - thr).abs() <= 1e-5).all(), (iou - thr).abs().max()
+    return got, count
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("cap", ["16", "8192", "K*K"])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 4096])
+def test_nms_overlap_matches_plain(dev, K, cap, B):
+    g = torch.Generator().manual_seed(K + B)
+    cand = _nms_boxes(g, B, K).to(dev)
+    valid = _nms_valid(g, B, K).to(dev)
+    max_pairs = K * K if cap == "K*K" else int(cap)
+    _, count = _check_overlap(cand, valid, 0.01, max_pairs)
+    if B > 1:
+        assert int(count[1]) == 0
+    if K >= 1000:
+        assert int(count[0]) > 16
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("K,thr", [(33, 0.01), (1000, 0.01), (1000, 0.3),
+                                   (4096, 0.01)])
+def test_nms_overlap_cluster_sizes(dev, cluster, K, thr):
+    """Every cluster shape gives the plain version's bitmask, with the cap
+    falling inside the first block's rows (8192 pairs) and past all pairs
+    (K * K)."""
+    g = torch.Generator().manual_seed(K)
+    cand = _nms_boxes(g, 4, K).to(dev)
+    valid = _nms_valid(g, 4, K).to(dev)
+    for max_pairs in (8192, K * K):
+        _check_overlap(cand, valid, thr, max_pairs, cluster)
+
+
+def test_nms_overlap_crowded_pairs_span_chunks(dev):
+    """Crowded boxes: every pair's standup bound passes, so the clipped
+    pairs (about 500 000 an example) run through many chunks of the
+    blocks' lists."""
+    g = torch.Generator().manual_seed(11)
+    cand = _nms_boxes(g, 2, 1000).to(dev)
+    cand[..., :2] *= 0.02
+    valid = torch.ones(2, 1000, dtype=torch.bool, device=dev)
+    _, count = _check_overlap(cand, valid, 0.01, 1000 * 1000)
+    assert int(count.min()) > 400_000
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 4096])
+def test_nms_suppress_matches_plain(dev, K, B):
+    """Exact greedy suppression over a random strictly-upper bitmask of
+    valid pairs (about 4 overlaps a box), against the plain frontier
+    rounds."""
+    g = torch.Generator().manual_seed(K * 7 + B)
+    valid = _nms_valid(g, B, K)
+    over = torch.triu(torch.rand(B, K, K, generator=g) < 4.0 / max(K, 1), 1)
+    over &= valid[:, :, None] & valid[:, None, :]
+    bits = riou.pack_bits(over).to(dev)
+    valid = valid.to(dev)
+    before = riou.launches_suppress
+    got = riou.nms_suppress(bits, valid)
+    assert riou.launches_suppress == before + 1
+    want = riou.nms_suppress_plain(bits, valid)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    if B > 1:
+        assert not got[1].any()
+    if K >= 1000:
+        assert 0 < int(got[0].sum()) < int(valid[0].sum())
+
+
+def test_nms_kernels_reject_what_they_cannot_take(dev):
+    """Past the kernels' limits the wrappers raise; they never take the
+    plain version for a CUDA tensor."""
+    g = torch.Generator().manual_seed(12)
+    big = _nms_boxes(g, 1, 4097).to(dev)
+    big_valid = torch.ones(1, 4097, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="at most 4096"):
+        riou.nms_overlap(big, big_valid, 0.01, 8192)
+    with pytest.raises(ValueError, match="at most 4096"):
+        riou.nms_suppress(torch.zeros(1, 4097, 129, dtype=torch.int32,
+                                      device=dev), big_valid)
+    cand, valid = big[:, :100].contiguous(), big_valid[:, :100].contiguous()
+    for max_pairs in (-1, 2 ** 31):
+        with pytest.raises(ValueError, match="max_pairs"):
+            riou.nms_overlap(cand, valid, 0.01, max_pairs)
+    with pytest.raises(ValueError, match="cluster"):
+        riou.nms_overlap(cand, valid, 0.01, 8192, cluster=3)
+
+
+def _tied_nms_inputs(g, B=3, N=1500):
+    """Tied scores (five levels) and tied boxes (200 boxes duplicated, with
+    their scores) among the top 1000 of 1500 candidates."""
+    boxes = _nms_boxes(g, B, N)
+    scores = torch.randint(0, 5, (B, N), generator=g).float() / 4
+    boxes[:, 1000:1200] = boxes[:, 0:200]
+    scores[:, 1000:1200] = scores[:, 0:200]
+    boxes[:, 300:400] = boxes[:, 200:300]
+    valid = torch.rand(B, N, generator=g) > 0.1
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("max_pairs", [16, 8192])
+def test_batched_nms_ties_match_cpu(dev, max_pairs):
+    """Equal scores and equal boxes among the top-k, capped and uncapped:
+    the batched NMS on the card (kernels) gives the CPU's (plain versions)
+    indices and keep mask."""
+    g = torch.Generator().manual_seed(13)
+    boxes, scores, valid = _tied_nms_inputs(g)
+    kw = dict(pre_max_size=1000, post_max_size=100, iou_threshold=0.01,
+              max_pairs=max_pairs)
+    idx_c, keep_c = nms.nms(boxes.to(dev), scores.to(dev), valid.to(dev),
+                            **kw)
+    idx_h, keep_h = nms.nms(boxes, scores, valid, **kw)
+    assert torch.equal(keep_c.cpu(), keep_h)
+    assert torch.equal(idx_c.cpu(), idx_h)
+    assert int(keep_h.sum()) > 0
+    _, top = nms.top_k(torch.where(valid, scores, float("-inf")), 1000)
+    cand = torch.stack([boxes[b][top[b]] for b in range(3)])
+    counts = riou.nms_overlap_plain(cand, torch.ones_like(top, dtype=bool),
+                                    0.01, max_pairs)[1]
+    assert 16 < int(counts.min()) and int(counts.max()) < 8192
+
+
+def test_batched_nms_runs_without_host_sync(dev):
+    """The rotated batched NMS on the card: one launch of each kernel, and
+    no synchronising CUDA call (torch's sync debug mode raises on one)."""
+    g = torch.Generator().manual_seed(14)
+    boxes, scores, valid = (t.to(dev) for t in _tied_nms_inputs(g))
+    kw = dict(pre_max_size=1000, post_max_size=100, iou_threshold=0.01)
+    nms.nms(boxes, scores, valid, **kw)                 # built and loaded
+    before = (riou.launches, riou.launches_suppress)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, keep = nms.nms(boxes, scores, valid, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (riou.launches, riou.launches_suppress) == \
+        (before[0] + 1, before[1] + 1)
+    assert idx.shape == (3, 100) and keep.shape == (3, 100)

@@ -208,6 +208,13 @@ class TestGather:
         b = torch.empty((3, 5), device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             riou.riou_matrix(b, b)
+        cand = torch.empty((2, 3, 5), device="meta")
+        valid = torch.ones((2, 3), dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            riou.nms_overlap(cand, valid, 0.01, 16)
+        with pytest.raises(ValueError, match="unsupported device"):
+            riou.nms_suppress(torch.zeros((2, 3, 1), dtype=torch.int32,
+                                          device="meta"), valid)
 
 
 def _clear_boxes(rng, n_clusters=12, per=6):
@@ -231,14 +238,35 @@ def _standup_pairs(boxes, scores, valid, k, threshold):
     rotated NMS clips, before its `max_pairs` cap."""
     top = np.argsort(-np.where(valid, scores, -np.inf), kind="stable")[:k]
     top = top[valid[top]]
-    c = np.asarray(jriou.rbbox_to_corners(jnp.asarray(boxes[top])))
+    return _maybe_pairs(boxes[top], threshold)
+
+
+def _maybe_pairs(boxes, threshold):
+    """The pairs i < j of these boxes whose standup-envelope IoU bound
+    exceeds the threshold."""
+    c = np.asarray(jriou.rbbox_to_corners(jnp.asarray(boxes)))
     lo, hi = c.min(1), c.max(1)
     wh = np.clip(np.minimum(hi[:, None], hi[None]) -
                  np.maximum(lo[:, None], lo[None]), 0, None)
     inter = wh[..., 0] * wh[..., 1]
-    area = boxes[top, 2] * boxes[top, 3]
-    bound = inter / (area[:, None] + area[None] - inter)
+    area = boxes[:, 2] * boxes[:, 3]
+    # the envelopes' overlap can exceed both areas: then the bound is huge
+    bound = inter / np.maximum(area[:, None] + area[None] - inter, 1e-12)
     return int(np.triu(bound > threshold, 1).sum())
+
+
+def _nms_batch(rng):
+    """Three examples of 72 BEV boxes: one with 80% valid and distinct
+    scores, one with no valid box, and one with tied scores (four levels)
+    and tied boxes (ten boxes duplicated)."""
+    boxes = np.stack([_clear_boxes(rng) for _ in range(3)])
+    n = boxes.shape[1]
+    boxes[2, 10:20] = boxes[2, 0:10]
+    scores = np.stack([rng.permutation(n) / n, rng.permutation(n) / n,
+                       rng.integers(1, 5, n) / 4]).astype(np.float32)
+    valid = np.stack([rng.uniform(size=n) > 0.2, np.zeros(n, bool),
+                      rng.uniform(size=n) > 0.1])
+    return boxes, scores, valid
 
 
 class TestNMS:
@@ -281,6 +309,91 @@ class TestNMS:
             assert kept == 20
         else:
             assert 0 < kept < 20
+
+    @pytest.mark.parametrize("rotated,max_pairs", [
+        pytest.param(True, 8192, id="True"),
+        pytest.param(False, 8192, id="False"),
+        pytest.param(True, 16, id="True-capped")])
+    def test_batched_matches_vmap_jax(self, rotated, max_pairs):
+        """The batched NMS (one call over [B, N]) against `jax.vmap` of the
+        JAX function: an example with no valid box, tied scores and tied
+        boxes among the top-k, and the 16-pair cap; indices and keep
+        exact."""
+        rng = np.random.default_rng(31)
+        boxes, scores, valid = _nms_batch(rng)
+        kw = dict(pre_max_size=48, post_max_size=20, iou_threshold=0.01)
+        if rotated:
+            kw["max_pairs"] = max_pairs
+            pairs = [_standup_pairs(boxes[b], scores[b], valid[b], 48, 0.01)
+                     for b in range(3)]
+            assert pairs[1] == 0 and (min(pairs[0], pairs[2]) > 16)
+        jfn = jnms.nms if rotated else jnms.nearest_nms
+        want = jax.vmap(lambda b, s, v: jfn(b, s, v, **kw))(
+            jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid))
+        tfn = nms.nms if rotated else nms.nearest_nms
+        got = tfn(torch.from_numpy(boxes), torch.from_numpy(scores),
+                  torch.from_numpy(valid), **kw)
+        assert got[0].shape == (3, 20)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        assert not got[1][1].any() and got[1][0].any() and got[1][2].any()
+
+    @pytest.mark.parametrize("max_pairs", [16, 8192])
+    def test_packed_overlap_matches_jax(self, max_pairs):
+        """The plain `nms_overlap` bitmask, unpacked, is JAX's
+        `_sparse_rotated_over(...) > 0.5` example by example; its pair count
+        is the standup-bound pairs' before the cap."""
+        rng = np.random.default_rng(32)
+        boxes, _, valid = _nms_batch(rng)
+        over, count = riou.nms_overlap_plain(
+            torch.from_numpy(boxes), torch.from_numpy(valid), 0.01, max_pairs)
+        K = boxes.shape[1]
+        assert over.shape == (3, K, 3) and over.dtype == torch.int32
+        got = riou.unpack_bits(over, K).numpy()
+        for b in range(3):
+            want = jnms._sparse_rotated_over(
+                jnp.asarray(boxes[b]), jnp.asarray(valid[b]), 0.01,
+                max_pairs)
+            np.testing.assert_array_equal(got[b], np.asarray(want) > 0.5)
+            assert int(count[b]) == _maybe_pairs(boxes[b][valid[b]], 0.01)
+        assert int(count[1]) == 0 and int(count[0]) > 16
+        assert got[0].sum() > 0 and got[2].sum() > 0
+
+    def test_plain_suppression_matches_jax(self):
+        """The plain suppression over a packed random strictly-upper overlap
+        matrix (valid pairs only) is JAX's `_greedy_suppress_over`, and the
+        sequential greedy walk the suppression kernel runs."""
+        rng = np.random.default_rng(33)
+        B, K = 3, 70
+        valid = rng.uniform(size=(B, K)) > 0.15
+        valid[1] = False
+        over = np.triu(rng.uniform(size=(B, K, K)) < 0.08, 1) & \
+            valid[:, :, None] & valid[:, None, :]
+        want = jax.vmap(jnms._greedy_suppress_over)(
+            jnp.asarray(over, jnp.float32), jnp.asarray(valid))
+        got = riou.nms_suppress_plain(riou.pack_bits(torch.from_numpy(over)),
+                                      torch.from_numpy(valid))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        walk = np.zeros((B, K), bool)
+        for b in range(B):
+            removed = np.zeros(K, bool)
+            for i in range(K):
+                if valid[b, i] and not removed[i]:
+                    walk[b, i] = True
+                    removed |= over[b, i]
+        np.testing.assert_array_equal(got.numpy(), walk)
+        assert walk[0].sum() < valid[0].sum() and not walk[1].any()
+
+    @pytest.mark.parametrize("K", [1, 31, 32, 33, 70])
+    def test_pack_bits_round_trip(self, K):
+        rng = np.random.default_rng(K)
+        mask = torch.from_numpy(rng.uniform(size=(2, 3, K)) < 0.5)
+        mask[1, 2, K - 1] = True            # bit 31 (the sign) at K = 32
+        words = riou.pack_bits(mask)
+        assert words.shape == (2, 3, (K + 31) // 32)
+        assert words.dtype == torch.int32
+        assert torch.equal(riou.unpack_bits(words, K), mask)
+        assert (int(words[1, 2, (K - 1) // 32]) >> ((K - 1) % 32)) & 1
 
     def test_top_k_ties_resolve_lowest_index_first(self):
         v = np.array([0.5, -np.inf, 0.9, 0.5, -np.inf, 0.9, -np.inf],
