@@ -39,6 +39,32 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    card and on the CPU: voxels exact, predictions within tolerance, the
    same `valid` mask end to end, and predict on the same predictions with
    the same `valid` mask and boxes/scores within tolerance.
+7. train: the SECOND car.fhd train step (batch 4 synthetic LiDAR scans
+   prepared with targets, 16 000 voxels with shuffle_overflow, bf16 middle
+   and RPN trunk, the config's Adam), started from flax's initialisers:
+   - capture: one step records every sparse-conv call of the forward, of
+     the input gradient (the gather-GEMM on the transposed rulebook) and of
+     the weight gradient; each is held against its plain version and timed
+     like the forward convs (event and device ms, bound, one library call:
+     gather + torch.bmm), and each conv's backward is held against autograd
+     of the plain gather-GEMM;
+   - launches in one counted step: gather-GEMM forward 14 and dX 13, all on
+     the tensor-core path, weight gradient 14 on the tensor-core path; every
+     sparse weight's gradient finite and not all zero; no host sync in a
+     step (torch.cuda.set_sync_debug_mode; the eval forward's syncs are
+     counted and printed);
+   - determinism: two backward passes from the same state give bitwise-
+     equal gradients (cuDNN set to deterministic algorithms);
+   - learning: one fixed batch, Adam at OVERFIT_LR, the loss below half its
+     first value within OVERFIT_STEPS steps;
+   - speed: steps/s and examples/s (median of TIMED_STEPS synchronised
+     steps), peak memory, a synchronised split (voxelize, forward + loss,
+     backward, optimizer), and one profiled step (device-busy share, top
+     kernels);
+   - reference: one fp32 step on one example, card (kernels) against CPU
+     (plain versions) from the same seeded weights: loss, every gradient,
+     every parameter after the Adam step and every norm statistic within
+     the stated tolerances.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. With --out, the per-call detail is written
@@ -48,11 +74,13 @@ to that JSON file as well.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -61,13 +89,17 @@ import torch
 
 from second_tpu_torch.config import load_pipeline_config
 from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
-from second_tpu_torch.models import build_voxelnet, detect, predict
+from second_tpu_torch.data.synthetic import SyntheticDataset
+from second_tpu_torch.models import (build_voxelnet, compute_loss, detect,
+                                     init_train_weights_, predict)
 from second_tpu_torch.ops import cuda as kernels
 from second_tpu_torch.ops import nms as nms_ops
 from second_tpu_torch.ops.cuda import gather, riou, subm
 from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
                                               _signed_area, rbbox_to_corners)
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
+from second_tpu_torch.train.optimizer import build_optimizer
+from second_tpu_torch.train.state import TrainState, make_train_step
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "second_tpu_torch" / "configs" / "second_car_fhd.config"
@@ -93,8 +125,29 @@ RIOU_FIXED_OPS = 92 + 19 + 6
 BOUND_TEST_OPS = 14
 STANDUP_BOX_OPS = 46 + 6 + 1
 
+# the train step: batch, voxel capacity (the config's train reader), the
+# overfit run's constant Adam lr and step budget, the timed steps
+TRAIN_BATCH, TRAIN_VOXELS = 4, 16000
+OVERFIT_LR, OVERFIT_STEPS = 1e-3, 100
+TIMED_STEPS = 12
+
 # stated tolerances, kernel against plain version on the same inputs
 CONV_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 sums in another order
+# the backward kernels: fp32 sums of the same products in another order,
+# within 1e-4 of the call's largest entry (gradients have no fixed scale)
+GRAD_KERNEL_TOL = 1e-4
+# a conv's backward against autograd of the plain gather-GEMM in fp32, on
+# the bf16 path: the kernels round their fp32 sums to bf16 once, so one
+# bf16 unit of the entry (2^-7 relative) plus 1e-6 of the largest entry
+BF16_UNIT = 2.0 ** -7
+# the fp32 train step, card against CPU: the loss 1e-4 relative; each
+# gradient within 1e-3 of its tensor's largest entry (cuDNN and oneDNN sums
+# in another order through 14 sparse convs and the RPN); each parameter
+# after Adam's first step within 1e-6 where its gradient is above 1e-3 of
+# the tensor's largest (the sign settled), elsewhere within the most that
+# step can move it, lr (2 + wd |p|); the norm statistics 1e-4
+REF_LOSS_RTOL, REF_GRAD_TOL, REF_PARAM_ATOL, REF_STAT_TOL = \
+    1e-4, 1e-3, 1e-6, 1e-4
 RIOU_TOL = 1e-5                          # same arithmetic (-fmad=false)
 PRED_TOL = dict(atol=1e-3, rtol=1e-3)    # card vs CPU: cuDNN vs oneDNN sums
 DET_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -113,8 +166,21 @@ KERNELS = [
          counter="launches_suppress", source="second_tpu_torch/csrc/riou.cu",
          replaces="second_tpu/ops/nms.py:44"),
 ]
+# the train step's kernels: the gather-GEMM applied to the input gradient,
+# and the weight gradient; both replace XLA's autodiff of the einsum that
+# applies the rulebook in JAX (no Pallas kernel there has a VJP)
+TRAIN_KERNELS = [
+    dict(name="sparse_gather_gemm_dgrad", module=subm, fn="gather_gemm_dgrad",
+         counter="launches_dgrad", source="second_tpu_torch/csrc/subm.cu",
+         replaces="second_tpu/ops/sparse_conv.py:636"),
+    dict(name="sparse_wgrad", module=subm, fn="sparse_wgrad",
+         counter="launches_wgrad", source="second_tpu_torch/csrc/subm_grad.cu",
+         replaces="second_tpu/ops/sparse_conv.py:636"),
+]
 # the batched NMS is recorded too: its call is timed whole
 RECORDED = [(k["module"], k["fn"]) for k in KERNELS] + [(nms_ops, "nms")]
+RECORDED_TRAIN = [(subm, "gather_gemm")] + \
+    [(k["module"], k["fn"]) for k in TRAIN_KERNELS]
 SPARSE_CONVS = 14      # 10 submanifold + 4 strided convs in SpMiddleFHD
 
 
@@ -143,6 +209,21 @@ def card_line() -> str:
     if out.returncode or not out.stdout.strip():
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def host_syncs(fn):
+    """Run fn under torch.cuda.set_sync_debug_mode("warn") and count the
+    synchronising CUDA calls it made (torch warns once for each)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing" in str(w.message) for w in caught)
 
 
 # ---------------------------------------------------------------- timing
@@ -246,12 +327,12 @@ def build_inputs(cfg, assigner, info, device):
 
 
 @contextmanager
-def recording():
-    """Record the arguments of every kernel-wrapper call made through the
-    port's modules (each module that imported a wrapper by name sees the
-    recording one)."""
-    calls = {fn: [] for _, fn in RECORDED}
-    originals = {fn: getattr(mod, fn) for mod, fn in RECORDED}
+def recording(wrappers=RECORDED):
+    """Record the arguments of every call of the (module, name) wrappers made
+    through the port's modules (each module that imported a wrapper by name
+    sees the recording one)."""
+    calls = {fn: [] for _, fn in wrappers}
+    originals = {fn: getattr(mod, fn) for mod, fn in wrappers}
 
     def recorder(name, fn):
         def call(*args, **kwargs):
@@ -675,17 +756,21 @@ def check_riou(calls, timer, dtimer, detail, device):
 
 
 def launch_counts():
-    return {k["name"]: getattr(k["module"], k["counter"]) for k in KERNELS}
+    return {k["name"]: getattr(k["module"], k["counter"])
+            for k in KERNELS + TRAIN_KERNELS}
 
 
 def conv_path_counts():
-    return {"mma": subm.launches_mma, "fma": subm.launches_fma}
+    return {"mma": subm.launches_mma, "fma": subm.launches_fma,
+            "wgrad_mma": subm.launches_wgrad_mma,
+            "wgrad_fma": subm.launches_wgrad_fma}
 
 
 def reset_counts():
-    for k in KERNELS:
+    for k in KERNELS + TRAIN_KERNELS:
         setattr(k["module"], k["counter"], 0)
     subm.launches_mma = subm.launches_fma = 0
+    subm.launches_wgrad_mma = subm.launches_wgrad_fma = 0
 
 
 def main():
@@ -771,15 +856,17 @@ def run(dev, out=None):
     if counts["sparse_gather_gemm"] != SPARSE_CONVS:
         fail(f"sparse gather-GEMM launched {counts['sparse_gather_gemm']} "
              f"times, expected {SPARSE_CONVS}")
-    if mixed and paths != {"mma": SPARSE_CONVS, "fma": 0}:
+    if mixed and (paths["mma"], paths["fma"]) != (SPARSE_CONVS, 0):
         fail(f"not every bf16 sparse conv took the tensor-core path: "
              f"{paths}")
     if counts["rotated_iou"] != 1 or counts["nms_suppress"] != 1:
         fail(f"the NMS kernels launched {counts['rotated_iou']} and "
              f"{counts['nms_suppress']} times, expected once each for the "
              f"batch")
-    if not all(counts.values()):
+    if not all(counts[k["name"]] for k in KERNELS):
         fail(f"a kernel of the main path never launched: {counts}")
+    if counts["sparse_gather_gemm_dgrad"] or counts["sparse_wgrad"]:
+        fail(f"the eval forward launched a backward kernel: {counts}")
     say(f"row gathers in one forward: {counts['row_gather']}")
     # predict without a host sync: torch raises on a synchronising call
     torch.cuda.synchronize()
@@ -792,6 +879,9 @@ def run(dev, out=None):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     say("predict: no host sync (torch.cuda.set_sync_debug_mode('error'))")
+    report["forward_host_syncs"] = host_syncs(forward)
+    say(f"forward: {report['forward_host_syncs']} host syncs in one forward "
+        f"(torch.cuda.set_sync_debug_mode('warn'))")
 
     A = anchors.shape[1]
     for k, shape in (("box_preds", (BATCH, A, spec.box_code_size)),
@@ -846,8 +936,14 @@ def run(dev, out=None):
     report["reference"] = check_reference(cfg, vspec, points, mask, anchors,
                                           dev, spec, preds, nms_call)
 
+    train_aggs, train_counts, report["train"] = run_train(cfg, dev, timer,
+                                                          dtimer)
+    aggs.update(train_aggs)
+    counts = {**counts, **{k["name"]: train_counts[k["name"]]
+                           for k in TRAIN_KERNELS}}
+
     lines = []
-    for k in KERNELS:
+    for k in KERNELS + TRAIN_KERNELS:
         a = aggs[k["name"]]
         lines.append(dict(
             name=k["name"], route="cuda", source=k["source"],
@@ -868,10 +964,11 @@ def run(dev, out=None):
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def profile_forward(forward, median_s):
-    """One forward under torch.profiler: device-busy time (the union of the
-    kernels' intervals), its share of the median forward, and the device
-    time by kernel name. The profiler slows the host, not the kernels."""
+def profile_forward(forward, median_s, what="forward"):
+    """One call of `forward` (a forward, or a train step) under
+    torch.profiler: device-busy time (the union of the kernels' intervals),
+    its share of the median call, and the device time by kernel name. The
+    profiler slows the host, not the kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -898,7 +995,7 @@ def profile_forward(forward, median_s):
                top_ms={k: v / 1e3 for k, v in top})
     say(f"profile: device busy {busy_us / 1e3:.2f} ms in {len(spans)} "
         f"kernels = {100 * out['busy_share_of_median']:.1f}% of the "
-        f"{1e3 * median_s:.2f} ms median forward (profiled wall "
+        f"{1e3 * median_s:.2f} ms median {what} (profiled wall "
         f"{wall * 1e3:.2f} ms)")
     for name, us in top:
         say(f"  {us / 1e3:8.3f} ms  {name[:90]}")
@@ -975,6 +1072,462 @@ def check_reference(cfg, vspec, points, mask, anchors, dev, spec4, preds4,
         f"err {errs['end_to_end_boxes']:.2e} scores err "
         f"{errs['end_to_end_scores']:.2e}")
     return dict(cpu_s=cpu_s, errs=errs, n_valid=int(valid.sum()))
+
+
+# ------------------------------------------------------------ the train step
+
+
+def train_inputs(cfg, assigner, info, dev, n):
+    """n synthetic LiDAR scan scenes (`SyntheticDataset(scan=True)`, seed 1:
+    the JAX trainer's --synthetic data) prepared for training (targets
+    assigned, points shuffled as the config's train reader asks),
+    collated, on the card."""
+    vg = cfg.model.voxel_generator
+    prep = ExamplePrep(assigner, info.feature_map_size, PrepConfig(
+        max_points=MAX_POINTS, training=True,
+        shuffle_points=cfg.train_input_reader.shuffle_points,
+        voxel_size=tuple(vg.voxel_size), pc_range=tuple(vg.point_cloud_range)))
+    ds = SyntheticDataset(n, seed=1, pc_range=tuple(vg.point_cloud_range),
+                          scan=True)
+    rng = np.random.default_rng(0)
+    batch = prep.collate([prep(ds[i], rng) for i in range(n)])
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k != "image_idx"}
+
+
+def new_train_state(cfg, dev, mixed, lr=None, seed=0):
+    """The fhd model on `dev` with flax's initialisers drawn from `seed` (a
+    CPU generator: the same weights on every device) and the config's
+    optimizer, at a constant `lr` where one is given."""
+    net, spec, info, assigner, _ = build_voxelnet(
+        cfg.model, device=dev, mixed_precision=mixed, seed=seed)
+    init_train_weights_(net, seed)
+    ocfg = copy.deepcopy(cfg.train_config.optimizer)
+    if lr is not None:
+        ocfg.learning_rate.kind = "manual_stepping"
+        ocfg.learning_rate.rates, ocfg.learning_rate.boundaries = [lr], []
+    opt, lr_sched = build_optimizer(ocfg, cfg.train_config.steps,
+                                    net.parameters())
+    return TrainState(net, opt, 0, lr_sched), spec, info, assigner
+
+
+def record_grads(state):
+    """Make the state's optimizer keep a copy of the gradients it is given
+    (before its clip), by name; returns the list the copies go to."""
+    grads = []
+    step = state.optimizer.step
+
+    def recording_step(count):
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in state.module.named_parameters()})
+        return step(count)
+    state.optimizer.step = recording_step
+    return grads
+
+
+def wgrad_library(features, tap_idx, found, grad_out):
+    """One gather of the tap stack plus a batched product over taps,
+    dW[k] = taps[k]^T dOut: the library yardstick of the weight gradient."""
+    B, N, C = features.shape
+    K, Q = tap_idx.shape[1:]
+    off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
+    rows = (tap_idx.long() + off).permute(1, 0, 2).reshape(-1)
+    taps = features.reshape(B * N, C).index_select(0, rows)
+    taps = taps * found.permute(1, 0, 2).reshape(-1, 1)
+    g = grad_out.reshape(1, B * Q, -1).expand(K, -1, -1)
+    return torch.bmm(taps.view(K, B * Q, C).transpose(1, 2), g).float()
+
+
+def wgrad_bound(features, tap_idx, found, grad_out):
+    """(bytes seconds, ops seconds) of one weight gradient, from what this
+    run's rulebook needs: the found mask, the row index of each found tap,
+    each referenced feature row once, each dOut row of a query that found
+    some tap once, and the fp32 [K, C, D] output; 2*C*D operations per
+    found tap."""
+    B, N, C = features.shape
+    D = grad_out.shape[2]
+    K = tap_idx.shape[1]
+    n_found = int(found.sum())
+    off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
+    rows = int(torch.unique((tap_idx.long() + off)[found]).numel())
+    queries = int(found.any(1).sum())
+    esz = features.element_size()
+    nbytes = (found.numel() + 4 * n_found + rows * C * esz +
+              queries * D * grad_out.element_size() + K * C * D * 4)
+    ops = 2.0 * C * D * n_found
+    return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[features.dtype]
+
+
+def check_train_calls(name, calls, kernel, plain, library, bound, timer,
+                      dtimer, detail):
+    """Each recorded call of a train-step kernel against its plain version
+    (within GRAD_KERNEL_TOL of the call's largest entry), timed by events
+    (kernel, plain, library) and by the device timer (kernel, library),
+    with its bound. Returns the aggregate."""
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+               library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
+    rows = []
+    for i, (args, _) in enumerate(calls):
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        scale = want.abs().max().item()
+        tol = GRAD_KERNEL_TOL * max(scale, 1e-30)
+        if not torch.allclose(got, want, atol=tol, rtol=GRAD_KERNEL_TOL):
+            fail(f"{name} {i}: kernel disagrees with plain, max abs err "
+                 f"{err:.3g} against {tol:.3g}")
+        bs, os_ = bound(*args)
+        B, K, Q = args[1].shape
+        row = dict(call=i, dtype=str(args[0].dtype), B=B, K=K, Q=Q,
+                   N=args[0].shape[1], C=args[0].shape[2],
+                   D=got.shape[-1], max_abs_err=err, max_rel_err=rel,
+                   found=int(args[2].sum()),
+                   ms=timer(lambda: kernel(*args), 10),
+                   plain_ms=timer(lambda: plain(*args), 3),
+                   library_ms=timer(lambda: library(*args), 3),
+                   bound_ms=1e3 * max(bs, os_))
+        for k in ("ms", "plain_ms", "library_ms"):
+            agg[k] += row[k]
+        agg["bytes_s"] += bs
+        agg["ops_s"] += os_
+        agg["err"] = max(agg["err"], err)
+        rows.append(row)
+    kernel_dev = dtimer([lambda a=a: kernel(*a) for a, _ in calls])
+    library_dev = dtimer([lambda a=a: library(*a) for a, _ in calls])
+    for row, kd, ld in zip(rows, kernel_dev, library_dev):
+        row["device_ms"], row["library_device_ms"] = kd, ld
+        agg["device_ms"] += kd
+        agg["library_device_ms"] += ld
+        say(f"{name} {row['call']:2d} {row['dtype'][6:]:8s} B={row['B']} "
+            f"N={row['N']} Q={row['Q']} K={row['K']} {row['C']}->"
+            f"{row['D']}: err {row['max_abs_err']:.2e} rel "
+            f"{row['max_rel_err']:.2e}  kernel {row['ms']:.4f} ms (device "
+            f"{kd:.4f})  plain {row['plain_ms']:.4f} ms  library "
+            f"{row['library_ms']:.4f} ms (device {ld:.4f})  bound "
+            f"{row['bound_ms']:.4f} ms")
+    detail.extend(rows)
+    say(f"{name}: {len(calls)} calls; kernel {agg['ms']:.4f} ms (device "
+        f"{agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms  library "
+        f"{agg['library_ms']:.4f} ms (device "
+        f"{agg['library_device_ms']:.4f})  bound "
+        f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms")
+    return agg
+
+
+def check_conv_backward(fwd_calls, wgrad_calls):
+    """Each conv of the step once more: its forward arguments and the
+    gradient its backward received, through `gather_gemm` (the kernels'
+    backward) and through autograd of `gather_gemm_plain` in fp32. The input
+    gradient where the step computed one (every conv but the first), and
+    the weight gradient; on the bf16 path the kernels' results are rounded
+    to bf16 once, so within one bf16 unit (BF16_UNIT). Returns the largest
+    error over the convs, relative to each tensor's largest entry."""
+    by_input = {(a[0].data_ptr(), a[1].data_ptr()): a[3]
+                for a, _ in wgrad_calls}
+    worst = 0.0
+    for i, (args, _) in enumerate(fwd_calls):
+        f, tap_idx, found, w = args
+        g = by_input.get((f.data_ptr(), tap_idx.data_ptr()))
+        if g is None:
+            fail(f"conv {i}: no weight-gradient call for its input")
+        grads = []
+        # the kernels on the step's own dtypes; autograd of the plain
+        # version on fp32 copies of the values the kernels use (the features
+        # and the weights rounded to the feature dtype), so its sums are
+        # fp32 throughout: autograd through bf16 tensors would round each
+        # tap's share and add them in bf16
+        for fn, dtype in ((subm.gather_gemm, f.dtype),
+                          (subm.gather_gemm_plain, torch.float32)):
+            with torch.enable_grad():
+                x = f.detach().to(dtype).requires_grad_(i > 0)
+                ww = w.detach().to(f.dtype).to(w.dtype).requires_grad_(True)
+                (fn(x, tap_idx, found, ww) * g.float()).sum().backward()
+            grads.append((x.grad, ww.grad))
+        torch.cuda.synchronize()
+        for j, (got, want) in enumerate(zip(*grads)):
+            if want is None:
+                continue
+            got, want = got.float(), want.float()
+            scale = want.abs().max().item()
+            if f.dtype == torch.bfloat16:
+                ok = ((got - want).abs() <= BF16_UNIT * torch.maximum(
+                    got.abs(), want.abs()) + 1e-6 * scale).all()
+            else:
+                ok = torch.allclose(got, want, rtol=GRAD_KERNEL_TOL,
+                                    atol=GRAD_KERNEL_TOL * scale)
+            err = (got - want).abs().max().item()
+            worst = max(worst, err / max(scale, 1e-30))
+            if not ok:
+                fail(f"conv {i}: {('dX', 'dW')[j]} differs from autograd of "
+                     f"the plain gather-GEMM, max abs err {err:.3g} at "
+                     f"scale {scale:.3g}")
+    say(f"conv backward: {len(fwd_calls)} convs' dX and dW equal autograd "
+        f"of the plain gather-GEMM (largest error {worst:.2e} of the "
+        f"tensor's scale)")
+    return worst
+
+
+def grads_of(state, spec, vspec, batch):
+    """One forward and backward in train mode from the state as it is; the
+    parameters' gradients, cloned (no optimizer step)."""
+    net = state.module
+    with torch.no_grad():
+        vox = device_voxelize(vspec, batch["points"], batch["points_mask"],
+                              state.device)
+    net.train()
+    with torch.enable_grad():
+        preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                    vox["voxel_valid"])
+        loss = compute_loss(spec, preds, batch["labels"],
+                            batch["reg_targets"], batch["anchors"])["loss"]
+        state.optimizer.zero_grad()
+        loss.backward()
+    return [p.grad.detach().clone() for p in net.parameters()]
+
+
+def timed_split(state, spec, vspec, batch):
+    """One train step cut at its stage boundaries, each synchronised: ms of
+    voxelize, forward + loss, backward, optimizer."""
+    net, dev = state.module, state.device
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        vox = device_voxelize(vspec, batch["points"], batch["points_mask"],
+                              dev)
+    torch.cuda.synchronize()
+    out["voxelize_ms"] = 1e3 * (time.perf_counter() - t0)
+    net.train()
+    with torch.enable_grad():
+        t0 = time.perf_counter()
+        preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                    vox["voxel_valid"])
+        loss = compute_loss(spec, preds, batch["labels"],
+                            batch["reg_targets"], batch["anchors"])["loss"]
+        torch.cuda.synchronize()
+        out["forward_loss_ms"] = 1e3 * (time.perf_counter() - t0)
+        state.optimizer.zero_grad()
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        out["backward_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    state.optimizer.step(state.step)
+    state.step += 1
+    torch.cuda.synchronize()
+    out["optimizer_ms"] = 1e3 * (time.perf_counter() - t0)
+    return out
+
+
+def run_train(cfg, dev, timer, dtimer):
+    """Phase 7: the train step on the card. Returns (the two backward
+    kernels' aggregates, the launch counts of the counted step, the
+    report)."""
+    report = {}
+    mixed = cfg.train_config.enable_mixed_precision
+    # cuDNN's fastest algorithms for the RPN's backward add with atomics;
+    # the deterministic ones make two runs of a step give the same bits
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, mixed)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     TRAIN_VOXELS, shuffle_overflow=True)
+    batch = train_inputs(cfg, assigner, info, dev, TRAIN_BATCH)
+    step = make_train_step(spec, vspec)
+    say(f"train: batch {TRAIN_BATCH} synthetic scans, {TRAIN_VOXELS} voxels "
+        f"(shuffle_overflow), mixed precision {mixed}, points "
+        f"{tuple(batch['points'].shape)}, positive anchors "
+        f"{(batch['labels'] > 0).sum(1).tolist()}")
+
+    # capture
+    with recording(RECORDED_TRAIN) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"train capture: {n}; loss {float(metrics['loss']):.4f}")
+    if n != {"gather_gemm": SPARSE_CONVS, "gather_gemm_dgrad":
+             SPARSE_CONVS - 1, "sparse_wgrad": SPARSE_CONVS}:
+        fail(f"expected {SPARSE_CONVS} forward, {SPARSE_CONVS - 1} dX and "
+             f"{SPARSE_CONVS} weight-gradient calls a step, recorded {n}")
+    detail = {"forward": [], "dgrad": [], "wgrad": []}
+    check_train_calls("train conv", calls["gather_gemm"], subm.gather_gemm,
+                      subm.gather_gemm_plain, conv_library, conv_bound,
+                      timer, dtimer, detail["forward"])
+    aggs = {
+        "sparse_gather_gemm_dgrad": check_train_calls(
+            "dgrad", calls["gather_gemm_dgrad"], subm.gather_gemm_dgrad,
+            subm.gather_gemm_plain, conv_library, conv_bound, timer, dtimer,
+            detail["dgrad"]),
+        "sparse_wgrad": check_train_calls(
+            "wgrad", calls["sparse_wgrad"], subm.sparse_wgrad,
+            subm.gather_gemm_wgrad_plain, wgrad_library, wgrad_bound, timer,
+            dtimer, detail["wgrad"]),
+    }
+    report["calls"] = detail
+    report["conv_backward_worst"] = check_conv_backward(
+        calls["gather_gemm"], calls["sparse_wgrad"])
+    del calls
+
+    # the main path, counted
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one train step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS,
+            "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+            "sparse_wgrad": SPARSE_CONVS}
+    if {k: counts[k] for k in want} != want:
+        fail(f"train step launches {counts}, expected {want}")
+    if mixed and paths != {"mma": 2 * SPARSE_CONVS - 1, "fma": 0,
+                           "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0}:
+        fail(f"not every bf16 train-step kernel took the tensor-core path: "
+             f"{paths}")
+    sparse = [(n, p) for n, p in state.module.named_parameters()
+              if n.startswith("middle.") and p.dim() == 3]
+    if len(sparse) != SPARSE_CONVS:
+        fail(f"expected {SPARSE_CONVS} sparse weights, found {len(sparse)}")
+    for name, p in sparse:
+        if p.grad is None or not torch.isfinite(p.grad).all() or \
+                not p.grad.abs().max() > 0:
+            fail(f"{name}: gradient missing, not finite or all zero")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"train metrics not finite: {m}")
+    say(f"train step: every sparse weight's gradient finite and nonzero; "
+        + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    report["metrics"], report["launches"] = m, counts
+    # the step syncs the host nowhere: the loop around it reads the step
+    # count as a Python int
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the train step synchronised the host {n_syncs} times")
+    say("train step: no host sync (torch.cuda.set_sync_debug_mode('warn'))")
+
+    # determinism: the same state, the same batch, twice
+    g1 = grads_of(state, spec, vspec, batch)
+    g2 = grads_of(state, spec, vspec, batch)
+    same = sum(torch.equal(a, b) for a, b in zip(g1, g2))
+    if same != len(g1):
+        fail(f"two backward passes from one state: {len(g1) - same} of "
+             f"{len(g1)} gradients differ")
+    say(f"determinism: {len(g1)} gradients bitwise equal over two runs")
+    del g1, g2
+
+    # speed
+    for _ in range(2):
+        step(state, batch)
+    times = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    split = timed_split(state, spec, vspec, batch)
+    report["speed"] = dict(
+        median_s=med, steps_per_s=1 / med, examples_per_s=TRAIN_BATCH / med,
+        times_s=times, peak_mem_bytes=peak, **split)
+    say(f"train steps/s {1 / med:.3f}, examples/s {TRAIN_BATCH / med:.3f} "
+        f"(median {1e3 * med:.2f} ms of {TIMED_STEPS} batch-{TRAIN_BATCH} "
+        f"steps, {1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak "
+        f"memory {peak / 2 ** 30:.2f} GiB; one split: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    report["profile"] = profile_forward(lambda: step(state, batch), med,
+                                        "train step")
+    del state
+
+    # learning: one fixed batch, overfit
+    state, spec, _, _ = new_train_state(cfg, dev, mixed, lr=OVERFIT_LR)
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if losses[-1] < 0.5 * losses[0]:
+            break
+    report["overfit"] = dict(lr=OVERFIT_LR, losses=losses)
+    if not losses[-1] < 0.5 * losses[0]:
+        fail(f"overfit at lr {OVERFIT_LR}: the loss went {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f} (min {min(losses):.4f}) in {len(losses)} "
+             f"steps, not below half")
+    say(f"learning: Adam at lr {OVERFIT_LR} on one batch, the loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (below half) in "
+        f"{len(losses)} steps")
+    del state
+
+    report["reference"] = check_train_reference(cfg, dev, vspec, batch)
+    torch.backends.cudnn.deterministic = False
+    return aggs, counts, report
+
+
+def check_train_reference(cfg, dev, vspec, batch):
+    """One fp32 train step on the batch's first example at full width, on
+    the card (kernels) and on the CPU (plain versions), from the same
+    seeded weights with the config's optimizer: the loss, every gradient
+    (before the clip), every parameter after the step and every norm
+    statistic."""
+    one = {k: v[:1] for k, v in batch.items()}
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        state, spec, _, _ = new_train_state(cfg, device, mixed=False)
+        grads = record_grads(state)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in state.module.state_dict().items()}
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(spec, vspec)(
+            state, {k: v.to(device) for k, v in one.items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        runs[device.type] = dict(
+            secs=time.perf_counter() - t0, loss=float(metrics["loss"]),
+            grads={k: v.cpu() for k, v in grads[0].items()},
+            after={k: v.detach().cpu()
+                   for k, v in state.module.state_dict().items()},
+            before=before)
+    c, h = runs["cuda"], runs["cpu"]
+    errs = {"loss_rel": abs(c["loss"] / h["loss"] - 1)}
+    if errs["loss_rel"] > REF_LOSS_RTOL:
+        fail(f"train reference: loss {c['loss']:.6f} on the card, "
+             f"{h['loss']:.6f} on the CPU")
+    grad_worst, param_worst, stat_worst = 0.0, 0.0, 0.0
+    lr = cfg.train_config.optimizer.learning_rate.rates[0]
+    wd = cfg.train_config.optimizer.weight_decay
+    for name, want in h["grads"].items():
+        scale = want.abs().max().item()
+        e = (c["grads"][name] - want).abs().max().item() / max(scale, 1e-30)
+        grad_worst = max(grad_worst, e)
+        if e > REF_GRAD_TOL:
+            fail(f"train reference: gradient {name} differs by {e:.3g} of "
+                 f"its scale")
+        diff = (c["after"][name] - h["after"][name]).abs()
+        settled = want.abs() > 1e-3 * scale
+        if settled.any():
+            param_worst = max(param_worst, diff[settled].max().item())
+        limit = lr * (2 + wd * h["before"][name].abs()) + REF_PARAM_ATOL
+        if (diff[settled] > REF_PARAM_ATOL).any() or (diff > limit).any():
+            fail(f"train reference: parameter {name} after the step differs "
+                 f"by {diff.max().item():.3g}")
+    for name, want in h["after"].items():
+        if "running" in name:
+            e = (c["after"][name] - want).abs().max().item() / \
+                max(want.abs().max().item(), 1e-30)
+            stat_worst = max(stat_worst, e)
+            if e > REF_STAT_TOL:
+                fail(f"train reference: {name} differs by {e:.3g}")
+    errs.update(grad=grad_worst, param_settled=param_worst, stat=stat_worst)
+    say(f"train reference (fp32, 1 example, {TRAIN_VOXELS} voxels, card vs "
+        f"CPU in {h['secs']:.1f} s): loss {c['loss']:.6f} / {h['loss']:.6f} "
+        f"(rel {errs['loss_rel']:.2e}); gradients within {grad_worst:.2e} "
+        f"of their scale; parameters after Adam within {param_worst:.2e} "
+        f"where the gradient's sign is settled; norm statistics within "
+        f"{stat_worst:.2e}")
+    return dict(cpu_s=h["secs"], card_s=c["secs"], errs=errs)
 
 
 if __name__ == "__main__":

@@ -3,10 +3,13 @@
 `state_dict_from_jax(variables)` takes the flax variables of
 `second_tpu.models.VoxelNet` as a nested dict of numpy arrays ({"params":
 ..., "batch_stats": ...}) and returns the `state_dict` of this package's
-`VoxelNet`. Sparse kernels stay [K, Cin, Cout] in tap order; dense conv
-kernels go from HWIO to OIHW; transposed-conv kernels go from flax's
-(kh, kw, in, out), applied without a kernel transpose, to torch's
-(in, out, kh, kw) with the spatial axes flipped.
+`VoxelNet`. `grads_from_jax(grads)` maps a tree with the params' structure,
+a JAX gradient, to the port's parameter names the same way (each layout
+change is a permutation, so it carries gradients as it carries weights).
+Sparse kernels stay [K, Cin, Cout] in tap order; dense conv kernels go
+from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
+out), applied without a kernel transpose, to torch's (in, out, kh, kw)
+with the spatial axes flipped.
 """
 
 from __future__ import annotations
@@ -39,22 +42,22 @@ def _norm(out, name, params, stats):
         out[f"{name}.running_var"] = _t(stats["var"])
 
 
-def state_dict_from_jax(variables) -> dict:
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
+def _convert(params, stats) -> dict:
+    """params (and batch_stats, or None for a params-only tree) → port
+    names."""
     out = {}
-
-    mp, ms = params["middle"], stats.get("middle", {})
+    mp = params["middle"]
+    ms = None if stats is None else stats.get("middle", {})
     for kind, attr in (("SubMBlock", "subm"), ("DownBlock", "down")):
         n = len(_numbered(mp, kind))
         for i in range(n):
-            p, s = mp[f"{kind}_{i}"], ms[f"{kind}_{i}"]
+            p = mp[f"{kind}_{i}"]
             out[f"middle.{attr}.{i}.weight"] = _t(p["kernel"])
-            _norm(out, f"middle.{attr}.{i}.bn", p["MaskedBatchNorm_0"],
-                  s["MaskedBatchNorm_0"])
+            s = None if ms is None else ms[f"{kind}_{i}"]["MaskedBatchNorm_0"]
+            _norm(out, f"middle.{attr}.{i}.bn", p["MaskedBatchNorm_0"], s)
 
     tp = params["rpn"]["trunk"]
-    ts = stats.get("rpn", {}).get("trunk", {})
+    ts = None if stats is None else stats.get("rpn", {}).get("trunk", {})
     for kind, attr, conv in (("ConvBlock", "convs", "Conv_0"),
                              ("DeconvBlock", "deconvs", "ConvTranspose_0")):
         for i in range(len(_numbered(tp, kind))):
@@ -68,6 +71,8 @@ def state_dict_from_jax(variables) -> dict:
             name = f"rpn.trunk.{attr}.{i}.norm"
             if "GroupNorm_0" in p:
                 _norm(out, name, p["GroupNorm_0"], None)
+            elif ts is None:
+                _norm(out, name, p["BatchNorm_0"], None)
             else:
                 _norm(out, name, p["BatchNorm_0"],
                       ts[f"{kind}_{i}"]["BatchNorm_0"])
@@ -82,3 +87,13 @@ def state_dict_from_jax(variables) -> dict:
             np.asarray(c["kernel"]).transpose(3, 2, 0, 1))
         out[f"rpn.head.{attr}.bias"] = _t(c["bias"])
     return out
+
+
+def state_dict_from_jax(variables) -> dict:
+    return _convert(variables["params"], variables.get("batch_stats", {}))
+
+
+def grads_from_jax(grads) -> dict:
+    """A JAX gradient (or any tree with the params' structure) → {port
+    parameter name: tensor}, the names of `VoxelNet.named_parameters()`."""
+    return _convert(grads, None)

@@ -1,6 +1,8 @@
 """Model builder: ModelConfig → (VoxelNet, DetectorSpec, NetInfo, target
 assigner, box coder) — the port of `second_tpu/models/build.py`
-`build_voxelnet`, plus seeded random weights for runs without a checkpoint.
+`build_voxelnet`, plus seeded weights: random eval-test weights
+(`init_weights_`) and flax's initialisers for training from scratch
+(`init_train_weights_`).
 """
 
 from __future__ import annotations
@@ -134,3 +136,44 @@ def init_weights_(module: nn.Module, seed: int = 0) -> None:
         if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d)):
             normal_(m.running_mean, 0.1)
             uniform_(m.running_var, 0.5, 2.0)
+
+
+# flax's truncated normal: a standard normal cut to [-2, 2], then scaled so
+# the samples' std is the one asked for (`jax.nn.initializers` divides by
+# the cut distribution's std)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_train_weights_(module: nn.Module, seed: int = 0) -> None:
+    """flax's initialisers, the ones the JAX trainer starts from, drawn from
+    a seeded CPU `torch.Generator` (the draws cannot equal flax's):
+
+      * sparse kernels [K, Cin, Cout]: `variance_scaling(1.0, "fan_in",
+        "normal")`, std (K · Cin)^-0.5
+        (`second_tpu/models/sparse_middle.py:78-79`);
+      * dense conv and transposed-conv kernels: `nn.Conv`'s default
+        `lecun_normal`, a truncated normal of std fan_in^-0.5 (fan_in = kh ·
+        kw · in channels), zero biases;
+      * norms: scale 1, bias 0, running mean 0, running variance 1."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, (SubMBlock, DownBlock)):
+            K, cin, _ = m.weight.shape
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g) *
+                           (K * cin) ** -0.5)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else \
+                w.shape[0] * w.shape[2] * w.shape[3]
+            t = torch.empty(w.shape)
+            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+            w.copy_(t * (fan_in ** -0.5 / _TRUNC_STD))
+            if m.bias is not None:
+                m.bias.zero_()
+        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d)):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

@@ -1,6 +1,6 @@
 """One-stage detector assembly — the port of `second_tpu/models/detector.py`
-(`DetectorSpec`, `VoxelNet`, `predict`, `build_detector_spec`; eval path,
-single-class NMS).
+(`DetectorSpec`, `VoxelNet`, `compute_loss`, `predict`,
+`build_detector_spec`; single-class NMS, no IoU branch).
 
 `predict` keeps the JAX package's fixed-size outputs: [B, post_max_size]
 boxes, scores, labels and a valid mask, computed for the whole batch at
@@ -22,6 +22,7 @@ from ..ops import box_ops
 from ..ops.cuda.gather import flat_rows
 from ..ops.nms import nearest_nms, nms, top_k
 from ..ops.voxelize import device_voxelize
+from . import losses as loss_lib
 from .middle import MIDDLE_REGISTRY
 from .rpn import RPN
 from .voxel_encoder import VFE_REGISTRY
@@ -30,7 +31,7 @@ from .voxel_encoder import VFE_REGISTRY
 @dataclasses.dataclass(frozen=True)
 class DetectorSpec:
     """Static hyperparameters shared by loss and predict (from ModelConfig).
-    The loss callables stay None until training is ported."""
+    The loss callables are set by `build_detector_spec`."""
     num_class: int = 1
     box_code_size: int = 7
     encode_background_as_zeros: bool = True
@@ -68,13 +69,75 @@ class VoxelNet(nn.Module):
         """voxels [B, V, T, C], num_points [B, V], coords [B, V, 3] zyx,
         voxel_valid [B, V] → dict of box_preds [B, A, code], cls_preds
         [B, A, num_cls] (and dir_cls_preds), the trunk map and the
-        stage_overflow count (active sites cut by the stage capacities)."""
+        stage_overflow count (active sites cut by the stage capacities).
+        In `train()` mode the norms use and update batch statistics."""
         vf = self.vfe(voxels, num_points, coords)
         vf = torch.where(voxel_valid[..., None], vf, 0.0)
         bev, overflow = self.middle(vf, coords, voxel_valid)
         out = self.rpn(bev)
         out["stage_overflow"] = overflow
         return out
+
+
+def compute_loss(spec: DetectorSpec, preds_dict, labels, reg_targets,
+                 anchors):
+    """Assemble the cls/loc(/dir) losses (reference `voxelnet.py:310-369`,
+    JAX `second_tpu/models/detector.py:126-201` without the IoU branch).
+
+    labels [B, A] integer, reg_targets [B, A, code], anchors [B, A, code].
+    Returns a dict of scalar tensors."""
+    B = labels.shape[0]
+    box_preds = preds_dict["box_preds"].reshape(B, -1, spec.box_code_size)
+    nc = spec.num_class if spec.encode_background_as_zeros \
+        else spec.num_class + 1
+    cls_preds = preds_dict["cls_preds"].reshape(B, -1, nc)
+
+    cls_weights, reg_weights, cared = loss_lib.prepare_loss_weights(
+        labels, spec.pos_cls_weight, spec.neg_cls_weight, spec.loss_norm_type,
+        box_preds.dtype)
+    cls_targets = labels.long() * cared.long()
+    one_hot = torch.nn.functional.one_hot(
+        cls_targets, spec.num_class + 1).to(box_preds.dtype)
+    if spec.encode_background_as_zeros:
+        one_hot = one_hot[..., 1:]
+
+    bp, rt = box_preds, reg_targets
+    if spec.encode_rad_error_by_sin:
+        bp, rt = box_ops.add_sin_difference(box_preds, reg_targets)
+    loc_losses = spec.loc_loss_fn(bp, rt, reg_weights)         # [B, A, code]
+    cls_losses = spec.cls_loss_fn(cls_preds, one_hot, cls_weights)
+
+    loc_loss_reduced = loc_losses.sum() / B * spec.loc_loss_weight
+    cls_loss_reduced = cls_losses.sum() / B * spec.cls_loss_weight
+    loss = loc_loss_reduced + cls_loss_reduced
+
+    cls_anchorwise = cls_losses.sum(-1)
+    cls_pos = (torch.where(labels > 0, cls_anchorwise, 0.0).sum() / B /
+               spec.pos_cls_weight)
+    cls_neg = (torch.where(labels == 0, cls_anchorwise, 0.0).sum() / B /
+               spec.neg_cls_weight)
+    out = {
+        "loc_loss_reduced": loc_loss_reduced,
+        "cls_loss_reduced": cls_loss_reduced,
+        "cls_pos_loss": cls_pos,
+        "cls_neg_loss": cls_neg,
+        "num_pos": (labels > 0).sum(),
+    }
+    if spec.use_direction_classifier:
+        dir_targets = box_ops.get_direction_target(anchors, reg_targets)
+        dir_logits = preds_dict["dir_cls_preds"].reshape(B, -1, 2)
+        weights = (labels > 0).to(box_preds.dtype)
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                        min=1.0)
+        dir_one_hot = torch.nn.functional.one_hot(dir_targets, 2).to(
+            box_preds.dtype)
+        dir_loss = loss_lib.weighted_softmax_loss(dir_logits, dir_one_hot,
+                                                  weights)
+        dir_loss = dir_loss.sum() / B
+        loss = loss + dir_loss * spec.direction_loss_weight
+        out["dir_loss_reduced"] = dir_loss
+    out["loss"] = loss
+    return out
 
 
 def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
@@ -158,7 +221,12 @@ def detect(net, spec, vspec, points, points_mask, anchors, device="cuda"):
 
 
 def build_detector_spec(model_cfg) -> DetectorSpec:
-    """ModelConfig → DetectorSpec (static predict parameters)."""
+    """ModelConfig → DetectorSpec (static loss and predict parameters)."""
+    if model_cfg.use_iou_branch or \
+            model_cfg.target_assigner.use_iou_param_partaa:
+        raise NotImplementedError(
+            "the IoU branch (use_iou_branch, use_iou_param_partaa) is not "
+            "ported yet: ROADMAP item 12 (IoUHead, d3_iou_matrix)")
     num_class = max(1, len(model_cfg.target_assigner.anchor_generators))
     code_size = 8 if model_cfg.box_coder.encode_angle_vector else 7
     if model_cfg.box_coder.kind == "bev_box_coder":
@@ -183,4 +251,8 @@ def build_detector_spec(model_cfg) -> DetectorSpec:
         nms_score_threshold=model_cfg.nms_score_threshold,
         nms_iou_threshold=model_cfg.nms_iou_threshold,
         post_center_limit_range=tuple(model_cfg.post_center_limit_range),
+        cls_loss_fn=loss_lib.build_classification_loss(
+            model_cfg.loss.classification_loss),
+        loc_loss_fn=loss_lib.build_localization_loss(
+            model_cfg.loss.localization_loss),
     )

@@ -4,13 +4,40 @@
 `dtype` is the compute dtype of the convolutions (bf16 under mixed
 precision); parameters and normalization stay fp32, and normalization
 outputs fp32, as flax's BatchNorm does after a bf16 conv. BatchNorm uses
-eps 1e-3 and torch momentum 0.01 (flax momentum 0.99).
+eps 1e-3 and torch momentum 0.01 (flax momentum 0.99), with flax's
+training statistics (`FlaxBatchNorm2d`).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (the same parameters, buffers and eval forward) with
+    flax's `BatchNorm` in training: the batch statistics in fp32 as flax's
+    fast variance, mean(x²) − mean(x)² clamped at 0 (biased), the output
+    (x − mean) · (rsqrt(var + eps) · scale) + bias, and the running update
+    ra = 0.99 · ra + 0.01 · stat with the biased variance. torch's own
+    training step updates `running_var` with the unbiased variance, n/(n−1)
+    away from flax's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        x = x.float()
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + \
+            self.bias[:, None, None]
 
 
 def same_padding(size: int, kernel: int, stride: int):
@@ -25,7 +52,7 @@ def same_padding(size: int, kernel: int, stride: int):
 def _norm(channels, use_groupnorm, num_groups):
     if use_groupnorm:
         return nn.GroupNorm(num_groups, channels, eps=1e-3)
-    return nn.BatchNorm2d(channels, eps=1e-3, momentum=0.01)
+    return FlaxBatchNorm2d(channels, eps=1e-3, momentum=0.01)
 
 
 class ConvBlock(nn.Module):

@@ -19,8 +19,14 @@ from .middle import register_middle
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of [B, N, C] active-set features, in
-    fp32 whatever the input dtype; invalid rows come out zero. Eval uses the
-    running statistics (training statistics are slice B's)."""
+    fp32 whatever the input dtype; invalid rows come out zero. Training
+    normalises with the masked batch statistics (the valid-row count
+    clamped to 1, the biased variance) and updates the running statistics
+    as ra = 0.99 · ra + 0.01 · stat, as JAX's does
+    (`second_tpu/models/sparse_middle.py:42-50`); eval uses the running
+    statistics."""
+
+    MOMENTUM = 0.99                     # flax's: the running share kept
 
     def __init__(self, channels, eps=1e-3):
         super().__init__()
@@ -33,8 +39,19 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask):
         out_dtype = x.dtype
         x = x.float()
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-        y = (y * self.weight + self.bias) * mask[..., None].float()
+        m = mask[..., None].float()
+        if self.training:
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum((0, 1)) / count
+            var = (torch.square(x - mean) * m).sum((0, 1)) / count
+            with torch.no_grad():
+                keep = self.MOMENTUM
+                self.running_mean.mul_(keep).add_((1 - keep) * mean)
+                self.running_var.mul_(keep).add_((1 - keep) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        y = (y * self.weight + self.bias) * m
         return y.to(out_dtype)
 
 

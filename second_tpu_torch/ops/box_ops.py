@@ -1,5 +1,6 @@
 """Box math on tensors — the port of `second_tpu/ops/box_ops.py` (the parts
-the eval forward uses). fp32 and elementwise, shape-polymorphic."""
+the eval forward and the loss use). fp32 and elementwise,
+shape-polymorphic."""
 
 from __future__ import annotations
 
@@ -7,6 +8,32 @@ import math
 
 import numpy as np
 import torch
+
+from ..device import constant
+
+
+def second_box_encode(boxes, anchors, encode_angle_to_vector=False,
+                      smooth_dim=False):
+    """SECOND residual encoding of [..., 7] lidar boxes against [..., 7]
+    anchors (`second_tpu/ops/box_ops.py:25`)."""
+    xa, ya, za, wa, la, ha, ra = torch.split(anchors, 1, dim=-1)
+    xg, yg, zg, wg, lg, hg, rg = torch.split(boxes, 1, dim=-1)
+    zg = zg + hg / 2
+    za = za + ha / 2
+    diag = torch.sqrt(la ** 2 + wa ** 2)
+    xt = (xg - xa) / diag
+    yt = (yg - ya) / diag
+    zt = (zg - za) / ha
+    if smooth_dim:
+        lt, wt, ht = lg / la - 1, wg / wa - 1, hg / ha - 1
+    else:
+        lt, wt, ht = torch.log(lg / la), torch.log(wg / wa), \
+            torch.log(hg / ha)
+    if encode_angle_to_vector:
+        rtx = torch.cos(rg) - torch.cos(ra)
+        rty = torch.sin(rg) - torch.sin(ra)
+        return torch.cat([xt, yt, zt, wt, lt, ht, rtx, rty], dim=-1)
+    return torch.cat([xt, yt, zt, wt, lt, ht, rg - ra], dim=-1)
 
 
 def second_box_decode(encodings, anchors, encode_angle_to_vector=False,
@@ -46,7 +73,7 @@ def corners_nd(dims, origin=0.5):
     norm = np.stack(np.unravel_index(np.arange(4), [2, 2]), axis=1
                     ).astype(np.float32)[_CORNER_ORDER_2D]
     norm = norm - np.array(origin, dtype=np.float32)
-    return dims[..., None, :] * torch.as_tensor(norm, device=dims.device)
+    return dims[..., None, :] * constant(norm, dims.device)
 
 
 def rotation_2d(points, angles):
@@ -77,3 +104,24 @@ def rbbox2d_to_near_bbox(rbboxes):
                                rbboxes[..., :4])
     centers, dims = centers_dims[..., :2], centers_dims[..., 2:]
     return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loss-side helpers (reference voxelnet.py:642-747)
+# ---------------------------------------------------------------------------
+
+def add_sin_difference(boxes1, boxes2):
+    """Encode the angle residual as sin(a - b) split across prediction and
+    target (`second_tpu/ops/box_ops.py:199`)."""
+    rad_pred = torch.sin(boxes1[..., -1:]) * torch.cos(boxes2[..., -1:])
+    rad_tg = torch.cos(boxes1[..., -1:]) * torch.sin(boxes2[..., -1:])
+    b1 = torch.cat([boxes1[..., :-1], rad_pred], dim=-1)
+    b2 = torch.cat([boxes2[..., :-1], rad_tg], dim=-1)
+    return b1, b2
+
+
+def get_direction_target(anchors, reg_targets):
+    """Direction-classifier targets: 1 where the gt yaw is above 0
+    (`second_tpu/ops/box_ops.py:209`)."""
+    rot_gt = reg_targets[..., -1] + anchors[..., -1]
+    return (rot_gt > 0).to(torch.int64)

@@ -8,9 +8,10 @@ starts one `nvcc` per missing library, all together, and waits for them;
 is imported: the CPU tests import every module, and the CPU has no `nvcc`.
 
 The Python wrappers beside this file (`gather.py`, `riou.py`, `subm.py`)
-mirror `second_tpu/ops/pallas/` by name. Each resolves its C launch
-functions once, at its first launch (`function`), and keeps them in a
-module global, so a launch takes no lock and looks nothing up.
+mirror `second_tpu/ops/pallas/` by name; `subm.py` also wraps
+`csrc/subm_grad.cu`, the sparse conv's weight gradient. Each resolves its
+C launch functions once, at its first launch (`function`), and keeps them
+in a module global, so a launch takes no lock and looks nothing up.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather", "riou", "subm")
+SOURCES = ("gather", "riou", "subm", "subm_grad")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -128,3 +129,15 @@ def check(name: str, rc: int) -> None:
 def stream_ptr(device: torch.device) -> int:
     """The raw handle of `device`'s current CUDA stream."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through a wrapper that
+    has no backward: under grad mode, an input that requires grad. The
+    kernels write into fresh tensors, so without this a gradient would
+    vanish on the card while the CPU's plain version carried it."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            f"tensors that do not require grad")

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from . import check, function, stream_ptr
+from . import check, function, refuse_grad, stream_ptr
 
 # launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
@@ -40,7 +40,9 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`gather_rows_plain` semantics; the CUDA kernel for CUDA tensors, with
-    int32 or int64 indices."""
+    int32 or int64 indices. No gradient flows through it: under grad mode
+    a `src` that requires grad raises."""
+    refuse_grad("gather_rows", src)
     dev = src.device
     if dev.type == "cpu":
         return gather_rows_plain(src, idx)

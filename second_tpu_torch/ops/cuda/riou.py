@@ -10,7 +10,8 @@ suppression, JAX `_greedy_suppress_over`) take a whole batch and meet in an
 overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
 j // 32 of row i says that the higher-ranked box i suppresses box j. Each
 launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
-built on `ops/rotated_iou.py`, for CPU tensors.
+built on `ops/rotated_iou.py`, for CPU tensors. None has a backward: under
+grad mode, boxes that require grad raise.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from ..rotated_iou import (iou_from_inter, quad_intersection_area,
                            rbbox_to_corners)
-from . import check, function, stream_ptr
+from . import check, function, refuse_grad, stream_ptr
 
 # launches since the last reset (set to 0 to reset): of the rotated-IoU
 # kernels (`nms_overlap` on the main path, `riou_pairs`, `riou_matrix`), and
@@ -118,6 +119,7 @@ def _check_boxes(name, *boxes):
 
 def riou_pairs(boxes1, boxes2, i, j, criterion=-1):
     """`riou_pairs_plain` semantics; the CUDA kernel for CUDA tensors."""
+    refuse_grad("riou_pairs", boxes1, boxes2)
     if boxes1.device.type == "cpu":
         return riou_pairs_plain(boxes1, boxes2, i, j, criterion)
     if boxes1.device.type != "cuda":
@@ -147,6 +149,7 @@ def riou_pairs(boxes1, boxes2, i, j, criterion=-1):
 
 def riou_matrix(boxes1, boxes2, criterion=-1):
     """`riou_matrix_plain` semantics; the CUDA kernel for CUDA tensors."""
+    refuse_grad("riou_matrix", boxes1, boxes2)
     if boxes1.device.type == "cpu":
         return riou_matrix_plain(boxes1, boxes2, criterion)
     if boxes1.device.type != "cuda":
@@ -271,6 +274,7 @@ def _check_batch(name, tensor, valid, inner):
 def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
     """`nms_overlap_plain` semantics; the CUDA kernel for CUDA tensors, with
     `cluster` blocks an example (default NMS_CLUSTER)."""
+    refuse_grad("nms_overlap", cand)
     dev = cand.device
     if dev.type == "cpu":
         return nms_overlap_plain(cand, valid, iou_threshold, max_pairs)
@@ -306,6 +310,7 @@ def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
 
 def nms_suppress(over_bits, valid):
     """`nms_suppress_plain` semantics; the CUDA kernel for CUDA tensors."""
+    refuse_grad("nms_suppress", over_bits)
     dev = over_bits.device
     if dev.type == "cpu":
         return nms_suppress_plain(over_bits, valid)

@@ -1,14 +1,31 @@
-"""Sparse-conv gather-GEMM wrapper — the port of
-`second_tpu/ops/pallas/subm.py`.
+"""Sparse-conv gather-GEMM wrappers — the port of
+`second_tpu/ops/pallas/subm.py`, with the convolution's backward.
 
 `gather_gemm(features, tap_idx, found, weights)` applies a per-tap rulebook:
 out[b, q] = Σ_k found[b, k, q] · features[b, tap_idx[b, k, q]] @ W[k], fp32
-accumulation, before bias and mask. It takes `gather_gemm_plain` for CPU
-tensors and launches `csrc/subm.cu` for CUDA tensors: bf16 features go to
-the tensor-core kernel (`subm_gather_gemm_mma`, the main path), fp32
-features to the CUDA-core kernel (`subm_gather_gemm_fma`). Both the
-submanifold and the strided sparse convs (`ops/sparse_conv.py`) apply
-through it.
+accumulation, before bias and mask. It is a `torch.autograd.Function`
+(`GatherGemm`) on both devices, so the CPU tests run the same backward as
+the card. The forward takes `gather_gemm_plain` for CPU tensors and
+launches `csrc/subm.cu` for CUDA tensors: bf16 features go to the
+tensor-core kernel (`subm_gather_gemm_mma`, the main path), fp32 features
+to the CUDA-core kernel (`subm_gather_gemm_fma`). The backward:
+
+  * dX (only where the features require grad): the same gather-GEMM, kernel
+    or plain version, applied to dOut with the transposed rulebook
+    (`ops/sparse_conv.py` `transpose_rulebook_b`) and the weights
+    [K, D, C]. dOut is rounded to the feature dtype first, so on the bf16
+    path the tensor-core kernel takes it in bf16; dX leaves in the feature
+    dtype, as JAX's dot transpose converts it.
+  * dW: `sparse_wgrad`, the weight-gradient kernel of `csrc/subm_grad.cu`
+    (plain version `gather_gemm_wgrad_plain`: the gathered taps against
+    dOut, fp32), cast to the weights' dtype. The caller casts fp32 weights
+    to the feature dtype outside the Function, so on the bf16 path dW is
+    rounded to bf16 and back, as the VJP of JAX's cast does.
+
+Both the submanifold and the strided sparse convs (`ops/sparse_conv.py`)
+apply through it. JAX differentiates the einsum that applies the rulebook
+(`second_tpu/ops/sparse_conv.py:636-639`, `:819-822`) by XLA autodiff; no
+Pallas kernel there has a VJP.
 """
 
 from __future__ import annotations
@@ -21,22 +38,38 @@ import torch.nn.functional as F
 from . import check, function, stream_ptr
 
 # launches of the CUDA kernels since the last reset (set each to 0 to
-# reset): both paths, the tensor-core path (bf16) and the CUDA-core path
-# (fp32)
+# reset). The gather-GEMM: forward calls (`launches`), input-gradient calls
+# (`launches_dgrad`), and all its launches by path, tensor cores (bf16) or
+# CUDA cores (fp32). The weight-gradient kernel: all its launches, and by
+# path.
 launches = 0
+launches_dgrad = 0
 launches_mma = 0
 launches_fma = 0
+launches_wgrad = 0
+launches_wgrad_mma = 0
+launches_wgrad_fma = 0
 
 # the tensor-core kernel takes at most this many taps (one vote bit each)
 MAX_TAPS_MMA = 32
+# the weight-gradient kernels walk a block's rows in stages of this many
+WGRAD_STAGE = 128
+# weight-gradient blocks to aim for, per SM: each block owns (tap, chunk)
+WGRAD_BLOCKS_PER_SM = 4
 
 # feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, D, stream
 _MMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # feat, tap_idx, found, w, out, B, N, Q, K, C, D, stream
 _FMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# mma, feat, tap_idx, found, dout, partial, used, dw, B, N, Q, K, C, D,
+# chunk_rows, chunks, stream
+_WGRAD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
+    [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # the C launch functions, resolved at their first launch
 _mma_launch = None
 _fma_launch = None
+_wgrad_launch = None
+_sm_count: dict = {}
 
 
 def _resolve_mma():
@@ -49,6 +82,12 @@ def _resolve_fma():
     global _fma_launch
     _fma_launch = function("subm", "subm_gather_gemm_fma", _FMA_ARGTYPES)
     return _fma_launch
+
+
+def _resolve_wgrad():
+    global _wgrad_launch
+    _wgrad_launch = function("subm_grad", "subm_wgrad", _WGRAD_ARGTYPES)
+    return _wgrad_launch
 
 
 def gather_gemm_plain(features, tap_idx, found, weights):
@@ -87,45 +126,68 @@ def pack_weights(weights, CP: int, DP: int):
     return weights.contiguous()
 
 
-def gather_gemm(features, tap_idx, found, weights):
-    """`gather_gemm_plain` semantics; the CUDA kernels for CUDA tensors."""
+def gather_gemm_wgrad_plain(features, tap_idx, found, grad_out):
+    """The weight gradient of `gather_gemm_plain`: features [B, N, C] (fp32
+    or bf16), tap_idx/found [B, K, Q], grad_out [B, Q, D] → dW [K, C, D]
+    fp32, dW[k] = Σ_{b, q found} features[b, tap_idx[b, k, q]]ᵀ
+    grad_out[b, q], products and sums fp32."""
+    B, N, C = features.shape
+    off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
+    rows = (tap_idx.long() + off).reshape(-1)
+    taps = features.reshape(B * N, C)[rows].reshape(*tap_idx.shape, C)
+    taps = torch.where(found[..., None], taps.float(), 0.0)
+    return torch.einsum("bkqc,bqd->kcd", taps, grad_out.float())
+
+
+def _check_rulebook(name, features, tap_idx, found, D):
+    """Validate a CUDA launch's features [B, N, C] and rulebook [B, K, Q]
+    for the kernels' limits; returns (B, N, C, K, Q)."""
     dev = features.device
-    if dev.type == "cpu":
-        return gather_gemm_plain(features, tap_idx, found, weights)
     if dev.type != "cuda":
-        raise ValueError(f"gather_gemm: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
     if features.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"gather_gemm: features must be float32 or "
-                         f"bfloat16, got {features.dtype}")
-    if features.dim() != 3 or tap_idx.dim() != 3 or weights.dim() != 3:
-        raise ValueError("gather_gemm: features [B, N, C], tap_idx "
-                         "[B, K, Q], weights [K, C, D] expected")
+        raise ValueError(f"{name}: features must be float32 or bfloat16, "
+                         f"got {features.dtype}")
+    if features.dim() != 3 or tap_idx.dim() != 3:
+        raise ValueError(f"{name}: features [B, N, C] and tap_idx [B, K, Q] "
+                         f"expected")
     B, N, C = features.shape
     _, K, Q = tap_idx.shape
-    D = weights.shape[2]
-    if (tap_idx.shape[0] != B or found.shape != tap_idx.shape or
-            weights.shape[:2] != (K, C)):
+    if tap_idx.shape[0] != B or found.shape != tap_idx.shape:
         raise ValueError(
-            f"gather_gemm: shapes disagree: features {tuple(features.shape)}"
-            f", tap_idx {tuple(tap_idx.shape)}, found {tuple(found.shape)}, "
-            f"weights {tuple(weights.shape)}")
+            f"{name}: shapes disagree: features {tuple(features.shape)}, "
+            f"tap_idx {tuple(tap_idx.shape)}, found {tuple(found.shape)}")
     if not 1 <= C <= 64 or not 1 <= D <= 64:
-        raise ValueError(f"gather_gemm: the kernel takes 1..64 input and "
-                         f"output channels, got {C} -> {D}")
+        raise ValueError(f"{name}: the kernels take 1..64 input and output "
+                         f"channels, got {C} -> {D}")
+    if max(B * Q, B * N) >= 2 ** 31:
+        raise ValueError(f"{name}: the kernels index rows with int32")
+    if found.dtype != torch.bool:
+        raise ValueError(f"{name}: found must be bool")
+    if not (tap_idx.device == found.device == dev):
+        raise ValueError(f"{name}: tensors on different devices")
+    return B, N, C, K, Q
+
+
+def _launch_gather_gemm(features, tap_idx, found, weights):
+    """One launch of the gather-GEMM kernel on CUDA tensors; weights already
+    in the feature dtype. Counts the launch by path."""
+    dev = features.device
+    if weights.dim() != 3:
+        raise ValueError("gather_gemm: weights [K, C, D] expected")
+    D = weights.shape[2]
+    B, N, C, K, Q = _check_rulebook("gather_gemm", features, tap_idx, found,
+                                    D)
+    if weights.shape[:2] != (K, C) or weights.device != dev:
+        raise ValueError(f"gather_gemm: weights {tuple(weights.shape)} on "
+                         f"{weights.device} do not fit [{K}, {C}, D]")
     mma = features.dtype == torch.bfloat16
     if mma and K > MAX_TAPS_MMA:
         raise ValueError(f"gather_gemm: the bf16 kernel takes at most "
                          f"{MAX_TAPS_MMA} taps, got {K}")
-    if max(B * Q, B * N) >= 2 ** 31:
-        raise ValueError("gather_gemm: the kernels index rows with int32")
-    if found.dtype != torch.bool:
-        raise ValueError("gather_gemm: found must be bool")
-    if not (tap_idx.device == found.device == weights.device == dev):
-        raise ValueError("gather_gemm: tensors on different devices")
     features = features.contiguous()
     tap_idx = tap_idx.to(torch.int32).contiguous()
     found = found.contiguous()
-    weights = weights.to(features.dtype)
     out = torch.empty((B, Q, D), dtype=torch.float32, device=dev)
     if B * Q == 0:
         return out
@@ -145,10 +207,133 @@ def gather_gemm(features, tap_idx, found, weights):
                 stream_ptr(dev))
     if rc:
         check("subm", rc)
-    global launches, launches_mma, launches_fma
-    launches += 1
+    global launches_mma, launches_fma
     if mma:
         launches_mma += 1
     else:
         launches_fma += 1
     return out
+
+
+def _apply(features, tap_idx, found, weights):
+    """`gather_gemm_plain` on the CPU, the kernel on the card; returns (out,
+    whether the kernel launched)."""
+    if features.device.type == "cpu":
+        return gather_gemm_plain(features, tap_idx, found, weights), False
+    return _launch_gather_gemm(features, tap_idx, found,
+                               weights.to(features.dtype)), True
+
+
+class GatherGemm(torch.autograd.Function):
+    """out = gather_gemm(features, tap_idx, found, weights), with weights
+    already in the feature dtype; see the module docstring for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, features, weights, tap_idx, found):
+        out, launched = _apply(features, tap_idx, found, weights)
+        if launched:
+            global launches
+            launches += 1
+        ctx.save_for_backward(features, weights, tap_idx, found)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from ..sparse_conv import transpose_rulebook_b
+        features, weights, tap_idx, found = ctx.saved_tensors
+        g = grad_out.to(features.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            inv_idx, inv_found = transpose_rulebook_b(tap_idx, found,
+                                                      features.shape[1])
+            dx = gather_gemm_dgrad(g, inv_idx, inv_found,
+                                   weights.transpose(1, 2)
+                                   ).to(features.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = sparse_wgrad(features, tap_idx, found, g).to(weights.dtype)
+        return dx, dw, None, None
+
+
+def gather_gemm_dgrad(grad_out, inv_idx, inv_found, weights_t):
+    """The input gradient of a sparse conv: the gather-GEMM (kernel or plain
+    version) of grad_out [B, Q, D] (in the feature dtype) over the
+    transposed rulebook [B, K, N] with the weights [K, D, C] → [B, N, C]
+    fp32. Counted in `launches_dgrad` where the kernel launches."""
+    out, launched = _apply(grad_out, inv_idx, inv_found, weights_t)
+    if launched:
+        global launches_dgrad
+        launches_dgrad += 1
+    return out
+
+
+def gather_gemm(features, tap_idx, found, weights):
+    """`gather_gemm_plain` semantics, differentiable in the features and
+    the weights; the CUDA kernels for CUDA tensors."""
+    dev = features.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather_gemm: unsupported device {dev}")
+    return GatherGemm.apply(features, weights.to(features.dtype), tap_idx,
+                            found)
+
+
+def wgrad_chunks(M: int, K: int, sms: int):
+    """(chunk_rows, chunks): each weight-gradient block owns one tap and
+    `chunk_rows` (a multiple of WGRAD_STAGE) of the M batch-flattened rows,
+    sized so that the K x chunks blocks come to about WGRAD_BLOCKS_PER_SM a
+    card's SM. Depends on the shapes and the card only, so the sums run in
+    the same order every time."""
+    stages = max(1, -(-M // WGRAD_STAGE))
+    want = max(1, -(-WGRAD_BLOCKS_PER_SM * sms // K))
+    per_chunk = -(-stages // want)
+    return per_chunk * WGRAD_STAGE, -(-stages // per_chunk)
+
+
+def sparse_wgrad(features, tap_idx, found, grad_out):
+    """`gather_gemm_wgrad_plain` semantics; `csrc/subm_grad.cu` for CUDA
+    tensors: bf16 features with bf16 grad_out on tensor cores, fp32 with
+    fp32 on CUDA cores. Each block writes a partial [C, D] sum of its (tap,
+    chunk) and a second launch sums the partials in chunk order, so the
+    result is the same bits on every run."""
+    dev = features.device
+    if dev.type == "cpu":
+        return gather_gemm_wgrad_plain(features, tap_idx, found, grad_out)
+    D = grad_out.shape[-1]
+    B, N, C, K, Q = _check_rulebook("sparse_wgrad", features, tap_idx, found,
+                                    D)
+    if grad_out.shape != (B, Q, D) or grad_out.device != dev:
+        raise ValueError(f"sparse_wgrad: grad_out {tuple(grad_out.shape)} on "
+                         f"{grad_out.device}, expected [{B}, {Q}, D] on {dev}")
+    if grad_out.dtype != features.dtype:
+        raise ValueError(f"sparse_wgrad: grad_out must be {features.dtype} "
+                         f"like the features, got {grad_out.dtype}")
+    dw = torch.empty((K, C, D), dtype=torch.float32, device=dev)
+    M = B * Q
+    if M == 0:
+        return dw.zero_()
+    sms = _sm_count.get(dev.index)
+    if sms is None:
+        sms = _sm_count[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk_rows, chunks = wgrad_chunks(M, K, sms)
+    partial = torch.empty((K, chunks, C, D), dtype=torch.float32, device=dev)
+    used = torch.empty((K, chunks), dtype=torch.uint8, device=dev)
+    features = features.contiguous()
+    grad_out = grad_out.contiguous()
+    tap_idx = tap_idx.to(torch.int32).contiguous()
+    found = found.contiguous()
+    mma = features.dtype == torch.bfloat16
+    rc = (_wgrad_launch or _resolve_wgrad())(
+        int(mma), features.data_ptr(), tap_idx.data_ptr(), found.data_ptr(),
+        grad_out.data_ptr(), partial.data_ptr(), used.data_ptr(),
+        dw.data_ptr(), B, N, Q, K, C, D, chunk_rows, chunks,
+        stream_ptr(dev))
+    if rc:
+        check("subm_grad", rc)
+    global launches_wgrad, launches_wgrad_mma, launches_wgrad_fma
+    launches_wgrad += 1
+    if mma:
+        launches_wgrad_mma += 1
+    else:
+        launches_wgrad_fma += 1
+    return dw

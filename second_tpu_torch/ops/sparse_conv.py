@@ -18,9 +18,11 @@ the JAX package exactly:
   * strided-conv capacity overflow keeps the rank-stratified subset of the
     active output sites (`downsample_coords`).
 
-Applying a rulebook is the gather-GEMM kernel (`ops/cuda/subm.py`); the
-rulebook's key checks and the active-set sorts go through the row gather
-(`ops/cuda/gather.py`).
+Applying a rulebook is the gather-GEMM kernel (`ops/cuda/subm.py`), an
+autograd Function whose input gradient applies the same kernel with the
+transposed rulebook (`transpose_rulebook_b`) and whose weight gradient is
+the weight-gradient kernel; the rulebook's key checks and the active-set
+sorts go through the row gather (`ops/cuda/gather.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import constant
 from .cuda.gather import flat_rows, gather_rows
 from .cuda.subm import gather_gemm
 
@@ -76,9 +79,8 @@ def build_rulebook_b(keys_sorted, base_coords, base_valid, grid_dhw,
     cells = sentinel(grid_dhw)
     boff = torch.arange(B, device=dev, dtype=torch.int64) * (cells + 1)
     flat = (keys_sorted + boff[:, None]).reshape(-1)        # sorted globally
-    offs = torch.as_tensor(_offsets(tuple(int(k) for k in kernel_size)),
-                           device=dev)
-    grid = torch.as_tensor(grid_dhw, dtype=torch.int32, device=dev)
+    offs = constant(_offsets(tuple(int(k) for k in kernel_size)), dev)
+    grid = constant(grid_dhw, dev, torch.int32)
     ic = base_coords[:, None, :, :] + offs[None, :, None, :]   # [B, K, Q, 3]
     inb = ((ic >= 0) & (ic < grid)).all(-1) & base_valid[:, None, :]
     query = torch.where(inb, linearize(ic, grid_dhw), cells) + \
@@ -92,12 +94,35 @@ def build_rulebook_b(keys_sorted, base_coords, base_valid, grid_dhw,
     return tap_idx, found
 
 
+def transpose_rulebook_b(tap_idx, found, n_in: int):
+    """The rulebook of a conv's input gradient: for each input row n and tap
+    k, the query q whose tap k found n. tap_idx/found [B, K, Q] → (inv_idx
+    [B, K, n_in] int32, inv_found [B, K, n_in] bool), by one scatter
+    inv[b, k, tap_idx[b, k, q]] = q where found.
+
+    Exact and deterministic: for a fixed tap, q ↦ input row is injective
+    (the row's site is q's site · stride − pad + the tap's offset, and a
+    conv's valid queries have distinct sites), so no two writes meet; the
+    not-found entries all go to a dump slot past n_in, dropped. The same
+    code serves the submanifold and the strided convs; for a submanifold
+    conv the result is the forward rulebook with its taps reversed."""
+    B, K, Q = tap_idx.shape
+    dev = tap_idx.device
+    dest = torch.where(found, tap_idx.long(), n_in)
+    q = torch.arange(Q, dtype=torch.int32, device=dev).expand(B, K, Q)
+    inv_idx = torch.zeros((B, K, n_in + 1), dtype=torch.int32, device=dev)
+    inv_idx.scatter_(2, dest, torch.where(found, q, 0))
+    inv_found = torch.zeros((B, K, n_in + 1), dtype=torch.bool, device=dev)
+    inv_found.scatter_(2, dest, found)
+    return inv_idx[..., :n_in], inv_found[..., :n_in]
+
+
 def subm_rulebook_b(coords, keys_sorted, valid, grid_dhw,
                     kernel_size=(3, 3, 3)):
     """Submanifold rulebook: built once per stage, shared by every
     submanifold conv over the same active set."""
-    base = coords - torch.as_tensor(np.array(kernel_size, np.int32) // 2,
-                                    device=coords.device)
+    base = coords - constant(np.array(kernel_size, np.int32) // 2,
+                             coords.device)
     return build_rulebook_b(keys_sorted, base, valid, grid_dhw, kernel_size)
 
 
@@ -141,18 +166,18 @@ def downsample_coords(coords, valid, grid_dhw, kernel_size, stride, padding,
     B = coords.shape[0]
     og = out_grid(grid_dhw, kernel_size, stride, padding)
     out_sen = sentinel(og)
-    k_t = torch.as_tensor(kernel_size, dtype=torch.int32, device=dev)
-    s_t = torch.as_tensor(stride, dtype=torch.int32, device=dev)
-    og_t = torch.as_tensor(og, dtype=torch.int32, device=dev)
+    k_t = constant(kernel_size, dev, torch.int32)
+    s_t = constant(stride, dev, torch.int32)
+    og_t = constant(og, dev, torch.int32)
     # each input site reaches ceil(k/s) output sites per dimension:
     # with c' = c + p, tap (c' mod s) + j*s < k gives output (c' div s) - j
     reps = [-(-int(k) // int(s)) for k, s in zip(kernel_size, stride)]
-    cprime = coords + torch.as_tensor(padding, dtype=torch.int32, device=dev)
+    cprime = coords + constant(padding, dev, torch.int32)
     base = torch.div(cprime, s_t, rounding_mode="floor")
     rem = cprime - base * s_t
     cand = []
     for j in itertools.product(*(range(r) for r in reps)):
-        jv = torch.as_tensor(j, dtype=torch.int32, device=dev)
+        jv = constant(j, dev, torch.int32)
         oc = base - jv
         tap_ok = ((rem + jv * s_t) < k_t).all(-1)
         inb = ((oc >= 0) & (oc < og_t)).all(-1)
@@ -187,9 +212,8 @@ def sparse_conv3d_b(features, coords, keys_sorted, valid, grid_dhw, weights,
     out_coords, out_valid, out_keys, og, n_unique = downsample_coords(
         coords, valid, grid_dhw, kernel_size, stride, padding, out_cap)
     dev = coords.device
-    base = out_coords * torch.as_tensor(stride, dtype=torch.int32,
-                                        device=dev) - \
-        torch.as_tensor(padding, dtype=torch.int32, device=dev)
+    base = out_coords * constant(stride, dev, torch.int32) - \
+        constant(padding, dev, torch.int32)
     tap_idx, found = build_rulebook_b(keys_sorted, base, out_valid, grid_dhw,
                                       tuple(int(k) for k in kernel_size))
     out = gather_gemm(features, tap_idx, found, weights)

@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from .cuda.gather import gather_rows
 
 
@@ -39,10 +39,9 @@ def voxelize(points, points_mask, *, voxel_size, point_cloud_range,
     grid = np.round((pc_range[3:] - pc_range[:3]) / vsize).astype(np.int64)
 
     coords = torch.floor(
-        (points[..., :3] - torch.as_tensor(pc_range[:3], device=dev)) /
-        torch.as_tensor(vsize, device=dev)).to(torch.int32)      # xyz
-    in_range = ((coords >= 0) &
-                (coords < torch.as_tensor(grid, device=dev))).all(-1)
+        (points[..., :3] - constant(pc_range[:3], dev)) /
+        constant(vsize, dev)).to(torch.int32)                    # xyz
+    in_range = ((coords >= 0) & (coords < constant(grid, dev))).all(-1)
     valid = in_range & points_mask
     c64 = coords.long()
     lin = (c64[..., 2] * int(grid[1]) + c64[..., 1]) * int(grid[0]) + \

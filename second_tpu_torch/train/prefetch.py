@@ -1,0 +1,82 @@
+"""Threaded input prefetching — the async input pipeline.
+
+Role of the reference's `DataLoader(num_workers=8, collate_fn=
+merge_second_batch)` (`train.py:259-273`): example prep (augmentation +
+target assignment, numpy) runs in background threads while the device
+executes the previous step, keeping host prep off the critical path.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterator
+
+
+class PrefetchIterator:
+    """Wrap a batch-producing iterator with N worker threads + a queue."""
+
+    def __init__(self, make_batch: Callable[[], dict], num_workers: int = 2,
+                 prefetch_size: int = 4):
+        self._make_batch = make_batch
+        self._queue: queue.Queue = queue.Queue(maxsize=prefetch_size)
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [
+            threading.Thread(target=self._worker, daemon=True)
+            for _ in range(num_workers)]
+        for t in self._threads:
+            t.start()
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                with self._lock:      # batch order/rng stays deterministic
+                    batch = self._make_batch()
+            except Exception as e:    # surface errors on the consumer side
+                self._queue.put(e)
+                return
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(batch, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        item = self._queue.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def close(self):
+        self._stop.set()
+
+
+def bounded_ordered_map(fn, items, num_workers: int = 4,
+                        prefetch: int = 8):
+    """Like ThreadPoolExecutor.map but with a bounded in-flight window, so
+    results stream in order without materializing the whole input (used by
+    the eval loop: per-batch example prep runs in threads while the device
+    executes the previous batch)."""
+    import collections
+    from concurrent.futures import ThreadPoolExecutor
+
+    items = iter(items)
+    with ThreadPoolExecutor(max_workers=num_workers) as ex:
+        window: collections.deque = collections.deque()
+        try:
+            for _ in range(prefetch):
+                window.append(ex.submit(fn, next(items)))
+        except StopIteration:
+            pass
+        while window:
+            result = window.popleft().result()
+            try:
+                window.append(ex.submit(fn, next(items)))
+            except StopIteration:
+                pass
+            yield result

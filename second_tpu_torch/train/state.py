@@ -1,0 +1,111 @@
+"""Train state and the train/eval steps — the port of
+`second_tpu/train/state.py`.
+
+The JAX step is one jitted function: voxelize → VFE → middle → RPN → loss →
+grad → optax update. Here the same sequence runs eagerly: voxelize with no
+grad, the forward in `train()` mode (the norms use and update batch
+statistics), `compute_loss`, `backward` (every sparse conv's backward is the
+gather-GEMM and weight-gradient kernels on the card), the gradient norm
+before clipping, the clip and the optimizer step. Nothing in it reads a
+tensor on the host; the step count is a Python int, as the JAX loop's
+`int(state.step)` is its one sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+from torch import nn
+
+from ..models.detector import DetectorSpec, compute_loss, detect
+from ..ops.voxelize import VoxelizeSpec, device_voxelize
+from .optimizer import ClippedOptimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module (its parameters and norm statistics), the optimizer (its
+    moments), the update count and the lr schedule."""
+    module: nn.Module
+    optimizer: ClippedOptimizer
+    step: int = 0
+    lr_sched: Callable = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+    def state_dict(self) -> dict:
+        return {"model": self.module.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.module.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+
+def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
+    """Returns train_step(state, batch) → (state, metrics), updating the
+    state in place. batch: points [B, P, C], points_mask [B, P], labels
+    [B, A], reg_targets [B, A, code], anchors [B, A, code], tensors on the
+    state's device. The metrics are JAX's keys, 0-d tensors on the device."""
+
+    def train_step(state: TrainState, batch: Dict):
+        net, dev = state.module, state.device
+        with torch.no_grad():
+            vox = device_voxelize(vspec, batch["points"],
+                                  batch["points_mask"], dev)
+        net.train()
+        with torch.enable_grad():
+            preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                        vox["voxel_valid"])
+            aux = compute_loss(spec, preds, batch["labels"],
+                               batch["reg_targets"], batch["anchors"])
+            state.optimizer.zero_grad()
+            aux["loss"].backward()
+        grad_norm = state.optimizer.step(state.step)
+        state.step += 1
+        metrics = {
+            "loss": aux["loss"].detach(),
+            "cls_loss": aux["cls_loss_reduced"].detach(),
+            "loc_loss": aux["loc_loss_reduced"].detach(),
+            "cls_pos_loss": aux["cls_pos_loss"].detach(),
+            "cls_neg_loss": aux["cls_neg_loss"].detach(),
+            "num_pos": aux["num_pos"],
+            "grad_norm": grad_norm,
+            "voxel_overflow": vox["voxel_overflow"],
+            "stage_overflow": preds["stage_overflow"],
+        }
+        if "dir_loss_reduced" in aux:
+            metrics["dir_loss"] = aux["dir_loss_reduced"].detach()
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(spec: DetectorSpec, vspec: VoxelizeSpec,
+                   eval_vspec: VoxelizeSpec = None):
+    """Returns eval_step(state, batch) → detections: the existing `detect`
+    (voxelize → forward in eval mode → predict) at the eval voxel capacity
+    (`eval_vspec`, the reference evaluates fhd at 40k voxels against 16k in
+    training), with the voxel and stage overflow counts."""
+    vspec = eval_vspec or vspec
+
+    def eval_step(state: TrainState, batch: Dict):
+        net = state.module
+        net.eval()
+        det, vox, preds = detect(net, spec, vspec, batch["points"],
+                                 batch["points_mask"], batch["anchors"],
+                                 device=state.device)
+        det["voxel_overflow"] = vox["voxel_overflow"]
+        det["stage_overflow"] = preds["stage_overflow"]
+        return det
+
+    return eval_step
+
+
+__all__ = ["TrainState", "VoxelizeSpec", "device_voxelize", "make_train_step",
+           "make_eval_step"]

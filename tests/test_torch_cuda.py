@@ -7,14 +7,20 @@ has no nvcc and no kernel), and run on the card with
 The main path's shapes are checked by `chip_smoke.py`; these are small
 shapes with the edges (row widths, index types, channel counts, tap counts,
 fills, tiles across examples, criteria, candidate counts, pair caps,
-cluster shapes, ties) the kernels branch on. This file imports torch and
-the port only."""
+cluster shapes, ties) the kernels branch on, and the sparse conv's
+backward: the weight-gradient kernel against its plain version, the input
+gradient through the transposed rulebook and the weight gradient against
+autograd of the plain gather-GEMM, and the sparse middle's weights getting
+their gradients on the card. This file imports torch and the port only."""
 
 import numpy as np
 import pytest
 import torch
 
+from second_tpu_torch.models.sparse_middle import (DownBlock,
+                                                  SparseMiddleFHD, SubMBlock)
 from second_tpu_torch.ops import nms
+from second_tpu_torch.ops import sparse_conv as sp
 from second_tpu_torch.ops.cuda import gather, riou, subm
 
 pytestmark = pytest.mark.cuda
@@ -412,3 +418,212 @@ def test_batched_nms_runs_without_host_sync(dev):
     assert (riou.launches, riou.launches_suppress) == \
         (before[0] + 1, before[1] + 1)
     assert idx.shape == (3, 100) and keep.shape == (3, 100)
+
+
+# ------------------------------------------------- the sparse conv backward
+
+
+def _wgrad_case(dev, dtype, B, N, Q, K, C, D, fill, seed=20):
+    feats, tap_idx, found, _ = _conv_case(dev, dtype, B, N, Q, K, C, D, fill,
+                                          seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    dout = torch.randn(B, Q, D, generator=g).to(dtype).to(dev)
+    return feats, tap_idx, found, dout
+
+
+def _run_wgrad(feats, tap_idx, found, dout):
+    """The weight-gradient kernel against its plain version: fp32 sums of
+    the same products (exact for bf16 operands) in another order, within
+    1e-4 of the largest entry; the path by dtype, and the same bits on a
+    second run (partials summed in a fixed order)."""
+    counts = (subm.launches_wgrad, subm.launches_wgrad_mma,
+              subm.launches_wgrad_fma)
+    got = subm.sparse_wgrad(feats, tap_idx, found, dout)
+    again = subm.sparse_wgrad(feats, tap_idx, found, dout)
+    want = subm.gather_gemm_wgrad_plain(feats, tap_idx, found, dout)
+    torch.cuda.synchronize()
+    K, C, D = tap_idx.shape[1], feats.shape[2], dout.shape[2]
+    assert got.dtype == torch.float32 and got.shape == (K, C, D)
+    scale = max(want.abs().max().item(), 1e-6)
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
+    assert torch.equal(got, again)
+    mma = feats.dtype == torch.bfloat16
+    assert (subm.launches_wgrad, subm.launches_wgrad_mma,
+            subm.launches_wgrad_fma) == \
+        (counts[0] + 2, counts[1] + 2 * mma, counts[2] + 2 * (not mma))
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [4, 16, 32, 64])
+@pytest.mark.parametrize("D", [4, 16, 32, 64])
+def test_sparse_wgrad_matches_plain(dev, dtype, C, D):
+    """Every width pair of {4, 16, 32, 64}, at an fhd-like fill (5% of the
+    taps found). Q = 400: the 128-row stages cross from one example into
+    the next."""
+    _run_wgrad(*_wgrad_case(dev, dtype, 3, 350, 400, 27, C, D, 0.05))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,C,D", [(27, 5, 7), (3, 64, 64), (27, 33, 40)])
+def test_sparse_wgrad_odd_widths(dev, dtype, K, C, D):
+    """Widths off the 16-byte grid (element-by-element gathers, padded
+    tiles) and the 3-tap kernel of the last strided conv."""
+    _run_wgrad(*_wgrad_case(dev, dtype, 2, 300, 333, K, C, D, 0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_wgrad_empty_taps(dev, dtype):
+    """No tap found anywhere (every block ends at its vote: zeros), and
+    half of the taps never found (their dW rows zero)."""
+    feats, tap_idx, found, dout = _wgrad_case(dev, dtype, 2, 200, 300, 27,
+                                              16, 32, 0.0)
+    got, _ = _run_wgrad(feats, tap_idx, found, dout)
+    assert not got.any()
+    feats, tap_idx, found, dout = _wgrad_case(dev, dtype, 2, 200, 300, 27,
+                                              16, 32, 0.3)
+    found[:, ::2] = False
+    got, _ = _run_wgrad(feats, tap_idx, found, dout)
+    assert not got[::2].any() and got[1::2].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_wgrad_chunks_of_many_stages(dev, dtype):
+    """M = 40 000 rows with 3 taps: each block walks several 128-row stages
+    (`wgrad_chunks`), and chunks cross the example boundary at 20 000."""
+    B, Q, K = 2, 20_000, 3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk_rows, chunks = subm.wgrad_chunks(B * Q, K, sms)
+    assert chunk_rows > subm.WGRAD_STAGE and chunks * chunk_rows >= B * Q
+    assert (Q % chunk_rows) != 0
+    _run_wgrad(*_wgrad_case(dev, dtype, B, 5000, Q, K, 32, 64, 0.1))
+
+
+def _active_set(dev, B, N, grid, seed):
+    """Sorted active sets on the card: random distinct sites, 40-90% of the
+    capacity valid."""
+    g = torch.Generator().manual_seed(seed)
+    D, H, W = grid
+    coords = torch.zeros(B, N, 3, dtype=torch.int32)
+    valid = torch.zeros(B, N, dtype=torch.bool)
+    for b in range(B):
+        n = int(N * (0.4 + 0.5 * torch.rand(1, generator=g).item()))
+        lin = torch.randperm(D * H * W, generator=g)[:n]
+        coords[b, :n] = torch.stack([lin // (H * W), (lin // W) % H,
+                                     lin % W], 1).int()
+        valid[b, :n] = True
+    feats = torch.randn(B, N, 16, generator=g)
+    return sp.sort_active(coords.to(dev), feats.to(dev), valid.to(dev), grid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+def test_conv_backward_matches_autograd_of_plain(dev, dtype, strided):
+    """A submanifold and a strided (over capacity) conv on the card: dX
+    (the gather-GEMM on the transposed rulebook) and dW (the weight-gradient
+    kernel) against autograd through `gather_gemm_plain` on the same card
+    tensors. fp32: within 1e-4 of the largest entry. bf16: the kernels take
+    dOut rounded to bf16 where autograd of the plain version keeps it fp32,
+    so within 2^-7 of each entry plus 2^-8 of the largest."""
+    grid = (8, 24, 24)
+    coords, feats, valid, keys = _active_set(dev, 2, 800, grid, 21)
+    g = torch.Generator().manual_seed(22)
+    w = (torch.randn(27, 16, 32, generator=g) / 20).to(dev)
+    if strided:
+        oc, ov, _, _, n_unique = sp.downsample_coords(
+            coords, valid, grid, (3, 3, 3), (2, 2, 2), (1, 1, 1), 200)
+        assert (n_unique > 200).all()
+        tap_idx, found = sp.build_rulebook_b(keys, oc * 2 - 1, ov, grid,
+                                             (3, 3, 3))
+    else:
+        tap_idx, found = sp.subm_rulebook_b(coords, keys, valid, grid)
+    x = feats.to(dtype)
+    cot = torch.randn(2, tap_idx.shape[2], 32, generator=g).to(dev)
+    counts = (subm.launches_dgrad, subm.launches_wgrad)
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (subm.gather_gemm(xa, tap_idx, found, wa) * cot).sum().backward()
+    assert (subm.launches_dgrad, subm.launches_wgrad) == \
+        (counts[0] + 1, counts[1] + 1)
+    xb, wb = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (subm.gather_gemm_plain(xb, tap_idx, found, wb) * cot).sum().backward()
+    torch.cuda.synchronize()
+    for got, want in ((xa.grad.float(), xb.grad.float()), (wa.grad, wb.grad)):
+        scale = want.abs().max().item()
+        assert scale > 0
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4 * scale,
+                                       rtol=1e-4)
+        else:
+            bound = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + \
+                2.0 ** -8 * scale
+            assert ((got - want).abs() <= bound).all()
+
+
+def test_transposed_rulebook_on_the_card(dev):
+    """The scatter that transposes a rulebook gives on the card what it
+    gives on the CPU (each slot written once: no order to differ in)."""
+    grid = (8, 24, 24)
+    coords, _, valid, keys = _active_set(dev, 2, 800, grid, 23)
+    tap_idx, found = sp.subm_rulebook_b(coords, keys, valid, grid)
+    got = sp.transpose_rulebook_b(tap_idx, found, 800)
+    want = sp.transpose_rulebook_b(tap_idx.cpu(), found.cpu(), 800)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[1], found.flip(1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_middle_weights_get_gradients_on_the_card(dev, dtype):
+    """R1 on the card: a backward through SpMiddleFHD in training mode
+    launches the gather-GEMM 14 times forward and 13 times for dX (the first
+    conv's input needs none) and the weight-gradient kernel 14 times, and
+    every sparse weight's gradient is finite and not all zero. In fp32 the
+    gradients agree with the CPU's plain versions within 1e-3 of each
+    tensor's largest entry (sums in another order through 14 convs)."""
+    grid = (41, 64, 64)
+    g = torch.Generator().manual_seed(24)
+    coords, _, valid, _ = _active_set(torch.device("cpu"), 2, 2048, grid, 25)
+    feats = torch.randn(2, 2048, 4, generator=g) * valid[..., None]
+    proto = SparseMiddleFHD(grid, num_input_features=4,
+                            dtype=None if dtype == torch.float32 else dtype)
+    for m in proto.modules():
+        if isinstance(m, (SubMBlock, DownBlock)):
+            K, cin, _ = m.weight.shape
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) *
+                               (K * cin) ** -0.5)
+    cot = None
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        mid = SparseMiddleFHD(grid, num_input_features=4, dtype=proto.dtype)
+        mid.load_state_dict(proto.state_dict())
+        mid = mid.to(device).train()
+        if device.type == "cuda":
+            subm.launches = subm.launches_dgrad = subm.launches_wgrad = 0
+            subm.launches_mma = subm.launches_fma = 0
+        bev, _ = mid(feats.to(device), coords.to(device), valid.to(device))
+        if cot is None:
+            cot = torch.randn(bev.shape, generator=g)
+        (bev * cot.to(device)).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (subm.launches, subm.launches_dgrad,
+                    subm.launches_wgrad) == (14, 13, 14)
+            path = subm.launches_mma if dtype == torch.bfloat16 else \
+                subm.launches_fma
+            assert path == 27
+        sparse = [m for m in mid.modules()
+                  if isinstance(m, (SubMBlock, DownBlock))]
+        assert len(sparse) == 14
+        for i, m in enumerate(sparse):
+            gr = m.weight.grad
+            assert gr is not None and torch.isfinite(gr).all(), i
+            assert gr.abs().max() > 0, i
+        grads[device.type] = [m.weight.grad.cpu() for m in sparse]
+        if dtype == torch.bfloat16:
+            break
+    if dtype == torch.float32:
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-3 * b.abs().max().item())
+
