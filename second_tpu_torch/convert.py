@@ -9,7 +9,9 @@ change is a permutation, so it carries gradients as it carries weights).
 Sparse kernels stay [K, Cin, Cout] in tap order; dense conv kernels go
 from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
 out), applied without a kernel transpose, to torch's (in, out, kh, kw)
-with the spatial axes flipped.
+with the spatial axes flipped; the pillar encoder's Dense kernels go from
+[in, out] to [out, in]. A model whose encoder or middle has no parameters
+(VFE-V3, the PointPillars scatter) has no tree for it.
 """
 
 from __future__ import annotations
@@ -46,7 +48,19 @@ def _convert(params, stats) -> dict:
     """params (and batch_stats, or None for a params-only tree) → port
     names."""
     out = {}
-    mp = params["middle"]
+    vp = params.get("vfe", {})
+    vs = None if stats is None else stats.get("vfe", {})
+    for i in range(len(_numbered(vp, "DenseBNReLU"))):
+        p = vp[f"DenseBNReLU_{i}"]
+        out[f"vfe.layers.{i}.linear.weight"] = _t(
+            np.asarray(p["Dense_0"]["kernel"]).T)
+        s = None if vs is None else vs[f"DenseBNReLU_{i}"]["BatchNorm_0"]
+        _norm(out, f"vfe.layers.{i}.norm", p["BatchNorm_0"], s)
+        if s is not None:
+            out[f"vfe.layers.{i}.norm.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+
+    mp = params.get("middle", {})
     ms = None if stats is None else stats.get("middle", {})
     for kind, attr in (("SubMBlock", "subm"), ("DownBlock", "down")):
         n = len(_numbered(mp, kind))

@@ -2,7 +2,8 @@
 assigner, box coder) — the port of `second_tpu/models/build.py`
 `build_voxelnet`, plus seeded weights: random eval-test weights
 (`init_weights_`) and flax's initialisers for training from scratch
-(`init_train_weights_`).
+(`init_train_weights_`), and norm statistics calibrated on a batch
+(`calibrate_norms_`).
 """
 
 from __future__ import annotations
@@ -52,12 +53,9 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
     the CPU), with weights drawn by `init_weights_` from `seed`.
 
     Under `mixed_precision` the sparse middle and the RPN trunk compute in
-    bf16 (sparse-conv sums and normalisation stay fp32, the heads fp32)."""
+    bf16 (sparse-conv sums and normalisation stay fp32, the heads fp32); the
+    pillar encoder and the scatter stay fp32."""
     dev = resolve_device(device)
-    middle_name = cfg.middle_feature_extractor.module_class_name
-    if middle_name != "SpMiddleFHD":
-        raise NotImplementedError(
-            f"middle {middle_name!r} is not ported yet (SpMiddleFHD is)")
     vg = cfg.voxel_generator
     nx, ny, nz = vg.grid_size
     box_coder = build_box_coder(cfg.box_coder)
@@ -65,15 +63,27 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
     num_anchor_per_loc = target_assigner.num_anchors_per_location
 
     dtype = torch.bfloat16 if mixed_precision else None
-    middle_kwargs = {
-        # dense zyx shape is grid + (1, 0, 0)
-        "output_shape": (nz + 1, ny, nx),
-        "num_input_features":
-            cfg.middle_feature_extractor.num_input_features,
-        "dtype": dtype,
-    }
-    out_size_factor = (cfg.middle_feature_extractor.downsample_factor *
-                       _rpn_out_stride(cfg.rpn))
+    middle_name = cfg.middle_feature_extractor.module_class_name
+    if middle_name == "PointPillarsScatter":
+        middle_downsample = 1
+        middle_kwargs = {
+            "output_shape": (ny, nx),
+            "num_input_features": cfg.voxel_feature_extractor.num_filters[-1],
+        }
+    elif middle_name == "SpMiddleFHD":
+        middle_downsample = cfg.middle_feature_extractor.downsample_factor
+        middle_kwargs = {
+            # dense zyx shape is grid + (1, 0, 0)
+            "output_shape": (nz + 1, ny, nx),
+            "num_input_features":
+                cfg.middle_feature_extractor.num_input_features,
+            "dtype": dtype,
+        }
+    else:
+        raise NotImplementedError(
+            f"middle {middle_name!r} is not ported yet (SpMiddleFHD and "
+            f"PointPillarsScatter are): ROADMAP item 12")
+    out_size_factor = middle_downsample * _rpn_out_stride(cfg.rpn)
     fmap = (1, ny // out_size_factor, nx // out_size_factor)
     rpn_kwargs = {
         "dtype": dtype,
@@ -90,12 +100,18 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
         "use_groupnorm": cfg.rpn.use_groupnorm,
         "num_groups": cfg.rpn.num_groups,
     }
+    vfe_name = cfg.voxel_feature_extractor.module_class_name
     vfe_kwargs = {
         "num_filters": tuple(cfg.voxel_feature_extractor.num_filters),
         "with_distance": cfg.voxel_feature_extractor.with_distance,
     }
-    module = VoxelNet(cfg.voxel_feature_extractor.module_class_name,
-                      vfe_kwargs, middle_name, middle_kwargs, rpn_kwargs)
+    if vfe_name == "PillarFeatureNet":
+        # fp32, as in JAX: `build_voxelnet` gives the encoder no dtype
+        vfe_kwargs["voxel_size"] = tuple(vg.voxel_size)
+        vfe_kwargs["pc_range"] = tuple(vg.point_cloud_range)
+        vfe_kwargs["num_input_features"] = cfg.num_point_features
+    module = VoxelNet(vfe_name, vfe_kwargs, middle_name, middle_kwargs,
+                      rpn_kwargs)
     init_weights_(module, seed)
     module = module.to(dev).eval()
     info = NetInfo(grid_size=(nx, ny, nz), dense_shape=(nz + 1, ny, nx),
@@ -103,6 +119,20 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
                    num_anchors=fmap[1] * fmap[2] * num_anchor_per_loc)
     return module, build_detector_spec(cfg), info, target_assigner, \
         box_coder
+
+
+# the norms with running statistics
+_NORMS = (MaskedBatchNorm, nn.BatchNorm1d, nn.BatchNorm2d)
+
+
+def _fan_in(m: nn.Module) -> int:
+    """Inputs a kernel entry sums over, as flax counts them: kh · kw · in
+    channels for a conv or transposed conv, the input width for a Linear
+    (the pillar encoder's, fan_in 9)."""
+    w = m.weight
+    if isinstance(m, nn.ConvTranspose2d):
+        return w.shape[0] * w.shape[2] * w.shape[3]
+    return w[0].numel()
 
 
 @torch.no_grad()
@@ -123,17 +153,14 @@ def init_weights_(module: nn.Module, seed: int = 0) -> None:
         if isinstance(m, (SubMBlock, DownBlock)):
             K, cin, _ = m.weight.shape
             normal_(m.weight, (K * cin) ** -0.5)
-        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            w = m.weight
-            fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else \
-                w.shape[0] * w.shape[2] * w.shape[3]
-            normal_(w, fan_in ** -0.5)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            normal_(m.weight, _fan_in(m) ** -0.5)
             if m.bias is not None:
                 normal_(m.bias, 0.1)
-        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d, nn.GroupNorm)):
+        if isinstance(m, _NORMS + (nn.GroupNorm,)):
             uniform_(m.weight, 0.5, 1.5)
             normal_(m.bias, 0.1)
-        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d)):
+        if isinstance(m, _NORMS):
             normal_(m.running_mean, 0.1)
             uniform_(m.running_var, 0.5, 2.0)
 
@@ -152,9 +179,9 @@ def init_train_weights_(module: nn.Module, seed: int = 0) -> None:
       * sparse kernels [K, Cin, Cout]: `variance_scaling(1.0, "fan_in",
         "normal")`, std (K · Cin)^-0.5
         (`second_tpu/models/sparse_middle.py:78-79`);
-      * dense conv and transposed-conv kernels: `nn.Conv`'s default
-        `lecun_normal`, a truncated normal of std fan_in^-0.5 (fan_in = kh ·
-        kw · in channels), zero biases;
+      * dense conv, transposed-conv and Linear kernels: `nn.Conv`'s and
+        `nn.Dense`'s default `lecun_normal`, a truncated normal of std
+        fan_in^-0.5 (`_fan_in`), zero biases;
       * norms: scale 1, bias 0, running mean 0, running variance 1."""
     g = torch.Generator().manual_seed(seed)
     for m in module.modules():
@@ -162,18 +189,42 @@ def init_train_weights_(module: nn.Module, seed: int = 0) -> None:
             K, cin, _ = m.weight.shape
             m.weight.copy_(torch.randn(m.weight.shape, generator=g) *
                            (K * cin) ** -0.5)
-        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
-            fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else \
-                w.shape[0] * w.shape[2] * w.shape[3]
             t = torch.empty(w.shape)
             nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-            w.copy_(t * (fan_in ** -0.5 / _TRUNC_STD))
+            w.copy_(t * (_fan_in(m) ** -0.5 / _TRUNC_STD))
             if m.bias is not None:
                 m.bias.zero_()
-        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d, nn.GroupNorm)):
+        if isinstance(m, _NORMS + (nn.GroupNorm,)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        if isinstance(m, (MaskedBatchNorm, nn.BatchNorm2d)):
+        if isinstance(m, _NORMS):
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+
+
+@torch.no_grad()
+def calibrate_norms_(module: nn.Module, voxels, num_points, coords,
+                     voxel_valid) -> None:
+    """Set the running statistics of every torch batch norm (the pillar
+    encoder's and the RPN's; the sparse middle's masked norms keep theirs)
+    to the batch statistics of one train-mode forward on these voxels
+    (momentum 1 for that forward), then leave the module in eval mode. A
+    random model's eval predictions then have a trained model's scale.
+    PointPillars needs it: JAX's pillar encoder feeds its norm cluster
+    offsets of 1e4-1e5 (the offset's sum runs over the voxels, ROADMAP §3),
+    so under initial or random running statistics the eval predictions
+    reach 1e3 and the decoded boxes overflow."""
+    norms = [m for m in module.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    module.train()
+    try:
+        module(voxels, num_points, coords, voxel_valid)
+    finally:
+        for m, mom in zip(norms, momenta):
+            m.momentum = mom
+        module.eval()

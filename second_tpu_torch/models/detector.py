@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..ops import box_ops
+from ..ops.anchors_mask import anchors_mask_from_coords
 from ..ops.cuda.gather import flat_rows
 from ..ops.nms import nearest_nms, nms, top_k
 from ..ops.voxelize import device_voxelize
@@ -208,16 +209,26 @@ def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
 
 
 @torch.no_grad()
-def detect(net, spec, vspec, points, points_mask, anchors, device="cuda"):
+def detect(net, spec, vspec, points, points_mask, anchors, device="cuda",
+           mask_info=None, anchors_mask=None):
     """The eval forward: voxelize → VFE → middle → RPN → predict.
 
     points [B, P, C] and points_mask [B, P] (arrays or tensors) are moved to
     `device`, the CUDA card unless the caller asks for the CPU; `net` must
-    already live there. Returns (detections, voxelizer output, preds)."""
+    already live there. `anchors_mask` [B, A], or else `mask_info =
+    (sat_corners [A, 4], grid_hw, threshold)`, which computes the occupancy
+    anchors mask from the voxelizer's coords on the device
+    (`ops/anchors_mask.py`), as JAX's eval step does. Returns (detections,
+    voxelizer output, preds)."""
     vox = device_voxelize(vspec, points, points_mask, device)
     preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
                 vox["voxel_valid"])
-    return predict(spec, preds, anchors), vox, preds
+    if anchors_mask is None and mask_info is not None:
+        corners, grid_hw, threshold = mask_info
+        anchors_mask = anchors_mask_from_coords(
+            vox["coordinates"], vox["voxel_valid"], corners, grid_hw,
+            threshold)
+    return predict(spec, preds, anchors, anchors_mask), vox, preds
 
 
 def build_detector_spec(model_cfg) -> DetectorSpec:

@@ -1,11 +1,11 @@
 """Shared dense building blocks — the port of `second_tpu/models/layers.py`
-(`ConvBlock`, `DeconvBlock`), in NCHW.
+(`ConvBlock`, `DeconvBlock` in NCHW, and `DenseBNReLU`).
 
 `dtype` is the compute dtype of the convolutions (bf16 under mixed
 precision); parameters and normalization stay fp32, and normalization
 outputs fp32, as flax's BatchNorm does after a bf16 conv. BatchNorm uses
 eps 1e-3 and torch momentum 0.01 (flax momentum 0.99), with flax's
-training statistics (`FlaxBatchNorm2d`).
+training statistics (`FlaxBatchNorm2d`, `FlaxBatchNorm1d`).
 """
 
 from __future__ import annotations
@@ -15,29 +15,52 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` (the same parameters, buffers and eval forward) with
-    flax's `BatchNorm` in training: the batch statistics in fp32 as flax's
+def at_least_fp32(x):
+    """x in fp32, or as it is in fp64: the norms and the heads compute in
+    fp32 whatever the trunk's dtype, and an fp64 model (a reference run)
+    stays fp64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _flax_batch_norm(bn, x, dims):
+    """flax's `BatchNorm` in training over the axes `dims` of x, the
+    channels on the remaining one: the batch statistics in fp32 as flax's
     fast variance, mean(x²) − mean(x)² clamped at 0 (biased), the output
     (x − mean) · (rsqrt(var + eps) · scale) + bias, and the running update
     ra = 0.99 · ra + 0.01 · stat with the biased variance. torch's own
     training step updates `running_var` with the unbiased variance, n/(n−1)
     away from flax's."""
+    x = at_least_fp32(x)
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(m * mean)
+        bn.running_var.mul_(1 - m).add_(m * var)
+        bn.num_batches_tracked.add_(1)
+    shape = [-1 if d == 1 else 1 for d in range(x.dim())]
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (the same parameters, buffers and eval forward) with
+    flax's `BatchNorm` in training (`_flax_batch_norm`) over N, H and W."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        x = x.float()
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * var)
-            self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + \
-            self.bias[:, None, None]
+        return _flax_batch_norm(self, x, (0, 2, 3))
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """`nn.BatchNorm1d` on [N, C] with flax's `BatchNorm` in training
+    (`_flax_batch_norm`) over all N rows."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return _flax_batch_norm(self, x, (0,))
 
 
 def same_padding(size: int, kernel: int, stride: int):
@@ -76,7 +99,7 @@ class ConvBlock(nn.Module):
         dtype = self.dtype or x.dtype
         x = F.conv2d(x.to(dtype), self.conv.weight.to(dtype),
                      stride=self.stride)
-        return F.relu(self.norm(x.float()))
+        return F.relu(self.norm(at_least_fp32(x)))
 
 
 class DeconvBlock(nn.Module):
@@ -95,4 +118,21 @@ class DeconvBlock(nn.Module):
         dtype = self.dtype or x.dtype
         x = F.conv_transpose2d(x.to(dtype), self.conv.weight.to(dtype),
                                stride=self.stride)
-        return F.relu(self.norm(x.float()))
+        return F.relu(self.norm(at_least_fp32(x)))
+
+
+class DenseBNReLU(nn.Module):
+    """Linear (no bias) → BatchNorm → ReLU over the last axis, fp32 (the
+    pillar encoder's layer). The norm sees x.reshape(-1, C), every row of
+    it: in JAX's too, padded points and padded pillars count in the batch
+    statistics (this is not the sparse middle's masked norm)."""
+
+    def __init__(self, in_features, features):
+        super().__init__()
+        self.linear = nn.Linear(in_features, features, bias=False)
+        self.norm = FlaxBatchNorm1d(features, eps=1e-3, momentum=0.01)
+
+    def forward(self, x):
+        c = self.linear.out_features
+        y = self.norm(self.linear(x).reshape(-1, c))
+        return F.relu(y).reshape(*x.shape[:-1], c)

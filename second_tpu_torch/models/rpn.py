@@ -1,10 +1,10 @@
 """BEV region-proposal network — the port of `second_tpu/models/rpn.py`
 (`RPN`/`RPNV2` trunk and `RPNHead`), in NCHW.
 
-Heads are fp32 whatever the trunk's compute dtype. Their outputs are
-returned in the JAX package's anchor layout: the per-cell head axis is
-[anchor, code], flattened row-major over (H, W, anchor), i.e. box_preds
-[B, H*W*A, code].
+Heads are fp32 whatever the trunk's compute dtype (fp64 in an fp64 model).
+Their outputs are returned in the JAX package's anchor layout: the per-cell
+head axis is [anchor, code], flattened row-major over (H, W, anchor), i.e.
+box_preds [B, H*W*A, code].
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import ConvBlock, DeconvBlock
+from .layers import ConvBlock, DeconvBlock, at_least_fp32
 
 
 class RPNBase(nn.Module):
@@ -87,7 +87,7 @@ class RPNHead(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(B, -1, code)
 
     def forward(self, x):
-        x = x.float()
+        x = at_least_fp32(x)
         out = {"box_preds": self._flatten(self.box(x), self.box_code_size),
                "cls_preds": self._flatten(self.cls(x), self.num_cls)}
         if self.dir is not None:

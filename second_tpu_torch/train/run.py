@@ -13,10 +13,12 @@ Usage:
     python -m second_tpu_torch.train.run evaluate --config_path C \
         --model_dir D --synthetic [--device cpu]
 
-Ported: `model_type="one_stage"` with `synthetic=True` (the scan scenes the
-JAX trainer uses under `--synthetic`). Every other model type, the KITTI
-reader, the anchor-area mask and data-parallel training raise
-`NotImplementedError` naming their ROADMAP item.
+Ported: `model_type="one_stage"` (SECOND car.fhd, PointPillars) with
+`synthetic=True` (the scan scenes the JAX trainer uses under
+`--synthetic`), with the config's anchor-area mask: computed on the host for
+target assignment in training, on the device from the voxelizer's coords in
+evaluation. Every other model type, the KITTI reader and data-parallel
+training raise `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -131,12 +133,6 @@ class Trainer:
         self.device = resolve_device(device)
         self.cfg = apply_config_patches(load_pipeline_config(config_path),
                                         patches)
-        for reader in (self.cfg.train_input_reader,
-                       self.cfg.eval_input_reader):
-            if reader.anchor_area_threshold > 0:
-                raise NotImplementedError(
-                    "the anchor-area mask (ops/anchors_mask.py and the host "
-                    "voxelizer) is not ported yet: ROADMAP item 11")
         self.model_dir = pathlib.Path(model_dir)
         self.model_dir.mkdir(parents=True, exist_ok=True)
         # keep the resolved config beside the run (reference train.py:114-122)
@@ -161,20 +157,28 @@ class Trainer:
             self.cfg.eval_input_reader.max_number_of_voxels
             or self.cfg.train_input_reader.max_number_of_voxels)
         vg = self.cfg.model.voxel_generator
+        # the anchor-area mask, where the config asks for one, prunes the
+        # target assignment on the host (`runtime.points_to_voxel` → SAT)
         self.prep = ExamplePrep(
             self.assigner, self.info.feature_map_size,
             PrepConfig(max_points=max_points,
                        shuffle_points=self.cfg.train_input_reader.shuffle_points,
                        training=True,
+                       anchor_area_threshold=(
+                           self.cfg.train_input_reader.anchor_area_threshold),
                        voxel_size=tuple(vg.voxel_size),
                        pc_range=tuple(vg.point_cloud_range)))
         # eval-time prep: no target assignment (the reference's
-        # prep_pointcloud with training=False)
+        # prep_pointcloud with training=False); the anchor-area mask moves
+        # onto the device, computed from the voxelizer's coords
         self.eval_prep = ExamplePrep(
             self.assigner, self.info.feature_map_size,
             PrepConfig(max_points=max_points, training=False,
+                       anchor_area_threshold=(
+                           self.cfg.eval_input_reader.anchor_area_threshold),
                        voxel_size=tuple(vg.voxel_size),
-                       pc_range=tuple(vg.point_cloud_range)))
+                       pc_range=tuple(vg.point_cloud_range),
+                       device_anchors_mask=True))
         self.synthetic = synthetic
         # scan geometry (not uniform scatter): realistic voxel occupancy
         # and sparse-stage dilation. Scenes carry every class the config's
@@ -197,8 +201,13 @@ class Trainer:
 
         self.total_steps = total_steps or self.cfg.train_config.steps
         self.train_step = make_train_step(self.spec, self.vspec)
+        # the in-graph anchors mask: its SAT corners uploaded once
+        mi = self.eval_prep.sat_mask_info()
+        self._eval_mask_info = None if mi is None else \
+            (torch.as_tensor(mi[0], device=self.device), mi[1], mi[2])
         self.eval_step = make_eval_step(self.spec, self.vspec,
-                                        self.eval_vspec)
+                                        self.eval_vspec,
+                                        mask_info=self._eval_mask_info)
         self.ckpt = CheckpointManager(self.model_dir)
         self.logger = MetricsLogger(self.model_dir)
         self.timer = StageTimer()

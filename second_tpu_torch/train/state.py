@@ -87,11 +87,16 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
 
 
 def make_eval_step(spec: DetectorSpec, vspec: VoxelizeSpec,
-                   eval_vspec: VoxelizeSpec = None):
+                   eval_vspec: VoxelizeSpec = None, mask_info=None):
     """Returns eval_step(state, batch) → detections: the existing `detect`
     (voxelize → forward in eval mode → predict) at the eval voxel capacity
     (`eval_vspec`, the reference evaluates fhd at 40k voxels against 16k in
-    training), with the voxel and stage overflow counts."""
+    training), with the voxel and stage overflow counts.
+
+    `mask_info = (sat_corners [A, 4], grid_hw, threshold)` computes the
+    occupancy anchors mask on the device from the voxelizer's coords
+    (`ops/anchors_mask.py`) where the batch carries no host-computed
+    `anchors_mask`, as JAX's eval step does."""
     vspec = eval_vspec or vspec
 
     def eval_step(state: TrainState, batch: Dict):
@@ -99,7 +104,8 @@ def make_eval_step(spec: DetectorSpec, vspec: VoxelizeSpec,
         net.eval()
         det, vox, preds = detect(net, spec, vspec, batch["points"],
                                  batch["points_mask"], batch["anchors"],
-                                 device=state.device)
+                                 device=state.device, mask_info=mask_info,
+                                 anchors_mask=batch.get("anchors_mask"))
         det["voxel_overflow"] = vox["voxel_overflow"]
         det["stage_overflow"] = preds["stage_overflow"]
         return det

@@ -206,6 +206,13 @@ def compute_statistics_fused(overlaps, gt_data, dt_data, ignored_gt,
     tp = np.zeros(num_t, np.int64)
     fn = np.zeros(num_t, np.int64)
     sim = np.zeros(num_t, np.float64)
+    if det_size == 0:
+        # nothing to match (the loop below takes an argmax over the
+        # detections): every counted gt is missed at every threshold
+        fn += int((ignored_gt == 0).sum())
+        similarity = np.full(num_t, -1.0) if compute_aos \
+            else np.zeros(num_t, np.float64)
+        return tp, np.zeros(num_t, np.int64), fn, similarity
     det_ok = (ignored_det != -1)[None, :]                   # [1, D]
     det_cls0 = (ignored_det == 0)[None, :]
     det_cls1 = (ignored_det == 1)[None, :]

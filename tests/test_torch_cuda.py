@@ -11,17 +11,31 @@ cluster shapes, ties) the kernels branch on, and the sparse conv's
 backward: the weight-gradient kernel against its plain version, the input
 gradient through the transposed rulebook and the weight gradient against
 autograd of the plain gather-GEMM, and the sparse middle's weights getting
-their gradients on the card. This file imports torch and the port only."""
+their gradients on the card. Then PointPillars at full width: the eval
+forward card against CPU, the in-graph anchors mask against the host mask,
+and the kernel launches of its eval forward and train step. This file
+imports torch and the port only."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from second_tpu_torch.config import load_pipeline_config
+from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
+from second_tpu_torch.data.synthetic import SyntheticDataset
+from second_tpu_torch.models import (build_voxelnet, calibrate_norms_, detect,
+                                     init_train_weights_, predict)
 from second_tpu_torch.models.sparse_middle import (DownBlock,
                                                   SparseMiddleFHD, SubMBlock)
 from second_tpu_torch.ops import nms
 from second_tpu_torch.ops import sparse_conv as sp
+from second_tpu_torch.ops.anchors_mask import anchors_mask_from_coords
 from second_tpu_torch.ops.cuda import gather, riou, subm
+from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
+from second_tpu_torch.train.optimizer import build_optimizer
+from second_tpu_torch.train.state import TrainState, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -627,3 +641,146 @@ def test_sparse_middle_weights_get_gradients_on_the_card(dev, dtype):
             torch.testing.assert_close(a, b, rtol=0,
                                        atol=1e-3 * b.abs().max().item())
 
+
+
+# ---------------------------------------------------------- PointPillars
+
+PP_CONFIG = Path(__file__).resolve().parents[1] / "second_tpu_torch" / \
+    "configs" / "pointpillars_car.config"
+
+
+@pytest.fixture(scope="module")
+def pp(dev):
+    """The PointPillars config at full width in fp32, its norm statistics
+    calibrated on the batch on the CPU, the same weights on the card; two
+    LiDAR scans (seeds 0 and 1) prepared for eval with the in-graph mask,
+    20 000 points and 12 000 pillars."""
+    cfg = load_pipeline_config(PP_CONFIG)
+    net_h, spec, info, assigner, _ = build_voxelnet(cfg.model, device="cpu",
+                                                    seed=0)
+    vg = cfg.model.voxel_generator
+    prep = ExamplePrep(assigner, info.feature_map_size, PrepConfig(
+        max_points=20000, training=False, anchor_area_threshold=1,
+        voxel_size=tuple(vg.voxel_size), pc_range=tuple(vg.point_cloud_range),
+        device_anchors_mask=True))
+    scans = [lidar_scan_scene(np.random.default_rng(s),
+                              pc_range=tuple(vg.point_cloud_range),
+                              num_azimuth=512)[0] for s in (0, 1)]
+    rng = np.random.default_rng(0)
+    batch = prep.collate([prep({"points": p}, rng) for p in scans])
+    vspec = VoxelizeSpec.from_config(vg, 12000)
+    vox = device_voxelize(vspec, batch["points"], batch["points_mask"], "cpu")
+    calibrate_norms_(net_h, vox["voxels"], vox["num_points"],
+                     vox["coordinates"], vox["voxel_valid"])
+    net_c = build_voxelnet(cfg.model, device=dev, seed=0)[0]
+    net_c.load_state_dict(net_h.state_dict())
+    return dict(cfg=cfg, spec=spec, vspec=vspec, prep=prep, batch=batch,
+                nets={"cpu": net_h, "cuda": net_c},
+                mask_info=prep.sat_mask_info())
+
+
+def test_pointpillars_forward_card_matches_cpu(dev, pp):
+    """The PointPillars eval forward, fp32, batch 2, with the in-graph
+    anchors mask: voxels and the mask exact card against CPU; the
+    predictions within 1e-3 (cuDNN against oneDNN sums through 14 convs);
+    predict on the card's predictions through the kernels against the
+    plain versions on the CPU: `valid` exact, boxes and scores within
+    1e-4."""
+    outs = {}
+    for d in ("cuda", "cpu"):
+        device = dev if d == "cuda" else torch.device("cpu")
+        outs[d] = detect(pp["nets"][d], pp["spec"], pp["vspec"],
+                         pp["batch"]["points"], pp["batch"]["points_mask"],
+                         pp["batch"]["anchors"], device=device,
+                         mask_info=pp["mask_info"])
+    (det_c, vox_c, preds_c), (det_h, vox_h, preds_h) = outs["cuda"], \
+        outs["cpu"]
+    for k in ("voxels", "num_points", "coordinates", "voxel_valid"):
+        assert torch.equal(vox_c[k].cpu(), vox_h[k]), k
+    assert int(vox_h["voxel_overflow"]) == 0
+    masks = [anchors_mask_from_coords(v["coordinates"], v["voxel_valid"],
+                                      *pp["mask_info"]) for v in (vox_c,
+                                                                  vox_h)]
+    assert torch.equal(masks[0].cpu(), masks[1])
+    for k in ("box_preds", "cls_preds", "dir_cls_preds"):
+        torch.testing.assert_close(preds_c[k].cpu(), preds_h[k], rtol=1e-3,
+                                   atol=1e-3)
+    det_p = predict(pp["spec"], {k: v.cpu() for k, v in preds_c.items()},
+                    pp["batch"]["anchors"], masks[1])
+    valid = det_c["valid"].cpu()
+    assert torch.equal(valid, det_p["valid"]) and valid.any()
+    for k in ("boxes", "scores"):
+        torch.testing.assert_close(det_c[k].cpu()[valid], det_p[k][valid],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_pointpillars_mask_on_the_card_matches_host(dev, pp):
+    """The in-graph mask on the card, the corners uploaded once as the
+    Trainer does, equals the host's `_compute_anchors_mask` of each raw
+    scan where voxel_overflow is 0, and prunes some anchors."""
+    vox = device_voxelize(pp["vspec"], pp["batch"]["points"],
+                          pp["batch"]["points_mask"], dev)
+    assert int(vox["voxel_overflow"]) == 0
+    corners, grid_hw, thr = pp["mask_info"]
+    got = anchors_mask_from_coords(vox["coordinates"], vox["voxel_valid"],
+                                   torch.as_tensor(corners, device=dev),
+                                   grid_hw, thr).cpu().numpy()
+    for b in range(2):
+        pts = pp["batch"]["points"][b][pp["batch"]["points_mask"][b]]
+        host = pp["prep"]._compute_anchors_mask(pts)
+        np.testing.assert_array_equal(got[b], host)
+        assert 0 < host.sum() < host.size
+
+
+def test_pointpillars_path_launches(dev, pp):
+    """One PointPillars eval forward with the in-graph mask launches the row
+    gather 6 times (2 in the voxelizer, 4 in predict and NMS), the NMS
+    overlap and suppression kernels once each, and no sparse-conv kernel;
+    one train step launches the row gather twice (the voxelizer) and no
+    other kernel, and gives the encoder and the first RPN conv finite,
+    nonzero gradients."""
+    counters = [(gather, "launches"), (riou, "launches"),
+                (riou, "launches_suppress"), (subm, "launches"),
+                (subm, "launches_dgrad"), (subm, "launches_wgrad")]
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    detect(pp["nets"]["cuda"], pp["spec"], pp["vspec"], pp["batch"]["points"],
+           pp["batch"]["points_mask"], pp["batch"]["anchors"], device=dev,
+           mask_info=pp["mask_info"])
+    torch.cuda.synchronize()
+    assert [getattr(m, n) for m, n in counters] == [6, 1, 1, 0, 0, 0]
+
+    net = build_voxelnet(pp["cfg"].model, device=dev, seed=0)[0]
+    init_train_weights_(net, 0)
+    opt, sched = build_optimizer(pp["cfg"].train_config.optimizer,
+                                 pp["cfg"].train_config.steps,
+                                 net.parameters())
+    state = TrainState(net, opt, 0, sched)
+    prep = ExamplePrep(pp["prep"]._assigner, (1, 248, 216), PrepConfig(
+        max_points=20000, training=True, anchor_area_threshold=1,
+        voxel_size=pp["vspec"].voxel_size,
+        pc_range=pp["vspec"].point_cloud_range))
+    ds = SyntheticDataset(2, seed=1, pc_range=pp["vspec"].point_cloud_range,
+                          scan=True)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in prep.collate(
+        [prep(ds[i], rng) for i in range(2)]).items() if k != "image_idx"}
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    grads = {}
+    step_opt = opt.step
+
+    def recording_step(count):
+        grads.update({n: p.grad.clone() for n, p in net.named_parameters()})
+        return step_opt(count)
+    opt.step = recording_step
+    _, metrics = make_train_step(pp["spec"], VoxelizeSpec.from_config(
+        pp["cfg"].model.voxel_generator, 12000, shuffle_overflow=True))(
+            state, batch)
+    torch.cuda.synchronize()
+    assert [getattr(m, n) for m, n in counters] == [2, 0, 0, 0, 0, 0]
+    assert torch.isfinite(metrics["loss"])
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+    for name in ("vfe.layers.0.linear.weight", "rpn.trunk.convs.0.conv.weight"):
+        assert grads[name].abs().max() > 0, name

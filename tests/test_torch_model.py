@@ -29,6 +29,7 @@ from second_tpu.train.state import device_voxelize as jax_device_voxelize
 from second_tpu.train.state import sum_stage_overflow
 from second_tpu_torch.config import loads_pipeline_config
 from second_tpu_torch.convert import state_dict_from_jax
+from second_tpu_torch.entry import entry
 from second_tpu_torch.models import build_voxelnet, detect, predict
 from second_tpu_torch.models.sparse_middle import _round_cap
 from second_tpu_torch.ops import sparse_conv as sp
@@ -375,7 +376,10 @@ def test_port_imports_nothing_of_jax():
             "second_tpu_torch/train/checkpoint.py",
             "second_tpu_torch/utils/kitti_eval.py",
             "second_tpu_torch/models/losses.py",
-            "second_tpu_torch/runtime/__init__.py"} <= scanned
+            "second_tpu_torch/runtime/__init__.py",
+            "second_tpu_torch/entry.py",
+            "second_tpu_torch/ops/anchors_mask.py",
+            "second_tpu_torch/core/voxelize_np.py"} <= scanned
     bad = []
     for path in PORT_FILES:
         tree = ast.parse(path.read_text(), str(path))
@@ -405,10 +409,18 @@ def test_port_imports_nothing_of_jax():
 
 def test_entry_points_default_to_the_card(slice_run):
     """With no CUDA card, the entry points called without a device raise
-    instead of running on the CPU."""
+    instead of running on the CPU: `build_voxelnet`, the voxelizer, `detect`
+    (with and without the in-graph anchors mask of `ops/anchors_mask.py`)
+    and `entry.entry()`."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     pts, mask, anchors = slice_run["inputs"]
+    corners = np.zeros((anchors.shape[1], 4), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect(slice_run["net"], slice_run["tspec"], slice_run["tvspec"],
+               pts, mask, anchors, mask_info=(corners, (4, 4), 1.0))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_voxelnet(slice_run["tcfg"].model)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -62,8 +62,8 @@ PARAM_ATOL = 2e-6
 STAT_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _config(optimizer=None):
-    cfg = loads_pipeline_config(TINY_SPARSE_PIPELINE)
+def _config(optimizer=None, pipeline=TINY_SPARSE_PIPELINE):
+    cfg = loads_pipeline_config(pipeline)
     if optimizer:
         opt = cfg.train_config.optimizer
         opt.kind = optimizer["kind"]
@@ -95,12 +95,13 @@ def _recording(tx, sink):
                        tx)
 
 
-def _jax_run(mixed, steps, optimizer=None):
-    """JAX: the tiny sparse model from `_random_variables`, `steps` train
-    steps of `make_train_step` on one batch, eagerly. Returns the batch, the
-    initial variables and, per step, the metrics, the gradients and the
-    variables after it."""
-    cfg = _config(optimizer)
+def _jax_run(mixed, steps, optimizer=None, pipeline=TINY_SPARSE_PIPELINE):
+    """JAX: the tiny model of `pipeline` (the sparse one unless another is
+    given) from `_random_variables`, `steps` train steps of
+    `make_train_step` on one batch, eagerly. Returns the batch, the initial
+    variables and, per step, the metrics, the gradients and the variables
+    after it."""
+    cfg = _config(optimizer, pipeline)
     module, spec, info, assigner, _ = jax_build_voxelnet(
         cfg.model, mixed_precision=mixed)
     prep = ExamplePrep(assigner, info.feature_map_size,
@@ -139,11 +140,12 @@ def _jax_run(mixed, steps, optimizer=None):
     return batch, variables, out
 
 
-def _port_run(batch, variables, mixed, steps, optimizer=None):
+def _port_run(batch, variables, mixed, steps, optimizer=None,
+              pipeline=TINY_SPARSE_PIPELINE):
     """The port: the same weights, optimizer and batch through
     `make_train_step`; the gradients recorded as the optimizer receives
     them (before its clip)."""
-    cfg = _config(optimizer)
+    cfg = _config(optimizer, pipeline)
     net, spec, _, _, _ = build_voxelnet(cfg.model, device="cpu",
                                         mixed_precision=mixed)
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
