@@ -46,8 +46,10 @@ Phases, one line each (any failure ends the run with a non-zero exit):
      the input gradient (the gather-GEMM on the transposed rulebook) and of
      the weight gradient; each is held against its plain version and timed
      like the forward convs (event and device ms, bound, one library call:
-     gather + torch.bmm), and each conv's backward is held against autograd
-     of the plain gather-GEMM;
+     gather + torch.bmm; the call's found taps, their share of the
+     rulebook and the device kernels it ran, one a weight-gradient call),
+     and each conv's backward is held against autograd of the plain
+     gather-GEMM;
    - launches in one counted step: gather-GEMM forward 14 and dX 13, all on
      the tensor-core path, weight gradient 14 on the tensor-core path; every
      sparse weight's gradient finite and not all zero; no host sync in a
@@ -72,8 +74,9 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    mask computed on the card from the voxelizer's coords. Every kernel
    call against its plain version (gathers exact; NMS pair counts, bits and
    keep exact); launches: row gather 6, nms_overlap 1, nms_suppress 1, no
-   sparse kernel; the mask and predict without a host sync; frames/s, a
-   split (voxelize, encoder + scatter, RPN, mask + predict) and a profile;
+   sparse kernel; the mask and predict without a host sync; frames/s with
+   peak memory, a split (voxelize, encoder + scatter, RPN, mask + predict)
+   and a profile;
    the mask against the host SAT of the same voxel coords, predict and NMS
    over the 4 examples and one fp32 example card against CPU.
 9. pp train: the PointPillars train step (the config's batch 2 of
@@ -172,11 +175,13 @@ PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
 PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train")
 
 # the PointPillars train step's reference, card against CPU. Its fp32
-# gradients are ill-conditioned (batch-norm backward sums that cancel
-# through a 16-conv trunk, and the reference encoder's cluster offsets of
-# 1e4-1e5): the CPU's own fp32 gradients lie up to 2% of their scale from
-# the fp64 ones (one example, measured beside an H100), and which tensor
-# comes out accurate depends on the summation order, so no fp32
+# gradients are ill-conditioned: a handful of ReLU inputs lie within fp32
+# rounding of zero, so their sign, and whether their gradient passes,
+# depends on the summation order (the forward agrees with fp64 to 1e-6 and
+# replaying the fp64 ReLU masks brings every fp32 gradient within 1e-4:
+# tests/test_torch_pointpillars_train.py). The CPU's own fp32 gradients lie
+# up to 2% of their scale from the fp64 ones (one example), and which
+# tensor comes out accurate depends on the summation order, so no fp32
 # implementation meets the fhd phase's 1e-3 against another. The same
 # function is held in fp64, card against CPU, on the same code path: the
 # loss 1e-12 relative, every gradient within 1e-9 of its scale (fp64 sums
@@ -327,6 +332,7 @@ class DeviceTimer:
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.int16, device=device)
         self.flush_name = None
+        self.kernels = []
 
     def _kernels(self, run):
         from torch.profiler import ProfilerActivity, profile
@@ -338,6 +344,8 @@ class DeviceTimer:
                       if e.device_type == torch.autograd.DeviceType.CUDA)
 
     def __call__(self, fns, reps=5):
+        """The median device ms of each callable; the median count of device
+        kernels a run of each is left in `self.kernels`."""
         if self.flush_name is None:
             names = {n for _, _, n in
                      self._kernels(lambda: self.flush.fill_(1))}
@@ -361,13 +369,15 @@ class DeviceTimer:
         # a dozen sessions of a run); it is taken again, at most RETRIES
         # times
         for attempt in range(self.RETRIES + 1):
-            runs, seen = [], 0
+            runs, counts, seen = [], [], 0
             for start, end, name in self._kernels(run):
                 seen += 1
                 if name == self.flush_name:
                     runs.append(0.0)
+                    counts.append(0)
                 elif runs:
                     runs[-1] += (end - start) / 1e3
+                    counts[-1] += 1
             if len(runs) >= n and not any(runs[-n - 1:-n]):
                 break
             say(f"device timer: session {attempt + 1} traced {seen} "
@@ -377,7 +387,9 @@ class DeviceTimer:
             fail(f"device timer: {len(runs)} flushes for {len(fns)} x "
                  f"{reps} runs after {self.PAD} leading ones, "
                  f"{self.RETRIES + 1} sessions")
-        runs = runs[-n:]
+        runs, counts = runs[-n:], counts[-n:]
+        self.kernels = [statistics.median(counts[i * reps:(i + 1) * reps])
+                        for i in range(len(fns))]
         return [statistics.median(runs[i * reps:(i + 1) * reps])
                 for i in range(len(fns))]
 
@@ -879,9 +891,12 @@ def run(dev, out=None):
     secs = time.perf_counter() - t0
     say(f"build: {sorted(logs)} in {secs:.2f} s")
     for name, log in sorted(logs.items()):
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()[:48]
+            elif "registers" in line or "spill" in line:
+                say(f"  ptxas {name} {fn}: {line.strip()}")
     report["build_s"] = secs
     report["ptxas"] = logs
 
@@ -1288,10 +1303,11 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
                  f"{err:.3g} against {tol:.3g}")
         bs, os_ = bound(*args)
         B, K, Q = args[1].shape
+        n_found = int(args[2].sum())
         row = dict(call=i, dtype=str(args[0].dtype), B=B, K=K, Q=Q,
                    N=args[0].shape[1], C=args[0].shape[2],
                    D=got.shape[-1], max_abs_err=err, max_rel_err=rel,
-                   found=int(args[2].sum()),
+                   found=n_found, found_density=n_found / max(B * K * Q, 1),
                    ms=timer(lambda: kernel(*args), 10),
                    plain_ms=timer(lambda: plain(*args), 3),
                    library_ms=timer(lambda: library(*args), 3),
@@ -1303,21 +1319,30 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
         agg["err"] = max(agg["err"], err)
         rows.append(row)
     kernel_dev = dtimer([lambda a=a: kernel(*a) for a, _ in calls])
+    kernels_a_call = dtimer.kernels
     library_dev = dtimer([lambda a=a: library(*a) for a, _ in calls])
-    for row, kd, ld in zip(rows, kernel_dev, library_dev):
+    agg["found"], agg["device_kernels"] = 0, 0
+    for row, kd, ld, nk in zip(rows, kernel_dev, library_dev,
+                               kernels_a_call):
         row["device_ms"], row["library_device_ms"] = kd, ld
+        row["device_kernels"] = nk
         agg["device_ms"] += kd
         agg["library_device_ms"] += ld
+        agg["found"] += row["found"]
+        agg["device_kernels"] += nk
         say(f"{name} {row['call']:2d} {row['dtype'][6:]:8s} B={row['B']} "
             f"N={row['N']} Q={row['Q']} K={row['K']} {row['C']}->"
-            f"{row['D']}: err {row['max_abs_err']:.2e} rel "
-            f"{row['max_rel_err']:.2e}  kernel {row['ms']:.4f} ms (device "
-            f"{kd:.4f})  plain {row['plain_ms']:.4f} ms  library "
-            f"{row['library_ms']:.4f} ms (device {ld:.4f})  bound "
-            f"{row['bound_ms']:.4f} ms")
+            f"{row['D']}: found {row['found']} ({row['found_density']:.4f} "
+            f"of the taps), {nk:g} device kernels; err "
+            f"{row['max_abs_err']:.2e} rel {row['max_rel_err']:.2e}  kernel "
+            f"{row['ms']:.4f} ms (device {kd:.4f})  plain "
+            f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms "
+            f"(device {ld:.4f})  bound {row['bound_ms']:.4f} ms")
     detail.extend(rows)
-    say(f"{name}: {len(calls)} calls; kernel {agg['ms']:.4f} ms (device "
-        f"{agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms  library "
+    say(f"{name}: {len(calls)} calls, {agg['found']} found taps, "
+        f"{agg['device_kernels']:g} device kernels; kernel {agg['ms']:.4f} "
+        f"ms (device {agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms  "
+        f"library "
         f"{agg['library_ms']:.4f} ms (device "
         f"{agg['library_device_ms']:.4f})  bound "
         f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms")
@@ -1473,6 +1498,10 @@ def run_train(cfg, dev, timer, dtimer):
             subm.gather_gemm_wgrad_plain, wgrad_library, wgrad_bound, timer,
             dtimer, detail["wgrad"]),
     }
+    # one launch a call: the partials are summed in the same launch
+    if aggs["sparse_wgrad"]["device_kernels"] != SPARSE_CONVS:
+        fail(f"the weight gradient ran {aggs['sparse_wgrad']['device_kernels']}"
+             f" device kernels over {SPARSE_CONVS} calls, expected one a call")
     report["calls"] = detail
     report["conv_backward_worst"] = check_conv_backward(
         calls["gather_gemm"], calls["sparse_wgrad"])
@@ -1775,6 +1804,7 @@ def run_pp_eval(dev, timer, dtimer):
         f"detections {n_valid}")
 
     times = []
+    torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(TIMED_FORWARDS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1782,6 +1812,7 @@ def run_pp_eval(dev, timer, dtimer):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev)
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1805,11 +1836,12 @@ def run_pp_eval(dev, timer, dtimer):
     stages["mask_predict_ms"] = 1e3 * (time.perf_counter() - t0)
     report["forward"] = dict(
         batch=PP_BATCH, median_s=med, frames_per_s=PP_BATCH / med,
-        times_s=times, peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
-        valid=n_valid, launches=counts, **stages)
+        times_s=times, peak_mem_bytes=peak, valid=n_valid, launches=counts,
+        **stages)
     say(f"pp frames/s {PP_BATCH / med:.3f} (median {1e3 * med:.2f} ms of "
         f"{TIMED_FORWARDS} batch-{PP_BATCH} forwards, "
-        f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}; one split: "
+        f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; one split: "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + ")")
     report["profile"] = profile_forward(forward, med, "PointPillars forward")
 

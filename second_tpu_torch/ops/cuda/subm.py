@@ -52,24 +52,39 @@ launches_wgrad_fma = 0
 
 # the tensor-core kernel takes at most this many taps (one vote bit each)
 MAX_TAPS_MMA = 32
-# the weight-gradient kernels walk a block's rows in stages of this many
-WGRAD_STAGE = 128
-# weight-gradient blocks to aim for, per SM: each block owns (tap, chunk)
-WGRAD_BLOCKS_PER_SM = 4
+# the weight-gradient kernel scans a block's rows in windows of this many
+WGRAD_WINDOW = 2048
+# weight-gradient blocks to aim for, per SM: two waves of the three blocks
+# of the tensor-core path that fit on an SM (72 KB of shared memory, 256
+# threads). Each block owns (tap, chunk); some taps find many more rows
+# than others, so the chunks are small enough that the card's block
+# scheduler evens the load, and no smaller: each chunk adds a partial to
+# its tap's sum. Measured best on the fhd train step
+# (scripts/torch_wgrad_chunks.py)
+WGRAD_BLOCKS_PER_SM = 6
+# at most this many chunks a tap (the partials a tap's sum reads)
+WGRAD_MAX_CHUNKS = 64
+# the partials of this many consecutive chunks are summed first, then the
+# groups' sums (the kernel's GROUP)
+WGRAD_GROUP = 8
 
 # feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, D, stream
 _MMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # feat, tap_idx, found, w, out, B, N, Q, K, C, D, stream
 _FMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# mma, feat, tap_idx, found, dout, partial, used, dw, B, N, Q, K, C, D,
-# chunk_rows, chunks, stream
-_WGRAD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
+# mma, feat, tap_idx, found, dout, partial, used, gpartial, gused, counter,
+# dw, B, N, Q, K, C, D, chunk_rows, chunks, stream
+_WGRAD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + \
     [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # the C launch functions, resolved at their first launch
 _mma_launch = None
 _fma_launch = None
 _wgrad_launch = None
 _sm_count: dict = {}
+# the weight-gradient kernel's tickets (a group's and a tap's), int32 zeros,
+# by (device, stream): the kernel leaves them 0, and calls on one stream
+# run in order
+_wgrad_counters: dict = {}
 
 
 def _resolve_mma():
@@ -279,22 +294,35 @@ def gather_gemm(features, tap_idx, found, weights):
 
 def wgrad_chunks(M: int, K: int, sms: int):
     """(chunk_rows, chunks): each weight-gradient block owns one tap and
-    `chunk_rows` (a multiple of WGRAD_STAGE) of the M batch-flattened rows,
-    sized so that the K x chunks blocks come to about WGRAD_BLOCKS_PER_SM a
-    card's SM. Depends on the shapes and the card only, so the sums run in
-    the same order every time."""
-    stages = max(1, -(-M // WGRAD_STAGE))
-    want = max(1, -(-WGRAD_BLOCKS_PER_SM * sms // K))
-    per_chunk = -(-stages // want)
-    return per_chunk * WGRAD_STAGE, -(-stages // per_chunk)
+    `chunk_rows` (a multiple of 16: the kernel reads found bytes 8 at a
+    time) of the M batch-flattened rows, sized so that the K x chunks blocks
+    come to WGRAD_BLOCKS_PER_SM on each of the card's SMs, with at most
+    WGRAD_MAX_CHUNKS chunks a tap. Depends on the shapes and the card only,
+    so the sums run in the same order every time."""
+    want = max(1, min(WGRAD_MAX_CHUNKS, WGRAD_BLOCKS_PER_SM * sms // K))
+    rows = -(-max(1, -(-M // want)) // 16) * 16
+    return rows, max(1, -(-M // rows))
+
+
+def _counters(dev, n: int):
+    """The ticket counters of the weight-gradient kernel on `dev`'s current
+    stream: int32 zeros, at least n of them."""
+    key = (dev.index, stream_ptr(dev))
+    counter = _wgrad_counters.get(key)
+    if counter is None or counter.numel() < n:
+        counter = _wgrad_counters[key] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=dev)
+    return counter
 
 
 def sparse_wgrad(features, tap_idx, found, grad_out):
     """`gather_gemm_wgrad_plain` semantics; `csrc/subm_grad.cu` for CUDA
-    tensors: bf16 features with bf16 grad_out on tensor cores, fp32 with
-    fp32 on CUDA cores. Each block writes a partial [C, D] sum of its (tap,
-    chunk) and a second launch sums the partials in chunk order, so the
-    result is the same bits on every run."""
+    tensors, one launch a call: bf16 features with bf16 grad_out on tensor
+    cores, fp32 with fp32 on CUDA cores. Each block compacts the found rows
+    of its (tap, chunk) and writes a partial [C, D] sum; the last block of
+    each group of WGRAD_GROUP chunks sums the group's partials in chunk
+    order, and the last group of each tap the groups' sums in group order,
+    so the result is the same bits on every run."""
     dev = features.device
     if dev.type == "cpu":
         return gather_gemm_wgrad_plain(features, tap_idx, found, grad_out)
@@ -316,8 +344,11 @@ def sparse_wgrad(features, tap_idx, found, grad_out):
         sms = _sm_count[dev.index] = \
             torch.cuda.get_device_properties(dev).multi_processor_count
     chunk_rows, chunks = wgrad_chunks(M, K, sms)
+    groups = -(-chunks // WGRAD_GROUP)
     partial = torch.empty((K, chunks, C, D), dtype=torch.float32, device=dev)
-    used = torch.empty((K, chunks), dtype=torch.uint8, device=dev)
+    used = torch.empty((K, chunks), dtype=torch.int32, device=dev)
+    gpartial = torch.empty((K, groups, C, D), dtype=torch.float32, device=dev)
+    gused = torch.empty((K, groups), dtype=torch.int32, device=dev)
     features = features.contiguous()
     grad_out = grad_out.contiguous()
     tap_idx = tap_idx.to(torch.int32).contiguous()
@@ -326,8 +357,9 @@ def sparse_wgrad(features, tap_idx, found, grad_out):
     rc = (_wgrad_launch or _resolve_wgrad())(
         int(mma), features.data_ptr(), tap_idx.data_ptr(), found.data_ptr(),
         grad_out.data_ptr(), partial.data_ptr(), used.data_ptr(),
-        dw.data_ptr(), B, N, Q, K, C, D, chunk_rows, chunks,
-        stream_ptr(dev))
+        gpartial.data_ptr(), gused.data_ptr(),
+        _counters(dev, K * (groups + 1)).data_ptr(), dw.data_ptr(), B, N, Q,
+        K, C, D, chunk_rows, chunks, stream_ptr(dev))
     if rc:
         check("subm_grad", rc)
     global launches_wgrad, launches_wgrad_mma, launches_wgrad_fma

@@ -448,8 +448,9 @@ def _wgrad_case(dev, dtype, B, N, Q, K, C, D, fill, seed=20):
 def _run_wgrad(feats, tap_idx, found, dout):
     """The weight-gradient kernel against its plain version: fp32 sums of
     the same products (exact for bf16 operands) in another order, within
-    1e-4 of the largest entry; the path by dtype, and the same bits on a
-    second run (partials summed in a fixed order)."""
+    1e-4 of the largest entry (GRAD_KERNEL_TOL); the path by dtype, one
+    counted launch a call, the same bits on a second run (partials summed in
+    a fixed order), and the per-tap ticket counters left at 0."""
     counts = (subm.launches_wgrad, subm.launches_wgrad_mma,
               subm.launches_wgrad_fma)
     got = subm.sparse_wgrad(feats, tap_idx, found, dout)
@@ -465,6 +466,7 @@ def _run_wgrad(feats, tap_idx, found, dout):
     assert (subm.launches_wgrad, subm.launches_wgrad_mma,
             subm.launches_wgrad_fma) == \
         (counts[0] + 2, counts[1] + 2 * mma, counts[2] + 2 * (not mma))
+    assert not any(c.any() for c in subm._wgrad_counters.values())
     return got, want
 
 
@@ -473,7 +475,7 @@ def _run_wgrad(feats, tap_idx, found, dout):
 @pytest.mark.parametrize("D", [4, 16, 32, 64])
 def test_sparse_wgrad_matches_plain(dev, dtype, C, D):
     """Every width pair of {4, 16, 32, 64}, at an fhd-like fill (5% of the
-    taps found). Q = 400: the 128-row stages cross from one example into
+    taps found). Q = 400: the blocks' row ranges cross from one example into
     the next."""
     _run_wgrad(*_wgrad_case(dev, dtype, 3, 350, 400, 27, C, D, 0.05))
 
@@ -487,8 +489,68 @@ def test_sparse_wgrad_odd_widths(dev, dtype, K, C, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 27])
+@pytest.mark.parametrize("C", [1, 4, 16, 17, 32, 64])
+@pytest.mark.parametrize("D", [1, 4, 16, 17, 32, 64])
+def test_sparse_wgrad_widths_and_taps(dev, dtype, K, C, D):
+    """C, D in {1, 4, 16, 17, 32, 64} and K in {1, 27}: every copy width
+    (16, 8, 4 bytes, element by element), every channel split of the warps,
+    padded tiles. Q = 1001 is no multiple of 16, so the found bytes of an
+    example start off the 16-byte grid (the byte-by-byte scan)."""
+    _run_wgrad(*_wgrad_case(dev, dtype, 2, 500, 1001, K, C, D, 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fill", [0.0, 1e-3, 0.04, 0.15, 1.0])
+def test_sparse_wgrad_found_densities(dev, dtype, fill):
+    """Found densities from none (every block writes used = 0 and the last
+    one writes zeros) through 0.1% (most tiles of a handful of rows) and the
+    fhd train step's range to every tap found (full tiles, a whole window
+    listed), at the main path's widest conv."""
+    feats, tap_idx, found, dout = _wgrad_case(dev, dtype, 4, 3000, 4096, 27,
+                                              64, 64, fill)
+    got, _ = _run_wgrad(feats, tap_idx, found, dout)
+    if fill == 0.0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_wgrad_one_heavy_block(dev, dtype):
+    """Every tap found across one block's row range and nowhere else: one
+    block of each tap does all the work and the others end at their scan;
+    then one tap found everywhere and the other 26 nowhere."""
+    B, N, Q, K = 2, 4000, 20_000, 27
+    feats, tap_idx, found, dout = _wgrad_case(dev, dtype, B, N, Q, K, 32, 64,
+                                              0.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk_rows, chunks = subm.wgrad_chunks(B * Q, K, sms)
+    assert chunks > 4
+    flat = found.permute(1, 0, 2).reshape(K, B * Q)
+    flat[:, 3 * chunk_rows:4 * chunk_rows] = True
+    found = flat.reshape(K, B, Q).permute(1, 0, 2).contiguous()
+    got, _ = _run_wgrad(feats, tap_idx, found, dout)
+    assert (got.abs().amax((1, 2)) > 0).all()
+    found = torch.zeros_like(found)
+    found[:, 5] = True
+    got, _ = _run_wgrad(feats, tap_idx, found, dout)
+    assert got[5].abs().max() > 0
+    assert not got[:5].any() and not got[6:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_wgrad_single_chunk(dev, dtype):
+    """So few rows that each tap has one block, which writes dW itself (no
+    partials, no ticket)."""
+    feats, tap_idx, found, dout = _wgrad_case(dev, dtype, 1, 40, 10, 27, 16,
+                                              32, 0.5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert subm.wgrad_chunks(10, 27, sms)[1] == 1
+    _run_wgrad(feats, tap_idx, found, dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sparse_wgrad_empty_taps(dev, dtype):
-    """No tap found anywhere (every block ends at its vote: zeros), and
+    """No tap found anywhere (every block ends at its scan: zeros), and
     half of the taps never found (their dW rows zero)."""
     feats, tap_idx, found, dout = _wgrad_case(dev, dtype, 2, 200, 300, 27,
                                               16, 32, 0.0)
@@ -502,15 +564,33 @@ def test_sparse_wgrad_empty_taps(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sparse_wgrad_chunks_of_many_stages(dev, dtype):
-    """M = 40 000 rows with 3 taps: each block walks several 128-row stages
-    (`wgrad_chunks`), and chunks cross the example boundary at 20 000."""
-    B, Q, K = 2, 20_000, 3
+def test_sparse_wgrad_chunks_of_many_stages(dev, dtype, monkeypatch):
+    """One wave of one block an SM: each block walks several 2048-row
+    windows of its chunk (`wgrad_chunks`), and a chunk and its windows cross
+    the example boundary at 19 000."""
+    monkeypatch.setattr(subm, "WGRAD_BLOCKS_PER_SM", 1)
+    B, Q, K = 2, 19_000, 27
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chunk_rows, chunks = subm.wgrad_chunks(B * Q, K, sms)
-    assert chunk_rows > subm.WGRAD_STAGE and chunks * chunk_rows >= B * Q
-    assert (Q % chunk_rows) != 0
+    assert chunk_rows > subm.WGRAD_WINDOW and chunks * chunk_rows >= B * Q
+    assert any(c * chunk_rows < Q < (c + 1) * chunk_rows
+               for c in range(chunks))
     _run_wgrad(*_wgrad_case(dev, dtype, B, 5000, Q, K, 32, 64, 0.1))
+
+
+def test_sparse_wgrad_runs_without_host_sync(dev):
+    """The weight gradient enqueues its launch and syncs nothing (the train
+    step is gated on this): torch's sync debug mode raises on a
+    synchronising call."""
+    args = _wgrad_case(dev, torch.bfloat16, 4, 2000, 3000, 27, 32, 32, 0.1)
+    subm.sparse_wgrad(*args)                 # built, loaded, counters made
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        subm.sparse_wgrad(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def _active_set(dev, B, N, grid, seed):

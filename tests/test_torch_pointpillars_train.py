@@ -5,9 +5,11 @@ held to JAX's `make_train_step` run eagerly (the loss, every gradient,
 every parameter and the encoder's and the RPN's batch statistics); one step
 under the config's one-cycle AdamW, compared where the gradient's sign is
 settled; the eval step's in-graph anchors mask against the host mask; and
-the `Trainer` with the config's anchor-area mask in both readers; and the
-port's KITTI evaluation of frames without detections. Why the JAX step
-runs eagerly and why SGD for three steps: see `test_torch_train.py`."""
+the `Trainer` with the config's anchor-area mask in both readers; the
+port's KITTI evaluation of frames without detections; and where the fp32
+train step of the published config loses precision against fp64 (the ReLU
+derivative at pre-activations within fp32 rounding of zero). Why the JAX
+step runs eagerly and why SGD for three steps: see `test_torch_train.py`."""
 
 import json
 import pickle
@@ -20,13 +22,16 @@ from second_tpu.testing import TINY_PIPELINE, tiny_scene_kwargs
 from second_tpu_torch.config import loads_pipeline_config
 from second_tpu_torch.convert import grads_from_jax, state_dict_from_jax
 from second_tpu_torch.data import ExamplePrep, PrepConfig, sample_scene
-from second_tpu_torch.models import build_voxelnet, calibrate_norms_
+from second_tpu_torch.data.synthetic import SyntheticDataset
+from second_tpu_torch.models import (build_voxelnet, calibrate_norms_,
+                                     compute_loss, init_train_weights_)
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.utils import kitti_eval
 from second_tpu_torch.train.run import (Trainer,
                                         _synthetic_lidar_to_camera_annos)
 from second_tpu_torch.train.state import TrainState, make_eval_step
 
+from test_torch_pointpillars import _quarter_config
 from test_torch_train import (GRAD_TOL, LOSS_RTOL, PARAM_ATOL, SGD_PATCH,
                               STAT_TOL, STEPS, _jax_run, _port_run)
 from test_torch_trainer import TRAINER_PATCHES
@@ -246,3 +251,71 @@ def test_kitti_eval_takes_frames_without_detections():
     text, detail = kitti_eval.get_official_eval_result(
         [gt, gt], [empty, found], ["Car"])
     assert "Car" in text and detail
+
+
+def _relu_kink_step(dtype, monkeypatch, masks=None, record=None):
+    """One train-mode forward and backward of the published PointPillars
+    config (cropped to a quarter of its grid) in `dtype` on one synthetic
+    scan, from flax's initialisers (seed 0): the loss and every parameter's
+    gradient, in fp64. Every ReLU's mask (x > 0) is appended to `record`;
+    with `masks`, each ReLU multiplies by the given mask instead."""
+    cfg = loads_pipeline_config(_quarter_config())
+    vg, reader = cfg.model.voxel_generator, cfg.train_input_reader
+    net, spec, info, assigner, _ = build_voxelnet(
+        cfg.model, device="cpu", mixed_precision=False, seed=0)
+    init_train_weights_(net, 0)
+    net.to(dtype).train()
+    prep = ExamplePrep(assigner, info.feature_map_size, PrepConfig(
+        max_points=20000, training=True, shuffle_points=reader.shuffle_points,
+        anchor_area_threshold=reader.anchor_area_threshold,
+        voxel_size=tuple(vg.voxel_size), pc_range=tuple(vg.point_cloud_range)))
+    scan = SyntheticDataset(1, seed=1, pc_range=tuple(vg.point_cloud_range),
+                            scan=True)[0]
+    batch = {k: torch.as_tensor(v) for k, v in prep.collate(
+        [prep(scan, np.random.default_rng(0))]).items() if k != "image_idx"}
+    vspec = VoxelizeSpec.from_config(vg, reader.max_number_of_voxels,
+                                     shuffle_overflow=True)
+    vox = device_voxelize(vspec, batch["points"], batch["points_mask"], "cpu")
+    relu, replay = torch.nn.functional.relu, iter(masks or ())
+
+    def recording_relu(x, inplace=False):
+        record.append(x.detach() > 0)
+        return x * next(replay).to(x.dtype) if masks else relu(x)
+    monkeypatch.setattr(torch.nn.functional, "relu", recording_relu)
+    preds = net(vox["voxels"].to(dtype), vox["num_points"],
+                vox["coordinates"], vox["voxel_valid"])
+    loss = compute_loss(spec, preds, batch["labels"], batch["reg_targets"],
+                        batch["anchors"].to(dtype))["loss"]
+    loss.backward()
+    monkeypatch.setattr(torch.nn.functional, "relu", relu)
+    return float(loss.detach()), {n: p.grad.double() for n, p in
+                                  net.named_parameters()}
+
+
+def test_pointpillars_fp32_step_loses_precision_at_relu_kinks(monkeypatch):
+    """Where the fp32 PointPillars train step loses precision (ROADMAP §3,
+    F2). The published config (64-filter pillar encoder, 3-stage RPN, a
+    quarter of its grid, one synthetic scan) in fp32 against fp64 from the
+    same weights: the loss agrees within 1e-7 relative, yet the gradients
+    differ by more than 1e-2 of their tensor's scale. The cause is a
+    handful of ReLU inputs (fewer than 20 of over 3e7) whose sign differs
+    between fp32 and fp64, each a pre-activation within fp32 rounding of
+    zero: with the fp64 step's ReLU masks replayed, every fp32 gradient is
+    within 1e-4 of fp64. The norms' fast variance and the loss sums over
+    the anchors lose no more than that; the kink is the ReLU's, in JAX's
+    semantics as in the port's, so no fp32 implementation avoids it."""
+    masks64, masks32 = [], []
+    loss64, g64 = _relu_kink_step(torch.float64, monkeypatch, record=masks64)
+    loss32, g32 = _relu_kink_step(torch.float32, monkeypatch, record=masks32)
+    assert abs(loss32 / loss64 - 1) < 1e-7
+    assert len(masks32) == len(masks64) == 20      # encoder + 16 + 3 blocks
+    flips = sum(int((a != b).sum()) for a, b in zip(masks32, masks64))
+    assert 0 < flips < 20 and sum(m.numel() for m in masks32) > 3e7
+
+    def err(g):
+        return max(((g[k] - g64[k]).abs().max() /
+                    g64[k].abs().max()).item() for k in g64)
+    assert err(g32) > 1e-2
+    _, g_replayed = _relu_kink_step(torch.float32, monkeypatch,
+                                    masks=masks64, record=[])
+    assert err(g_replayed) < 1e-4
