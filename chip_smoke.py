@@ -89,12 +89,49 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    profile; one step on one example card against CPU, in fp64 and, against
    the fp64 step, in fp32 (REF64_TOL).
 
+10. mc eval: SECOND multi-class (configs/second_multiclass.config: Car,
+   Pedestrian, Cyclist), the config's eval batch 3 of the fhd bench scene,
+   40 000 voxels, random weights from seed 0, fp32 as the config asks
+   (211 200 anchors an example): every sparse conv and row gather against
+   its plain version, the NMS pair on the 9 (example, class) rows against
+   its plain version and timed, the per-class keep sets card against CPU;
+   launches sparse gather-GEMM 14, nms_overlap 1, nms_suppress 1;
+   voxel_overflow and stage_overflow 0; predict without a host sync and
+   equal to the CPU's on the same predictions; frames/s, split, profile;
+   and frames/s again with cuDNN's TF32 on, torch's default.
+11. mc train: the config's batch 3 of synthetic scans with pedestrians and
+   cyclists (positives of all three classes), 17 000 voxels, bf16, the
+   config's one-cycle AdamW: every forward, dX and weight-gradient call of
+   one step against its plain version and timed (`mc train conv`,
+   `mc train dgrad`, `mc train wgrad` lines); launches 14 / 13 / 14 on the
+   tensor-core path, no host sync, gradients bitwise equal over two runs, the loss
+   halved on one batch; steps/s, peak memory, split, profile.
+12. kitti: a fake KITTI tree (`data/fake_kitti.py`) in a temporary
+   directory, prepared by the port's create-data functions, then
+   `Trainer(synthetic=False)` on second_multiclass.config for 3 steps and
+   an `evaluate`: every kernel call of the three steps (forward, dX and
+   weight-gradient convs, row gathers) and of the eval forwards (convs,
+   row gathers, each forward's NMS pair by `check_nms_pair`) against its
+   plain version; finite losses and the /3d AP keys.
+13. fhd + IoU train: second_car_fhd.config with `use_iou_branch`, batch 4
+   synthetic scans, 16 000 voxels, bf16: every forward, dX and
+   weight-gradient call of one step against its plain version and timed;
+   the 3-D IoU kernel (`d3_iou`) on the step's real call against its plain
+   version (non-finite entries
+   equal), timed, with its bound; launches 14 / 13 / 14 and d3_iou 1; no
+   host sync; the IoU loss finite and nonzero; an eval forward of the
+   model with the IoU head (random weights), its NMS card against CPU, and
+   predict ranked by an IoU free of near-ties card against CPU (the
+   forward's own IoU logits tie over the empty BEV; their tie count is
+   printed).
+
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the four paths (fhd eval, fhd train, pp eval, pp train) and by
-path, the numbers of the fhd calls, and those of the PointPillars calls
-under "pp_eval" / "pp_train". The last line is {"ok": true, "device":
-{...}}. With --out, the per-call detail is written to that JSON file as
-well.
+summed over the eight paths (fhd eval, fhd train, pp eval, pp train, mc
+eval, mc train, kitti, fhd + IoU train) and by path, the numbers of the
+fhd calls (of the IoU-branch step for d3_iou), and those of the
+PointPillars and multi-class calls under "pp_eval" / "pp_train" /
+"mc_eval". The last line is {"ok": true, "device": {...}}. With --out, the
+per-call detail is written to that JSON file as well.
 """
 
 from __future__ import annotations
@@ -123,6 +160,7 @@ from second_tpu_torch.models import (build_voxelnet, calibrate_norms_,
 from second_tpu_torch.ops import cuda as kernels
 from second_tpu_torch.ops import nms as nms_ops
 from second_tpu_torch.ops.anchors_mask import anchors_mask_from_coords
+from second_tpu_torch.ops.box_ops import bev_boxes
 from second_tpu_torch.ops.cuda import gather, riou, subm
 from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
                                               _signed_area, rbbox_to_corners)
@@ -139,20 +177,22 @@ TIMED_FORWARDS = 12
 # CUDA-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# fp32 operations of one rotated-IoU pair, counted from the clip in
-# csrc/riou.cu (a sin, cos, compare or select counts as one operation):
-# the corners of two boxes (2 x (sin, cos, 4 corners x 11)), the clip
-# quad's winding sign (19) and the IoU from the two areas (6); each of the
-# four half-plane clips of an n-vertex polygon with e crossing edges takes
-# 2 + 7n + 13e, and the shoelace of the n >= 3 vertices left 4n + 2.
-RIOU_FIXED_OPS = 92 + 19 + 6
+# fp32 operations of the rotated IoU, counted from the clip in
+# csrc/riou.cu (a sin, cos, compare or select counts as one operation).
+# Once a box: its corners (sin, cos, 4 corners x 11) and, as the clip quad,
+# its winding sign (19). A pair: each of the four half-plane clips of an
+# n-vertex polygon with e crossing edges takes 2 + 7n + 13e, the shoelace
+# of the n >= 3 vertices left 4n + 2 (`riou_ops`), and the 2-D IoU from
+# the two areas 6 (RIOU_IOU_OPS; the 3-D IoU takes D3_EXTRA_OPS instead).
+RIOU_BOX_OPS = 46 + 19
+RIOU_IOU_OPS = 6
 # fp32 operations of one standup-bound test in nms_overlap (csrc/riou.cu),
 # counted the same way: the envelopes' 2 max, 2 min, 2 differences and 2
 # clamps, the product, the area sum, the union, its clamp, the quotient and
-# the comparison; and of each box staged: its corners (46, half of the
-# pair's 92), the envelope's 6 min/max and its area
+# the comparison; and of each box staged: RIOU_BOX_OPS, the envelope's 6
+# min/max and its area
 BOUND_TEST_OPS = 14
-STANDUP_BOX_OPS = 46 + 6 + 1
+STANDUP_BOX_OPS = RIOU_BOX_OPS + 6 + 1
 
 # the train step: batch, voxel capacity (the config's train reader), the
 # overfit run's constant Adam lr and step budget, the timed steps
@@ -170,9 +210,20 @@ PP_BATCH, PP_VOXELS, PP_POINTS = 4, 12000, 20000
 # batch, no sparse conv; of one train step: the voxelizer's two gathers
 PP_EVAL_LAUNCHES = {"sparse_gather_gemm": 0, "row_gather": 6,
                     "rotated_iou": 1, "nms_suppress": 1,
-                    "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0}
+                    "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0,
+                    "d3_iou": 0}
 PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
-PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train")
+
+# SECOND multi-class (configs/second_multiclass.config: Car, Pedestrian,
+# Cyclist, per-class rotated NMS): eval at the config's eval batch (3) and
+# voxel capacity (40 000), train at its train batch (3) and capacity
+# (17 000) in bf16; the timed forwards and steps of these phases
+MC_CONFIG = REPO / "second_tpu_torch" / "configs" / "second_multiclass.config"
+MC_TIMED = 8
+# the fake KITTI tree of the kitti phase: frames, ground clutter points
+KITTI_FRAMES, KITTI_CLUTTER = 6, 20000
+PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
+         "mc_train", "kitti", "fhd_iou_train")
 
 # the PointPillars train step's reference, card against CPU. Its fp32
 # gradients are ill-conditioned: a handful of ReLU inputs lie within fp32
@@ -244,8 +295,25 @@ TRAIN_KERNELS = [
          counter="launches_wgrad", source="second_tpu_torch/csrc/subm_grad.cu",
          replaces="second_tpu/ops/sparse_conv.py:636"),
 ]
+# the IoU branch's kernel: the 3-D rotated IoU of its targets, the Pallas
+# rotated-IoU kernel's geometry extended to 3-D (JAX computes it in XLA)
+IOU_KERNELS = [
+    dict(name="d3_iou", module=riou, fn="d3_iou", counter="launches_d3",
+         source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/rotated_iou.py:204"),
+]
+ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS
+# fp32 operations of one 3-D IoU pair beyond its BEV clip (csrc/riou.cu
+# `d3_iou_kernel`): the two tops, their min, the max of the bottoms, the
+# overlap and its clamp, the product, two volumes (2 x 2), the union and
+# its clamp, and the quotient
+D3_EXTRA_OPS = 15
 # the batched NMS is recorded too: its call is timed whole
 RECORDED = [(k["module"], k["fn"]) for k in KERNELS] + [(nms_ops, "nms")]
+# the multi-class forward: its kernels and its per-class NMS batch (every
+# (example, class) row in one `nms_sorted` call)
+MC_RECORDED = [(k["module"], k["fn"]) for k in KERNELS] + \
+    [(nms_ops, "nms_sorted")]
 RECORDED_TRAIN = [(subm, "gather_gemm")] + \
     [(k["module"], k["fn"]) for k in TRAIN_KERNELS]
 SPARSE_CONVS = 14      # 10 submanifold + 4 strided convs in SpMiddleFHD
@@ -397,9 +465,9 @@ class DeviceTimer:
 # -------------------------------------------------------- the main path
 
 
-def build_inputs(cfg, assigner, info, device):
+def build_inputs(cfg, assigner, info, device, batch_size=BATCH):
     """The bench's fhd input: one LiDAR-scan scene (seed 0, 512 azimuth
-    steps) prepared for eval and repeated BATCH times."""
+    steps) prepared for eval and repeated `batch_size` times."""
     prep = ExamplePrep(assigner, info.feature_map_size,
                        PrepConfig(max_points=MAX_POINTS, training=False))
     pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
@@ -407,7 +475,7 @@ def build_inputs(cfg, assigner, info, device):
     p, b, n = lidar_scan_scene(rng, pc_range=pc_range, num_azimuth=512)
     ex = prep({"points": p, "gt_boxes": b, "gt_names": n, "image_idx": 0},
               rng)
-    batch = prep.collate([ex] * BATCH)
+    batch = prep.collate([ex] * batch_size)
     return [torch.as_tensor(batch[k], device=device)
             for k in ("points", "points_mask", "anchors")]
 
@@ -492,10 +560,11 @@ def conv_occupancy(found):
                 tile128_share=share(128))
 
 
-def riou_ops(boxes1, boxes2, i, j):
-    """fp32 operations that these pairs need (see RIOU_FIXED_OPS): each
-    pair's polygon is clipped as the plain version clips it, and each clip
-    is charged for the vertices it walks and the edges that cross."""
+def riou_ops(boxes1, boxes2, i, j, pair_ops=RIOU_IOU_OPS):
+    """fp32 operations that these pairs need beyond their boxes' own
+    (RIOU_BOX_OPS): each pair's polygon is clipped as the plain version
+    clips it, each clip charged for the vertices it walks and the edges
+    that cross, and `pair_ops` more a pair."""
     q1 = rbbox_to_corners(boxes1)[i.long()]
     q2 = rbbox_to_corners(boxes2)[j.long()]
     P = q1.shape[0]
@@ -503,8 +572,7 @@ def riou_ops(boxes1, boxes2, i, j):
     cnt = torch.full((P,), 4, dtype=torch.int64, device=q1.device)
     s = torch.sign(_signed_area(q2))
     s = torch.where(s == 0, 1.0, s)
-    ops = torch.full((P,), RIOU_FIXED_OPS, dtype=torch.int64,
-                     device=q1.device)
+    ops = torch.full((P,), pair_ops, dtype=torch.int64, device=q1.device)
     slots = torch.arange(8, device=q1.device)
     for k in range(4):
         a, b = q2[:, k], q2[:, (k + 1) % 4]
@@ -689,25 +757,25 @@ def old_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
     return torch.stack(idxs), torch.stack(keeps)
 
 
-def check_riou(calls, timer, dtimer, detail, device, matrix=True):
-    """The batched rotated NMS of the recorded forward: the overlap kernel
-    (`nms_overlap`, the rotated IoU) and the suppression kernel against
-    their plain versions on the same inputs, timed, and the whole NMS
-    against the per-example path it replaced; then, with `matrix`, the
-    dense matrix entry point. Returns the two kernels' aggregates."""
-    if len(calls["nms_overlap"]) != 1 or len(calls["nms_suppress"]) != 1 \
-            or len(calls["nms"]) != 1:
-        fail(f"expected one batched NMS call a forward, recorded "
-             f"{len(calls['nms'])} NMS, {len(calls['nms_overlap'])} "
-             f"overlap and {len(calls['nms_suppress'])} suppression calls")
+def check_nms_pair(calls, timer, dtimer, what="nms"):
+    """The one recorded `nms_overlap` call and the one `nms_suppress` call
+    of a forward against their plain versions on the same inputs: pair
+    counts exact, bits exact but at pairs within RIOU_TOL of the threshold,
+    keep exact (on the kernel's bitmask and along the all-plain chain);
+    timed by events and by the device timer, with their bounds. Returns
+    (overlap aggregate, suppression aggregate, detail)."""
+    if len(calls["nms_overlap"]) != 1 or len(calls["nms_suppress"]) != 1:
+        fail(f"{what}: expected one overlap and one suppression call a "
+             f"forward, recorded {len(calls['nms_overlap'])} and "
+             f"{len(calls['nms_suppress'])}")
     (cand, valid, thr, max_pairs), _ = calls["nms_overlap"][0]
     B, K = valid.shape
     got, count = riou.nms_overlap(cand, valid, thr, max_pairs)
     want, want_count = riou.nms_overlap_plain(cand, valid, thr, max_pairs)
     torch.cuda.synchronize()
     if not torch.equal(count, want_count):
-        fail(f"nms_overlap: pair counts {count.tolist()} against the plain "
-             f"version's {want_count.tolist()}")
+        fail(f"{what} nms_overlap: pair counts {count.tolist()} against the "
+             f"plain version's {want_count.tolist()}")
     diff = riou.unpack_bits(got, K) != riou.unpack_bits(want, K)
     flat = cand.reshape(B * K, 5)
     near = []
@@ -718,25 +786,25 @@ def check_riou(calls, timer, dtimer, detail, device, matrix=True):
                      margin=float(v - thr))
                 for x, y, z, v in zip(b, i, j, iou)]
     for pair in near:
-        say(f"nms_overlap: bit differs at example {pair['b']} pair "
+        say(f"{what} nms_overlap: bit differs at row {pair['b']} pair "
             f"({pair['i']}, {pair['j']}): plain IoU {pair['iou']:.9g}, "
             f"{pair['margin']:+.3g} from the threshold")
     if any(abs(pair["margin"]) > RIOU_TOL for pair in near):
-        fail(f"nms_overlap: a bit differs further than {RIOU_TOL} from the "
-             f"threshold")
+        fail(f"{what} nms_overlap: a bit differs further than {RIOU_TOL} "
+             f"from the threshold")
     keep = riou.nms_suppress(got, valid)
     same_in = riou.nms_suppress_plain(got, valid)
     plain_keep = riou.nms_suppress_plain(want, valid)
     torch.cuda.synchronize()
     if not torch.equal(keep, same_in):
-        fail("nms_suppress: keep differs from the plain version's on the "
-             "same bitmask")
+        fail(f"{what} nms_suppress: keep differs from the plain version's "
+             f"on the same bitmask")
     if not torch.equal(keep, plain_keep):
-        fail("nms_suppress: keep differs from the all-plain chain's")
+        fail(f"{what} nms_suppress: keep differs from the all-plain chain's")
     (sup_over, sup_valid), _ = calls["nms_suppress"][0]
     if not torch.equal(sup_over, got) or not torch.equal(sup_valid, valid):
-        fail("nms_suppress: the recorded call's bitmask is not the overlap "
-             "kernel's")
+        fail(f"{what} nms_suppress: the recorded call's bitmask is not the "
+             f"overlap kernel's")
 
     # bounds, from this run's data: the valid pairs' bound tests, the boxes
     # staged, and the capped pairs' clips; bytes: boxes, valid flags and
@@ -752,16 +820,62 @@ def check_riou(calls, timer, dtimer, detail, device, matrix=True):
     ov = dict(bytes_s=ov_bytes / HBM_BYTES_PER_S,
               ops_s=ops / PEAK_OPS_PER_S[torch.float32])
     sup = dict(bytes_s=sup_bytes / HBM_BYTES_PER_S, ops_s=0.0)
+    dev_ms = dtimer([lambda: riou.nms_overlap(cand, valid, thr, max_pairs),
+                     lambda: riou.nms_suppress(got, valid)])
+    ov.update(ms=timer(lambda: riou.nms_overlap(cand, valid, thr,
+                                                max_pairs), 20),
+              device_ms=dev_ms[0],
+              plain_ms=timer(lambda: riou.nms_overlap_plain(
+                  cand, valid, thr, max_pairs), 5),
+              library_ms=None, library_device_ms=None, err=0.0)
+    sup.update(ms=timer(lambda: riou.nms_suppress(got, valid), 20),
+               device_ms=dev_ms[1],
+               plain_ms=timer(lambda: riou.nms_suppress_plain(got, valid),
+                              5),
+               library_ms=None, library_device_ms=None, err=0.0)
+    detail = dict(
+        B=B, K=K, max_pairs=max_pairs, threshold=thr,
+        pair_count=count.tolist(), clipped=int(pb.numel()),
+        overlaps=int(riou.unpack_bits(got, K).sum()),
+        kept=keep.sum(1).tolist(), near_threshold=near,
+        ops_per_clipped_pair=clip_ops / max(int(pb.numel()), 1),
+        bound_tests=tests,
+        nms_overlap={k: v for k, v in ov.items() if k != "err"},
+        nms_suppress={k: v for k, v in sup.items() if k != "err"})
+    say(f"{what} nms_overlap B={B} K={K} cap={max_pairs}: pair counts "
+        f"{count.tolist()} exact, {int(pb.numel())} pairs clipped "
+        f"({clip_ops / max(int(pb.numel()), 1):.1f} ops a pair), "
+        f"{len(near)} bits differ near the threshold; kernel "
+        f"{ov['ms']:.4f} ms (device {ov['device_ms']:.4f})  plain "
+        f"{ov['plain_ms']:.4f} ms  bound "
+        f"{1e3 * max(ov['bytes_s'], ov['ops_s']):.6f} ms")
+    say(f"{what} nms_suppress: keep exact ({keep.sum(1).tolist()} kept); "
+        f"kernel {sup['ms']:.4f} ms (device {sup['device_ms']:.4f})  plain "
+        f"{sup['plain_ms']:.4f} ms  bound {1e3 * sup['bytes_s']:.6f} ms")
+    return ov, sup, detail
 
+
+def check_riou(calls, timer, dtimer, detail, device, matrix=True):
+    """The batched rotated NMS of the recorded forward: the overlap kernel
+    (`nms_overlap`, the rotated IoU) and the suppression kernel against
+    their plain versions on the same inputs, timed (`check_nms_pair`), each
+    cluster shape of the overlap kernel timed, and the whole NMS against
+    the per-example path it replaced; then, with `matrix`, the dense matrix
+    entry point. Returns the two kernels' aggregates."""
+    if len(calls["nms"]) != 1:
+        fail(f"expected one batched NMS call a forward, recorded "
+             f"{len(calls['nms'])}")
+    ov, sup, pair = check_nms_pair(calls, timer, dtimer)
+    (cand, valid, thr, max_pairs), _ = calls["nms_overlap"][0]
+    B = valid.shape[0]
+    got = riou.nms_overlap(cand, valid, thr, max_pairs)[0]
     nms_args, nms_kwargs = calls["nms"][0]
     new_idx, new_keep = nms_ops.nms(*nms_args, **nms_kwargs)
     old_idx, old_keep = old_nms(*nms_args, **nms_kwargs)
     if not (torch.equal(new_idx, old_idx) and torch.equal(new_keep,
                                                           old_keep)):
         fail("batched NMS differs from the per-example path")
-    fns = [lambda: riou.nms_overlap(cand, valid, thr, max_pairs),
-           lambda: riou.nms_suppress(got, valid),
-           lambda: nms_ops.nms(*nms_args, **nms_kwargs),
+    fns = [lambda: nms_ops.nms(*nms_args, **nms_kwargs),
            lambda: old_nms(*nms_args, **nms_kwargs)]
     fns += [lambda c=c: riou.nms_overlap(cand, valid, thr, max_pairs, c)
             for c in riou.NMS_CLUSTERS]
@@ -770,42 +884,15 @@ def check_riou(calls, timer, dtimer, detail, device, matrix=True):
         if not torch.equal(riou.nms_overlap(cand, valid, thr, max_pairs,
                                             c)[0], got):
             fail(f"nms_overlap: cluster {c} gives another bitmask")
-    cluster_ms = dict(zip(riou.NMS_CLUSTERS, dev_ms[4:]))
-    ov.update(ms=timer(fns[0], 20), device_ms=dev_ms[0],
-              plain_ms=timer(lambda: riou.nms_overlap_plain(
-                  cand, valid, thr, max_pairs), 5),
-              library_ms=None, library_device_ms=None, err=0.0)
-    sup.update(ms=timer(fns[1], 20), device_ms=dev_ms[1],
-               plain_ms=timer(lambda: riou.nms_suppress_plain(got, valid),
-                              5),
-               library_ms=None, library_device_ms=None, err=0.0)
-    whole = dict(ms=timer(fns[2], 20), device_ms=dev_ms[2],
-                 old_ms=timer(fns[3], 10), old_device_ms=dev_ms[3])
+    cluster_ms = dict(zip(riou.NMS_CLUSTERS, dev_ms[2:]))
+    whole = dict(ms=timer(fns[0], 20), device_ms=dev_ms[0],
+                 old_ms=timer(fns[1], 10), old_device_ms=dev_ms[1])
     detail.append(dict(
-        B=B, K=K, max_pairs=max_pairs, threshold=thr,
-        pair_count=count.tolist(), clipped=int(pb.numel()),
-        overlaps=int(riou.unpack_bits(got, K).sum()),
-        kept=keep.sum(1).tolist(), near_threshold=near,
-        ops_per_clipped_pair=clip_ops / max(int(pb.numel()), 1),
-        bound_tests=tests,
-        cluster_device_ms={str(c): v for c, v in cluster_ms.items()},
-        nms_overlap={k: v for k, v in ov.items() if k != "err"},
-        nms_suppress={k: v for k, v in sup.items() if k != "err"},
+        pair, cluster_device_ms={str(c): v for c, v in cluster_ms.items()},
         whole_nms=whole))
-    say(f"nms_overlap B={B} K={K} cap={max_pairs}: pair counts "
-        f"{count.tolist()} exact, {int(pb.numel())} pairs clipped "
-        f"({clip_ops / max(int(pb.numel()), 1):.1f} ops a pair), "
-        f"{len(near)} bits differ near the threshold; kernel "
-        f"{ov['ms']:.4f} ms (device {ov['device_ms']:.4f})  plain "
-        f"{ov['plain_ms']:.4f} ms  bound "
-        f"{1e3 * max(ov['bytes_s'], ov['ops_s']):.6f} ms")
     say("nms_overlap device ms by cluster shape: " + ", ".join(
         f"{c} blocks {v:.4f}" for c, v in cluster_ms.items()) +
         f" (the wrapper's default: {riou.NMS_CLUSTER})")
-    say(f"nms_suppress: keep exact ({keep.sum(1).tolist()} kept); kernel "
-        f"{sup['ms']:.4f} ms (device {sup['device_ms']:.4f})  plain "
-        f"{sup['plain_ms']:.4f} ms  bound "
-        f"{1e3 * sup['bytes_s']:.6f} ms")
     say(f"whole NMS (batch {B}): batched {whole['ms']:.4f} ms (device "
         f"{whole['device_ms']:.4f})  per-example path it replaced "
         f"{whole['old_ms']:.4f} ms (device {whole['old_device_ms']:.4f}); "
@@ -845,7 +932,7 @@ def check_riou(calls, timer, dtimer, detail, device, matrix=True):
 
 def launch_counts():
     return {k["name"]: getattr(k["module"], k["counter"])
-            for k in KERNELS + TRAIN_KERNELS}
+            for k in ALL_KERNELS}
 
 
 def conv_path_counts():
@@ -855,7 +942,7 @@ def conv_path_counts():
 
 
 def reset_counts():
-    for k in KERNELS + TRAIN_KERNELS:
+    for k in ALL_KERNELS:
         setattr(k["module"], k["counter"], 0)
     subm.launches_mma = subm.launches_fma = 0
     subm.launches_wgrad_mma = subm.launches_wgrad_fma = 0
@@ -960,15 +1047,7 @@ def run(dev, out=None):
         fail(f"the eval forward launched a backward kernel: {counts}")
     say(f"row gathers in one forward: {counts['row_gather']}")
     # predict without a host sync: torch raises on a synchronising call
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        predict(spec, preds, anchors)
-    except RuntimeError as e:
-        fail(f"predict synchronised with the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    predict_fails_on_sync(spec, preds, anchors, "fhd eval")
     say("predict: no host sync (torch.cuda.set_sync_debug_mode('error'))")
     report["forward_host_syncs"] = host_syncs(forward)
     say(f"forward: {report['forward_host_syncs']} host syncs in one forward "
@@ -1034,9 +1113,17 @@ def run(dev, out=None):
         dev, timer, dtimer)
     pp_train_aggs, pp_train_counts, report["pp_train"] = run_pp_train(
         dev, timer, dtimer)
+    mc_eval_aggs, mc_eval_counts, report["mc_eval"] = run_mc_eval(
+        dev, timer, dtimer)
+    mc_train_counts, report["mc_train"] = run_mc_train(dev, timer, dtimer)
+    kitti_counts, report["kitti"] = run_kitti(dev, timer, dtimer)
+    aggs["d3_iou"], iou_counts, report["fhd_iou_train"] = run_fhd_iou_train(
+        dev, timer, dtimer)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
-                               pp_train_counts)))
-    path_aggs = {"pp_eval": pp_eval_aggs, "pp_train": pp_train_aggs}
+                               pp_train_counts, mc_eval_counts,
+                               mc_train_counts, kitti_counts, iou_counts)))
+    path_aggs = {"pp_eval": pp_eval_aggs, "pp_train": pp_train_aggs,
+                 "mc_eval": mc_eval_aggs}
 
     def numbers(a):
         return dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
@@ -1047,7 +1134,7 @@ def run(dev, out=None):
                     library_device_ms=a["library_device_ms"])
 
     lines = []
-    for k in KERNELS + TRAIN_KERNELS:
+    for k in ALL_KERNELS:
         name = k["name"]
         line = dict(name=name, route="cuda", source=k["source"],
                     replaces=k["replaces"],
@@ -1111,33 +1198,39 @@ def profile_forward(forward, median_s, what="forward"):
     return out
 
 
-def check_predict_batch(spec, preds, anchors, nms_call, anchors_mask=None,
-                        what="reference"):
-    """predict on the batch's examples and the batched NMS on their
-    candidates, card (kernels) against CPU (plain versions), on the same
-    predictions (and anchors mask)."""
+def check_predict_batch(spec, preds, anchors, nms_call=None,
+                        anchors_mask=None, what="reference"):
+    """predict on the batch's examples, card (kernels) against CPU (plain
+    versions), on the same predictions (and anchors mask): valid and labels
+    exact, boxes and scores within DET_TOL; and, given its recorded call,
+    the batched single-class NMS on the same candidates. Returns the CPU's
+    detections."""
     det_c = predict(spec, preds, anchors, anchors_mask)
     det_h = predict(spec, {k: v.cpu() for k, v in preds.items()},
                     anchors.cpu(), None if anchors_mask is None
                     else anchors_mask.cpu())
     valid = det_c["valid"].cpu()
     n = valid.shape[0]
-    if not torch.equal(valid, det_h["valid"]):
-        fail(f"{what}: predict over {n} examples, valid differs card vs CPU")
+    if not torch.equal(valid, det_h["valid"]) or \
+            not torch.equal(det_c["labels"].cpu(), det_h["labels"]):
+        fail(f"{what}: predict over {n} examples, valid or labels differ "
+             f"card vs CPU")
     for k in ("boxes", "scores"):
         a, b = det_c[k].cpu()[valid], det_h[k][valid]
         if not torch.allclose(a, b, **DET_TOL):
             fail(f"{what}: predict over {n} examples, {k} card vs CPU max "
                  f"abs err {(a - b).abs().max().item():.3g}")
-    args, kwargs = nms_call
-    idx_c, keep_c = nms_ops.nms(*args, **kwargs)
-    idx_h, keep_h = nms_ops.nms(*[a.cpu() for a in args], **kwargs)
-    if not (torch.equal(idx_c.cpu(), idx_h) and
-            torch.equal(keep_c.cpu(), keep_h)):
-        fail(f"{what}: batched NMS indices or keep differ card vs CPU")
-    say(f"{what} ({n} examples, card vs CPU): predict valid equal "
-        f"({valid.sum(1).tolist()} detections), NMS indices and keep "
-        f"equal")
+    if nms_call is not None:
+        args, kwargs = nms_call
+        idx_c, keep_c = nms_ops.nms(*args, **kwargs)
+        idx_h, keep_h = nms_ops.nms(*[a.cpu() for a in args], **kwargs)
+        if not (torch.equal(idx_c.cpu(), idx_h) and
+                torch.equal(keep_c.cpu(), keep_h)):
+            fail(f"{what}: batched NMS indices or keep differ card vs CPU")
+    say(f"{what} ({n} examples, card vs CPU): predict valid and labels equal "
+        f"({valid.sum(1).tolist()} detections)" +
+        (", NMS indices and keep equal" if nms_call is not None else ""))
+    return det_h
 
 
 def check_reference(cfg, vspec, points, mask, anchors, dev, spec4, preds4,
@@ -1198,9 +1291,11 @@ def check_reference(cfg, vspec, points, mask, anchors, dev, spec4, preds4,
 
 def train_inputs(cfg, assigner, info, dev, n, max_points=MAX_POINTS):
     """n synthetic LiDAR scan scenes (`SyntheticDataset(scan=True)`, seed 1:
-    the JAX trainer's --synthetic data) prepared for training (targets
-    assigned under the train reader's anchor-area mask where it sets one,
-    points shuffled as the reader asks), collated, on the card."""
+    the JAX trainer's --synthetic data, with pedestrians and cyclists where
+    the config detects them, as the `Trainer` draws them) prepared for
+    training (targets assigned under the train reader's anchor-area mask
+    where it sets one, points shuffled as the reader asks), collated, on
+    the card."""
     vg = cfg.model.voxel_generator
     reader = cfg.train_input_reader
     prep = ExamplePrep(assigner, info.feature_map_size, PrepConfig(
@@ -1208,8 +1303,14 @@ def train_inputs(cfg, assigner, info, dev, n, max_points=MAX_POINTS):
         shuffle_points=reader.shuffle_points,
         anchor_area_threshold=reader.anchor_area_threshold,
         voxel_size=tuple(vg.voxel_size), pc_range=tuple(vg.point_cloud_range)))
+    cls = set(assigner.classes)
+    cls_kwargs = {}
+    if "Pedestrian" in cls:
+        cls_kwargs["num_peds"] = (1, 6)
+    if "Cyclist" in cls:
+        cls_kwargs["num_cyclists"] = (1, 4)
     ds = SyntheticDataset(n, seed=1, pc_range=tuple(vg.point_cloud_range),
-                          scan=True)
+                          scan=True, **cls_kwargs)
     rng = np.random.default_rng(0)
     batch = prep.collate([prep(ds[i], rng) for i in range(n)])
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
@@ -1283,11 +1384,11 @@ def wgrad_bound(features, tap_idx, found, grad_out):
 
 
 def check_train_calls(name, calls, kernel, plain, library, bound, timer,
-                      dtimer, detail):
+                      dtimer, detail, timed=True):
     """Each recorded call of a train-step kernel against its plain version
-    (within GRAD_KERNEL_TOL of the call's largest entry), timed by events
-    (kernel, plain, library) and by the device timer (kernel, library),
-    with its bound. Returns the aggregate."""
+    (within GRAD_KERNEL_TOL of the call's largest entry) and, if `timed`,
+    timed by events (kernel, plain, library) and by the device timer
+    (kernel, library), with its bound. Returns the aggregate."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
                library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
     rows = []
@@ -1301,14 +1402,18 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
         if not torch.allclose(got, want, atol=tol, rtol=GRAD_KERNEL_TOL):
             fail(f"{name} {i}: kernel disagrees with plain, max abs err "
                  f"{err:.3g} against {tol:.3g}")
-        bs, os_ = bound(*args)
         B, K, Q = args[1].shape
         n_found = int(args[2].sum())
         row = dict(call=i, dtype=str(args[0].dtype), B=B, K=K, Q=Q,
                    N=args[0].shape[1], C=args[0].shape[2],
                    D=got.shape[-1], max_abs_err=err, max_rel_err=rel,
-                   found=n_found, found_density=n_found / max(B * K * Q, 1),
-                   ms=timer(lambda: kernel(*args), 10),
+                   found=n_found, found_density=n_found / max(B * K * Q, 1))
+        agg["err"] = max(agg["err"], err)
+        rows.append(row)
+        if not timed:
+            continue
+        bs, os_ = bound(*args)
+        row.update(ms=timer(lambda: kernel(*args), 10),
                    plain_ms=timer(lambda: plain(*args), 3),
                    library_ms=timer(lambda: library(*args), 3),
                    bound_ms=1e3 * max(bs, os_))
@@ -1316,19 +1421,23 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
             agg[k] += row[k]
         agg["bytes_s"] += bs
         agg["ops_s"] += os_
-        agg["err"] = max(agg["err"], err)
-        rows.append(row)
+    detail.extend(rows)
+    agg["found"] = sum(row["found"] for row in rows)
+    if not timed:
+        say(f"{name}: {len(calls)} calls within {GRAD_KERNEL_TOL} of their "
+            f"plain version's scale (max abs err {agg['err']:.2e}), "
+            f"{agg['found']} found taps")
+        return agg
     kernel_dev = dtimer([lambda a=a: kernel(*a) for a, _ in calls])
     kernels_a_call = dtimer.kernels
     library_dev = dtimer([lambda a=a: library(*a) for a, _ in calls])
-    agg["found"], agg["device_kernels"] = 0, 0
+    agg["device_kernels"] = 0
     for row, kd, ld, nk in zip(rows, kernel_dev, library_dev,
                                kernels_a_call):
         row["device_ms"], row["library_device_ms"] = kd, ld
         row["device_kernels"] = nk
         agg["device_ms"] += kd
         agg["library_device_ms"] += ld
-        agg["found"] += row["found"]
         agg["device_kernels"] += nk
         say(f"{name} {row['call']:2d} {row['dtype'][6:]:8s} B={row['B']} "
             f"N={row['N']} Q={row['Q']} K={row['K']} {row['C']}->"
@@ -1338,7 +1447,6 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
             f"{row['ms']:.4f} ms (device {kd:.4f})  plain "
             f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms "
             f"(device {ld:.4f})  bound {row['bound_ms']:.4f} ms")
-    detail.extend(rows)
     say(f"{name}: {len(calls)} calls, {agg['found']} found taps, "
         f"{agg['device_kernels']:g} device kernels; kernel {agg['ms']:.4f} "
         f"ms (device {agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms  "
@@ -1347,6 +1455,28 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
         f"{agg['library_device_ms']:.4f})  bound "
         f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms")
     return agg
+
+
+def check_step_calls(what, calls, timer, dtimer, timed=True):
+    """The recorded calls of a train step (RECORDED_TRAIN): every forward,
+    dX and weight-gradient call against its plain version
+    (`check_train_calls`). Returns (the dX and weight-gradient aggregates,
+    the per-call detail)."""
+    detail = {"forward": [], "dgrad": [], "wgrad": []}
+    check_train_calls(f"{what} conv", calls["gather_gemm"], subm.gather_gemm,
+                      subm.gather_gemm_plain, conv_library, conv_bound,
+                      timer, dtimer, detail["forward"], timed)
+    aggs = {
+        "sparse_gather_gemm_dgrad": check_train_calls(
+            f"{what} dgrad", calls["gather_gemm_dgrad"],
+            subm.gather_gemm_dgrad, subm.gather_gemm_plain, conv_library,
+            conv_bound, timer, dtimer, detail["dgrad"], timed),
+        "sparse_wgrad": check_train_calls(
+            f"{what} wgrad", calls["sparse_wgrad"], subm.sparse_wgrad,
+            subm.gather_gemm_wgrad_plain, wgrad_library, wgrad_bound, timer,
+            dtimer, detail["wgrad"], timed),
+    }
+    return aggs, detail
 
 
 def check_conv_backward(fwd_calls, wgrad_calls):
@@ -1414,7 +1544,9 @@ def grads_of(state, spec, vspec, batch):
         preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
                     vox["voxel_valid"])
         loss = compute_loss(spec, preds, batch["labels"],
-                            batch["reg_targets"], batch["anchors"])["loss"]
+                            batch["reg_targets"], batch["anchors"],
+                            batch.get("gt_boxes_padded"),
+                            batch.get("gt_valid"))["loss"]
         state.optimizer.zero_grad()
         loss.backward()
     return [p.grad.detach().clone() for p in net.parameters()]
@@ -1438,7 +1570,9 @@ def timed_split(state, spec, vspec, batch):
         preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
                     vox["voxel_valid"])
         loss = compute_loss(spec, preds, batch["labels"],
-                            batch["reg_targets"], batch["anchors"])["loss"]
+                            batch["reg_targets"], batch["anchors"],
+                            batch.get("gt_boxes_padded"),
+                            batch.get("gt_valid"))["loss"]
         torch.cuda.synchronize()
         out["forward_loss_ms"] = 1e3 * (time.perf_counter() - t0)
         state.optimizer.zero_grad()
@@ -1484,20 +1618,7 @@ def run_train(cfg, dev, timer, dtimer):
              SPARSE_CONVS - 1, "sparse_wgrad": SPARSE_CONVS}:
         fail(f"expected {SPARSE_CONVS} forward, {SPARSE_CONVS - 1} dX and "
              f"{SPARSE_CONVS} weight-gradient calls a step, recorded {n}")
-    detail = {"forward": [], "dgrad": [], "wgrad": []}
-    check_train_calls("train conv", calls["gather_gemm"], subm.gather_gemm,
-                      subm.gather_gemm_plain, conv_library, conv_bound,
-                      timer, dtimer, detail["forward"])
-    aggs = {
-        "sparse_gather_gemm_dgrad": check_train_calls(
-            "dgrad", calls["gather_gemm_dgrad"], subm.gather_gemm_dgrad,
-            subm.gather_gemm_plain, conv_library, conv_bound, timer, dtimer,
-            detail["dgrad"]),
-        "sparse_wgrad": check_train_calls(
-            "wgrad", calls["sparse_wgrad"], subm.sparse_wgrad,
-            subm.gather_gemm_wgrad_plain, wgrad_library, wgrad_bound, timer,
-            dtimer, detail["wgrad"]),
-    }
+    aggs, detail = check_step_calls("train", calls, timer, dtimer)
     # one launch a call: the partials are summed in the same launch
     if aggs["sparse_wgrad"]["device_kernels"] != SPARSE_CONVS:
         fail(f"the weight gradient ran {aggs['sparse_wgrad']['device_kernels']}"
@@ -1543,61 +1664,11 @@ def run_train(cfg, dev, timer, dtimer):
         fail(f"the train step synchronised the host {n_syncs} times")
     say("train step: no host sync (torch.cuda.set_sync_debug_mode('warn'))")
 
-    # determinism: the same state, the same batch, twice
-    g1 = grads_of(state, spec, vspec, batch)
-    g2 = grads_of(state, spec, vspec, batch)
-    same = sum(torch.equal(a, b) for a, b in zip(g1, g2))
-    if same != len(g1):
-        fail(f"two backward passes from one state: {len(g1) - same} of "
-             f"{len(g1)} gradients differ")
-    say(f"determinism: {len(g1)} gradients bitwise equal over two runs")
-    del g1, g2
-
-    # speed
-    for _ in range(2):
-        step(state, batch)
-    times = []
-    for _ in range(TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    torch.cuda.reset_peak_memory_stats(dev)
-    step(state, batch)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev)
-    split = timed_split(state, spec, vspec, batch)
-    report["speed"] = dict(
-        median_s=med, steps_per_s=1 / med, examples_per_s=TRAIN_BATCH / med,
-        times_s=times, peak_mem_bytes=peak, **split)
-    say(f"train steps/s {1 / med:.3f}, examples/s {TRAIN_BATCH / med:.3f} "
-        f"(median {1e3 * med:.2f} ms of {TIMED_STEPS} batch-{TRAIN_BATCH} "
-        f"steps, {1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak "
-        f"memory {peak / 2 ** 30:.2f} GiB; one split: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
-    report["profile"] = profile_forward(lambda: step(state, batch), med,
-                                        "train step")
+    check_determinism(state, spec, vspec, batch, "train")
+    report["speed"], report["profile"] = timed_steps(
+        step, state, spec, vspec, batch, TIMED_STEPS, "train")
     del state
-
-    # learning: one fixed batch, overfit
-    state, spec, _, _ = new_train_state(cfg, dev, mixed, lr=OVERFIT_LR)
-    losses = []
-    for _ in range(OVERFIT_STEPS):
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-        if losses[-1] < 0.5 * losses[0]:
-            break
-    report["overfit"] = dict(lr=OVERFIT_LR, losses=losses)
-    if not losses[-1] < 0.5 * losses[0]:
-        fail(f"overfit at lr {OVERFIT_LR}: the loss went {losses[0]:.4f} -> "
-             f"{losses[-1]:.4f} (min {min(losses):.4f}) in {len(losses)} "
-             f"steps, not below half")
-    say(f"learning: Adam at lr {OVERFIT_LR} on one batch, the loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f} (below half) in "
-        f"{len(losses)} steps")
-    del state
+    report["overfit"] = check_overfit(cfg, dev, mixed, step, batch, "train")
 
     report["reference"] = check_train_reference(cfg, dev, vspec, batch)
     torch.backends.cudnn.deterministic = False
@@ -1991,58 +2062,11 @@ def run_pp_train(dev, timer, dtimer):
     say("pp train step: no host sync (torch.cuda.set_sync_debug_mode("
         "'warn'))")
 
-    g1 = grads_of(state, spec, vspec, batch)
-    g2 = grads_of(state, spec, vspec, batch)
-    same = sum(torch.equal(a, b) for a, b in zip(g1, g2))
-    if same != len(g1):
-        fail(f"pp: two backward passes from one state: {len(g1) - same} of "
-             f"{len(g1)} gradients differ")
-    say(f"pp determinism: {len(g1)} gradients bitwise equal over two runs")
-    del g1, g2
-
-    for _ in range(2):
-        step(state, batch)
-    times = []
-    for _ in range(TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    torch.cuda.reset_peak_memory_stats(dev)
-    step(state, batch)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev)
-    split = timed_split(state, spec, vspec, batch)
-    report["speed"] = dict(
-        median_s=med, steps_per_s=1 / med, examples_per_s=n_batch / med,
-        times_s=times, peak_mem_bytes=peak, **split)
-    say(f"pp train steps/s {1 / med:.3f}, examples/s {n_batch / med:.3f} "
-        f"(median {1e3 * med:.2f} ms of {TIMED_STEPS} batch-{n_batch} "
-        f"steps, {1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak "
-        f"memory {peak / 2 ** 30:.2f} GiB; one split: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
-    report["profile"] = profile_forward(lambda: step(state, batch), med,
-                                        "PointPillars train step")
+    check_determinism(state, spec, vspec, batch, "pp")
+    report["speed"], report["profile"] = timed_steps(
+        step, state, spec, vspec, batch, TIMED_STEPS, "pp train")
     del state
-
-    state, spec, _, _ = new_train_state(cfg, dev, mixed, lr=OVERFIT_LR)
-    losses = []
-    for _ in range(OVERFIT_STEPS):
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-        if losses[-1] < 0.5 * losses[0]:
-            break
-    report["overfit"] = dict(lr=OVERFIT_LR, losses=losses)
-    if not losses[-1] < 0.5 * losses[0]:
-        fail(f"pp overfit at lr {OVERFIT_LR}: the loss went "
-             f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}) "
-             f"in {len(losses)} steps, not below half")
-    say(f"pp learning: Adam at lr {OVERFIT_LR} on one batch, the loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f} (below half) in "
-        f"{len(losses)} steps")
-    del state
+    report["overfit"] = check_overfit(cfg, dev, mixed, step, batch, "pp")
 
     report["reference"] = check_pp_train_reference(cfg, dev, vspec, batch)
     torch.backends.cudnn.deterministic = False
@@ -2159,6 +2183,548 @@ def check_pp_train_reference(cfg, dev, vspec, batch):
         f"within {worst['param32']:.2e} of the CPU's where the sign is "
         f"settled, norm statistics within {worst['stat32']:.2e}")
     return dict(cpu64_s=h64["secs"], cpu32_s=h32["secs"], errs=errs)
+
+
+# ------------------------------------------------------ SECOND multi-class
+
+
+def timed_forwards(forward, reps, batch):
+    """Median host time of `reps` synchronised forwards (and peak memory
+    over them) and frames/s; returns a report."""
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return dict(batch=batch, median_s=med, frames_per_s=batch / med,
+                times_s=times, peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True):
+    """Median host time of `reps` synchronised train steps (after two warm
+    ones), steps/s, examples/s, peak memory of one step, a synchronised
+    split of one (`timed_split`) and, with `profile`, one profiled step.
+    Returns (the speed report, the profile or None)."""
+    n = batch["points"].shape[0]
+    for _ in range(2):
+        step(state, batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    split = timed_split(state, spec, vspec, batch)
+    say(f"{what} steps/s {1 / med:.3f}, examples/s {n / med:.3f} (median "
+        f"{1e3 * med:.2f} ms of {reps} batch-{n} steps, "
+        f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; one split: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    speed = dict(median_s=med, steps_per_s=1 / med, examples_per_s=n / med,
+                 times_s=times, peak_mem_bytes=peak, **split)
+    prof = profile_forward(lambda: step(state, batch), med,
+                           f"{what} step") if profile else None
+    return speed, prof
+
+
+def check_determinism(state, spec, vspec, batch, what):
+    """Two backward passes from the same state on the same batch give
+    bitwise-equal gradients (cuDNN set to deterministic algorithms)."""
+    g1 = grads_of(state, spec, vspec, batch)
+    g2 = grads_of(state, spec, vspec, batch)
+    same = sum(torch.equal(a, b) for a, b in zip(g1, g2))
+    if same != len(g1):
+        fail(f"{what}: two backward passes from one state: {len(g1) - same} "
+             f"of {len(g1)} gradients differ")
+    say(f"{what} determinism: {len(g1)} gradients bitwise equal over two "
+        f"runs")
+
+
+def check_overfit(cfg, dev, mixed, step, batch, what):
+    """Learning: a fresh state at the constant lr OVERFIT_LR on one fixed
+    batch; the loss must fall below half its first value within
+    OVERFIT_STEPS steps. Returns the report."""
+    state, _, _, _ = new_train_state(cfg, dev, mixed, lr=OVERFIT_LR)
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if losses[-1] < 0.5 * losses[0]:
+            break
+    if not losses[-1] < 0.5 * losses[0]:
+        fail(f"{what} overfit at lr {OVERFIT_LR}: the loss went "
+             f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}) "
+             f"in {len(losses)} steps, not below half")
+    say(f"{what} learning: Adam at lr {OVERFIT_LR} on one batch, the loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (below half) in "
+        f"{len(losses)} steps")
+    return dict(lr=OVERFIT_LR, losses=losses)
+
+
+def check_calls_exact(calls, what):
+    """Each recorded sparse-conv and row-gather call of a forward against
+    its plain version (convs within CONV_TOL, gathers exactly); returns
+    the largest conv error."""
+    worst = 0.0
+    for i, (args, _) in enumerate(calls["gather_gemm"]):
+        got, want = subm.gather_gemm(*args), subm.gather_gemm_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **CONV_TOL):
+            fail(f"{what} conv {i}: kernel disagrees with plain, max abs "
+                 f"err {errors(got, want)[0]:.3g}")
+        worst = max(worst, errors(got, want)[0])
+    for i, (args, _) in enumerate(calls["gather_rows"]):
+        if not torch.equal(gather.gather_rows(*args),
+                           gather.gather_rows_plain(*args)):
+            fail(f"{what} gather {i}: kernel disagrees with plain")
+    say(f"{what}: {len(calls['gather_gemm'])} sparse convs within "
+        f"{CONV_TOL} of their plain version (max abs err {worst:.2e}), "
+        f"{len(calls['gather_rows'])} row gathers exact")
+    return worst
+
+
+def predict_fails_on_sync(spec, preds, anchors, what):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        predict(spec, preds, anchors)
+    except RuntimeError as e:
+        fail(f"{what}: predict synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def run_mc_eval(dev, timer, dtimer):
+    """SECOND multi-class eval (configs/second_multiclass.config): the
+    config's eval batch 3 of the fhd bench scene, 40 000 voxels, random
+    weights from seed 0, per-class rotated NMS. Returns (the NMS kernels'
+    aggregates, the launch counts, the report)."""
+    report = {}
+    cfg = load_pipeline_config(MC_CONFIG)
+    mixed = cfg.train_config.enable_mixed_precision
+    reader = cfg.eval_input_reader
+    n = reader.batch_size
+    net, spec, info, assigner, _ = build_voxelnet(
+        cfg.model, device=dev, mixed_precision=mixed, seed=0)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     reader.max_number_of_voxels)
+    points, mask, anchors = build_inputs(cfg, assigner, info, dev, n)
+    A = anchors.shape[1]
+    say(f"mc eval: classes {assigner.classes}, batch {n}, "
+        f"{reader.max_number_of_voxels} voxels, points "
+        f"{tuple(points.shape)}, anchors {A} an example, mixed precision "
+        f"{mixed}")
+
+    def forward():
+        return detect(net, spec, vspec, points, mask, anchors, device=dev)
+
+    with recording(MC_RECORDED) as calls:
+        forward()
+        torch.cuda.synchronize()
+    say("mc capture: " + ", ".join(f"{k} {len(v)} calls"
+                                   for k, v in calls.items()))
+    if len(calls["gather_gemm"]) != SPARSE_CONVS or \
+            len(calls["nms_sorted"]) != 1:
+        fail(f"mc: expected {SPARSE_CONVS} sparse convs and one per-class "
+             f"NMS call a forward")
+    report["conv_max_abs_err"] = check_calls_exact(calls, "mc eval")
+    ov, sup, report["nms"] = check_nms_pair(calls, timer, dtimer, "mc eval")
+    aggs = {"rotated_iou": ov, "nms_suppress": sup}
+    # the per-class keep sets of the same candidates, card against CPU
+    (cand, cand_scores), kw = calls["nms_sorted"][0]
+    rel_c, keep_c = nms_ops.nms_sorted(cand, cand_scores, **kw)
+    rel_h, keep_h = nms_ops.nms_sorted(cand.cpu(), cand_scores.cpu(), **kw)
+    if not (torch.equal(rel_c.cpu(), rel_h) and
+            torch.equal(keep_c.cpu(), keep_h)):
+        fail("mc eval: per-class NMS keep sets differ card vs CPU")
+    report["kept_per_class"] = keep_h.sum(-1).view(n, -1).tolist()
+    say(f"mc eval: per-class NMS of {tuple(cand_scores.shape)} candidates "
+        f"(example-class rows, k): keep sets equal card vs CPU, kept by "
+        f"example and class {report['kept_per_class']}")
+    del calls
+
+    reset_counts()
+    det, vox, preds = forward()
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one mc forward: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS, "rotated_iou": 1,
+            "nms_suppress": 1, "sparse_gather_gemm_dgrad": 0,
+            "sparse_wgrad": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want or not counts["row_gather"]:
+        fail(f"mc forward launches {counts}, expected {want} and row "
+             f"gathers")
+    predict_fails_on_sync(spec, preds, anchors, "mc eval")
+    report["forward_host_syncs"] = host_syncs(forward)
+    say(f"mc predict: no host sync; the forward {report['forward_host_syncs']}"
+        f" host syncs (torch.cuda.set_sync_debug_mode)")
+    report["voxel_overflow"] = int(vox["voxel_overflow"])
+    report["stage_overflow"] = int(preds["stage_overflow"])
+    if report["voxel_overflow"] or report["stage_overflow"]:
+        fail(f"mc eval: voxel_overflow {report['voxel_overflow']} "
+             f"stage_overflow {report['stage_overflow']}, expected 0")
+    for k, c in (("box_preds", spec.box_code_size), ("cls_preds", 3)):
+        if tuple(preds[k].shape) != (n, A, c) or \
+                not torch.isfinite(preds[k]).all():
+            fail(f"mc {k}: shape {tuple(preds[k].shape)} or non-finite")
+    det_h = check_predict_batch(spec, preds, anchors, what="mc eval")
+    labels = det_h["labels"][det_h["valid"]]
+    report["detections_by_class"] = [int((labels == c).sum())
+                                     for c in range(3)]
+    say(f"mc eval: voxel_overflow 0, stage_overflow 0, voxels "
+        f"{vox['voxel_valid'].sum(1).tolist()}; detections by class "
+        f"{report['detections_by_class']}")
+
+    report["forward"] = timed_forwards(forward, MC_TIMED, n)
+    med = report["forward"]["median_s"]
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = device_voxelize(vspec, points, mask, dev)
+    torch.cuda.synchronize()
+    stages["voxelize_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    p = net(v["voxels"], v["num_points"], v["coordinates"], v["voxel_valid"])
+    torch.cuda.synchronize()
+    stages["network_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    predict(spec, p, anchors)
+    torch.cuda.synchronize()
+    stages["predict_ms"] = 1e3 * (time.perf_counter() - t0)
+    report["forward"].update(stages, launches=counts, conv_paths=paths)
+    say(f"mc frames/s {n / med:.3f} (median {1e3 * med:.2f} ms of {MC_TIMED} "
+        f"batch-{n} forwards); peak memory "
+        f"{report['forward']['peak_mem_bytes'] / 2 ** 30:.2f} GiB; one "
+        f"split: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    report["profile"] = profile_forward(forward, med, "mc forward")
+    # the fp32 RPN as a user runs it: torch lets cuDNN use TF32 by default
+    # (this script turns TF32 off for its fp32 comparisons)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        report["forward_tf32"] = timed_forwards(forward, MC_TIMED, n)
+        report["profile_tf32"] = profile_forward(
+            forward, report["forward_tf32"]["median_s"],
+            "mc forward, cuDNN TF32 on")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    say(f"mc frames/s with cuDNN TF32 on (torch's default) "
+        f"{report['forward_tf32']['frames_per_s']:.3f}")
+    return aggs, counts, report
+
+
+def run_mc_train(dev, timer, dtimer):
+    """SECOND multi-class train step: the config's batch 3 of synthetic
+    scans with pedestrians and cyclists, 17 000 voxels (shuffle_overflow),
+    bf16, the config's one-cycle AdamW from flax's initialisers; every
+    kernel call of one step against its plain version. Returns (the launch
+    counts, the report)."""
+    report = {}
+    cfg = load_pipeline_config(MC_CONFIG)
+    reader = cfg.train_input_reader
+    n = reader.batch_size
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, True)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     reader.max_number_of_voxels,
+                                     shuffle_overflow=True)
+    batch = train_inputs(cfg, assigner, info, dev, n)
+    pos = [int((batch["labels"] == c).sum()) for c in (1, 2, 3)]
+    say(f"mc train: batch {n} synthetic scans, {reader.max_number_of_voxels} "
+        f"voxels (shuffle_overflow), bf16, positives by class {pos}")
+    if not all(pos):
+        fail(f"mc train: positives by class {pos}, want every class")
+    report["positives_by_class"] = pos
+    step = make_train_step(spec, vspec)
+    with recording(RECORDED_TRAIN) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    aggs, report["calls"] = check_step_calls("mc train", calls, timer,
+                                             dtimer)
+    report["calls_ms"] = {k: {m: a[m] for m in ("ms", "device_ms",
+                                                "plain_ms", "library_ms")}
+                          for k, a in aggs.items()}
+    del calls
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one mc train step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS,
+            "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+            "sparse_wgrad": SPARSE_CONVS, "rotated_iou": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want or paths != {
+            "mma": 2 * SPARSE_CONVS - 1, "fma": 0,
+            "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0}:
+        fail(f"mc train step launches {counts} {paths}, expected {want} "
+             f"on the tensor-core path")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"mc train metrics not finite: {m}")
+    report["metrics"], report["launches"] = m, counts
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the mc train step synchronised the host {n_syncs} times")
+    say("mc train step: no host sync; " +
+        ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    check_determinism(state, spec, vspec, batch, "mc")
+    report["speed"], report["profile"] = timed_steps(
+        step, state, spec, vspec, batch, MC_TIMED, "mc train")
+    del state
+    report["overfit"] = check_overfit(cfg, dev, True, step, batch, "mc")
+    torch.backends.cudnn.deterministic = False
+    return counts, report
+
+
+def run_kitti(dev, timer, dtimer):
+    """The KITTI reader's path on the card: a fake tree (KITTI_FRAMES
+    frames of cars, a pedestrian and a cyclist in ground clutter) in a
+    temporary directory, prepared by the port's create-data functions, then
+    `Trainer(synthetic=False)` on second_multiclass.config (its readers,
+    database sampler and augmentation on the tree) for 3 steps and an
+    `evaluate` with the official KITTI AP. Every kernel call of the
+    Trainer's first step and of the first eval forward is held against its
+    plain version. Returns (launch counts, report)."""
+    import tempfile
+    from second_tpu_torch.data import fake_kitti, kitti_dataset
+    from second_tpu_torch.train.run import Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = fake_kitti.write_tree(
+            tmp / "kitti", np.random.default_rng(0), ids=range(KITTI_FRAMES),
+            label=fake_kitti.MULTICLASS_LABEL, clutter=KITTI_CLUTTER,
+            splits=("train", "val"), shift=2.5)
+        kitti_dataset.create_kitti_info_file(root)
+        kitti_dataset.create_reduced_point_cloud(root)
+        kitti_dataset.create_groundtruth_database(root)
+        prep_s = time.perf_counter() - t0
+        patches = [
+            f"train_input_reader.kitti_info_path="
+            f"'{root / 'kitti_infos_train.pkl'}'",
+            f"train_input_reader.kitti_root_path='{root}'",
+            f"train_input_reader.database_sampler.database_info_path="
+            f"'{root / 'kitti_dbinfos_train.pkl'}'",
+            f"eval_input_reader.kitti_info_path="
+            f"'{root / 'kitti_infos_val.pkl'}'",
+            f"eval_input_reader.kitti_root_path='{root}'",
+            "train_config.steps_per_eval=0",
+            "train_config.save_summary_steps=1"]
+        reset_counts()
+        tr = Trainer(MC_CONFIG, tmp / "run", synthetic=False,
+                     max_points=MAX_POINTS, total_steps=3, patches=patches,
+                     device=dev)
+        try:
+            t0 = time.perf_counter()
+            with recording(RECORDED_TRAIN + [(gather, "gather_rows")]) \
+                    as train_calls:
+                state = tr.train(3)
+            train_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with recording(RECORDED) as eval_calls:
+                detail = tr.evaluate(state)
+            eval_s = time.perf_counter() - t0
+        finally:
+            tr.logger.close()
+        counts = launch_counts()
+        log = [json.loads(line) for line in
+               (tmp / "run" / "log.json").read_text().splitlines()]
+    checked = check_kitti_calls(train_calls, eval_calls, timer, dtimer)
+    del train_calls, eval_calls
+    losses = [r["train.loss"] for r in log if "train.loss" in r]
+    ap = {k: v[1] for k, v in detail.items() if "/3d" in k}
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        fail(f"kitti: train losses {losses}, want 3 finite")
+    if not ap:
+        fail(f"kitti: evaluate gave no /3d AP keys: {sorted(detail)}")
+    if not (counts["sparse_gather_gemm"] and counts["rotated_iou"]):
+        fail(f"kitti: the Trainer launched {counts}")
+    say(f"kitti: {KITTI_FRAMES} fake frames prepared in {prep_s:.1f} s; "
+        f"Trainer(synthetic=False) on {MC_CONFIG.name}: losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f" in {train_s:.1f} s, "
+        f"evaluate in {eval_s:.1f} s with {len(ap)} /3d AP keys; launches "
+        f"{counts}")
+    return counts, dict(losses=losses, ap_3d=ap, prep_s=prep_s,
+                        train_s=train_s, eval_s=eval_s, **checked)
+
+
+def check_kitti_calls(train_calls, eval_calls, timer, dtimer):
+    """The KITTI path's recorded kernel calls against their plain versions:
+    the Trainer's steps (every forward, dX and weight-gradient call within
+    GRAD_KERNEL_TOL of its scale, every row gather exact) and its eval
+    forwards (`check_calls_exact`, then each forward's NMS pair by
+    `check_nms_pair`). Returns the numbers of calls checked."""
+    check_step_calls("kitti train", train_calls, timer, dtimer, timed=False)
+    for i, (args, _) in enumerate(train_calls["gather_rows"]):
+        if not torch.equal(gather.gather_rows(*args),
+                           gather.gather_rows_plain(*args)):
+            fail(f"kitti train gather {i}: kernel disagrees with plain")
+    check_calls_exact(eval_calls, "kitti eval")
+    pairs = list(zip(eval_calls["nms_overlap"], eval_calls["nms_suppress"]))
+    if not pairs or len(eval_calls["nms_overlap"]) != \
+            len(eval_calls["nms_suppress"]):
+        fail(f"kitti eval: {len(eval_calls['nms_overlap'])} overlap and "
+             f"{len(eval_calls['nms_suppress'])} suppression calls")
+    for i, (ov, sup) in enumerate(pairs):
+        check_nms_pair({"nms_overlap": [ov], "nms_suppress": [sup]}, timer,
+                       dtimer, f"kitti eval forward {i}")
+    checked = {f"train_{k}": len(v) for k, v in train_calls.items()}
+    checked.update({f"eval_{k}": len(v) for k, v in eval_calls.items()})
+    say(f"kitti: every recorded kernel call equals its plain version: "
+        f"{checked}")
+    return dict(checked_calls=checked)
+
+
+# ------------------------------------------------- the IoU branch (fhd)
+
+
+def d3_bound(boxes1, boxes2):
+    """(bytes seconds, ops seconds) of one 3-D IoU call: the boxes read
+    once and the [B, N, K] output written once; each box's corners once
+    (RIOU_BOX_OPS), and each pair's BEV clip as `riou_ops` counts it with
+    D3_EXTRA_OPS in place of the 2-D IoU's."""
+    B, N = boxes1.shape[:2]
+    K = boxes2.shape[1]
+    bev1 = bev_boxes(boxes1).reshape(B * N, 5)
+    bev2 = bev_boxes(boxes2).reshape(B * K, 5)
+    ops = B * (N + K) * RIOU_BOX_OPS
+    rows = max(1, (1 << 21) // max(K, 1))
+    kk = torch.arange(K, device=boxes1.device)
+    for b in range(B):
+        for r0 in range(0, N, rows):
+            n = torch.arange(r0, min(r0 + rows, N), device=boxes1.device)
+            i = (b * N + n)[:, None].expand(-1, K).reshape(-1)
+            j = (b * K + kk)[None].expand(n.numel(), -1).reshape(-1)
+            ops += riou_ops(bev1, bev2, i, j, D3_EXTRA_OPS)
+    nbytes = (boxes1.numel() + boxes2.numel() + B * N * K) * 4
+    return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[torch.float32]
+
+
+def run_fhd_iou_train(dev, timer, dtimer):
+    """The fhd train step with the IoU branch (second_car_fhd.config with
+    use_iou_branch): batch 4 synthetic scans, 16 000 voxels, bf16. Every
+    sparse-conv kernel call of one step and the 3-D IoU kernel on the
+    step's real call against their plain versions, timed, with bounds; launches and no host sync; the IoU loss; then an eval
+    forward ranked by the predicted IoU, predict card against CPU. Returns
+    (the kernel's aggregate, the launch counts, the report)."""
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    cfg.model.use_iou_branch = True
+    mixed = cfg.train_config.enable_mixed_precision
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, mixed)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     TRAIN_VOXELS, shuffle_overflow=True)
+    batch = train_inputs(cfg, assigner, info, dev, TRAIN_BATCH)
+    step = make_train_step(spec, vspec)
+    with recording(RECORDED_TRAIN + [(riou, "d3_iou")]) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    if len(calls["d3_iou"]) != 1:
+        fail(f"fhd iou: {len(calls['d3_iou'])} 3-D IoU calls a step, want 1")
+    step_aggs, report["calls"] = check_step_calls("fhd iou train", calls,
+                                                  timer, dtimer)
+    report["calls_ms"] = {k: {m: a[m] for m in ("ms", "device_ms",
+                                                "plain_ms", "library_ms")}
+                          for k, a in step_aggs.items()}
+    (b1, b2), _ = calls["d3_iou"][0]
+    del calls
+    got = riou.d3_iou(b1, b2)
+    want = riou.d3_iou_plain(b1, b2)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)) or \
+            not torch.allclose(got, want, atol=RIOU_TOL, rtol=0,
+                               equal_nan=True):
+        fail("fhd iou: the 3-D IoU kernel disagrees with its plain version")
+    fin = torch.isfinite(want)
+    err = (got - want)[fin].abs().max().item() if fin.any() else 0.0
+    bs, os_ = d3_bound(b1, b2)
+    agg = dict(err=err, bytes_s=bs, ops_s=os_, library_ms=None,
+               library_device_ms=None,
+               ms=timer(lambda: riou.d3_iou(b1, b2), 10),
+               plain_ms=timer(lambda: riou.d3_iou_plain(b1, b2), 3),
+               device_ms=dtimer([lambda: riou.d3_iou(b1, b2)])[0])
+    report["d3_iou"] = dict(shape=[list(b1.shape), list(b2.shape)],
+                            non_finite=int((~fin).sum()),
+                            overlapping=int((want > 0).sum()), **agg)
+    say(f"d3_iou [{', '.join(map(str, b1.shape))}] x "
+        f"[{', '.join(map(str, b2.shape))}]: err {err:.2e} "
+        f"({int((~fin).sum())} non-finite entries equal), "
+        f"{int((want > 0).sum())} overlapping pairs; kernel {agg['ms']:.4f} "
+        f"ms (device {agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms"
+        f"  bound {1e3 * max(bs, os_):.4f} ms "
+        f"({'bytes' if bs >= os_ else 'operations'})")
+    del b1, b2, got, want
+
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    say(f"launches in one fhd IoU-branch train step: {counts}")
+    want_c = {"sparse_gather_gemm": SPARSE_CONVS,
+              "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+              "sparse_wgrad": SPARSE_CONVS, "d3_iou": 1}
+    if {k: counts[k] for k in want_c} != want_c:
+        fail(f"fhd iou train step launches {counts}, expected {want_c}")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()) or \
+            not m.get("iou_loss", 0.0) > 0:
+        fail(f"fhd iou: metrics not finite or no IoU loss: {m}")
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the fhd IoU-branch train step synchronised the host "
+             f"{n_syncs} times")
+    report["metrics"], report["launches"] = m, counts
+    say(f"fhd iou train step: no host sync; iou_loss {m['iou_loss']:.4g}, "
+        f"loss {m['loss']:.4g}")
+    report["speed"], _ = timed_steps(step, state, spec, vspec, batch,
+                                     MC_TIMED, "fhd iou train",
+                                     profile=False)
+    torch.backends.cudnn.deterministic = False
+
+    # an eval forward ranked by the predicted IoU, predict card against CPU
+    del state
+    net = build_voxelnet(cfg.model, device=dev, mixed_precision=mixed,
+                         seed=0)[0]
+    points, mask, anchors = build_inputs(cfg, assigner, info, dev)
+    evspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    with torch.no_grad(), recording() as calls:
+        _, _, preds = detect(net, spec, evspec, points, mask, anchors,
+                             device=dev)
+        torch.cuda.synchronize()
+    if "iou_preds" not in preds or not torch.isfinite(preds["iou_preds"]).all():
+        fail("fhd iou: the eval forward has no finite iou_preds")
+    # over the empty BEV a random IoU head's logits are nearly constant: its
+    # ranking is decided by the devices' sigmoids a rounding unit apart, so
+    # the card's and the CPU's predict are held on a ranking free of such
+    # near-ties (logits a permutation of an even grid over [-4, 4])
+    B, A = anchors.shape[:2]
+    rank = torch.sigmoid(preds["iou_preds"].reshape(B, A))
+    top = nms_ops.top_k(rank, spec.nms_pre_max_size)[0]
+    report["rank_ties_top_k"] = [int(spec.nms_pre_max_size - r.unique().numel())
+                                 for r in top]
+    g = torch.Generator().manual_seed(0)
+    grid = torch.randperm(B * A, generator=g).float() / (B * A) * 8 - 4
+    with torch.no_grad():
+        check_predict_batch(
+            spec, dict(preds, iou_preds=grid.view(B, A, 1).to(dev)), anchors,
+            calls["nms"][0], what="fhd iou reference")
+    say(f"fhd iou: the forward's own IoU ranking has "
+        f"{report['rank_ties_top_k']} exact ties among each example's top "
+        f"{spec.nms_pre_max_size}")
+    return agg, counts, report
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
 out), applied without a kernel transpose, to torch's (in, out, kh, kw)
 with the spatial axes flipped; the pillar encoder's Dense kernels go from
 [in, out] to [out, in]. A model whose encoder or middle has no parameters
-(VFE-V3, the PointPillars scatter) has no tree for it.
+(VFE-V3, the PointPillars scatter) has no tree for it; the IoU head's tree,
+`params["iou"]`, is there only with the IoU branch.
 """
 
 from __future__ import annotations
@@ -100,6 +101,16 @@ def _convert(params, stats) -> dict:
         out[f"rpn.head.{attr}.weight"] = _t(
             np.asarray(c["kernel"]).transpose(3, 2, 0, 1))
         out[f"rpn.head.{attr}.bias"] = _t(c["bias"])
+
+    # the IoU head: its 3x3 convs, then the 1x1 output conv
+    ip = params.get("iou")
+    if ip is not None:
+        convs = _numbered(ip, "Conv")
+        for i, c in enumerate(convs):
+            name = "iou.out" if i == len(convs) - 1 else f"iou.convs.{i}"
+            out[f"{name}.weight"] = _t(
+                np.asarray(c["kernel"]).transpose(3, 2, 0, 1))
+            out[f"{name}.bias"] = _t(c["bias"])
     return out
 
 

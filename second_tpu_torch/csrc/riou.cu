@@ -24,8 +24,11 @@
 //
 // Entry points: `riou_pairs` (pair list (i, j) into two box arrays) and
 // `riou_matrix` (dense [N, K] with the criterion -1 IoU, 0 inter/area1,
-// 1 inter/area2), both off the main path; and the two kernels of rotated
-// NMS for a whole batch, `nms_overlap` and `nms_suppress` (below).
+// 1 inter/area2), both off the main path; the two kernels of rotated NMS
+// for a whole batch, `nms_overlap` and `nms_suppress` (below); and
+// `d3_iou`, the 3-D IoU of lidar boxes (below). A non-finite box gives
+// the plain version's non-finite results: the clamps and the winding sign
+// pass NaN through, as torch.clamp and torch.sign do.
 //
 // nms_overlap — replaces the rotated-IoU Pallas kernel where rotated NMS
 // runs it, together with what surrounds it in `_sparse_rotated_over`
@@ -132,7 +135,8 @@ __device__ __forceinline__ void clip(float* px, float* py, int& cnt, float ax,
       if (in_c != in_n && n < S) {
         const float denom = dc - dn;
         const float safe = fabsf(denom) < 1e-12f ? 1.f : denom;
-        const float t = fminf(fmaxf(dc / safe, 0.f), 1.f);
+        const float q = dc / safe;
+        const float t = q < 0.f ? 0.f : (q > 1.f ? 1.f : q);
         put(ox, oy, n++, px[i] + t * (nx - px[i]), py[i] + t * (ny - py[i]));
       }
     }
@@ -145,8 +149,9 @@ __device__ __forceinline__ void clip(float* px, float* py, int& cnt, float ax,
   cnt = n;
 }
 
-__device__ float pair_iou(const float* __restrict__ b1,
-                          const float* __restrict__ b2, int criterion) {
+// BEV intersection area of two boxes (x, y, w, l, yaw).
+__device__ float pair_inter(const float* __restrict__ b1,
+                            const float* __restrict__ b2) {
   float px[S], py[S], qx[4], qy[4];
   corners(b1, px, py);
 #pragma unroll
@@ -159,7 +164,8 @@ __device__ float pair_iou(const float* __restrict__ b1,
     const int j = (i + 1) & 3;
     sa += qx[i] * qy[j] - qx[j] * qy[i];
   }
-  const float sgn = (0.5f * sa) >= 0.f ? 1.f : -1.f;
+  const float half = 0.5f * sa;
+  const float sgn = half != half ? half : (half < 0.f ? -1.f : 1.f);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int j = (k + 1) & 3;
@@ -175,7 +181,12 @@ __device__ float pair_iou(const float* __restrict__ b1,
       acc += px[i] * ny - nx * py[i];
     }
   }
-  const float inter = cnt >= 3 ? 0.5f * fabsf(acc) : 0.f;
+  return cnt >= 3 ? 0.5f * fabsf(acc) : 0.f;
+}
+
+__device__ float pair_iou(const float* __restrict__ b1,
+                          const float* __restrict__ b2, int criterion) {
+  const float inter = pair_inter(b1, b2);
   const float a1 = b1[2] * b1[3], a2 = b2[2] * b2[3];
   float denom;
   if (criterion == -1)
@@ -206,6 +217,47 @@ __global__ void riou_matrix_kernel(const float* __restrict__ b1,
   if (t >= n1 * n2) return;
   const long long i = t / n2, j = t - i * n2;
   out[t] = pair_iou(b1 + 5 * i, b2 + 5 * j, criterion);
+}
+
+// ------------------------------------------------------------ 3-D IoU
+//
+// d3_iou — replaces the quad clipping of `d3_iou_matrix`
+// (second_tpu/ops/rotated_iou.py:204), the Pallas rotated-IoU kernel's
+// geometry (second_tpu/ops/pallas/riou.py:85) extended to 3-D: per pair of
+// lidar boxes (x, y, z, w, l, h, yaw; z at the bottom) the BEV
+// intersection of `pair_inter` times the vertical overlap, over the union
+// of the volumes. One thread a pair of a batch [B, N] x [B, K]; the K
+// boxes of an example are few (the padded gt boxes) and stay in L1.
+// Bound on the H100: operations, as `riou_pairs` (the clip), plus 11 for
+// the vertical overlap and the union; the bytes are the [B, N, K] output.
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+__global__ void d3_iou_kernel(const float* __restrict__ b1,
+                              const float* __restrict__ b2,
+                              float* __restrict__ out, long long n1,
+                              long long n2, long long total) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long per = n1 * n2;
+  const long long b = t / per, r = t - b * per;
+  const long long i = r / n2, j = r - i * n2;
+  const float* p = b1 + 7 * (b * n1 + i);
+  const float* q = b2 + 7 * (b * n2 + j);
+  const float bev1[5] = {p[0], p[1], p[3], p[4], p[6]};
+  const float bev2[5] = {q[0], q[1], q[3], q[4], q[6]};
+  const float inter_bev = pair_inter(bev1, bev2);
+  const float zo = nan_min(p[2] + p[5], q[2] + q[5]) - nan_max(p[2], q[2]);
+  const float inter = inter_bev * (zo < 0.f ? 0.f : zo);
+  const float vol1 = p[3] * p[4] * p[5], vol2 = q[3] * q[4] * q[5];
+  const float denom = vol1 + vol2 - inter;
+  out[t] = inter / (denom < 1e-12f ? 1e-12f : denom);
 }
 
 // ------------------------------------------------------------ rotated NMS
@@ -569,6 +621,20 @@ extern "C" int riou_matrix(const void* b1, const void* b2, void* out,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(b1), static_cast<const float*>(b2),
       static_cast<float*>(out), n1, n2, criterion);
+  return (int)cudaGetLastError();
+}
+
+// b1 [B, N1, 7], b2 [B, N2, 7] fp32 → out [B, N1, N2] fp32.
+extern "C" int d3_iou(const void* b1, const void* b2, void* out, int batch,
+                      long long n1, long long n2, void* stream) {
+  const long long total = (long long)batch * n1 * n2;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  d3_iou_kernel<<<(unsigned)blocks, threads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b1), static_cast<const float*>(b2),
+      static_cast<float*>(out), n1, n2, total);
   return (int)cudaGetLastError();
 }
 

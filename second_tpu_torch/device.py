@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points, and device constants.
+"""Device resolution for the port's entry points, device constants, and
+the compute dtype of a reference run.
 
 Entry points default to the CUDA card. Asking for it where there is none
 raises instead of carrying on on the CPU: a CPU run must be asked for by
@@ -36,3 +37,10 @@ def constant(values, device, dtype=None) -> torch.Tensor:
         t = _CONSTANTS[key] = torch.as_tensor(values, dtype=dtype,
                                               device=device)
     return t
+
+
+def at_least_fp32(x):
+    """x in fp32, or as it is in fp64: the norms, the heads and the plain
+    sparse-conv sums compute in fp32 whatever the trunk's dtype, and an
+    fp64 model (a reference run) stays fp64."""
+    return x if x.dtype == torch.float64 else x.float()

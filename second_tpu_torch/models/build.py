@@ -110,8 +110,12 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
         vfe_kwargs["voxel_size"] = tuple(vg.voxel_size)
         vfe_kwargs["pc_range"] = tuple(vg.point_cloud_range)
         vfe_kwargs["num_input_features"] = cfg.num_point_features
+    iou_kwargs = None
+    if cfg.use_iou_branch:
+        iou_kwargs = {"num_filters": tuple(cfg.iou.num_filters),
+                      "num_anchor_per_loc": num_anchor_per_loc}
     module = VoxelNet(vfe_name, vfe_kwargs, middle_name, middle_kwargs,
-                      rpn_kwargs)
+                      rpn_kwargs, iou_kwargs)
     init_weights_(module, seed)
     module = module.to(dev).eval()
     info = NetInfo(grid_size=(nx, ny, nz), dense_shape=(nz + 1, ny, nx),

@@ -1,12 +1,13 @@
 """One-stage detector assembly — the port of `second_tpu/models/detector.py`
-(`DetectorSpec`, `VoxelNet`, `compute_loss`, `predict`,
-`build_detector_spec`; single-class NMS, no IoU branch).
+(`DetectorSpec`, `IoUHead`, `VoxelNet`, `compute_loss` with the IoU branch,
+`predict` with single- and multi-class NMS, `build_detector_spec`).
 
 `predict` keeps the JAX package's fixed-size outputs: [B, post_max_size]
 boxes, scores, labels and a valid mask, computed for the whole batch at
 once. Top-k is a stable descending sort (ties resolve lowest index first,
 as `lax.top_k` does), and the candidate gathers go through the row-gather
-kernel.
+kernel. Multi-class NMS runs every class of every example as one batch of
+the NMS kernels.
 """
 
 from __future__ import annotations
@@ -18,14 +19,16 @@ from typing import Callable, Tuple
 import torch
 from torch import nn
 
+from ..device import at_least_fp32
 from ..ops import box_ops
 from ..ops.anchors_mask import anchors_mask_from_coords
 from ..ops.cuda.gather import flat_rows
-from ..ops.nms import nearest_nms, nms, top_k
+from ..ops.nms import multiclass_nms, nearest_nms, nms, top_k
+from ..ops.rotated_iou import d3_iou_matrix
 from ..ops.voxelize import device_voxelize
 from . import losses as loss_lib
 from .middle import MIDDLE_REGISTRY
-from .rpn import RPN
+from .rpn import RPN, RPNHead
 from .voxel_encoder import VFE_REGISTRY
 
 
@@ -54,39 +57,92 @@ class DetectorSpec:
     post_center_limit_range: Tuple[float, ...] = ()
     cls_loss_fn: Callable = None
     loc_loss_fn: Callable = None
+    # the IoU-prediction branch
+    use_iou_branch: bool = False
+    use_iou_param_partaa: bool = False
+    iou_loss_weight: float = 1.0
+    iou_loss_fn: Callable = None
+
+
+class IoUHead(nn.Module):
+    """Per-anchor IoU prediction over the RPN trunk: 3x3 convs with ReLU,
+    then a 1x1 conv to one logit an anchor (JAX `IoUHead`), fp32 whatever
+    the trunk's dtype (flax promotes the bf16 trunk to the fp32 kernels).
+    Returns [B, H*W*A, 1] in the heads' anchor order."""
+
+    def __init__(self, in_channels, num_filters=(128, 128),
+                 num_anchor_per_loc=2):
+        super().__init__()
+        convs, c = [], in_channels
+        for f in num_filters:
+            convs.append(nn.Conv2d(c, f, 3, padding=1))
+            c = f
+        self.convs = nn.ModuleList(convs)
+        self.out = nn.Conv2d(c, num_anchor_per_loc, 1)
+
+    def forward(self, trunk):
+        x = at_least_fp32(trunk)
+        for conv in self.convs:
+            x = torch.relu(conv(x))
+        return RPNHead._flatten(self.out(x), 1)
 
 
 class VoxelNet(nn.Module):
-    """VFE → middle → RPN over batched fixed-capacity voxel tensors."""
+    """VFE → middle → RPN (→ IoU head) over batched fixed-capacity voxel
+    tensors."""
 
     def __init__(self, vfe_class_name, vfe_kwargs, middle_class_name,
-                 middle_kwargs, rpn_kwargs):
+                 middle_kwargs, rpn_kwargs, iou_kwargs=None):
         super().__init__()
         self.vfe = VFE_REGISTRY[vfe_class_name](**vfe_kwargs)
         self.middle = MIDDLE_REGISTRY[middle_class_name](**middle_kwargs)
         self.rpn = RPN(self.middle.out_channels, **rpn_kwargs)
+        self.iou = None if iou_kwargs is None else IoUHead(
+            sum(rpn_kwargs["num_upsample_filters"]), **iou_kwargs)
 
     def forward(self, voxels, num_points, coords, voxel_valid):
         """voxels [B, V, T, C], num_points [B, V], coords [B, V, 3] zyx,
         voxel_valid [B, V] → dict of box_preds [B, A, code], cls_preds
-        [B, A, num_cls] (and dir_cls_preds), the trunk map and the
-        stage_overflow count (active sites cut by the stage capacities).
-        In `train()` mode the norms use and update batch statistics."""
+        [B, A, num_cls] (and dir_cls_preds; iou_preds [B, A, 1] with the
+        IoU branch), the trunk map and the stage_overflow count (active
+        sites cut by the stage capacities). In `train()` mode the norms use
+        and update batch statistics."""
         vf = self.vfe(voxels, num_points, coords)
         vf = torch.where(voxel_valid[..., None], vf, 0.0)
         bev, overflow = self.middle(vf, coords, voxel_valid)
         out = self.rpn(bev)
+        if self.iou is not None:
+            out["iou_preds"] = self.iou(out["trunk"])
         out["stage_overflow"] = overflow
         return out
 
 
-def compute_loss(spec: DetectorSpec, preds_dict, labels, reg_targets,
-                 anchors):
-    """Assemble the cls/loc(/dir) losses (reference `voxelnet.py:310-369`,
-    JAX `second_tpu/models/detector.py:126-201` without the IoU branch).
+@torch.no_grad()
+def _iou_targets(spec: DetectorSpec, box_preds, labels, anchors, gt_boxes,
+                 gt_valid):
+    """Per-anchor IoU targets [B, A], without grad: the 3-D IoU of each
+    decoded prediction with its best valid gt box (`d3_iou_matrix`, the
+    3-D rotated-IoU kernel on the card), Part-A² soft labels under
+    `use_iou_param_partaa`, 0 where the anchor is not positive."""
+    decoded = box_ops.second_box_decode(box_preds.detach(), anchors)
+    iou = d3_iou_matrix(decoded, gt_boxes.to(decoded.dtype))   # [B, A, G]
+    iou = torch.where(gt_valid[:, None, :], iou, 0.0).amax(-1)
+    if spec.use_iou_param_partaa:
+        soft = torch.clamp(iou * 2.0 - 0.5, 0.0, 1.0)
+        iou = torch.where(iou > 0.75, 1.0, torch.where(iou < 0.25, 0.0,
+                                                       soft))
+    return torch.where(labels > 0, iou, 0.0)
 
-    labels [B, A] integer, reg_targets [B, A, code], anchors [B, A, code].
-    Returns a dict of scalar tensors."""
+
+def compute_loss(spec: DetectorSpec, preds_dict, labels, reg_targets,
+                 anchors, gt_boxes=None, gt_valid=None):
+    """Assemble the cls/loc(/dir/iou) losses (reference
+    `voxelnet.py:310-369`, JAX `second_tpu/models/detector.py:126-201`).
+
+    labels [B, A] integer, reg_targets [B, A, code], anchors [B, A, code];
+    gt_boxes [B, G, 7] / gt_valid [B, G], the padded gt boxes, needed by
+    the IoU branch and the Part-A² soft labels. Returns a dict of scalar
+    tensors."""
     B = labels.shape[0]
     box_preds = preds_dict["box_preds"].reshape(B, -1, spec.box_code_size)
     nc = spec.num_class if spec.encode_background_as_zeros \
@@ -101,6 +157,14 @@ def compute_loss(spec: DetectorSpec, preds_dict, labels, reg_targets,
         cls_targets, spec.num_class + 1).to(box_preds.dtype)
     if spec.encode_background_as_zeros:
         one_hot = one_hot[..., 1:]
+
+    iou_t = None
+    if (spec.use_iou_branch or spec.use_iou_param_partaa) and \
+            gt_boxes is not None:
+        iou_t = _iou_targets(spec, box_preds, labels, anchors, gt_boxes,
+                             gt_valid)
+        if spec.use_iou_param_partaa:
+            one_hot = one_hot * iou_t[..., None].to(one_hot.dtype)
 
     bp, rt = box_preds, reg_targets
     if spec.encode_rad_error_by_sin:
@@ -124,6 +188,14 @@ def compute_loss(spec: DetectorSpec, preds_dict, labels, reg_targets,
         "cls_neg_loss": cls_neg,
         "num_pos": (labels > 0).sum(),
     }
+    if spec.use_iou_branch and iou_t is not None and \
+            "iou_preds" in preds_dict:
+        iou_preds = preds_dict["iou_preds"].reshape(B, -1, 1)
+        iou_losses = spec.iou_loss_fn(iou_preds, iou_t[..., None],
+                                      reg_weights)
+        iou_loss_reduced = iou_losses.sum() / B * spec.iou_loss_weight
+        loss = loss + iou_loss_reduced
+        out["iou_loss_reduced"] = iou_loss_reduced
     if spec.use_direction_classifier:
         dir_targets = box_ops.get_direction_target(anchors, reg_targets)
         dir_logits = preds_dict["dir_cls_preds"].reshape(B, -1, 2)
@@ -144,13 +216,14 @@ def compute_loss(spec: DetectorSpec, preds_dict, labels, reg_targets,
 def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
     """Decode + score + NMS for the whole batch, on the device of the
     predictions, as JAX's `vmap` over examples does: batched top-k and row
-    gathers, and on the card no host sync (no Python loop over examples).
+    gathers, and on the card no host sync (no Python loop over examples or
+    classes).
 
     anchors [B, A, code] (array or tensor), anchors_mask [B, A] or None.
     Returns boxes [B, P, code], scores [B, P], labels [B, P], valid [B, P]
-    with P = nms_post_max_size."""
-    if spec.use_multi_class_nms:
-        raise NotImplementedError("multi-class NMS is not ported yet")
+    with P = nms_post_max_size. With the IoU branch the predicted IoU ranks
+    and thresholds the NMS candidates, and the reported scores stay the
+    classification scores (single-class NMS, as in JAX)."""
     box_preds = preds_dict["box_preds"]
     dev = box_preds.device
     anchors = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
@@ -168,44 +241,90 @@ def predict(spec: DetectorSpec, preds_dict, anchors, anchors_mask=None):
     valid = torch.ones((B, A), dtype=torch.bool, device=dev) \
         if anchors_mask is None else torch.as_tensor(anchors_mask, device=dev)
 
-    if scores_all.shape[-1] == 1:
-        top_scores = scores_all[..., 0]
-        top_labels = torch.zeros((B, A), dtype=torch.int64, device=dev)
+    if spec.use_multi_class_nms:
+        sel_boxes, sel_idx, sel_lab, sel_keep, scores = _multiclass_select(
+            spec, box_preds, anchors, scores_all, valid)
     else:
-        top_scores, top_labels = scores_all.max(-1)
-    ok = valid & (top_scores >= spec.nms_score_threshold)
-    masked = torch.where(ok, top_scores, float("-inf"))
-    k = min(spec.nms_pre_max_size, A)
-    # prefilter first, decode only the k candidates
-    cand_scores, cand_idx = top_k(masked, k)                     # [B, k]
-    cand_valid = torch.isfinite(cand_scores)
-    cand_boxes = box_ops.second_box_decode(flat_rows(box_preds, cand_idx),
-                                           flat_rows(anchors, cand_idx))
-    # BEV (x, y, w, l, yaw), by slices: a list index would copy to the card
-    bev = torch.cat([cand_boxes[..., 0:2], cand_boxes[..., 3:5],
-                     cand_boxes[..., 6:7]], -1)
-    nms_fn = nms if spec.use_rotate_nms else nearest_nms
-    rel_idx, sel_keep = nms_fn(
-        bev, torch.where(cand_valid, cand_scores, 0.0), cand_valid,
-        pre_max_size=k, post_max_size=spec.nms_post_max_size,
-        iou_threshold=spec.nms_iou_threshold)                    # [B, P]
-    sel_idx = cand_idx.gather(1, rel_idx)
-    sel_boxes = flat_rows(cand_boxes, rel_idx)
+        sel_boxes, sel_idx, sel_lab, sel_keep, scores = _single_select(
+            spec, preds_dict, box_preds, anchors, scores_all, valid)
     if spec.use_direction_classifier:
         dir_labels = preds_dict["dir_cls_preds"].reshape(B, A, 2).argmax(-1)
         opp = (sel_boxes[..., -1] > 0) != (dir_labels.gather(1, sel_idx) > 0)
         yaw = sel_boxes[..., -1] + torch.where(opp, math.pi, 0.0)
         sel_boxes = torch.cat([sel_boxes[..., :-1], yaw[..., None]], -1)
-    # scores follow the NMS keep mask, before the center-range cut
-    scores = torch.where(sel_keep, top_scores.gather(1, sel_idx), 0.0)
     lim = spec.post_center_limit_range
     if lim:
         # compared with Python floats: a tensor of them would copy to the card
         for d in range(3):
             sel_keep = sel_keep & (sel_boxes[..., d] >= lim[d]) & \
                 (sel_boxes[..., d] <= lim[3 + d])
-    return {"boxes": sel_boxes, "scores": scores,
-            "labels": top_labels.gather(1, sel_idx), "valid": sel_keep}
+    return {"boxes": sel_boxes, "scores": scores, "labels": sel_lab,
+            "valid": sel_keep}
+
+
+def _decoded_rows(box_preds, anchors, idx):
+    """The decoded boxes of the anchors idx [B, k] (decoding is per
+    anchor, so this equals decoding all and gathering)."""
+    return box_ops.second_box_decode(flat_rows(box_preds, idx),
+                                     flat_rows(anchors, idx))
+
+
+def _single_select(spec, preds_dict, box_preds, anchors, scores_all, valid):
+    """Single-class NMS over each example's best class score (or the
+    predicted IoU with the IoU branch). Returns the selected boxes, anchor
+    indices, labels, keep mask and scores, each [B, P]."""
+    B, A = valid.shape
+    if scores_all.shape[-1] == 1:
+        top_scores = scores_all[..., 0]
+        top_labels = torch.zeros((B, A), dtype=torch.int64,
+                                 device=valid.device)
+    else:
+        top_scores, top_labels = scores_all.max(-1)
+    nms_scores = top_scores
+    if spec.use_iou_branch and "iou_preds" in preds_dict:
+        nms_scores = torch.sigmoid(preds_dict["iou_preds"].reshape(B, A))
+    ok = valid & (nms_scores >= spec.nms_score_threshold)
+    masked = torch.where(ok, nms_scores, float("-inf"))
+    k = min(spec.nms_pre_max_size, A)
+    # prefilter first, decode only the k candidates
+    cand_scores, cand_idx = top_k(masked, k)                     # [B, k]
+    cand_valid = torch.isfinite(cand_scores)
+    cand_boxes = _decoded_rows(box_preds, anchors, cand_idx)
+    nms_fn = nms if spec.use_rotate_nms else nearest_nms
+    rel_idx, sel_keep = nms_fn(
+        box_ops.bev_boxes(cand_boxes),
+        torch.where(cand_valid, cand_scores, 0.0), cand_valid,
+        pre_max_size=k, post_max_size=spec.nms_post_max_size,
+        iou_threshold=spec.nms_iou_threshold)                    # [B, P]
+    sel_idx = cand_idx.gather(1, rel_idx)
+    # scores follow the NMS keep mask, before the center-range cut
+    scores = torch.where(sel_keep, top_scores.gather(1, sel_idx), 0.0)
+    return (flat_rows(cand_boxes, rel_idx), sel_idx,
+            top_labels.gather(1, sel_idx), sel_keep, scores)
+
+
+def _multiclass_select(spec, box_preds, anchors, scores_all, valid):
+    """Per-class NMS (every class of every example in one batch of the NMS
+    kernels, the candidates decoded only), then each example's global top P
+    of the kept detections by score, ties lowest class-major position
+    first (JAX's multi-class branch). Returns the selected boxes, anchor
+    indices, labels, keep mask and scores, each [B, P]."""
+    B, A = valid.shape
+    P = spec.nms_post_max_size
+    idx, keep, cls_scores = multiclass_nms(
+        lambda rows: box_ops.bev_boxes(_decoded_rows(box_preds, anchors,
+                                                     rows)),
+        scores_all, valid, num_classes=spec.num_class,
+        pre_max_size=spec.nms_pre_max_size, post_max_size=P,
+        iou_threshold=spec.nms_iou_threshold,
+        score_threshold=spec.nms_score_threshold)                # [B, C, P']
+    keep_scores = torch.where(keep, cls_scores, float("-inf")).reshape(B, -1)
+    top_sc, sel = top_k(keep_scores, P)                          # [B, P]
+    sel_idx = idx.reshape(B, -1).gather(1, sel)
+    sel_keep = torch.isfinite(top_sc)
+    return (_decoded_rows(box_preds, anchors, sel_idx), sel_idx,
+            torch.div(sel, idx.shape[-1], rounding_mode="floor"), sel_keep,
+            torch.where(sel_keep, top_sc, 0.0))
 
 
 @torch.no_grad()
@@ -233,15 +352,14 @@ def detect(net, spec, vspec, points, points_mask, anchors, device="cuda",
 
 def build_detector_spec(model_cfg) -> DetectorSpec:
     """ModelConfig → DetectorSpec (static loss and predict parameters)."""
-    if model_cfg.use_iou_branch or \
-            model_cfg.target_assigner.use_iou_param_partaa:
-        raise NotImplementedError(
-            "the IoU branch (use_iou_branch, use_iou_param_partaa) is not "
-            "ported yet: ROADMAP item 12 (IoUHead, d3_iou_matrix)")
     num_class = max(1, len(model_cfg.target_assigner.anchor_generators))
     code_size = 8 if model_cfg.box_coder.encode_angle_vector else 7
     if model_cfg.box_coder.kind == "bev_box_coder":
         code_size -= 2
+    if model_cfg.use_multi_class_nms and not model_cfg.use_rotate_nms:
+        raise NotImplementedError(
+            "use_multi_class_nms with use_rotate_nms: false: multi-class NMS "
+            "is rotated only (the JAX package's fails on the 5-wide boxes)")
     return DetectorSpec(
         num_class=num_class,
         box_code_size=code_size,
@@ -266,4 +384,9 @@ def build_detector_spec(model_cfg) -> DetectorSpec:
             model_cfg.loss.classification_loss),
         loc_loss_fn=loss_lib.build_localization_loss(
             model_cfg.loss.localization_loss),
+        use_iou_branch=model_cfg.use_iou_branch,
+        use_iou_param_partaa=model_cfg.target_assigner.use_iou_param_partaa,
+        iou_loss_weight=model_cfg.loss.iou_loss_weight,
+        iou_loss_fn=loss_lib.build_classification_loss(
+            model_cfg.loss.iou_loss),
     )

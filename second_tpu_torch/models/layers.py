@@ -14,12 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def at_least_fp32(x):
-    """x in fp32, or as it is in fp64: the norms and the heads compute in
-    fp32 whatever the trunk's dtype, and an fp64 model (a reference run)
-    stays fp64."""
-    return x if x.dtype == torch.float64 else x.float()
+from ..device import at_least_fp32
 
 
 def _flax_batch_norm(bn, x, dims):

@@ -14,7 +14,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import ConvBlock, DeconvBlock, at_least_fp32
+from ..device import at_least_fp32
+from .layers import ConvBlock, DeconvBlock
 
 
 class RPNBase(nn.Module):

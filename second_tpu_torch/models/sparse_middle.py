@@ -13,13 +13,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import at_least_fp32
 from ..ops import sparse_conv as sp
 from .middle import register_middle
 
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of [B, N, C] active-set features, in
-    fp32 whatever the input dtype; invalid rows come out zero. Training
+    fp32 whatever the input dtype (fp64 stays fp64, as `at_least_fp32`);
+    invalid rows come out zero. Training
     normalises with the masked batch statistics (the valid-row count
     clamped to 1, the biased variance) and updates the running statistics
     as ra = 0.99 · ra + 0.01 · stat, as JAX's does
@@ -38,8 +40,8 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask):
         out_dtype = x.dtype
-        x = x.float()
-        m = mask[..., None].float()
+        x = at_least_fp32(x)
+        m = mask[..., None].to(x.dtype)
         if self.training:
             count = torch.clamp(m.sum(), min=1.0)
             mean = (x * m).sum((0, 1)) / count

@@ -96,6 +96,12 @@ def limit_period(val, offset=0.5, period=math.pi):
     return val - torch.floor(val / period + offset) * period
 
 
+def bev_boxes(boxes):
+    """[..., 7] lidar boxes → [..., 5] BEV boxes (x, y, w, l, yaw), by
+    slices: a list index would copy its indices to the card."""
+    return torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]], -1)
+
+
 def rbbox2d_to_near_bbox(rbboxes):
     """[N, 5(x, y, w, l, yaw)] rotated → [N, 4 xyxy] nearest axis-aligned."""
     rots = torch.abs(limit_period(rbboxes[..., -1], 0.5, math.pi))

@@ -3,6 +3,9 @@
 
 `riou_pairs` (a pair list into two box arrays) and `riou_matrix` (dense
 [N, K] with a criterion) are the rotated IoU as such, off the main path.
+`d3_iou` is its 3-D extension, batched [B, N, 7] x [B, K, 7] → [B, N, K]
+(the BEV intersection times the vertical overlap over the union of the
+volumes), the IoU branch's targets in training.
 `nms_overlap` (the standup bound, the row-major pair list cut at
 `max_pairs`, the clip and the threshold: the rotated IoU as rotated NMS
 runs it, JAX `_sparse_rotated_over`) and `nms_suppress` (exact greedy
@@ -20,15 +23,17 @@ import ctypes
 
 import torch
 
+from ..box_ops import bev_boxes
 from ..rotated_iou import (iou_from_inter, quad_intersection_area,
                            rbbox_to_corners)
 from . import check, function, refuse_grad, stream_ptr
 
 # launches since the last reset (set to 0 to reset): of the rotated-IoU
-# kernels (`nms_overlap` on the main path, `riou_pairs`, `riou_matrix`), and
-# of the suppression kernel
+# kernels (`nms_overlap` on the main path, `riou_pairs`, `riou_matrix`), of
+# the suppression kernel, and of the 3-D IoU kernel
 launches = 0
 launches_suppress = 0
+launches_d3 = 0
 
 NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
 NMS_CLUSTERS = (1, 2, 4, 8, 16)
@@ -44,6 +49,9 @@ _MATRIX_ARGTYPES = [ctypes.c_void_p] * 3 + \
 _OVERLAP_ARGTYPES = [ctypes.c_void_p] * 5 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p]
+# b1, b2, out, batch, n1, n2, stream
+_D3_ARGTYPES = [ctypes.c_void_p] * 3 + \
+    [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 # over, valid, keep, batch, k, stream
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -52,6 +60,7 @@ _pairs_launch = None
 _matrix_launch = None
 _overlap_launch = None
 _suppress_launch = None
+_d3_launch = None
 
 
 def _resolve_pairs():
@@ -76,6 +85,12 @@ def _resolve_suppress():
     global _suppress_launch
     _suppress_launch = function("riou", "nms_suppress", _SUPPRESS_ARGTYPES)
     return _suppress_launch
+
+
+def _resolve_d3():
+    global _d3_launch
+    _d3_launch = function("riou", "d3_iou", _D3_ARGTYPES)
+    return _d3_launch
 
 
 def riou_pairs_plain(boxes1, boxes2, i, j, criterion=-1):
@@ -108,6 +123,35 @@ def riou_matrix_plain(boxes1, boxes2, criterion=-1):
     if not rows:
         return torch.zeros((N, K), dtype=torch.float32, device=boxes1.device)
     return torch.cat(rows, dim=0)
+
+
+def d3_iou_plain(boxes1, boxes2):
+    """Pairwise 3-D IoU of lidar boxes (x, y, z, w, l, h, yaw), z at the
+    bottom: boxes1 [B, N, 7] x boxes2 [B, K, 7] → [B, N, K], BEV rotated
+    intersection x max(vertical overlap, 0) / max(union, 1e-12), in row
+    chunks so the clip's intermediates stay small."""
+    B, N = boxes1.shape[:2]
+    K = boxes2.shape[1]
+    c1 = rbbox_to_corners(bev_boxes(boxes1))
+    c2 = rbbox_to_corners(bev_boxes(boxes2))
+    z1, z2 = boxes1[..., 2], boxes2[..., 2]
+    top1, top2 = z1 + boxes1[..., 5], z2 + boxes2[..., 5]
+    vol1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    vol2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    chunk = max(1, 131072 // max(B * K, 1))
+    rows = []
+    for r0 in range(0, N, chunk):
+        r = slice(r0, r0 + chunk)
+        q1 = c1[:, r, None].expand(-1, -1, K, 4, 2)
+        q2 = c2[:, None].expand(-1, q1.shape[1], -1, -1, -1)
+        inter = quad_intersection_area(q1, q2) * torch.clamp(
+            torch.minimum(top1[:, r, None], top2[:, None]) -
+            torch.maximum(z1[:, r, None], z2[:, None]), min=0.0)
+        rows.append(inter / torch.clamp(
+            vol1[:, r, None] + vol2[:, None] - inter, min=1e-12))
+    if not rows:
+        return boxes1.new_zeros((B, N, K))
+    return torch.cat(rows, dim=1)
 
 
 def _check_boxes(name, *boxes):
@@ -170,6 +214,35 @@ def riou_matrix(boxes1, boxes2, criterion=-1):
     check("riou", rc)
     global launches
     launches += 1
+    return out
+
+
+def d3_iou(boxes1, boxes2):
+    """`d3_iou_plain` semantics; the CUDA kernel for CUDA tensors."""
+    refuse_grad("d3_iou", boxes1, boxes2)
+    dev = boxes1.device
+    if dev.type == "cpu":
+        return d3_iou_plain(boxes1, boxes2)
+    if dev.type != "cuda":
+        raise ValueError(f"d3_iou: unsupported device {dev}")
+    for b in (boxes1, boxes2):
+        if b.dim() != 3 or b.shape[2] != 7 or b.dtype != torch.float32:
+            raise ValueError(f"d3_iou: boxes must be [B, N, 7] float32, got "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if boxes2.device != dev or boxes2.shape[0] != boxes1.shape[0]:
+        raise ValueError("d3_iou: boxes of another device or batch")
+    B, N = boxes1.shape[:2]
+    K = boxes2.shape[1]
+    out = torch.empty((B, N, K), dtype=torch.float32, device=dev)
+    if B * N * K == 0:
+        return out
+    boxes1, boxes2 = boxes1.contiguous(), boxes2.contiguous()
+    rc = (_d3_launch or _resolve_d3())(
+        boxes1.data_ptr(), boxes2.data_ptr(), out.data_ptr(), B, N, K,
+        stream_ptr(dev))
+    check("riou", rc)
+    global launches_d3
+    launches_d3 += 1
     return out
 
 

@@ -35,6 +35,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...device import at_least_fp32
 from . import check, function, stream_ptr
 
 # launches of the CUDA kernels since the last reset (set each to 0 to
@@ -106,16 +107,16 @@ def _resolve_wgrad():
 
 
 def gather_gemm_plain(features, tap_idx, found, weights):
-    """features [B, N, C] (fp32 or bf16), tap_idx [B, K, Q] integer, found
-    [B, K, Q] bool, weights [K, C, D] → [B, Q, D] fp32. Weights are rounded
-    to the feature dtype first, as the JAX apply does; products and sums are
-    fp32."""
+    """features [B, N, C] (fp32 or bf16; fp64 for a reference run), tap_idx
+    [B, K, Q] integer, found [B, K, Q] bool, weights [K, C, D] → [B, Q, D]
+    fp32 (fp64 from fp64). Weights are rounded to the feature dtype first,
+    as the JAX apply does; products and sums are fp32 (fp64)."""
     B, N, C = features.shape
     off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
     rows = (tap_idx.long() + off).reshape(-1)
     taps = features.reshape(B * N, C)[rows].reshape(*tap_idx.shape, C)
-    taps = torch.where(found[..., None], taps.float(), 0.0)
-    w = weights.to(features.dtype).float()
+    taps = torch.where(found[..., None], at_least_fp32(taps), 0.0)
+    w = at_least_fp32(weights.to(features.dtype))
     return torch.einsum("bkqc,kcd->bqd", taps, w)
 
 
@@ -144,14 +145,14 @@ def pack_weights(weights, CP: int, DP: int):
 def gather_gemm_wgrad_plain(features, tap_idx, found, grad_out):
     """The weight gradient of `gather_gemm_plain`: features [B, N, C] (fp32
     or bf16), tap_idx/found [B, K, Q], grad_out [B, Q, D] → dW [K, C, D]
-    fp32, dW[k] = Σ_{b, q found} features[b, tap_idx[b, k, q]]ᵀ
-    grad_out[b, q], products and sums fp32."""
+    fp32 (fp64 from fp64), dW[k] = Σ_{b, q found} features[b, tap_idx[b,
+    k, q]]ᵀ grad_out[b, q], products and sums fp32 (fp64)."""
     B, N, C = features.shape
     off = (torch.arange(B, device=features.device) * N).view(B, 1, 1)
     rows = (tap_idx.long() + off).reshape(-1)
     taps = features.reshape(B * N, C)[rows].reshape(*tap_idx.shape, C)
-    taps = torch.where(found[..., None], taps.float(), 0.0)
-    return torch.einsum("bkqc,bqd->kcd", taps, grad_out.float())
+    taps = torch.where(found[..., None], at_least_fp32(taps), 0.0)
+    return torch.einsum("bkqc,bqd->kcd", taps, at_least_fp32(grad_out))
 
 
 def _check_rulebook(name, features, tap_idx, found, D):

@@ -4,8 +4,8 @@ The geometry here (corners, Sutherland-Hodgman clipping into 8 masked vertex
 slots, shoelace area) is the plain PyTorch version of the rotated-IoU
 kernel (`csrc/riou.cu`, wrappers in `ops/cuda/riou.py`): it computes on
 whatever device its tensors lie on, with no kernel of its own.
-`rotated_iou_matrix` is the public dense form; it goes through the kernel
-wrapper.
+`rotated_iou_matrix` is the public dense form and `d3_iou_matrix` its
+batched 3-D form; both go through the kernel wrappers.
 """
 
 from __future__ import annotations
@@ -125,6 +125,18 @@ def rotated_iou_matrix(rbboxes1, rbboxes2, criterion=-1):
     kernel on a CUDA tensor, its plain version on a CPU tensor."""
     from .cuda.riou import riou_matrix
     return riou_matrix(rbboxes1, rbboxes2, criterion)
+
+
+def d3_iou_matrix(boxes1, boxes2):
+    """Pairwise 3-D IoU of lidar boxes (x, y, z, w, l, h, yaw; z at the
+    bottom): [B, N, 7] x [B, K, 7] → [B, N, K], or [N, 7] x [K, 7] → [N, K].
+    BEV rotated intersection x vertical overlap over the union of the
+    volumes. The 3-D rotated-IoU kernel on a CUDA tensor, its plain version
+    on a CPU tensor."""
+    from .cuda.riou import d3_iou
+    if boxes1.dim() == 2:
+        return d3_iou(boxes1[None], boxes2[None])[0]
+    return d3_iou(boxes1, boxes2)
 
 
 def standup_iou_matrix(boxes1, boxes2, eps=0.0):

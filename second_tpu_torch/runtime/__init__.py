@@ -2,14 +2,16 @@
 
 Provides accelerated versions of the host-side hot loops (first-come
 voxelization, point-in-box tests, BEV collision tests) with automatic
-build-on-first-use (`make` + g++) and transparent numpy fallback when the
-toolchain is unavailable. The numpy implementations in `second_tpu.core` are
+build-on-first-use (`make` + g++, safe when several processes build at
+once) and transparent numpy fallback when the toolchain is unavailable. The numpy implementations in `second_tpu.core` are
 the behavioral oracles.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
 import pathlib
 import subprocess
 from typing import Optional, Tuple
@@ -18,31 +20,36 @@ import numpy as np
 
 _NATIVE_DIR = pathlib.Path(__file__).parent / "native"
 _LIB_PATH = _NATIVE_DIR / "libhost_ops.so"
+_LOCK_PATH = _NATIVE_DIR / ".build.lock"
 _lib = None
 _load_failed = False
 
 
 def _build_library() -> bool:
+    """Build `libhost_ops.so` unless another process has: under an
+    exclusive `fcntl` lock on a file in `native/`, re-check for the library,
+    link it to a name of this process's own and `os.replace` it into place,
+    so no process ever sees a half-linked library."""
     try:
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True, timeout=120)
-        return _LIB_PATH.exists()
+        with open(_LOCK_PATH, "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if _LIB_PATH.exists():
+                    return True
+                tmp = f"{_LIB_PATH.name}.{os.getpid()}.tmp"
+                subprocess.run(["make", "-C", str(_NATIVE_DIR), f"OUT={tmp}"],
+                               check=True, capture_output=True, timeout=120)
+                os.replace(_NATIVE_DIR / tmp, _LIB_PATH)
+                return True
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
     except Exception:
         return False
 
 
-def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
-        return _lib
-    if not _LIB_PATH.exists() and not _build_library():
-        _load_failed = True
-        return None
-    try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
-        _load_failed = True
-        return None
+def _bind(lib: ctypes.CDLL) -> None:
+    """Declare the C functions' signatures; raises AttributeError where the
+    library lacks one."""
     c_f32p = ctypes.POINTER(ctypes.c_float)
     c_i32p = ctypes.POINTER(ctypes.c_int32)
     c_u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -60,6 +67,23 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.iou_matrix.restype = None
     lib.iou_matrix.argtypes = [
         c_f32p, ctypes.c_int64, c_f32p, ctypes.c_int64, c_f32p]
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The native library, built at first use; None (the numpy fallbacks)
+    where it cannot be built or loaded, or lacks a function."""
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    if not _LIB_PATH.exists() and not _build_library():
+        _load_failed = True
+        return None
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+        _bind(lib)
+    except (OSError, AttributeError):
+        _load_failed = True
+        return None
     _lib = lib
     return _lib
 

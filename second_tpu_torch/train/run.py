@@ -1,5 +1,5 @@
 """Training/evaluation CLI — the port of `second_tpu/train/run.py` for the
-one-stage model on synthetic LiDAR scans.
+one-stage model, on a prepared KITTI tree or on synthetic LiDAR scans.
 
 Mirrors the reference's entry points (`second/pytorch/train.py:91 train`,
 `:647 evaluate`): config → builders → restore-latest → train loop with
@@ -9,16 +9,20 @@ CUDA card unless `--device cpu` is given.
 
 Usage:
     python -m second_tpu_torch.train.run train --config_path C \
-        --model_dir D --synthetic [--steps N] [--device cpu]
+        --model_dir D [--synthetic] [--steps N] [--profile_steps N] \
+        [--device cpu]
     python -m second_tpu_torch.train.run evaluate --config_path C \
-        --model_dir D --synthetic [--device cpu]
+        --model_dir D [--synthetic] [--device cpu]
 
-Ported: `model_type="one_stage"` (SECOND car.fhd, PointPillars) with
-`synthetic=True` (the scan scenes the JAX trainer uses under
-`--synthetic`), with the config's anchor-area mask: computed on the host for
-target assignment in training, on the device from the voxelizer's coords in
-evaluation. Every other model type, the KITTI reader and data-parallel
-training raise `NotImplementedError` naming their ROADMAP item.
+Ported: `model_type="one_stage"` (SECOND car.fhd and multi-class,
+PointPillars), on the KITTI infos the config's input readers name
+(`data/kitti_dataset.py`, prepared by `python -m
+second_tpu_torch.data.kitti_dataset`) or, with `synthetic=True`, on the
+scan scenes the JAX trainer uses under `--synthetic`; with the config's
+anchor-area mask: computed on the host for target assignment in training,
+on the device from the voxelizer's coords in evaluation. Every other model
+type and data-parallel training raise `NotImplementedError` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from ..config import load_pipeline_config
 from ..data import ExamplePrep, PrepConfig
 from ..data import kitti
+from ..data.kitti_dataset import KittiDataset
 from ..data.synthetic import SyntheticDataset
 from ..device import resolve_device
 from ..models import build_voxelnet, init_train_weights_
@@ -125,10 +130,6 @@ class Trainer:
                 f"{_NOT_PORTED[model_type]}")
         if model_type != "one_stage":
             raise ValueError(f"unknown model_type {model_type!r}")
-        if not synthetic:
-            raise NotImplementedError(
-                "the KITTI reader (data/kitti_dataset.py) is not ported yet: "
-                "ROADMAP item 10, its open part; train with synthetic=True")
         self.model_type = model_type
         self.device = resolve_device(device)
         self.cfg = apply_config_patches(load_pipeline_config(config_path),
@@ -180,24 +181,34 @@ class Trainer:
                        pc_range=tuple(vg.point_cloud_range),
                        device_anchors_mask=True))
         self.synthetic = synthetic
-        # scan geometry (not uniform scatter): realistic voxel occupancy
-        # and sparse-stage dilation. Scenes carry every class the config's
-        # target assigner detects.
-        pc_range = tuple(vg.point_cloud_range)
-        cls = set(self.assigner.classes)
-        cls_kwargs = {}
-        if "Pedestrian" in cls:
-            cls_kwargs["num_peds"] = (1, 6)
-        if "Cyclist" in cls:
-            cls_kwargs["num_cyclists"] = (1, 4)
-        if "Car" not in cls:
-            cls_kwargs["num_cars"] = (0, 0)
-        self.train_ds = SyntheticDataset(dataset_size, seed=1,
-                                         pc_range=pc_range, scan=True,
-                                         **cls_kwargs)
-        self.eval_ds = SyntheticDataset(max(32, dataset_size // 8), seed=2,
-                                        pc_range=pc_range, scan=True,
-                                        **cls_kwargs)
+        if synthetic:
+            # scan geometry (not uniform scatter): realistic voxel
+            # occupancy and sparse-stage dilation. Scenes carry every class
+            # the config's target assigner detects.
+            pc_range = tuple(vg.point_cloud_range)
+            cls = set(self.assigner.classes)
+            cls_kwargs = {}
+            if "Pedestrian" in cls:
+                cls_kwargs["num_peds"] = (1, 6)
+            if "Cyclist" in cls:
+                cls_kwargs["num_cyclists"] = (1, 4)
+            if "Car" not in cls:
+                cls_kwargs["num_cars"] = (0, 0)
+            self.train_ds = SyntheticDataset(dataset_size, seed=1,
+                                             pc_range=pc_range, scan=True,
+                                             **cls_kwargs)
+            self.eval_ds = SyntheticDataset(max(32, dataset_size // 8),
+                                            seed=2, pc_range=pc_range,
+                                            scan=True, **cls_kwargs)
+        else:
+            self.train_ds = KittiDataset(
+                self.cfg.train_input_reader.kitti_info_path,
+                self.cfg.train_input_reader.kitti_root_path,
+                training=True, input_cfg=self.cfg.train_input_reader)
+            self.eval_ds = KittiDataset(
+                self.cfg.eval_input_reader.kitti_info_path,
+                self.cfg.eval_input_reader.kitti_root_path,
+                training=False, input_cfg=self.cfg.eval_input_reader)
 
         self.total_steps = total_steps or self.cfg.train_config.steps
         self.train_step = make_train_step(self.spec, self.vspec)
@@ -261,7 +272,11 @@ class Trainer:
         return state
 
     # -- loops -------------------------------------------------------------
-    def train(self, total_steps: Optional[int] = None):
+    def train(self, total_steps: Optional[int] = None,
+              profile_steps: int = 0):
+        """`profile_steps > 0` traces that many steps with torch.profiler
+        (host, and the card's kernels on the card) into model_dir/profile,
+        a TensorBoard/Chrome trace; off, it adds nothing to the loop."""
         tc = self.cfg.train_config
         total_steps = total_steps or self.total_steps
         batch_size = self.cfg.train_input_reader.batch_size
@@ -275,8 +290,13 @@ class Trainer:
         avg_loss = Scalar()
         last_ckpt_time = time.time()
         step = state.step
+        profiler = self._start_profile() if profile_steps else None
+        profile_until = step + profile_steps
         try:
             while step < total_steps:
+                if profiler is not None and step == profile_until:
+                    profiler.stop()
+                    profiler = None
                 self.timer.start("data")
                 batch = next(batches)
                 self.timer.end("data")
@@ -304,24 +324,49 @@ class Trainer:
             self.ckpt.save(state, state.step)
             raise
         finally:
+            if profiler is not None:
+                profiler.stop()
             batches.close()
         self.ckpt.save(state, state.step)
         return state
 
+    def _start_profile(self):
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=acts, on_trace_ready=(
+            tensorboard_trace_handler(str(self.model_dir / "profile"))))
+        profiler.start()
+        return profiler
+
     def _convert_detections(self, det, scenes, gt_annos, dt_annos):
-        """Detections of one batch (numpy) → camera-frame anno dicts of the
-        synthetic scenes, gt and dt through the same mapping."""
+        """Detections of one batch (numpy) → camera-frame anno dicts: for
+        synthetic scenes gt and dt through the same mapping; for KITTI
+        frames the detections through the frame's calibration, the gt as
+        the frame's annos."""
         class_names = np.asarray(self.assigner.classes)
         for b, scene in enumerate(scenes):
             valid = det["valid"][b]
-            if not self._predict_test:
-                gt_annos.append(_synthetic_lidar_to_camera_annos(
-                    scene["gt_boxes"], scene["gt_names"]))
-            dt_annos.append(_synthetic_lidar_to_camera_annos(
-                det["boxes"][b][valid],
-                class_names[np.clip(det["labels"][b][valid], 0,
-                                    len(class_names) - 1)],
-                det["scores"][b][valid]))
+            if self.synthetic or "annos" not in scene:
+                if not self._predict_test:
+                    gt_annos.append(_synthetic_lidar_to_camera_annos(
+                        scene["gt_boxes"], scene["gt_names"]))
+                dt_annos.append(_synthetic_lidar_to_camera_annos(
+                    det["boxes"][b][valid],
+                    class_names[np.clip(det["labels"][b][valid], 0,
+                                        len(class_names) - 1)],
+                    det["scores"][b][valid]))
+            else:
+                dt_annos.append(kitti.detections_to_kitti_annos(
+                    {k: v[b] for k, v in det.items()},
+                    scene["calib/R0_rect"], scene["calib/Tr_velo_to_cam"],
+                    scene["calib/P2"], scene.get("img_shape"),
+                    self.assigner.classes,
+                    self.cfg.model.post_center_limit_range))
+                if not self._predict_test:
+                    gt_annos.append(scene["annos"])
 
     def evaluate(self, state=None, max_frames: Optional[int] = None,
                  ckpt_step: Optional[int] = None,
@@ -434,6 +479,9 @@ def main(argv=None):
                         help="write detections (pkl + KITTI txt) without "
                              "scoring against gt (reference predict_test "
                              "test-split submission mode)")
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="trace the first N train steps with "
+                             "torch.profiler into model_dir/profile")
     parser.add_argument("--device", default="cuda",
                         help="torch device; the CUDA card by default")
     args = parser.parse_args(argv)
@@ -442,7 +490,7 @@ def main(argv=None):
                       total_steps=args.steps, model_type=args.model_type,
                       patches=args.patchs, device=args.device)
     if args.command == "train":
-        trainer.train(args.steps)
+        trainer.train(args.steps, profile_steps=args.profile_steps)
     else:
         trainer.evaluate(max_frames=args.max_frames,
                          ckpt_step=args.ckpt_step,

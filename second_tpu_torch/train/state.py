@@ -51,7 +51,10 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
     """Returns train_step(state, batch) → (state, metrics), updating the
     state in place. batch: points [B, P, C], points_mask [B, P], labels
     [B, A], reg_targets [B, A, code], anchors [B, A, code], tensors on the
-    state's device. The metrics are JAX's keys, 0-d tensors on the device."""
+    state's device; with the IoU branch (or Part-A² soft labels) also the
+    padded gt boxes, gt_boxes_padded [B, G, 7] and gt_valid [B, G]. The
+    metrics are JAX's keys, 0-d tensors on the device, and with the IoU
+    branch its loss, iou_loss."""
 
     def train_step(state: TrainState, batch: Dict):
         net, dev = state.module, state.device
@@ -63,7 +66,9 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
             preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
                         vox["voxel_valid"])
             aux = compute_loss(spec, preds, batch["labels"],
-                               batch["reg_targets"], batch["anchors"])
+                               batch["reg_targets"], batch["anchors"],
+                               batch.get("gt_boxes_padded"),
+                               batch.get("gt_valid"))
             state.optimizer.zero_grad()
             aux["loss"].backward()
         grad_norm = state.optimizer.step(state.step)
@@ -81,6 +86,8 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
         }
         if "dir_loss_reduced" in aux:
             metrics["dir_loss"] = aux["dir_loss_reduced"].detach()
+        if "iou_loss_reduced" in aux:
+            metrics["iou_loss"] = aux["iou_loss_reduced"].detach()
         return state, metrics
 
     return train_step

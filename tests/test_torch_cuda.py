@@ -864,3 +864,134 @@ def test_pointpillars_path_launches(dev, pp):
         assert torch.isfinite(g).all(), name
     for name in ("vfe.layers.0.linear.weight", "rpn.trunk.convs.0.conv.weight"):
         assert grads[name].abs().max() > 0, name
+
+
+# ------------------------------------------- SECOND multi-class, IoU branch
+
+
+def _d3_boxes(g, B, N, spread=40.0):
+    """Lidar boxes (x, y, z, w, l, h, yaw) crowded enough to overlap."""
+    return torch.stack([
+        torch.rand(B, N, generator=g) * spread,
+        torch.rand(B, N, generator=g) * spread - spread / 2,
+        torch.rand(B, N, generator=g) * 2 - 2.5,
+        0.4 + 2.0 * torch.rand(B, N, generator=g),
+        0.6 + 4.0 * torch.rand(B, N, generator=g),
+        1.0 + 1.0 * torch.rand(B, N, generator=g),
+        (torch.rand(B, N, generator=g) - 0.5) * 2 * np.pi], -1)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("N,K", [(70400, 40), (70400, 1), (1000, 0),
+                                 (1000, 40), (333, 1)])
+def test_d3_iou_matches_plain(dev, B, N, K):
+    """The 3-D IoU kernel against its plain version on the card, within
+    1e-5, non-finite entries equal: crowded boxes, the gt boxes among the
+    anchors (IoU 1), zero-size boxes, and boxes decoded from overflowed
+    exps (h = inf at z = -inf, w = inf, a NaN yaw); one launch a call."""
+    g = torch.Generator().manual_seed(30 + K)
+    b1 = _d3_boxes(g, B, N, spread=40.0 if N > 1000 else 10.0)
+    b2 = _d3_boxes(g, B, K, spread=40.0 if N > 1000 else 10.0)
+    if K:
+        b1[:, :K] = b2                         # identical pairs
+        b1[:, K:2 * K, 3] = 0.0                # zero width
+        b2[:, 0, 5] = 0.0                      # a flat gt box
+    b1[:, -1, 5], b1[:, -1, 2] = float("inf"), float("-inf")
+    b1[:, -2, 3] = float("inf")
+    b1[:, -3, 6] = float("nan")
+    b1, b2 = b1.to(dev), b2.to(dev)
+    before = riou.launches_d3
+    got = riou.d3_iou(b1, b2)
+    want = riou.d3_iou_plain(b1, b2)
+    torch.cuda.synchronize()
+    assert riou.launches_d3 == before + (1 if K else 0)
+    assert got.shape == (B, N, K)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0, equal_nan=True)
+    if K > 1:
+        # identical boxes: 1 up to the fp32 clip's rounding at 40 m
+        diag = got[:, torch.arange(1, K), torch.arange(1, K)]
+        torch.testing.assert_close(diag, torch.ones_like(diag), atol=1e-3,
+                                   rtol=0)
+        assert int((got[:, :-3] > 0).sum()) > B * K
+        assert not torch.isfinite(got[:, -1]).any()
+
+
+def test_d3_iou_rejects_what_it_cannot_take(dev):
+    b = torch.zeros(2, 5, 7, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        riou.d3_iou(b.double(), b)
+    with pytest.raises(ValueError, match="batch"):
+        riou.d3_iou(b, b[:1])
+    with pytest.raises(RuntimeError, match="no backward"):
+        riou.d3_iou(b.clone().requires_grad_(), b)
+
+
+def _mc_nms_inputs(g, B=2, N=1500, C=3):
+    """Tied boxes and scores (five levels) for C classes, one class of the
+    last example below the score threshold."""
+    boxes, _, valid = _tied_nms_inputs(g, B, N)
+    scores = torch.randint(0, 5, (B, N, C), generator=g).float() / 4
+    scores[:, 1000:1200] = scores[:, 0:200]
+    scores[-1, :, -1] = 0.1
+    return boxes, scores, valid
+
+
+def test_multiclass_nms_launches_and_ties_match_cpu(dev):
+    """Multi-class NMS of 2 examples x 3 classes on the card: one overlap
+    and one suppression launch for all six rows, and the CPU's indices,
+    keep masks and scores exactly, ties among scores and boxes included."""
+    g = torch.Generator().manual_seed(31)
+    boxes, scores, valid = _mc_nms_inputs(g)
+    kw = dict(num_classes=3, pre_max_size=1000, post_max_size=100,
+              iou_threshold=0.01, score_threshold=0.3)
+    nms.multiclass_nms(boxes.to(dev), scores.to(dev), valid.to(dev), **kw)
+    before = (riou.launches, riou.launches_suppress)
+    got = nms.multiclass_nms(boxes.to(dev), scores.to(dev), valid.to(dev),
+                             **kw)
+    torch.cuda.synchronize()
+    assert (riou.launches, riou.launches_suppress) == \
+        (before[0] + 1, before[1] + 1)
+    want = nms.multiclass_nms(boxes, scores, valid, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert not want[1][-1, -1].any() and want[1][0].sum() > 0
+
+
+def test_multiclass_predict_runs_without_host_sync(dev):
+    """`predict` of the published multi-class config (3 classes, 211 200
+    anchors an example, per-class rotated NMS) on random predictions at
+    batch 2: no synchronising CUDA call, one launch of each NMS kernel for
+    all classes and examples, and the CPU's valid mask and labels, boxes
+    and scores within 1e-4."""
+    cfg = load_pipeline_config(Path(__file__).resolve().parents[1] /
+                               "second_tpu_torch" / "configs" /
+                               "second_multiclass.config")
+    _, spec, info, assigner, _ = build_voxelnet(cfg.model, device="cpu")
+    A = info.num_anchors
+    anchors = torch.as_tensor(assigner.generate_anchors(
+        info.feature_map_size)["anchors"].reshape(1, A, 7)).expand(2, A, 7)
+    g = torch.Generator().manual_seed(32)
+    preds = {"box_preds": torch.randn(2, A, 7, generator=g) * 0.3,
+             "cls_preds": torch.randn(2, A, 3, generator=g) * 1.5 - 2.0,
+             "dir_cls_preds": torch.randn(2, A, 2, generator=g)}
+    dpreds = {k: v.to(dev) for k, v in preds.items()}
+    danchors = anchors.to(dev)
+    predict(spec, dpreds, danchors)                     # built and loaded
+    before = (riou.launches, riou.launches_suppress)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        det = predict(spec, dpreds, danchors)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (riou.launches, riou.launches_suppress) == \
+        (before[0] + 1, before[1] + 1)
+    want = predict(spec, preds, anchors)
+    valid = want["valid"]
+    assert torch.equal(det["valid"].cpu(), valid) and int(valid.sum()) > 0
+    assert torch.equal(det["labels"].cpu(), want["labels"])
+    assert set(want["labels"][valid].tolist()) == {0, 1, 2}
+    for k in ("boxes", "scores"):
+        torch.testing.assert_close(det[k].cpu()[valid], want[k][valid],
+                                   atol=1e-4, rtol=1e-4)

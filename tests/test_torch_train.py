@@ -274,9 +274,11 @@ def test_compute_loss_matches_jax(use_dir):
 
 
 def test_iou_branch_is_refused():
-    """The IoU branch is not ported: the detector spec refuses it, naming
-    its ROADMAP item."""
+    """The IoU branch, once refused here, is ported: the model builds with
+    its IoU head and the detector spec carries the branch's loss (its
+    parity with JAX: `test_torch_iou_branch.py`)."""
     cfg = loads_pipeline_config(TINY_SPARSE_PIPELINE)
     cfg.model.use_iou_branch = True
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_voxelnet(cfg.model, device="cpu")
+    net, spec, _, _, _ = build_voxelnet(cfg.model, device="cpu")
+    assert spec.use_iou_branch and spec.iou_loss_fn is not None
+    assert net.iou is not None and net.iou.out.out_channels == 2
