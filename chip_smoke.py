@@ -117,8 +117,11 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    synthetic scans, 16 000 voxels, bf16: every forward, dX and
    weight-gradient call of one step against its plain version and timed;
    the 3-D IoU kernel (`d3_iou`) on the step's real call against its plain
-   version (non-finite entries
-   equal), timed, with its bound; launches 14 / 13 / 14 and d3_iou 1; no
+   version (non-finite entries equal), its clipped count against the pairs
+   `d3_cull_plain` keeps (exact, per example), every culled pair's plain
+   value at most D3_CULLED_MAX, timed, with its bound counted from the
+   kept pairs (the all-pairs count printed beside it); launches
+   14 / 13 / 14 and d3_iou 1; no
    host sync; the IoU loss finite and nonzero; an eval forward of the
    model with the IoU head (random weights), its NMS card against CPU, and
    predict ranked by an IoU free of near-ties card against CPU (the
@@ -303,11 +306,28 @@ IOU_KERNELS = [
          replaces="second_tpu/ops/rotated_iou.py:204"),
 ]
 ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS
-# fp32 operations of one 3-D IoU pair beyond its BEV clip (csrc/riou.cu
-# `d3_iou_kernel`): the two tops, their min, the max of the bottoms, the
-# overlap and its clamp, the product, two volumes (2 x 2), the union and
-# its clamp, and the quotient
-D3_EXTRA_OPS = 15
+# fp32 operations of one clipped 3-D IoU pair beyond its BEV clip
+# (csrc/riou.cu `d3_iou_kernel`): the min of the tops, the max of the
+# bottoms, the overlap and its clamp, the product, the union (2) and its
+# clamp, and the quotient
+D3_EXTRA_OPS = 9
+# ... of each box the kernel stages, counted the same way: RIOU_BOX_OPS
+# (its corners and, as a gt box, its winding sign), the envelope's 12
+# min/max, its top and volume 3, its tame flag 20 (7 magnitudes, 7
+# comparisons, 6 ands), its solid flag 16 (4 magnitudes, 3 sums, 2
+# products, 4 comparisons, 3 ands) and their packing 2; and of one pair's
+# cull test: the x and y overlaps 2 x 3, the z overlap 3, the flags' and
+# and two bit tests 3, 3 comparisons, 2 ors, 2 ands and the negation
+D3_BOX_OPS = RIOU_BOX_OPS + 12 + 3 + 20 + 16 + 2
+D3_TEST_OPS = 20
+# the all-pairs count of a pair, every pair clipped as a kernel of one
+# thread a pair clips it: the two tops, their min, the max of the bottoms,
+# the overlap and its clamp, the product, two volumes, the union and its
+# clamp, the quotient (printed beside the recount)
+D3_ALL_PAIRS_EXTRA_OPS = 15
+# the largest plain value of a culled pair (0 expected; a rounding sliver
+# of the clip at most)
+D3_CULLED_MAX = 1e-6
 # the batched NMS is recorded too: its call is timed whole
 RECORDED = [(k["module"], k["fn"]) for k in KERNELS] + [(nms_ops, "nms")]
 # the multi-class forward: its kernels and its per-class NMS batch (every
@@ -2589,26 +2609,33 @@ def check_kitti_calls(train_calls, eval_calls, timer, dtimer):
 # ------------------------------------------------- the IoU branch (fhd)
 
 
-def d3_bound(boxes1, boxes2):
-    """(bytes seconds, ops seconds) of one 3-D IoU call: the boxes read
-    once and the [B, N, K] output written once; each box's corners once
-    (RIOU_BOX_OPS), and each pair's BEV clip as `riou_ops` counts it with
-    D3_EXTRA_OPS in place of the 2-D IoU's."""
+def d3_bound(boxes1, boxes2, cull):
+    """(bytes seconds, ops seconds, ops, all-pairs ops) of one 3-D IoU call:
+    the boxes read once and the [B, N, K] output written once; each box
+    staged once (D3_BOX_OPS), a cull test a pair (D3_TEST_OPS), and the
+    BEV clip as `riou_ops` counts it plus D3_EXTRA_OPS only for the pairs
+    that `cull` (`d3_cull_plain`) keeps. The all-pairs count, each box's
+    corners once and every pair clipped, is returned beside it for
+    comparison."""
     B, N = boxes1.shape[:2]
     K = boxes2.shape[1]
     bev1 = bev_boxes(boxes1).reshape(B * N, 5)
     bev2 = bev_boxes(boxes2).reshape(B * K, 5)
-    ops = B * (N + K) * RIOU_BOX_OPS
+    kb, kn, kk = torch.nonzero(~cull, as_tuple=True)
+    ops = B * (N + K) * D3_BOX_OPS + B * N * K * D3_TEST_OPS + \
+        riou_ops(bev1, bev2, kb * N + kn, kb * K + kk, D3_EXTRA_OPS)
+    ops_all = B * (N + K) * RIOU_BOX_OPS
     rows = max(1, (1 << 21) // max(K, 1))
-    kk = torch.arange(K, device=boxes1.device)
+    cols = torch.arange(K, device=boxes1.device)
     for b in range(B):
         for r0 in range(0, N, rows):
             n = torch.arange(r0, min(r0 + rows, N), device=boxes1.device)
             i = (b * N + n)[:, None].expand(-1, K).reshape(-1)
-            j = (b * K + kk)[None].expand(n.numel(), -1).reshape(-1)
-            ops += riou_ops(bev1, bev2, i, j, D3_EXTRA_OPS)
+            j = (b * K + cols)[None].expand(n.numel(), -1).reshape(-1)
+            ops_all += riou_ops(bev1, bev2, i, j, D3_ALL_PAIRS_EXTRA_OPS)
     nbytes = (boxes1.numel() + boxes2.numel() + B * N * K) * 4
-    return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[torch.float32]
+    peak = PEAK_OPS_PER_S[torch.float32]
+    return nbytes / HBM_BYTES_PER_S, ops / peak, ops, ops_all
 
 
 def run_fhd_iou_train(dev, timer, dtimer):
@@ -2641,32 +2668,50 @@ def run_fhd_iou_train(dev, timer, dtimer):
                           for k, a in step_aggs.items()}
     (b1, b2), _ = calls["d3_iou"][0]
     del calls
-    got = riou.d3_iou(b1, b2)
+    got, clipped = riou.d3_iou(b1, b2, count=True)
     want = riou.d3_iou_plain(b1, b2)
+    cull = riou.d3_cull_plain(b1, b2)
+    kept = (~cull).sum((1, 2))
     torch.cuda.synchronize()
     if not torch.equal(torch.isfinite(got), torch.isfinite(want)) or \
             not torch.allclose(got, want, atol=RIOU_TOL, rtol=0,
                                equal_nan=True):
         fail("fhd iou: the 3-D IoU kernel disagrees with its plain version")
+    if not torch.equal(clipped.long(), kept):
+        fail(f"fhd iou: the 3-D IoU kernel clipped {clipped.tolist()} pairs "
+             f"an example, d3_cull_plain keeps {kept.tolist()}")
+    culled_max = want[cull].max().item() if cull.any() else 0.0
+    if not culled_max <= D3_CULLED_MAX:
+        fail(f"fhd iou: a culled pair's plain 3-D IoU is {culled_max:.3g}, "
+             f"above {D3_CULLED_MAX}")
     fin = torch.isfinite(want)
     err = (got - want)[fin].abs().max().item() if fin.any() else 0.0
-    bs, os_ = d3_bound(b1, b2)
+    bs, os_, ops, ops_all = d3_bound(b1, b2, cull)
     agg = dict(err=err, bytes_s=bs, ops_s=os_, library_ms=None,
                library_device_ms=None,
                ms=timer(lambda: riou.d3_iou(b1, b2), 10),
                plain_ms=timer(lambda: riou.d3_iou_plain(b1, b2), 3),
                device_ms=dtimer([lambda: riou.d3_iou(b1, b2)])[0])
-    report["d3_iou"] = dict(shape=[list(b1.shape), list(b2.shape)],
-                            non_finite=int((~fin).sum()),
-                            overlapping=int((want > 0).sum()), **agg)
+    pairs = cull.numel()
+    overlapping = int((want > 0).sum())
+    report["d3_iou"] = dict(
+        shape=[list(b1.shape), list(b2.shape)], non_finite=int((~fin).sum()),
+        overlapping=overlapping, clipped=clipped.tolist(),
+        clipped_share=int(kept.sum()) / pairs, culled_max=culled_max,
+        ops=ops, ops_all_pairs=ops_all,
+        bound_ms_all_pairs=1e3 * max(bs, ops_all / PEAK_OPS_PER_S[
+            torch.float32]), **agg)
     say(f"d3_iou [{', '.join(map(str, b1.shape))}] x "
         f"[{', '.join(map(str, b2.shape))}]: err {err:.2e} "
-        f"({int((~fin).sum())} non-finite entries equal), "
-        f"{int((want > 0).sum())} overlapping pairs; kernel {agg['ms']:.4f} "
-        f"ms (device {agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms"
-        f"  bound {1e3 * max(bs, os_):.4f} ms "
-        f"({'bytes' if bs >= os_ else 'operations'})")
-    del b1, b2, got, want
+        f"({int((~fin).sum())} non-finite entries equal); clipped "
+        f"{int(kept.sum())} of {pairs} pairs ({clipped.tolist()} an "
+        f"example, as d3_cull_plain), {overlapping} overlapping, culled "
+        f"pairs' plain IoU at most {culled_max:.3g}; kernel "
+        f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f})  plain "
+        f"{agg['plain_ms']:.4f} ms  bound {1e3 * max(bs, os_):.4f} ms "
+        f"({'bytes' if bs >= os_ else 'operations'}; {ops / 1e9:.4f} G "
+        f"operations, {ops_all / 1e9:.4f} G with every pair clipped)")
+    del b1, b2, got, want, cull
 
     reset_counts()
     state, metrics = step(state, batch)

@@ -5,7 +5,9 @@
 [N, K] with a criterion) are the rotated IoU as such, off the main path.
 `d3_iou` is its 3-D extension, batched [B, N, 7] x [B, K, 7] → [B, N, K]
 (the BEV intersection times the vertical overlap over the union of the
-volumes), the IoU branch's targets in training.
+volumes), the IoU branch's targets in training; its kernel culls the pairs
+whose boxes cannot meet before it clips the rest, and `d3_cull_plain` is
+that cull rule in plain PyTorch.
 `nms_overlap` (the standup bound, the row-major pair list cut at
 `max_pairs`, the clip and the threshold: the rotated IoU as rotated NMS
 runs it, JAX `_sparse_rotated_over`) and `nms_suppress` (exact greedy
@@ -38,6 +40,7 @@ launches_d3 = 0
 NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
 NMS_CLUSTERS = (1, 2, 4, 8, 16)
 NMS_CLUSTER = 16        # blocks (SMs) an example in nms_overlap: the fastest
+D3_TAME = 1e12          # the largest field magnitude d3_iou's cull takes
 
 # b1, b2, i, j, out, pairs, criterion, stream
 _PAIRS_ARGTYPES = [ctypes.c_void_p] * 5 + \
@@ -49,9 +52,8 @@ _MATRIX_ARGTYPES = [ctypes.c_void_p] * 3 + \
 _OVERLAP_ARGTYPES = [ctypes.c_void_p] * 5 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p]
-# b1, b2, out, batch, n1, n2, stream
-_D3_ARGTYPES = [ctypes.c_void_p] * 3 + \
-    [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+# b1, b2, out, clipped, batch, n1, n2, stream
+_D3_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # over, valid, keep, batch, k, stream
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -154,6 +156,34 @@ def d3_iou_plain(boxes1, boxes2):
     return torch.cat(rows, dim=1)
 
 
+def d3_cull_plain(boxes1, boxes2):
+    """The pairs that `d3_iou`'s kernel writes as 0 without clipping them,
+    bool [B, N, K]: both boxes tame (every field finite and at most D3_TAME
+    in magnitude, so no product of the clip overflows) and their vertical
+    overlap at most 0, or both also solid (width and length positive and at
+    least 1/256 of the reach |x| + |y| + |w| + |l|) and their BEV standup
+    envelopes strictly apart on x or on y. The kernel's comparisons on the
+    corners of `rbbox_to_corners`; the kernel's clipped count is the pairs
+    this keeps. Nothing on the main path calls it."""
+    def parts(b):
+        c = rbbox_to_corners(bev_boxes(b))
+        tame = (b.abs() <= D3_TAME).all(-1)
+        w, l = b[..., 3], b[..., 4]
+        reach = b[..., 0].abs() + b[..., 1].abs() + w.abs() + l.abs()
+        solid = (w > 0) & (l > 0) & (256 * w >= reach) & (256 * l >= reach)
+        return (c.amin(-2), c.amax(-2), b[..., 2], b[..., 2] + b[..., 5],
+                tame, solid)
+    lo1, hi1, zb1, zt1, tame1, solid1 = parts(boxes1)
+    lo2, hi2, zb2, zt2, tame2, solid2 = parts(boxes2)
+    w = torch.minimum(hi1[:, :, None], hi2[:, None]) - \
+        torch.maximum(lo1[:, :, None], lo2[:, None])
+    zo = torch.minimum(zt1[:, :, None], zt2[:, None]) - \
+        torch.maximum(zb1[:, :, None], zb2[:, None])
+    apart = solid1[:, :, None] & solid2[:, None] & \
+        ((w[..., 0] < 0) | (w[..., 1] < 0))
+    return tame1[:, :, None] & tame2[:, None] & ((zo <= 0) | apart)
+
+
 def _check_boxes(name, *boxes):
     for b in boxes:
         if b.dim() != 2 or b.shape[1] != 5 or b.dtype != torch.float32:
@@ -217,12 +247,19 @@ def riou_matrix(boxes1, boxes2, criterion=-1):
     return out
 
 
-def d3_iou(boxes1, boxes2):
-    """`d3_iou_plain` semantics; the CUDA kernel for CUDA tensors."""
+def d3_iou(boxes1, boxes2, count=False):
+    """`d3_iou_plain` semantics; the CUDA kernel for CUDA tensors. With
+    count=True, returns (iou, clipped [B] int32): the pairs of each example
+    that the kernel clipped, those `d3_cull_plain` keeps (counted from it
+    for CPU tensors)."""
     refuse_grad("d3_iou", boxes1, boxes2)
     dev = boxes1.device
     if dev.type == "cpu":
-        return d3_iou_plain(boxes1, boxes2)
+        out = d3_iou_plain(boxes1, boxes2)
+        if not count:
+            return out
+        kept = ~d3_cull_plain(boxes1, boxes2)
+        return out, kept.sum((1, 2), dtype=torch.int32)
     if dev.type != "cuda":
         raise ValueError(f"d3_iou: unsupported device {dev}")
     for b in (boxes1, boxes2):
@@ -233,17 +270,22 @@ def d3_iou(boxes1, boxes2):
         raise ValueError("d3_iou: boxes of another device or batch")
     B, N = boxes1.shape[:2]
     K = boxes2.shape[1]
+    if B > 65535 or max(N, K) > 2 ** 31 - 129:
+        raise ValueError(f"d3_iou: [{B}, {N}] x [{B}, {K}] boxes; the "
+                         f"kernel takes at most 65535 examples and 2**31 - "
+                         f"129 boxes an example")
     out = torch.empty((B, N, K), dtype=torch.float32, device=dev)
-    if B * N * K == 0:
-        return out
-    boxes1, boxes2 = boxes1.contiguous(), boxes2.contiguous()
-    rc = (_d3_launch or _resolve_d3())(
-        boxes1.data_ptr(), boxes2.data_ptr(), out.data_ptr(), B, N, K,
-        stream_ptr(dev))
-    check("riou", rc)
-    global launches_d3
-    launches_d3 += 1
-    return out
+    clipped = torch.zeros((B,), dtype=torch.int32, device=dev) \
+        if count else None
+    if B * N * K:
+        boxes1, boxes2 = boxes1.contiguous(), boxes2.contiguous()
+        rc = (_d3_launch or _resolve_d3())(
+            boxes1.data_ptr(), boxes2.data_ptr(), out.data_ptr(),
+            clipped.data_ptr() if count else None, B, N, K, stream_ptr(dev))
+        check("riou", rc)
+        global launches_d3
+        launches_d3 += 1
+    return (out, clipped) if count else out
 
 
 # ------------------------------------------------------------ rotated NMS

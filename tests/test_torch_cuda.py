@@ -14,7 +14,8 @@ autograd of the plain gather-GEMM, and the sparse middle's weights getting
 their gradients on the card. Then PointPillars at full width: the eval
 forward card against CPU, the in-graph anchors mask against the host mask,
 and the kernel launches of its eval forward and train step. This file
-imports torch and the port only."""
+imports torch, numpy and the port only, and the 3-D IoU cull's geometry
+cases from `test_torch_d3_cull.py` (which add hypothesis)."""
 
 from pathlib import Path
 
@@ -36,6 +37,9 @@ from second_tpu_torch.ops.cuda import gather, riou, subm
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.train.optimizer import build_optimizer
 from second_tpu_torch.train.state import TrainState, make_train_step
+
+from test_torch_d3_cull import CASES as D3_CASES
+from test_torch_d3_cull import d3_case
 
 pytestmark = pytest.mark.cuda
 
@@ -883,37 +887,107 @@ def _d3_boxes(g, B, N, spread=40.0):
 
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("N,K", [(70400, 40), (70400, 1), (1000, 0),
-                                 (1000, 40), (333, 1)])
+                                 (1000, 40), (333, 1), (1000, 300),
+                                 (131, 64), (1, 64), (2, 5)])
 def test_d3_iou_matches_plain(dev, B, N, K):
     """The 3-D IoU kernel against its plain version on the card, within
     1e-5, non-finite entries equal: crowded boxes, the gt boxes among the
     anchors (IoU 1), zero-size boxes, and boxes decoded from overflowed
-    exps (h = inf at z = -inf, w = inf, a NaN yaw); one launch a call."""
+    exps (h = inf at z = -inf, w = inf, a NaN yaw); one row, rows that end
+    a tile short (131, 333, 1000 against tiles of 128), more gt boxes than
+    a chunk of 64 (300); one launch a call, and its clipped count the pairs
+    `d3_cull_plain` keeps."""
     g = torch.Generator().manual_seed(30 + K)
     b1 = _d3_boxes(g, B, N, spread=40.0 if N > 1000 else 10.0)
     b2 = _d3_boxes(g, B, K, spread=40.0 if N > 1000 else 10.0)
-    if K:
-        b1[:, :K] = b2                         # identical pairs
-        b1[:, K:2 * K, 3] = 0.0                # zero width
+    m = min(K, max(0, (N - 3) // 2))          # gt boxes with a counterpart
+    if m:
+        b1[:, :m] = b2[:, :m]                  # identical pairs
+        b1[:, m:2 * m, 3] = 0.0                # zero width
         b2[:, 0, 5] = 0.0                      # a flat gt box
-    b1[:, -1, 5], b1[:, -1, 2] = float("inf"), float("-inf")
-    b1[:, -2, 3] = float("inf")
-    b1[:, -3, 6] = float("nan")
+    if N >= 3:
+        b1[:, -1, 5], b1[:, -1, 2] = float("inf"), float("-inf")
+        b1[:, -2, 3] = float("inf")
+        b1[:, -3, 6] = float("nan")
     b1, b2 = b1.to(dev), b2.to(dev)
     before = riou.launches_d3
-    got = riou.d3_iou(b1, b2)
+    got, clipped = riou.d3_iou(b1, b2, count=True)
     want = riou.d3_iou_plain(b1, b2)
+    kept = (~riou.d3_cull_plain(b1, b2)).sum((1, 2))
     torch.cuda.synchronize()
     assert riou.launches_d3 == before + (1 if K else 0)
     assert got.shape == (B, N, K)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0, equal_nan=True)
-    if K > 1:
+    assert clipped.tolist() == kept.tolist()
+    if m > 1:
         # identical boxes: 1 up to the fp32 clip's rounding at 40 m
-        diag = got[:, torch.arange(1, K), torch.arange(1, K)]
+        diag = got[:, torch.arange(1, m), torch.arange(1, m)]
         torch.testing.assert_close(diag, torch.ones_like(diag), atol=1e-3,
                                    rtol=0)
-        assert int((got[:, :-3] > 0).sum()) > B * K
+        assert int((got[:, :-3] > 0).sum()) > B * m
         assert not torch.isfinite(got[:, -1]).any()
+
+
+@pytest.mark.parametrize("case", D3_CASES)
+def test_d3_iou_geometry_matches_plain(dev, case):
+    """The kernel on the cull's edge geometries (`d3_case`: touching edges and
+    corners, boxes 1 ulp apart, degenerate gt boxes, zero-size, z-stacked,
+    padded gt slots, non-finite and huge fields): the plain version within
+    1e-5, non-finite entries equal, every pair that `d3_cull_plain` culls
+    exactly 0, and its clipped count the pairs that it keeps. A plain value
+    above 1 (beyond rounding) is no IoU (the plain clip by a gt point keeps
+    the whole row box), and one more than 1e-5 from the fp64 value is
+    decided by rounding (a zero-width or zero-length box, or a gt point,
+    makes the union a difference of nearly equal volumes): the kernel,
+    whose sums run in another order than torch's reductions, lands
+    elsewhere there. Only the degenerate and zero-size cases have such
+    entries; they are not compared."""
+    a, b = d3_case(case, np.random.default_rng(D3_CASES.index(case) + 70),
+                   B=3, N=300, K=70)
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got, clipped = riou.d3_iou(a, b, count=True)
+    want = riou.d3_iou_plain(a, b)
+    want64 = riou.d3_iou_plain(a.double(), b.double())
+    cull = riou.d3_cull_plain(a, b)
+    torch.cuda.synchronize()
+    err64 = (want.double() - want64).abs()
+    sound = ((want <= 1 + 1e-5) & (err64 <= 1e-5)) | ~torch.isfinite(want)
+    assert sound.all() or case in ("degenerate", "zero_size")
+    torch.testing.assert_close(got[sound], want[sound], atol=1e-5, rtol=0,
+                               equal_nan=True)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert (got[cull] == 0).all() and (want[cull] == 0).all()
+    assert clipped.tolist() == (~cull).sum((1, 2)).tolist()
+
+
+def test_d3_iou_padded_gt_layout(dev):
+    """The IoU branch's layout at its real size: [4, 70 400] boxes over the
+    fhd anchor area against 64 gt slots, 6 boxes and 58 of padding (zeros)
+    an example, and a few boxes decoded to a width beyond D3_TAME (a row
+    the cull may not take, so neither its tile's union): the plain version
+    within 1e-5, every padding pair of a tame row 0, the clipped count
+    `d3_cull_plain`'s (a small share of the pairs)."""
+    g = torch.Generator().manual_seed(33)
+    B, N = 4, 70400
+    b1 = _d3_boxes(g, B, N, spread=70.0)
+    b1[..., 3:5] = torch.tensor([1.6, 3.9])
+    b1[..., 5], b1[..., 2] = 1.56, -1.78
+    huge = torch.tensor([11, 300, 4097, 60000])
+    b1[:, huge, 3] = 1e13
+    b2 = torch.zeros(B, 64, 7)
+    b2[:, :6] = b1[:, torch.arange(6) * 9973]
+    b2[:, :6, 3:6] *= 1.2
+    b1, b2 = b1.to(dev), b2.to(dev)
+    got, clipped = riou.d3_iou(b1, b2, count=True)
+    want = riou.d3_iou_plain(b1, b2)
+    kept = (~riou.d3_cull_plain(b1, b2)).sum((1, 2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    tame = torch.ones(N, dtype=torch.bool)
+    tame[huge] = False
+    assert (got[:, tame, 6:] == 0).all()
+    assert clipped.tolist() == kept.tolist()
+    assert 0 < int(kept.sum()) < 0.01 * B * N * 64
 
 
 def test_d3_iou_rejects_what_it_cannot_take(dev):
@@ -922,6 +996,9 @@ def test_d3_iou_rejects_what_it_cannot_take(dev):
         riou.d3_iou(b.double(), b)
     with pytest.raises(ValueError, match="batch"):
         riou.d3_iou(b, b[:1])
+    many = torch.zeros(65536, 1, 7, device=dev)
+    with pytest.raises(ValueError, match="65535 examples"):
+        riou.d3_iou(many, many)
     with pytest.raises(RuntimeError, match="no backward"):
         riou.d3_iou(b.clone().requires_grad_(), b)
 
