@@ -120,7 +120,7 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    version (non-finite entries equal), its clipped count against the pairs
    `d3_cull_plain` keeps (exact, per example), every culled pair's plain
    value at most D3_CULLED_MAX, timed, with its bound counted from the
-   kept pairs (the all-pairs count printed beside it); launches
+   kept pairs; launches
    14 / 13 / 14 and d3_iou 1; no
    host sync; the IoU loss finite and nonzero; an eval forward of the
    model with the IoU head (random weights), its NMS card against CPU, and
@@ -128,10 +128,40 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    forward's own IoU logits tie over the empty BEV; their tie count is
    printed).
 
+14. 2st eval: the two-stage detector (`build_two_stage_voxelnet`:
+   second_car_fhd.config as stage 1, bf16, 512 proposals an example by
+   standup NMS, 14 x 14 rotated crops, the refine head, rotated NMS over
+   the refined proposals; random weights from seed 0) through the
+   two-stage eval step on the fhd bench input (batch 4, 40 000 voxels):
+   every sparse conv and row gather against its plain version, the
+   ROI-align forward call against its plain version (ROI_FWD_TOL) and
+   timed beside `F.grid_sample` + `F.avg_pool2d`, the standup bitmask bit
+   for bit and its NMS keep, the final NMS pair (`check_nms_pair`);
+   launches sparse gather-GEMM 14, roi_align_fwd 1, standup_overlap 1,
+   nms_overlap 1, nms_suppress 2; no host sync; voxel_overflow and
+   stage_overflow 0; frames/s, peak memory, a synchronised split
+   (voxelize, stage 1, proposals, crops, head, predict) and a profile,
+   with cuDNN TF32 off and on; one fp32 example card against CPU (stage 1,
+   then the second stage on the card's stage 1: proposals equal, crops,
+   predictions and detections within tolerance).
+15. 2st train: the two-stage train step (`make_two_stage_steps`, bf16, the
+   config's Adam) on batch 4 synthetic scans at 16 000 voxels: every sparse
+   forward, dX and weight-gradient call against its plain version; the
+   ROI-align forward and backward calls against their plain versions
+   (the backward twice, bitwise equal) and timed beside the library pair
+   and its autograd; the standup bitmask; launches 14 / 13 / 14 and
+   roi_align_fwd, roi_align_bwd, standup_overlap and nms_suppress once;
+   every gradient finite, no host sync, gradients bitwise equal over two
+   runs, the loss halved on one batch; steps/s, peak memory, split,
+   profile; one fp64 step card against CPU of the two-stage detector on
+   the PointPillars config (the sparse kernels take no fp64), one
+   example, 64 proposals (REF64_TOL).
+
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the eight paths (fhd eval, fhd train, pp eval, pp train, mc
-eval, mc train, kitti, fhd + IoU train) and by path, the numbers of the
-fhd calls (of the IoU-branch step for d3_iou), and those of the
+summed over the ten paths (fhd eval, fhd train, pp eval, pp train, mc
+eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train) and by path,
+the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
+two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
 "mc_eval". The last line is {"ok": true, "device": {...}}. With --out, the
 per-call detail is written to that JSON file as well.
@@ -157,19 +187,22 @@ from second_tpu_torch.config import load_pipeline_config
 from second_tpu_torch.core import box_np
 from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
 from second_tpu_torch.data.synthetic import SyntheticDataset
-from second_tpu_torch.models import (build_voxelnet, calibrate_norms_,
-                                     compute_loss, detect,
-                                     init_train_weights_, predict)
+from second_tpu_torch.models import (build_two_stage_voxelnet,
+                                     build_voxelnet, calibrate_norms_,
+                                     compute_loss, compute_two_stage_loss,
+                                     detect, init_train_weights_, predict,
+                                     predict_two_stage)
 from second_tpu_torch.ops import cuda as kernels
 from second_tpu_torch.ops import nms as nms_ops
 from second_tpu_torch.ops.anchors_mask import anchors_mask_from_coords
 from second_tpu_torch.ops.box_ops import bev_boxes
-from second_tpu_torch.ops.cuda import gather, riou, subm
+from second_tpu_torch.ops.cuda import gather, riou, roi_align, subm
 from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
                                               _signed_area, rbbox_to_corners)
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.train.optimizer import build_optimizer
 from second_tpu_torch.train.state import TrainState, make_train_step
+from second_tpu_torch.train.steps_multistage import make_two_stage_steps
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "second_tpu_torch" / "configs" / "second_car_fhd.config"
@@ -214,7 +247,8 @@ PP_BATCH, PP_VOXELS, PP_POINTS = 4, 12000, 20000
 PP_EVAL_LAUNCHES = {"sparse_gather_gemm": 0, "row_gather": 6,
                     "rotated_iou": 1, "nms_suppress": 1,
                     "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0,
-                    "d3_iou": 0}
+                    "d3_iou": 0, "roi_align_fwd": 0, "roi_align_bwd": 0,
+                    "standup_overlap": 0}
 PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
 
 # SECOND multi-class (configs/second_multiclass.config: Car, Pedestrian,
@@ -226,7 +260,16 @@ MC_TIMED = 8
 # the fake KITTI tree of the kitti phase: frames, ground clutter points
 KITTI_FRAMES, KITTI_CLUTTER = 6, 20000
 PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
-         "mc_train", "kitti", "fhd_iou_train")
+         "mc_train", "kitti", "fhd_iou_train", "2st_eval", "2st_train")
+# the two-stage detector on second_car_fhd.config: proposals an example,
+# the timed forwards and steps of its phases; its fp64 reference step runs
+# the PointPillars config's two-stage detector (the sparse kernels take no
+# fp64) on one example with fewer proposals
+TWO_STAGE_PROPOSALS = 512
+TWO_STAGE_TIMED = 8
+TWO_STAGE_REF_PROPOSALS = 64
+# its parameters after Adam's first step: see check_2st_train_reference
+ADAM_STEP_TOL = 1e-6
 
 # the PointPillars train step's reference, card against CPU. Its fp32
 # gradients are ill-conditioned: a handful of ReLU inputs lie within fp32
@@ -305,7 +348,48 @@ IOU_KERNELS = [
          source="second_tpu_torch/csrc/riou.cu",
          replaces="second_tpu/ops/rotated_iou.py:204"),
 ]
-ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS
+# the two-stage detector's kernels: the rotated ROI-align forward and
+# backward, and the proposals' standup-NMS bitmask; they replace XLA code
+# of the JAX package (gathers and their autodiff; a dense IoU matrix)
+TWO_STAGE_KERNELS = [
+    dict(name="roi_align_fwd", module=roi_align, fn="roi_align_fwd",
+         counter="launches", source="second_tpu_torch/csrc/roi_align.cu",
+         replaces="second_tpu/ops/roi_align_rotated.py:43"),
+    dict(name="roi_align_bwd", module=roi_align, fn="roi_align_bwd",
+         counter="launches_bwd", source="second_tpu_torch/csrc/roi_align.cu",
+         replaces="second_tpu/ops/roi_align_rotated.py:43"),
+    dict(name="standup_overlap", module=riou, fn="standup_overlap",
+         counter="launches_standup", source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/nms.py:183"),
+]
+ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS + TWO_STAGE_KERNELS
+# the ROI-align kernels against their plain versions: the forward in the
+# plain version's order of operations (-fmad=false), within ROI_FWD_TOL of
+# the output's scale; the backward's sums in another order, within
+# ROI_BWD_TOL of each gradient's scale (a bf16 trunk's plain backward runs
+# on its fp32 copy: the kernel sums in fp32)
+ROI_FWD_TOL, ROI_BWD_TOL = 1e-6, 1e-5
+# crops card against CPU at the same proposal boxes: the sample points'
+# sin and cos round an ulp apart on the two devices, which moves a sample
+# of some 100 pixels by 1e-5 of a pixel
+CROP_REF_TOL = 1e-4
+# fp32 operations of the ROI-align, counted from csrc/roi_align.cu: a
+# sample's taps (2 floors, 2 differences, 9 for the 4 weights, 8 bounds
+# and 6 ands, 4 selects, 12 for the 4 offsets); an output bin's
+# 8 s^2 + 1 (4 products and 4 sums a sample, the mean's division); in the
+# backward, 2 an in-map tap and channel (the weighted product and its sum)
+# plus 1 a sample and channel (g / s^2) for the map's gradient, and 15 a
+# sample and channel for the coordinates' gradient
+ROI_SAMPLE_OPS = 43
+ROI_TAP_GRAD_OPS, ROI_SAMPLE_GRAD_OPS = 2, 1 + 15
+# fp32 operations of one standup-IoU pair test (csrc/riou.cu
+# `standup_overlap_kernel`): 2 max, 2 min, 2 differences, 2 comparisons
+# and their and, the product and its select, the union's sum and
+# difference, the quotient and its select, the threshold comparison and
+# the bit's or; and of each box staged, its area (2 differences, 1
+# product)
+STANDUP_TEST_OPS = 17
+STANDUP_AREA_OPS = 3
 # fp32 operations of one clipped 3-D IoU pair beyond its BEV clip
 # (csrc/riou.cu `d3_iou_kernel`): the min of the tops, the max of the
 # bottoms, the overlap and its clamp, the product, the union (2) and its
@@ -320,11 +404,6 @@ D3_EXTRA_OPS = 9
 # and two bit tests 3, 3 comparisons, 2 ors, 2 ands and the negation
 D3_BOX_OPS = RIOU_BOX_OPS + 12 + 3 + 20 + 16 + 2
 D3_TEST_OPS = 20
-# the all-pairs count of a pair, every pair clipped as a kernel of one
-# thread a pair clips it: the two tops, their min, the max of the bottoms,
-# the overlap and its clamp, the product, two volumes, the union and its
-# clamp, the quotient (printed beside the recount)
-D3_ALL_PAIRS_EXTRA_OPS = 15
 # the largest plain value of a culled pair (0 expected; a rounding sliver
 # of the clip at most)
 D3_CULLED_MAX = 1e-6
@@ -336,6 +415,12 @@ MC_RECORDED = [(k["module"], k["fn"]) for k in KERNELS] + \
     [(nms_ops, "nms_sorted")]
 RECORDED_TRAIN = [(subm, "gather_gemm")] + \
     [(k["module"], k["fn"]) for k in TRAIN_KERNELS]
+# the two-stage forward's recorded calls: every kernel of its path
+RECORDED_2ST = [(k["module"], k["fn"]) for k in KERNELS] + \
+    [(roi_align, "roi_align_fwd"), (riou, "standup_overlap")]
+RECORDED_2ST_TRAIN = RECORDED_TRAIN + \
+    [(roi_align, "roi_align_fwd"), (roi_align, "roi_align_bwd"),
+     (riou, "standup_overlap"), (riou, "nms_suppress")]
 SPARSE_CONVS = 14      # 10 submanifold + 4 strided convs in SpMiddleFHD
 
 
@@ -415,7 +500,7 @@ class DeviceTimer:
     host time, no gaps."""
 
     PAD = 4
-    RETRIES = 2
+    RETRIES = 5
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.int16, device=device)
@@ -454,8 +539,8 @@ class DeviceTimer:
                     fn()
         n = len(fns) * reps
         # a profiling session can come back empty or short (seen once in
-        # a dozen sessions of a run); it is taken again, at most RETRIES
-        # times
+        # a dozen sessions of a run, and three in a row once); it is taken
+        # again, at most RETRIES times
         for attempt in range(self.RETRIES + 1):
             runs, counts, seen = [], [], 0
             for start, end, name in self._kernels(run):
@@ -1139,9 +1224,15 @@ def run(dev, out=None):
     kitti_counts, report["kitti"] = run_kitti(dev, timer, dtimer)
     aggs["d3_iou"], iou_counts, report["fhd_iou_train"] = run_fhd_iou_train(
         dev, timer, dtimer)
+    two_aggs, two_counts, report["2st_eval"] = run_2st_eval(dev, timer,
+                                                            dtimer)
+    aggs.update(two_aggs)
+    aggs["roi_align_bwd"], two_train_counts, report["2st_train"] = \
+        run_2st_train(dev, timer, dtimer)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
-                               mc_train_counts, kitti_counts, iou_counts)))
+                               mc_train_counts, kitti_counts, iou_counts,
+                               two_counts, two_train_counts)))
     path_aggs = {"pp_eval": pp_eval_aggs, "pp_train": pp_train_aggs,
                  "mc_eval": mc_eval_aggs}
 
@@ -1337,12 +1428,14 @@ def train_inputs(cfg, assigner, info, dev, n, max_points=MAX_POINTS):
             if k != "image_idx"}
 
 
-def new_train_state(cfg, dev, mixed, lr=None, seed=0, dtype=None):
-    """The config's model on `dev` with flax's initialisers drawn from
-    `seed` (a CPU generator: the same weights on every device), in `dtype`
-    where one is given (fp64 for a reference run), and the config's
-    optimizer, at a constant `lr` where one is given."""
-    net, spec, info, assigner, _ = build_voxelnet(
+def new_train_state(cfg, dev, mixed, lr=None, seed=0, dtype=None,
+                    build=build_voxelnet):
+    """The config's model (made by `build`: the one-stage builder, or the
+    two-stage one) on `dev` with flax's initialisers drawn from `seed` (a
+    CPU generator: the same weights on every device), in `dtype` where one
+    is given (fp64 for a reference run), and the config's optimizer, at a
+    constant `lr` where one is given."""
+    net, spec, info, assigner, _ = build(
         cfg.model, device=dev, mixed_precision=mixed, seed=seed)
     init_train_weights_(net, seed)
     if dtype is not None:
@@ -1552,7 +1645,27 @@ def check_conv_backward(fwd_calls, wgrad_calls):
     return worst
 
 
-def grads_of(state, spec, vspec, batch):
+def one_stage_loss(spec, net, vox, batch):
+    """The one-stage model's train-mode forward and loss dict."""
+    preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                vox["voxel_valid"])
+    return compute_loss(spec, preds, batch["labels"], batch["reg_targets"],
+                        batch["anchors"], batch.get("gt_boxes_padded"),
+                        batch.get("gt_valid"))
+
+
+def two_stage_loss(spec, net, vox, batch):
+    """The two-stage model's train-mode forward and loss dict."""
+    preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                vox["voxel_valid"], batch["anchors"],
+                anchors_mask=batch.get("anchors_mask"))
+    return compute_two_stage_loss(spec, preds, batch["labels"],
+                                  batch["reg_targets"], batch["anchors"],
+                                  batch.get("gt_boxes_padded"),
+                                  batch.get("gt_valid"))
+
+
+def grads_of(state, spec, vspec, batch, loss_of=one_stage_loss):
     """One forward and backward in train mode from the state as it is; the
     parameters' gradients, cloned (no optimizer step)."""
     net = state.module
@@ -1561,18 +1674,13 @@ def grads_of(state, spec, vspec, batch):
                               state.device)
     net.train()
     with torch.enable_grad():
-        preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
-                    vox["voxel_valid"])
-        loss = compute_loss(spec, preds, batch["labels"],
-                            batch["reg_targets"], batch["anchors"],
-                            batch.get("gt_boxes_padded"),
-                            batch.get("gt_valid"))["loss"]
+        loss = loss_of(spec, net, vox, batch)["loss"]
         state.optimizer.zero_grad()
         loss.backward()
     return [p.grad.detach().clone() for p in net.parameters()]
 
 
-def timed_split(state, spec, vspec, batch):
+def timed_split(state, spec, vspec, batch, loss_of=one_stage_loss):
     """One train step cut at its stage boundaries, each synchronised: ms of
     voxelize, forward + loss, backward, optimizer."""
     net, dev = state.module, state.device
@@ -1587,12 +1695,7 @@ def timed_split(state, spec, vspec, batch):
     net.train()
     with torch.enable_grad():
         t0 = time.perf_counter()
-        preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
-                    vox["voxel_valid"])
-        loss = compute_loss(spec, preds, batch["labels"],
-                            batch["reg_targets"], batch["anchors"],
-                            batch.get("gt_boxes_padded"),
-                            batch.get("gt_valid"))["loss"]
+        loss = loss_of(spec, net, vox, batch)["loss"]
         torch.cuda.synchronize()
         out["forward_loss_ms"] = 1e3 * (time.perf_counter() - t0)
         state.optimizer.zero_grad()
@@ -2224,7 +2327,8 @@ def timed_forwards(forward, reps, batch):
                 times_s=times, peak_mem_bytes=torch.cuda.max_memory_allocated())
 
 
-def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True):
+def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True,
+                loss_of=one_stage_loss):
     """Median host time of `reps` synchronised train steps (after two warm
     ones), steps/s, examples/s, peak memory of one step, a synchronised
     split of one (`timed_split`) and, with `profile`, one profiled step.
@@ -2244,7 +2348,7 @@ def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True):
     step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    split = timed_split(state, spec, vspec, batch)
+    split = timed_split(state, spec, vspec, batch, loss_of)
     say(f"{what} steps/s {1 / med:.3f}, examples/s {n / med:.3f} (median "
         f"{1e3 * med:.2f} ms of {reps} batch-{n} steps, "
         f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory "
@@ -2257,11 +2361,12 @@ def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True):
     return speed, prof
 
 
-def check_determinism(state, spec, vspec, batch, what):
+def check_determinism(state, spec, vspec, batch, what,
+                      loss_of=one_stage_loss):
     """Two backward passes from the same state on the same batch give
     bitwise-equal gradients (cuDNN set to deterministic algorithms)."""
-    g1 = grads_of(state, spec, vspec, batch)
-    g2 = grads_of(state, spec, vspec, batch)
+    g1 = grads_of(state, spec, vspec, batch, loss_of)
+    g2 = grads_of(state, spec, vspec, batch, loss_of)
     same = sum(torch.equal(a, b) for a, b in zip(g1, g2))
     if same != len(g1):
         fail(f"{what}: two backward passes from one state: {len(g1) - same} "
@@ -2270,11 +2375,12 @@ def check_determinism(state, spec, vspec, batch, what):
         f"runs")
 
 
-def check_overfit(cfg, dev, mixed, step, batch, what):
+def check_overfit(cfg, dev, mixed, step, batch, what, build=build_voxelnet):
     """Learning: a fresh state at the constant lr OVERFIT_LR on one fixed
     batch; the loss must fall below half its first value within
     OVERFIT_STEPS steps. Returns the report."""
-    state, _, _, _ = new_train_state(cfg, dev, mixed, lr=OVERFIT_LR)
+    state, _, _, _ = new_train_state(cfg, dev, mixed, lr=OVERFIT_LR,
+                                     build=build)
     losses = []
     for _ in range(OVERFIT_STEPS):
         state, metrics = step(state, batch)
@@ -2610,13 +2716,11 @@ def check_kitti_calls(train_calls, eval_calls, timer, dtimer):
 
 
 def d3_bound(boxes1, boxes2, cull):
-    """(bytes seconds, ops seconds, ops, all-pairs ops) of one 3-D IoU call:
-    the boxes read once and the [B, N, K] output written once; each box
-    staged once (D3_BOX_OPS), a cull test a pair (D3_TEST_OPS), and the
-    BEV clip as `riou_ops` counts it plus D3_EXTRA_OPS only for the pairs
-    that `cull` (`d3_cull_plain`) keeps. The all-pairs count, each box's
-    corners once and every pair clipped, is returned beside it for
-    comparison."""
+    """(bytes seconds, ops seconds, ops) of one 3-D IoU call: the boxes read
+    once and the [B, N, K] output written once; each box staged once
+    (D3_BOX_OPS), a cull test a pair (D3_TEST_OPS), and the BEV clip as
+    `riou_ops` counts it plus D3_EXTRA_OPS only for the pairs that `cull`
+    (`d3_cull_plain`) keeps."""
     B, N = boxes1.shape[:2]
     K = boxes2.shape[1]
     bev1 = bev_boxes(boxes1).reshape(B * N, 5)
@@ -2624,18 +2728,9 @@ def d3_bound(boxes1, boxes2, cull):
     kb, kn, kk = torch.nonzero(~cull, as_tuple=True)
     ops = B * (N + K) * D3_BOX_OPS + B * N * K * D3_TEST_OPS + \
         riou_ops(bev1, bev2, kb * N + kn, kb * K + kk, D3_EXTRA_OPS)
-    ops_all = B * (N + K) * RIOU_BOX_OPS
-    rows = max(1, (1 << 21) // max(K, 1))
-    cols = torch.arange(K, device=boxes1.device)
-    for b in range(B):
-        for r0 in range(0, N, rows):
-            n = torch.arange(r0, min(r0 + rows, N), device=boxes1.device)
-            i = (b * N + n)[:, None].expand(-1, K).reshape(-1)
-            j = (b * K + cols)[None].expand(n.numel(), -1).reshape(-1)
-            ops_all += riou_ops(bev1, bev2, i, j, D3_ALL_PAIRS_EXTRA_OPS)
     nbytes = (boxes1.numel() + boxes2.numel() + B * N * K) * 4
     peak = PEAK_OPS_PER_S[torch.float32]
-    return nbytes / HBM_BYTES_PER_S, ops / peak, ops, ops_all
+    return nbytes / HBM_BYTES_PER_S, ops / peak, ops
 
 
 def run_fhd_iou_train(dev, timer, dtimer):
@@ -2686,7 +2781,7 @@ def run_fhd_iou_train(dev, timer, dtimer):
              f"above {D3_CULLED_MAX}")
     fin = torch.isfinite(want)
     err = (got - want)[fin].abs().max().item() if fin.any() else 0.0
-    bs, os_, ops, ops_all = d3_bound(b1, b2, cull)
+    bs, os_, ops = d3_bound(b1, b2, cull)
     agg = dict(err=err, bytes_s=bs, ops_s=os_, library_ms=None,
                library_device_ms=None,
                ms=timer(lambda: riou.d3_iou(b1, b2), 10),
@@ -2698,9 +2793,7 @@ def run_fhd_iou_train(dev, timer, dtimer):
         shape=[list(b1.shape), list(b2.shape)], non_finite=int((~fin).sum()),
         overlapping=overlapping, clipped=clipped.tolist(),
         clipped_share=int(kept.sum()) / pairs, culled_max=culled_max,
-        ops=ops, ops_all_pairs=ops_all,
-        bound_ms_all_pairs=1e3 * max(bs, ops_all / PEAK_OPS_PER_S[
-            torch.float32]), **agg)
+        ops=ops, **agg)
     say(f"d3_iou [{', '.join(map(str, b1.shape))}] x "
         f"[{', '.join(map(str, b2.shape))}]: err {err:.2e} "
         f"({int((~fin).sum())} non-finite entries equal); clipped "
@@ -2710,7 +2803,7 @@ def run_fhd_iou_train(dev, timer, dtimer):
         f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f})  plain "
         f"{agg['plain_ms']:.4f} ms  bound {1e3 * max(bs, os_):.4f} ms "
         f"({'bytes' if bs >= os_ else 'operations'}; {ops / 1e9:.4f} G "
-        f"operations, {ops_all / 1e9:.4f} G with every pair clipped)")
+        f"operations)")
     del b1, b2, got, want, cull
 
     reset_counts()
@@ -2770,6 +2863,644 @@ def run_fhd_iou_train(dev, timer, dtimer):
         f"{report['rank_ties_top_k']} exact ties among each example's top "
         f"{spec.nms_pre_max_size}")
     return agg, counts, report
+
+
+# ------------------------------------------------ the two-stage detector
+
+
+def build_two_stage(model, device, mixed_precision=False, seed=0,
+                    proposals=TWO_STAGE_PROPOSALS):
+    """`build_two_stage_voxelnet` with the signature of `build_voxelnet`."""
+    return build_two_stage_voxelnet(model, proposals, device=device,
+                                    mixed_precision=mixed_precision,
+                                    seed=seed)
+
+
+def roi_pixels(feat, coords):
+    """(taps inside the map, distinct map pixels they touch) of these
+    samples: what the ROI-align reads."""
+    B, C, H, W = feat.shape
+    x0, y0 = torch.floor(coords[..., 0]), torch.floor(coords[..., 1])
+    b = torch.arange(B, device=feat.device).view(B, 1, 1, 1).expand_as(x0)
+    keys, n_in = [], 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            inb = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+            n_in += int(inb.sum())
+            keys.append(((b * H + y.long()) * W + x.long())[inb])
+    return n_in, int(torch.unique(torch.cat(keys)).numel())
+
+
+def roi_library(feat, coords, samples):
+    """One `F.grid_sample` (bilinear, zeros outside, the same sample points,
+    the map in the coordinates' dtype) and one `F.avg_pool2d` over the
+    s x s samples: the library yardstick of the ROI-align forward."""
+    B, N, SH, SW, _ = coords.shape
+    C, H, W = feat.shape[1:]
+    grid = torch.stack([coords[..., 0] / (W - 1) * 2 - 1,
+                        coords[..., 1] / (H - 1) * 2 - 1], -1)
+    out = torch.nn.functional.grid_sample(
+        feat.to(coords.dtype), grid.reshape(B, N * SH, SW, 2),
+        mode="bilinear", padding_mode="zeros", align_corners=True)
+    out = torch.nn.functional.avg_pool2d(out, samples)
+    oh, ow = SH // samples, SW // samples
+    return out.view(B, C, N, oh, ow).transpose(1, 2).reshape(B * N, C, oh,
+                                                             ow)
+
+
+def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
+    """Each recorded ROI-align forward (and backward) call against its plain
+    version on the same inputs (ROI_FWD_TOL, ROI_BWD_TOL), timed by events
+    and by the device timer beside its plain version and its library
+    yardstick (`roi_library`, and autograd of it for the backward), with
+    its bound counted from the samples this run's rois give. Returns the
+    forward's and the backward's aggregates."""
+    aggs = {}
+    for name, calls in (("roi_align_fwd", fwd_calls),
+                        ("roi_align_bwd", bwd_calls)):
+        agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+                   library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
+        for i, (args, _) in enumerate(calls):
+            if name == "roi_align_fwd":
+                feat, coords, s = args
+            else:
+                feat, coords, grad, s = args
+            B, C, H, W = feat.shape
+            _, N, SH, SW, _ = coords.shape
+            R, nsamp, bins = B * N, SH * SW, SH * SW // (s * s)
+            n_in, pixels = roi_pixels(feat, coords)
+            esz = feat.element_size()
+            cbytes = coords.numel() * coords.element_size()
+            f32 = feat.to(coords.dtype)
+            if name == "roi_align_fwd":
+                got = roi_align.roi_align_fwd(feat, coords, s)
+                want = roi_align.roi_align_plain(feat, coords, s)
+                lib = roi_library(feat, coords, s)
+                torch.cuda.synchronize()
+                err, rel = errors(got, want)
+                lib_err = errors(lib, want)[1]
+                if rel > ROI_FWD_TOL:
+                    fail(f"{what} roi_align_fwd {i}: {rel:.3g} of the scale "
+                         f"from the plain version, over {ROI_FWD_TOL}")
+                nbytes = cbytes + pixels * C * esz + got.numel() * 4
+                ops = R * nsamp * ROI_SAMPLE_OPS + \
+                    R * C * bins * (8 * s * s + 1)
+                fns = (lambda: roi_align.roi_align_fwd(feat, coords, s),
+                       lambda: roi_align.roi_align_plain(feat, coords, s),
+                       lambda: roi_library(feat, coords, s))
+            else:
+                gf, gc = roi_align.roi_align_bwd(feat, coords, grad, s)
+                wf, wc = roi_align.roi_align_backward_plain(f32, coords,
+                                                            grad, s)
+                with torch.enable_grad():
+                    lf = f32.detach().requires_grad_(True)
+                    lc = coords.detach().requires_grad_(True)
+                    lib_out = roi_library(lf, lc, s)
+                lib = torch.autograd.grad(lib_out, (lf, lc), grad,
+                                          retain_graph=True)
+                torch.cuda.synchronize()
+                again = roi_align.roi_align_bwd(feat, coords, grad, s)
+                if not (torch.equal(again[0], gf) and
+                        torch.equal(again[1], gc)):
+                    fail(f"{what} roi_align_bwd {i}: two calls differ")
+                ef, rf = errors(gf, wf)
+                ec, rc = errors(gc, wc)
+                err, rel = max(ef, ec), max(rf, rc)
+                lib_err = max(errors(lib[0], wf)[1], errors(lib[1], wc)[1])
+                if rf > ROI_BWD_TOL or rc > ROI_BWD_TOL:
+                    fail(f"{what} roi_align_bwd {i}: the map's gradient "
+                         f"{rf:.3g}, the coordinates' {rc:.3g} of their "
+                         f"scale from autograd of the plain version, over "
+                         f"{ROI_BWD_TOL}")
+                nbytes = grad.numel() * 4 + cbytes + pixels * C * esz + \
+                    gf.numel() * 4 + gc.numel() * gc.element_size()
+                ops = n_in * C * ROI_TAP_GRAD_OPS + \
+                    R * nsamp * C * ROI_SAMPLE_GRAD_OPS
+
+                def library_bwd(out=lib_out, lf=lf, lc=lc, g=grad):
+                    return torch.autograd.grad(out, (lf, lc), g,
+                                               retain_graph=True)
+                fns = (lambda: roi_align.roi_align_bwd(feat, coords, grad, s),
+                       lambda: roi_align.roi_align_backward_plain(
+                           f32, coords, grad, s),
+                       library_bwd)
+            bs = nbytes / HBM_BYTES_PER_S
+            os_ = ops / PEAK_OPS_PER_S[torch.float32]
+            ms = [timer(fns[0], 10), timer(fns[1], 3), timer(fns[2], 5)]
+            dev_ms = dtimer([fns[0], fns[2]])
+            for k, v in zip(("ms", "plain_ms", "library_ms"), ms):
+                agg[k] += v
+            agg["device_ms"] += dev_ms[0]
+            agg["library_device_ms"] += dev_ms[1]
+            agg["bytes_s"] += bs
+            agg["ops_s"] += os_
+            agg["err"] = max(agg["err"], err)
+            say(f"{what} {name} {i} {str(feat.dtype)[6:]} map "
+                f"[{B}, {C}, {H}, {W}], {R} rois x {nsamp} samples "
+                f"({n_in} taps inside, {pixels} pixels): err {err:.2e} "
+                f"rel {rel:.2e} (library {lib_err:.2e}); kernel "
+                f"{ms[0]:.4f} ms (device {dev_ms[0]:.4f})  plain "
+                f"{ms[1]:.4f} ms  library {ms[2]:.4f} ms (device "
+                f"{dev_ms[1]:.4f})  bound {1e3 * max(bs, os_):.4f} ms "
+                f"({'bytes' if bs >= os_ else 'operations'})")
+        aggs[name] = agg
+    return aggs
+
+
+def check_standup_calls(calls, sup_calls, timer, dtimer, what):
+    """Each recorded standup-bitmask call against its plain version (every
+    bit equal), the suppression that read it against the plain one (keep
+    equal), timed with its bound (the valid pairs' tests, the boxes'
+    areas, the bitmask written); the plain version's three calls are the
+    library yardstick. Returns the aggregate."""
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+               library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
+    for i, ((cand, valid, thr), _) in enumerate(calls):
+        got = riou.standup_overlap(cand, valid, thr)
+        want = riou.standup_overlap_plain(cand, valid, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            n = int((riou.unpack_bits(got, cand.shape[1]) !=
+                     riou.unpack_bits(want, cand.shape[1])).sum())
+            fail(f"{what} standup_overlap {i}: {n} bits differ from the "
+                 f"plain version")
+        sup = [a for a, _ in sup_calls if torch.equal(a[0], got)]
+        if not sup:
+            fail(f"{what} standup_overlap {i}: no suppression read it")
+        keep = riou.nms_suppress(got, valid)
+        if not torch.equal(keep, riou.nms_suppress_plain(want, valid)):
+            fail(f"{what} standup NMS {i}: keep differs from the plain "
+                 f"chain's")
+        B, K = valid.shape
+        n_valid = valid.sum(1).double()
+        tests = float((n_valid * (n_valid - 1) / 2).sum())
+        nbytes = cand.numel() * cand.element_size() + valid.numel() + \
+            got.numel() * 4
+        bs = nbytes / HBM_BYTES_PER_S
+        os_ = (tests * STANDUP_TEST_OPS + B * K * STANDUP_AREA_OPS) / \
+            PEAK_OPS_PER_S[torch.float32]
+        fns = (lambda: riou.standup_overlap(cand, valid, thr),
+               lambda: riou.standup_overlap_plain(cand, valid, thr))
+        ms = [timer(fns[0], 20), timer(fns[1], 5)]
+        dev_ms = dtimer(list(fns))
+        agg["ms"] += ms[0]
+        agg["plain_ms"] += ms[1]
+        agg["library_ms"] += ms[1]
+        agg["device_ms"] += dev_ms[0]
+        agg["library_device_ms"] += dev_ms[1]
+        agg["bytes_s"] += bs
+        agg["ops_s"] += os_
+        say(f"{what} standup_overlap {i} B={B} K={K} thr={thr}: bits exact "
+            f"({int(riou.unpack_bits(got, K).sum())} set), NMS keep exact "
+            f"({keep.sum(1).tolist()} kept); kernel {ms[0]:.4f} ms (device "
+            f"{dev_ms[0]:.4f})  plain (the library yardstick) {ms[1]:.4f} ms "
+            f"(device {dev_ms[1]:.4f})  bound {1e3 * max(bs, os_):.6f} ms "
+            f"({'bytes' if bs >= os_ else 'operations'}; {tests:.0f} pair "
+            f"tests)")
+    return agg
+
+
+def two_stage_split(net, spec, vspec, points, mask, anchors, dev):
+    """One two-stage eval forward cut at its stage boundaries, each
+    synchronised: ms of voxelize, stage 1, proposals, crops, refine head,
+    predict."""
+    from second_tpu_torch.models.second_stage import select_proposals
+    out, t0 = {}, None
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name:
+            out[f"{name}_ms"] = 1e3 * (now - t0)
+        t0 = now
+    with torch.no_grad():
+        lap(None)
+        vox = device_voxelize(vspec, points, mask, dev)
+        lap("voxelize")
+        stage1 = net.stage1(vox["voxels"], vox["num_points"],
+                            vox["coordinates"], vox["voxel_valid"])
+        lap("stage1")
+        proposals = select_proposals(net.pspec, spec, stage1, anchors)
+        lap("proposals")
+        crops = net.crops(stage1["trunk"], proposals)
+        lap("crops")
+        head = net.second_rpn(crops)
+        B, N = proposals["indices"].shape
+        preds = {**stage1, "proposals": proposals,
+                 "second_box_preds": head["box_preds"].reshape(B, N, -1) +
+                 proposals["box_enc"],
+                 "second_cls_preds": head["cls_preds"].reshape(B, N, -1)}
+        lap("head")
+        predict_two_stage(spec, preds, anchors)
+        lap("predict")
+    return out
+
+
+def run_2st_eval(dev, timer, dtimer):
+    """The two-stage detector's eval forward (second_car_fhd.config as stage
+    1, bf16 as the config asks, 512 proposals an example, random weights
+    from seed 0) on the fhd bench input (batch 4, 40 000 voxels), through
+    the two-stage eval step. Returns (the forward and standup kernels'
+    aggregates, the launch counts, the report)."""
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    mixed = cfg.train_config.enable_mixed_precision
+    net, spec, info, assigner, _ = build_two_stage(cfg.model, dev, mixed)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    points, mask, anchors = build_inputs(cfg, assigner, info, dev)
+    eval_step = make_two_stage_steps(spec, vspec)[1]
+    state = TrainState(net, None)
+    batch = {"points": points, "points_mask": mask, "anchors": anchors}
+    say(f"2st eval: batch {BATCH}, {MAX_VOXELS} voxels, "
+        f"{TWO_STAGE_PROPOSALS} proposals an example, mixed precision "
+        f"{mixed}")
+
+    def forward():
+        return eval_step(state, batch)
+
+    with recording(RECORDED_2ST) as calls:
+        forward()
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"2st capture: {n}")
+    want_n = {"gather_gemm": SPARSE_CONVS, "nms_overlap": 1,
+              "nms_suppress": 2, "roi_align_fwd": 1, "standup_overlap": 1}
+    if {k: n[k] for k in want_n} != want_n:
+        fail(f"2st eval: recorded {n}, expected {want_n}")
+    report["conv_max_abs_err"] = check_calls_exact(calls, "2st eval")
+    # the refined proposals' rotated NMS: the overlap call and the
+    # suppression that read its bitmask
+    over_bits = riou.nms_overlap(*calls["nms_overlap"][0][0])[0]
+    rot_sup = [c for c in calls["nms_suppress"]
+               if c[0][0].shape == over_bits.shape and
+               torch.equal(c[0][0], over_bits)]
+    if len(rot_sup) != 1:
+        fail("2st eval: no suppression call read the overlap bitmask")
+    ov, sup, report["nms"] = check_nms_pair(
+        {"nms_overlap": calls["nms_overlap"], "nms_suppress": rot_sup},
+        timer, dtimer, "2st eval")
+    aggs = {"standup_overlap": check_standup_calls(
+        calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+        "2st eval")}
+    aggs.update(check_roi_calls(calls["roi_align_fwd"], [], timer, dtimer,
+                                "2st eval"))
+    del aggs["roi_align_bwd"], calls
+
+    reset_counts()
+    det = forward()
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one 2st forward: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS, "rotated_iou": 1,
+            "nms_suppress": 2, "roi_align_fwd": 1, "standup_overlap": 1,
+            "roi_align_bwd": 0, "sparse_gather_gemm_dgrad": 0,
+            "sparse_wgrad": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want or not counts["row_gather"]:
+        fail(f"2st forward launches {counts}, expected {want} and row "
+             f"gathers")
+    if mixed and (paths["mma"], paths["fma"]) != (SPARSE_CONVS, 0):
+        fail(f"2st: not every bf16 sparse conv took the tensor-core path: "
+             f"{paths}")
+    report["launches"] = counts
+    report["host_syncs"] = host_syncs(forward)
+    if report["host_syncs"]:
+        fail(f"the 2st eval step synchronised the host "
+             f"{report['host_syncs']} times")
+    for k in ("voxel_overflow", "stage_overflow"):
+        report[k] = int(det[k])
+        if report[k]:
+            fail(f"2st eval: {k} {report[k]}, expected 0")
+    for k in ("boxes", "scores"):
+        if not torch.isfinite(det[k]).all():
+            fail(f"2st eval: non-finite {k}")
+    report["valid"] = det["valid"].sum(1).tolist()
+    say(f"2st eval: no host sync; voxel_overflow 0, stage_overflow 0; "
+        f"valid detections {report['valid']}")
+
+    report["forward"] = timed_forwards(forward, TWO_STAGE_TIMED, BATCH)
+    med = report["forward"]["median_s"]
+    report["split"] = two_stage_split(net, spec, vspec, points, mask,
+                                      anchors, dev)
+    say(f"2st frames/s {BATCH / med:.3f} (median {1e3 * med:.2f} ms of "
+        f"{TWO_STAGE_TIMED} batch-{BATCH} forwards, cuDNN TF32 off); peak "
+        f"memory {report['forward']['peak_mem_bytes'] / 2 ** 30:.2f} GiB; "
+        f"one split: " + ", ".join(f"{k} {v:.2f}"
+                                   for k, v in report["split"].items()))
+    report["profile"] = profile_forward(forward, med, "2st forward")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        report["forward_tf32"] = timed_forwards(forward, TWO_STAGE_TIMED,
+                                                BATCH)
+        report["split_tf32"] = two_stage_split(net, spec, vspec, points,
+                                               mask, anchors, dev)
+        report["profile_tf32"] = profile_forward(
+            forward, report["forward_tf32"]["median_s"],
+            "2st forward, cuDNN TF32 on")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    say(f"2st frames/s with cuDNN TF32 on (torch's default) "
+        f"{report['forward_tf32']['frames_per_s']:.3f}; one split: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in report["split_tf32"].items()))
+    del net, state
+    report["reference"] = check_2st_reference(cfg, dev, vspec, points, mask,
+                                              anchors)
+    return aggs, counts, report
+
+
+def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
+    """One fp32 example through the two-stage detector on the card and on
+    the CPU, from the same seeded weights: stage 1 end to end within
+    PRED_TOL; then each later step on the card's own inputs, card (kernels)
+    against CPU (plain versions): the proposals' standup NMS on the same
+    boxes and scores (indices and keep equal), the crops at the same
+    proposal boxes (CROP_REF_TOL), the refine head on the same crops
+    (PRED_TOL), the rotated NMS of `predict_two_stage` on the same
+    candidates (indices and keep equal). `predict_two_stage` whole on the
+    same predictions, and the CPU's proposals from its own stage 1, are
+    compared and printed, not gated: a random head gives the proposals of
+    empty regions tied scores, and boxes decoded an ulp apart on the two
+    devices can trade places among them."""
+    cpu = torch.device("cpu")
+    net_c, spec = build_two_stage(cfg.model, dev)[:2]
+    net_h = build_two_stage(cfg.model, cpu)[0]
+    one = [t[:1] for t in (points, mask)]
+    a_c = anchors[:1]
+    a_h = a_c.cpu()
+
+    def to_cpu(preds):
+        out = {k: v.cpu() for k, v in preds.items() if k != "proposals"}
+        if "proposals" in preds:
+            out["proposals"] = {k: v.cpu()
+                                for k, v in preds["proposals"].items()}
+        return out
+    with torch.no_grad():
+        vox = device_voxelize(vspec, *one, dev)
+        s1_c = net_c.stage1(vox["voxels"], vox["num_points"],
+                            vox["coordinates"], vox["voxel_valid"])
+        t0 = time.perf_counter()
+        vox_h = device_voxelize(vspec, *[t.cpu() for t in one], cpu)
+        s1_h = net_h.stage1(vox_h["voxels"], vox_h["num_points"],
+                            vox_h["coordinates"], vox_h["voxel_valid"])
+        own_h = net_h.refine(s1_h, a_h)["proposals"]
+        cpu_s = time.perf_counter() - t0
+        errs = {}
+        for k in ("box_preds", "cls_preds", "trunk"):
+            a, b = s1_c[k].cpu().float(), s1_h[k].float()
+            errs[k] = (a - b).abs().max().item()
+            if not torch.allclose(a, b, **PRED_TOL):
+                fail(f"2st reference: stage 1 {k} card vs CPU max abs err "
+                     f"{errs[k]:.3g} over {PRED_TOL}")
+        with recording([(nms_ops, "nearest_nms")]) as calls:
+            p_c = net_c.refine(s1_c, a_c)
+        args, kwargs = calls["nearest_nms"][0]
+        idx_c, keep_c = nms_ops.nearest_nms(*args, **kwargs)
+        idx_h, keep_h = nms_ops.nearest_nms(*[a.cpu() for a in args],
+                                            **kwargs)
+        if not (torch.equal(idx_c.cpu(), idx_h) and
+                torch.equal(keep_c.cpu(), keep_h) and
+                torch.equal(idx_c, p_c["proposals"]["indices"])):
+            fail("2st reference: the proposals' standup NMS differs card vs "
+                 "CPU on the same boxes and scores")
+        prop_h = to_cpu(p_c)["proposals"]
+        c_c = net_c.crops(s1_c["trunk"], p_c["proposals"])
+        c_h = net_h.crops(s1_c["trunk"].cpu(), prop_h)
+        hd_c = net_c.second_rpn(c_c)
+        hd_h = net_h.second_rpn(c_c.cpu())
+        with recording([(nms_ops, "nms")]) as calls:
+            det_c = predict_two_stage(spec, p_c, a_c)
+        (args, kwargs), = calls["nms"]
+        sel_c, keep_c = nms_ops.nms(*args, **kwargs)
+        sel_h, keep_h = nms_ops.nms(*[a.cpu() for a in args], **kwargs)
+        det_h = predict_two_stage(spec, to_cpu(p_c), a_h)
+    errs["crops_rel"] = errors(c_c.cpu(), c_h)[1]
+    if errs["crops_rel"] > CROP_REF_TOL:
+        fail(f"2st reference: crops {errs['crops_rel']:.3g} of their scale "
+             f"apart card vs CPU, over {CROP_REF_TOL}")
+    for k in hd_c:
+        a, b = hd_c[k].cpu(), hd_h[k]
+        errs[f"head_{k}"] = (a - b).abs().max().item()
+        if not torch.allclose(a, b, **PRED_TOL):
+            fail(f"2st reference: head {k} card vs CPU max abs err "
+                 f"{errs[f'head_{k}']:.3g}")
+    if not (torch.equal(sel_c.cpu(), sel_h) and
+            torch.equal(keep_c.cpu(), keep_h)):
+        fail("2st reference: predict's rotated NMS differs card vs CPU on "
+             "the same candidates")
+    valid = det_c["valid"].cpu()
+    errs["det_valid_equal"] = bool(torch.equal(valid, det_h["valid"]))
+    both = valid & det_h["valid"]
+    for k in ("boxes", "scores"):
+        a, b = det_c[k].cpu()[both], det_h[k][both]
+        errs[f"det_{k}"] = (a - b).abs().max().item() if a.numel() else 0.0
+    same = (own_h["indices"] == prop_h["indices"]).float().mean().item()
+    n_prop = int(prop_h["valid"].sum())
+    say(f"2st reference (fp32, 1 example, card vs CPU; the CPU's stage 1 "
+        f"and proposals in {cpu_s:.1f} s): stage 1 err box "
+        f"{errs['box_preds']:.2e} cls {errs['cls_preds']:.2e} trunk "
+        f"{errs['trunk']:.2e}; on the card's inputs: the standup NMS equal "
+        f"({n_prop} valid proposals), crops within {errs['crops_rel']:.2e} "
+        f"of their scale, head box {errs['head_box_preds']:.2e} cls "
+        f"{errs['head_cls_preds']:.2e}, predict's rotated NMS equal on the "
+        f"same candidates ({int(valid.sum())} detections); predict whole on "
+        f"the same predictions (decoded on each device: the refined "
+        f"proposals' scores tie where their crops are empty, so a box an "
+        f"ulp apart can take another's place): valid "
+        f"{'equal' if errs['det_valid_equal'] else 'different'}, boxes err "
+        f"{errs['det_boxes']:.2e} scores err {errs['det_scores']:.2e}; the "
+        f"CPU's own proposals share {100 * same:.1f}% of the card's "
+        f"positions")
+    return dict(cpu_s=cpu_s, errs=errs, proposals=n_prop,
+                own_proposals_same=same, detections=int(valid.sum()))
+
+
+def run_2st_train(dev, timer, dtimer):
+    """The two-stage detector's train step (second_car_fhd.config as stage
+    1, bf16, 512 proposals an example, the config's Adam) on the fhd train
+    inputs (batch 4 synthetic scans, 16 000 voxels), through
+    `make_two_stage_steps`. Returns (the backward kernel's aggregate, the
+    launch counts, the report)."""
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    mixed = cfg.train_config.enable_mixed_precision
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, mixed,
+                                                  build=build_two_stage)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     TRAIN_VOXELS, shuffle_overflow=True)
+    batch = train_inputs(cfg, assigner, info, dev, TRAIN_BATCH)
+    step = make_two_stage_steps(spec, vspec)[0]
+    say(f"2st train: batch {TRAIN_BATCH} synthetic scans, {TRAIN_VOXELS} "
+        f"voxels (shuffle_overflow), mixed precision {mixed}, "
+        f"{TWO_STAGE_PROPOSALS} proposals an example")
+
+    with recording(RECORDED_2ST_TRAIN) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"2st train capture: {n}; loss {float(metrics['loss']):.4f}")
+    want_n = {"gather_gemm": SPARSE_CONVS,
+              "gather_gemm_dgrad": SPARSE_CONVS - 1,
+              "sparse_wgrad": SPARSE_CONVS, "roi_align_fwd": 1,
+              "roi_align_bwd": 1, "standup_overlap": 1, "nms_suppress": 1}
+    if n != want_n:
+        fail(f"2st train: recorded {n}, expected {want_n}")
+    check_step_calls("2st train", calls, timer, dtimer, timed=False)
+    aggs = check_roi_calls(calls["roi_align_fwd"], calls["roi_align_bwd"],
+                           timer, dtimer, "2st train")
+    report["roi_align_fwd"] = {k: aggs["roi_align_fwd"][k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms")}
+    report["standup"] = check_standup_calls(
+        calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+        "2st train")
+    del calls
+
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one 2st train step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS,
+            "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+            "sparse_wgrad": SPARSE_CONVS, "roi_align_fwd": 1,
+            "roi_align_bwd": 1, "standup_overlap": 1, "nms_suppress": 1,
+            "rotated_iou": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"2st train step launches {counts}, expected {want}")
+    params = dict(state.module.named_parameters())
+    for name, p in params.items():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"2st {name}: gradient missing or not finite")
+    for name in ("second_rpn.reg_tower.convs.0.weight",
+                 "second_rpn.conv_box_second.weight",
+                 "stage1.middle.subm.0.weight",
+                 "stage1.rpn.trunk.convs.0.conv.weight"):
+        if not params[name].grad.abs().max() > 0:
+            fail(f"2st {name}: gradient all zero")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"2st train metrics not finite: {m}")
+    report["metrics"], report["launches"] = m, counts
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the 2st train step synchronised the host {n_syncs} times")
+    say("2st train step: no host sync; every gradient finite, the head's, "
+        "the sparse middle's and the RPN's nonzero; " +
+        ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    check_determinism(state, spec, vspec, batch, "2st", two_stage_loss)
+    report["speed"], report["profile"] = timed_steps(
+        step, state, spec, vspec, batch, TWO_STAGE_TIMED, "2st train",
+        loss_of=two_stage_loss)
+    del state
+    report["overfit"] = check_overfit(cfg, dev, mixed, step, batch, "2st",
+                                      build=build_two_stage)
+    torch.backends.cudnn.deterministic = False
+    report["reference"] = check_2st_train_reference(dev)
+    return aggs["roi_align_bwd"], counts, report
+
+
+def check_2st_train_reference(dev):
+    """One fp64 two-stage train step on one example, card (kernels) against
+    CPU (plain versions), from the same seeded weights with the config's
+    optimizer. Stage 1 is the PointPillars config's (the sparse kernels
+    take no fp64), full width, TWO_STAGE_REF_PROPOSALS proposals drawn
+    from the positive anchors and a hundredth of the others: the same
+    stage-2 positives on both, and some; the loss within REF64_LOSS_RTOL,
+    every gradient and norm statistic within REF64_TOL of its scale, every
+    parameter after the step within REF64_TOL of its scale plus
+    ADAM_STEP_TOL of the step's lr where its gradient is settled (above
+    REF_GRAD_TOL of the tensor's largest) and elsewhere within the most a
+    step moves it, lr (2 + wd |p|)."""
+    cfg = load_pipeline_config(PP_CONFIG)
+    reader = cfg.train_input_reader
+    cpu = torch.device("cpu")
+
+    def build(model, device, mixed_precision=False, seed=0):
+        return build_two_stage(model, device, mixed_precision, seed,
+                               TWO_STAGE_REF_PROPOSALS)
+    runs = {}
+    for device in (dev, cpu):
+        state, spec, info, assigner = new_train_state(
+            cfg, device, False, dtype=torch.float64, build=build)
+        if device == dev:
+            one = {k: v[:1].to(torch.float64) if v.is_floating_point()
+                   else v[:1] for k, v in train_inputs(
+                       cfg, assigner, info, cpu, 1, PP_POINTS).items()}
+            # the proposals' NMS may take the positive anchors and a
+            # hundredth of the others: random stage-1 scores rank no
+            # positive among 64 proposals, and the stage-2 losses need some
+            g = torch.Generator().manual_seed(0)
+            one["anchors_mask"] = (one["labels"] > 0) | (torch.rand(
+                one["labels"].shape, generator=g) < 0.01)
+        grads = record_grads(state)
+        vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                         reader.max_number_of_voxels)
+        step = make_two_stage_steps(spec, vspec)[0]
+        t0 = time.perf_counter()
+        state, metrics = step(state, {k: v.to(device)
+                                      for k, v in one.items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        runs[device.type] = dict(
+            secs=time.perf_counter() - t0, loss=float(metrics["loss"]),
+            pos2=int(metrics["second_num_pos"]),
+            grads={k: v.cpu() for k, v in grads[0].items()},
+            after={k: v.detach().cpu()
+                   for k, v in state.module.state_dict().items()
+                   if v.is_floating_point()})
+    c, h = runs["cuda"], runs["cpu"]
+    errs = {"loss_rel": abs(c["loss"] / h["loss"] - 1)}
+    if errs["loss_rel"] > REF64_LOSS_RTOL or c["pos2"] != h["pos2"] or \
+            not h["pos2"]:
+        fail(f"2st train reference: fp64 loss {c['loss']!r} on the card, "
+             f"{h['loss']!r} on the CPU (stage-2 positives {c['pos2']}, "
+             f"{h['pos2']})")
+    worst = dict(grad=0.0, after=0.0)
+    lr = float(state.lr_sched(0))
+    wd = cfg.train_config.optimizer.weight_decay
+    for name, want in h["grads"].items():
+        scale = max(want.abs().max().item(), 1e-30)
+        e = (c["grads"][name] - want).abs().max().item() / scale
+        worst["grad"] = max(worst["grad"], e)
+        if e > REF64_TOL:
+            fail(f"2st train reference: fp64 gradient {name} differs card "
+                 f"vs CPU by {e:.3g} of its scale")
+    for name, want in h["after"].items():
+        diff = (c["after"][name] - want).abs()
+        e = diff.max().item() / max(want.abs().max().item(), 1e-30)
+        g = h["grads"].get(name)
+        if g is None:                   # a norm statistic
+            worst["after"] = max(worst["after"], e)
+            if e > REF64_TOL:
+                fail(f"2st train reference: fp64 {name} after the step "
+                     f"differs card vs CPU by {e:.3g} of its scale")
+            continue
+        # Adam's first update is lr g / (|g| + eps): its error is
+        # lr eps |dg| / |g|^2, up to ADAM_STEP_TOL of lr for settled
+        # elements (above REF_GRAD_TOL of the tensor's largest gradient, as
+        # the fhd reference has it) of tensors whose gradients are small
+        # (a zero-initialised bias moves by lr alone); elsewhere the most
+        # one step can move an element, lr (2 + wd |p|)
+        settled = g.abs() > REF_GRAD_TOL * g.abs().max()
+        if settled.any():
+            worst["after"] = max(worst["after"], diff[settled].max().item() /
+                                 max(want.abs().max().item(), 1e-30))
+        limit = lr * (2 + wd * want.abs()) + REF_PARAM_ATOL
+        tol = REF64_TOL * want.abs().max() + ADAM_STEP_TOL * lr
+        if (diff[settled] > tol).any() or (diff > limit).any():
+            fail(f"2st train reference: fp64 parameter {name} after the "
+                 f"step differs card vs CPU by {e:.3g} of its scale")
+    errs.update(worst)
+    say(f"2st train reference (PointPillars stage 1, fp64, 1 example, "
+        f"{TWO_STAGE_REF_PROPOSALS} proposals, {h['pos2']} stage-2 "
+        f"positives, card vs CPU; the CPU's step in {h['secs']:.1f} s): "
+        f"loss rel {errs['loss_rel']:.2e}, gradients within "
+        f"{worst['grad']:.2e} of their scale, state after the step within "
+        f"{worst['after']:.2e}")
+    return dict(cpu_s=h["secs"], card_s=c["secs"], errs=errs,
+                second_num_pos=h["pos2"])
 
 
 if __name__ == "__main__":

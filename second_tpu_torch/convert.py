@@ -6,6 +6,10 @@
 `VoxelNet`. `grads_from_jax(grads)` maps a tree with the params' structure,
 a JAX gradient, to the port's parameter names the same way (each layout
 change is a permutation, so it carries gradients as it carries weights).
+A two-stage tree (`second_tpu.models.TwoStageVoxelNet`: `stage1/...` and
+`second_rpn/{reg_tower,cls_tower}/Conv_0..4`, `conv_box_second`,
+`conv_cls_second`, `conv_dir_second`) maps onto `TwoStageVoxelNet`'s
+`stage1.*` and `second_rpn.*` the same way.
 Sparse kernels stay [K, Cin, Cout] in tap order; dense conv kernels go
 from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
 out), applied without a kernel transpose, to torch's (in, out, kh, kw)
@@ -114,11 +118,36 @@ def _convert(params, stats) -> dict:
     return out
 
 
+def _conv(out, name, c):
+    """A flax nn.Conv (kernel HWIO, bias) → torch Conv2d entries (OIHW)."""
+    out[f"{name}.weight"] = _t(np.asarray(c["kernel"]).transpose(3, 2, 0, 1))
+    out[f"{name}.bias"] = _t(c["bias"])
+
+
+def _convert_any(params, stats) -> dict:
+    """A one-stage tree, or a two-stage one (`stage1` and `second_rpn`)."""
+    if "stage1" not in params:
+        return _convert(params, stats)
+    out = {f"stage1.{k}": v for k, v in _convert(
+        params["stage1"],
+        None if stats is None else stats.get("stage1", {})).items()}
+    hp = params["second_rpn"]
+    for tower in ("reg_tower", "cls_tower"):
+        for i, c in enumerate(_numbered(hp[tower], "Conv")):
+            _conv(out, f"second_rpn.{tower}.convs.{i}", c)
+    for name in ("conv_box_second", "conv_cls_second", "conv_dir_second"):
+        if name in hp:
+            _conv(out, f"second_rpn.{name}", hp[name])
+    return out
+
+
 def state_dict_from_jax(variables) -> dict:
-    return _convert(variables["params"], variables.get("batch_stats", {}))
+    return _convert_any(variables["params"],
+                        variables.get("batch_stats", {}))
 
 
 def grads_from_jax(grads) -> dict:
     """A JAX gradient (or any tree with the params' structure) → {port
-    parameter name: tensor}, the names of `VoxelNet.named_parameters()`."""
-    return _convert(grads, None)
+    parameter name: tensor}, the names of `VoxelNet.named_parameters()`
+    (of `TwoStageVoxelNet`'s for a two-stage tree)."""
+    return _convert_any(grads, None)

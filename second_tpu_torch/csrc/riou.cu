@@ -25,8 +25,9 @@
 // Entry points: `riou_pairs` (pair list (i, j) into two box arrays) and
 // `riou_matrix` (dense [N, K] with the criterion -1 IoU, 0 inter/area1,
 // 1 inter/area2), both off the main path; the two kernels of rotated NMS
-// for a whole batch, `nms_overlap` and `nms_suppress` (below); and
-// `d3_iou`, the 3-D IoU of lidar boxes (below). A non-finite box gives
+// for a whole batch, `nms_overlap` and `nms_suppress` (below);
+// `d3_iou`, the 3-D IoU of lidar boxes (below); and `standup_overlap`,
+// the bitmask of standup NMS (below). A non-finite box gives
 // the plain version's non-finite results: the clamps and the winding sign
 // pass NaN through, as torch.clamp and torch.sign do.
 //
@@ -884,6 +885,86 @@ __global__ void __launch_bounds__(SUP_THREADS)
   }
 }
 
+
+// standup_overlap — replaces the standup branch of `nms`
+// (second_tpu/ops/nms.py:183): the dense standup IoU matrix of the
+// candidates (`standup_iou_matrix`) thresholded, here written directly as
+// the strictly-upper bitmask of valid pairs [B, K, ceil(K / 32)] that
+// `nms_suppress` reads. Bound on the H100: operations. K(K-1)/2 pair tests
+// an example (STANDUP_TEST_OPS, below) against a bitmask of K²/8 bytes
+// (2 MB for the proposals' NMS, batch 4 of K = 2048). Design: a block of
+// 32 x 8 threads makes 8 rows by 32 words; it stages the 1024 boxes of its
+// words' columns, their areas and valid flags in shared memory, each
+// thread holds its row's box in registers and tests 32 columns into one
+// word, so a warp writes 32 consecutive words of a row. The IoU is
+// computed in `standup_iou_matrix`'s order of operations (`eps` 0 adds
+// nothing a comparison could see), so the bits equal the plain version's.
+// torch.maximum / torch.minimum: NaN if either operand is NaN
+template <typename S>
+__device__ __forceinline__ S nan_max(S a, S b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+template <typename S>
+__device__ __forceinline__ S nan_min(S a, S b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
+template <typename S>
+__global__ void __launch_bounds__(256)
+    standup_overlap_kernel(const S* __restrict__ cand,
+                           const uint8_t* __restrict__ valid,
+                           uint32_t* __restrict__ over, int k, S thr) {
+  __shared__ S sbox[1024][4];
+  __shared__ S sarea[1024];
+  __shared__ uint8_t sok[1024];
+  const int b = blockIdx.z;
+  const int W = (k + 31) >> 5;
+  const int j0 = blockIdx.x * 1024;
+  const S* bc = cand + (long long)b * k * 4;
+  const uint8_t* bv = valid + (long long)b * k;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  for (int t = tid; t < 1024; t += 256) {
+    const int j = j0 + t;
+    S x1 = 0, y1 = 0, x2 = 0, y2 = 0;
+    uint8_t ok = 0;
+    if (j < k) {
+      x1 = bc[4 * j];
+      y1 = bc[4 * j + 1];
+      x2 = bc[4 * j + 2];
+      y2 = bc[4 * j + 3];
+      ok = bv[j];
+    }
+    sbox[t][0] = x1;
+    sbox[t][1] = y1;
+    sbox[t][2] = x2;
+    sbox[t][3] = y2;
+    sarea[t] = (x2 - x1) * (y2 - y1);
+    sok[t] = ok;
+  }
+  __syncthreads();
+  const int i = blockIdx.y * 8 + threadIdx.y;
+  const int w = blockIdx.x * 32 + threadIdx.x;
+  if (i >= k || w >= W) return;
+  const S x1 = bc[4 * i], y1 = bc[4 * i + 1];
+  const S x2 = bc[4 * i + 2], y2 = bc[4 * i + 3];
+  const S a1 = (x2 - x1) * (y2 - y1);
+  const bool vi = bv[i] != 0;
+  uint32_t word = 0;
+  if (vi) {
+    for (int t = 0; t < 32; ++t) {
+      const int j = w * 32 + t;
+      const int sj = threadIdx.x * 32 + t;
+      if (j >= k) break;
+      if (j <= i || !sok[sj]) continue;
+      const S wx = nan_min(x2, sbox[sj][2]) - nan_max(x1, sbox[sj][0]);
+      const S wy = nan_min(y2, sbox[sj][3]) - nan_max(y1, sbox[sj][1]);
+      const S inter = (wx > S(0) && wy > S(0)) ? wx * wy : S(0);
+      const S iou = inter > S(0) ? inter / (a1 + sarea[sj] - inter) : S(0);
+      if (iou > thr) word |= 1u << t;
+    }
+  }
+  over[((long long)b * k + i) * W + w] = word;
+}
 }  // namespace
 
 extern "C" int riou_pairs(const void* b1, const void* b2, const void* pi,
@@ -1012,6 +1093,30 @@ extern "C" int nms_suppress(const void* over, const void* valid, void* keep,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(over), static_cast<const uint8_t*>(valid),
       static_cast<uint8_t*>(keep), k, staged);
+  return (int)cudaGetLastError();
+}
+
+// cand [B, K, 4] xyxy (fp32, or fp64 with is_double), valid [B, K] bytes →
+// over [B, K, ceil(K / 32)] words: bit j of row i set where i < j, both
+// valid and their standup IoU exceeds thr (in the boxes' dtype).
+extern "C" int standup_overlap(const void* cand, const void* valid,
+                               void* over, int batch, int k, double thr,
+                               int is_double, void* stream) {
+  if (batch == 0 || k == 0) return 0;
+  if (batch < 0 || batch > 65535 || k < 0) return (int)cudaErrorInvalidValue;
+  const int W = (k + 31) >> 5;
+  const dim3 grid((unsigned)((W + 31) / 32), (unsigned)((k + 7) / 8),
+                  (unsigned)batch);
+  const dim3 block(32, 8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    standup_overlap_kernel<double><<<grid, block, 0, st>>>(
+        static_cast<const double*>(cand), static_cast<const uint8_t*>(valid),
+        static_cast<uint32_t*>(over), k, thr);
+  else
+    standup_overlap_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(cand), static_cast<const uint8_t*>(valid),
+        static_cast<uint32_t*>(over), k, (float)thr);
   return (int)cudaGetLastError();
 }
 

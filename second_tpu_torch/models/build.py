@@ -1,6 +1,7 @@
 """Model builder: ModelConfig → (VoxelNet, DetectorSpec, NetInfo, target
 assigner, box coder) — the port of `second_tpu/models/build.py`
-`build_voxelnet`, plus seeded weights: random eval-test weights
+`build_voxelnet` (`voxelnet_args` gives its constructor arguments, which
+the two-stage builder shares), plus seeded weights: random eval-test weights
 (`init_weights_`) and flax's initialisers for training from scratch
 (`init_train_weights_`), and norm statistics calibrated on a batch
 (`calibrate_norms_`).
@@ -56,6 +57,19 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
     bf16 (sparse-conv sums and normalisation stay fp32, the heads fp32); the
     pillar encoder and the scatter stay fp32."""
     dev = resolve_device(device)
+    args, info, target_assigner, box_coder = voxelnet_args(cfg,
+                                                           mixed_precision)
+    module = VoxelNet(*args)
+    init_weights_(module, seed)
+    module = module.to(dev).eval()
+    return module, build_detector_spec(cfg), info, target_assigner, \
+        box_coder
+
+
+def voxelnet_args(cfg: schema.ModelConfig, mixed_precision: bool = False):
+    """The `VoxelNet` constructor's arguments for this config (vfe name and
+    kwargs, middle name and kwargs, rpn kwargs, IoU-head kwargs or None),
+    the NetInfo, the target assigner and the box coder."""
     vg = cfg.voxel_generator
     nx, ny, nz = vg.grid_size
     box_coder = build_box_coder(cfg.box_coder)
@@ -114,15 +128,11 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
     if cfg.use_iou_branch:
         iou_kwargs = {"num_filters": tuple(cfg.iou.num_filters),
                       "num_anchor_per_loc": num_anchor_per_loc}
-    module = VoxelNet(vfe_name, vfe_kwargs, middle_name, middle_kwargs,
-                      rpn_kwargs, iou_kwargs)
-    init_weights_(module, seed)
-    module = module.to(dev).eval()
     info = NetInfo(grid_size=(nx, ny, nz), dense_shape=(nz + 1, ny, nx),
                    out_size_factor=out_size_factor, feature_map_size=fmap,
                    num_anchors=fmap[1] * fmap[2] * num_anchor_per_loc)
-    return module, build_detector_spec(cfg), info, target_assigner, \
-        box_coder
+    return ((vfe_name, vfe_kwargs, middle_name, middle_kwargs, rpn_kwargs,
+             iou_kwargs), info, target_assigner, box_coder)
 
 
 # the norms with running statistics
@@ -144,7 +154,8 @@ def init_weights_(module: nn.Module, seed: int = 0) -> None:
     """Random weights from a seeded CPU `torch.Generator`, so a seed gives
     the same weights on every device: fan-in-scaled normal kernels, and
     normalisation layers with non-trivial scales, shifts and running
-    statistics."""
+    statistics. Every dense conv is covered, the two-stage refine head's
+    among them."""
     g = torch.Generator().manual_seed(seed)
 
     def normal_(t, std):
@@ -185,7 +196,8 @@ def init_train_weights_(module: nn.Module, seed: int = 0) -> None:
         (`second_tpu/models/sparse_middle.py:78-79`);
       * dense conv, transposed-conv and Linear kernels: `nn.Conv`'s and
         `nn.Dense`'s default `lecun_normal`, a truncated normal of std
-        fan_in^-0.5 (`_fan_in`), zero biases;
+        fan_in^-0.5 (`_fan_in`), zero biases (the two-stage refine head's
+        3x3 and crop-sized convs among them);
       * norms: scale 1, bias 0, running mean 0, running variance 1."""
     g = torch.Generator().manual_seed(seed)
     for m in module.modules():

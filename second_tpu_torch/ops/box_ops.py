@@ -106,8 +106,10 @@ def rbbox2d_to_near_bbox(rbboxes):
     """[N, 5(x, y, w, l, yaw)] rotated → [N, 4 xyxy] nearest axis-aligned."""
     rots = torch.abs(limit_period(rbboxes[..., -1], 0.5, math.pi))
     cond = (rots > math.pi / 4)[..., None]
-    centers_dims = torch.where(cond, rbboxes[..., [0, 1, 3, 2]],
-                               rbboxes[..., :4])
+    # by slices: a list index would copy its indices to the card
+    swapped = torch.cat([rbboxes[..., 0:2], rbboxes[..., 3:4],
+                         rbboxes[..., 2:3]], -1)
+    centers_dims = torch.where(cond, swapped, rbboxes[..., :4])
     centers, dims = centers_dims[..., :2], centers_dims[..., 2:]
     return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1)
 

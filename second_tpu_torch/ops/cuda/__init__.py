@@ -9,9 +9,11 @@ is imported: the CPU tests import every module, and the CPU has no `nvcc`.
 
 The Python wrappers beside this file (`gather.py`, `riou.py`, `subm.py`)
 mirror `second_tpu/ops/pallas/` by name; `subm.py` also wraps
-`csrc/subm_grad.cu`, the sparse conv's weight gradient. Each resolves its
-C launch functions once, at its first launch (`function`), and keeps them
-in a module global, so a launch takes no lock and looks nothing up.
+`csrc/subm_grad.cu`, the sparse conv's weight gradient, and `roi_align.py`
+wraps `csrc/roi_align.cu`, the two-stage detector's rotated ROI-align.
+Each resolves its C launch functions once, at its first launch
+(`function`), and keeps them in a module global, so a launch takes no lock
+and looks nothing up.
 """
 
 from __future__ import annotations
@@ -29,13 +31,13 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather", "riou", "subm", "subm_grad")
+SOURCES = ("gather", "riou", "roi_align", "subm", "subm_grad")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-# riou: no fused multiply-add, so the clip arithmetic rounds like the plain
-# PyTorch version's separate elementwise ops
-_EXTRA_FLAGS = {"riou": ["-fmad=false"]}
+# riou, roi_align: no fused multiply-add, so the clip and the bilinear
+# arithmetic round like the plain PyTorch version's separate elementwise ops
+_EXTRA_FLAGS = {"riou": ["-fmad=false"], "roi_align": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

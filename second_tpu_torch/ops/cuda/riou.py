@@ -13,10 +13,12 @@ that cull rule in plain PyTorch.
 runs it, JAX `_sparse_rotated_over`) and `nms_suppress` (exact greedy
 suppression, JAX `_greedy_suppress_over`) take a whole batch and meet in an
 overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
-j // 32 of row i says that the higher-ranked box i suppresses box j. Each
-launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
-built on `ops/rotated_iou.py`, for CPU tensors. None has a backward: under
-grad mode, boxes that require grad raise.
+j // 32 of row i says that the higher-ranked box i suppresses box j.
+`standup_overlap` writes that bitmask for standup NMS (the standup IoU of
+axis-aligned boxes, thresholded). Each launches `csrc/riou.cu` for CUDA
+tensors and takes its plain version, built on `ops/rotated_iou.py`, for
+CPU tensors. None has a backward: under grad mode, boxes that require
+grad raise.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from ..box_ops import bev_boxes
 from ..rotated_iou import (iou_from_inter, quad_intersection_area,
-                           rbbox_to_corners)
+                           rbbox_to_corners, standup_iou_matrix)
 from . import check, function, refuse_grad, stream_ptr
 
 # launches since the last reset (set to 0 to reset): of the rotated-IoU
@@ -36,6 +38,8 @@ from . import check, function, refuse_grad, stream_ptr
 launches = 0
 launches_suppress = 0
 launches_d3 = 0
+# launches of the standup-NMS bitmask kernel
+launches_standup = 0
 
 NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
 NMS_CLUSTERS = (1, 2, 4, 8, 16)
@@ -54,6 +58,10 @@ _OVERLAP_ARGTYPES = [ctypes.c_void_p] * 5 + \
      ctypes.c_void_p]
 # b1, b2, out, clipped, batch, n1, n2, stream
 _D3_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# cand, valid, over, batch, k, thr, double, stream
+_STANDUP_ARGTYPES = [ctypes.c_void_p] * 3 + \
+    [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+     ctypes.c_void_p]
 # over, valid, keep, batch, k, stream
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -63,6 +71,7 @@ _matrix_launch = None
 _overlap_launch = None
 _suppress_launch = None
 _d3_launch = None
+_standup_launch = None
 
 
 def _resolve_pairs():
@@ -87,6 +96,12 @@ def _resolve_suppress():
     global _suppress_launch
     _suppress_launch = function("riou", "nms_suppress", _SUPPRESS_ARGTYPES)
     return _suppress_launch
+
+
+def _resolve_standup():
+    global _standup_launch
+    _standup_launch = function("riou", "standup_overlap", _STANDUP_ARGTYPES)
+    return _standup_launch
 
 
 def _resolve_d3():
@@ -354,6 +369,17 @@ def nms_overlap_plain(cand, valid, iou_threshold, max_pairs):
     return pack_bits(over.view(B, K, K)), count
 
 
+def standup_overlap_plain(cand, valid, iou_threshold):
+    """The strictly-upper `standup IoU > threshold` matrix of valid pairs,
+    packed: cand [B, K, 4] xyxy → [B, K, ceil(K / 32)] int32 (the dense
+    `standup_iou_matrix`, then `pack_bits`)."""
+    K = cand.shape[1]
+    upper = torch.ones((K, K), dtype=torch.bool, device=cand.device).triu(1)
+    over = (standup_iou_matrix(cand, cand) > iou_threshold) & upper & \
+        valid[:, :, None] & valid[:, None, :]
+    return pack_bits(over)
+
+
 def nms_suppress_plain(over_bits, valid):
     """Exact greedy NMS over boxes sorted by descending score: over bitmask
     [B, K, W] (strictly upper), valid [B, K] → keep [B, K]. Frontier rounds,
@@ -421,6 +447,41 @@ def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
     global launches
     launches += 1
     return over, count
+
+
+def standup_overlap(cand, valid, iou_threshold):
+    """`standup_overlap_plain` semantics, bit for bit; the CUDA kernel for
+    CUDA tensors (fp32 or fp64 boxes)."""
+    refuse_grad("standup_overlap", cand)
+    dev = cand.device
+    if dev.type == "cpu":
+        return standup_overlap_plain(cand, valid, iou_threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"standup_overlap: unsupported device {dev}")
+    if cand.dtype not in (torch.float32, torch.float64) or cand.dim() != 3:
+        raise ValueError(f"standup_overlap: cand must be [B, K, 4] float32 "
+                         f"or float64, got {tuple(cand.shape)} {cand.dtype}")
+    if valid.dim() != 2 or cand.shape[:2] != valid.shape or \
+            cand.shape[2] != 4 or valid.dtype != torch.bool or \
+            valid.device != dev:
+        raise ValueError(f"standup_overlap: expected [B, K, 4] and valid "
+                         f"[B, K] bool on {dev}, got {tuple(cand.shape)} and "
+                         f"{tuple(valid.shape)} {valid.dtype}")
+    B, K = valid.shape
+    if B > 65535:
+        raise ValueError(f"standup_overlap: {B} rows; the kernel takes at "
+                         f"most 65535")
+    over = torch.empty((B, K, (K + 31) // 32), dtype=torch.int32, device=dev)
+    if B * K == 0:
+        return over
+    cand, valid = cand.contiguous(), valid.contiguous()
+    rc = (_standup_launch or _resolve_standup())(
+        cand.data_ptr(), valid.data_ptr(), over.data_ptr(), B, K,
+        iou_threshold, int(cand.dtype == torch.float64), stream_ptr(dev))
+    check("riou", rc)
+    global launches_standup
+    launches_standup += 1
+    return over
 
 
 def nms_suppress(over_bits, valid):

@@ -9,10 +9,11 @@ is a stable descending sort, so ties (the many -inf entries included)
 resolve lowest index first, like `lax.top_k`.
 
 On the card the batch runs without a host sync: a batched top-k, one row
-gather of the candidates, the overlap bitmask (`nms_overlap`, rotated; the
-standup IoU packed by `pack_bits`, nearest) and the suppression kernel
-(`nms_suppress`), then a batched top-k of the kept scores. Multi-class
-NMS runs every class of every example as one such batch of B·C rows.
+gather of the candidates, the overlap bitmask (`nms_overlap`, rotated;
+`standup_overlap`, the standup IoU thresholded, nearest) and the
+suppression kernel (`nms_suppress`), then a batched top-k of the kept
+scores. Multi-class NMS runs every class of every example as one such
+batch of B·C rows.
 """
 
 from __future__ import annotations
@@ -21,8 +22,7 @@ import torch
 
 from .box_ops import rbbox2d_to_near_bbox
 from .cuda.gather import flat_rows
-from .cuda.riou import nms_overlap, nms_suppress, pack_bits
-from .rotated_iou import standup_iou_matrix
+from .cuda.riou import nms_overlap, nms_suppress, standup_overlap
 
 
 def top_k(values, k):
@@ -30,16 +30,6 @@ def top_k(values, k):
     keep ascending index order (`lax.top_k`'s tie rule)."""
     vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _standup_over_bits(cand, valid, iou_threshold):
-    """The strictly-upper `standup IoU > threshold` matrix of valid pairs,
-    packed: cand [B, K, 4] xyxy → [B, K, ceil(K / 32)] int32."""
-    K = cand.shape[1]
-    upper = torch.ones((K, K), dtype=torch.bool, device=cand.device).triu(1)
-    over = (standup_iou_matrix(cand, cand) > iou_threshold) & upper & \
-        valid[:, :, None] & valid[:, None, :]
-    return pack_bits(over)
 
 
 def nms(boxes, scores, valid, *, pre_max_size, post_max_size, iou_threshold,
@@ -83,7 +73,7 @@ def nms_sorted(cand, cand_scores, *, post_max_size, iou_threshold,
         over_bits, _ = nms_overlap(cand, valid, iou_threshold,
                                    min(max_pairs, k * k))
     else:
-        over_bits = _standup_over_bits(cand, valid, iou_threshold)
+        over_bits = standup_overlap(cand, valid, iou_threshold)
     keep = nms_suppress(over_bits, valid)
     keep_scores = torch.where(keep, cand_scores, float("-inf"))
     out_scores, sel = top_k(keep_scores, min(post_max_size, k))

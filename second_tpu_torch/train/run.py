@@ -15,7 +15,8 @@ Usage:
         --model_dir D [--synthetic] [--device cpu]
 
 Ported: `model_type="one_stage"` (SECOND car.fhd and multi-class,
-PointPillars), on the KITTI infos the config's input readers name
+PointPillars) and `"two_stage"` (any of them as stage 1 of the rotated-ROI
+refine detector, `models/detector_two_stage.py`), on the KITTI infos the config's input readers name
 (`data/kitti_dataset.py`, prepared by `python -m
 second_tpu_torch.data.kitti_dataset`) or, with `synthetic=True`, on the
 scan scenes the JAX trainer uses under `--synthetic`; with the config's
@@ -44,16 +45,16 @@ from ..data import kitti
 from ..data.kitti_dataset import KittiDataset
 from ..data.synthetic import SyntheticDataset
 from ..device import resolve_device
-from ..models import build_voxelnet, init_train_weights_
+from ..models import build_two_stage_voxelnet, build_voxelnet
 from ..utils import kitti_eval
 from .checkpoint import CheckpointManager
 from .metrics import MetricsLogger, Scalar, StageTimer
-from .optimizer import build_optimizer
 from .prefetch import PrefetchIterator, bounded_ordered_map
-from .state import TrainState, VoxelizeSpec, make_eval_step, make_train_step
+from .state import (VoxelizeSpec, create_state, make_eval_step,
+                    make_train_step)
+from .steps_multistage import make_two_stage_steps
 
 _NOT_PORTED = {
-    "two_stage": "ROADMAP item 13 (two-stage)",
     "fusion": "ROADMAP item 14 (fusion)",
     "fusion_two_stage": "ROADMAP item 14 (fusion)",
     "temporal": "ROADMAP item 15 (temporal and tracking)",
@@ -128,7 +129,7 @@ class Trainer:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported yet: "
                 f"{_NOT_PORTED[model_type]}")
-        if model_type != "one_stage":
+        if model_type not in ("one_stage", "two_stage"):
             raise ValueError(f"unknown model_type {model_type!r}")
         self.model_type = model_type
         self.device = resolve_device(device)
@@ -139,8 +140,10 @@ class Trainer:
         # keep the resolved config beside the run (reference train.py:114-122)
         shutil.copy(config_path, self.model_dir / "pipeline.config")
 
+        build = build_voxelnet if model_type == "one_stage" \
+            else build_two_stage_voxelnet
         (self.module, self.spec, self.info, self.assigner,
-         self.coder) = build_voxelnet(
+         self.coder) = build(
             self.cfg.model, device=self.device,
             mixed_precision=self.cfg.train_config.enable_mixed_precision)
         # shuffle_overflow: the train cap is sized for memory (reference
@@ -211,14 +214,19 @@ class Trainer:
                 training=False, input_cfg=self.cfg.eval_input_reader)
 
         self.total_steps = total_steps or self.cfg.train_config.steps
-        self.train_step = make_train_step(self.spec, self.vspec)
         # the in-graph anchors mask: its SAT corners uploaded once
         mi = self.eval_prep.sat_mask_info()
         self._eval_mask_info = None if mi is None else \
             (torch.as_tensor(mi[0], device=self.device), mi[1], mi[2])
-        self.eval_step = make_eval_step(self.spec, self.vspec,
-                                        self.eval_vspec,
-                                        mask_info=self._eval_mask_info)
+        if model_type == "one_stage":
+            self.train_step = make_train_step(self.spec, self.vspec)
+            self.eval_step = make_eval_step(self.spec, self.vspec,
+                                            self.eval_vspec,
+                                            mask_info=self._eval_mask_info)
+        else:
+            self.train_step, self.eval_step = make_two_stage_steps(
+                self.spec, self.vspec, self.eval_vspec,
+                mask_info=self._eval_mask_info)
         self.ckpt = CheckpointManager(self.model_dir)
         self.logger = MetricsLogger(self.model_dir)
         self.timer = StageTimer()
@@ -256,11 +264,8 @@ class Trainer:
     def _init_state(self, ckpt_step=None):
         """A fresh state (flax's initialisers, seed 0), then the requested
         or latest checkpoint over it if there is one."""
-        init_train_weights_(self.module, 0)
-        opt, lr_sched = build_optimizer(self.cfg.train_config.optimizer,
-                                        self.total_steps,
-                                        self.module.parameters())
-        state = TrainState(self.module, opt, 0, lr_sched)
+        state = create_state(self.module, self.cfg.train_config.optimizer,
+                             self.total_steps)
         if ckpt_step is not None:   # reference evaluate(ckpt_path=...)
             state = self.ckpt.restore(state, step=ckpt_step)
             print(f"restored checkpoint at step {ckpt_step}")
@@ -467,7 +472,7 @@ def main(argv=None):
     parser.add_argument("--max_points", type=int, default=20000)
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--model_type", default="one_stage",
-                        choices=["one_stage", *_NOT_PORTED])
+                        choices=["one_stage", "two_stage", *_NOT_PORTED])
     parser.add_argument("--patchs", action="append", default=None,
                         metavar="PATH=VALUE",
                         help="runtime config patch, repeatable "

@@ -19,9 +19,10 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from ..models.build import init_train_weights_
 from ..models.detector import DetectorSpec, compute_loss, detect
 from ..ops.voxelize import VoxelizeSpec, device_voxelize
-from .optimizer import ClippedOptimizer
+from .optimizer import ClippedOptimizer, build_optimizer
 
 
 @dataclasses.dataclass
@@ -47,6 +48,18 @@ class TrainState:
         self.step = int(state["step"])
 
 
+def create_state(module: nn.Module, optimizer_config, total_steps,
+                 seed: int = 0) -> TrainState:
+    """A fresh train state for `module`, a one- or two-stage detector:
+    flax's initialisers drawn from `seed` (`init_train_weights_`), the
+    config's optimizer and lr schedule, step 0 (JAX's `TrainState.create`
+    and `create_two_stage_state`)."""
+    init_train_weights_(module, seed)
+    opt, lr_sched = build_optimizer(optimizer_config, total_steps,
+                                    module.parameters())
+    return TrainState(module, opt, 0, lr_sched)
+
+
 def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
     """Returns train_step(state, batch) → (state, metrics), updating the
     state in place. batch: points [B, P, C], points_mask [B, P], labels
@@ -56,6 +69,37 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
     metrics are JAX's keys, 0-d tensors on the device, and with the IoU
     branch its loss, iou_loss."""
 
+    def forward_loss(net, vox, batch):
+        preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                    vox["voxel_valid"])
+        return preds, compute_loss(spec, preds, batch["labels"],
+                                   batch["reg_targets"], batch["anchors"],
+                                   batch.get("gt_boxes_padded"),
+                                   batch.get("gt_valid"))
+
+    def metrics_of(aux):
+        out = {"cls_loss": aux["cls_loss_reduced"].detach(),
+               "loc_loss": aux["loc_loss_reduced"].detach(),
+               "cls_pos_loss": aux["cls_pos_loss"].detach(),
+               "cls_neg_loss": aux["cls_neg_loss"].detach(),
+               "num_pos": aux["num_pos"]}
+        if "dir_loss_reduced" in aux:
+            out["dir_loss"] = aux["dir_loss_reduced"].detach()
+        if "iou_loss_reduced" in aux:
+            out["iou_loss"] = aux["iou_loss_reduced"].detach()
+        return out
+
+    return step_of(vspec, forward_loss, metrics_of)
+
+
+def step_of(vspec: VoxelizeSpec, forward_loss, metrics_of):
+    """The train step around a model's forward and loss:
+    forward_loss(net, vox, batch) → (preds, loss dict with "loss") in train
+    mode, metrics_of(loss dict) → the model's metrics. The step voxelizes
+    with no grad, runs forward_loss, backward, the gradient norm before
+    the clip, the clip and the optimizer step, and adds loss, grad_norm,
+    voxel_overflow and stage_overflow to the metrics."""
+
     def train_step(state: TrainState, batch: Dict):
         net, dev = state.module, state.device
         with torch.no_grad():
@@ -63,31 +107,15 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
                                   batch["points_mask"], dev)
         net.train()
         with torch.enable_grad():
-            preds = net(vox["voxels"], vox["num_points"], vox["coordinates"],
-                        vox["voxel_valid"])
-            aux = compute_loss(spec, preds, batch["labels"],
-                               batch["reg_targets"], batch["anchors"],
-                               batch.get("gt_boxes_padded"),
-                               batch.get("gt_valid"))
+            preds, aux = forward_loss(net, vox, batch)
             state.optimizer.zero_grad()
             aux["loss"].backward()
         grad_norm = state.optimizer.step(state.step)
         state.step += 1
-        metrics = {
-            "loss": aux["loss"].detach(),
-            "cls_loss": aux["cls_loss_reduced"].detach(),
-            "loc_loss": aux["loc_loss_reduced"].detach(),
-            "cls_pos_loss": aux["cls_pos_loss"].detach(),
-            "cls_neg_loss": aux["cls_neg_loss"].detach(),
-            "num_pos": aux["num_pos"],
-            "grad_norm": grad_norm,
-            "voxel_overflow": vox["voxel_overflow"],
-            "stage_overflow": preds["stage_overflow"],
-        }
-        if "dir_loss_reduced" in aux:
-            metrics["dir_loss"] = aux["dir_loss_reduced"].detach()
-        if "iou_loss_reduced" in aux:
-            metrics["iou_loss"] = aux["iou_loss_reduced"].detach()
+        metrics = {"loss": aux["loss"].detach(), **metrics_of(aux),
+                   "grad_norm": grad_norm,
+                   "voxel_overflow": vox["voxel_overflow"],
+                   "stage_overflow": preds["stage_overflow"]}
         return state, metrics
 
     return train_step
@@ -121,4 +149,4 @@ def make_eval_step(spec: DetectorSpec, vspec: VoxelizeSpec,
 
 
 __all__ = ["TrainState", "VoxelizeSpec", "device_voxelize", "make_train_step",
-           "make_eval_step"]
+           "make_eval_step", "step_of", "create_state"]

@@ -1072,3 +1072,292 @@ def test_multiclass_predict_runs_without_host_sync(dev):
     for k in ("boxes", "scores"):
         torch.testing.assert_close(det[k].cpu()[valid], want[k][valid],
                                    atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- the two-stage kernels
+
+
+# the ROI-align kernels against their plain versions: the forward in the
+# plain version's order of operations (built with -fmad=false), within
+# 1e-6 of the output's scale; the backward sums the same products in
+# another order, within 1e-5 of each gradient's scale in fp32 (1e-12 in
+# fp64)
+ROI_FWD_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+ROI_BWD_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _rois(g, B, N, H, W, kind):
+    """[B, N, 5] rois (cx, cy, w, l, yaw) in pixels over an H x W map:
+    random rotated ones, or with `kind` some of each example straddling
+    the edges, thousands of pixels off the map, of zero width or length,
+    or non-finite."""
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(B, N, generator=g,
+                                           dtype=torch.float64)
+    rois = torch.stack([u(0, W), u(0, H), u(1, 12), u(1, 12),
+                        u(-np.pi, np.pi)], -1)
+    if kind == "edge":
+        rois[:, ::2, 0] = u(-3, 3)[:, ::2]
+        rois[:, 1::2, 1] = H + u(-3, 3)[:, 1::2]
+    elif kind == "far":
+        rois[:, ::3, 0] = 5000.0
+        rois[:, 1::3, 1] = -7000.5
+        rois[:, 2::3, :2] = 3.0e6
+    elif kind == "degenerate":
+        rois[:, ::2, 2] = 0.0
+        rois[:, 1::2, 3] = 0.0
+        rois[:, 2::4, 2:4] = 0.0
+    elif kind == "nonfinite":
+        rois[:, 0, 0] = float("nan")
+        rois[:, 1, 1] = float("inf")
+    return rois
+
+
+def _roi_inputs(dev, dtype, kind="random", B=2, C=40, H=30, W=25, N=7,
+                out=(14, 14), s=2, seed=40):
+    from second_tpu_torch.ops.roi_align_rotated import sample_points
+    g = torch.Generator().manual_seed(seed)
+    cdt = torch.float64 if dtype == torch.float64 else torch.float32
+    feat = torch.randn(B, C, H, W, generator=g).to(dtype).to(dev)
+    coords = sample_points(_rois(g, B, N, H, W, kind).to(cdt), out, s)
+    return feat, coords.to(dev), s
+
+
+def _scaled_err(got, want):
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    err = (got - want)[fin].abs().max().item() if fin.any() else 0.0
+    return err / max(want[fin].abs().max().item() if fin.any() else 0.0,
+                     1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("kind", ["random", "edge", "far", "degenerate",
+                                  "nonfinite"])
+def test_roi_align_forward_matches_plain(dev, dtype, kind):
+    """The forward kernel against the plain vectorised gather on the same
+    map and sample points: within ROI_FWD_TOL of the scale, non-finite
+    entries where the plain version has them, zeros off the map; one
+    launch."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    feat, coords, s = _roi_inputs(dev, dtype, kind)
+    before = ra.launches
+    got = ra.roi_align(feat, coords, s)
+    assert ra.launches == before + 1
+    want = ra.roi_align_plain(feat, coords, s)
+    assert got.shape == want.shape == (14, 40, 14, 14)
+    assert got.dtype == want.dtype == coords.dtype
+    tol = ROI_FWD_TOL[coords.dtype]
+    assert _scaled_err(got, want) <= tol
+    if kind == "far":
+        assert (got.view(2, 7, -1)[:, ::3] == 0).all()
+        assert (got.view(2, 7, -1)[:, 2::3] == 0).all()
+
+
+@pytest.mark.parametrize("out,s,C", [((14, 14), 2, 128), ((3, 5), 1, 1),
+                                     ((4, 2), 3, 33)])
+def test_roi_align_crop_shapes(dev, out, s, C):
+    """Other crop sizes, sample counts and channel counts than the
+    detector's, fp32."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    feat, coords, s = _roi_inputs(dev, torch.float32, "edge", C=C, out=out,
+                                  s=s, seed=41)
+    got = ra.roi_align(feat, coords, s)
+    want = ra.roi_align_plain(feat, coords, s)
+    assert got.shape == (14, C, *out)
+    assert _scaled_err(got, want) <= ROI_FWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("kind", ["random", "edge", "far", "degenerate"])
+def test_roi_align_backward_matches_autograd_of_plain(dev, dtype, kind):
+    """The backward kernels against autograd of the plain version (on an
+    fp32 copy of a bf16 map: the kernels sum in fp32): the map's and the
+    coordinates' gradients within ROI_BWD_TOL of their scale, zero map
+    gradient where no tap lands; one backward launch."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    feat, coords, s = _roi_inputs(dev, dtype, kind, seed=42)
+    g = torch.Generator().manual_seed(43)
+    grad = torch.randn(14, 40, 14, 14, generator=g).to(coords.dtype).to(dev)
+    before = ra.launches_bwd
+    gf, gc = ra.roi_align_bwd(feat, coords, grad, s)
+    assert ra.launches_bwd == before + 1
+    wf, wc = ra.roi_align_backward_plain(feat.to(coords.dtype), coords, grad,
+                                         s)
+    tol = ROI_BWD_TOL[coords.dtype]
+    assert gf.dtype == coords.dtype and gf.shape == feat.shape
+    assert _scaled_err(gf, wf) <= tol
+    assert _scaled_err(gc, wc) <= tol
+    assert torch.equal(gf == 0, wf == 0) or kind != "random"
+
+
+def test_roi_align_backward_is_deterministic(dev):
+    """Two backward calls on the same inputs, with many samples on the same
+    pixels (overlapping rois on a small map), give bitwise-equal
+    gradients."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    feat, coords, s = _roi_inputs(dev, torch.float32, "random", B=2, C=64,
+                                  H=12, W=10, N=64, seed=44)
+    g = torch.Generator().manual_seed(45)
+    grad = torch.randn(128, 64, 14, 14, generator=g).to(dev)
+    a = ra.roi_align_bwd(feat, coords, grad, s)
+    b = ra.roi_align_bwd(feat, coords, grad, s)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_align_autograd_through_the_rois(dev, dtype):
+    """`roi_align_batched` under autograd on the card: the map's gradient
+    in the map's dtype, and the rois' gradient (through `sample_points`)
+    within 1e-5 of the plain version's on the CPU, on an fp32 copy of a
+    bf16 map (a bf16 map's gradient within one bf16 unit of it: the kernel
+    rounds its fp32 sums once, where autograd of the plain version would
+    round and add each tap's share in bf16)."""
+    from second_tpu_torch.ops.roi_align_rotated import roi_align_batched
+    g = torch.Generator().manual_seed(46)
+    feat = torch.randn(2, 16, 20, 22, generator=g).to(dtype)
+    rois = _rois(g, 2, 5, 20, 22, "edge").float()
+    w = torch.randn(10, 16, 14, 14, generator=g)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        f = (feat if d.type == "cuda" else feat.float()).to(d)
+        f.requires_grad_(True)
+        r = rois.to(d).requires_grad_(True)
+        (roi_align_batched(f, r) * w.to(d)).sum().backward()
+        grads.append((f.grad.cpu(), r.grad.cpu()))
+    (gf, gr), (wf, wr) = grads
+    assert gf.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert ((gf.float() - wf).abs() <= 2.0 ** -7 * wf.abs() +
+                1e-6 * wf.abs().max()).all()
+    else:
+        assert _scaled_err(gf, wf) <= 1e-5
+    assert _scaled_err(gr, wr) <= 1e-5
+
+
+def _standup_boxes(g, B, K, dtype):
+    """[B, K, 4] xyxy boxes, crowded (a third duplicated from others), some
+    invalid, some NaN; and the valid mask."""
+    lo = torch.rand(B, K, 2, generator=g, dtype=torch.float64) * 30
+    wh = 0.5 + torch.rand(B, K, 2, generator=g, dtype=torch.float64) * 4
+    boxes = torch.cat([lo, lo + wh], -1)
+    if K > 3:
+        src = torch.randint(0, K, (B, K), generator=g)
+        dup = torch.rand(B, K, generator=g) < 0.3
+        boxes = torch.where(dup[..., None], torch.gather(
+            boxes, 1, src[..., None].expand(-1, -1, 4)), boxes)
+        boxes[:, 2, 2] = float("nan")
+    valid = torch.rand(B, K, generator=g) < 0.85
+    return boxes.to(dtype), valid
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_standup_overlap_bits_exact(dev, K, dtype):
+    """The standup-NMS bitmask kernel against its plain version (the dense
+    standup IoU, thresholded, packed): every bit equal, at thresholds 0.7
+    and 0; one launch a call; the NMS keep sets equal."""
+    g = torch.Generator().manual_seed(47 + K)
+    boxes, valid = _standup_boxes(g, 3, K, dtype)
+    cand, v = boxes.to(dev), valid.to(dev)
+    for thr in (0.7, 0.0):
+        before = riou.launches_standup
+        got = riou.standup_overlap(cand, v, thr)
+        assert riou.launches_standup == before + 1
+        want = riou.standup_overlap_plain(cand, v, thr)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), riou.standup_overlap_plain(boxes,
+                                                                 valid, thr))
+        assert torch.equal(riou.nms_suppress(got, v),
+                           riou.nms_suppress_plain(got, v))
+    if K >= 32:
+        assert int(riou.unpack_bits(got, K).sum()) > 0
+
+
+def test_standup_overlap_rejects_what_it_cannot_take(dev):
+    g = torch.Generator().manual_seed(48)
+    boxes, valid = _standup_boxes(g, 2, 40, torch.float32)
+    with pytest.raises(ValueError):
+        riou.standup_overlap(boxes.to(dev).half(), valid.to(dev), 0.5)
+    with pytest.raises(ValueError):
+        riou.standup_overlap(boxes.to(dev)[..., :3], valid.to(dev), 0.5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        riou.standup_overlap(boxes.to(dev).requires_grad_(), valid.to(dev),
+                             0.5)
+
+
+def test_two_stage_refine_card_matches_cpu(dev, pp):
+    """The two-stage detector on the PointPillars config at full width (64
+    proposals an example; stage 1's norm statistics calibrated on the
+    batch), the same weights on the card and the CPU: the second stage
+    (proposals, crops, refine head) on the card's stage-1 outputs, card
+    (kernels) against CPU (plain versions): the proposals' standup NMS on
+    the same boxes and scores gives the same indices and valid; one launch
+    each of the ROI-align and standup-bitmask kernels; `predict_two_stage` with no host sync and the
+    CPU's keep sets on the same predictions. Crops and head on the card's
+    proposals: crops within 1e-4 at the same boxes (the sample points'
+    sin and cos an ulp apart), the head on the same crops within 1e-4."""
+    from second_tpu_torch.models import (build_two_stage_voxelnet,
+                                         predict_two_stage, second_stage)
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    cfg = pp["cfg"]
+    net_h, spec = build_two_stage_voxelnet(cfg.model, num_proposals=64,
+                                           device="cpu", seed=0)[:2]
+    b = pp["batch"]
+    vox = device_voxelize(pp["vspec"], b["points"], b["points_mask"], "cpu")
+    calibrate_norms_(net_h.stage1, vox["voxels"], vox["num_points"],
+                     vox["coordinates"], vox["voxel_valid"])
+    net_c = build_two_stage_voxelnet(cfg.model, num_proposals=64,
+                                     device=dev, seed=0)[0]
+    net_c.load_state_dict(net_h.state_dict())
+    anchors = torch.as_tensor(b["anchors"])
+    with torch.no_grad():
+        vox_c = device_voxelize(pp["vspec"], b["points"], b["points_mask"],
+                                dev)
+        stage1 = net_c.stage1(vox_c["voxels"], vox_c["num_points"],
+                              vox_c["coordinates"], vox_c["voxel_valid"])
+        before = (ra.launches, riou.launches_standup)
+        seen = []
+
+        def recording_nms(*args, **kwargs):
+            seen.append((args, kwargs))
+            return nms.nearest_nms(*args, **kwargs)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(second_stage, "nearest_nms", recording_nms)
+            pc = net_c.refine(stage1, anchors.to(dev))
+        assert (ra.launches, riou.launches_standup) == \
+            (before[0] + 1, before[1] + 1)
+        (args, kwargs), = seen
+        idx_h, keep_h = nms.nearest_nms(*[a.cpu() for a in args], **kwargs)
+        crops_c = net_c.crops(stage1["trunk"], pc["proposals"])
+        prop = {k: v.cpu() for k, v in pc["proposals"].items()}
+        crops_h = net_h.crops(stage1["trunk"].cpu(), prop)
+        head_h = net_h.second_rpn(crops_c.cpu())
+        anchors_c = anchors.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            det_c = predict_two_stage(spec, pc, anchors_c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        det_h = predict_two_stage(
+            spec, {**{k: v.cpu() for k, v in pc.items() if k != "proposals"},
+                   "proposals": {k: v.cpu() for k, v in
+                                 pc["proposals"].items()}}, anchors)
+    assert torch.equal(prop["indices"], idx_h)
+    assert torch.equal(prop["valid"], keep_h) and int(keep_h.sum()) > 0
+    # at the same proposal boxes; their sample points' sin and cos round an
+    # ulp apart on the two devices
+    assert _scaled_err(crops_c.cpu(), crops_h) <= 1e-4
+    B, N = pc["proposals"]["indices"].shape
+    torch.testing.assert_close(
+        pc["second_box_preds"].cpu(),
+        head_h["box_preds"].view(B, N, -1) + prop["box_enc"], atol=1e-4,
+        rtol=1e-4)
+    for k in ("cls", "dir"):
+        torch.testing.assert_close(pc[f"second_{k}_preds"].cpu(),
+                                   head_h[f"{k}_preds"].view(B, N, -1),
+                                   atol=1e-4, rtol=1e-4)
+    assert torch.equal(det_c["valid"].cpu(), det_h["valid"])

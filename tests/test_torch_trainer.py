@@ -106,10 +106,11 @@ def test_trainer_crash_saves(tiny_config, tmp_path, monkeypatch,
 
 def test_trainer_refuses_what_is_not_ported(tiny_config, tmp_path):
     """Model types not ported yet are refused by their ROADMAP item (the
-    KITTI reader, once refused here, is ported: `test_torch_kitti.py`)."""
-    with pytest.raises(NotImplementedError, match="item 13"):
+    KITTI reader and the two-stage detector, once refused here, are
+    ported: `test_torch_kitti.py`, `test_torch_two_stage.py`)."""
+    with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(str(tiny_config), tmp_path, synthetic=True,
-                model_type="two_stage", device="cpu")
+                model_type="fusion_two_stage", device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         Trainer(str(tiny_config), tmp_path, synthetic=False,
                 model_type="temporal", device="cpu")
