@@ -19,8 +19,10 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    PyTorch library call that computes the same function where there is
    one; beside each event time, the device-only time of the same call from
    torch.profiler. Every row-gather call gets a line of its own. The sparse
-   convs are checked again with fp32 inputs (bf16 must take the
-   tensor-core path, fp32 the CUDA-core path). The batched rotated NMS
+   convs are checked again with fp32 inputs (bf16 must take the bf16
+   tensor-core path, fp32 the fp32 path: 3xTF32 on the tensor cores), and
+   every fp32 conv against the plain version in fp64 (FP32_ERR_RATIO
+   times the fp32 plain version's own error at most). The batched rotated NMS
    call: pair counts and keep masks exact, overlap bits exact but at pairs
    printed as within RIOU_TOL of the threshold, each cluster shape of the
    overlap kernel timed, and the whole NMS against the per-example path it
@@ -93,8 +95,11 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    Pedestrian, Cyclist), the config's eval batch 3 of the fhd bench scene,
    40 000 voxels, random weights from seed 0, fp32 as the config asks
    (211 200 anchors an example): every sparse conv and row gather against
-   its plain version, the NMS pair on the 9 (example, class) rows against
-   its plain version and timed, the per-class keep sets card against CPU;
+   its plain version, each fp32 conv also against fp64 (FP32_ERR_RATIO)
+   and timed like the fhd convs (event and device ms, plain, library,
+   its bound as 3xTF32 and at the CUDA cores' fp32 rate), the NMS pair on the 9 (example, class)
+   rows against its plain version and timed, the per-class keep sets card
+   against CPU;
    launches sparse gather-GEMM 14, nms_overlap 1, nms_suppress 1;
    voxel_overflow and stage_overflow 0; predict without a host sync and
    equal to the CPU's on the same predictions; frames/s, split, profile;
@@ -148,8 +153,10 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    config's Adam) on batch 4 synthetic scans at 16 000 voxels: every sparse
    forward, dX and weight-gradient call against its plain version; the
    ROI-align forward and backward calls against their plain versions
-   (the backward twice, bitwise equal) and timed beside the library pair
-   and its autograd; the standup bitmask; launches 14 / 13 / 14 and
+   (the backward twice, bitwise equal; its counts of in-map samples and
+   cell runs equal to the plain mirror's) and timed beside the library
+   pair and its autograd, the backward's device time split by kernel; the
+   standup bitmask; launches 14 / 13 / 14 and
    roi_align_fwd, roi_align_bwd, standup_overlap and nms_suppress once;
    every gradient finite, no host sync, gradients bitwise equal over two
    runs, the loss halved on one batch; steps/s, peak memory, split,
@@ -163,8 +170,9 @@ eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
-"mc_eval". The last line is {"ok": true, "device": {...}}. With --out, the
-per-call detail is written to that JSON file as well.
+"mc_eval" (the mc eval's fp32 convs, bounded as 3xTF32 on the tensor
+cores, with the bound at the CUDA cores' fp32 rate as "bound_cores_ms"). The last line is {"ok": true, "device": {...}}. With
+--out, the per-call detail is written to that JSON file as well.
 """
 
 from __future__ import annotations
@@ -210,9 +218,11 @@ BATCH, MAX_VOXELS, MAX_POINTS = 4, 40000, 30000
 TIMED_FORWARDS = 12
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and fp32
-# CUDA-core operations/s
+# CUDA-core operations/s, and the TF32 tensor-core rate the fp32 sparse
+# gather-GEMM runs at (3xTF32: three TF32 products for each fp32 one)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32_OPS_PER_S = 495e12
 # fp32 operations of the rotated IoU, counted from the clip in
 # csrc/riou.cu (a sin, cos, compare or select counts as one operation).
 # Once a box: its corners (sin, cos, 4 corners x 11) and, as the clip quad,
@@ -297,6 +307,11 @@ REF_FP32_NOISE = 2.0
 
 # stated tolerances, kernel against plain version on the same inputs
 CONV_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 sums in another order
+# the fp32 sparse convs against the plain version in fp64 on the same
+# inputs: the kernel's relative error (largest error over the largest
+# |reference|) at most this many times the fp32 plain version's own, so
+# the kernel stays fp32-accurate (3xTF32), not TF32-accurate
+FP32_ERR_RATIO = 2.0
 # the backward kernels: fp32 sums of the same products in another order,
 # within 1e-4 of the call's largest entry (gradients have no fixed scale)
 GRAD_KERNEL_TOL = 1e-4
@@ -520,8 +535,12 @@ class DeviceTimer:
         """The median device ms of each callable; the median count of device
         kernels a run of each is left in `self.kernels`."""
         if self.flush_name is None:
-            names = {n for _, _, n in
-                     self._kernels(lambda: self.flush.fill_(1))}
+            # an empty session is taken again, as the runs' are below
+            for _ in range(self.RETRIES + 1):
+                names = {n for _, _, n in
+                         self._kernels(lambda: self.flush.fill_(1))}
+                if names:
+                    break
             if len(names) != 1:
                 fail(f"device timer: the flush ran {sorted(names)}")
             self.flush_name = names.pop()
@@ -565,6 +584,34 @@ class DeviceTimer:
                         for i in range(len(fns))]
         return [statistics.median(runs[i * reps:(i + 1) * reps])
                 for i in range(len(fns))]
+
+
+def device_split(fn, dtimer, reps=5):
+    """{device kernel name: (ms a call, launches a call)} of fn from
+    torch.profiler: `reps` calls, each after the device timer's L2 flush,
+    after its leading flushes (a session can miss its first kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    if dtimer.flush_name is None:
+        dtimer([lambda: None], reps=1)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(dtimer.PAD):
+            dtimer.flush.fill_(1)
+        for _ in range(reps):
+            dtimer.flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name == dtimer.flush_name:
+            continue
+        ms, n = by.get(e.name, (0.0, 0))
+        by[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                      n + 1)
+    return {k: (ms / reps, n / reps) for k, (ms, n) in
+            sorted(by.items(), key=lambda kv: -kv[1][0])}
 
 
 # -------------------------------------------------------- the main path
@@ -695,9 +742,34 @@ def riou_ops(boxes1, boxes2, i, j, pair_ops=RIOU_IOU_OPS):
     return int(ops.sum())
 
 
+def fp64_gate(args, got, tag):
+    """An fp32 sparse conv's kernel output against the plain version in
+    fp64 on the same inputs: its relative error at most FP32_ERR_RATIO
+    times the fp32 plain version's own. Returns both errors."""
+    f, tap_idx, found, w = args
+    want = subm.gather_gemm_plain(f.double(), tap_idx, found, w.double())
+    plain = subm.gather_gemm_plain(f, tap_idx, found, w)
+    kernel_err = errors(got.double(), want)[1]
+    plain_err = errors(plain.double(), want)[1]
+    if kernel_err > FP32_ERR_RATIO * plain_err:
+        fail(f"{tag}: {kernel_err:.3g} of the scale from the fp64 plain "
+             f"version, over {FP32_ERR_RATIO} times the fp32 plain "
+             f"version's {plain_err:.3g}")
+    return dict(fp64_rel_err=kernel_err, plain_fp64_rel_err=plain_err)
+
+
 def check_convs(calls, timer, dtimer, detail):
+    """Each recorded sparse conv against its plain version (CONV_TOL), in
+    its own dtype and in fp32 (fp32 also against fp64: `fp64_gate`), the
+    own dtype's call timed by events and by the device timer beside the
+    library yardstick, with its bound: `conv_bound` for bf16; for fp32,
+    which runs as 3xTF32 on the tensor cores, the found taps' operations
+    three times over at the TF32 tensor-core rate, or bytes, beside
+    `conv_bound`'s count at the CUDA cores' fp32 rate ("cores"). Returns
+    the aggregate."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
-               library_device_ms=0.0, bytes_s=0.0, ops_s=0.0, err=0.0)
+               library_device_ms=0.0, bytes_s=0.0, ops_s=0.0,
+               ops_cores_s=0.0, err=0.0, fp64_ratio=0.0)
     timed = []
     for i, (args, _) in enumerate(calls):
         f, tap_idx, found, w = args
@@ -727,6 +799,11 @@ def check_convs(calls, timer, dtimer, detail):
             row = dict(call=i, dtype=str(dtype), path=path, B=B, N=N, Q=Q,
                        K=K, C=C, D=D, max_abs_err=err, max_rel_err=rel,
                        found=int(found.sum()), **occupancy)
+            if dtype == torch.float32:
+                row.update(fp64_gate((fx, tap_idx, found, w), got, tag))
+                agg["fp64_ratio"] = max(
+                    agg["fp64_ratio"], row["fp64_rel_err"] /
+                    max(row["plain_fp64_rel_err"], 1e-30))
             if dtype == f.dtype:
                 row["ms"] = timer(lambda: subm.gather_gemm(fx, tap_idx, found,
                                                            w), 20)
@@ -735,14 +812,21 @@ def check_convs(calls, timer, dtimer, detail):
                 row["library_ms"] = timer(lambda: conv_library(
                     fx, tap_idx, found, w), 5)
                 bs, os_ = conv_bound(fx, tap_idx, found, w)
+                if dtype == torch.float32:
+                    row["bound_cores_ms"] = 1e3 * max(bs, os_)
+                    agg["ops_cores_s"] += os_
+                    os_ = 3 * 2.0 * C * D * row["found"] / PEAK_TF32_OPS_PER_S
                 row["bound_ms"] = 1e3 * max(bs, os_)
+                row["bound_by"] = "bytes" if bs >= os_ else "operations"
                 for k in ("ms", "plain_ms", "library_ms"):
                     agg[k] += row[k]
                 agg["bytes_s"] += bs
                 agg["ops_s"] += os_
                 timed.append((tag, row, (fx, tap_idx, found, w)))
             else:
-                say(f"{tag}: err {err:.2e} rel {rel:.2e}")
+                say(f"{tag}: err {err:.2e} rel {rel:.2e}  fp64: kernel "
+                    f"{row['fp64_rel_err']:.2e} plain "
+                    f"{row['plain_fp64_rel_err']:.2e}")
             agg["err"] = max(agg["err"], err)
             detail.append(row)
     # device-only times of the same calls, kernel and library
@@ -753,17 +837,26 @@ def check_convs(calls, timer, dtimer, detail):
         row["device_ms"], row["library_device_ms"] = kd, ld
         agg["device_ms"] += kd
         agg["library_device_ms"] += ld
+        fp64 = (f"  fp64: kernel {row['fp64_rel_err']:.2e} plain "
+                f"{row['plain_fp64_rel_err']:.2e}  bound at the CUDA cores' "
+                f"fp32 rate {row['bound_cores_ms']:.4f} ms"
+                if "bound_cores_ms" in row else "")
         say(f"{tag}: err {row['max_abs_err']:.2e} rel "
             f"{row['max_rel_err']:.2e}  taps found {row['found_share']:.3f}"
             f" blocks {row['block16_share']:.3f} tiles "
             f"{row['tile128_share']:.3f}  kernel {row['ms']:.4f} ms "
             f"(device {kd:.4f})  plain {row['plain_ms']:.4f} ms  library "
             f"{row['library_ms']:.4f} ms (device {ld:.4f})  bound "
-            f"{row['bound_ms']:.4f} ms")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})" + fp64)
     say(f"convs: {len(timed)} calls; kernel {agg['ms']:.4f} ms (device "
         f"{agg['device_ms']:.4f})  library {agg['library_ms']:.4f} ms "
         f"(device {agg['library_device_ms']:.4f})  bound "
-        f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms")
+        f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms" +
+        (f"  bound at the CUDA cores' fp32 rate "
+         f"{1e3 * max(agg['bytes_s'], agg['ops_cores_s']):.4f} ms"
+         if agg["ops_cores_s"] else "") +
+        f"; fp32 error against fp64 at most {agg['fp64_ratio']:.3f} times "
+        f"the fp32 plain version's")
     return agg
 
 
@@ -1237,12 +1330,16 @@ def run(dev, out=None):
                  "mc_eval": mc_eval_aggs}
 
     def numbers(a):
-        return dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
-                    bound_ms=1e3 * max(a["bytes_s"], a["ops_s"]),
-                    bound_by="bytes" if a["bytes_s"] >= a["ops_s"]
-                    else "operations",
-                    library_ms=a["library_ms"], device_ms=a["device_ms"],
-                    library_device_ms=a["library_device_ms"])
+        out = dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
+                   bound_ms=1e3 * max(a["bytes_s"], a["ops_s"]),
+                   bound_by="bytes" if a["bytes_s"] >= a["ops_s"]
+                   else "operations",
+                   library_ms=a["library_ms"], device_ms=a["device_ms"],
+                   library_device_ms=a["library_device_ms"])
+        if a.get("ops_cores_s"):
+            out["bound_cores_ms"] = 1e3 * max(a["bytes_s"], a["ops_cores_s"])
+            out["fp64_err_ratio"] = a["fp64_ratio"]
+        return out
 
     lines = []
     for k in ALL_KERNELS:
@@ -2465,8 +2562,24 @@ def run_mc_eval(dev, timer, dtimer):
         fail(f"mc: expected {SPARSE_CONVS} sparse convs and one per-class "
              f"NMS call a forward")
     report["conv_max_abs_err"] = check_calls_exact(calls, "mc eval")
+    # the 14 fp32 convs, each timed and held against fp64 as well
+    report["convs"] = []
+    conv_agg = check_convs(calls["gather_gemm"], timer, dtimer,
+                           report["convs"])
+    say(f"mc eval: the {SPARSE_CONVS} fp32 sparse convs take "
+        f"{conv_agg['device_ms']:.4f} ms device (the CUDA-core kernel "
+        f"this one replaced: 3.70 ms); bound "
+        f"{1e3 * max(conv_agg['bytes_s'], conv_agg['ops_s']):.4f} ms by "
+        f"{'bytes' if conv_agg['bytes_s'] >= conv_agg['ops_s'] else 'operations'}"
+        f" ({1e3 * conv_agg['bytes_s']:.4f} ms of bytes, "
+        f"{1e3 * conv_agg['ops_s']:.4f} ms of the found taps' operations as "
+        f"3xTF32 at 495 TF/s); "
+        f"{1e3 * max(conv_agg['bytes_s'], conv_agg['ops_cores_s']):.4f} ms "
+        f"with the found taps at the CUDA cores' 67 TF/s; card "
+        f"{card_line()}")
     ov, sup, report["nms"] = check_nms_pair(calls, timer, dtimer, "mc eval")
-    aggs = {"rotated_iou": ov, "nms_suppress": sup}
+    aggs = {"sparse_gather_gemm": conv_agg, "rotated_iou": ov,
+            "nms_suppress": sup}
     # the per-class keep sets of the same candidates, card against CPU
     (cand, cand_scores), kw = calls["nms_sorted"][0]
     rel_c, keep_c = nms_ops.nms_sorted(cand, cand_scores, **kw)
@@ -2950,9 +3063,18 @@ def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
                        lambda: roi_align.roi_align_plain(feat, coords, s),
                        lambda: roi_library(feat, coords, s))
             else:
-                gf, gc = roi_align.roi_align_bwd(feat, coords, grad, s)
+                gf, gc, counts = roi_align.roi_align_bwd(feat, coords, grad,
+                                                         s, counts=True)
                 wf, wc = roi_align.roi_align_backward_plain(f32, coords,
                                                             grad, s)
+                # the kernel's bookkeeping against the plain mirror's:
+                # in-map samples and runs of one cell, exactly
+                keys, ncells = roi_align.sample_cells(coords, H, W)
+                want_counts = roi_align.cell_counts(keys, ncells)
+                if tuple(counts.tolist()) != want_counts:
+                    fail(f"{what} roi_align_bwd {i}: in-map samples and cell "
+                         f"runs {tuple(counts.tolist())}, the plain mirror's "
+                         f"{want_counts}")
                 with torch.enable_grad():
                     lf = f32.detach().requires_grad_(True)
                     lc = coords.detach().requires_grad_(True)
@@ -3004,6 +3126,18 @@ def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
                 f"{ms[1]:.4f} ms  library {ms[2]:.4f} ms (device "
                 f"{dev_ms[1]:.4f})  bound {1e3 * max(bs, os_):.4f} ms "
                 f"({'bytes' if bs >= os_ else 'operations'})")
+            if name == "roi_align_bwd":
+                split = device_split(fns[0], dtimer)
+                agg["split"] = {k: ms for k, (ms, _) in split.items()}
+                agg["counts"] = want_counts
+                say(f"{what} roi_align_bwd {i}: {want_counts[0]} in-map "
+                    f"samples in {want_counts[1]} cell runs, the kernel's "
+                    f"counts equal; device "
+                    f"{sum(agg['split'].values()):.4f} ms a call (the "
+                    f"backward of a key a tap it replaced: 2.58 ms), by "
+                    f"kernel: " + "; ".join(
+                        f"{k[:60]} {v:.4f} x{n:g}"
+                        for k, (v, n) in split.items()))
         aggs[name] = agg
     return aggs
 

@@ -11,6 +11,10 @@ whose forward launches `roi_align_fwd` and whose backward launches the
 backward kernels (`roi_align_bwd`: the map's gradient, fp32, and the
 coordinates' gradient, deterministic); on a CPU tensor the plain version,
 `roi_align_plain`, the vectorised gather JAX computes, under autograd.
+`roi_align_bwd_cells_plain` is the backward's bookkeeping in plain PyTorch
+(one key a sample, its cell; partial sums per (cell, corner); each pixel's
+fixed-order sum of the partials whose corner it is), the mirror the CPU
+tests hold to autograd and the card holds the kernel's counts to.
 
 These kernels replace XLA code of the JAX package, not a Pallas kernel:
 the gathers of `second_tpu/ops/roi_align_rotated.py:21-71` as
@@ -40,9 +44,9 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # coords, keys, double, B, H, W, N, oh, ow, s, stream
 _KEYS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
-# feat, coords, gt, sorted, perm, head, tail, keys, grad_feat, grad_coords,
-# type, B, C, H, W, N, oh, ow, s, stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
+# feat, coords, grad, sorted, perm, gt, part, flags, head, keys,
+# grad_feat, grad_coords, type, B, C, H, W, N, oh, ow, s, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + \
     [ctypes.c_void_p]
 _fwd_launch = None
 _keys_launch = None
@@ -88,6 +92,82 @@ def roi_align_backward_plain(feat, coords, grad, samples):
         c = coords.detach().requires_grad_(True)
         out = roi_align_plain(f, c, samples)
         return torch.autograd.grad(out, (f, c), grad)
+
+
+def sample_cells(coords, H: int, W: int):
+    """coords [B, N, SH, SW, 2] → (keys [B * N * SH * SW] int64, the
+    number of cells): each sample's cell (b, y0, x0), y0 = floor(y) in
+    [-1, H - 1] and x0 = floor(x) in [-1, W - 1], as (b * (H + 1) + y0 + 1)
+    * (W + 1) + x0 + 1, its taps the cell's four corners; the sentinel (the
+    number of cells) where none of them lies inside. Decided on the floats,
+    as the taps are."""
+    B = coords.shape[0]
+    x0 = torch.floor(coords[..., 0]).reshape(B, -1)
+    y0 = torch.floor(coords[..., 1]).reshape(B, -1)
+    inside = (x0 >= -1) & (x0 <= W - 1) & (y0 >= -1) & (y0 <= H - 1)
+    b = torch.arange(B, device=coords.device).view(B, 1)
+    cell = (b * (H + 1) + torch.where(inside, y0, 0.0).long() + 1) * \
+        (W + 1) + torch.where(inside, x0, 0.0).long() + 1
+    ncells = B * (H + 1) * (W + 1)
+    return torch.where(inside, cell, ncells).reshape(-1), ncells
+
+
+def cell_counts(keys, ncells: int):
+    """(in-map samples, runs of one cell in the sorted keys): what the
+    backward kernel counts."""
+    inside = keys[keys < ncells]
+    return int(inside.numel()), int(torch.unique(inside).numel())
+
+
+def roi_align_bwd_cells_plain(feat, coords, grad, samples):
+    """The backward kernel's bookkeeping in plain PyTorch: (the map's
+    gradient [B, C, H, W] and the coordinates' gradient, in the
+    coordinates' dtype; (in-map samples, cell runs)). Each sample's key is
+    its cell (`sample_cells`); the keys are sorted stably; each sample's
+    gradient row g / s^2 times each corner's bilinear weight is summed into
+    a partial per (cell, corner) in sorted order; a pixel (y, x) sums
+    corner 0 of cell (y, x), corner 1 of (y, x - 1), corner 2 of (y - 1, x)
+    and corner 3 of (y - 1, x - 1) in that order. The coordinates' gradient
+    of a sample is the sum over channels of g / s^2 ((v01 - v00)(1 - wy) +
+    (v11 - v10) wy) for x and g / s^2 ((v10 - v00)(1 - wx) + (v11 - v01)
+    wx) for y, v the four taps' values (0 outside the map)."""
+    B, N, SH, SW, _ = coords.shape
+    C, H, W = feat.shape[1:]
+    s = samples
+    dt = coords.dtype
+    keys, ncells = sample_cells(coords, H, W)
+    order = torch.sort(keys, stable=True).indices
+    # each sample's gradient row, g / s^2 (times the reciprocal, as the
+    # kernel takes it): the bin's row repeated s x s
+    g = grad.permute(0, 2, 3, 1).repeat_interleave(s, 1) \
+        .repeat_interleave(s, 2).reshape(-1, C) * (1.0 / (s * s))
+    x, y = coords[..., 0].reshape(-1), coords[..., 1].reshape(-1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    w = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                     wx * wy], -1)
+    part = torch.zeros((ncells + 1, 4, C), dtype=dt, device=feat.device)
+    part.index_add_(0, keys[order], g[order, None, :] * w[order, :, None])
+    P = part[:ncells].view(B, H + 1, W + 1, 4, C)
+    grad_feat = (((P[:, 1:, 1:, 0] + P[:, 1:, :-1, 1]) + P[:, :-1, 1:, 2]) +
+                 P[:, :-1, :-1, 3]).permute(0, 3, 1, 2)
+    # the four taps' values, 0 outside the map
+    f = feat.to(dt).permute(0, 2, 3, 1)
+    b = torch.arange(B, device=feat.device).repeat_interleave(N * SH * SW)
+    v = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xt, yt = x0 + dx, y0 + dy
+            inb = (xt >= 0) & (xt <= W - 1) & (yt >= 0) & (yt <= H - 1)
+            xi = torch.where(inb, xt, 0.0).long()
+            yi = torch.where(inb, yt, 0.0).long()
+            v.append(torch.where(inb[:, None], f[b, yi, xi], 0.0))
+    gx = (g * ((v[1] - v[0]) * (1 - wy)[:, None] +
+               (v[3] - v[2]) * wy[:, None])).sum(-1)
+    gy = (g * ((v[2] - v[0]) * (1 - wx)[:, None] +
+               (v[3] - v[1]) * wx[:, None])).sum(-1)
+    grad_coords = torch.stack([gx, gy], -1).view(coords.shape)
+    return grad_feat, grad_coords, cell_counts(keys, ncells)
 
 
 def _check(feat, coords, samples):
@@ -136,13 +216,16 @@ def roi_align_fwd(feat, coords, samples):
     return out
 
 
-def roi_align_bwd(feat, coords, grad, samples):
+def roi_align_bwd(feat, coords, grad, samples, counts=False):
     """The backward kernels on CUDA tensors: grad [B * N, C, oh, ow] (the
     coordinates' dtype) → (the map's gradient [B, C, H, W] in the
-    coordinates' dtype, fp32 for a bf16 map; the coordinates' gradient).
-    Bitwise the same from run to run: the taps are sorted by the pixel
-    they land on (a stable sort of int32 keys) and each gradient is summed
-    in a fixed order, with no floating-point atomics."""
+    coordinates' dtype, fp32 for a bf16 map; the coordinates' gradient),
+    and with `counts` an int32 tensor (in-map samples, cell runs) as the
+    kernel counted them. Bitwise the same from run to run: the samples are
+    sorted by the cell they fall in (a stable sort of int32 keys, one a
+    sample) and each gradient is summed in a fixed order, with no
+    floating-point atomics (`roi_align_bwd_cells_plain` is its plain
+    mirror)."""
     code = _check(feat, coords, samples)
     B, N, SH, SW, _ = coords.shape
     C, H, W = feat.shape[1:]
@@ -153,31 +236,40 @@ def roi_align_bwd(feat, coords, grad, samples):
         raise ValueError(f"roi_align_bwd: grad must be [{B * N}, {C}, {oh}, "
                          f"{ow}] {coords.dtype}, got {tuple(grad.shape)} "
                          f"{grad.dtype}")
-    grad_feat = torch.zeros((B, C, H, W), dtype=coords.dtype, device=dev)
+    dt = coords.dtype
+    grad_feat = torch.empty((B, C, H, W), dtype=dt, device=dev)
     grad_coords = torch.empty_like(coords, memory_format=torch.contiguous_format)
+    ncells = B * (H + 1) * (W + 1)
+    flags = torch.zeros((ncells + 2,), dtype=torch.int32, device=dev)
     if coords.numel() == 0:
-        return grad_feat, grad_coords
+        grad_feat.zero_()
+        return (grad_feat, grad_coords, flags[ncells:]) if counts else \
+            (grad_feat, grad_coords)
     feat, coords = feat.contiguous(), coords.contiguous()
-    # the crops' gradient with a bin's channels side by side
-    gt = grad.permute(0, 2, 3, 1).contiguous()
+    grad = grad.contiguous()
     launch = _bwd_launch or _resolve_bwd()
     stream = stream_ptr(dev)
-    keys = torch.empty((coords.numel() // 2 * 4,), dtype=torch.int32,
-                       device=dev)
+    n = coords.numel() // 2
+    keys = torch.empty((n,), dtype=torch.int32, device=dev)
     check("roi_align", _keys_launch(
         coords.data_ptr(), keys.data_ptr(), int(code == 2), B, H, W, N, oh,
         ow, samples, stream))
     sorted_keys, perm = torch.sort(keys, stable=True)
-    chunks = _chunks(keys.numel())
-    head = torch.empty((2, chunks, C), dtype=coords.dtype, device=dev)
+    chunks = _chunks(n)
+    gt = torch.empty((B * N, oh * ow, C), dtype=dt, device=dev)
+    part = torch.empty((ncells, 4, C), dtype=dt, device=dev)
+    head = torch.empty((2, chunks, 4, C), dtype=dt, device=dev)
     run_keys = torch.empty((2, chunks), dtype=torch.int32, device=dev)
     check("roi_align", launch(
-        feat.data_ptr(), coords.data_ptr(), gt.data_ptr(),
-        sorted_keys.data_ptr(), perm.data_ptr(), head[0].data_ptr(),
-        head[1].data_ptr(), run_keys.data_ptr(), grad_feat.data_ptr(),
-        grad_coords.data_ptr(), code, B, C, H, W, N, oh, ow, samples, stream))
+        feat.data_ptr(), coords.data_ptr(), grad.data_ptr(),
+        sorted_keys.data_ptr(), perm.data_ptr(), gt.data_ptr(),
+        part.data_ptr(), flags.data_ptr(), head.data_ptr(),
+        run_keys.data_ptr(), grad_feat.data_ptr(), grad_coords.data_ptr(),
+        code, B, C, H, W, N, oh, ow, samples, stream))
     global launches_bwd
     launches_bwd += 1
+    if counts:
+        return grad_feat, grad_coords, flags[ncells:]
     return grad_feat, grad_coords
 
 

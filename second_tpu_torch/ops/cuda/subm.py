@@ -6,9 +6,10 @@ out[b, q] = Σ_k found[b, k, q] · features[b, tap_idx[b, k, q]] @ W[k], fp32
 accumulation, before bias and mask. It is a `torch.autograd.Function`
 (`GatherGemm`) on both devices, so the CPU tests run the same backward as
 the card. The forward takes `gather_gemm_plain` for CPU tensors and
-launches `csrc/subm.cu` for CUDA tensors: bf16 features go to the
+launches `csrc/subm.cu` for CUDA tensors: bf16 features go to the bf16
 tensor-core kernel (`subm_gather_gemm_mma`, the main path), fp32 features
-to the CUDA-core kernel (`subm_gather_gemm_fma`). The backward:
+to the fp32 kernel (`subm_gather_gemm_fma`: each fp32 product as three
+TF32 tensor-core products, fp32-accurate). The backward:
 
   * dX (only where the features require grad): the same gather-GEMM, kernel
     or plain version, applied to dOut with the transposed rulebook
@@ -40,9 +41,9 @@ from . import check, function, stream_ptr
 
 # launches of the CUDA kernels since the last reset (set each to 0 to
 # reset). The gather-GEMM: forward calls (`launches`), input-gradient calls
-# (`launches_dgrad`), and all its launches by path, tensor cores (bf16) or
-# CUDA cores (fp32). The weight-gradient kernel: all its launches, and by
-# path.
+# (`launches_dgrad`), and all its launches by path, bf16 (`launches_mma`)
+# or fp32 (`launches_fma`). The weight-gradient kernel: all its launches,
+# and by path.
 launches = 0
 launches_dgrad = 0
 launches_mma = 0
@@ -51,7 +52,8 @@ launches_wgrad = 0
 launches_wgrad_mma = 0
 launches_wgrad_fma = 0
 
-# the tensor-core kernel takes at most this many taps (one vote bit each)
+# the bf16 kernel takes at most this many taps (one vote bit each; the
+# fp32 kernel votes in groups of as many)
 MAX_TAPS_MMA = 32
 # the weight-gradient kernel scans a block's rows in windows of this many
 WGRAD_WINDOW = 2048
@@ -69,10 +71,9 @@ WGRAD_MAX_CHUNKS = 64
 # groups' sums (the kernel's GROUP)
 WGRAD_GROUP = 8
 
-# feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, D, stream
+# feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, D, stream (both
+# gather-GEMM entries)
 _MMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-# feat, tap_idx, found, w, out, B, N, Q, K, C, D, stream
-_FMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # mma, feat, tap_idx, found, dout, partial, used, gpartial, gused, counter,
 # dw, B, N, Q, K, C, D, chunk_rows, chunks, stream
 _WGRAD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + \
@@ -96,7 +97,7 @@ def _resolve_mma():
 
 def _resolve_fma():
     global _fma_launch
-    _fma_launch = function("subm", "subm_gather_gemm_fma", _FMA_ARGTYPES)
+    _fma_launch = function("subm", "subm_gather_gemm_fma", _MMA_ARGTYPES)
     return _fma_launch
 
 
@@ -122,9 +123,9 @@ def gather_gemm_plain(features, tap_idx, found, weights):
 
 def padded_widths(C: int, D: int):
     """(CP, DP): the input channels padded to a power of two from 4 to 64,
-    so that 64 / CP taps fill one 64-column stage of the tensor-core kernel
-    (k16 steps at CP >= 16, 16 / CP taps a k16 step below), and the output
-    channels padded to a multiple of 8 (one mma n-tile)."""
+    so that a kernel's stage of columns (64 in bf16, 32 in fp32) holds
+    whole taps or whole halves of one, and the output channels padded to a
+    multiple of 8 (one mma n-tile)."""
     CP = 4
     while CP < C:
         CP *= 2
@@ -134,8 +135,8 @@ def padded_widths(C: int, D: int):
 def pack_weights(weights, CP: int, DP: int):
     """[K, C, D] → [K, CP, DP] with zeros in the padding: viewed as
     [K*CP, DP], the rows of tap k are k*CP .. k*CP + C - 1, the layout the
-    tensor-core kernel walks in k16 steps. The tensor itself where no
-    padding is needed."""
+    kernels walk in k16 (bf16) or k8 (fp32) steps. The tensor itself where
+    no padding is needed."""
     K, C, D = weights.shape
     if (C, D) != (CP, DP):
         weights = F.pad(weights, (0, DP - D, 0, CP - C))
@@ -207,20 +208,15 @@ def _launch_gather_gemm(features, tap_idx, found, weights):
     out = torch.empty((B, Q, D), dtype=torch.float32, device=dev)
     if B * Q == 0:
         return out
-    if mma:
-        CP, DP = padded_widths(C, D)
-        w = pack_weights(weights, CP, DP)
-        if w.data_ptr() % 16:
-            w = w.clone()
-        launch = _mma_launch or _resolve_mma()
-        widths = (C, CP.bit_length() - 1, D)
-    else:
-        w = weights.contiguous()
-        launch = _fma_launch or _resolve_fma()
-        widths = (C, D)
+    CP, DP = padded_widths(C, D)
+    w = pack_weights(weights, CP, DP)
+    if w.data_ptr() % 16:
+        w = w.clone()
+    launch = (_mma_launch or _resolve_mma()) if mma else \
+        (_fma_launch or _resolve_fma())
     rc = launch(features.data_ptr(), tap_idx.data_ptr(), found.data_ptr(),
-                w.data_ptr(), out.data_ptr(), B, N, Q, K, *widths,
-                stream_ptr(dev))
+                w.data_ptr(), out.data_ptr(), B, N, Q, K, C,
+                CP.bit_length() - 1, D, stream_ptr(dev))
     if rc:
         check("subm", rc)
     global launches_mma, launches_fma

@@ -189,7 +189,7 @@ def test_gather_gemm_widths(dev, dtype, K, C, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fill", [0.0, 1.0])
 @pytest.mark.parametrize("K,C,D", [(27, 4, 16), (27, 32, 32), (3, 64, 64),
-                                   (27, 5, 7)])
+                                   (27, 5, 7), (27, 64, 64)])
 def test_gather_gemm_fill(dev, dtype, fill, K, C, D):
     """No tap found (every tap skipped: all zeros out) and every tap found
     (no tap skipped)."""
@@ -198,12 +198,14 @@ def test_gather_gemm_fill(dev, dtype, fill, K, C, D):
         assert not got.any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("C", [16, 4, 6])
-def test_gather_gemm_unaligned_features(dev, C):
-    """Features that start off the 16-byte grid: the tensor-core kernel
-    gathers 8 bytes a copy, or element by element, instead of 16."""
-    feats, tap_idx, found, w = _conv_case(dev, torch.bfloat16, 2, 100, 256,
-                                          27, C, 16, 0.2)
+def test_gather_gemm_unaligned_features(dev, C, dtype):
+    """Features that start off the 16-byte grid: the bf16 kernel gathers 8
+    bytes a copy, or element by element, instead of 16; the fp32 kernel
+    one float a copy."""
+    feats, tap_idx, found, w = _conv_case(dev, dtype, 2, 100, 256, 27, C,
+                                          16, 0.2)
     buf = torch.empty(feats.numel() + 1, dtype=feats.dtype, device=dev)
     off = torch.as_strided(buf, feats.shape, feats.stride(), 1)
     off.copy_(feats)
@@ -211,11 +213,11 @@ def test_gather_gemm_unaligned_features(dev, C):
     _run_conv(off, tap_idx, found, w)
 
 
-def test_gather_gemm_tile_spans_examples(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_gemm_tile_spans_examples(dev, dtype):
     """Q = 100: every 128-row tile but the first crosses from one example
     into the next, so rows of one tile index different examples' features."""
-    _run_conv(*_conv_case(dev, torch.bfloat16, 5, 64, 100, 27, 16, 16,
-                          0.3))
+    _run_conv(*_conv_case(dev, dtype, 5, 64, 100, 27, 16, 16, 0.3))
 
 
 def test_gather_gemm_rejects_wide_channels(dev):
@@ -232,6 +234,83 @@ def test_gather_gemm_rejects_too_many_taps_in_bf16(dev):
     with pytest.raises(ValueError, match="taps"):
         subm.gather_gemm(feats, idx, idx.bool(), torch.zeros(33, 8, 8,
                                                               device=dev))
+
+
+def _fp64_errors(feats, tap_idx, found, w, got):
+    """(the kernel's error, the fp32 plain version's error) against the
+    plain version in fp64 on the same inputs, each the largest absolute
+    error over the largest |reference|."""
+    want = subm.gather_gemm_plain(feats.double(), tap_idx, found, w.double())
+    plain = subm.gather_gemm_plain(feats, tap_idx, found, w)
+    scale = max(want.abs().max().item(), 1e-30)
+    return ((got.double() - want).abs().max().item() / scale,
+            (plain.double() - want).abs().max().item() / scale)
+
+
+# the fp32 kernel (3xTF32) against fp64: at most this many times the fp32
+# plain version's own error, plus one fp32 unit of the scale (where the
+# plain version happens to be exact)
+FP32_ERR_RATIO, FP32_ERR_FLOOR = 2.0, 2.0 ** -24
+
+
+@pytest.mark.parametrize("K", [27, 3])
+@pytest.mark.parametrize("C,D", [(4, 16), (16, 16), (16, 32), (32, 32),
+                                 (32, 64), (64, 64)])
+def test_gather_gemm_fp32_mc_widths_fp32_accurate(dev, K, C, D):
+    """The multi-class middle's widths in fp32 at an mc-eval-like fill (15%
+    of the taps found): within 1e-4 of the fp32 plain version, and against
+    the plain version in fp64 at most FP32_ERR_RATIO times the fp32 plain
+    version's own error: fp32-accurate, not TF32-accurate."""
+    args = _conv_case(dev, torch.float32, 3, 500, 640, K, C, D, 0.15, seed=3)
+    got, _ = _run_conv(*args)
+    err, plain_err = _fp64_errors(*args, got)
+    assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
+
+
+@pytest.mark.parametrize("C,D", [(3, 5), (33, 63), (3, 63), (33, 5),
+                                 (64, 1), (1, 64), (33, 40)])
+def test_gather_gemm_fp32_odd_widths(dev, C, D):
+    """Input widths that are not a multiple of 4 (the kernel copies one
+    float at a time) and output widths that are not a multiple of 8 (packed
+    with zero columns) or split over two blocks unevenly (D = 40, 63),
+    fp32, fp64-referenced."""
+    args = _conv_case(dev, torch.float32, 2, 300, 333, 27, C, D, 0.3, seed=4)
+    got, _ = _run_conv(*args)
+    err, plain_err = _fp64_errors(*args, got)
+    assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
+
+
+@pytest.mark.parametrize("K", [33, 64])
+def test_gather_gemm_fp32_more_than_32_taps(dev, K):
+    """fp32 rulebooks of more taps than one vote takes: the kernel walks
+    them in groups of 32."""
+    args = _conv_case(dev, torch.float32, 2, 200, 300, K, 16, 16, 0.2,
+                      seed=6)
+    got, _ = _run_conv(*args)
+    err, plain_err = _fp64_errors(*args, got)
+    assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
+
+
+def test_gather_gemm_fp32_dgrad(dev):
+    """fp32 dX through `gather_gemm_dgrad` (the transposed rulebook, the
+    weights [K, D, C]) against the plain version and fp64: one dX launch on
+    the fp32 path."""
+    grid = (8, 24, 24)
+    coords, feats, valid, keys = _active_set(dev, 2, 800, grid, 24)
+    tap_idx, found = sp.subm_rulebook_b(coords, keys, valid, grid)
+    g = torch.Generator().manual_seed(25)
+    w = (torch.randn(27, 16, 32, generator=g) / 20).to(dev)
+    dout = torch.randn(2, tap_idx.shape[2], 32, generator=g).to(dev)
+    inv_idx, inv_found = sp.transpose_rulebook_b(tap_idx, found, 800)
+    wt = w.transpose(1, 2)
+    before = (subm.launches_dgrad, subm.launches_fma)
+    got = subm.gather_gemm_dgrad(dout, inv_idx, inv_found, wt)
+    assert (subm.launches_dgrad, subm.launches_fma) == \
+        (before[0] + 1, before[1] + 1)
+    want = subm.gather_gemm_plain(dout, inv_idx, inv_found, wt)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    err, plain_err = _fp64_errors(dout, inv_idx, inv_found, wt, got)
+    assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
 
 
 def _boxes(g, n):
@@ -1171,25 +1250,23 @@ def test_roi_align_crop_shapes(dev, out, s, C):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float64])
-@pytest.mark.parametrize("kind", ["random", "edge", "far", "degenerate"])
+@pytest.mark.parametrize("kind", ["random", "edge", "far", "degenerate",
+                                  "nonfinite"])
 def test_roi_align_backward_matches_autograd_of_plain(dev, dtype, kind):
     """The backward kernels against autograd of the plain version (on an
     fp32 copy of a bf16 map: the kernels sum in fp32): the map's and the
-    coordinates' gradients within ROI_BWD_TOL of their scale, zero map
-    gradient where no tap lands; one backward launch."""
+    coordinates' gradients within ROI_BWD_TOL of their scale, non-finite
+    entries where the plain version has them, bitwise over two calls, the
+    counts of in-map samples and cell runs equal to the plain mirror's,
+    zero map gradient where no tap lands."""
     from second_tpu_torch.ops.cuda import roi_align as ra
     feat, coords, s = _roi_inputs(dev, dtype, kind, seed=42)
     g = torch.Generator().manual_seed(43)
     grad = torch.randn(14, 40, 14, 14, generator=g).to(coords.dtype).to(dev)
-    before = ra.launches_bwd
-    gf, gc = ra.roi_align_bwd(feat, coords, grad, s)
-    assert ra.launches_bwd == before + 1
-    wf, wc = ra.roi_align_backward_plain(feat.to(coords.dtype), coords, grad,
-                                         s)
-    tol = ROI_BWD_TOL[coords.dtype]
-    assert gf.dtype == coords.dtype and gf.shape == feat.shape
-    assert _scaled_err(gf, wf) <= tol
-    assert _scaled_err(gc, wc) <= tol
+    _check_bwd(feat, coords, grad, s)
+    gf, _ = ra.roi_align_bwd(feat, coords, grad, s)
+    wf, _ = ra.roi_align_backward_plain(feat.to(coords.dtype), coords, grad,
+                                        s)
     assert torch.equal(gf == 0, wf == 0) or kind != "random"
 
 
@@ -1205,6 +1282,84 @@ def test_roi_align_backward_is_deterministic(dev):
     a = ra.roi_align_bwd(feat, coords, grad, s)
     b = ra.roi_align_bwd(feat, coords, grad, s)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _same_bits(a, b):
+    """Bitwise equality of two float tensors, NaNs included."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def _check_bwd(feat, coords, grad, s, ref64=False):
+    """The backward kernels on these inputs: bitwise equal over two calls,
+    within ROI_BWD_TOL of autograd of the plain version (on the map in the
+    coordinates' dtype; with `ref64`, of the plain version in fp64 on the
+    same values), and their counts of in-map samples and cell runs equal to
+    the plain mirror's bookkeeping. Returns the counts."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    before = ra.launches_bwd
+    gf, gc, counts = ra.roi_align_bwd(feat, coords, grad, s, counts=True)
+    again = ra.roi_align_bwd(feat, coords, grad, s)
+    assert ra.launches_bwd == before + 2
+    assert _same_bits(gf, again[0]) and _same_bits(gc, again[1])
+    ref = torch.float64 if ref64 else coords.dtype
+    wf, wc = ra.roi_align_backward_plain(feat.to(ref), coords.to(ref),
+                                         grad.to(ref), s)
+    tol = ROI_BWD_TOL[coords.dtype]
+    assert gf.dtype == coords.dtype and gf.shape == feat.shape
+    assert _scaled_err(gf, wf) <= tol
+    assert _scaled_err(gc, wc) <= tol
+    keys, ncells = ra.sample_cells(coords, *feat.shape[2:])
+    assert tuple(counts.tolist()) == ra.cell_counts(keys, ncells)
+    return tuple(counts.tolist())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_roi_align_backward_pile_crosses_chunks(dev, dtype):
+    """Hundreds of zero-sized rois on one point pile 300 x 784 samples on
+    one cell, a run across some 1800 chunks of the walk, summed by the
+    fix-up; the other rois random, some of their runs crossing chunk edges
+    too. Held to the plain version in fp64: the plain version's own fp32
+    sum of 235 200 samples on one pixel (atomic adds on the card) lies some
+    1e-5 of the scale from it."""
+    from second_tpu_torch.ops.roi_align_rotated import sample_points
+    g = torch.Generator().manual_seed(48)
+    B, N, C, H, W = 2, 400, 40, 30, 25
+    rois = _rois(g, B, N, H, W, "random")
+    rois[:, :300, :4] = torch.tensor([12.3, 7.6, 0.0, 0.0],
+                                     dtype=torch.float64)
+    cdt = torch.float64 if dtype == torch.float64 else torch.float32
+    feat = torch.randn(B, C, H, W, generator=g).to(dtype).to(dev)
+    coords = sample_points(rois.to(cdt)).to(dev)
+    grad = torch.randn(B * N, C, 14, 14, generator=g).to(cdt).to(dev)
+    n_in, runs = _check_bwd(feat, coords, grad, 2, ref64=True)
+    assert n_in >= B * 300 * 784 and runs >= B
+
+
+def test_roi_align_backward_off_the_map(dev):
+    """Rois wholly off the map: no sample counted, the map's gradient all
+    zeros, every coordinate's gradient zero."""
+    feat, coords, s = _roi_inputs(dev, torch.float32, "far", seed=49)
+    g = torch.Generator().manual_seed(50)
+    grad = torch.randn(14, 40, 14, 14, generator=g).to(dev)
+    assert _check_bwd(feat, coords, grad, s) == (0, 0)
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    gf, gc = ra.roi_align_bwd(feat, coords, grad, s)
+    assert not gf.any() and not gc.any()
+
+
+@pytest.mark.parametrize("C", [33, 128, 256])
+@pytest.mark.parametrize("out,s", [((14, 14), 1), ((4, 5), 3), ((14, 14), 2)])
+def test_roi_align_backward_widths_and_samples(dev, C, out, s):
+    """Channel counts that fill 64-, 128- and 256-thread walk groups (33
+    leaves most of a group idle), one and three samples a bin side, fp32,
+    rois straddling the map's edges."""
+    feat, coords, s = _roi_inputs(dev, torch.float32, "edge", C=C, out=out,
+                                  s=s, seed=51)
+    g = torch.Generator().manual_seed(52)
+    grad = torch.randn(14, C, *out, generator=g).to(dev)
+    _check_bwd(feat, coords, grad, s)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
