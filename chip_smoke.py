@@ -134,29 +134,35 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    printed).
 
 14. 2st eval: the two-stage detector (`build_two_stage_voxelnet`:
-   second_car_fhd.config as stage 1, bf16, 512 proposals an example by
+   second_car_fhd.config as stage 1, fp32 as JAX's builder makes it on
+   every config, 512 proposals an example by
    standup NMS, 14 x 14 rotated crops, the refine head, rotated NMS over
    the refined proposals; random weights from seed 0) through the
    two-stage eval step on the fhd bench input (batch 4, 40 000 voxels):
-   every sparse conv and row gather against its plain version, the
-   ROI-align forward call against its plain version (ROI_FWD_TOL) and
-   timed beside `F.grid_sample` + `F.avg_pool2d`, the standup bitmask bit
-   for bit and its NMS keep, the final NMS pair (`check_nms_pair`);
-   launches sparse gather-GEMM 14, roi_align_fwd 1, standup_overlap 1,
-   nms_overlap 1, nms_suppress 2; no host sync; voxel_overflow and
-   stage_overflow 0; frames/s, peak memory, a synchronised split
+   every sparse conv and row gather against its plain version, each fp32
+   conv also against fp64 (FP32_ERR_RATIO), the
+   ROI-align forward call against its plain version (bitwise) and
+   timed, split by kernel (the channels-last copy, the crops), beside
+   `F.grid_sample` + `F.avg_pool2d`, the standup bitmask bit for bit and
+   its NMS keep, the final NMS pair (`check_nms_pair`);
+   launches sparse gather-GEMM 14 (all on the fp32 path), roi_align_fwd
+   1, standup_overlap 1, nms_overlap 1, nms_suppress 2; no host sync;
+   voxel_overflow and stage_overflow 0; frames/s, peak memory, a synchronised split
    (voxelize, stage 1, proposals, crops, head, predict) and a profile,
    with cuDNN TF32 off and on; one fp32 example card against CPU (stage 1,
    then the second stage on the card's stage 1: proposals equal, crops,
    predictions and detections within tolerance).
-15. 2st train: the two-stage train step (`make_two_stage_steps`, bf16, the
+15. 2st train: the two-stage train step (`make_two_stage_steps`, fp32, the
    config's Adam) on batch 4 synthetic scans at 16 000 voxels: every sparse
-   forward, dX and weight-gradient call against its plain version; the
+   forward, dX and weight-gradient call against its plain version and
+   against fp64 (each at most FP32_ERR_RATIO times the fp32 plain
+   version's error); the
    ROI-align forward and backward calls against their plain versions
    (the backward twice, bitwise equal; its counts of in-map samples and
    cell runs equal to the plain mirror's) and timed beside the library
    pair and its autograd, the backward's device time split by kernel; the
-   standup bitmask; launches 14 / 13 / 14 and
+   standup bitmask; launches 14 / 13 / 14 (the gather-GEMM's fp32 path 27,
+   the weight gradient's fp32 path 14) and
    roi_align_fwd, roi_align_bwd, standup_overlap and nms_suppress once;
    every gradient finite, no host sync, gradients bitwise equal over two
    runs, the loss halved on one batch; steps/s, peak memory, split,
@@ -379,11 +385,11 @@ TWO_STAGE_KERNELS = [
 ]
 ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS + TWO_STAGE_KERNELS
 # the ROI-align kernels against their plain versions: the forward in the
-# plain version's order of operations (-fmad=false), within ROI_FWD_TOL of
-# the output's scale; the backward's sums in another order, within
-# ROI_BWD_TOL of each gradient's scale (a bf16 trunk's plain backward runs
-# on its fp32 copy: the kernel sums in fp32)
-ROI_FWD_TOL, ROI_BWD_TOL = 1e-6, 1e-5
+# plain version's order of operations (-fmad=false), bitwise; the
+# backward's sums in another order, within ROI_BWD_TOL of each gradient's
+# scale (a bf16 trunk's plain backward runs on its fp32 copy: the kernel
+# sums in fp32)
+ROI_BWD_TOL = 1e-5
 # crops card against CPU at the same proposal boxes: the sample points'
 # sin and cos round an ulp apart on the two devices, which moves a sample
 # of some 100 pixels by 1e-5 of a pixel
@@ -742,13 +748,14 @@ def riou_ops(boxes1, boxes2, i, j, pair_ops=RIOU_IOU_OPS):
     return int(ops.sum())
 
 
-def fp64_gate(args, got, tag):
-    """An fp32 sparse conv's kernel output against the plain version in
-    fp64 on the same inputs: its relative error at most FP32_ERR_RATIO
-    times the fp32 plain version's own. Returns both errors."""
-    f, tap_idx, found, w = args
-    want = subm.gather_gemm_plain(f.double(), tap_idx, found, w.double())
-    plain = subm.gather_gemm_plain(f, tap_idx, found, w)
+def fp64_gate(args, got, tag, plain_fn=subm.gather_gemm_plain):
+    """An fp32 sparse conv's kernel output against the plain version
+    (`plain_fn`: the gather-GEMM's, or the weight gradient's) in fp64 on
+    the same inputs: its relative error at most FP32_ERR_RATIO times the
+    fp32 plain version's own. Returns both errors."""
+    want = plain_fn(*[a.double() if a.is_floating_point() else a
+                      for a in args])
+    plain = plain_fn(*args)
     kernel_err = errors(got.double(), want)[1]
     plain_err = errors(plain.double(), want)[1]
     if kernel_err > FP32_ERR_RATIO * plain_err:
@@ -1527,13 +1534,15 @@ def train_inputs(cfg, assigner, info, dev, n, max_points=MAX_POINTS):
 
 def new_train_state(cfg, dev, mixed, lr=None, seed=0, dtype=None,
                     build=build_voxelnet):
-    """The config's model (made by `build`: the one-stage builder, or the
-    two-stage one) on `dev` with flax's initialisers drawn from `seed` (a
-    CPU generator: the same weights on every device), in `dtype` where one
-    is given (fp64 for a reference run), and the config's optimizer, at a
-    constant `lr` where one is given."""
-    net, spec, info, assigner, _ = build(
-        cfg.model, device=dev, mixed_precision=mixed, seed=seed)
+    """The config's model (made by `build`: the one-stage builder, with
+    mixed precision `mixed`, or the two-stage one, fp32 on every config as
+    in JAX, with `mixed` None) on `dev` with flax's initialisers drawn from
+    `seed` (a CPU generator: the same weights on every device), in `dtype`
+    where one is given (fp64 for a reference run), and the config's
+    optimizer, at a constant `lr` where one is given."""
+    precision = {} if mixed is None else {"mixed_precision": mixed}
+    net, spec, info, assigner, _ = build(cfg.model, device=dev, seed=seed,
+                                         **precision)
     init_train_weights_(net, seed)
     if dtype is not None:
         net.to(dtype)
@@ -2516,6 +2525,37 @@ def check_calls_exact(calls, what):
     return worst
 
 
+# the fp32 sparse-conv calls held against fp64 (`fp64_gate`): the
+# gather-GEMM's forward and dX (3xTF32, compensated) and the weight
+# gradient (tile sums on the CUDA cores, compensated)
+FP64_CHECKED = (("conv", "gather_gemm", subm.gather_gemm,
+                 subm.gather_gemm_plain),
+                ("dgrad", "gather_gemm_dgrad", subm.gather_gemm_dgrad,
+                 subm.gather_gemm_plain),
+                ("wgrad", "sparse_wgrad", subm.sparse_wgrad,
+                 subm.gather_gemm_wgrad_plain))
+
+
+def check_fp32_calls(calls, what):
+    """Each recorded sparse-conv call of an fp32 path (forward, and in a
+    train step dX and the weight gradient) in fp32, its kernel output
+    against the plain version in fp64 (`fp64_gate`). Returns the largest
+    ratio of the kernel's error to the fp32 plain version's, by kind."""
+    worst = {}
+    for kind, key, kernel, plain in FP64_CHECKED:
+        for i, (args, _) in enumerate(calls.get(key, ())):
+            if args[0].dtype != torch.float32:
+                fail(f"{what} {kind} {i}: {args[0].dtype} features on the "
+                     f"fp32 path")
+            e = fp64_gate(args, kernel(*args), f"{what} {kind} {i}", plain)
+            worst[kind] = max(worst.get(kind, 0.0), e["fp64_rel_err"] /
+                              max(e["plain_fp64_rel_err"], 1e-30))
+    say(f"{what}: every sparse-conv call fp32; error against fp64 at most "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()) +
+        f" times the fp32 plain version's (gated at {FP32_ERR_RATIO})")
+    return worst
+
+
 def predict_fails_on_sync(spec, preds, anchors, what):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2981,11 +3021,11 @@ def run_fhd_iou_train(dev, timer, dtimer):
 # ------------------------------------------------ the two-stage detector
 
 
-def build_two_stage(model, device, mixed_precision=False, seed=0,
-                    proposals=TWO_STAGE_PROPOSALS):
-    """`build_two_stage_voxelnet` with the signature of `build_voxelnet`."""
+def build_two_stage(model, device, seed=0, proposals=TWO_STAGE_PROPOSALS):
+    """`build_two_stage_voxelnet` at this script's proposals: stage 1 and
+    the head fp32 on every config, as JAX's two-stage `Trainer` builds
+    them."""
     return build_two_stage_voxelnet(model, proposals, device=device,
-                                    mixed_precision=mixed_precision,
                                     seed=seed)
 
 
@@ -3024,7 +3064,7 @@ def roi_library(feat, coords, samples):
 
 def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
     """Each recorded ROI-align forward (and backward) call against its plain
-    version on the same inputs (ROI_FWD_TOL, ROI_BWD_TOL), timed by events
+    version on the same inputs (bitwise, ROI_BWD_TOL), timed by events
     and by the device timer beside its plain version and its library
     yardstick (`roi_library`, and autograd of it for the backward), with
     its bound counted from the samples this run's rois give. Returns the
@@ -3053,9 +3093,11 @@ def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
                 torch.cuda.synchronize()
                 err, rel = errors(got, want)
                 lib_err = errors(lib, want)[1]
-                if rel > ROI_FWD_TOL:
-                    fail(f"{what} roi_align_fwd {i}: {rel:.3g} of the scale "
-                         f"from the plain version, over {ROI_FWD_TOL}")
+                ints = torch.int64 if got.dtype == torch.float64 \
+                    else torch.int32
+                if not torch.equal(got.view(ints), want.view(ints)):
+                    fail(f"{what} roi_align_fwd {i}: not bitwise the plain "
+                         f"version (max abs err {err:.3g})")
                 nbytes = cbytes + pixels * C * esz + got.numel() * 4
                 ops = R * nsamp * ROI_SAMPLE_OPS + \
                     R * C * bins * (8 * s * s + 1)
@@ -3126,6 +3168,15 @@ def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
                 f"{ms[1]:.4f} ms  library {ms[2]:.4f} ms (device "
                 f"{dev_ms[1]:.4f})  bound {1e3 * max(bs, os_):.4f} ms "
                 f"({'bytes' if bs >= os_ else 'operations'})")
+            if name == "roi_align_fwd":
+                split = device_split(fns[0], dtimer)
+                agg["split"] = {k: ms for k, (ms, _) in split.items()}
+                say(f"{what} roi_align_fwd {i}: bitwise the plain version; "
+                    f"device {sum(agg['split'].values()):.4f} ms a call, "
+                    f"by kernel: " +
+                    "; ".join(
+                        f"{k[:60]} {v:.4f} x{n:g}"
+                        for k, (v, n) in split.items()))
             if name == "roi_align_bwd":
                 split = device_split(fns[0], dtimer)
                 agg["split"] = {k: ms for k, (ms, _) in split.items()}
@@ -3133,8 +3184,7 @@ def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
                 say(f"{what} roi_align_bwd {i}: {want_counts[0]} in-map "
                     f"samples in {want_counts[1]} cell runs, the kernel's "
                     f"counts equal; device "
-                    f"{sum(agg['split'].values()):.4f} ms a call (the "
-                    f"backward of a key a tap it replaced: 2.58 ms), by "
+                    f"{sum(agg['split'].values()):.4f} ms a call, by "
                     f"kernel: " + "; ".join(
                         f"{k[:60]} {v:.4f} x{n:g}"
                         for k, (v, n) in split.items()))
@@ -3234,22 +3284,23 @@ def two_stage_split(net, spec, vspec, points, mask, anchors, dev):
 
 def run_2st_eval(dev, timer, dtimer):
     """The two-stage detector's eval forward (second_car_fhd.config as stage
-    1, bf16 as the config asks, 512 proposals an example, random weights
-    from seed 0) on the fhd bench input (batch 4, 40 000 voxels), through
+    1, fp32 as JAX builds the two-stage model, 512 proposals an example,
+    random weights from seed 0) on the fhd bench input (batch 4, 40 000 voxels), through
     the two-stage eval step. Returns (the forward and standup kernels'
     aggregates, the launch counts, the report)."""
     report = {}
     cfg = load_pipeline_config(CONFIG)
-    mixed = cfg.train_config.enable_mixed_precision
-    net, spec, info, assigner, _ = build_two_stage(cfg.model, dev, mixed)
+    net, spec, info, assigner, _ = build_two_stage(cfg.model, dev)
     vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
     points, mask, anchors = build_inputs(cfg, assigner, info, dev)
     eval_step = make_two_stage_steps(spec, vspec)[1]
     state = TrainState(net, None)
     batch = {"points": points, "points_mask": mask, "anchors": anchors}
     say(f"2st eval: batch {BATCH}, {MAX_VOXELS} voxels, "
-        f"{TWO_STAGE_PROPOSALS} proposals an example, mixed precision "
-        f"{mixed}")
+        f"{TWO_STAGE_PROPOSALS} proposals an example, fp32 stage 1 (the "
+        f"config's mixed precision "
+        f"{cfg.train_config.enable_mixed_precision} is the one-stage "
+        f"model's; JAX builds the two-stage model fp32)")
 
     def forward():
         return eval_step(state, batch)
@@ -3264,6 +3315,7 @@ def run_2st_eval(dev, timer, dtimer):
     if {k: n[k] for k in want_n} != want_n:
         fail(f"2st eval: recorded {n}, expected {want_n}")
     report["conv_max_abs_err"] = check_calls_exact(calls, "2st eval")
+    report["fp64_ratio"] = check_fp32_calls(calls, "2st eval")
     # the refined proposals' rotated NMS: the overlap call and the
     # suppression that read its bitmask
     over_bits = riou.nms_overlap(*calls["nms_overlap"][0][0])[0]
@@ -3294,9 +3346,8 @@ def run_2st_eval(dev, timer, dtimer):
     if {k: counts[k] for k in want} != want or not counts["row_gather"]:
         fail(f"2st forward launches {counts}, expected {want} and row "
              f"gathers")
-    if mixed and (paths["mma"], paths["fma"]) != (SPARSE_CONVS, 0):
-        fail(f"2st: not every bf16 sparse conv took the tensor-core path: "
-             f"{paths}")
+    if (paths["mma"], paths["fma"]) != (0, SPARSE_CONVS):
+        fail(f"2st: not every sparse conv took the fp32 path: {paths}")
     report["launches"] = counts
     report["host_syncs"] = host_syncs(forward)
     if report["host_syncs"]:
@@ -3451,23 +3502,22 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
 
 def run_2st_train(dev, timer, dtimer):
     """The two-stage detector's train step (second_car_fhd.config as stage
-    1, bf16, 512 proposals an example, the config's Adam) on the fhd train
+    1, fp32, 512 proposals an example, the config's Adam) on the fhd train
     inputs (batch 4 synthetic scans, 16 000 voxels), through
     `make_two_stage_steps`. Returns (the backward kernel's aggregate, the
     launch counts, the report)."""
     report = {}
     cfg = load_pipeline_config(CONFIG)
-    mixed = cfg.train_config.enable_mixed_precision
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    state, spec, info, assigner = new_train_state(cfg, dev, mixed,
+    state, spec, info, assigner = new_train_state(cfg, dev, None,
                                                   build=build_two_stage)
     vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
                                      TRAIN_VOXELS, shuffle_overflow=True)
     batch = train_inputs(cfg, assigner, info, dev, TRAIN_BATCH)
     step = make_two_stage_steps(spec, vspec)[0]
     say(f"2st train: batch {TRAIN_BATCH} synthetic scans, {TRAIN_VOXELS} "
-        f"voxels (shuffle_overflow), mixed precision {mixed}, "
+        f"voxels (shuffle_overflow), fp32 stage 1 as in JAX, "
         f"{TWO_STAGE_PROPOSALS} proposals an example")
 
     with recording(RECORDED_2ST_TRAIN) as calls:
@@ -3482,6 +3532,7 @@ def run_2st_train(dev, timer, dtimer):
     if n != want_n:
         fail(f"2st train: recorded {n}, expected {want_n}")
     check_step_calls("2st train", calls, timer, dtimer, timed=False)
+    report["fp64_ratio"] = check_fp32_calls(calls, "2st train")
     aggs = check_roi_calls(calls["roi_align_fwd"], calls["roi_align_bwd"],
                            timer, dtimer, "2st train")
     report["roi_align_fwd"] = {k: aggs["roi_align_fwd"][k] for k in (
@@ -3503,6 +3554,13 @@ def run_2st_train(dev, timer, dtimer):
             "rotated_iou": 0, "d3_iou": 0}
     if {k: counts[k] for k in want} != want:
         fail(f"2st train step launches {counts}, expected {want}")
+    # fp32 stage 1: the gather-GEMM's forward and dX on the 3xTF32 path,
+    # the weight gradient on its fp32 path
+    want_paths = {"mma": 0, "fma": 2 * SPARSE_CONVS - 1, "wgrad_mma": 0,
+                  "wgrad_fma": SPARSE_CONVS}
+    if paths != want_paths:
+        fail(f"2st train step: sparse kernels by path {paths}, expected "
+             f"{want_paths}")
     params = dict(state.module.named_parameters())
     for name, p in params.items():
         if p.grad is None or not torch.isfinite(p.grad).all():
@@ -3528,7 +3586,7 @@ def run_2st_train(dev, timer, dtimer):
         step, state, spec, vspec, batch, TWO_STAGE_TIMED, "2st train",
         loss_of=two_stage_loss)
     del state
-    report["overfit"] = check_overfit(cfg, dev, mixed, step, batch, "2st",
+    report["overfit"] = check_overfit(cfg, dev, None, step, batch, "2st",
                                       build=build_two_stage)
     torch.backends.cudnn.deterministic = False
     report["reference"] = check_2st_train_reference(dev)
@@ -3551,13 +3609,12 @@ def check_2st_train_reference(dev):
     reader = cfg.train_input_reader
     cpu = torch.device("cpu")
 
-    def build(model, device, mixed_precision=False, seed=0):
-        return build_two_stage(model, device, mixed_precision, seed,
-                               TWO_STAGE_REF_PROPOSALS)
+    def build(model, device, seed=0):
+        return build_two_stage(model, device, seed, TWO_STAGE_REF_PROPOSALS)
     runs = {}
     for device in (dev, cpu):
         state, spec, info, assigner = new_train_state(
-            cfg, device, False, dtype=torch.float64, build=build)
+            cfg, device, None, dtype=torch.float64, build=build)
         if device == dev:
             one = {k: v[:1].to(torch.float64) if v.is_floating_point()
                    else v[:1] for k, v in train_inputs(

@@ -4,7 +4,7 @@ on one card: its device time split by device kernel.
     python3 scripts/torch_roi_align_bwd.py [--parent_src ROI_ALIGN_CU]
 
 Captures the `roi_align_bwd` call of one two-stage train step
-(chip_smoke.py's 2st train phase: second_car_fhd.config as stage 1, bf16,
+(chip_smoke.py's 2st train phase: second_car_fhd.config as stage 1, fp32,
 batch 4 synthetic scans, 16 000 voxels, 512 proposals an example; the
 trunk [4, 128, 200, 176], 2048 rois x 28 x 28 samples) and prints:
 
@@ -129,8 +129,7 @@ def main():
     print(cs.card_line())
     cfg = load_pipeline_config(cs.CONFIG)
     state, spec, info, assigner = cs.new_train_state(
-        cfg, dev, cfg.train_config.enable_mixed_precision,
-        build=cs.build_two_stage)
+        cfg, dev, None, build=cs.build_two_stage)
     vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
                                      cs.TRAIN_VOXELS, shuffle_overflow=True)
     batch = cs.train_inputs(cfg, assigner, info, dev, cs.TRAIN_BATCH)

@@ -61,14 +61,27 @@
 //
 // nms_suppress — replaces the frontier rounds of `_greedy_suppress_over`
 // (second_tpu/ops/nms.py:44; no Pallas counterpart): exact greedy NMS from
-// the bitmask. Bound: bytes (the bitmask read once), but the walk is a
-// serial chain. Design: one block per example stages the bitmask in shared
-// memory with 16-byte loads, its rows padded to W + 1 words (it reads it in
-// place where it does not fit); one warp walks the rows 32 at a time with
-// the removed-mask in registers (lane l holds words l, l + 32, ...): the 32
-// rows of a word are decided against the word's diagonal block, by rounds
-// of ballots where some row of it suppresses another, then the rows kept
-// OR their later words into the removed-mask, one word a lane.
+// the bitmask. Bound: bytes (the bitmask read once), but the walk over the
+// W = ceil(K / 32) words is a serial chain, so what the card can reach is
+// a launch's latency plus that chain. Design: one block of 32 warps per
+// example stages the bitmask in shared memory with 16-byte loads, its rows
+// padded to W + 1 words (it reads it in place where it does not fit), and
+// transposes every word's 32 x 32 diagonal block in parallel, a warp a
+// word (32 ballots), into pred_s: for each row, the earlier rows of its
+// word that suppress it. Then warp 0 walks the words, and each step only
+// settles its word's 32 rows against the rows removed so far, by rounds
+// of ballots over pred, then ORs the kept rows' next two words (two
+// column reads, prefetched a step ahead, and two OR-reduces). The other
+// 31 warps run ahead of the walk: each owns some later words and, as each
+// word is decided, ORs that word's kept rows into the removed mask of
+// each word it owns three or more words ahead (a column read over the
+// word's rows, one OR-reduce), publishing the mask and how many words it
+// covers as one 64-bit word in shared memory, as the walk publishes each
+// word's kept rows with a flag: no fence on either side. The walk waits
+// on that count, so the helpers' handoff, not the settling, paces it;
+// fewer helpers, each owning more words, were slower. A walk alone,
+// reading each row's earlier suppressors from a bitmask transposed up
+// front, was slower still, in its transpose and in the walk.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -559,6 +572,13 @@ constexpr int NMS_MAX_CLUSTER = 16;      // 8 is portable, 16 fits an H100
 constexpr int NMS_LIST = 8192;           // pairs a block clips per chunk
 constexpr int NMS_SMEM = 226 * 1024;     // dynamic shared memory a block
 constexpr int SUP_THREADS = 1024;
+constexpr int SUP_WARPS = SUP_THREADS / 32;
+// the suppression's helper warps, and the words each owns at most (words
+// 3 on: the walk itself covers each word's next two)
+constexpr int SUP_HELPERS = SUP_WARPS - 1;
+constexpr int SUP_OWN = (NMS_MAX_K / 32 - 3 + SUP_HELPERS - 1) / SUP_HELPERS;
+// its staged bitmask, beside some 18 KB of static shared memory
+constexpr int SUP_SMEM = 200 * 1024;
 
 // First row of block c of a C-block cluster: the blocks take equal shares
 // of the bound-test work, counted as a row's (K - 1 - i) / 32 ballot words
@@ -789,17 +809,32 @@ __global__ void __launch_bounds__(SUP_THREADS)
                         uint8_t* __restrict__ keep, int K, int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint32_t vbits_s[NMS_MAX_K / 32];
+  // row i's earlier rows in its word that suppress it (the word's diagonal
+  // block transposed)
+  __shared__ uint32_t pred_s[NMS_MAX_K];
+  // the walk's progress, each a 64-bit word written whole (so a reader
+  // sees its two halves together, and no fence is needed): word g's kept
+  // rows with 1 in the high half once it is decided (0 before); for word
+  // w, the rows removed by the kept rows of the words its helper has
+  // covered, with their count in the high half
+  __shared__ unsigned long long kept_s[NMS_MAX_K / 32];
+  __shared__ unsigned long long rem_s[NMS_MAX_K / 32];
   const int W = (K + 31) >> 5, b = blockIdx.x, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const uint32_t* ov = over + (size_t)b * K * W;
   const uint8_t* vb = valid + (size_t)b * K;
   // the valid flags as words, a warp a word
-  for (int g = threadIdx.x >> 5; g < W; g += SUP_THREADS / 32) {
+  for (int g = warp; g < W; g += SUP_WARPS) {
     const int row = (g << 5) + lane;
     const uint32_t v = __ballot_sync(FULL, row < K && vb[row]);
-    if (lane == 0) vbits_s[g] = v;
+    if (lane == 0) {
+      vbits_s[g] = v;
+      kept_s[g] = 0ull;
+      rem_s[g] = 0ull;
+    }
   }
-  // staged rows are W + 1 words apart, so the walk's column reads of the
-  // diagonal words fall in distinct banks
+  // staged rows are W + 1 words apart, so the column reads of one word
+  // over a word's 32 rows fall in distinct banks
   int stride = W;
   if (staged) {
     uint32_t* dst = reinterpret_cast<uint32_t*>(smem);
@@ -824,63 +859,117 @@ __global__ void __launch_bounds__(SUP_THREADS)
     stride = W + 1;
   }
   __syncthreads();
-  if (threadIdx.x >= 32) return;
-  uint8_t* kb = keep + (size_t)b * K;
-  // the removed-mask: lane l holds words l, l + 32, l + 64, l + 96
-  uint32_t rem0 = 0, rem1 = 0, rem2 = 0, rem3 = 0;
-  for (int g = 0; g < W; ++g) {
+  // every word's diagonal block transposed, a warp a word, off the walk
+  for (int g = warp; g < W; g += SUP_WARPS) {
     const int row = (g << 5) + lane;
     const uint32_t diag = row < K ? ov[(size_t)row * stride + g] : 0u;
-    const int q = g >> 5;
-    const uint32_t mine = q == 0 ? rem0 : q == 1 ? rem1 : q == 2 ? rem2 : rem3;
-    const uint32_t cur = __shfl_sync(FULL, mine, g & 31);
-    uint32_t open = vbits_s[g] & ~cur, kept = 0;  // rows still undecided
-    if (__any_sync(FULL, diag & open)) {
-      // the word's rows that suppress this lane's row, by a transpose of
-      // the 32 x 32 diagonal block; then rounds: a row is removed once a
-      // kept row suppresses it, kept once no row before it is undecided
-      // and none kept suppresses it
-      uint32_t pred = 0;
+    uint32_t pred = 0;
+    if (__any_sync(FULL, diag)) {
 #pragma unroll
       for (int t = 0; t < 32; ++t) {
         const uint32_t c = __ballot_sync(FULL, (diag >> t) & 1u);
         if (lane == t) pred = c & ((1u << t) - 1u);
       }
-      while (open) {
-        const bool mine_open = (open >> lane) & 1u;
-        const uint32_t newk =
-            __ballot_sync(FULL, mine_open && !(pred & (kept | open)));
-        const uint32_t gone = __ballot_sync(FULL, mine_open && (pred & kept));
-        kept |= newk;
-        open &= ~(newk | gone);
-      }
-    } else {
-      kept = open;
     }
-    if (row < K) kb[row] = (kept >> lane) & 1u;
-    // the kept rows' later words into the removed-mask, four rows of loads
-    // in flight
-    for (uint32_t m = kept; m;) {
-      int r[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        r[u] = m ? (g << 5) + __ffs(m) - 1 : -1;
-        m &= m - 1;
+    pred_s[row] = pred;
+  }
+  __syncthreads();
+#ifdef NMS_SUPPRESS_STAGE_ONLY
+  // a measurement build (scripts/torch_nms_suppress.py): the staging and
+  // the transposes alone
+  if (threadIdx.x < K)
+    keep[(size_t)b * K + threadIdx.x] = pred_s[threadIdx.x] & 1u;
+  return;
+#endif
+  volatile unsigned long long* kept_v = kept_s;
+  volatile unsigned long long* rem = rem_s;
+  if (warp == 0) {
+    // the walk: word g's rows against the rows removed before it (the
+    // helpers' rem_s[g], from words up to g - 3, and `near`, from words
+    // g - 2 and g - 1), settled in rounds of ballots: a row is removed
+    // once a kept row suppresses it, kept once no row before it is
+    // undecided and none kept suppresses it
+    uint8_t* kb = keep + (size_t)b * K;
+    uint32_t near = 0u, far = 0u;
+    // columns g + 1 and g + 2 of word g's rows, loaded a step ahead
+    uint32_t c1 = W > 1 && lane < K ? ov[(size_t)lane * stride + 1] : 0u;
+    uint32_t c2 = W > 2 && lane < K ? ov[(size_t)lane * stride + 2] : 0u;
+    for (int g = 0; g < W; ++g) {
+      const int row = (g << 5) + lane;
+      const uint32_t pred = pred_s[row];
+      const bool ahead = row + 32 < K;
+      const uint32_t n1 = g + 2 < W && ahead
+          ? ov[(size_t)(row + 32) * stride + g + 2] : 0u;
+      const uint32_t n2 = g + 3 < W && ahead
+          ? ov[(size_t)(row + 32) * stride + g + 3] : 0u;
+      uint32_t cur = near;
+      if (g >= 3) {
+        unsigned long long r;
+        do {
+          r = rem[g];
+        } while ((int)(r >> 32) < g - 2);
+        cur |= (uint32_t)r;
       }
-      uint32_t x[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int qq = 0; qq < 4; ++qq) {
-        const int w = lane + 32 * qq;
-        if (w > g && w < W) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (r[u] >= 0) x[qq] |= ov[(size_t)r[u] * stride + w];
+      uint32_t open = vbits_s[g] & ~cur, kept = 0;
+      if (__any_sync(FULL, pred & open)) {
+        while (open) {
+          const bool mine_open = (open >> lane) & 1u;
+          const uint32_t newk =
+              __ballot_sync(FULL, mine_open && !(pred & (kept | open)));
+          const uint32_t gone =
+              __ballot_sync(FULL, mine_open && (pred & kept));
+          kept |= newk;
+          open &= ~(newk | gone);
         }
+      } else {
+        kept = open;
       }
-      rem0 |= x[0];
-      rem1 |= x[1];
-      rem2 |= x[2];
-      rem3 |= x[3];
+      if (lane == 0) kept_v[g] = 1ull << 32 | kept;
+      if (row < K) kb[row] = (kept >> lane) & 1u;
+      const bool mine = (kept >> lane) & 1u;
+      near = far | __reduce_or_sync(FULL, mine ? c1 : 0u);
+      far = __reduce_or_sync(FULL, mine ? c2 : 0u);
+      c1 = n1;
+      c2 = n2;
+    }
+    return;
+  }
+  // the helpers: warp h + 1 owns words w = 3 + h + j * SUP_HELPERS and,
+  // as each word d is decided, ORs the column w of d's kept rows into
+  // rem_s[w] for every w >= d + 3 (words d + 1 and d + 2 are the walk's)
+  const int first = 2 + warp;
+  if (first >= W) return;
+  const int last = first + (W - 1 - first) / SUP_HELPERS * SUP_HELPERS;
+  uint32_t acc[SUP_OWN], colv[SUP_OWN];
+#pragma unroll
+  for (int j = 0; j < SUP_OWN; ++j) {
+    const int w = first + j * SUP_HELPERS;
+    acc[j] = 0u;
+    colv[j] = w < W && lane < K ? ov[(size_t)lane * stride + w] : 0u;
+  }
+  for (int d = 0; d + 3 <= last; ++d) {
+    // the next word's columns, loaded while this one waits
+    const int r1 = ((d + 1) << 5) + lane;
+    uint32_t nxt[SUP_OWN];
+#pragma unroll
+    for (int j = 0; j < SUP_OWN; ++j) {
+      const int w = first + j * SUP_HELPERS;
+      nxt[j] = w < W && w >= d + 4 && r1 < K
+          ? ov[(size_t)r1 * stride + w] : 0u;
+    }
+    unsigned long long kd;
+    do {
+      kd = kept_v[d];
+    } while (!(kd >> 32));
+    const bool mine = (kd >> lane) & 1u;
+#pragma unroll
+    for (int j = 0; j < SUP_OWN; ++j) {
+      const int w = first + j * SUP_HELPERS;
+      if (w < W && w >= d + 3) {
+        acc[j] |= __reduce_or_sync(FULL, mine ? colv[j] : 0u);
+        if (lane == 0) rem[w] = (unsigned long long)(d + 1) << 32 | acc[j];
+      }
+      colv[j] = nxt[j];
     }
   }
 }
@@ -1073,6 +1162,12 @@ extern "C" int nms_overlap(const void* cand, const void* valid, void* over,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// Whether nms_suppress stages a bitmask of K rows in shared memory (1) or
+// reads it in place (0): its rows padded to W + 1 words fit SUP_SMEM.
+extern "C" int nms_suppress_staged(int k) {
+  return (size_t)k * (((k + 31) >> 5) + 1) * 4 <= (size_t)SUP_SMEM;
+}
+
 // over [B, K, W] words, valid [B, K] bytes → keep [B, K] bytes (0 / 1).
 extern "C" int nms_suppress(const void* over, const void* valid, void* keep,
                             int batch, int k, void* stream) {
@@ -1082,14 +1177,13 @@ extern "C" int nms_suppress(const void* over, const void* valid, void* keep,
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
         nms_suppress_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        NMS_SMEM);
+        SUP_SMEM);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  // the bitmask staged with rows of W + 1 words, where it fits
-  const size_t bytes = (size_t)k * (((k + 31) >> 5) + 1) * 4;
-  const int staged = bytes <= (size_t)NMS_SMEM;
-  nms_suppress_kernel<<<(unsigned)batch, SUP_THREADS, staged ? bytes : 0,
+  const int staged = nms_suppress_staged(k);
+  nms_suppress_kernel<<<(unsigned)batch, SUP_THREADS,
+                        staged ? (size_t)k * (((k + 31) >> 5) + 1) * 4 : 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(over), static_cast<const uint8_t*>(valid),
       static_cast<uint8_t*>(keep), k, staged);

@@ -31,13 +31,29 @@
 // on one pixel, so a thread that walked one pixel's samples would set the
 // kernel's time by the longest pile.
 //
-// Forward design: one block per (roi, 32-channel chunk). The block first
-// turns the roi's SH * SW sample points into four tap offsets (-1 outside)
-// and four weights each, in shared memory; then each thread makes outputs
-// with the bin index fastest, so a warp reads 32 nearby sample windows of
-// one channel plane (a proposal covers a few dozen pixels, so those reads
-// hit the same lines) and writes 32 consecutive floats of the output. The
-// map is read as NCHW, in place: no channels-last copy is made.
+// Forward design. A thread an output reading its 16 taps from one NCHW
+// channel plane, a warp's lanes on 32 bins, issues 16 scattered 4-byte
+// loads an output and is bound by load issue, not bytes. So:
+//  * `roi_align_transpose_kernel` copies the map channels-last, [B, H, W,
+//    ldc] (ldc: C rounded up to a whole vector), so a pixel's channels are
+//    one row;
+//  * `roi_align_fwd_kernel` takes a roi a block, its bins in groups. Its
+//    threads turn a group's samples into taps once, one sample a thread:
+//    the cell's base offset, a 4-bit inside mask and the 4 weights, in
+//    shared memory. Then a warp makes a bin with its lanes on channels,
+//    VEC each (a float4 of fp32, 4 bf16, a double2 of fp64): each of a
+//    sample's taps is one coalesced read of a pixel's row (512 bytes at
+//    C = 128 in fp32), and a sample in the same cell as the one before it
+//    reads nothing. The bin's outputs go to a tile [bins of the group,
+//    channels] in shared memory, written out transposed, each channel's
+//    bins contiguous, so the [R, C, oh, ow] output is written coalesced.
+//    Channels past 32 VEC are further slices of the same staged taps.
+//    A roi's rows are read many times over, from L1 where they stay, so
+//    the kernel keeps its shared memory small and asks for a carve-out
+//    that leaves the rest of the SM's memory to L1.
+// Each output sums its samples in order, (((v0 + v1) + v2) + v3) a
+// sample, v the tap's value (0 outside) times its weight, then divides by
+// s^2: the plain version's operations, bit for bit under -fmad=false.
 //
 // Backward design, deterministic (no floating-point atomics), and
 // balanced however many samples fall on one cell. A sample's four taps are
@@ -95,8 +111,18 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CHANNELS = 32;          // channels a forward block makes
-constexpr int SMEM_MAX = 48 * 1024;   // the forward's staged sample taps
+constexpr int FWD_WARPS = 8;                   // the forward's warps a block
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+// The forward's blocks an SM: a block is a roi, whose taps read the rows of
+// a few dozen pixels (some 30 KB at C = 128 in fp32) many times over, from
+// L1 where they stay. The kernel asks for a shared-memory carve-out of
+// FWD_BLOCKS blocks, each staging the taps and holding the outputs of at
+// most FWD_GROUP bins (the 2st crops' 196 in 7 groups of 28: 17.5 KB in
+// fp32), so the rest of the SM's 256 KB stays L1.
+constexpr int FWD_BLOCKS = 6;
+constexpr int FWD_GROUP_MAX = 28;
+constexpr size_t FWD_SMEM_LIMIT = 227 * 1024;
+constexpr size_t SM_SMEM_MAX = 228 * 1024;     // the largest carve-out
 
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
@@ -108,11 +134,65 @@ __device__ __forceinline__ double load(const double* p, long long i) {
   return __ldg(p + i);
 }
 
-// The four taps of a sample at (x, y): offsets into an H x W plane (-1
-// where the tap lies outside) and their bilinear weights.
+// The map elements a forward lane loads at once from a channels-last row:
+// 16 bytes of fp32 or fp64, 8 of bf16, so a warp covers 128 channels of an
+// fp32 or bf16 map and 64 of an fp64 one.
+template <typename T> struct FwdVec;
+template <> struct FwdVec<float> { static constexpr int n = 4; };
+template <> struct FwdVec<__nv_bfloat16> { static constexpr int n = 4; };
+template <> struct FwdVec<double> { static constexpr int n = 2; };
+
+__device__ __forceinline__ void load_vec(const float* p, float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float v[4]) {
+  // bf16 → fp32 exactly: the 16 bits are the float's high half
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load_vec(const double* p, double v[2]) {
+  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+}
+// a sample's four staged weights, 16-byte aligned
+__device__ __forceinline__ void load_w(const float* p, float w[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  w[0] = q.x;
+  w[1] = q.y;
+  w[2] = q.z;
+  w[3] = q.w;
+}
+__device__ __forceinline__ void load_w(const double* p, double w[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  w[0] = a.x;
+  w[1] = a.y;
+  w[2] = b.x;
+  w[3] = b.y;
+}
+__device__ __forceinline__ void store_vec(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(double* p, const double v[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// The cell of a sample at (x, y) and its four taps: `base`, the offset of
+// tap 0 (y0, x0) in an H x W plane (y0 or x0 may be -1), taps 1-3 at base
+// + 1, base + W, base + W + 1; `mask`, bit t set where tap t lies inside;
+// and the taps' bilinear weights. Inside is decided on the floats before
+// any integer conversion: NaN and far-off values fail every test.
 template <typename S>
-__device__ __forceinline__ void taps(S x, S y, int H, int W, int off[4],
-                                     S w[4]) {
+__device__ __forceinline__ void cell_taps(S x, S y, int H, int W, int& base,
+                                          int& mask, S w[4]) {
   const S x0 = floor(x);
   const S y0 = floor(y);
   const S wx = x - x0;
@@ -122,70 +202,143 @@ __device__ __forceinline__ void taps(S x, S y, int H, int W, int off[4],
   w[1] = wx * (one - wy);
   w[2] = (one - wx) * wy;
   w[3] = wx * wy;
-  // the bounds on the floats: NaN and far-off values fail every test
   const bool xa = x0 >= S(0) && x0 <= S(W - 1);
   const bool xb = x0 >= S(-1) && x0 <= S(W - 2);
   const bool ya = y0 >= S(0) && y0 <= S(H - 1);
   const bool yb = y0 >= S(-1) && y0 <= S(H - 2);
   const int xi = (xa || xb) ? (int)x0 : 0;
   const int yi = (ya || yb) ? (int)y0 : 0;
-  off[0] = (ya && xa) ? yi * W + xi : -1;
-  off[1] = (ya && xb) ? yi * W + xi + 1 : -1;
-  off[2] = (yb && xa) ? (yi + 1) * W + xi : -1;
-  off[3] = (yb && xb) ? (yi + 1) * W + xi + 1 : -1;
+  base = yi * W + xi;
+  mask = (int)(ya && xa) | (int)(ya && xb) << 1 | (int)(yb && xa) << 2 |
+         (int)(yb && xb) << 3;
 }
 
-// out[r, c, bin] for rois r, channels c of the block's chunk. smem: the
-// roi's nsamp * 4 tap offsets, then nsamp * 4 weights.
-template <typename T, typename S>
-__global__ void __launch_bounds__(THREADS)
-    roi_align_fwd_kernel(const T* __restrict__ feat,
-                         const S* __restrict__ coords, S* __restrict__ out,
-                         int C, int H, int W, int N, int oh, int ow, int s) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int SW = ow * s;
-  const int nsamp = oh * s * SW;
-  int* soff = reinterpret_cast<int*>(smem);
-  S* sw = reinterpret_cast<S*>(smem + (((size_t)nsamp * 16 + 15) & ~15));
-  const long long r = blockIdx.x;
-  const int b = (int)(r / N);
-  const S* rc = coords + r * nsamp * 2;
-  for (int p = threadIdx.x; p < nsamp; p += THREADS) {
-    int off[4];
+// bytes of a forward block's staged taps for `n` samples: 4 weights each,
+// then a (base, mask) pair each, rounded up to 16
+__host__ __device__ inline size_t fwd_taps_bytes(int n, size_t s_bytes) {
+  return ((size_t)n * (4 * s_bytes + sizeof(int2)) + 15) & ~(size_t)15;
+}
+
+// Stages the taps of bins [g0, g0 + gn) of roi coords rc: sample q of the
+// group (bin g0 + q / s^2, its sample q % s^2 in row-major order) at q.
+template <typename S>
+__device__ __forceinline__ void stage_taps(const S* __restrict__ rc, S* sw,
+                                           int2* scell, int g0, int gn,
+                                           int s, int ow, int H, int W) {
+  const int ss = s * s, SW = ow * s;
+  for (int q = threadIdx.x; q < gn * ss; q += FWD_THREADS) {
+    const int bin = g0 + q / ss, sub = q - (q / ss) * ss;
+    const int i = bin / ow, j = bin - (bin / ow) * ow;
+    const int p = (i * s + sub / s) * SW + j * s + sub - (sub / s) * s;
+    int base, mask;
     S w[4];
-    taps<S>(rc[2 * p], rc[2 * p + 1], H, W, off, w);
+    cell_taps<S>(rc[2 * p], rc[2 * p + 1], H, W, base, mask, w);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      soff[4 * p + t] = off[t];
-      sw[4 * p + t] = w[t];
-    }
+    for (int t = 0; t < 4; ++t) sw[4 * q + t] = w[t];
+    scell[q] = make_int2(base, mask);
   }
-  __syncthreads();
+}
+
+// out[r, c, bin] of roi r from fhwc, the map channels-last [B, H, W, ldc].
+// The roi's bins go in groups of `group`: the block stages a group's taps
+// (while it writes out the group before), then for each slice of 32 * VEC
+// channels warp w makes bins w, w + 8, ... of the group, lane l channels
+// c0 + l VEC .. + VEC - 1 of each: a tap is one coalesced read of the
+// pixel's row, and a sample in the cell of the sample before it reuses
+// that sample's four rows. A bin's outputs go to the tile [group, ROW] in
+// shared memory (ROW: the slice plus 16 bytes, so the reads below hit 32
+// banks), which the block then writes out channel by channel, 8 bins by 4
+// channels a warp store, warp w channels 4w .. 4w + 3, 4w + 32, ... .
+template <typename T, typename S, int SS>
+__global__ void __launch_bounds__(FWD_THREADS)
+    roi_align_fwd_kernel(const T* __restrict__ fhwc,
+                         const S* __restrict__ coords, S* __restrict__ out,
+                         int C, int ldc, int H, int W, int N, int oh, int ow,
+                         int s_arg, int group) {
+  // SS: the samples a bin side where fixed at compile time (2, the
+  // detector's: the bin's 16 tap reads unrolled), 0 where given at run time
+  const int s = SS ? SS : s_arg;
+  constexpr int VEC = FwdVec<T>::n;
+  constexpr int SLICE = 32 * VEC;
+  constexpr int ROW = SLICE + 16 / (int)sizeof(S);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ss = s * s;
   const int bins = oh * ow;
-  const int c0 = blockIdx.y * CHANNELS;
-  const int nc = C - c0 < CHANNELS ? C - c0 : CHANNELS;
-  const long long plane = (long long)H * W;
-  const S n = S(s * s);
-  for (int e = threadIdx.x; e < nc * bins; e += THREADS) {
-    const int c = c0 + e / bins;
-    const int bin = e - (e / bins) * bins;
-    const int i = bin / ow;
-    const int j = bin - i * ow;
-    const T* f = feat + ((long long)b * C + c) * plane;
-    S acc = S(0);
-    for (int sy = 0; sy < s; ++sy) {
-      for (int sx = 0; sx < s; ++sx) {
-        const int p = (i * s + sy) * SW + j * s + sx;
-        S v[4];
+  S* sw = reinterpret_cast<S*>(smem);
+  int2* scell = reinterpret_cast<int2*>(sw + 4 * (size_t)group * ss);
+  S* tile = reinterpret_cast<S*>(smem + fwd_taps_bytes(group * ss,
+                                                        sizeof(S)));
+  const long long r = blockIdx.x;
+  const S* rc = coords + r * bins * ss * 2;
+  stage_taps<S>(rc, sw, scell, 0, min(group, bins), s, ow, H, W);
+  __syncthreads();
+#ifdef ROI_ALIGN_FWD_STAGE_ONLY
+  // a measurement build (scripts/torch_roi_align_fwd.py): the copy and
+  // the staging alone
+  for (int g0 = group; g0 < bins; g0 += group) {
+    __syncthreads();
+    stage_taps<S>(rc, sw, scell, g0, min(group, bins - g0), s, ow, H, W);
+  }
+  if (threadIdx.x == 0) out[r] = sw[0] + (S)scell[0].x;
+  return;
+#endif
+  const T* f = fhwc + (long long)(r / N) * H * W * ldc;
+  const S n = S(ss);
+  for (int g0 = 0; g0 < bins; g0 += group) {
+    const int gn = min(group, bins - g0);
+    for (int c0 = 0; c0 < C; c0 += SLICE) {
+      const int c = c0 + lane * VEC;
+      const bool active = c < C;
+      const int cs = min(SLICE, C - c0);
+      for (int k = warp; k < gn; k += FWD_WARPS) {
+        S acc[VEC] = {};
+        S v[4][VEC];
+        int2 last = make_int2(0, 0);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int o = soff[4 * p + t];
-          v[t] = (o >= 0 ? (S)load(f, o) : S(0)) * sw[4 * p + t];
+        for (int sub = 0; sub < (SS ? SS * SS : ss); ++sub) {
+          const int q = k * ss + sub;
+          const int2 cm = scell[q];
+          // the cell of the sample before: its four rows again
+          if (sub == 0 || cm.x != last.x || cm.y != last.y) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              if (active && ((cm.y >> t) & 1)) {
+                const long long o = cm.x + (t >> 1) * W + (t & 1);
+                load_vec(f + o * ldc + c, v[t]);
+              } else {
+#pragma unroll
+                for (int u = 0; u < VEC; ++u) v[t][u] = S(0);
+              }
+            }
+            last = cm;
+          }
+          S w[4];
+          load_w(sw + 4 * q, w);
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) {
+            const S val = ((v[0][u] * w[0] + v[1][u] * w[1]) +
+                           v[2][u] * w[2]) + v[3][u] * w[3];
+            acc[u] = sub == 0 ? val : acc[u] + val;
+          }
         }
-        acc = acc + (((v[0] + v[1]) + v[2]) + v[3]);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) acc[u] = acc[u] / n;
+        store_vec(tile + k * ROW + lane * VEC, acc);
       }
+      __syncthreads();
+      for (int cc = 4 * warp + (lane >> 3); cc - (lane >> 3) < cs;
+           cc += 4 * FWD_WARPS) {
+        S* dst = out + (r * C + c0 + cc) * bins + g0;
+        for (int k = lane & 7; k - (lane & 7) < gn; k += 8)
+          if (cc < cs && k < gn) dst[k] = tile[k * ROW + cc];
+      }
+      // the next group's taps, while the tile goes out
+      if (c0 + SLICE >= C && g0 + group < bins)
+        stage_taps<S>(rc, sw, scell, g0 + group,
+                      min(group, bins - g0 - group), s, ow, H, W);
+      __syncthreads();
     }
-    out[(r * C + c) * bins + bin] = acc / n;
   }
 }
 
@@ -214,13 +367,14 @@ __global__ void roi_align_keys_kernel(const S* __restrict__ coords,
                    : ncells;
 }
 
-// dst [R, L, C] = src [R, C, L] transposed, 32 x 32 tiles through shared
-// memory (both sides coalesced): the crops' gradient with a bin's channels
-// side by side.
+// dst [R, L, ldc] = src [R, C, L] transposed (channels C .. ldc - 1 of
+// dst left as they are), 32 x 32 tiles through shared memory (both sides
+// coalesced): the crops' gradient with a bin's channels side by side, and
+// the map channels-last for the forward.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     roi_align_transpose_kernel(const T* __restrict__ src, T* __restrict__ dst,
-                               int C, int L) {
+                               int C, int L, int ldc) {
   __shared__ T tile[32][33];
   const long long r = blockIdx.x;
   const int c0 = blockIdx.y * 32, l0 = blockIdx.z * 32;
@@ -231,19 +385,19 @@ __global__ void __launch_bounds__(THREADS)
     if (c < C && l < L) tile[i][tx] = in[(long long)c * L + l];
   }
   __syncthreads();
-  T* out = dst + r * L * C;
+  T* out = dst + r * L * ldc;
   for (int i = ty; i < 32; i += THREADS / 32) {
     const int l = l0 + i, c = c0 + tx;
-    if (l < L && c < C) out[(long long)l * C + c] = tile[tx][i];
+    if (l < L && c < C) out[(long long)l * ldc + c] = tile[tx][i];
   }
 }
 
 template <typename T>
-void transpose(const T* src, T* dst, long long R, int C, int L,
+void transpose(const T* src, T* dst, long long R, int C, int L, int ldc,
                cudaStream_t stream) {
   roi_align_transpose_kernel<T>
       <<<dim3((unsigned)R, (C + 31) / 32, (L + 31) / 32), THREADS, 0,
-         stream>>>(src, dst, C, L);
+         stream>>>(src, dst, C, L, ldc);
 }
 
 // The walk: chunk e of the sorted samples to warp e % GROUPS of block
@@ -505,23 +659,64 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-size_t fwd_smem(int nsamp, size_t s_bytes) {
-  return (((size_t)nsamp * 16 + 15) & ~(size_t)15) + (size_t)nsamp * 4 * s_bytes;
+// the channels-last map's row stride: C rounded up to a whole load
+template <typename T>
+int fwd_ldc(int C) {
+  constexpr int VEC = FwdVec<T>::n;
+  return (C + VEC - 1) / VEC * VEC;
+}
+
+// The forward: the map copied channels-last into fhwc [B, H, W, ldc], then
+// a block a roi, its bins in balanced groups of at most FWD_GROUP_MAX.
+template <typename T, typename S, int SS>
+cudaError_t launch_crops(const T* f, const S* coords, S* out, int B, int C,
+                         int ldc, int H, int W, int N, int oh, int ow, int s,
+                         cudaStream_t stream) {
+  constexpr int ROW = 32 * FwdVec<T>::n + 16 / (int)sizeof(S);
+  const int bins = oh * ow;
+  // a bin's staged taps and its tile row
+  const size_t per_bin = fwd_taps_bytes(s * s, sizeof(S)) + ROW * sizeof(S);
+  if (per_bin > FWD_SMEM_LIMIT) return cudaErrorInvalidValue;
+  int most = (int)(FWD_SMEM_LIMIT / per_bin);
+  most = most < FWD_GROUP_MAX ? most : FWD_GROUP_MAX;
+  most = most < bins ? most : bins;
+  const int groups = (bins + most - 1) / most;
+  const int group = (bins + groups - 1) / groups;
+  const size_t smem = fwd_taps_bytes(group * s * s, sizeof(S)) +
+                      group * ROW * sizeof(S);
+  // the carve-out for FWD_BLOCKS blocks (each also reserves 1 KB), as a
+  // share of the largest
+  const size_t want = FWD_BLOCKS * (smem + 1024);
+  const int carveout =
+      want >= SM_SMEM_MAX ? 100 : (int)((want * 100 + SM_SMEM_MAX - 1) /
+                                        SM_SMEM_MAX);
+  auto kernel = roi_align_fwd_kernel<T, S, SS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_SMEM_LIMIT);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)((long long)B * N), FWD_THREADS, smem, stream>>>(
+      f, coords, out, C, ldc, H, W, N, oh, ow, s, group);
+  return cudaGetLastError();
 }
 
 template <typename T, typename S>
-cudaError_t launch_fwd(const void* feat, const void* coords, void* out, int B,
-                       int C, int H, int W, int N, int oh, int ow, int s,
-                       cudaStream_t stream) {
-  const int nsamp = oh * s * ow * s;
-  const size_t smem = fwd_smem(nsamp, sizeof(S));
-  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((long long)B * N),
-                  (unsigned)((C + CHANNELS - 1) / CHANNELS));
-  roi_align_fwd_kernel<T, S><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(feat), static_cast<const S*>(coords),
-      static_cast<S*>(out), C, H, W, N, oh, ow, s);
-  return cudaGetLastError();
+cudaError_t launch_fwd(const void* feat, const void* coords, void* fhwc,
+                       void* out, int B, int C, int H, int W, int N, int oh,
+                       int ow, int s, cudaStream_t stream) {
+  if (((long long)H * W + 31) / 32 > 65535) return cudaErrorInvalidValue;
+  const int ldc = fwd_ldc<T>(C);
+  T* f = static_cast<T*>(fhwc);
+  transpose<T>(static_cast<const T*>(feat), f, B, C, H * W, ldc, stream);
+  const S* co = static_cast<const S*>(coords);
+  S* o = static_cast<S*>(out);
+  return s == 2 ? launch_crops<T, S, 2>(f, co, o, B, C, ldc, H, W, N, oh, ow,
+                                        s, stream)
+                : launch_crops<T, S, 0>(f, co, o, B, C, ldc, H, W, N, oh, ow,
+                                        s, stream);
 }
 
 template <typename T, typename S, int VEC>
@@ -557,7 +752,7 @@ cudaError_t launch_bwd(const void* feat, const void* coords, const void* grad,
   int* fl = static_cast<int*>(flags);
   int* head_key = static_cast<int*>(keys);
   int* tail_key = head_key + chunks;
-  transpose<S>(static_cast<const S*>(grad), g, R, C, oh * ow, stream);
+  transpose<S>(static_cast<const S*>(grad), g, R, C, oh * ow, C, stream);
   const int* so = static_cast<const int*>(sorted);
   const long long* pm = static_cast<const long long*>(perm);
   const S* co = static_cast<const S*>(coords);
@@ -601,23 +796,35 @@ bool shapes_ok(int B, int C, int H, int W, int N, int oh, int ow, int s) {
 }  // namespace
 
 // feat_type: 0 bf16 map with fp32 coordinates, 1 fp32 with fp32, 2 fp64
-// with fp64. feat [B, C, H, W], coords [B, N, oh * s, ow * s, 2] →
-// out [B * N, C, oh, ow] in the coordinates' dtype.
-extern "C" int roi_align_fwd(const void* feat, const void* coords, void* out,
-                             int feat_type, int B, int C, int H, int W, int N,
-                             int oh, int ow, int s, void* stream) {
+// with fp64. The row stride of the forward's channels-last copy of a map
+// of C channels (its scratch takes B * H * W * ldc map elements).
+extern "C" int roi_align_fwd_ldc(int feat_type, int C) {
+  switch (feat_type) {
+    case 0: return fwd_ldc<__nv_bfloat16>(C);
+    case 1: return fwd_ldc<float>(C);
+    case 2: return fwd_ldc<double>(C);
+  }
+  return -1;
+}
+
+// feat [B, C, H, W], coords [B, N, oh * s, ow * s, 2], fhwc scratch (see
+// roi_align_fwd_ldc) → out [B * N, C, oh, ow] in the coordinates' dtype.
+extern "C" int roi_align_fwd(const void* feat, const void* coords,
+                             void* fhwc, void* out, int feat_type, int B,
+                             int C, int H, int W, int N, int oh, int ow,
+                             int s, void* stream) {
   if (!shapes_ok(B, C, H, W, N, oh, ow, s)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (feat_type) {
     case 0:
-      return (int)launch_fwd<__nv_bfloat16, float>(feat, coords, out, B, C, H,
-                                                   W, N, oh, ow, s, st);
+      return (int)launch_fwd<__nv_bfloat16, float>(feat, coords, fhwc, out, B,
+                                                   C, H, W, N, oh, ow, s, st);
     case 1:
-      return (int)launch_fwd<float, float>(feat, coords, out, B, C, H, W, N,
-                                           oh, ow, s, st);
+      return (int)launch_fwd<float, float>(feat, coords, fhwc, out, B, C, H,
+                                           W, N, oh, ow, s, st);
     case 2:
-      return (int)launch_fwd<double, double>(feat, coords, out, B, C, H, W, N,
-                                             oh, ow, s, st);
+      return (int)launch_fwd<double, double>(feat, coords, fhwc, out, B, C, H,
+                                             W, N, oh, ow, s, st);
   }
   return (int)cudaErrorInvalidValue;
 }

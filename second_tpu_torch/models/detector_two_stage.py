@@ -146,17 +146,18 @@ def predict_two_stage(spec, preds, anchors):
 
 
 def build_two_stage_voxelnet(cfg, num_proposals: int = 512, device="cuda",
-                             mixed_precision: bool = False, seed: int = 0):
+                             seed: int = 0):
     """ModelConfig → (module, spec, info, assigner, coder), two-stage: the
     one-stage builder's stage 1 (without an IoU head, as in JAX), the refine
     head on the trunk's channels, `num_proposals` proposals an example. The
     module is in eval mode on `device` (the CUDA card unless the caller
-    asks for the CPU), with weights drawn by `init_weights_` from `seed`;
-    under `mixed_precision` stage 1 computes as the one-stage model does,
-    the head in fp32."""
+    asks for the CPU), with weights drawn by `init_weights_` from `seed`.
+    Stage 1 and the head compute in fp32 whatever the config's
+    `enable_mixed_precision`: JAX's builder calls `build_voxelnet(cfg)`
+    with its default, no mixed precision."""
     from .build import init_weights_, voxelnet_args
     dev = resolve_device(device)
-    args, info, assigner, coder = voxelnet_args(cfg, mixed_precision)
+    args, info, assigner, coder = voxelnet_args(cfg)
     vg = cfg.voxel_generator
     roi = RoiSpec(pc_range=tuple(vg.point_cloud_range),
                   voxel_size=tuple(vg.voxel_size),

@@ -398,6 +398,59 @@ def nms_suppress_plain(over_bits, valid):
     return kept
 
 
+def nms_suppress_walk_plain(over_bits, valid, rounds=None):
+    """The suppression kernel's walk in plain PyTorch, the mirror the CPU
+    tests hold to `nms_suppress_plain` and to JAX's greedy suppression:
+    over bitmask [B, K, W] (strictly upper), valid [B, K] → keep [B, K].
+    The rows go in words of 32. Each row's earlier rows of its own word
+    that suppress it (the word's diagonal block transposed) are taken
+    first. Word g is settled against the rows removed before it, by the
+    kept rows of words g - 3 and earlier (the kernel's helpers, run ahead)
+    and of words g - 2 and g - 1 (the walk's own ORs), by rounds: an open
+    row is removed once a kept row suppresses it, kept once no row before
+    it is open and none kept suppresses it. Then word g's kept rows remove
+    their overlaps in the later words. `rounds`, a list where given, gets
+    each word's rounds (0 where no row has an open predecessor in its
+    word: the kernel then keeps the open rows without a round)."""
+    B, K = valid.shape
+    W = (K + 31) // 32
+    pad = 32 * W - K
+    over = torch.nn.functional.pad(unpack_bits(over_bits, K),
+                                   (0, pad, 0, pad))
+    vpad = torch.nn.functional.pad(valid, (0, pad))
+    earlier = torch.ones(32, 32, dtype=torch.bool,
+                         device=valid.device).tril(-1)
+    keep = torch.zeros_like(vpad)
+    for b in range(B):
+        # the helpers' masks (words g + 3 on) and the walk's (words g + 1
+        # and g + 2)
+        removed = torch.zeros(W, 32, dtype=torch.bool, device=valid.device)
+        ahead = torch.zeros_like(removed)
+        for g in range(W):
+            rows = slice(32 * g, 32 * g + 32)
+            # pred[t, r]: row r of the word suppresses its row t
+            pred = over[b, rows, rows].T & earlier
+            open_ = vpad[b, rows] & ~(removed[g] | ahead[g])
+            kept = torch.zeros_like(open_)
+            n = 0
+            if (pred & open_[None, :]).any():
+                while open_.any():
+                    newly = open_ & ~(pred & (kept | open_)).any(1)
+                    gone = open_ & (pred & kept).any(1)
+                    kept |= newly
+                    open_ &= ~(newly | gone)
+                    n += 1
+            else:
+                kept = open_
+            if rounds is not None:
+                rounds.append(n)
+            keep[b, rows] = kept
+            hit = over[b, rows][kept].any(0).view(W, 32)
+            ahead[g + 1:g + 3] |= hit[g + 1:g + 3]
+            removed[g + 3:] |= hit[g + 3:]
+    return keep[:, :K]
+
+
 def _check_batch(name, tensor, valid, inner):
     if valid.dim() != 2 or tensor.shape[:2] != valid.shape or \
             tuple(tensor.shape[2:]) != inner:

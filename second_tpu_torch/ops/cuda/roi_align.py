@@ -11,6 +11,9 @@ whose forward launches `roi_align_fwd` and whose backward launches the
 backward kernels (`roi_align_bwd`: the map's gradient, fp32, and the
 coordinates' gradient, deterministic); on a CPU tensor the plain version,
 `roi_align_plain`, the vectorised gather JAX computes, under autograd.
+`roi_align_fwd_cells_plain` is the forward kernel's order of work in plain
+PyTorch (the map channels-last, each sample's staged cell and weights, a
+tile [R, bins, C] written out transposed), bitwise the plain version's.
 `roi_align_bwd_cells_plain` is the backward's bookkeeping in plain PyTorch
 (one key a sample, its cell; partial sums per (cell, corner); each pixel's
 fixed-order sum of the partials whose corner it is), the mirror the CPU
@@ -39,8 +42,8 @@ launches_bwd = 0
 # the map's dtype and the coordinates' it pairs with → the kernel's type code
 _TYPES = {(torch.bfloat16, torch.float32): 0, (torch.float32, torch.float32): 1,
           (torch.float64, torch.float64): 2}
-# feat, coords, out, type, B, C, H, W, N, oh, ow, s, stream
-_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# feat, coords, fhwc, out, type, B, C, H, W, N, oh, ow, s, stream
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # coords, keys, double, B, H, W, N, oh, ow, s, stream
 _KEYS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
@@ -49,13 +52,15 @@ _KEYS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + \
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + \
     [ctypes.c_void_p]
 _fwd_launch = None
+_fwd_ldc = None
 _keys_launch = None
 _bwd_launch = None
 _chunks = None
 
 
 def _resolve_fwd():
-    global _fwd_launch
+    global _fwd_launch, _fwd_ldc
+    _fwd_ldc = function("roi_align", "roi_align_fwd_ldc", [ctypes.c_int] * 2)
     _fwd_launch = function("roi_align", "roi_align_fwd", _FWD_ARGTYPES)
     return _fwd_launch
 
@@ -82,6 +87,68 @@ def roi_align_plain(feat, coords, samples):
                               coords[..., 1], bidx)   # [B, N, SH, SW, C]
     out = bin_mean(sampled, samples)                   # [B, N, oh, ow, C]
     return out.reshape(B * N, *out.shape[2:]).permute(0, 3, 1, 2)
+
+
+def roi_align_fwd_cells_plain(feat, coords, samples):
+    """The forward kernel's order of work in plain PyTorch, the mirror the
+    CPU tests hold to `roi_align_plain` (bitwise) and to JAX's: the map
+    copied channels-last with rows of `ldc` (C rounded up to the kernel's
+    load width: 4 elements, 2 of fp64), one pixel's channels a row; each sample's cell as
+    the kernel stages it (`sample_taps`); each sample's value summed from
+    the rows of its taps inside the map, (((v0 + v1) + v2) + v3) with v the
+    row times the tap's weight (0 outside), the bin's samples in order,
+    divided by s^2, into a tile [R, bins, C]; the tile written out as
+    [R, C, oh, ow]."""
+    B, N, SH, SW, _ = coords.shape
+    C, H, W = feat.shape[1:]
+    s = samples
+    vec = 2 if feat.dtype == torch.float64 else 4
+    ldc = -(-C // vec) * vec
+    rows = torch.zeros((B * H * W, ldc), dtype=feat.dtype,
+                       device=feat.device)
+    rows[:, :C] = feat.permute(0, 2, 3, 1).reshape(B * H * W, C)
+    base, mask, w = sample_taps(coords, H, W)
+    # the example's first pixel: the kernel offsets its map pointer by it
+    start = (torch.arange(B, device=feat.device) * (H * W)).view(B, 1, 1, 1)
+    val = None
+    for t in range(4):
+        inside = (mask >> t) & 1 == 1
+        pixel = torch.where(inside, base + (t >> 1) * W + (t & 1), 0) + start
+        v = torch.where(inside[..., None], rows[pixel.reshape(-1)].view(
+            *pixel.shape, ldc)[..., :C], 0) * w[..., t, None]
+        val = v if val is None else val + v
+    oh, ow = SH // s, SW // s
+    x = val.reshape(B * N, oh, s, ow, s, C)
+    acc = None
+    for sy in range(s):
+        for sx in range(s):
+            v = x[:, :, sy, :, sx]
+            acc = v if acc is None else acc + v
+    tile = (acc / (s * s)).reshape(B * N, oh * ow, C)
+    return tile.transpose(1, 2).reshape(B * N, C, oh, ow)
+
+
+def sample_taps(coords, H: int, W: int):
+    """coords [B, N, SH, SW, 2] → (base, mask, weights), what the forward
+    kernel stages a sample: base [B, N, SH, SW] int64, the offset in an
+    H x W plane of tap 0 (y0, x0), y0 and x0 possibly -1 (taps 1-3 at base
+    + 1, base + W, base + W + 1); mask, bit t set where tap t lies inside
+    the map, decided on the floats; the four bilinear weights [..., 4] in
+    the coordinates' dtype."""
+    x, y = coords[..., 0], coords[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    w = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                     wx * wy], -1)
+    xa = (x0 >= 0) & (x0 <= W - 1)
+    xb = (x0 >= -1) & (x0 <= W - 2)
+    ya = (y0 >= 0) & (y0 <= H - 1)
+    yb = (y0 >= -1) & (y0 <= H - 2)
+    xi = torch.where(xa | xb, x0, 0.0).long()
+    yi = torch.where(ya | yb, y0, 0.0).long()
+    mask = (ya & xa).long() | (ya & xb).long() << 1 | \
+        (yb & xa).long() << 2 | (yb & xb).long() << 3
+    return yi * W + xi, mask, w
 
 
 def roi_align_backward_plain(feat, coords, grad, samples):
@@ -196,8 +263,10 @@ def _check(feat, coords, samples):
 
 
 def roi_align_fwd(feat, coords, samples):
-    """The forward kernel on CUDA tensors (no autograd): [B * N, C, SH / s,
-    SW / s] in the coordinates' dtype."""
+    """The forward kernels on CUDA tensors (no autograd): the map copied
+    channels-last, then the crops [B * N, C, SH / s, SW / s] in the
+    coordinates' dtype, bitwise `roi_align_plain`'s
+    (`roi_align_fwd_cells_plain` mirrors its order of work)."""
     code = _check(feat, coords, samples)
     B, N, SH, SW, _ = coords.shape
     C, H, W = feat.shape[1:]
@@ -207,9 +276,13 @@ def roi_align_fwd(feat, coords, samples):
     if out.numel() == 0:
         return out
     feat, coords = feat.contiguous(), coords.contiguous()
-    rc = (_fwd_launch or _resolve_fwd())(
-        feat.data_ptr(), coords.data_ptr(), out.data_ptr(), code, B, C, H, W,
-        N, oh, ow, samples, stream_ptr(feat.device))
+    launch = _fwd_launch or _resolve_fwd()
+    # the map channels-last, the kernel's scratch
+    fhwc = torch.empty((B * H * W * _fwd_ldc(code, C),), dtype=feat.dtype,
+                       device=feat.device)
+    rc = launch(feat.data_ptr(), coords.data_ptr(), fhwc.data_ptr(),
+                out.data_ptr(), code, B, C, H, W, N, oh, ow, samples,
+                stream_ptr(feat.device))
     check("roi_align", rc)
     global launches
     launches += 1

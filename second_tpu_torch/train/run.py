@@ -140,12 +140,17 @@ class Trainer:
         # keep the resolved config beside the run (reference train.py:114-122)
         shutil.copy(config_path, self.model_dir / "pipeline.config")
 
-        build = build_voxelnet if model_type == "one_stage" \
-            else build_two_stage_voxelnet
-        (self.module, self.spec, self.info, self.assigner,
-         self.coder) = build(
-            self.cfg.model, device=self.device,
-            mixed_precision=self.cfg.train_config.enable_mixed_precision)
+        # the two-stage model is fp32 on every config, as JAX's `Trainer`
+        # builds it (`build_two_stage_voxelnet(cfg.model)`)
+        if model_type == "one_stage":
+            (self.module, self.spec, self.info, self.assigner,
+             self.coder) = build_voxelnet(
+                self.cfg.model, device=self.device,
+                mixed_precision=self.cfg.train_config.enable_mixed_precision)
+        else:
+            (self.module, self.spec, self.info, self.assigner,
+             self.coder) = build_two_stage_voxelnet(self.cfg.model,
+                                                    device=self.device)
         # shuffle_overflow: the train cap is sized for memory (reference
         # trains fhd at 16k voxels vs 40k eval, config `:121-123`) so
         # overflow is expected — drop a pseudorandom subset, not the

@@ -236,12 +236,13 @@ def test_gather_gemm_rejects_too_many_taps_in_bf16(dev):
                                                               device=dev))
 
 
-def _fp64_errors(feats, tap_idx, found, w, got):
+def _fp64_errors(feats, tap_idx, found, w, got,
+                 plain_fn=subm.gather_gemm_plain):
     """(the kernel's error, the fp32 plain version's error) against the
-    plain version in fp64 on the same inputs, each the largest absolute
-    error over the largest |reference|."""
-    want = subm.gather_gemm_plain(feats.double(), tap_idx, found, w.double())
-    plain = subm.gather_gemm_plain(feats, tap_idx, found, w)
+    plain version (`plain_fn`) in fp64 on the same inputs, each the largest
+    absolute error over the largest |reference|."""
+    want = plain_fn(feats.double(), tap_idx, found, w.double())
+    plain = plain_fn(feats, tap_idx, found, w)
     scale = max(want.abs().max().item(), 1e-30)
     return ((got.double() - want).abs().max().item() / scale,
             (plain.double() - want).abs().max().item() / scale)
@@ -443,6 +444,46 @@ def test_nms_suppress_matches_plain(dev, K, B):
         assert not got[1].any()
     if K >= 1000:
         assert 0 < int(got[0].sum()) < int(valid[0].sum())
+
+
+@pytest.mark.parametrize("B", [1, 4, 9])
+@pytest.mark.parametrize("kind", ["random", "chain", "invalid"])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 2048, 4096])
+def test_nms_suppress_walk(dev, K, kind, B):
+    """The suppression at the sizes that stage the bitmask in shared memory
+    (K up to 1000 here) and those that read it in place (2048, 4096), with
+    batches of 1, 4 and 9: random bitmasks keep what the plain frontier
+    rounds keep; a chain (each row overlapping the next, every row valid:
+    K / 2 frontier rounds) keeps every other row, as the plain walk mirror
+    does; all rows invalid keep nothing. One launch each."""
+    g = torch.Generator().manual_seed(K * 3 + B)
+    if kind == "chain":
+        valid = torch.ones(B, K, dtype=torch.bool)
+        over = torch.zeros(B, K, K, dtype=torch.bool)
+        i = torch.arange(K - 1)
+        over[:, i, i + 1] = True
+    else:
+        valid = torch.rand(B, K, generator=g) > (0.2 if kind == "random"
+                                                 else 1.0)
+        over = torch.triu(torch.rand(B, K, K, generator=g) <
+                          4.0 / max(K, 1), 1)
+        over &= valid[:, :, None] & valid[:, None, :]
+    bits = riou.pack_bits(over.to(dev))
+    valid = valid.to(dev)
+    before = riou.launches_suppress
+    got = riou.nms_suppress(bits, valid)
+    assert riou.launches_suppress == before + 1
+    assert got.dtype == torch.bool and got.shape == (B, K)
+    if kind == "chain":
+        want = (torch.arange(K, device=dev) % 2 == 0).expand(B, K)
+        assert torch.equal(got, want)
+        if K <= 1000:
+            assert torch.equal(got.cpu(), riou.nms_suppress_walk_plain(
+                bits.cpu(), valid.cpu()))
+    else:
+        assert torch.equal(got, riou.nms_suppress_plain(bits, valid))
+    if kind == "invalid":
+        assert not got.any()
 
 
 def test_nms_kernels_reject_what_they_cannot_take(dev):
@@ -659,6 +700,25 @@ def test_sparse_wgrad_chunks_of_many_stages(dev, dtype, monkeypatch):
     assert any(c * chunk_rows < Q < (c + 1) * chunk_rows
                for c in range(chunks))
     _run_wgrad(*_wgrad_case(dev, dtype, B, 5000, Q, K, 32, 64, 0.1))
+
+
+@pytest.mark.parametrize("per_sm", [6, 1])
+@pytest.mark.parametrize("fill", [0.15, 1.0])
+def test_sparse_wgrad_fp32_accurate(dev, monkeypatch, per_sm, fill):
+    """The fp32 weight gradient against the plain version in fp64: at most
+    FP32_ERR_RATIO times the fp32 plain version's own error, at the main
+    path's widest conv, features >= 0 as a ReLU leaves them (their sums
+    drift one way), with the chunks of the card's grid and with one block
+    an SM (four chunks a tap on a 132-SM card, 16 384 rows each: a long
+    compensated sum of tile sums)."""
+    monkeypatch.setattr(subm, "WGRAD_BLOCKS_PER_SM", per_sm)
+    feats, tap_idx, found, dout = _wgrad_case(
+        dev, torch.float32, 4, 12_000, 16_384, 27, 64, 64, fill, seed=26)
+    args = (feats.abs(), tap_idx, found, dout)
+    got, _ = _run_wgrad(*args)
+    err, plain_err = _fp64_errors(*args, got,
+                                  plain_fn=subm.gather_gemm_wgrad_plain)
+    assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
 
 
 def test_sparse_wgrad_runs_without_host_sync(dev):
@@ -1232,6 +1292,39 @@ def test_roi_align_forward_matches_plain(dev, dtype, kind):
     if kind == "far":
         assert (got.view(2, 7, -1)[:, ::3] == 0).all()
         assert (got.view(2, 7, -1)[:, 2::3] == 0).all()
+
+
+@pytest.mark.parametrize("samples", [1, 2])
+@pytest.mark.parametrize("C", [1, 33, 64, 128, 160])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_roi_align_forward_is_plain_bitwise(dev, dtype, C, samples):
+    """The forward kernels (the channels-last copy, the crops) give the
+    plain version's crops bit for bit, NaNs included: rois half off the
+    map (every other one straddling an edge), one far off it, one NaN and
+    one whose samples all land in one pixel; one launch."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    from second_tpu_torch.ops.roi_align_rotated import sample_points
+    g = torch.Generator().manual_seed(C + 10 * samples)
+    B, N, H, W = 2, 9, 30, 25
+    cdt = torch.float64 if dtype == torch.float64 else torch.float32
+    rois = _rois(g, B, N, H, W, "edge")
+    rois[:, 1, :2] = torch.tensor([3.0e6, -7000.5], dtype=rois.dtype)
+    rois[:, 3, :4] = torch.tensor([W // 2 + 0.5, H // 2 + 0.5, 0.2, 0.1],
+                                  dtype=rois.dtype)
+    rois[:, 5, 0] = float("nan")
+    feat = torch.randn(B, C, H, W, generator=g).to(dtype).to(dev)
+    coords = sample_points(rois.to(cdt), (14, 14), samples).to(dev)
+    before = ra.launches
+    got = ra.roi_align(feat, coords, samples)
+    assert ra.launches == before + 1
+    want = ra.roi_align_plain(feat, coords, samples)
+    assert got.shape == want.shape == (B * N, C, 14, 14)
+    assert got.dtype == want.dtype == cdt
+    assert _same_bits(got, want)
+    crops = got.reshape(B, N, -1)
+    assert torch.isnan(crops[:, 5]).all() and (crops[:, 1] == 0).all()
+    assert not torch.isnan(crops[:, 3]).any()
 
 
 @pytest.mark.parametrize("out,s,C", [((14, 14), 2, 128), ((3, 5), 1, 1),
