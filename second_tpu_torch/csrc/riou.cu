@@ -980,79 +980,187 @@ __global__ void __launch_bounds__(SUP_THREADS)
 // candidates (`standup_iou_matrix`) thresholded, here written directly as
 // the strictly-upper bitmask of valid pairs [B, K, ceil(K / 32)] that
 // `nms_suppress` reads. Bound on the H100: operations. K(K-1)/2 pair tests
-// an example (STANDUP_TEST_OPS, below) against a bitmask of K²/8 bytes
-// (2 MB for the proposals' NMS, batch 4 of K = 2048). Design: a block of
-// 32 x 8 threads makes 8 rows by 32 words; it stages the 1024 boxes of its
-// words' columns, their areas and valid flags in shared memory, each
-// thread holds its row's box in registers and tests 32 columns into one
-// word, so a warp writes 32 consecutive words of a row. The IoU is
-// computed in `standup_iou_matrix`'s order of operations (`eps` 0 adds
-// nothing a comparison could see), so the bits equal the plain version's.
-// torch.maximum / torch.minimum: NaN if either operand is NaN
+// an example (STANDUP_TEST_OPS in chip_smoke.py) against 16 K bytes of
+// boxes and a bitmask of K²/8 bytes (2 MB for the proposals' NMS, batch 4
+// of K = 2048). Most pairs do not meet (1.8% do on that call), so the
+// design keeps such a pair to four compares and a vote.
+// Design: a block of SU_WORDS warps makes a tile of SU_ROWS rows by
+// SU_WORDS words. The grid holds the tiles that can set a bit first,
+// spread evenly over the SMs, then a block a row tile that writes the
+// zeros of the tiles wholly at or below the diagonal, with no load and no
+// test. Warp 0 stages a tile's valid rows in shared memory, compacted (an
+// invalid row tests nothing and its words stay 0); every lane reads a row
+// at one address. Each warp owns one word, a lane one column, whose box
+// and area it keeps in registers, and walks the valid rows before its
+// word's last column: a row's meet test is `j > i` and four compares of
+// the boxes' sides, one vote. Only the lanes whose boxes meet take the
+// widths, product, union and quotient (a lane dividing 0 would take the
+// IEEE division's slow path); the ballot of `iou > thr` is the row's word,
+// kept by the lane of the row's rank. The words go through a shared tile
+// and leave as each row's run of SU_WORDS words.
+// A box with a NaN, or empty in x or y, meets no box: it is staged as the
+// empty box (+inf, +inf, -inf, -inf), and so is an invalid column. For
+// the others `min(x2) - max(x1) > 0` holds exactly where both boxes' x2
+// lie after both x1 (a difference of floats rounds to 0 only when they
+// are equal), and the same in y, so the four compares decide the premise
+// of `inter > 0`. The IoU is computed in `standup_iou_matrix`'s order of
+// operations (`eps` 0 adds nothing a comparison could see), so the bits
+// equal the plain version's. A threshold below 0 also sets the valid
+// pairs that do not meet (their IoU is 0).
+constexpr int SU_ROWS = 32;   // rows a tile, a lane's each
+constexpr int SU_WORDS = 8;   // words a tile, a warp each
+constexpr int SU_THREADS = 32 * SU_WORDS;
+
 template <typename S>
-__device__ __forceinline__ S nan_max(S a, S b) {
-  return a != a ? a : (b != b ? b : (a > b ? a : b));
-}
-template <typename S>
-__device__ __forceinline__ S nan_min(S a, S b) {
-  return a != a ? a : (b != b ? b : (a < b ? a : b));
+struct alignas(16) SuBox {
+  S x1, y1, x2, y2;
+};
+
+// The live row tiles of word tile tx: those whose first row lies before
+// the tile's last column (a tile at or below the diagonal sets no bit).
+__host__ __device__ __forceinline__ int su_live_rows(int tx, int k) {
+  const int end = 32 * SU_WORDS * (tx + 1);
+  const int last = (end < k ? end : k) - 1;
+  return (last + SU_ROWS - 1) / SU_ROWS;
 }
 
 template <typename S>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ SuBox<S> standup_box(const S* __restrict__ c) {
+  SuBox<S> b{c[0], c[1], c[2], c[3]};
+  if (!(b.x2 > b.x1 && b.y2 > b.y1))  // NaN, or empty in x or y
+    b = SuBox<S>{S(INFINITY), S(INFINITY), S(-INFINITY), S(-INFINITY)};
+  return b;
+}
+
+// Block `id` of the grid: the live tiles of every example first (word tile
+// by word tile, each's row tiles in order), so that they spread evenly
+// over the SMs; then a block a row tile, which writes the words of the
+// tiles at or below the diagonal, those before its first live tile.
+__device__ __forceinline__ void su_tile(int id, int batch, int k,
+                                        int live_tiles, int& b, int& tx,
+                                        int& ty, bool& live) {
+  const int rows = (k + SU_ROWS - 1) / SU_ROWS;
+  const int all_live = batch * live_tiles;
+  live = id < all_live;
+  if (live) {
+    b = id / live_tiles;
+    int t = id - b * live_tiles;
+    for (tx = 0;; ++tx) {
+      const int n = su_live_rows(tx, k);
+      if (t < n) break;
+      t -= n;
+    }
+    ty = t;
+  } else {
+    id -= all_live;
+    b = id / rows;
+    ty = id - b * rows;
+    const int words = (((k + 31) >> 5) + SU_WORDS - 1) / SU_WORDS;
+    tx = 0;
+    while (tx < words && su_live_rows(tx, k) <= ty) ++tx;
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(SU_THREADS)
     standup_overlap_kernel(const S* __restrict__ cand,
                            const uint8_t* __restrict__ valid,
-                           uint32_t* __restrict__ over, int k, S thr) {
-  __shared__ S sbox[1024][4];
-  __shared__ S sarea[1024];
-  __shared__ uint8_t sok[1024];
-  const int b = blockIdx.z;
+                           uint32_t* __restrict__ over, int batch, int k,
+                           int live_tiles, S thr) {
+  __shared__ SuBox<S> srow_box[SU_ROWS];  // the valid rows, in order
+  __shared__ S srow_area[SU_ROWS];
+  __shared__ int srow_i[SU_ROWS];
+  __shared__ uint32_t svalid;
+  __shared__ uint32_t sword[SU_ROWS][SU_WORDS];
+  int b, tx, ty;
+  bool live;
+  su_tile(blockIdx.x, batch, k, live_tiles, b, tx, ty, live);
   const int W = (k + 31) >> 5;
-  const int j0 = blockIdx.x * 1024;
-  const S* bc = cand + (long long)b * k * 4;
-  const uint8_t* bv = valid + (long long)b * k;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  for (int t = tid; t < 1024; t += 256) {
-    const int j = j0 + t;
-    S x1 = 0, y1 = 0, x2 = 0, y2 = 0;
-    uint8_t ok = 0;
+  const int r0 = ty * SU_ROWS, w0 = tx * SU_WORDS;
+  const long long base = (long long)b * k;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  int lane = tid & 31;
+  if (live) {
+    for (int t = tid; t < SU_ROWS * SU_WORDS; t += SU_THREADS)
+      (&sword[0][0])[t] = 0u;
+    if (warp == 0) {
+      const int i = r0 + lane;
+      SuBox<S> a;
+      bool ok = false;
+      if (i < k) {
+        a = standup_box(cand + (base + i) * 4);
+        ok = valid[base + i] != 0;
+      }
+      const uint32_t m = __ballot_sync(FULL, ok);
+      if (ok) {
+        const int pos = __popc(m & ((1u << lane) - 1u));
+        srow_box[pos] = a;
+        srow_area[pos] = (a.x2 - a.x1) * (a.y2 - a.y1);
+        srow_i[pos] = i;
+      }
+      if (lane == 0) svalid = m;
+    }
+    const int w = w0 + warp;
+    int j = 32 * w + lane;
+    SuBox<S> c{S(INFINITY), S(INFINITY), S(-INFINITY), S(-INFINITY)};
+    bool okc = false;
     if (j < k) {
-      x1 = bc[4 * j];
-      y1 = bc[4 * j + 1];
-      x2 = bc[4 * j + 2];
-      y2 = bc[4 * j + 3];
-      ok = bv[j];
+      c = standup_box(cand + (base + j) * 4);
+      okc = valid[base + j] != 0;
+      if (!okc) c = SuBox<S>{S(INFINITY), S(INFINITY), S(-INFINITY),
+                             S(-INFINITY)};
     }
-    sbox[t][0] = x1;
-    sbox[t][1] = y1;
-    sbox[t][2] = x2;
-    sbox[t][3] = y2;
-    sarea[t] = (x2 - x1) * (y2 - y1);
-    sok[t] = ok;
-  }
-  __syncthreads();
-  const int i = blockIdx.y * 8 + threadIdx.y;
-  const int w = blockIdx.x * 32 + threadIdx.x;
-  if (i >= k || w >= W) return;
-  const S x1 = bc[4 * i], y1 = bc[4 * i + 1];
-  const S x2 = bc[4 * i + 2], y2 = bc[4 * i + 3];
-  const S a1 = (x2 - x1) * (y2 - y1);
-  const bool vi = bv[i] != 0;
-  uint32_t word = 0;
-  if (vi) {
-    for (int t = 0; t < 32; ++t) {
-      const int j = w * 32 + t;
-      const int sj = threadIdx.x * 32 + t;
-      if (j >= k) break;
-      if (j <= i || !sok[sj]) continue;
-      const S wx = nan_min(x2, sbox[sj][2]) - nan_max(x1, sbox[sj][0]);
-      const S wy = nan_min(y2, sbox[sj][3]) - nan_max(y1, sbox[sj][1]);
-      const S inter = (wx > S(0) && wy > S(0)) ? wx * wy : S(0);
-      const S iou = inter > S(0) ? inter / (a1 + sarea[sj] - inter) : S(0);
-      if (iou > thr) word |= 1u << t;
+    const S ac = (c.x2 - c.x1) * (c.y2 - c.y1);
+    // kept in registers through the loop, not recomputed in it
+    asm volatile("" : "+r"(j), "+r"(lane));
+    __syncthreads();
+    // this warp's rows: the valid ones before its word's last column
+    const int before = 32 * w + 31 - r0;
+    const int rows = __popc(
+        before >= 32 ? svalid
+                     : (before <= 0 ? 0u : svalid & ((1u << before) - 1u)));
+    const bool zero_hit = S(0) > thr;  // iou 0: no intersection
+    uint32_t mine = 0u;  // lane n keeps the word of row n
+    if (w < W) {
+#pragma unroll 4
+      for (int n = 0; n < rows; ++n) {
+        const SuBox<S> a = srow_box[n];
+        const int i = srow_i[n];
+        const bool meet = j > i && a.x1 < c.x2 && c.x1 < a.x2 &&
+                          a.y1 < c.y2 && c.y1 < a.y2;
+        uint32_t word = 0u;
+        // the widths, product, union and quotient only where a lane's
+        // boxes meet (a quotient of 0 would take the division's slow path)
+        if (__any_sync(FULL, meet)) {
+          bool hit = false;
+          if (meet) {
+            const S wx = fmin(a.x2, c.x2) - fmax(a.x1, c.x1);
+            const S wy = fmin(a.y2, c.y2) - fmax(a.y1, c.y1);
+            const S inter = wx * wy;
+            hit = zero_hit;
+            if (inter > S(0))
+              hit = inter / (srow_area[n] + ac - inter) > thr;
+          }
+          word = __ballot_sync(FULL, hit);
+        }
+        if (zero_hit) word |= __ballot_sync(FULL, okc && j > i && !meet);
+        mine = lane == n ? word : mine;
+      }
     }
+    if (lane < rows) sword[srow_i[lane] - r0][warp] = mine;
+    __syncthreads();
+    for (int t = tid; t < SU_ROWS * SU_WORDS; t += SU_THREADS) {
+      const int r = t / SU_WORDS, c = t % SU_WORDS;
+      const int i = r0 + r, w = w0 + c;
+      if (i < k && w < W) over[(base + i) * W + w] = sword[r][c];
+    }
+  } else {
+    // the row tile's words before its first live tile (w0)
+    const int zw = w0 < W ? w0 : W;
+    for (int r = warp; r < SU_ROWS && r0 + r < k; r += SU_WORDS)
+      for (int w = lane; w < zw; w += 32)
+        over[(base + r0 + r) * W + w] = 0u;
   }
-  over[((long long)b * k + i) * W + w] = word;
 }
 }  // namespace
 
@@ -1198,19 +1306,22 @@ extern "C" int standup_overlap(const void* cand, const void* valid,
                                int is_double, void* stream) {
   if (batch == 0 || k == 0) return 0;
   if (batch < 0 || batch > 65535 || k < 0) return (int)cudaErrorInvalidValue;
-  const int W = (k + 31) >> 5;
-  const dim3 grid((unsigned)((W + 31) / 32), (unsigned)((k + 7) / 8),
-                  (unsigned)batch);
-  const dim3 block(32, 8);
+  const int rows = (k + SU_ROWS - 1) / SU_ROWS;
+  const int words = (((k + 31) >> 5) + SU_WORDS - 1) / SU_WORDS;
+  long long live_tiles = 0;
+  for (int tx = 0; tx < words; ++tx) live_tiles += su_live_rows(tx, k);
+  const long long blocks = batch * (live_tiles + rows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double)
-    standup_overlap_kernel<double><<<grid, block, 0, st>>>(
+    standup_overlap_kernel<double><<<(unsigned)blocks, SU_THREADS, 0, st>>>(
         static_cast<const double*>(cand), static_cast<const uint8_t*>(valid),
-        static_cast<uint32_t*>(over), k, thr);
+        static_cast<uint32_t*>(over), batch, k, (int)live_tiles, thr);
   else
-    standup_overlap_kernel<float><<<grid, block, 0, st>>>(
+    standup_overlap_kernel<float><<<(unsigned)blocks, SU_THREADS, 0, st>>>(
         static_cast<const float*>(cand), static_cast<const uint8_t*>(valid),
-        static_cast<uint32_t*>(over), k, (float)thr);
+        static_cast<uint32_t*>(over), batch, k, (int)live_tiles,
+        (float)thr);
   return (int)cudaGetLastError();
 }
 

@@ -1501,16 +1501,27 @@ def _standup_boxes(g, B, K, dtype):
     return boxes.to(dtype), valid
 
 
-@pytest.mark.parametrize("K", [1, 31, 32, 33, 2048, 4096])
+# K on either side of a word, of the kernel's tile of rows (32) and of its
+# columns (8 words, 256), and the largest K the suppression takes
+STANDUP_KS = [1, 31, 32, 33, 63, 64, 65, 255, 256, 257, 2048, 4096]
+
+
+@pytest.mark.parametrize("K", STANDUP_KS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_standup_overlap_bits_exact(dev, K, dtype):
     """The standup-NMS bitmask kernel against its plain version (the dense
-    standup IoU, thresholded, packed): every bit equal, at thresholds 0.7
-    and 0; one launch a call; the NMS keep sets equal."""
+    standup IoU, thresholded, packed): every bit equal, at thresholds 0.7,
+    0 and -0.1 (every valid pair a bit, the NaN and zero-area boxes too);
+    one launch a call; the NMS keep sets equal."""
     g = torch.Generator().manual_seed(47 + K)
     boxes, valid = _standup_boxes(g, 3, K, dtype)
+    if K > 8:
+        boxes[:, 3, 2] = boxes[:, 3, 0]     # zero width
+        boxes[:, 6, 3] = boxes[:, 6, 1]     # zero height
     cand, v = boxes.to(dev), valid.to(dev)
-    for thr in (0.7, 0.0):
+    pairs = torch.ones(K, K, dtype=torch.bool, device=dev).triu(1) & \
+        v[:, :, None] & v[:, None, :]
+    for thr in (0.7, 0.0, -0.1):
         before = riou.launches_standup
         got = riou.standup_overlap(cand, v, thr)
         assert riou.launches_standup == before + 1
@@ -1520,8 +1531,43 @@ def test_standup_overlap_bits_exact(dev, K, dtype):
                                                                  valid, thr))
         assert torch.equal(riou.nms_suppress(got, v),
                            riou.nms_suppress_plain(got, v))
-    if K >= 32:
-        assert int(riou.unpack_bits(got, K).sum()) > 0
+        if thr < 0:
+            assert torch.equal(riou.unpack_bits(got, K), pairs)
+        elif thr == 0.0 and K >= 32:
+            assert int(riou.unpack_bits(got, K).sum()) > 0
+
+
+@pytest.mark.parametrize("K", [33, 65, 257, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_standup_overlap_writes_every_word(dev, K, dtype):
+    """The output comes from `torch.empty`: a block the caching allocator
+    held filled with -1 and freed is what the kernel gets, and every word
+    at or below the diagonal and every word of an invalid row comes back
+    0 (the plain version's bits)."""
+    g = torch.Generator().manual_seed(49 + K)
+    boxes, valid = _standup_boxes(g, 3, K, dtype)
+    valid[:, 1::3] = False
+    cand, v = boxes.to(dev), valid.to(dev)
+    W = (K + 31) // 32
+    junk = torch.full((3, K, W), -1, dtype=torch.int32, device=dev)
+    ptr = junk.data_ptr()
+    del junk
+    # the allocator may hand out another free block of the size first:
+    # those outputs are held until the filled block comes back
+    held = []
+    for _ in range(64):
+        got = riou.standup_overlap(cand, v, 0.0)
+        if got.data_ptr() == ptr:
+            break
+        held.append(got)
+    assert got.data_ptr() == ptr
+    bits = riou.unpack_bits(got, K)
+    lower = torch.ones(K, K, dtype=torch.bool, device=dev).tril()
+    assert not bits[:, lower].any()
+    assert (got[~v] == 0).all()
+    for out in held + [got]:
+        assert torch.equal(out, riou.standup_overlap_plain(cand, v, 0.0))
+    assert bits.any()
 
 
 def test_standup_overlap_rejects_what_it_cannot_take(dev):

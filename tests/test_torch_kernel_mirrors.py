@@ -1,4 +1,4 @@
-"""The plain mirrors of two kernels' orders of work, on the CPU.
+"""The plain mirrors of three kernels' orders of work, on the CPU.
 
 `roi_align_fwd_cells_plain` is the ROI-align forward kernel's order: the
 map channels-last, each sample's staged cell (base offset, inside mask,
@@ -14,7 +14,21 @@ rows, each word's diagonal block transposed up front, the rows removed by
 earlier words' kept rows ORed ahead of the walk, each word settled in
 rounds. Its keep set must equal the frontier rounds' (`nms_suppress_plain`)
 and JAX's `_greedy_suppress_over` (jitted), on seeded bitmasks: random,
-dense, long chains (each row overlapping the next), all rows invalid."""
+dense, long chains (each row overlapping the next), all rows invalid.
+
+`standup_overlap_tiles_plain`, here, is the standup-NMS bitmask kernel's
+order, at the tile that csrc/riou.cu compiles: tiles of rows by words, the
+tiles at or below the diagonal zeros with no test, a box with a NaN taken
+as the empty box and the widths by fmin / fmax, each row's limit (the row,
+none for an invalid row), each word the ballot of its lanes' bits. It must
+equal the plain version (`standup_overlap_plain`) bit for bit, and JAX's
+`standup_iou_matrix` thresholded, masked to the strict upper triangle of
+valid pairs and packed, in fp32 and fp64, at thresholds 0.7, 0 and below
+0, at K on either side of a word and of a tile's rows and columns, with
+duplicates, NaN and zero-area boxes, and with every row invalid."""
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +39,8 @@ import torch
 from second_tpu.ops.nms import _greedy_suppress_over as jax_greedy
 from second_tpu.ops.roi_align_rotated import \
     roi_align_rotated as jax_roi_align
+from second_tpu.ops.rotated_iou import \
+    standup_iou_matrix as jax_standup_iou
 from second_tpu_torch.ops.cuda import riou
 from second_tpu_torch.ops.cuda import roi_align as ra
 from second_tpu_torch.ops.roi_align_rotated import sample_points
@@ -168,3 +184,169 @@ def test_nms_suppress_walk_mirror(K, kind):
         assert torch.equal(got, (torch.arange(K) % 2 == 0).expand(B, K))
     if kind == "invalid":
         assert not got.any()
+
+
+def _standup_tile():
+    """The standup kernel's tile, rows by words, as csrc/riou.cu compiles
+    it (SU_ROWS, SU_WORDS)."""
+    src = (Path(riou.__file__).resolve().parents[2] / "csrc" /
+           "riou.cu").read_text()
+    tile = dict(re.findall(r"constexpr int (SU_ROWS|SU_WORDS) = (\d+);",
+                           src))
+    return int(tile["SU_ROWS"]), int(tile["SU_WORDS"])
+
+
+def standup_overlap_tiles_plain(cand, valid, iou_threshold):
+    """The standup kernel's order of work in plain PyTorch: cand [B, K, 4]
+    xyxy, valid [B, K] → [B, K, ceil(K / 32)] int32. Tiles of SU_ROWS rows
+    by SU_WORDS words; a tile whose columns all lie at or before its first
+    row is zeros, with no test. A box with a NaN, or empty in x or y, is
+    taken as the empty box (+inf, +inf, -inf, -inf), and so is an invalid
+    column. In a tile each word is a warp's, a lane a column
+    j = 32 w + lane: the warp walks the tile's valid rows i before the
+    word's last column (an invalid row's words stay 0); a lane's boxes
+    meet where j > i and each box's x2 lies after the other's x1, and the
+    same in y. Only there are the widths (`fmin` / `fmax`), product, union
+    and quotient taken: the bit is `iou > thr` in the boxes' dtype, or
+    `0 > thr` where the product is 0. A threshold below 0 also sets the
+    valid pairs j > i that do not meet. The word is the ballot of the
+    lanes' bits, lane n its bit n."""
+    B, K = valid.shape
+    W = (K + 31) // 32
+    R, T = _standup_tile()
+    dt = cand.dtype
+    inf = float("inf")
+    empty = torch.tensor([inf, inf, -inf, -inf], dtype=dt)
+    meets = (cand[..., 2] > cand[..., 0]) & (cand[..., 3] > cand[..., 1])
+    box = torch.where(meets[..., None], cand, empty)
+    area = (box[..., 2] - box[..., 0]) * (box[..., 3] - box[..., 1])
+    thr = torch.tensor(iou_threshold, dtype=dt)
+    zero_hit = bool(torch.zeros((), dtype=dt) > thr)
+    lanes = torch.arange(32)
+    over = torch.zeros((B, K, W), dtype=torch.int64)
+    for b in range(B):
+        for r0 in range(0, K, R):
+            # the tile's valid rows, in order
+            rows = r0 + torch.nonzero(valid[b, r0:r0 + R])[:, 0]
+            for w0 in range(0, W, T):
+                if min(32 * (w0 + T), K) - 1 <= r0:
+                    continue
+                for w in range(w0, min(w0 + T, W)):
+                    j = 32 * w + lanes
+                    jc = j.clamp(max=K - 1)
+                    okc = (j < K) & valid[b, jc]
+                    c = torch.where(okc[:, None], box[b, jc], empty)
+                    ac = (c[:, 2] - c[:, 0]) * (c[:, 3] - c[:, 1])
+                    i = rows[rows < 32 * w + 31]
+                    a = box[b, i][:, None]
+                    pair = j > i[:, None]
+                    meet = pair & (a[..., 0] < c[:, 2]) & \
+                        (c[:, 0] < a[..., 2]) & (a[..., 1] < c[:, 3]) & \
+                        (c[:, 1] < a[..., 3])
+                    wx = torch.fmin(a[..., 2], c[:, 2]) - \
+                        torch.fmax(a[..., 0], c[:, 0])
+                    wy = torch.fmin(a[..., 3], c[:, 3]) - \
+                        torch.fmax(a[..., 1], c[:, 1])
+                    inter = wx * wy
+                    iou_hit = inter / (area[b, i][:, None] + ac - inter) > thr
+                    hit = meet & torch.where(inter > 0, iou_hit, zero_hit)
+                    if zero_hit:
+                        hit |= okc & pair & ~meet
+                    over[b, i, w] = (hit.long() << lanes).sum(1)
+    return torch.where(over >= 2 ** 31, over - 2 ** 32, over).to(
+        torch.int32)
+
+
+def _standup_case(K, kind, seed):
+    """[B, K, 4] xyxy boxes crowded on a square that grows with K (a third
+    duplicated from others: IoU 1), one with a NaN x2, one with a NaN y1,
+    two of zero area (one duplicated), 15% invalid (or all, for
+    "invalid"); fp64 numpy, and valid [B, K]."""
+    rng = np.random.default_rng(seed)
+    B = 2
+    side = 4.0 + 2.0 * np.sqrt(K)
+    lo = rng.uniform(0, side, (B, K, 2))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.5, 4.5, (B, K, 2))], -1)
+    if K > 1:
+        src = rng.integers(0, K, (B, K))
+        dup = rng.uniform(size=(B, K)) < 0.3
+        boxes = np.where(dup[..., None],
+                         np.take_along_axis(boxes, src[..., None], 1), boxes)
+    odd = {2: (2, np.nan), 5: (1, np.nan)}
+    for i, (c, v) in odd.items():
+        if i < K:
+            boxes[:, i, c] = v
+    if K > 8:
+        boxes[:, 3, 2] = boxes[:, 3, 0]             # zero width
+        boxes[:, 7] = boxes[:, 6]
+        boxes[:, 6, 3] = boxes[:, 6, 1]             # zero height, and the
+        boxes[:, 7, 3] = boxes[:, 7, 1]             # same box again
+    valid = rng.uniform(size=(B, K)) < 0.85
+    if kind == "invalid":
+        valid[:] = False
+    return boxes, valid
+
+
+# K on either side of a word and of the tile's rows (32), two tiles' rows,
+# and either side of the tile's columns (8 words, 256)
+STANDUP_KS = [1, 31, 32, 33, 63, 64, 65, 255, 256, 257]
+STANDUP_CASES = [(K, "crowded") for K in STANDUP_KS] + \
+    [(33, "invalid"), (257, "invalid")]
+
+
+# 0.7 as the two-stage proposals' NMS; 0, where every meeting pair is a
+# bit; below 0, where every valid pair is one (its IoU is at least 0)
+STANDUP_THRESHOLDS = (0.7, 0.0, -0.1)
+
+
+def _jax_standup_bits(boxes, valid):
+    """JAX's dense standup IoU, eager (one op at a time, as the port's
+    plain version runs it), thresholded at each of STANDUP_THRESHOLDS,
+    masked to the strict upper triangle of valid pairs, packed. The boxes
+    are padded to the largest K of the cases, so that every case runs ops
+    of one shape (a pair's IoU does not depend on the others)."""
+    K = boxes.shape[1]
+    pad = np.zeros((max(STANDUP_KS), 4), boxes.dtype)
+    upper = np.triu(np.ones((K, K), bool), 1)
+    ious = []
+    for b in boxes:
+        pad[:K] = b
+        iou = np.asarray(jax_standup_iou(jnp.asarray(pad), jnp.asarray(pad)))
+        ious.append(iou[:K, :K])
+    pairs = upper & valid[:, :, None] & valid[:, None, :]
+    return [riou.pack_bits(torch.from_numpy((np.stack(ious) > thr) & pairs))
+            for thr in STANDUP_THRESHOLDS]
+
+
+@pytest.mark.parametrize("K,kind", STANDUP_CASES)
+@pytest.mark.parametrize("dtype", ["fp32", "fp64"])
+def test_standup_overlap_tiles_mirror(dtype, K, kind):
+    """The kernel's order of work sets the plain version's bits and JAX's,
+    at each of STANDUP_THRESHOLDS."""
+    boxes, valid = _standup_case(K, kind, seed=K + 3 * len(kind))
+    cand = torch.from_numpy(boxes).to(DTYPES[dtype])
+    v = torch.from_numpy(valid)
+    with jax.enable_x64(dtype == "fp64"):
+        wants = _jax_standup_bits(cand.numpy(), valid)
+    pairs = torch.ones(K, K, dtype=torch.bool).triu(1) & v[:, :, None] & \
+        v[:, None, :]
+    for thr, want in zip(STANDUP_THRESHOLDS, wants):
+        got = standup_overlap_tiles_plain(cand, v, thr)
+        assert got.dtype == torch.int32 and got.shape == (2, K,
+                                                          (K + 31) // 32)
+        assert torch.equal(got, riou.standup_overlap_plain(cand, v, thr))
+        assert torch.equal(got, want)
+        bits = riou.unpack_bits(got, K)
+        if thr < 0:
+            # the NaN and zero-area boxes too
+            assert torch.equal(bits, pairs)
+        elif kind == "invalid":
+            assert not bits.any()
+        elif K >= 33:
+            assert bits.any()
+            # the duplicates meet their sources at IoU 1; the NaN and
+            # zero-area boxes meet nothing
+            assert not bits[:, [2, 5]].any() and not bits[..., [2, 5]].any()
+            if K > 8:
+                assert not bits[:, [3, 6, 7]].any() and \
+                    not bits[..., [3, 6, 7]].any()
