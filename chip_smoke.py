@@ -171,9 +171,50 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    the PointPillars config (the sparse kernels take no fp64), one
    example, 64 proposals (REF64_TOL).
 
+16. tmp eval: the temporal detector (`build_temporal_voxelnet`:
+   second_car_fhd.config, fp32 as JAX builds it, 512 proposals an example,
+   random weights from seed 0) through `make_temporal_steps`' eval step on
+   batch 4 pairs (the fhd bench scan of seed 0 as the current frame, a
+   scan of seed 1 as the previous one), 40 000 voxels a frame (each
+   frame's voxel count printed, no overflow): every sparse conv, row
+   gather, ROI-align forward, standup bitmask and NMS pair against its
+   plain version as in 2st eval, each fp32 conv against fp64; both frames
+   folded into one backbone call (every conv takes 8 examples; the
+   gather-GEMM 14 launches a forward, all fp32), roi_align_fwd 1,
+   standup_overlap 1, nms_overlap 1, nms_suppress 2; no host sync in the
+   eval step nor in `predict_temporal`; pairs/s, peak memory, a split
+   (voxelize, backbone, fusion + RPN, proposals, crops, head, predict) and
+   a profile, with cuDNN TF32 off and on; `TemporalSequenceVoxelNet` on a
+   4-frame sequence against the pair model on its 3 pairs from the same
+   state dict; one fp32 pair card against CPU (`check_refine_reference`,
+   the crops of the gated map).
+17. tmp train: the temporal train step (`make_temporal_steps`, fp32, the
+   config's Adam) on batch 4 synthetic pairs (`SyntheticPairDataset`, the
+   `Trainer`'s data) at 16 000 voxels a frame: every sparse forward, dX
+   and weight-gradient call, the ROI-align forward and backward and the
+   standup bitmask against their plain versions (and fp64), launches as
+   2st train's with both frames folded; every gradient finite, the
+   gate's nonzero; no host sync; bitwise gradients over two runs; the loss
+   halved on one batch; steps/s, peak memory, split, profile; one fp32
+   step on one pair card against CPU (the loss and the positives gated,
+   the gradients printed) and one fp64 step of the PointPillars config's
+   temporal detector card against CPU (REF64_TOL).
+18. tmp trainer: `Trainer(model_type="temporal")` on the card, 2 steps and
+   an `evaluate`, on synthetic pairs and on a fake KITTI-tracking tree
+   (`data/fake_tracking.py`): the model fp32 on a config that asks for
+   mixed precision, finite losses, the /3d AP keys, 14 gather-GEMM
+   launches a forward.
+19. tracking: `train/run_tracking.py` on the card with the CLI's defaults:
+   20 train steps, `evaluate` with the simple and the memory tracker, in
+   3-frame windows and with the camera crops (CLEAR-MOT printed); the
+   `SequenceTrackNet` forward card against CPU; train steps/s on one
+   prepared sequence; `nms_vid` on 512 random detections card against
+   CPU.
+
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the ten paths (fhd eval, fhd train, pp eval, pp train, mc
-eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train) and by path,
+summed over the twelve paths (fhd eval, fhd train, pp eval, pp train, mc
+eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp eval,
+tmp train) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
@@ -201,12 +242,15 @@ import torch
 from second_tpu_torch.config import load_pipeline_config
 from second_tpu_torch.core import box_np
 from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
-from second_tpu_torch.data.synthetic import SyntheticDataset
-from second_tpu_torch.models import (build_two_stage_voxelnet,
+from second_tpu_torch.data.synthetic import (SyntheticDataset,
+                                             SyntheticPairDataset)
+from second_tpu_torch.models import (build_temporal_voxelnet,
+                                     build_two_stage_voxelnet,
                                      build_voxelnet, calibrate_norms_,
-                                     compute_loss, compute_two_stage_loss,
-                                     detect, init_train_weights_, predict,
-                                     predict_two_stage)
+                                     compute_loss, compute_temporal_loss,
+                                     compute_two_stage_loss, detect,
+                                     init_train_weights_, predict,
+                                     predict_temporal, predict_two_stage)
 from second_tpu_torch.ops import cuda as kernels
 from second_tpu_torch.ops import nms as nms_ops
 from second_tpu_torch.ops.anchors_mask import anchors_mask_from_coords
@@ -216,8 +260,11 @@ from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
                                               _signed_area, rbbox_to_corners)
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.train.optimizer import build_optimizer
-from second_tpu_torch.train.state import TrainState, make_train_step
-from second_tpu_torch.train.steps_multistage import make_two_stage_steps
+from second_tpu_torch.train.state import (TrainState, make_train_step,
+                                          voxelize_points)
+from second_tpu_torch.train.steps_multistage import (make_temporal_steps,
+                                                     make_two_stage_steps,
+                                                     voxelize_pair)
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "second_tpu_torch" / "configs" / "second_car_fhd.config"
@@ -277,7 +324,8 @@ MC_TIMED = 8
 # the fake KITTI tree of the kitti phase: frames, ground clutter points
 KITTI_FRAMES, KITTI_CLUTTER = 6, 20000
 PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
-         "mc_train", "kitti", "fhd_iou_train", "2st_eval", "2st_train")
+         "mc_train", "kitti", "fhd_iou_train", "2st_eval", "2st_train",
+         "tmp_eval", "tmp_train")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -287,6 +335,12 @@ TWO_STAGE_TIMED = 8
 TWO_STAGE_REF_PROPOSALS = 64
 # its parameters after Adam's first step: see check_2st_train_reference
 ADAM_STEP_TOL = 1e-6
+# the temporal detector on second_car_fhd.config: the timed forwards and
+# steps of its phases, the frames of its sequence check; the tracking
+# phase's train steps
+TEMPORAL_TIMED = 8
+TEMPORAL_SEQ_FRAMES = 4
+TRACK_STEPS = 20
 
 # the PointPillars train step's reference, card against CPU. Its fp32
 # gradients are ill-conditioned: a handful of ReLU inputs lie within fp32
@@ -524,7 +578,9 @@ class DeviceTimer:
     run's time is the sum of the device kernels between two flushes: no
     host time, no gaps."""
 
-    PAD = 4
+    # leading flushes a session: a trace has missed up to its first 5
+    # kernels, in every retry, late in a run of all the phases
+    PAD = 16
     RETRIES = 5
 
     def __init__(self, device):
@@ -1333,10 +1389,17 @@ def run(dev, out=None):
     aggs.update(two_aggs)
     aggs["roi_align_bwd"], two_train_counts, report["2st_train"] = \
         run_2st_train(dev, timer, dtimer)
+    tmp_counts, report["tmp_eval"] = run_tmp_eval(dev, timer, dtimer)
+    tmp_train_counts, report["tmp_train"] = run_tmp_train(dev, timer,
+                                                          dtimer)
+    report["tmp_trainer_launches"], report["tmp_trainer"] = \
+        run_tmp_trainer(dev)
+    report["tracking"] = run_tracking_phase(dev)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
-                               two_counts, two_train_counts)))
+                               two_counts, two_train_counts, tmp_counts,
+                               tmp_train_counts)))
     path_aggs = {"pp_eval": pp_eval_aggs, "pp_train": pp_train_aggs,
                  "mc_eval": mc_eval_aggs}
 
@@ -1775,13 +1838,13 @@ def two_stage_loss(spec, net, vox, batch):
                                   batch.get("gt_valid"))
 
 
-def grads_of(state, spec, vspec, batch, loss_of=one_stage_loss):
+def grads_of(state, spec, vspec, batch, loss_of=one_stage_loss,
+             voxelize=voxelize_points):
     """One forward and backward in train mode from the state as it is; the
     parameters' gradients, cloned (no optimizer step)."""
     net = state.module
     with torch.no_grad():
-        vox = device_voxelize(vspec, batch["points"], batch["points_mask"],
-                              state.device)
+        vox = voxelize(vspec, batch, state.device)[0]
     net.train()
     with torch.enable_grad():
         loss = loss_of(spec, net, vox, batch)["loss"]
@@ -1790,7 +1853,8 @@ def grads_of(state, spec, vspec, batch, loss_of=one_stage_loss):
     return [p.grad.detach().clone() for p in net.parameters()]
 
 
-def timed_split(state, spec, vspec, batch, loss_of=one_stage_loss):
+def timed_split(state, spec, vspec, batch, loss_of=one_stage_loss,
+                voxelize=voxelize_points):
     """One train step cut at its stage boundaries, each synchronised: ms of
     voxelize, forward + loss, backward, optimizer."""
     net, dev = state.module, state.device
@@ -1798,8 +1862,7 @@ def timed_split(state, spec, vspec, batch, loss_of=one_stage_loss):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
-        vox = device_voxelize(vspec, batch["points"], batch["points_mask"],
-                              dev)
+        vox = voxelize(vspec, batch, dev)[0]
     torch.cuda.synchronize()
     out["voxelize_ms"] = 1e3 * (time.perf_counter() - t0)
     net.train()
@@ -2438,7 +2501,7 @@ def timed_forwards(forward, reps, batch):
 
 
 def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True,
-                loss_of=one_stage_loss):
+                loss_of=one_stage_loss, voxelize=voxelize_points):
     """Median host time of `reps` synchronised train steps (after two warm
     ones), steps/s, examples/s, peak memory of one step, a synchronised
     split of one (`timed_split`) and, with `profile`, one profiled step.
@@ -2458,7 +2521,7 @@ def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True,
     step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    split = timed_split(state, spec, vspec, batch, loss_of)
+    split = timed_split(state, spec, vspec, batch, loss_of, voxelize)
     say(f"{what} steps/s {1 / med:.3f}, examples/s {n / med:.3f} (median "
         f"{1e3 * med:.2f} ms of {reps} batch-{n} steps, "
         f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory "
@@ -2472,11 +2535,11 @@ def timed_steps(step, state, spec, vspec, batch, reps, what, profile=True,
 
 
 def check_determinism(state, spec, vspec, batch, what,
-                      loss_of=one_stage_loss):
+                      loss_of=one_stage_loss, voxelize=voxelize_points):
     """Two backward passes from the same state on the same batch give
     bitwise-equal gradients (cuDNN set to deterministic algorithms)."""
-    g1 = grads_of(state, spec, vspec, batch, loss_of)
-    g2 = grads_of(state, spec, vspec, batch, loss_of)
+    g1 = grads_of(state, spec, vspec, batch, loss_of, voxelize)
+    g2 = grads_of(state, spec, vspec, batch, loss_of, voxelize)
     same = sum(torch.equal(a, b) for a, b in zip(g1, g2))
     if same != len(g1):
         fail(f"{what}: two backward passes from one state: {len(g1) - same} "
@@ -2560,13 +2623,14 @@ def check_fp32_calls(calls, what):
     return worst
 
 
-def predict_fails_on_sync(spec, preds, anchors, what):
+def predict_fails_on_sync(spec, preds, anchors, what, predict_fn=predict):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        predict(spec, preds, anchors)
+        predict_fn(spec, preds, anchors)
     except RuntimeError as e:
-        fail(f"{what}: predict synchronised with the host: {e}")
+        fail(f"{what}: {predict_fn.__name__} synchronised with the host: "
+             f"{e}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -3424,12 +3488,29 @@ def run_2st_eval(dev, timer, dtimer):
 
 
 def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
-    """One fp32 example through the two-stage detector on the card and on
-    the CPU, from the same seeded weights: stage 1 end to end within
-    PRED_TOL; then each later step on the card's own inputs, card (kernels)
-    against CPU (plain versions): the proposals' standup NMS on the same
-    boxes and scores (indices and keep equal), the crops at the same
-    proposal boxes (CROP_REF_TOL), the refine head on the same crops
+    """`check_refine_reference` of the two-stage detector on one fp32
+    example (its stage 1 the one-stage VoxelNet, the crops of its RPN
+    trunk)."""
+    def stage1(net, one, device):
+        vox = device_voxelize(vspec, *one, device)
+        return net.stage1(vox["voxels"], vox["num_points"],
+                          vox["coordinates"], vox["voxel_valid"])
+    return check_refine_reference(cfg, dev, "2st", build_two_stage, stage1,
+                                  "trunk", [t[:1] for t in (points, mask)],
+                                  anchors[:1])
+
+
+def check_refine_reference(cfg, dev, what, build, stage1, crop_key, one,
+                           a_c):
+    """One fp32 example through a detector with the second stage (the
+    two-stage or the temporal one, made by `build`) on the card and on the
+    CPU, from the same seeded weights: stage 1 (`stage1(net, one, device)`
+    on the example's inputs `one`, a list or dict of tensors) end to end
+    within PRED_TOL, its box and class predictions and the map the crops
+    come from (`crop_key`); then each later step on the card's own inputs,
+    card (kernels) against CPU (plain versions): the proposals' standup NMS
+    on the same boxes and scores (indices and keep equal), the crops at the
+    same proposal boxes (CROP_REF_TOL), the refine head on the same crops
     (PRED_TOL), the rotated NMS of `predict_two_stage` on the same
     candidates (indices and keep equal). `predict_two_stage` whole on the
     same predictions, and the CPU's proposals from its own stage 1, are
@@ -3437,11 +3518,11 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
     empty regions tied scores, and boxes decoded an ulp apart on the two
     devices can trade places among them."""
     cpu = torch.device("cpu")
-    net_c, spec = build_two_stage(cfg.model, dev)[:2]
-    net_h = build_two_stage(cfg.model, cpu)[0]
-    one = [t[:1] for t in (points, mask)]
-    a_c = anchors[:1]
+    net_c, spec = build(cfg.model, dev)[:2]
+    net_h = build(cfg.model, cpu)[0]
     a_h = a_c.cpu()
+    one_h = {k: v.cpu() for k, v in one.items()} if isinstance(one, dict) \
+        else [t.cpu() for t in one]
 
     def to_cpu(preds):
         out = {k: v.cpu() for k, v in preds.items() if k != "proposals"}
@@ -3450,24 +3531,20 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
                                 for k, v in preds["proposals"].items()}
         return out
     with torch.no_grad():
-        vox = device_voxelize(vspec, *one, dev)
-        s1_c = net_c.stage1(vox["voxels"], vox["num_points"],
-                            vox["coordinates"], vox["voxel_valid"])
+        s1_c = stage1(net_c, one, dev)
         t0 = time.perf_counter()
-        vox_h = device_voxelize(vspec, *[t.cpu() for t in one], cpu)
-        s1_h = net_h.stage1(vox_h["voxels"], vox_h["num_points"],
-                            vox_h["coordinates"], vox_h["voxel_valid"])
-        own_h = net_h.refine(s1_h, a_h)["proposals"]
+        s1_h = stage1(net_h, one_h, cpu)
+        own_h = net_h.refine(s1_h, a_h, crop_map=s1_h[crop_key])["proposals"]
         cpu_s = time.perf_counter() - t0
         errs = {}
-        for k in ("box_preds", "cls_preds", "trunk"):
+        for k in ("box_preds", "cls_preds", crop_key):
             a, b = s1_c[k].cpu().float(), s1_h[k].float()
             errs[k] = (a - b).abs().max().item()
             if not torch.allclose(a, b, **PRED_TOL):
-                fail(f"2st reference: stage 1 {k} card vs CPU max abs err "
+                fail(f"{what} reference: stage 1 {k} card vs CPU max abs err "
                      f"{errs[k]:.3g} over {PRED_TOL}")
         with recording([(nms_ops, "nearest_nms")]) as calls:
-            p_c = net_c.refine(s1_c, a_c)
+            p_c = net_c.refine(s1_c, a_c, crop_map=s1_c[crop_key])
         args, kwargs = calls["nearest_nms"][0]
         idx_c, keep_c = nms_ops.nearest_nms(*args, **kwargs)
         idx_h, keep_h = nms_ops.nearest_nms(*[a.cpu() for a in args],
@@ -3475,11 +3552,11 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
         if not (torch.equal(idx_c.cpu(), idx_h) and
                 torch.equal(keep_c.cpu(), keep_h) and
                 torch.equal(idx_c, p_c["proposals"]["indices"])):
-            fail("2st reference: the proposals' standup NMS differs card vs "
-                 "CPU on the same boxes and scores")
+            fail(f"{what} reference: the proposals' standup NMS differs card "
+                 f"vs CPU on the same boxes and scores")
         prop_h = to_cpu(p_c)["proposals"]
-        c_c = net_c.crops(s1_c["trunk"], p_c["proposals"])
-        c_h = net_h.crops(s1_c["trunk"].cpu(), prop_h)
+        c_c = net_c.crops(s1_c[crop_key], p_c["proposals"])
+        c_h = net_h.crops(s1_c[crop_key].cpu(), prop_h)
         hd_c = net_c.second_rpn(c_c)
         hd_h = net_h.second_rpn(c_c.cpu())
         with recording([(nms_ops, "nms")]) as calls:
@@ -3490,18 +3567,18 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
         det_h = predict_two_stage(spec, to_cpu(p_c), a_h)
     errs["crops_rel"] = errors(c_c.cpu(), c_h)[1]
     if errs["crops_rel"] > CROP_REF_TOL:
-        fail(f"2st reference: crops {errs['crops_rel']:.3g} of their scale "
+        fail(f"{what} reference: crops {errs['crops_rel']:.3g} of their scale "
              f"apart card vs CPU, over {CROP_REF_TOL}")
     for k in hd_c:
         a, b = hd_c[k].cpu(), hd_h[k]
         errs[f"head_{k}"] = (a - b).abs().max().item()
         if not torch.allclose(a, b, **PRED_TOL):
-            fail(f"2st reference: head {k} card vs CPU max abs err "
+            fail(f"{what} reference: head {k} card vs CPU max abs err "
                  f"{errs[f'head_{k}']:.3g}")
     if not (torch.equal(sel_c.cpu(), sel_h) and
             torch.equal(keep_c.cpu(), keep_h)):
-        fail("2st reference: predict's rotated NMS differs card vs CPU on "
-             "the same candidates")
+        fail(f"{what} reference: predict's rotated NMS differs card vs CPU "
+             f"on the same candidates")
     valid = det_c["valid"].cpu()
     errs["det_valid_equal"] = bool(torch.equal(valid, det_h["valid"]))
     both = valid & det_h["valid"]
@@ -3510,10 +3587,10 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
         errs[f"det_{k}"] = (a - b).abs().max().item() if a.numel() else 0.0
     same = (own_h["indices"] == prop_h["indices"]).float().mean().item()
     n_prop = int(prop_h["valid"].sum())
-    say(f"2st reference (fp32, 1 example, card vs CPU; the CPU's stage 1 "
+    say(f"{what} reference (fp32, 1 example, card vs CPU; the CPU's stage 1 "
         f"and proposals in {cpu_s:.1f} s): stage 1 err box "
-        f"{errs['box_preds']:.2e} cls {errs['cls_preds']:.2e} trunk "
-        f"{errs['trunk']:.2e}; on the card's inputs: the standup NMS equal "
+        f"{errs['box_preds']:.2e} cls {errs['cls_preds']:.2e} {crop_key} "
+        f"{errs[crop_key]:.2e}; on the card's inputs: the standup NMS equal "
         f"({n_prop} valid proposals), crops within {errs['crops_rel']:.2e} "
         f"of their scale, head box {errs['head_box_preds']:.2e} cls "
         f"{errs['head_cls_preds']:.2e}, predict's rotated NMS equal on the "
@@ -3622,9 +3699,13 @@ def run_2st_train(dev, timer, dtimer):
     return aggs["roi_align_bwd"], counts, report
 
 
-def check_2st_train_reference(dev):
-    """One fp64 two-stage train step on one example, card (kernels) against
-    CPU (plain versions), from the same seeded weights with the config's
+def check_2st_train_reference(dev, what="2st", build_fn=None,
+                               make_steps=make_two_stage_steps,
+                               inputs=None):
+    """One fp64 train step of a detector with the second stage (the
+    two-stage one, or the temporal one with `build_fn`, `make_steps` and
+    its `inputs`) on one example, card (kernels) against CPU (plain
+    versions), from the same seeded weights with the config's
     optimizer. Stage 1 is the PointPillars config's (the sparse kernels
     take no fp64), full width, TWO_STAGE_REF_PROPOSALS proposals drawn
     from the positive anchors and a hundredth of the others: the same
@@ -3638,15 +3719,18 @@ def check_2st_train_reference(dev):
     reader = cfg.train_input_reader
     cpu = torch.device("cpu")
 
+    build_fn = build_fn or build_two_stage
+    inputs = inputs or train_inputs
+
     def build(model, device, seed=0):
-        return build_two_stage(model, device, seed, TWO_STAGE_REF_PROPOSALS)
+        return build_fn(model, device, seed, TWO_STAGE_REF_PROPOSALS)
     runs = {}
     for device in (dev, cpu):
         state, spec, info, assigner = new_train_state(
             cfg, device, None, dtype=torch.float64, build=build)
         if device == dev:
             one = {k: v[:1].to(torch.float64) if v.is_floating_point()
-                   else v[:1] for k, v in train_inputs(
+                   else v[:1] for k, v in inputs(
                        cfg, assigner, info, cpu, 1, PP_POINTS).items()}
             # the proposals' NMS may take the positive anchors and a
             # hundredth of the others: random stage-1 scores rank no
@@ -3657,7 +3741,7 @@ def check_2st_train_reference(dev):
         grads = record_grads(state)
         vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
                                          reader.max_number_of_voxels)
-        step = make_two_stage_steps(spec, vspec)[0]
+        step = make_steps(spec, vspec)[0]
         t0 = time.perf_counter()
         state, metrics = step(state, {k: v.to(device)
                                       for k, v in one.items()})
@@ -3674,7 +3758,7 @@ def check_2st_train_reference(dev):
     errs = {"loss_rel": abs(c["loss"] / h["loss"] - 1)}
     if errs["loss_rel"] > REF64_LOSS_RTOL or c["pos2"] != h["pos2"] or \
             not h["pos2"]:
-        fail(f"2st train reference: fp64 loss {c['loss']!r} on the card, "
+        fail(f"{what} train reference: fp64 loss {c['loss']!r} on the card, "
              f"{h['loss']!r} on the CPU (stage-2 positives {c['pos2']}, "
              f"{h['pos2']})")
     worst = dict(grad=0.0, after=0.0)
@@ -3685,7 +3769,7 @@ def check_2st_train_reference(dev):
         e = (c["grads"][name] - want).abs().max().item() / scale
         worst["grad"] = max(worst["grad"], e)
         if e > REF64_TOL:
-            fail(f"2st train reference: fp64 gradient {name} differs card "
+            fail(f"{what} train reference: fp64 gradient {name} differs card "
                  f"vs CPU by {e:.3g} of its scale")
     for name, want in h["after"].items():
         diff = (c["after"][name] - want).abs()
@@ -3694,7 +3778,7 @@ def check_2st_train_reference(dev):
         if g is None:                   # a norm statistic
             worst["after"] = max(worst["after"], e)
             if e > REF64_TOL:
-                fail(f"2st train reference: fp64 {name} after the step "
+                fail(f"{what} train reference: fp64 {name} after the step "
                      f"differs card vs CPU by {e:.3g} of its scale")
             continue
         # Adam's first update is lr g / (|g| + eps): its error is
@@ -3710,10 +3794,10 @@ def check_2st_train_reference(dev):
         limit = lr * (2 + wd * want.abs()) + REF_PARAM_ATOL
         tol = REF64_TOL * want.abs().max() + ADAM_STEP_TOL * lr
         if (diff[settled] > tol).any() or (diff > limit).any():
-            fail(f"2st train reference: fp64 parameter {name} after the "
+            fail(f"{what} train reference: fp64 parameter {name} after the "
                  f"step differs card vs CPU by {e:.3g} of its scale")
     errs.update(worst)
-    say(f"2st train reference (PointPillars stage 1, fp64, 1 example, "
+    say(f"{what} train reference (PointPillars stage 1, fp64, 1 example, "
         f"{TWO_STAGE_REF_PROPOSALS} proposals, {h['pos2']} stage-2 "
         f"positives, card vs CPU; the CPU's step in {h['secs']:.1f} s): "
         f"loss rel {errs['loss_rel']:.2e}, gradients within "
@@ -3721,6 +3805,622 @@ def check_2st_train_reference(dev):
         f"{worst['after']:.2e}")
     return dict(cpu_s=h["secs"], card_s=c["secs"], errs=errs,
                 second_num_pos=h["pos2"])
+
+
+# ------------------------------------------------------- the temporal model
+
+
+def build_temporal(model, device, seed=0, proposals=TWO_STAGE_PROPOSALS,
+                   sequence=False):
+    """`build_temporal_voxelnet` at this script's proposals: fp32 on every
+    config, as JAX's temporal `Trainer` builds it."""
+    return build_temporal_voxelnet(model, proposals, device=device,
+                                   seed=seed, sequence=sequence)
+
+
+def temporal_loss(spec, net, pair, batch):
+    """The temporal model's train-mode forward on the voxelized (cur, prev)
+    frames and its loss dict."""
+    preds = net(*pair, batch["anchors"],
+                anchors_mask=batch.get("anchors_mask"))
+    return compute_temporal_loss(spec, preds, batch["labels"],
+                                 batch["reg_targets"], batch["anchors"],
+                                 batch.get("gt_boxes_padded"),
+                                 batch.get("gt_valid"))
+
+
+def temporal_inputs(cfg, assigner, info, dev, seeds=(0, 1)):
+    """The temporal eval input: BATCH pairs, each the fhd bench scan (a
+    LiDAR scan of seed `seeds[0]`, 512 azimuth steps, as `build_inputs`
+    draws it) as the current frame and a scan of the same kind from seed
+    `seeds[1]` as the previous one, prepared for eval, on the card."""
+    prep = ExamplePrep(assigner, info.feature_map_size,
+                       PrepConfig(max_points=MAX_POINTS, training=False))
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    p, b, n = lidar_scan_scene(np.random.default_rng(seeds[0]),
+                               pc_range=pc_range, num_azimuth=512)
+    prev = lidar_scan_scene(np.random.default_rng(seeds[1]),
+                            pc_range=pc_range, num_azimuth=512)[0]
+    ex = prep({"points": p, "p_points": prev, "gt_boxes": b, "gt_names": n,
+               "image_idx": 0}, np.random.default_rng(0))
+    batch = prep.collate([ex] * BATCH)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k != "image_idx"}
+
+
+def temporal_train_inputs(cfg, assigner, info, dev, n,
+                          max_points=MAX_POINTS):
+    """n synthetic (cur, prev) pairs (`SyntheticPairDataset`, seed 1, the
+    config's range: the `Trainer`'s own synthetic data) prepared for
+    training as `train_inputs` prepares scans, collated, on `dev`."""
+    vg = cfg.model.voxel_generator
+    reader = cfg.train_input_reader
+    prep = ExamplePrep(assigner, info.feature_map_size, PrepConfig(
+        max_points=max_points, training=True,
+        shuffle_points=reader.shuffle_points,
+        anchor_area_threshold=reader.anchor_area_threshold,
+        voxel_size=tuple(vg.voxel_size), pc_range=tuple(vg.point_cloud_range)))
+    ds = SyntheticPairDataset(n, seed=1, pc_range=tuple(vg.point_cloud_range))
+    rng = np.random.default_rng(0)
+    batch = prep.collate([prep(ds[i], rng) for i in range(n)])
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k != "image_idx"}
+
+
+def check_folded(calls, n_frames, what):
+    """Every recorded forward sparse conv took both frames of every pair
+    in one call: n_frames examples."""
+    batches = sorted({args[0].shape[0] for args, _ in calls["gather_gemm"]})
+    if batches != [n_frames]:
+        fail(f"{what}: the sparse convs took batches {batches}, expected "
+             f"both frames folded into one batch of {n_frames}")
+
+
+def temporal_split(net, spec, vspec, batch, dev):
+    """One temporal eval forward cut at its stage boundaries, each
+    synchronised: ms of voxelize (both frames), backbone (both frames in
+    one call), fusion + RPN, proposals, crops, refine head, predict."""
+    from second_tpu_torch.models.second_stage import select_proposals
+    out, t0 = {}, None
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name:
+            out[f"{name}_ms"] = 1e3 * (now - t0)
+        t0 = now
+    with torch.no_grad():
+        lap(None)
+        cur, prev = voxelize_pair(vspec, batch, dev)[0]
+        lap("voxelize")
+        stacked = {k: torch.cat([cur[k], prev[k]], 0) for k in (
+            "voxels", "num_points", "coordinates", "voxel_valid")}
+        bev, _ = net.backbone(stacked)
+        lap("backbone")
+        B = cur["voxels"].shape[0]
+        preds = net.fuse(bev[:B], bev[B:])
+        lap("fusion_rpn")
+        proposals = select_proposals(net.pspec, spec, preds,
+                                     batch["anchors"])
+        lap("proposals")
+        crops = net.crops(preds["gated_bev_feat"], proposals)
+        lap("crops")
+        head = net.second_rpn(crops)
+        N = proposals["indices"].shape[1]
+        preds.update({"proposals": proposals,
+                      "second_box_preds": head["box_preds"].reshape(B, N, -1)
+                      + proposals["box_enc"],
+                      "second_cls_preds": head["cls_preds"].reshape(B, N,
+                                                                    -1)})
+        lap("head")
+        predict_temporal(spec, preds, batch["anchors"])
+        lap("predict")
+    return out
+
+
+def run_tmp_eval(dev, timer, dtimer):
+    """The temporal detector's eval forward (second_car_fhd.config, fp32 as
+    JAX builds it, 512 proposals an example, random weights from seed 0)
+    through `make_temporal_steps`' eval step on BATCH pairs at MAX_VOXELS
+    voxels a frame (`temporal_inputs`). Returns (the launch counts, the
+    report)."""
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    net, spec, info, assigner, _ = build_temporal(cfg.model, dev)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    batch = temporal_inputs(cfg, assigner, info, dev)
+    eval_step = make_temporal_steps(spec, vspec)[1]
+    state = TrainState(net, None)
+    (cur, prev), _ = voxelize_pair(vspec, batch, dev)
+    frames = {f: dict(voxels=v["voxel_valid"].sum(1).tolist(),
+                      overflow=int(v["voxel_overflow"]))
+              for f, v in (("cur", cur), ("prev", prev))}
+    report["frames"] = frames
+    say(f"tmp eval: batch {BATCH} pairs, {MAX_VOXELS} voxels a frame, "
+        f"{TWO_STAGE_PROPOSALS} proposals an example, fp32 (the config's "
+        f"mixed precision {cfg.train_config.enable_mixed_precision} is the "
+        f"one-stage model's; JAX builds the temporal model fp32); voxels "
+        f"cur {frames['cur']['voxels']} prev {frames['prev']['voxels']}, "
+        f"overflow {frames['cur']['overflow']} / "
+        f"{frames['prev']['overflow']}")
+    if frames["cur"]["overflow"] or frames["prev"]["overflow"]:
+        fail(f"tmp eval: a frame's voxels overflowed: {frames}")
+
+    def forward():
+        return eval_step(state, batch)
+
+    with recording(RECORDED_2ST) as calls:
+        forward()
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"tmp capture: {n}")
+    want_n = {"gather_gemm": SPARSE_CONVS, "nms_overlap": 1,
+              "nms_suppress": 2, "roi_align_fwd": 1, "standup_overlap": 1}
+    if {k: n[k] for k in want_n} != want_n:
+        fail(f"tmp eval: recorded {n}, expected {want_n}")
+    check_folded(calls, 2 * BATCH, "tmp eval")
+    report["conv_max_abs_err"] = check_calls_exact(calls, "tmp eval")
+    report["fp64_ratio"] = check_fp32_calls(calls, "tmp eval")
+    over_bits = riou.nms_overlap(*calls["nms_overlap"][0][0])[0]
+    rot_sup = [c for c in calls["nms_suppress"]
+               if c[0][0].shape == over_bits.shape and
+               torch.equal(c[0][0], over_bits)]
+    if len(rot_sup) != 1:
+        fail("tmp eval: no suppression call read the overlap bitmask")
+    ov, sup, report["nms"] = check_nms_pair(
+        {"nms_overlap": calls["nms_overlap"], "nms_suppress": rot_sup},
+        timer, dtimer, "tmp eval")
+    report["standup"] = check_standup_calls(
+        calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+        "tmp eval")
+    roi = check_roi_calls(calls["roi_align_fwd"], [], timer, dtimer,
+                          "tmp eval")["roi_align_fwd"]
+    report["roi_align_fwd"] = {k: roi[k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "err")}
+    del calls
+
+    reset_counts()
+    det = forward()
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one tmp forward: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS, "rotated_iou": 1,
+            "nms_suppress": 2, "roi_align_fwd": 1, "standup_overlap": 1,
+            "roi_align_bwd": 0, "sparse_gather_gemm_dgrad": 0,
+            "sparse_wgrad": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want or not counts["row_gather"]:
+        fail(f"tmp forward launches {counts}, expected {want} (the sparse "
+             f"gather-GEMM once a conv for both frames) and row gathers")
+    if (paths["mma"], paths["fma"]) != (0, SPARSE_CONVS):
+        fail(f"tmp: not every sparse conv took the fp32 path: {paths}")
+    report["launches"] = counts
+    report["host_syncs"] = host_syncs(forward)
+    if report["host_syncs"]:
+        fail(f"the tmp eval step synchronised the host "
+             f"{report['host_syncs']} times")
+    with torch.no_grad():
+        preds = net(cur, prev, batch["anchors"])
+    predict_fails_on_sync(spec, preds, batch["anchors"], "tmp eval",
+                          predict_temporal)
+    for k in ("voxel_overflow", "stage_overflow"):
+        report[k] = int(det[k])
+        if report[k]:
+            fail(f"tmp eval: {k} {report[k]}, expected 0")
+    for k in ("boxes", "scores"):
+        if not torch.isfinite(det[k]).all():
+            fail(f"tmp eval: non-finite {k}")
+    report["valid"] = det["valid"].sum(1).tolist()
+    say(f"tmp eval: no host sync (the eval step, and predict_temporal under "
+        f"set_sync_debug_mode('error')); voxel_overflow 0, stage_overflow "
+        f"0; valid detections {report['valid']}")
+
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            sfx = "_tf32" if tf32 else ""
+            fwd = timed_forwards(forward, TEMPORAL_TIMED, BATCH)
+            report["forward" + sfx] = fwd
+            report["split" + sfx] = temporal_split(net, spec, vspec, batch,
+                                                   dev)
+            say(f"tmp pairs/s {BATCH / fwd['median_s']:.3f} (median "
+                f"{1e3 * fwd['median_s']:.2f} ms of {TEMPORAL_TIMED} "
+                f"batch-{BATCH} forwards, cuDNN TF32 "
+                f"{'on' if tf32 else 'off'}); peak memory "
+                f"{fwd['peak_mem_bytes'] / 2 ** 30:.2f} GiB; one split: " +
+                ", ".join(f"{k} {v:.2f}"
+                          for k, v in report["split" + sfx].items()))
+            report["profile" + sfx] = profile_forward(
+                forward, fwd["median_s"],
+                f"tmp forward, cuDNN TF32 {'on' if tf32 else 'off'}")
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    report["sequence"] = check_tmp_sequence(cfg, dev, net, vspec, assigner,
+                                            info)
+    del net, state
+
+    def stage1(net, one, device):
+        return net.stage1(*voxelize_pair(vspec, one, device)[0])
+    one = {k: v[:1] for k, v in batch.items()}
+    report["reference"] = check_refine_reference(
+        cfg, dev, "tmp", build_temporal, stage1, "gated_bev_feat", one,
+        batch["anchors"][:1])
+    return counts, report
+
+
+def check_tmp_sequence(cfg, dev, net, vspec, assigner, info):
+    """`TemporalSequenceVoxelNet` on a T = TEMPORAL_SEQ_FRAMES sequence
+    (LiDAR scans of seeds 0.. T - 1 as its frames, at MAX_VOXELS), loaded
+    from the pair model's state dict: its T - 1 pairs' outputs against the
+    pair model on the same pairs (frames 1.. as cur, 0.. as prev), both on
+    the card, one backbone call of T frames against one of 2 (T - 1):
+    stage 1's predictions and the gated map within PRED_TOL; the refined
+    predictions within PRED_TOL where the two picked the same proposal
+    (their share printed: the random head's tied scores over empty regions
+    take another order from stage 1 an ulp apart)."""
+    T = TEMPORAL_SEQ_FRAMES
+    prep = ExamplePrep(assigner, info.feature_map_size,
+                       PrepConfig(max_points=MAX_POINTS, training=False))
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    padded = [prep.pad_points(lidar_scan_scene(
+        np.random.default_rng(s), pc_range=pc_range, num_azimuth=512)[0],
+        np.random.default_rng(0)) for s in range(T)]
+    points = torch.as_tensor(np.stack([p for p, _ in padded]), device=dev)
+    mask = torch.as_tensor(np.stack([m for _, m in padded]), device=dev)
+    anchors = torch.as_tensor(prep.anchors, device=dev)
+    seq = build_temporal(cfg.model, dev, sequence=True)[0]
+    seq.load_state_dict(net.state_dict(), strict=True)
+    with torch.no_grad():
+        frames = device_voxelize(vspec, points, mask, dev)
+        reset_counts()
+        sp = seq(frames, anchors)
+        torch.cuda.synchronize()
+        n_seq = subm.launches
+        cur = {k: v[1:] for k, v in frames.items() if v.dim()}
+        prev = {k: v[:-1] for k, v in frames.items() if v.dim()}
+        pp = net(cur, prev, anchors[None].expand(T - 1, *anchors.shape))
+    errs = {}
+    for k in ("box_preds", "cls_preds", "gated_bev_feat"):
+        errs[k] = (sp[k] - pp[k]).abs().max().item()
+        if not torch.allclose(sp[k], pp[k], **PRED_TOL):
+            fail(f"tmp sequence: stage 1 {k} differs from the pair model's "
+                 f"by {errs[k]:.3g}")
+    same = (sp["proposals"]["indices"] == pp["proposals"]["indices"]) & \
+        (sp["proposals"]["valid"] == pp["proposals"]["valid"])
+    for k in ("second_box_preds", "second_cls_preds"):
+        errs[k] = (sp[k] - pp[k])[same].abs().max().item()
+        if not torch.allclose(sp[k][same], pp[k][same], **PRED_TOL):
+            fail(f"tmp sequence: {k} at the shared proposals differs from "
+                 f"the pair model's by {errs[k]:.3g}")
+    share = same.float().mean().item()
+    say(f"tmp sequence: T = {T} frames in one backbone call ({n_seq} sparse "
+        f"gather-GEMM launches), its {T - 1} pairs against the pair model's "
+        f"on the same pairs: stage 1 within " + ", ".join(
+            f"{k} {errs[k]:.2e}" for k in ("box_preds", "cls_preds",
+                                           "gated_bev_feat")) +
+        f"; {100 * share:.1f}% of the proposals the same (a random head "
+        f"ties the scores of empty regions, and stage 1 an ulp apart "
+        f"reorders ties), the refined predictions at those within "
+        f"{errs['second_box_preds']:.2e} / {errs['second_cls_preds']:.2e}")
+    if n_seq != SPARSE_CONVS:
+        fail(f"tmp sequence: {n_seq} sparse gather-GEMM launches, expected "
+             f"{SPARSE_CONVS}")
+    return dict(frames=T, errs=errs, sparse_launches=n_seq,
+                same_proposals=share)
+
+
+def run_tmp_train(dev, timer, dtimer):
+    """The temporal detector's train step (`make_temporal_steps`, fp32, the
+    config's Adam) on TRAIN_BATCH synthetic pairs at TRAIN_VOXELS voxels a
+    frame (`temporal_train_inputs`). Returns (the launch counts, the
+    report)."""
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, None,
+                                                  build=build_temporal)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     TRAIN_VOXELS, shuffle_overflow=True)
+    batch = temporal_train_inputs(cfg, assigner, info, dev, TRAIN_BATCH)
+    step = make_temporal_steps(spec, vspec)[0]
+    say(f"tmp train: batch {TRAIN_BATCH} synthetic pairs "
+        f"(SyntheticPairDataset), {TRAIN_VOXELS} voxels a frame "
+        f"(shuffle_overflow), fp32 as in JAX, {TWO_STAGE_PROPOSALS} "
+        f"proposals an example")
+
+    with recording(RECORDED_2ST_TRAIN) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"tmp train capture: {n}; loss {float(metrics['loss']):.4f}")
+    want_n = {"gather_gemm": SPARSE_CONVS,
+              "gather_gemm_dgrad": SPARSE_CONVS - 1,
+              "sparse_wgrad": SPARSE_CONVS, "roi_align_fwd": 1,
+              "roi_align_bwd": 1, "standup_overlap": 1, "nms_suppress": 1}
+    if n != want_n:
+        fail(f"tmp train: recorded {n}, expected {want_n}")
+    check_folded(calls, 2 * TRAIN_BATCH, "tmp train")
+    check_step_calls("tmp train", calls, timer, dtimer, timed=False)
+    report["fp64_ratio"] = check_fp32_calls(calls, "tmp train")
+    roi = check_roi_calls(calls["roi_align_fwd"], calls["roi_align_bwd"],
+                          timer, dtimer, "tmp train")
+    report["roi_align"] = {n: {k: a[k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "err")}
+        for n, a in roi.items()}
+    report["standup"] = check_standup_calls(
+        calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+        "tmp train")
+    del calls
+
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one tmp train step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS,
+            "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+            "sparse_wgrad": SPARSE_CONVS, "roi_align_fwd": 1,
+            "roi_align_bwd": 1, "standup_overlap": 1, "nms_suppress": 1,
+            "rotated_iou": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"tmp train step launches {counts}, expected {want}")
+    want_paths = {"mma": 0, "fma": 2 * SPARSE_CONVS - 1, "wgrad_mma": 0,
+                  "wgrad_fma": SPARSE_CONVS}
+    if paths != want_paths:
+        fail(f"tmp train step: sparse kernels by path {paths}, expected "
+             f"{want_paths}")
+    params = dict(state.module.named_parameters())
+    for name, p in params.items():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"tmp {name}: gradient missing or not finite")
+    for name in ("bev_fusion.conv_gating_bev.weight",
+                 "second_rpn.conv_box_second.weight",
+                 "middle.subm.0.weight", "rpn.trunk.convs.0.conv.weight"):
+        if not params[name].grad.abs().max() > 0:
+            fail(f"tmp {name}: gradient all zero")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"tmp train metrics not finite: {m}")
+    report["metrics"], report["launches"] = m, counts
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the tmp train step synchronised the host {n_syncs} times")
+    say("tmp train step: no host sync; every gradient finite, the gate's, "
+        "the head's, the sparse middle's and the RPN's nonzero; " +
+        ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    check_determinism(state, spec, vspec, batch, "tmp", temporal_loss,
+                      voxelize_pair)
+    report["speed"], report["profile"] = timed_steps(
+        step, state, spec, vspec, batch, TEMPORAL_TIMED, "tmp train",
+        loss_of=temporal_loss, voxelize=voxelize_pair)
+    del state
+    report["overfit"] = check_overfit(cfg, dev, None, step, batch, "tmp",
+                                      build=build_temporal)
+    torch.backends.cudnn.deterministic = False
+    report["reference"] = check_tmp_train_reference(cfg, dev, batch)
+    report["reference64"] = check_2st_train_reference(
+        dev, "tmp", build_temporal, make_temporal_steps,
+        temporal_train_inputs)
+    return counts, report
+
+
+def check_tmp_train_reference(cfg, dev, batch):
+    """One fp32 temporal train step on one pair (the phase's first), card
+    (kernels) against CPU (plain versions), from the same seeded weights
+    with the config's optimizer, the proposals' NMS allowed the positive
+    anchors and a hundredth of the others (as the fp64 reference): the
+    loss within REF_LOSS_RTOL, the positives of both stages equal. The
+    gradients are compared and printed, not gated: the refine head's ten
+    unnormalised convs put ReLU inputs within fp32 rounding of zero, and
+    each sign that flips moves the head's gradients, and those it sends
+    back through the crops, by up to 4% of their scale
+    (`tests/test_torch_two_stage.py`); the fp64 step is held card against
+    CPU gradient by gradient (`check_2st_train_reference`)."""
+    cpu = torch.device("cpu")
+    one = {k: v[:1].cpu() for k, v in batch.items()}
+    g = torch.Generator().manual_seed(0)
+    one["anchors_mask"] = (one["labels"] > 0) | (torch.rand(
+        one["labels"].shape, generator=g) < 0.01)
+    runs = {}
+    for device in (dev, cpu):
+        state, spec = new_train_state(cfg, device, None,
+                                      build=build_temporal)[:2]
+        grads = record_grads(state)
+        vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                         TRAIN_VOXELS)
+        step = make_temporal_steps(spec, vspec)[0]
+        t0 = time.perf_counter()
+        state, metrics = step(state, {k: v.to(device)
+                                      for k, v in one.items()})
+        runs[device.type] = dict(
+            secs=time.perf_counter() - t0, loss=float(metrics["loss"]),
+            pos=(int(metrics["num_pos"]), int(metrics["second_num_pos"])),
+            grads={k: v.cpu() for k, v in grads[0].items()})
+    c, h = runs["cuda"], runs["cpu"]
+    rel = abs(c["loss"] / h["loss"] - 1)
+    if rel > REF_LOSS_RTOL or c["pos"] != h["pos"] or not h["pos"][1]:
+        fail(f"tmp train reference: fp32 loss {c['loss']!r} on the card, "
+             f"{h['loss']!r} on the CPU (positives {c['pos']}, {h['pos']})")
+    worst = {}
+    for name, want in h["grads"].items():
+        part = "second_rpn" if name.startswith("second_rpn.") else "stage 1"
+        e = (c["grads"][name] - want).abs().max().item() / max(
+            want.abs().max().item(), 1e-30)
+        worst[part] = max(worst.get(part, 0.0), e)
+    say(f"tmp train reference (fp32, 1 pair, card vs CPU; the CPU's step in "
+        f"{h['secs']:.1f} s): loss {c['loss']:.6f} / {h['loss']:.6f} (rel "
+        f"{rel:.2e}), positives {h['pos']}; gradients within "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) +
+        " of their scale (printed)")
+    return dict(cpu_s=h["secs"], loss_rel=rel, positives=h["pos"],
+                grads_rel=worst)
+
+
+def run_tmp_trainer(dev):
+    """`Trainer(model_type="temporal")` on the card with second_car_fhd.config
+    (which asks for mixed precision; the temporal model is fp32), 2 steps
+    and an `evaluate` each: on synthetic pairs, and on a fake KITTI-tracking
+    tree (`data/fake_tracking.py`: one sequence of 4 frames, so 4 pairs)
+    at batch 2. The model fp32; the losses finite; the /3d AP keys; the
+    sparse gather-GEMM 14 launches a forward (both frames folded), over
+    the steps and the eval batches. Returns (the launch counts of both
+    runs, the report)."""
+    import tempfile
+    from second_tpu_torch.data.fake_tracking import write_tracking_tree
+    from second_tpu_torch.train.run import Trainer
+    report, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for kind in ("synthetic", "tracking"):
+            patches = ["train_config.steps_per_eval=0",
+                       "train_config.save_summary_steps=1"]
+            if kind == "tracking":
+                root = write_tracking_tree(tmp / "tracking" / "training",
+                                           np.random.default_rng(0))
+                patches += [
+                    f"train_input_reader.kitti_root_path='{root}'",
+                    f"eval_input_reader.kitti_root_path='{root}'",
+                    "train_input_reader.batch_size=2",
+                    "eval_input_reader.batch_size=2"]
+            tr = Trainer(CONFIG, tmp / kind, synthetic=kind == "synthetic",
+                         dataset_size=8, max_points=MAX_POINTS,
+                         total_steps=2, model_type="temporal",
+                         patches=patches, device=dev)
+            if not tr.cfg.train_config.enable_mixed_precision or \
+                    tr.module.middle.dtype is not None or any(
+                        p.dtype != torch.float32
+                        for p in tr.module.parameters()):
+                fail(f"tmp trainer ({kind}): the model is not fp32 on a "
+                     f"config that asks for mixed precision")
+            reset_counts()
+            try:
+                t0 = time.perf_counter()
+                state = tr.train(2)
+                train_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                detail = tr.evaluate(state, max_frames=8)
+                eval_s = time.perf_counter() - t0
+            finally:
+                tr.logger.close()
+            counts = launch_counts()
+            log = [json.loads(line) for line in
+                   (tmp / kind / "log.json").read_text().splitlines()]
+            losses = [r["train.loss"] for r in log if "train.loss" in r]
+            ap = {k: v[1] for k, v in detail.items() if "/3d" in k}
+            eval_batch = tr.cfg.eval_input_reader.batch_size
+            forwards = 2 + min(len(tr.eval_ds), 8) // eval_batch
+            if len(losses) != 2 or not all(np.isfinite(losses)) or not ap:
+                fail(f"tmp trainer ({kind}): losses {losses}, /3d keys "
+                     f"{sorted(ap)}")
+            if counts["sparse_gather_gemm"] != SPARSE_CONVS * forwards or \
+                    not counts["roi_align_fwd"] or \
+                    not counts["roi_align_bwd"]:
+                fail(f"tmp trainer ({kind}): launches {counts}, expected "
+                     f"{SPARSE_CONVS} sparse convs in each of {forwards} "
+                     f"forwards")
+            say(f"tmp trainer ({kind}): {len(tr.train_ds)} train pairs, "
+                f"losses " + ", ".join(f"{v:.4f}" for v in losses) +
+                f" in {train_s:.1f} s, evaluate in {eval_s:.1f} s with "
+                f"{len(ap)} /3d AP keys; launches {counts}")
+            report[kind] = dict(losses=losses, ap_3d=ap, train_s=train_s,
+                                eval_s=eval_s, launches=counts)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    return total, report
+
+
+def run_tracking_phase(dev):
+    """Tracking-by-detection on the card (`train/run_tracking.py`, the CLI's
+    defaults: synthetic sequences of 4 frames, 16 detections, feature dim
+    128): train TRACK_STEPS steps, then `evaluate` with the simple and
+    the memory tracker, in 3-frame windows, and with the camera crops;
+    the `SequenceTrackNet` forward card against CPU from the same weights;
+    steps/s of the train step on one prepared sequence; `nms_vid` on
+    random detections card against CPU. Returns the report."""
+    import tempfile
+    from second_tpu_torch.models.tracking_train import nms_vid
+    from second_tpu_torch.train import run_tracking as rt
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--model_dir", str(Path(tmp) / "trk"), "--num_sequences",
+                "4"]
+        t0 = time.perf_counter()
+        rt.main(["train", *args, "--steps", str(TRACK_STEPS)])
+        report["train_s"] = time.perf_counter() - t0
+        runs = {"simple": [], "memory": ["--tracker", "memory"],
+                "window3": ["--window", "3"], "camera": ["--camera"]}
+        for name, extra in runs.items():
+            summary = rt.main(["evaluate", *args, *extra])
+            if not {"mota", "motp", "id_switches"} <= set(summary) or \
+                    not np.isfinite(summary["mota"]):
+                fail(f"tracking evaluate ({name}): {summary}")
+            report[name] = summary
+        say(f"tracking: {TRACK_STEPS} train steps in {report['train_s']:.1f} "
+            f"s; CLEAR-MOT " + "; ".join(
+                f"{n} mota {report[n]['mota']:.3f} id_switches "
+                f"{report[n]['id_switches']:.0f}" for n in runs))
+        tr = rt.TrackingTrainer(Path(tmp) / "speed", device=dev)
+        arrays = tr._prep_item(0)
+        batch = tr._tensors(arrays)
+        net_h = copy.deepcopy(tr.net).cpu()
+        with torch.no_grad():
+            out_c = tr.net(batch["crops"], batch["points"], batch["pmask"])
+            out_h = net_h(*(torch.as_tensor(arrays[k]) for k in (
+                "crops", "points", "pmask")))
+        errs = {}
+        for k, v in out_h.items():
+            errs[k] = (out_c[k].cpu() - v).abs().max().item()
+            if not torch.allclose(out_c[k].cpu(), v, **PRED_TOL):
+                fail(f"tracking: SequenceTrackNet {k} card vs CPU max abs "
+                     f"err {errs[k]:.3g}")
+        for _ in range(2):
+            tr.train_step(batch)
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        syncs = host_syncs(lambda: tr.train_step(batch))
+        report.update(forward_errs=errs, step_median_s=med,
+                      steps_per_s=1 / med, host_syncs=syncs,
+                      peak_mem_bytes=torch.cuda.max_memory_allocated())
+        say(f"tracking: SequenceTrackNet forward card vs CPU within "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
+            f"; train steps/s {1 / med:.3f} (median {1e3 * med:.2f} ms of "
+            f"{TIMED_STEPS} steps on one prepared sequence, "
+            f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory "
+            f"{report['peak_mem_bytes'] / 2 ** 30:.3f} GiB; {syncs} host "
+            f"syncs in a step")
+    rng = np.random.default_rng(7)
+    n = 512
+    ctr = rng.uniform(0, 40, (n, 2))
+    boxes = np.concatenate([ctr, np.full((n, 1), -1.7),
+                            rng.uniform(1.5, 4, (n, 3)),
+                            rng.uniform(-np.pi, np.pi, (n, 1))],
+                           1).astype(np.float32)
+    cls = rng.normal(0, 2, (n, 1)).astype(np.float32)
+    valid = rng.uniform(size=n) < 0.9
+    reset_counts()
+    got = nms_vid(*(torch.as_tensor(a, device=dev)
+                    for a in (boxes, cls, valid)))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = nms_vid(*map(torch.as_tensor, (boxes, cls, valid)))
+    if counts["rotated_iou"] != 1 or counts["nms_suppress"] != 1:
+        fail(f"tracking nms_vid launched {counts}")
+    if not torch.equal(got[2].cpu(), want[2]) or not torch.allclose(
+            got[0].cpu()[want[2]], want[0][want[2]], **DET_TOL):
+        fail("tracking: nms_vid differs card vs CPU")
+    report["nms_vid_kept"] = int(want[2].sum())
+    say(f"tracking: nms_vid on {n} card detections equal to the CPU's "
+        f"({report['nms_vid_kept']} kept; nms_overlap and nms_suppress once "
+        f"each)")
+    return report
 
 
 if __name__ == "__main__":

@@ -9,7 +9,13 @@ change is a permutation, so it carries gradients as it carries weights).
 A two-stage tree (`second_tpu.models.TwoStageVoxelNet`: `stage1/...` and
 `second_rpn/{reg_tower,cls_tower}/Conv_0..4`, `conv_box_second`,
 `conv_cls_second`, `conv_dir_second`) maps onto `TwoStageVoxelNet`'s
-`stage1.*` and `second_rpn.*` the same way.
+`stage1.*` and `second_rpn.*` the same way, and a temporal tree
+(`second_tpu.models.temporal.TemporalVoxelNet`: `vfe`, `middle`,
+`bev_fusion/conv_gating_bev`, `rpn`, `second_rpn`) onto
+`TemporalVoxelNet`'s and `TemporalSequenceVoxelNet`'s names.
+`tracking_state_dict_from_jax(params)` maps the tracking net's tree
+(`second_tpu.models.tracking.SequenceTrackNet` / `TrackNet`, flax's
+automatic names) onto `models/tracking.py`'s.
 Sparse kernels stay [K, Cin, Cout] in tap order; dense conv kernels go
 from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
 out), applied without a kernel transpose, to torch's (in, out, kh, kw)
@@ -124,20 +130,31 @@ def _conv(out, name, c):
     out[f"{name}.bias"] = _t(c["bias"])
 
 
-def _convert_any(params, stats) -> dict:
-    """A one-stage tree, or a two-stage one (`stage1` and `second_rpn`)."""
-    if "stage1" not in params:
-        return _convert(params, stats)
-    out = {f"stage1.{k}": v for k, v in _convert(
-        params["stage1"],
-        None if stats is None else stats.get("stage1", {})).items()}
-    hp = params["second_rpn"]
+def _second_rpn(out, hp):
+    """The refine head's towers and crop-sized convs → `second_rpn.*`."""
     for tower in ("reg_tower", "cls_tower"):
         for i, c in enumerate(_numbered(hp[tower], "Conv")):
             _conv(out, f"second_rpn.{tower}.convs.{i}", c)
     for name in ("conv_box_second", "conv_cls_second", "conv_dir_second"):
         if name in hp:
             _conv(out, f"second_rpn.{name}", hp[name])
+
+
+def _convert_any(params, stats) -> dict:
+    """A one-stage tree, a two-stage one (`stage1` and `second_rpn`) or a
+    temporal one (`vfe`, `middle`, `bev_fusion`, `rpn` and
+    `second_rpn`)."""
+    if "second_rpn" not in params:
+        return _convert(params, stats)
+    if "stage1" in params:
+        out = {f"stage1.{k}": v for k, v in _convert(
+            params["stage1"],
+            None if stats is None else stats.get("stage1", {})).items()}
+    else:
+        out = _convert(params, stats)
+        _conv(out, "bev_fusion.conv_gating_bev",
+              params["bev_fusion"]["conv_gating_bev"])
+    _second_rpn(out, params["second_rpn"])
     return out
 
 
@@ -151,3 +168,23 @@ def grads_from_jax(grads) -> dict:
     parameter name: tensor}, the names of `VoxelNet.named_parameters()`
     (of `TwoStageVoxelNet`'s for a two-stage tree)."""
     return _convert_any(grads, None)
+
+
+def tracking_state_dict_from_jax(params) -> dict:
+    """The tracking net's flax params (or a gradient with their structure)
+    → the port's names (`models/tracking.py`): every flax module path
+    `a/b/Dense_0` becomes `a.b.Dense_0`, Dense kernels [in, out] go to
+    [out, in], conv kernels HWIO to OIHW."""
+    out = {}
+
+    def walk(tree, prefix):
+        if "kernel" in tree:
+            k = np.asarray(tree["kernel"])
+            out[f"{prefix}.weight"] = _t(k.transpose(3, 2, 0, 1)
+                                         if k.ndim == 4 else k.T)
+            out[f"{prefix}.bias"] = _t(tree["bias"])
+            return
+        for name, sub in tree.items():
+            walk(sub, f"{prefix}.{name}" if prefix else name)
+    walk(params, "")
+    return out

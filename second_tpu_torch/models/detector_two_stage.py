@@ -39,7 +39,40 @@ class RoiSpec:
     samples: int = 2
 
 
-class TwoStageVoxelNet(nn.Module):
+class RefineStage:
+    """The second stage, shared by the two-stage and the temporal detector:
+    proposals from stage 1's outputs, rotated crops of a BEV map, the
+    refine head `second_rpn`. The host module carries `spec`, `pspec`,
+    `roi` and `second_rpn`."""
+
+    def refine(self, stage1, anchors, anchors_mask=None, crop_map=None):
+        """The second stage on stage 1's outputs; the crops come from
+        `crop_map` [B, C, H, W] (the RPN's trunk unless given)."""
+        proposals = select_proposals(self.pspec, self.spec, stage1, anchors,
+                                     anchors_mask)
+        crops = self.crops(stage1["trunk"] if crop_map is None else crop_map,
+                           proposals)
+        B, N = proposals["indices"].shape
+        out = self.second_rpn(crops)
+        result = {**stage1, "proposals": proposals,
+                  # residual refinement in encoding space (reference
+                  # spatio :870)
+                  "second_box_preds": out["box_preds"].reshape(
+                      B, N, self.spec.box_code_size) + proposals["box_enc"],
+                  "second_cls_preds": out["cls_preds"].reshape(B, N, -1)}
+        if "dir_preds" in out:
+            result["second_dir_preds"] = out["dir_preds"].reshape(B, N, 2)
+        return result
+
+    def crops(self, bev, proposals):
+        """[B * N, C, k, k] crops of the proposals' boxes from bev [B, C,
+        H, W]."""
+        r = self.roi
+        return crop_rois(bev, proposals["boxes"], r.pc_range, r.voxel_size,
+                         r.out_stride, r.crop_size, r.samples)
+
+
+class TwoStageVoxelNet(RefineStage, nn.Module):
     """Stage-1 VoxelNet (`stage1`) + proposal crops + SECOND refine head
     (`second_rpn`), the JAX module's names."""
 
@@ -63,29 +96,6 @@ class TwoStageVoxelNet(nn.Module):
         (second_dir_preds [B, N, 2] with the direction classifier)."""
         stage1 = self.stage1(voxels, num_points, coords, voxel_valid)
         return self.refine(stage1, anchors, anchors_mask)
-
-    def refine(self, stage1, anchors, anchors_mask=None):
-        """The second stage on stage 1's outputs."""
-        proposals = select_proposals(self.pspec, self.spec, stage1, anchors,
-                                     anchors_mask)
-        crops = self.crops(stage1["trunk"], proposals)
-        B, N = proposals["indices"].shape
-        out = self.second_rpn(crops)
-        result = {**stage1, "proposals": proposals,
-                  # residual refinement in encoding space (reference
-                  # spatio :870)
-                  "second_box_preds": out["box_preds"].reshape(
-                      B, N, self.spec.box_code_size) + proposals["box_enc"],
-                  "second_cls_preds": out["cls_preds"].reshape(B, N, -1)}
-        if "dir_preds" in out:
-            result["second_dir_preds"] = out["dir_preds"].reshape(B, N, 2)
-        return result
-
-    def crops(self, trunk, proposals):
-        """[B * N, C, k, k] crops of the proposals' boxes."""
-        r = self.roi
-        return crop_rois(trunk, proposals["boxes"], r.pc_range, r.voxel_size,
-                         r.out_stride, r.crop_size, r.samples)
 
 
 def compute_two_stage_loss(spec, preds, labels, reg_targets, anchors,

@@ -15,11 +15,15 @@ Usage:
         --model_dir D [--synthetic] [--device cpu]
 
 Ported: `model_type="one_stage"` (SECOND car.fhd and multi-class,
-PointPillars) and `"two_stage"` (any of them as stage 1 of the rotated-ROI
-refine detector, `models/detector_two_stage.py`), on the KITTI infos the config's input readers name
-(`data/kitti_dataset.py`, prepared by `python -m
-second_tpu_torch.data.kitti_dataset`) or, with `synthetic=True`, on the
-scan scenes the JAX trainer uses under `--synthetic`; with the config's
+PointPillars), `"two_stage"` (any of them as stage 1 of the rotated-ROI
+refine detector, `models/detector_two_stage.py`) and `"temporal"` (the
+two-frame gated-fusion detector, `models/temporal.py`), on the KITTI infos
+the config's input readers name (`data/kitti_dataset.py`, prepared by
+`python -m second_tpu_torch.data.kitti_dataset`; for `temporal`, (cur,
+prev) frame pairs of the KITTI-tracking split root the readers'
+`kitti_root_path` names, `data/tracking.py`) or, with `synthetic=True`, on
+the scan scenes the JAX trainer uses under `--synthetic` (frame pairs,
+`SyntheticPairDataset`, for `temporal`); with the config's
 anchor-area mask: computed on the host for target assignment in training,
 on the device from the voxelizer's coords in evaluation. Every other model
 type and data-parallel training raise `NotImplementedError` naming their
@@ -45,20 +49,20 @@ from ..data import kitti
 from ..data.kitti_dataset import KittiDataset
 from ..data.synthetic import SyntheticDataset
 from ..device import resolve_device
-from ..models import build_two_stage_voxelnet, build_voxelnet
+from ..models import (build_temporal_voxelnet, build_two_stage_voxelnet,
+                      build_voxelnet)
 from ..utils import kitti_eval
 from .checkpoint import CheckpointManager
 from .metrics import MetricsLogger, Scalar, StageTimer
 from .prefetch import PrefetchIterator, bounded_ordered_map
 from .state import (VoxelizeSpec, create_state, make_eval_step,
                     make_train_step)
-from .steps_multistage import make_two_stage_steps
+from .steps_multistage import make_temporal_steps, make_two_stage_steps
 
 _NOT_PORTED = {
     "fusion": "ROADMAP item 14 (fusion)",
     "fusion_two_stage": "ROADMAP item 14 (fusion)",
-    "temporal": "ROADMAP item 15 (temporal and tracking)",
-    "temporal_fusion": "ROADMAP item 15 (temporal and tracking)",
+    "temporal_fusion": "ROADMAP item 14 (fusion)",
 }
 
 
@@ -129,7 +133,7 @@ class Trainer:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported yet: "
                 f"{_NOT_PORTED[model_type]}")
-        if model_type not in ("one_stage", "two_stage"):
+        if model_type not in ("one_stage", "two_stage", "temporal"):
             raise ValueError(f"unknown model_type {model_type!r}")
         self.model_type = model_type
         self.device = resolve_device(device)
@@ -140,17 +144,19 @@ class Trainer:
         # keep the resolved config beside the run (reference train.py:114-122)
         shutil.copy(config_path, self.model_dir / "pipeline.config")
 
-        # the two-stage model is fp32 on every config, as JAX's `Trainer`
-        # builds it (`build_two_stage_voxelnet(cfg.model)`)
+        # the two-stage and temporal models are fp32 on every config, as
+        # JAX's `Trainer` builds them (`build_two_stage_voxelnet(cfg.model)`,
+        # `build_temporal_voxelnet(cfg.model)`)
         if model_type == "one_stage":
             (self.module, self.spec, self.info, self.assigner,
              self.coder) = build_voxelnet(
                 self.cfg.model, device=self.device,
                 mixed_precision=self.cfg.train_config.enable_mixed_precision)
         else:
+            build = build_two_stage_voxelnet if model_type == "two_stage" \
+                else build_temporal_voxelnet
             (self.module, self.spec, self.info, self.assigner,
-             self.coder) = build_two_stage_voxelnet(self.cfg.model,
-                                                    device=self.device)
+             self.coder) = build(self.cfg.model, device=self.device)
         # shuffle_overflow: the train cap is sized for memory (reference
         # trains fhd at 16k voxels vs 40k eval, config `:121-123`) so
         # overflow is expected — drop a pseudorandom subset, not the
@@ -189,7 +195,15 @@ class Trainer:
                        pc_range=tuple(vg.point_cloud_range),
                        device_anchors_mask=True))
         self.synthetic = synthetic
-        if synthetic:
+        pairs = model_type == "temporal"
+        if synthetic and pairs:
+            from ..data.synthetic import SyntheticPairDataset
+            pc_range = tuple(vg.point_cloud_range)
+            self.train_ds = SyntheticPairDataset(dataset_size, seed=1,
+                                                 pc_range=pc_range)
+            self.eval_ds = SyntheticPairDataset(max(32, dataset_size // 8),
+                                                seed=2, pc_range=pc_range)
+        elif synthetic:
             # scan geometry (not uniform scatter): realistic voxel
             # occupancy and sparse-stage dilation. Scenes carry every class
             # the config's target assigner detects.
@@ -208,6 +222,16 @@ class Trainer:
             self.eval_ds = SyntheticDataset(max(32, dataset_size // 8),
                                             seed=2, pc_range=pc_range,
                                             scan=True, **cls_kwargs)
+        elif pairs:
+            # KITTI tracking-benchmark sequences → (cur, prev) frame pairs
+            # (reader root = the tracking split dir: label_02, velodyne,
+            # calib)
+            from ..data.tracking import (KittiTrackingDataset,
+                                         TrackingPairDataset)
+            self.train_ds = TrackingPairDataset(KittiTrackingDataset(
+                self.cfg.train_input_reader.kitti_root_path))
+            self.eval_ds = TrackingPairDataset(KittiTrackingDataset(
+                self.cfg.eval_input_reader.kitti_root_path))
         else:
             self.train_ds = KittiDataset(
                 self.cfg.train_input_reader.kitti_info_path,
@@ -229,7 +253,9 @@ class Trainer:
                                             self.eval_vspec,
                                             mask_info=self._eval_mask_info)
         else:
-            self.train_step, self.eval_step = make_two_stage_steps(
+            steps = make_two_stage_steps if model_type == "two_stage" \
+                else make_temporal_steps
+            self.train_step, self.eval_step = steps(
                 self.spec, self.vspec, self.eval_vspec,
                 mask_info=self._eval_mask_info)
         self.ckpt = CheckpointManager(self.model_dir)
@@ -477,7 +503,8 @@ def main(argv=None):
     parser.add_argument("--max_points", type=int, default=20000)
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--model_type", default="one_stage",
-                        choices=["one_stage", "two_stage", *_NOT_PORTED])
+                        choices=["one_stage", "two_stage", "temporal",
+                                 *_NOT_PORTED])
     parser.add_argument("--patchs", action="append", default=None,
                         metavar="PATH=VALUE",
                         help="runtime config patch, repeatable "

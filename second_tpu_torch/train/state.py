@@ -50,10 +50,11 @@ class TrainState:
 
 def create_state(module: nn.Module, optimizer_config, total_steps,
                  seed: int = 0) -> TrainState:
-    """A fresh train state for `module`, a one- or two-stage detector:
-    flax's initialisers drawn from `seed` (`init_train_weights_`), the
-    config's optimizer and lr schedule, step 0 (JAX's `TrainState.create`
-    and `create_two_stage_state`)."""
+    """A fresh train state for `module`, a one-stage, two-stage or temporal
+    detector: flax's initialisers drawn from `seed` (`init_train_weights_`),
+    the config's optimizer and lr schedule, step 0 (JAX's
+    `TrainState.create`, `create_two_stage_state` and
+    `create_temporal_state`)."""
     init_train_weights_(module, seed)
     opt, lr_sched = build_optimizer(optimizer_config, total_steps,
                                     module.parameters())
@@ -92,19 +93,27 @@ def make_train_step(spec: DetectorSpec, vspec: VoxelizeSpec):
     return step_of(vspec, forward_loss, metrics_of)
 
 
-def step_of(vspec: VoxelizeSpec, forward_loss, metrics_of):
+def voxelize_points(vspec: VoxelizeSpec, batch: Dict, dev):
+    """The batch's point clouds voxelized → (voxels, their overflow)."""
+    vox = device_voxelize(vspec, batch["points"], batch["points_mask"], dev)
+    return vox, vox["voxel_overflow"]
+
+
+def step_of(vspec: VoxelizeSpec, forward_loss, metrics_of,
+            voxelize=voxelize_points):
     """The train step around a model's forward and loss:
     forward_loss(net, vox, batch) → (preds, loss dict with "loss") in train
-    mode, metrics_of(loss dict) → the model's metrics. The step voxelizes
-    with no grad, runs forward_loss, backward, the gradient norm before
-    the clip, the clip and the optimizer step, and adds loss, grad_norm,
-    voxel_overflow and stage_overflow to the metrics."""
+    mode, metrics_of(loss dict) → the model's metrics, voxelize(vspec,
+    batch, device) → (vox, voxel overflow count), the voxels forward_loss
+    takes. The step voxelizes with no grad, runs forward_loss, backward,
+    the gradient norm before the clip, the clip and the optimizer step,
+    and adds loss, grad_norm, voxel_overflow and stage_overflow to the
+    metrics."""
 
     def train_step(state: TrainState, batch: Dict):
         net, dev = state.module, state.device
         with torch.no_grad():
-            vox = device_voxelize(vspec, batch["points"],
-                                  batch["points_mask"], dev)
+            vox, voxel_overflow = voxelize(vspec, batch, dev)
         net.train()
         with torch.enable_grad():
             preds, aux = forward_loss(net, vox, batch)
@@ -114,7 +123,7 @@ def step_of(vspec: VoxelizeSpec, forward_loss, metrics_of):
         state.step += 1
         metrics = {"loss": aux["loss"].detach(), **metrics_of(aux),
                    "grad_norm": grad_norm,
-                   "voxel_overflow": vox["voxel_overflow"],
+                   "voxel_overflow": voxel_overflow,
                    "stage_overflow": preds["stage_overflow"]}
         return state, metrics
 
@@ -149,4 +158,4 @@ def make_eval_step(spec: DetectorSpec, vspec: VoxelizeSpec,
 
 
 __all__ = ["TrainState", "VoxelizeSpec", "device_voxelize", "make_train_step",
-           "make_eval_step", "step_of", "create_state"]
+           "make_eval_step", "step_of", "voxelize_points", "create_state"]

@@ -1,13 +1,15 @@
-"""Train and eval steps for the two-stage detector — the port of
-`second_tpu/train/steps_multistage.py` (`make_two_stage_steps`; the
-counterpart of its `create_two_stage_state` is `train/state.py`
-`create_state`, which serves both detectors).
+"""Train and eval steps for the two-stage and the temporal detector — the
+port of `second_tpu/train/steps_multistage.py` (`make_two_stage_steps`,
+`make_temporal_steps`; the counterpart of its `create_two_stage_state` and
+`create_temporal_state` is `train/state.py` `create_state`, which serves
+every detector: the port's modules need no example batch to build).
 
 The steps are `train/state.py`'s: the same voxelize, backward, gradient
 norm, clip and optimizer step, and no host sync; only the forward (stage 1,
 proposals, crops, refine head) and the loss ((stage 1 + stage 2) / 2)
-differ. The eval step decodes and NMSes the refined proposals
-(`predict_two_stage`).
+differ. The temporal steps voxelize the previous frame too, from the
+batch's `p_points` / `p_points_mask`, with the same spec. The eval steps
+decode and NMS the refined proposals (`predict_two_stage`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,37 @@ def _forward(net, vox, batch, anchors_mask=None):
     return net(vox["voxels"], vox["num_points"], vox["coordinates"],
                vox["voxel_valid"], batch["anchors"],
                anchors_mask=batch.get("anchors_mask", anchors_mask))
+
+
+def _metrics_of(aux):
+    """The two-stage loss dict → the step's metrics."""
+    out = {"cls_loss": aux["cls_loss_reduced"].detach(),
+           "loc_loss": aux["loc_loss_reduced"].detach(),
+           "second_cls_loss": aux["second_cls_loss_reduced"].detach(),
+           "second_loc_loss": aux["second_loc_loss_reduced"].detach(),
+           "num_pos": aux["num_pos"],
+           "second_num_pos": aux["second_num_pos"]}
+    if "dir_loss_reduced" in aux:
+        out["dir_loss"] = aux["dir_loss_reduced"].detach()
+    if "second_dir_loss_reduced" in aux:
+        out["second_dir_loss"] = aux["second_dir_loss_reduced"].detach()
+    return out
+
+
+def _loss(spec, preds, batch):
+    return compute_two_stage_loss(
+        spec, preds, batch["labels"], batch["reg_targets"], batch["anchors"],
+        batch.get("gt_boxes_padded"), batch.get("gt_valid"))
+
+
+def _eval_mask(batch, vox, mask_info):
+    """The anchors mask on the device from the (current) frame's coords,
+    where the batch has none and `mask_info` is given; else None."""
+    if "anchors_mask" in batch or mask_info is None:
+        return None
+    corners, grid_hw, threshold = mask_info
+    return anchors_mask_from_coords(vox["coordinates"], vox["voxel_valid"],
+                                    corners, grid_hw, threshold)
 
 
 def make_two_stage_steps(spec, vspec: VoxelizeSpec,
@@ -49,23 +82,7 @@ def make_two_stage_steps(spec, vspec: VoxelizeSpec,
 
     def forward_loss(net, vox, batch):
         preds = _forward(net, vox, batch)
-        return preds, compute_two_stage_loss(
-            spec, preds, batch["labels"], batch["reg_targets"],
-            batch["anchors"], batch.get("gt_boxes_padded"),
-            batch.get("gt_valid"))
-
-    def metrics_of(aux):
-        out = {"cls_loss": aux["cls_loss_reduced"].detach(),
-               "loc_loss": aux["loc_loss_reduced"].detach(),
-               "second_cls_loss": aux["second_cls_loss_reduced"].detach(),
-               "second_loc_loss": aux["second_loc_loss_reduced"].detach(),
-               "num_pos": aux["num_pos"],
-               "second_num_pos": aux["second_num_pos"]}
-        if "dir_loss_reduced" in aux:
-            out["dir_loss"] = aux["dir_loss_reduced"].detach()
-        if "second_dir_loss_reduced" in aux:
-            out["second_dir_loss"] = aux["second_dir_loss_reduced"].detach()
-        return out
+        return preds, _loss(spec, preds, batch)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict):
@@ -73,17 +90,56 @@ def make_two_stage_steps(spec, vspec: VoxelizeSpec,
         net.eval()
         vox = device_voxelize(eval_vspec, batch["points"],
                               batch["points_mask"], state.device)
-        mask = None
-        if "anchors_mask" not in batch and mask_info is not None:
-            corners, grid_hw, threshold = mask_info
-            mask = anchors_mask_from_coords(vox["coordinates"],
-                                            vox["voxel_valid"], corners,
-                                            grid_hw, threshold)
-        preds = _forward(net, vox, batch, mask)
+        preds = _forward(net, vox, batch, _eval_mask(batch, vox, mask_info))
         det = predict_two_stage(spec, preds, batch["anchors"])
         det["voxel_overflow"] = vox["voxel_overflow"]
         det["stage_overflow"] = preds["stage_overflow"]
         return det
 
-    return step_of(vspec, forward_loss, metrics_of), eval_step
+    return step_of(vspec, forward_loss, _metrics_of), eval_step
+
+
+def voxelize_pair(vspec, batch, dev):
+    """The current and the previous frames voxelized with one spec →
+    ((cur, prev), their summed voxel overflow)."""
+    cur = device_voxelize(vspec, batch["points"], batch["points_mask"], dev)
+    prev = device_voxelize(vspec, batch["p_points"], batch["p_points_mask"],
+                           dev)
+    return (cur, prev), cur["voxel_overflow"] + prev["voxel_overflow"]
+
+
+def _forward_pair(net, pair, batch, anchors_mask=None):
+    return net(*pair, batch["anchors"],
+               anchors_mask=batch.get("anchors_mask", anchors_mask))
+
+
+def make_temporal_steps(spec, vspec: VoxelizeSpec,
+                        eval_vspec: VoxelizeSpec = None, mask_info=None):
+    """(train_step, eval_step) for `TemporalVoxelNet` batches: the
+    two-stage steps' batch keys plus the previous frame's points,
+    p_points [B, P, C] and p_points_mask [B, P] (the reference's `p_*`
+    example keys, spatio :666-677). Both frames are voxelized with the
+    same spec (the eval capacity in eval); voxel_overflow counts both.
+    The metrics are `make_two_stage_steps`'; the eval step's anchors mask,
+    where the batch has none, comes from the current frame's coords."""
+    eval_vspec = eval_vspec or vspec
+
+    def forward_loss(net, pair, batch):
+        preds = _forward_pair(net, pair, batch)
+        return preds, _loss(spec, preds, batch)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict):
+        net = state.module
+        net.eval()
+        pair, overflow = voxelize_pair(eval_vspec, batch, state.device)
+        preds = _forward_pair(net, pair, batch,
+                              _eval_mask(batch, pair[0], mask_info))
+        det = predict_two_stage(spec, preds, batch["anchors"])
+        det["voxel_overflow"] = overflow
+        det["stage_overflow"] = preds["stage_overflow"]
+        return det
+
+    return step_of(vspec, forward_loss, _metrics_of,
+                   voxelize=voxelize_pair), eval_step
 

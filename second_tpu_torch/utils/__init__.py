@@ -1,3 +1,3 @@
-from . import kitti_eval, misc
+from . import assignment, kitti_eval, misc, mot_metrics
 
-__all__ = ["kitti_eval", "misc"]
+__all__ = ["assignment", "kitti_eval", "misc", "mot_metrics"]

@@ -13,7 +13,11 @@ gradient through the transposed rulebook and the weight gradient against
 autograd of the plain gather-GEMM, and the sparse middle's weights getting
 their gradients on the card. Then PointPillars at full width: the eval
 forward card against CPU, the in-graph anchors mask against the host mask,
-and the kernel launches of its eval forward and train step. This file
+and the kernel launches of its eval forward and train step; the two-stage
+refine card against CPU; and the temporal detector on second_car_fhd.config:
+its forward card against CPU with both frames in one backbone call, a
+train step's gradients reaching the gate, and the sequence model against
+the pair model. This file
 imports torch, numpy and the port only, and the 3-D IoU cull's geometry
 cases from `test_torch_d3_cull.py` (which add hypothesis)."""
 
@@ -1655,3 +1659,173 @@ def test_two_stage_refine_card_matches_cpu(dev, pp):
                                    head_h[f"{k}_preds"].view(B, N, -1),
                                    atol=1e-4, rtol=1e-4)
     assert torch.equal(det_c["valid"].cpu(), det_h["valid"])
+
+
+# ------------------------------------------------- the temporal detector
+
+FHD = Path(__file__).resolve().parents[1] / "second_tpu_torch" / "configs" \
+    / "second_car_fhd.config"
+
+
+@pytest.fixture(scope="module")
+def tmp_pairs(dev):
+    """The temporal detector on second_car_fhd.config at full width (64
+    proposals an example, fp32, random weights from seed 0) on the card and
+    on the CPU, and two eval pairs of LiDAR scans (seeds 0 and 1 as the
+    current frames, 2 and 3 as the previous ones) voxelized on both."""
+    from second_tpu_torch.models import build_temporal_voxelnet
+    from second_tpu_torch.train.steps_multistage import voxelize_pair
+    cfg = load_pipeline_config(FHD)
+    net_h, spec, info, assigner, _ = build_temporal_voxelnet(
+        cfg.model, 64, device="cpu")
+    net_c = build_temporal_voxelnet(cfg.model, 64, device=dev)[0]
+    prep = ExamplePrep(assigner, info.feature_map_size,
+                       PrepConfig(max_points=30000, training=False))
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+
+    def scan(seed):
+        return lidar_scan_scene(np.random.default_rng(seed),
+                                pc_range=pc_range, num_azimuth=512)
+    exs = []
+    for s in (0, 1):
+        p, b, n = scan(s)
+        exs.append(prep({"points": p, "p_points": scan(s + 2)[0],
+                         "gt_boxes": b, "gt_names": n},
+                        np.random.default_rng(s)))
+    batch = {k: torch.as_tensor(v) for k, v in prep.collate(exs).items()
+             if k != "image_idx"}
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, 40000)
+    pair_h = voxelize_pair(vspec, batch, "cpu")[0]
+    pair_c = voxelize_pair(vspec, {k: v.to(dev) for k, v in batch.items()},
+                           dev)[0]
+    return dict(cfg=cfg, spec=spec, net_h=net_h, net_c=net_c, batch=batch,
+                pair_h=pair_h, pair_c=pair_c, vspec=vspec)
+
+
+def test_temporal_forward_card_matches_cpu(dev, tmp_pairs):
+    """The temporal forward from the same weights, card (kernels) against
+    CPU (plain versions): both frames of both pairs in one backbone call
+    (the sparse gather-GEMM 14 launches); stage 1 and the gated BEV map
+    within 1e-3; on the card's stage 1, the proposals' standup NMS gives
+    the CPU's indices and valid on the same boxes and scores, the crops of
+    the fused map at the same boxes within 1e-4 of their scale and the
+    head on the same crops within 1e-4; `predict_temporal` with no host
+    sync keeps what the CPU keeps on the same predictions."""
+    from second_tpu_torch.models import predict_temporal, second_stage
+    t = tmp_pairs
+    net_c, net_h, spec = t["net_c"], t["net_h"], t["spec"]
+    anchors = t["batch"]["anchors"]
+    with torch.no_grad():
+        before = subm.launches
+        s1_c = net_c.stage1(*t["pair_c"])
+        torch.cuda.synchronize()
+        assert subm.launches - before == 14
+        s1_h = net_h.stage1(*t["pair_h"])
+        for k in ("box_preds", "cls_preds", "gated_bev_feat"):
+            torch.testing.assert_close(s1_c[k].cpu(), s1_h[k], atol=1e-3,
+                                       rtol=1e-3)
+        seen = []
+
+        def recording_nms(*args, **kwargs):
+            seen.append((args, kwargs))
+            return nms.nearest_nms(*args, **kwargs)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(second_stage, "nearest_nms", recording_nms)
+            pc = net_c.refine(s1_c, anchors.to(dev),
+                              crop_map=s1_c["gated_bev_feat"])
+        (args, kwargs), = seen
+        idx_h, keep_h = nms.nearest_nms(*[a.cpu() for a in args], **kwargs)
+        prop = {k: v.cpu() for k, v in pc["proposals"].items()}
+        crops_c = net_c.crops(s1_c["gated_bev_feat"], pc["proposals"])
+        crops_h = net_h.crops(s1_c["gated_bev_feat"].cpu(), prop)
+        head_c = net_c.second_rpn(crops_c)
+        head_h = net_h.second_rpn(crops_c.cpu())
+        anchors_c = anchors.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            det_c = predict_temporal(spec, pc, anchors_c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        det_h = predict_temporal(
+            spec, {**{k: v.cpu() for k, v in pc.items() if k != "proposals"},
+                   "proposals": prop}, anchors)
+    assert torch.equal(prop["indices"], idx_h)
+    assert torch.equal(prop["valid"], keep_h) and int(keep_h.sum()) > 0
+    assert crops_c.shape[1] == net_c.middle.out_channels
+    assert _scaled_err(crops_c.cpu(), crops_h) <= 1e-4
+    for k in head_h:
+        torch.testing.assert_close(head_c[k].cpu(), head_h[k], atol=1e-4,
+                                   rtol=1e-4)
+    assert torch.equal(det_c["valid"].cpu(), det_h["valid"])
+
+
+def test_temporal_train_step_grads_reach_the_gate(dev, tmp_pairs):
+    """One train step of `make_temporal_steps` on the card (fp32, flax's
+    initialisers, two synthetic pairs at the config's 16 000 train voxels):
+    the loss and every gradient finite, the gate's (`bev_fusion`, which
+    only the fused map reaches), the refine head's and the sparse
+    middle's nonzero; the sparse gather-GEMM 14 launches in the forward."""
+    from second_tpu_torch.data.synthetic import SyntheticPairDataset
+    from second_tpu_torch.models import build_temporal_voxelnet
+    from second_tpu_torch.train.steps_multistage import make_temporal_steps
+    cfg = tmp_pairs["cfg"]
+    net, spec, info, assigner, _ = build_temporal_voxelnet(cfg.model, 64,
+                                                           device=dev)
+    init_train_weights_(net, 0)
+    vg = cfg.model.voxel_generator
+    prep = ExamplePrep(assigner, info.feature_map_size, PrepConfig(
+        max_points=20000, training=True, voxel_size=tuple(vg.voxel_size),
+        pc_range=tuple(vg.point_cloud_range)))
+    ds = SyntheticPairDataset(2, seed=1, pc_range=tuple(vg.point_cloud_range))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in prep.collate(
+        [prep(ds[i], rng) for i in range(2)]).items() if k != "image_idx"}
+    opt, lr_sched = build_optimizer(cfg.train_config.optimizer,
+                                    cfg.train_config.steps, net.parameters())
+    vspec = VoxelizeSpec.from_config(vg, 16000, shuffle_overflow=True)
+    step = make_temporal_steps(spec, vspec)[0]
+    before = subm.launches
+    state, metrics = step(TrainState(net, opt, 0, lr_sched), batch)
+    torch.cuda.synchronize()
+    assert subm.launches - before == 14
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    params = dict(net.named_parameters())
+    for name, p in params.items():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    for name in ("bev_fusion.conv_gating_bev.weight",
+                 "bev_fusion.conv_gating_bev.bias",
+                 "second_rpn.conv_cls_second.weight",
+                 "middle.subm.0.weight"):
+        assert params[name].grad.abs().max() > 0, name
+
+
+def test_temporal_sequence_matches_pair_model_on_card(dev, tmp_pairs):
+    """`TemporalSequenceVoxelNet` on the card, loaded from the pair model's
+    state dict, on a T = 3 sequence (the first pair's previous and current
+    frames, the second pair's current frame): one backbone call (14
+    sparse gather-GEMM launches), its two pairs' outputs equal to the pair
+    model's on the same pairs within 1e-4, the proposals exactly."""
+    from second_tpu_torch.models import build_temporal_voxelnet
+    t = tmp_pairs
+    cur, prev = t["pair_c"]
+    keys = ("voxels", "num_points", "coordinates", "voxel_valid")
+    frames = {k: torch.cat([prev[k][:1], cur[k][:1], cur[k][1:2]])
+              for k in keys}
+    seq = build_temporal_voxelnet(t["cfg"].model, 64, device=dev,
+                                  sequence=True)[0]
+    seq.load_state_dict(t["net_c"].state_dict(), strict=True)
+    anchors = t["batch"]["anchors"][0].to(dev)
+    with torch.no_grad():
+        before = subm.launches
+        sp = seq(frames, anchors)
+        torch.cuda.synchronize()
+        assert subm.launches - before == 14
+        pp = t["net_c"]({k: v[1:] for k, v in frames.items()},
+                        {k: v[:-1] for k, v in frames.items()},
+                        anchors[None].expand(2, *anchors.shape))
+    for k in ("indices", "valid"):
+        assert torch.equal(sp["proposals"][k], pp["proposals"][k]), k
+    for k in ("box_preds", "cls_preds", "second_box_preds",
+              "second_cls_preds"):
+        torch.testing.assert_close(sp[k], pp[k], atol=1e-4, rtol=1e-4)

@@ -41,7 +41,7 @@ from test_torch_model import _random_variables
 from test_torch_multiclass import (GRAD64_TOL, REPLAYED_TOL, ReluTap,
                                   _port_grads, _rel_err, jax_grads64)
 from test_torch_train import (GRAD_TOL, LOSS_RTOL, SGD_PATCH, _config,
-                              _recording)
+                              _recording, eager_compile_cache)
 
 D3_TOL = 1e-5
 MAX_VOXELS = 2048
@@ -159,7 +159,8 @@ def test_iou_targets_match_jax(partaa):
     _, tspec, _, _, _ = build_voxelnet(cfg.model, device="cpu")
     assert tspec.use_iou_param_partaa == partaa
     args = _targets_inputs()
-    want = np.asarray(jax_iou_targets(jspec, *map(jnp.asarray, args)))
+    want = np.asarray(jax.jit(lambda *a: jax_iou_targets(jspec, *a))(
+        *map(jnp.asarray, args)))
     got = _iou_targets(tspec, *map(torch.from_numpy, args)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=D3_TOL)
     assert (got[args[1] == 0] == 0).all()
@@ -197,9 +198,9 @@ def test_compute_loss_with_iou_matches_jax(branch, partaa):
              "iou_preds": rng.normal(0, 1, (B, A, 1)).astype(np.float32)}
     args = [batch[k] for k in ("labels", "reg_targets", "anchors",
                                "gt_boxes_padded", "gt_valid")]
-    want = jax_compute_loss(jspec, {k: jnp.asarray(v)
-                                    for k, v in preds.items()},
-                            *map(jnp.asarray, args))
+    want = jax.jit(lambda p, *a: jax_compute_loss(jspec, p, *a))(
+        {k: jnp.asarray(v) for k, v in preds.items()},
+        *map(jnp.asarray, args))
     got = compute_loss(tspec, {k: torch.from_numpy(v)
                                for k, v in preds.items()},
                        *map(torch.from_numpy, args))
@@ -212,16 +213,12 @@ def test_compute_loss_with_iou_matches_jax(branch, partaa):
         assert float(got["iou_loss_reduced"]) > 0
 
 
-@pytest.fixture(scope="module")
-def iou_train_runs():
-    """One momentum-SGD step of the tiny sparse model with the IoU branch,
-    JAX eagerly and the port from the same converted weights: metrics and
-    gradients, and the batch."""
-    cfg = _config(SGD_PATCH, IOU_PIPELINE)
-    jcfg = jax_loads(IOU_PIPELINE)
-    jcfg.train_config.optimizer = cfg.train_config.optimizer
-    module, jspec, info, assigner, _ = jax_build_voxelnet(jcfg.model)
-    assert jspec.use_iou_branch
+def iou_inputs():
+    """The batch of two tiny scenes (numpy, drawn from seed 0) and the
+    random variables (`_random_variables`, seed 1) of the JAX model with
+    the IoU branch."""
+    module, _, info, assigner, _ = jax_build_voxelnet(
+        jax_loads(IOU_PIPELINE).model)
     prep = JExamplePrep(assigner, info.feature_map_size,
                         JPrepConfig(max_points=3000, training=True))
     rng = np.random.default_rng(0)
@@ -230,15 +227,36 @@ def iou_train_runs():
         p, b, n = sample_scene(rng, **tiny_scene_kwargs())
         exs.append(prep({"points": p, "gt_boxes": b, "gt_names": n}, rng))
     batch = {k: v for k, v in prep.collate(exs).items() if k != "image_idx"}
+    vspec = JVoxelizeSpec.from_config(
+        jax_loads(IOU_PIPELINE).model.voxel_generator, MAX_VOXELS,
+        shuffle_overflow=True)
+    vox = jax_device_voxelize(vspec, jnp.asarray(batch["points"]),
+                              jnp.asarray(batch["points_mask"]))
+    args = (vox["voxels"], vox["num_points"], vox["coordinates"],
+            vox["voxel_valid"])
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                *args))
+    return batch, _random_variables(shapes, np.random.default_rng(1))
+
+
+@pytest.fixture(scope="module")
+def iou_train_runs():
+    """One momentum-SGD step of the tiny sparse model with the IoU branch,
+    JAX eagerly and the port from the same converted weights: metrics and
+    gradients, the fp64 gradients of both (JAX's jitted, `jax_grads64`),
+    and the batch."""
+    cfg = _config(SGD_PATCH, IOU_PIPELINE)
+    jcfg = jax_loads(IOU_PIPELINE)
+    jcfg.train_config.optimizer = cfg.train_config.optimizer
+    module, jspec, _, _, _ = jax_build_voxelnet(jcfg.model)
+    assert jspec.use_iou_branch
+    batch, variables = iou_inputs()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     vspec = JVoxelizeSpec.from_config(jcfg.model.voxel_generator, MAX_VOXELS,
                                       shuffle_overflow=True)
     vox = jax_device_voxelize(vspec, jbatch["points"], jbatch["points_mask"])
     args = (vox["voxels"], vox["num_points"], vox["coordinates"],
             vox["voxel_valid"])
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
-                                                *args))
-    variables = _random_variables(shapes, np.random.default_rng(1))
     grads = []
     tx, _ = jax_build_optimizer(jcfg.train_config.optimizer,
                                 jcfg.train_config.steps)
@@ -249,13 +267,15 @@ def iou_train_runs():
                                                  variables["batch_stats"]),
                         opt_state=tx.init(params), tx=tx,
                         apply_fn=module.apply)
-    with jax.disable_jit():
+    with jax.disable_jit(), eager_compile_cache():
         _, jm = jax_make_train_step(jspec, vspec)(state, jbatch)
-    # the IoU loss of the same forward, which JAX's metrics leave out
-    jpreds, _ = module.apply(variables, *args, train=True,
-                             mutable=["batch_stats", "intermediates"])
-    jloss = jax_compute_loss(jspec, jpreds, *[jbatch[k] for k in (
-        "labels", "reg_targets", "anchors", "gt_boxes_padded", "gt_valid")])
+        # the IoU loss of the same forward, which JAX's metrics leave out,
+        # op by op as the step (its operations compiled once already)
+        jpreds, _ = module.apply(variables, *args, train=True,
+                                 mutable=["batch_stats", "intermediates"])
+        jloss = jax_compute_loss(jspec, jpreds, *[jbatch[k] for k in (
+            "labels", "reg_targets", "anchors", "gt_boxes_padded",
+            "gt_valid")])
 
     net, spec, _, _, _ = build_voxelnet(cfg.model, device="cpu")
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
@@ -312,8 +332,8 @@ def test_iou_train_step_matches_jax(iou_train_runs):
 
 
 def test_iou_train_step_grads_match_jax(iou_train_runs):
-    """The port's fp64 gradients within GRAD64_TOL of JAX's fp64 eager
-    ones, every tensor (the IoU head's among them, not zero). In fp32,
+    """The port's fp64 gradients within GRAD64_TOL of JAX's fp64 ones
+    (jitted, `jax_grads64`), every tensor (the IoU head's among them, not zero). In fp32,
     every gradient from the RPN on within GRAD_TOL of JAX's fp32 ones. The
     sparse middle's fp32 gradients, with the port's fp64 ReLU masks
     replayed, within REPLAYED_TOL of its fp64 ones: on these weights the
@@ -378,8 +398,8 @@ def test_iou_ranked_predict_matches_jax():
              "cls_preds": rng.normal(-2, 1.5, (2, A, 1)).astype(np.float32),
              "dir_cls_preds": rng.normal(0, 1, (2, A, 2)).astype(np.float32),
              "iou_preds": rng.normal(-1, 1.5, (2, A, 1)).astype(np.float32)}
-    want = jax_predict(jspec, {k: jnp.asarray(v) for k, v in preds.items()},
-                       jnp.asarray(anchors))
+    want = jax.jit(lambda p, a: jax_predict(jspec, p, a))(
+        {k: jnp.asarray(v) for k, v in preds.items()}, jnp.asarray(anchors))
     got = predict(tspec, {k: torch.from_numpy(v) for k, v in preds.items()},
                   anchors)
     valid = np.asarray(want["valid"])

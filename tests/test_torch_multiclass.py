@@ -7,6 +7,7 @@ stands), per-class targets with every class positive, and the published
 config
 (`configs/second_multiclass.config`) built at its real widths."""
 
+import contextlib
 import copy
 
 import jax
@@ -42,7 +43,7 @@ from second_tpu_torch.train.state import TrainState, make_train_step
 from test_torch_model import REPO, _random_variables
 from test_torch_ops import _clear_boxes
 from test_torch_train import (GRAD_TOL, LOSS_RTOL, SGD_PATCH, _config,
-                              _recording)
+                              _recording, eager_compile_cache)
 
 # the 2-class PointPillars pipeline of the JAX multi-class tests (a copy)
 MINI_MULTICLASS = """
@@ -213,8 +214,9 @@ def test_multiclass_nms_matches_vmap_jax(pre, post):
     boxes, scores, valid = _nms_inputs(np.random.default_rng(40))
     kw = dict(num_classes=3, pre_max_size=pre, post_max_size=post,
               iou_threshold=0.01, score_threshold=0.2)
-    want = jax.vmap(lambda b, s, v: jnms.multiclass_nms(b, s, v, **kw))(
-        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid))
+    want = jax.jit(jax.vmap(lambda b, s, v: jnms.multiclass_nms(
+        b, s, v, **kw)))(jnp.asarray(boxes), jnp.asarray(scores),
+                         jnp.asarray(valid))
     got = nms.multiclass_nms(torch.from_numpy(boxes),
                              torch.from_numpy(scores),
                              torch.from_numpy(valid), **kw)
@@ -229,8 +231,8 @@ def test_multiclass_nms_matches_vmap_jax(pre, post):
     one = nms.multiclass_nms(torch.from_numpy(boxes[:1]),
                              torch.from_numpy(scores[:1]),
                              torch.from_numpy(valid[:1]), **kw)
-    want0 = jnms.multiclass_nms(jnp.asarray(boxes[0]), jnp.asarray(scores[0]),
-                                jnp.asarray(valid[0]), **kw)
+    want0 = jax.jit(lambda b, s, v: jnms.multiclass_nms(b, s, v, **kw))(
+        jnp.asarray(boxes[0]), jnp.asarray(scores[0]), jnp.asarray(valid[0]))
     np.testing.assert_array_equal(one[0][0].numpy(), np.asarray(want0[0]))
     np.testing.assert_array_equal(one[1][0].numpy(), np.asarray(want0[1]))
     # boxes given as a function of the candidate rows (how predict decodes
@@ -273,7 +275,8 @@ def sparse_run():
                                                 *args))
     variables = _random_variables(shapes, np.random.default_rng(1))
     jpreds = jax.jit(module.apply)(variables, *args)
-    jdet = jax_predict(jspec, jpreds, jnp.asarray(anchors))
+    jdet = jax.jit(lambda p, a: jax_predict(jspec, p, a))(
+        jpreds, jnp.asarray(anchors))
 
     cfg = loads_pipeline_config(TINY_SPARSE_MULTICLASS)
     net, tspec, _, _, _ = build_voxelnet(cfg.model, device="cpu")
@@ -336,8 +339,8 @@ def test_multiclass_predict_matches_jax(mini_preds, center_range):
                                    "post_center_limit_range": lim})
         tspec = tspec.__class__(**{**tspec.__dict__,
                                    "post_center_limit_range": lim})
-    want = jax_predict(jspec, {k: jnp.asarray(v) for k, v in preds.items()},
-                       jnp.asarray(anchors))
+    want = jax.jit(lambda p, a: jax_predict(jspec, p, a))(
+        {k: jnp.asarray(v) for k, v in preds.items()}, jnp.asarray(anchors))
     got = predict(tspec, {k: torch.from_numpy(v) for k, v in preds.items()},
                   anchors)
     valid = np.asarray(want["valid"])
@@ -410,13 +413,24 @@ def _port_grads(net, spec, vspec, batch, dtype, tap=None):
     return {n: p.grad for n, p in net.named_parameters()}
 
 
-def jax_grads64(pipeline, variables, batch, max_voxels=MAX_VOXELS):
-    """JAX's train-mode loss gradients of `pipeline` in fp64, eagerly, on
-    the same weights and batch: the independent fp64 witness of the port's
-    fp64 step. The JAX package pins fp32 in its norms, its sparse-conv
+# jitted fp64 gradient functions by (pipeline, max_voxels): one compile
+# serves every batch of those shapes
+_JAX_GRAD64 = {}
+
+
+def jax_grads64(pipeline, variables, batch, max_voxels=MAX_VOXELS,
+                eager=False):
+    """JAX's train-mode loss gradients of `pipeline` in fp64 on the same
+    weights and batch: the independent fp64 witness of the port's fp64
+    step. The JAX package pins fp32 in its norms, its sparse-conv
     accumulation and its RPN input (`jnp.float32`), so x64 alone leaves
-    those fp32; `jnp.float32` reads as fp64 for this call. Returns the
-    gradients by the port's parameter names."""
+    those fp32; `jnp.float32` reads as fp64 while the gradient is traced.
+    Jitted: XLA's fusion moves fp32 gradients by up to 6% (batch-norm sums
+    that cancel, `test_torch_train.py`), but in fp64 the same cancellation
+    leaves it within 1e-9 of the eager gradient
+    (`test_torch_fp64_jit.py` holds it there); `eager=True` runs it op by
+    op under `jax.disable_jit()`. Returns the gradients by the port's
+    parameter names."""
     jcfg = jax_loads(pipeline)
     module, jspec, _, _, _ = jax_build_voxelnet(jcfg.model)
     vspec = JVoxelizeSpec.from_config(jcfg.model.voxel_generator, max_voxels,
@@ -426,26 +440,51 @@ def jax_grads64(pipeline, variables, batch, max_voxels=MAX_VOXELS):
         a = np.asarray(a)
         return jnp.asarray(a.astype(np.float64) if a.dtype.kind == "f"
                            else a)
+
+    def loss(params, batch_stats, b):
+        vox = jax_device_voxelize(vspec, b["points"], b["points_mask"])
+        preds, _ = module.apply(
+            {"params": params, "batch_stats": batch_stats},
+            vox["voxels"], vox["num_points"], vox["coordinates"],
+            vox["voxel_valid"], train=True,
+            mutable=["batch_stats", "intermediates"])
+        return jax_compute_loss(jspec, preds, b["labels"], b["reg_targets"],
+                                b["anchors"], b["gt_boxes_padded"],
+                                b["gt_valid"])["loss"]
     with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True), \
-            jax.disable_jit():
+            (jax.disable_jit() if eager else contextlib.nullcontext()), \
+            eager_compile_cache():
         mp.setattr(jnp, "float32", jnp.float64)
         v = jax.tree.map(f64, variables)
         b = {k: f64(x) for k, x in batch.items()}
-
-        def loss(params):
-            vox = jax_device_voxelize(vspec, b["points"], b["points_mask"])
-            preds, _ = module.apply(
-                {"params": params, "batch_stats": v["batch_stats"]},
-                vox["voxels"], vox["num_points"], vox["coordinates"],
-                vox["voxel_valid"], train=True,
-                mutable=["batch_stats", "intermediates"])
-            return jax_compute_loss(jspec, preds, b["labels"],
-                                    b["reg_targets"], b["anchors"],
-                                    b["gt_boxes_padded"],
-                                    b["gt_valid"])["loss"]
-        grads = jax.grad(loss)(v["params"])
+        if eager:
+            grad = jax.grad(loss)
+        else:
+            grad = _JAX_GRAD64.setdefault((pipeline, max_voxels),
+                                          jax.jit(jax.grad(loss)))
+        grads = grad(v["params"], v["batch_stats"], b)
         assert jax.tree.leaves(grads)[0].dtype == jnp.float64
         return grads_from_jax(jax.device_get(grads))
+
+
+def mc_inputs(seed, pipeline=TINY_SPARSE_MULTICLASS, scene=SCENE):
+    """The batch of 2 `scene`s with every class drawn from `seed` (numpy)
+    and the random variables (`_random_variables`, seed 1) of `pipeline`'s
+    JAX model."""
+    jcfg = jax_loads(pipeline)
+    module, _, info, assigner, _ = jax_build_voxelnet(jcfg.model)
+    prep = JExamplePrep(assigner, info.feature_map_size,
+                        JPrepConfig(max_points=6000, training=True))
+    batch = _mc_batch(prep, seed=seed, scene=scene)
+    vspec = JVoxelizeSpec.from_config(jcfg.model.voxel_generator, MAX_VOXELS,
+                                      shuffle_overflow=True)
+    vox = jax_device_voxelize(vspec, jnp.asarray(batch["points"]),
+                              jnp.asarray(batch["points_mask"]))
+    args = (vox["voxels"], vox["num_points"], vox["coordinates"],
+            vox["voxel_valid"])
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                *args))
+    return batch, _random_variables(shapes, np.random.default_rng(1))
 
 
 def mc_train(seed, pipeline=TINY_SPARSE_MULTICLASS, scene=SCENE):
@@ -453,25 +492,17 @@ def mc_train(seed, pipeline=TINY_SPARSE_MULTICLASS, scene=SCENE):
     with every class (drawn from `seed`), JAX eagerly and the port from the
     same converted weights: the metrics and the gradients. Also the same
     step's gradients in fp64, the port's (`grads64`, its sparse middle's
-    ReLU inputs `pre64`) and JAX's (`jgrads64`), and the port's fp32
+    ReLU inputs `pre64`) and JAX's (`jgrads64`, jitted), and the port's fp32
     gradients with the fp64 ReLU masks replayed (`replayed32`) and its
     fp32 ReLU inputs (`pre32`)."""
     cfg = _config(SGD_PATCH, pipeline)
     jcfg = jax_loads(pipeline)
     jcfg.train_config.optimizer = cfg.train_config.optimizer
-    module, jspec, info, assigner, _ = jax_build_voxelnet(jcfg.model)
-    prep = JExamplePrep(assigner, info.feature_map_size,
-                        JPrepConfig(max_points=6000, training=True))
-    batch = _mc_batch(prep, seed=seed, scene=scene)
+    module, jspec, _, _, _ = jax_build_voxelnet(jcfg.model)
+    batch, variables = mc_inputs(seed, pipeline, scene)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     vspec = JVoxelizeSpec.from_config(jcfg.model.voxel_generator, MAX_VOXELS,
                                       shuffle_overflow=True)
-    vox = jax_device_voxelize(vspec, jbatch["points"], jbatch["points_mask"])
-    args = (vox["voxels"], vox["num_points"], vox["coordinates"],
-            vox["voxel_valid"])
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
-                                                *args))
-    variables = _random_variables(shapes, np.random.default_rng(1))
     grads = []
     tx, _ = jax_build_optimizer(jcfg.train_config.optimizer,
                                 jcfg.train_config.steps)
@@ -482,7 +513,7 @@ def mc_train(seed, pipeline=TINY_SPARSE_MULTICLASS, scene=SCENE):
                                                  variables["batch_stats"]),
                         opt_state=tx.init(params), tx=tx,
                         apply_fn=module.apply)
-    with jax.disable_jit():
+    with jax.disable_jit(), eager_compile_cache():
         _, jm = jax_make_train_step(jspec, vspec)(state, jbatch)
 
     net, spec, _, _, _ = build_voxelnet(cfg.model, device="cpu")
@@ -582,8 +613,9 @@ def f4_seed1_run():
 def test_multiclass_train_step_fp64_grads_match_jax(request, run_name):
     """Over three batches (seed 0 of the sparse scenes, seeds 1 and 3 of
     the denser F4_SCENE): the loss within LOSS_RTOL of JAX's; the port's
-    fp64 gradients within GRAD64_TOL of JAX's fp64 eager gradients, every
-    tensor (the independent witness); and the port's fp32 gradients, with
+    fp64 gradients within GRAD64_TOL of JAX's fp64 gradients (jitted, within
+    1e-9 of its eager ones: `test_torch_fp64_jit.py`), every tensor (the
+    independent witness); and the port's fp32 gradients, with
     its fp64 step's ReLU masks replayed in the sparse middle, within
     REPLAYED_TOL of its fp64 ones: the fp32 step differs from exact
     arithmetic only where a ReLU flips."""

@@ -106,14 +106,16 @@ def test_trainer_crash_saves(tiny_config, tmp_path, monkeypatch,
 
 def test_trainer_refuses_what_is_not_ported(tiny_config, tmp_path):
     """Model types not ported yet are refused by their ROADMAP item (the
-    KITTI reader and the two-stage detector, once refused here, are
-    ported: `test_torch_kitti.py`, `test_torch_two_stage.py`)."""
+    KITTI reader, the two-stage and the temporal detector, once refused
+    here, are ported: `test_torch_kitti.py`, `test_torch_two_stage.py`,
+    `test_torch_temporal.py`; the temporal model with the camera branch
+    comes with item 14's fusion)."""
     with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(str(tiny_config), tmp_path, synthetic=True,
                 model_type="fusion_two_stage", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(str(tiny_config), tmp_path, synthetic=False,
-                model_type="temporal", device="cpu")
+                model_type="temporal_fusion", device="cpu")
 
 
 def test_checkpoint_manager_keeps_max_and_restores(tmp_path):
