@@ -199,12 +199,48 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    step on one pair card against CPU (the loss and the positives gated,
    the gradients printed) and one fp64 step of the PointPillars config's
    temporal detector card against CPU (REF64_TOL).
-18. tmp trainer: `Trainer(model_type="temporal")` on the card, 2 steps and
+18-23. fusion eval / train, fusion 2st eval / train, tmpf eval / train:
+   the camera-fusion family on second_car_fhd.config, fp32 as JAX builds
+   it, random weights from seed 0 (flax's initialisers in training), the
+   KITTI camera canvas 384 x 1248 (the scan rendered through
+   `synthetic_calib`), through the steps makers' eval and train steps:
+   `FusionVoxelNet` (the ResNet-18 FPN, the points' projection into BEV,
+   the gates and the fused map; `make_fusion_steps`),
+   `FusionTwoStageVoxelNet` (that stage 1, 512 proposals an example, crops
+   of the BEV trunk and of the fused map; `make_fusion_two_stage_steps`)
+   and `TemporalFusionVoxelNet` (both frames of a pair through one
+   backbone call, the gate, the z-slice camera RPN over 4 slices, crops of
+   the 128-channel trunk and of the 256-channel z-slice map;
+   `make_temporal_fusion_steps`). Eval: batch 4 (pairs for tmpf) of the
+   fhd bench scan at 40 000 voxels a frame; every sparse conv and row
+   gather against its plain version and fp64, the NMS pair, the standup
+   bitmask and each ROI-align call (by channel count: 128 and 128, or 128
+   and 256) against its plain version; launches (gather-GEMM 14 on the
+   fp32 path, roi_align_fwd 2, standup_overlap 1, nms_overlap 1,
+   nms_suppress 2; the one-stage model nms 1 + 1 and no crop); no host
+   sync; frames/s (pairs/s), peak memory, a split (voxelize, backbone,
+   trunk, fpn, projection, fusion, heads, then proposals, crops, head,
+   predict) and a profile (busy share); one fp32 example card against CPU
+   (`check_refine_reference` with both crops for the two-stage kinds) and
+   an fp64 forward of the PointPillars config's fusion model card against
+   CPU (`check_fusion_forward64`). Train: batch 4 synthetic scans (pairs)
+   with camera images, 16 000 voxels a frame: every sparse forward, dX and
+   weight-gradient call, each ROI-align forward and backward (the
+   backward's partials and peak scratch printed) and the standup bitmask
+   against their plain versions; launches 14 / 13 / 14 on the fp32 path,
+   roi_align_fwd 2 and roi_align_bwd 2 for the two-stage kinds; every
+   gradient finite, the FPN's and the gates' nonzero (tmpf: the FPN's
+   zero, JAX's stop_gradient); no host sync; bitwise gradients over two
+   runs; the loss halved on one batch; steps/s, peak memory, split,
+   profile and a train-mode forward split; one fp64 step of the
+   PointPillars config's fusion model card against CPU
+   (`check_2st_train_reference`, REF64_TOL).
+24. tmp trainer: `Trainer(model_type="temporal")` on the card, 2 steps and
    an `evaluate`, on synthetic pairs and on a fake KITTI-tracking tree
    (`data/fake_tracking.py`): the model fp32 on a config that asks for
    mixed precision, finite losses, the /3d AP keys, 14 gather-GEMM
    launches a forward.
-19. tracking: `train/run_tracking.py` on the card with the CLI's defaults:
+25. tracking: `train/run_tracking.py` on the card with the CLI's defaults:
    20 train steps, `evaluate` with the simple and the memory tracker, in
    3-frame windows and with the camera crops (CLEAR-MOT printed); the
    `SequenceTrackNet` forward card against CPU; train steps/s on one
@@ -212,14 +248,17 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    CPU.
 
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the twelve paths (fhd eval, fhd train, pp eval, pp train, mc
+summed over the eighteen paths (fhd eval, fhd train, pp eval, pp train, mc
 eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp eval,
-tmp train) and by path,
+tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st train,
+tmpf eval, tmpf train) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
 "mc_eval" (the mc eval's fp32 convs, bounded as 3xTF32 on the tensor
-cores, with the bound at the CUDA cores' fp32 rate as "bound_cores_ms"). The last line is {"ok": true, "device": {...}}. With
+cores, with the bound at the CUDA cores' fp32 rate as "bound_cores_ms"),
+and the 256-channel ROI-align calls of the tmpf phases under
+"tmpf_eval_c256" / "tmpf_train_c256". The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
 
@@ -243,8 +282,13 @@ from second_tpu_torch.config import load_pipeline_config
 from second_tpu_torch.core import box_np
 from second_tpu_torch.data import ExamplePrep, PrepConfig, lidar_scan_scene
 from second_tpu_torch.data.synthetic import (SyntheticDataset,
-                                             SyntheticPairDataset)
-from second_tpu_torch.models import (build_temporal_voxelnet,
+                                             SyntheticPairDataset,
+                                             render_synthetic_image,
+                                             synthetic_calib)
+from second_tpu_torch.models import (build_fusion_two_stage_voxelnet,
+                                     build_fusion_voxelnet,
+                                     build_temporal_fusion_voxelnet,
+                                     build_temporal_voxelnet,
                                      build_two_stage_voxelnet,
                                      build_voxelnet, calibrate_norms_,
                                      compute_loss, compute_temporal_loss,
@@ -262,9 +306,10 @@ from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.train.optimizer import build_optimizer
 from second_tpu_torch.train.state import (TrainState, make_train_step,
                                           voxelize_points)
-from second_tpu_torch.train.steps_multistage import (make_temporal_steps,
-                                                     make_two_stage_steps,
-                                                     voxelize_pair)
+from second_tpu_torch.train.steps_multistage import (
+    make_fusion_steps, make_fusion_two_stage_steps,
+    make_temporal_fusion_steps, make_temporal_steps, make_two_stage_steps,
+    voxelize_pair)
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "second_tpu_torch" / "configs" / "second_car_fhd.config"
@@ -325,7 +370,8 @@ MC_TIMED = 8
 KITTI_FRAMES, KITTI_CLUTTER = 6, 20000
 PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
          "mc_train", "kitti", "fhd_iou_train", "2st_eval", "2st_train",
-         "tmp_eval", "tmp_train")
+         "tmp_eval", "tmp_train", "fusion_eval", "fusion_train",
+         "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -1392,6 +1438,16 @@ def run(dev, out=None):
     tmp_counts, report["tmp_eval"] = run_tmp_eval(dev, timer, dtimer)
     tmp_train_counts, report["tmp_train"] = run_tmp_train(dev, timer,
                                                           dtimer)
+    fusion_counts, roi_256 = {}, {}
+    for kind in FUSION_KINDS:
+        for phase, fn in (("eval", run_fusion_eval),
+                          ("train", run_fusion_train)):
+            key = f"{kind}_{phase}"
+            fusion_counts[key], report[key], roi = fn(dev, timer, dtimer,
+                                                      kind)
+            if 256 in roi:
+                roi_256[key] = {k: v for k, v in roi[256].items()
+                                if v["ms"]}
     report["tmp_trainer_launches"], report["tmp_trainer"] = \
         run_tmp_trainer(dev)
     report["tracking"] = run_tracking_phase(dev)
@@ -1399,9 +1455,15 @@ def run(dev, out=None):
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
                                two_counts, two_train_counts, tmp_counts,
-                               tmp_train_counts)))
+                               tmp_train_counts,
+                               *(fusion_counts[f"{k}_{p}"]
+                                 for k in FUSION_KINDS
+                                 for p in ("eval", "train")))))
+    # the 256-channel ROI-align calls of the temporal-fusion phases, under
+    # "tmpf_eval_c256" / "tmpf_train_c256"
     path_aggs = {"pp_eval": pp_eval_aggs, "pp_train": pp_train_aggs,
-                 "mc_eval": mc_eval_aggs}
+                 "mc_eval": mc_eval_aggs,
+                 **{f"{k}_c256": v for k, v in roi_256.items()}}
 
     def numbers(a):
         out = dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
@@ -1629,7 +1691,10 @@ def record_grads(state):
     step = state.optimizer.step
 
     def recording_step(count):
-        grads.append({n: p.grad.detach().clone()
+        # a parameter no gradient reaches (the temporal-fusion FPN's) gets
+        # the zeros the optimizer fills in
+        grads.append({n: torch.zeros_like(p) if p.grad is None
+                      else p.grad.detach().clone()
                       for n, p in state.module.named_parameters()})
         return step(count)
     state.optimizer.step = recording_step
@@ -1850,7 +1915,9 @@ def grads_of(state, spec, vspec, batch, loss_of=one_stage_loss,
         loss = loss_of(spec, net, vox, batch)["loss"]
         state.optimizer.zero_grad()
         loss.backward()
-    return [p.grad.detach().clone() for p in net.parameters()]
+    # a parameter no gradient reaches (the temporal-fusion FPN's) has none
+    return [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+            for p in net.parameters()]
 
 
 def timed_split(state, spec, vspec, batch, loss_of=one_stage_loss,
@@ -3246,6 +3313,20 @@ def check_roi_calls(fwd_calls, bwd_calls, timer, dtimer, what):
                         f"{k[:60]} {v:.4f} x{n:g}"
                         for k, (v, n) in split.items()))
             if name == "roi_align_bwd":
+                # the scratch a call takes beyond its inputs: the partials
+                # [cells, 4, C] and the transposed gradient among it
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                roi_align.roi_align_bwd(feat, coords, grad, s)
+                torch.cuda.synchronize()
+                scratch = torch.cuda.max_memory_allocated() - base
+                part = B * (H + 1) * (W + 1) * 4 * C * grad.element_size()
+                agg["scratch_bytes"] = agg.get("scratch_bytes", 0) + scratch
+                agg["partials_bytes"] = agg.get("partials_bytes", 0) + part
+                say(f"{what} roi_align_bwd {i}: C={C}: partials [cells, 4, "
+                    f"C] {part / 2 ** 20:.1f} MiB; peak scratch of the call "
+                    f"{scratch / 2 ** 20:.1f} MiB")
                 split = device_split(fns[0], dtimer)
                 agg["split"] = {k: ms for k, (ms, _) in split.items()}
                 agg["counts"] = want_counts
@@ -3501,7 +3582,7 @@ def check_2st_reference(cfg, dev, vspec, points, mask, anchors):
 
 
 def check_refine_reference(cfg, dev, what, build, stage1, crop_key, one,
-                           a_c):
+                           a_c, concat_key=None):
     """One fp32 example through a detector with the second stage (the
     two-stage or the temporal one, made by `build`) on the card and on the
     CPU, from the same seeded weights: stage 1 (`stage1(net, one, device)`
@@ -3510,8 +3591,9 @@ def check_refine_reference(cfg, dev, what, build, stage1, crop_key, one,
     come from (`crop_key`); then each later step on the card's own inputs,
     card (kernels) against CPU (plain versions): the proposals' standup NMS
     on the same boxes and scores (indices and keep equal), the crops at the
-    same proposal boxes (CROP_REF_TOL), the refine head on the same crops
-    (PRED_TOL), the rotated NMS of `predict_two_stage` on the same
+    same proposal boxes (CROP_REF_TOL; with `concat_key` the crops of that
+    map too, the classification tower's), the refine head on the same
+    crops (PRED_TOL), the rotated NMS of `predict_two_stage` on the same
     candidates (indices and keep equal). `predict_two_stage` whole on the
     same predictions, and the CPU's proposals from its own stage 1, are
     compared and printed, not gated: a random head gives the proposals of
@@ -3534,17 +3616,20 @@ def check_refine_reference(cfg, dev, what, build, stage1, crop_key, one,
         s1_c = stage1(net_c, one, dev)
         t0 = time.perf_counter()
         s1_h = stage1(net_h, one_h, cpu)
-        own_h = net_h.refine(s1_h, a_h, crop_map=s1_h[crop_key])["proposals"]
+        own_h = net_h.refine(s1_h, a_h, crop_map=s1_h[crop_key],
+                             concat_map=s1_h.get(concat_key))["proposals"]
         cpu_s = time.perf_counter() - t0
         errs = {}
-        for k in ("box_preds", "cls_preds", crop_key):
+        for k in ("box_preds", "cls_preds", crop_key) + \
+                ((concat_key,) if concat_key else ()):
             a, b = s1_c[k].cpu().float(), s1_h[k].float()
             errs[k] = (a - b).abs().max().item()
             if not torch.allclose(a, b, **PRED_TOL):
                 fail(f"{what} reference: stage 1 {k} card vs CPU max abs err "
                      f"{errs[k]:.3g} over {PRED_TOL}")
         with recording([(nms_ops, "nearest_nms")]) as calls:
-            p_c = net_c.refine(s1_c, a_c, crop_map=s1_c[crop_key])
+            p_c = net_c.refine(s1_c, a_c, crop_map=s1_c[crop_key],
+                               concat_map=s1_c.get(concat_key))
         args, kwargs = calls["nearest_nms"][0]
         idx_c, keep_c = nms_ops.nearest_nms(*args, **kwargs)
         idx_h, keep_h = nms_ops.nearest_nms(*[a.cpu() for a in args],
@@ -3557,8 +3642,13 @@ def check_refine_reference(cfg, dev, what, build, stage1, crop_key, one,
         prop_h = to_cpu(p_c)["proposals"]
         c_c = net_c.crops(s1_c[crop_key], p_c["proposals"])
         c_h = net_h.crops(s1_c[crop_key].cpu(), prop_h)
-        hd_c = net_c.second_rpn(c_c)
-        hd_h = net_h.second_rpn(c_c.cpu())
+        cc_c = cc_h = None
+        if concat_key:
+            cc_c = net_c.crops(s1_c[concat_key], p_c["proposals"])
+            cc_h = net_h.crops(s1_c[concat_key].cpu(), prop_h)
+        hd_c = net_c.second_rpn(c_c, cc_c)
+        hd_h = net_h.second_rpn(c_c.cpu(), None if cc_c is None
+                                else cc_c.cpu())
         with recording([(nms_ops, "nms")]) as calls:
             det_c = predict_two_stage(spec, p_c, a_c)
         (args, kwargs), = calls["nms"]
@@ -3566,6 +3656,9 @@ def check_refine_reference(cfg, dev, what, build, stage1, crop_key, one,
         sel_h, keep_h = nms_ops.nms(*[a.cpu() for a in args], **kwargs)
         det_h = predict_two_stage(spec, to_cpu(p_c), a_h)
     errs["crops_rel"] = errors(c_c.cpu(), c_h)[1]
+    if concat_key:
+        errs["crops_rel"] = max(errs["crops_rel"],
+                                errors(cc_c.cpu(), cc_h)[1])
     if errs["crops_rel"] > CROP_REF_TOL:
         fail(f"{what} reference: crops {errs['crops_rel']:.3g} of their scale "
              f"apart card vs CPU, over {CROP_REF_TOL}")
@@ -3701,11 +3794,13 @@ def run_2st_train(dev, timer, dtimer):
 
 def check_2st_train_reference(dev, what="2st", build_fn=None,
                                make_steps=make_two_stage_steps,
-                               inputs=None):
+                               inputs=None, pos_key="second_num_pos"):
     """One fp64 train step of a detector with the second stage (the
-    two-stage one, or the temporal one with `build_fn`, `make_steps` and
-    its `inputs`) on one example, card (kernels) against CPU (plain
-    versions), from the same seeded weights with the config's
+    two-stage one, or the temporal or a fusion one with `build_fn`,
+    `make_steps` and its `inputs`; the one-stage fusion model, with
+    `pos_key` "num_pos", has stage 1 only) on one example, card (kernels)
+    against CPU (plain versions), from the same seeded weights with the
+    config's
     optimizer. Stage 1 is the PointPillars config's (the sparse kernels
     take no fp64), full width, TWO_STAGE_REF_PROPOSALS proposals drawn
     from the positive anchors and a hundredth of the others: the same
@@ -3749,7 +3844,7 @@ def check_2st_train_reference(dev, what="2st", build_fn=None,
             torch.cuda.synchronize()
         runs[device.type] = dict(
             secs=time.perf_counter() - t0, loss=float(metrics["loss"]),
-            pos2=int(metrics["second_num_pos"]),
+            pos2=int(metrics[pos_key]),
             grads={k: v.cpu() for k, v in grads[0].items()},
             after={k: v.detach().cpu()
                    for k, v in state.module.state_dict().items()
@@ -3759,7 +3854,7 @@ def check_2st_train_reference(dev, what="2st", build_fn=None,
     if errs["loss_rel"] > REF64_LOSS_RTOL or c["pos2"] != h["pos2"] or \
             not h["pos2"]:
         fail(f"{what} train reference: fp64 loss {c['loss']!r} on the card, "
-             f"{h['loss']!r} on the CPU (stage-2 positives {c['pos2']}, "
+             f"{h['loss']!r} on the CPU ({pos_key} {c['pos2']}, "
              f"{h['pos2']})")
     worst = dict(grad=0.0, after=0.0)
     lr = float(state.lr_sched(0))
@@ -3798,13 +3893,13 @@ def check_2st_train_reference(dev, what="2st", build_fn=None,
                  f"step differs card vs CPU by {e:.3g} of its scale")
     errs.update(worst)
     say(f"{what} train reference (PointPillars stage 1, fp64, 1 example, "
-        f"{TWO_STAGE_REF_PROPOSALS} proposals, {h['pos2']} stage-2 "
-        f"positives, card vs CPU; the CPU's step in {h['secs']:.1f} s): "
+        f"{TWO_STAGE_REF_PROPOSALS} proposals, {h['pos2']} {pos_key}, card "
+        f"vs CPU; the CPU's step in {h['secs']:.1f} s): "
         f"loss rel {errs['loss_rel']:.2e}, gradients within "
         f"{worst['grad']:.2e} of their scale, state after the step within "
         f"{worst['after']:.2e}")
     return dict(cpu_s=h["secs"], card_s=c["secs"], errs=errs,
-                second_num_pos=h["pos2"])
+                **{pos_key: h["pos2"]})
 
 
 # ------------------------------------------------------- the temporal model
@@ -4328,6 +4423,602 @@ def run_tmp_trainer(dev):
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
     return total, report
+
+
+# ------------------------------------------------ the camera-fusion models
+
+# the camera canvas of the fusion phases: KITTI's, the JAX `Trainer`'s
+# non-synthetic `image_shape` and the `PrepConfig` default; the fp64
+# references' smaller canvas (the CPU runs the FPN in fp64 there); the
+# timed forwards and steps of the fusion phases
+FUSION_IMAGE_HW = (384, 1248)
+REF_IMAGE_HW = (192, 624)
+FUSION_TIMED = 8
+# kind → (what, builder, steps maker, predict, pairs, second stage)
+FUSION_KINDS = {
+    "fusion": ("fusion", lambda m, device, seed=0, proposals=None:
+               build_fusion_voxelnet(m, device=device, seed=seed),
+               make_fusion_steps, predict, False, False),
+    "fusion_2st": ("fusion 2st",
+                   lambda m, device, seed=0, proposals=TWO_STAGE_PROPOSALS:
+                   build_fusion_two_stage_voxelnet(m, proposals,
+                                                   device=device, seed=seed),
+                   make_fusion_two_stage_steps, predict_two_stage, False,
+                   True),
+    "tmpf": ("tmpf",
+             lambda m, device, seed=0, proposals=TWO_STAGE_PROPOSALS:
+             build_temporal_fusion_voxelnet(m, proposals, device=device,
+                                            seed=seed),
+             make_temporal_fusion_steps, predict_temporal, True, True),
+}
+PROJECTION_KEYS = ("image", "proj_pix", "proj_bev", "proj_valid")
+ZSLICE_KEYS = ("image", "idxs_norm", "idxs_valid")
+
+
+def fusion_forward(kind, net, vox, batch):
+    """The fusion model's forward on voxelized input (one frame, or the
+    (cur, prev) pair for tmpf) and the batch's camera inputs."""
+    mask = batch.get("anchors_mask")
+    if kind == "tmpf":
+        return net(*vox, *[batch[k] for k in ZSLICE_KEYS], batch["anchors"],
+                   anchors_mask=mask)
+    args = [vox[k] for k in ("voxels", "num_points", "coordinates",
+                             "voxel_valid")] + \
+        [batch[k] for k in PROJECTION_KEYS]
+    if kind == "fusion":
+        return net(*args)
+    return net(*args, batch["anchors"], anchors_mask=mask)
+
+
+def fusion_loss_of(kind):
+    """loss_of(spec, net, vox, batch) of the fusion model `kind`: its
+    train-mode forward and loss dict."""
+    def loss_of(spec, net, vox, batch):
+        preds = fusion_forward(kind, net, vox, batch)
+        fn = compute_loss if kind == "fusion" else compute_two_stage_loss
+        return fn(spec, preds, batch["labels"], batch["reg_targets"],
+                  batch["anchors"], batch.get("gt_boxes_padded"),
+                  batch.get("gt_valid"))
+    return loss_of
+
+
+def fusion_prep(cfg, assigner, info, training, zslice, image_hw,
+                max_points=MAX_POINTS):
+    vg = cfg.model.voxel_generator
+    reader = cfg.train_input_reader
+    extra = dict(shuffle_points=reader.shuffle_points,
+                 anchor_area_threshold=reader.anchor_area_threshold) \
+        if training else {}
+    return ExamplePrep(assigner, info.feature_map_size, PrepConfig(
+        max_points=max_points, training=training, use_fusion=True,
+        image_shape=image_hw, out_stride=info.out_size_factor,
+        voxel_size=tuple(vg.voxel_size), pc_range=tuple(vg.point_cloud_range),
+        use_zslice=zslice, **extra))
+
+
+def fusion_eval_inputs(cfg, assigner, info, dev, pairs=False):
+    """The fusion eval input: BATCH copies of the fhd bench scan (seed 0,
+    512 azimuth steps) with its camera image on the KITTI canvas (the scan
+    rendered through `synthetic_calib`, as `SyntheticDataset(with_image=
+    True)` renders it) and its points' projections; with `pairs` the scan
+    of seed 1 as the previous frame and the z-slice grids. On the card."""
+    prep = fusion_prep(cfg, assigner, info, False, pairs, FUSION_IMAGE_HW)
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    p, b, n = lidar_scan_scene(np.random.default_rng(0), pc_range=pc_range,
+                               num_azimuth=512)
+    rect, velo2cam, P2 = synthetic_calib(FUSION_IMAGE_HW)
+    scene = {"points": p, "gt_boxes": b, "gt_names": n, "image_idx": 0,
+             "image": render_synthetic_image(p, FUSION_IMAGE_HW, rect,
+                                             velo2cam, P2),
+             "img_shape": FUSION_IMAGE_HW, "calib/R0_rect": rect,
+             "calib/Tr_velo_to_cam": velo2cam, "calib/P2": P2}
+    if pairs:
+        scene["p_points"] = lidar_scan_scene(
+            np.random.default_rng(1), pc_range=pc_range,
+            num_azimuth=512)[0]
+    ex = prep(scene, np.random.default_rng(0))
+    batch = prep.collate([ex] * BATCH)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k != "image_idx"}
+
+
+def fusion_train_inputs(cfg, assigner, info, dev, n, max_points=MAX_POINTS,
+                        pairs=False, image_hw=FUSION_IMAGE_HW):
+    """n synthetic scans (`SyntheticDataset(scan=True, with_image=True)`,
+    seed 1) or pairs (`SyntheticPairDataset(with_image=True)`), the
+    `Trainer`'s synthetic fusion data, with their camera images on
+    `image_hw`, prepared for training, collated, on `dev`."""
+    prep = fusion_prep(cfg, assigner, info, True, pairs, image_hw,
+                       max_points)
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    if pairs:
+        ds = SyntheticPairDataset(n, seed=1, pc_range=pc_range,
+                                  with_image=True, image_shape=image_hw)
+    else:
+        ds = SyntheticDataset(n, seed=1, pc_range=pc_range, scan=True,
+                              with_image=True, image_shape=image_hw)
+    rng = np.random.default_rng(0)
+    batch = prep.collate([prep(ds[i], rng) for i in range(n)])
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k != "image_idx"}
+
+
+def fusion_voxelize(kind):
+    return voxelize_pair if kind == "tmpf" else voxelize_points
+
+
+def fusion_split(kind, net, spec, vspec, batch, dev):
+    """One forward of the fusion model `kind` cut at its stage boundaries,
+    each synchronised (in the module's mode, without grad): ms of voxelize,
+    backbone (VFE + middle; both frames and the gate for tmpf), trunk (the
+    RPN's BEV trunk), fpn (the camera's ResNet-18 FPN), projection (the
+    points' scatter into BEV; for tmpf the z-slice crops and their 1x1
+    compress), fusion (the refine blocks, the gates, the fused convs; for
+    tmpf nothing), heads (the 1x1 heads), then for the two-stage kinds
+    proposals, crops (both maps), head, and predict."""
+    from second_tpu_torch.models.fusion import project_image_to_bev
+    from second_tpu_torch.models.second_stage import select_proposals
+    out, t0 = {}, None
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name:
+            out[f"{name}_ms"] = 1e3 * (now - t0)
+        t0 = now
+    s1 = net.stage1 if kind == "fusion_2st" else net
+    rpn = s1.rpn
+    with torch.no_grad():
+        lap(None)
+        vox = fusion_voxelize(kind)(vspec, batch, dev)[0]
+        lap("voxelize")
+        if kind == "tmpf":
+            stacked = {k: torch.cat([vox[0][k], vox[1][k]], 0) for k in (
+                "voxels", "num_points", "coordinates", "voxel_valid")}
+            bev, _ = net.backbone(stacked)
+            B = bev.shape[0] // 2
+            bev = net.bev_fusion(bev[:B], bev[B:])
+        else:
+            vf = s1.vfe(vox["voxels"], vox["num_points"], vox["coordinates"])
+            vf = torch.where(vox["voxel_valid"][..., None], vf, 0.0)
+            bev, _ = s1.middle(vf, vox["coordinates"], vox["voxel_valid"])
+        lap("backbone")
+        trunk = rpn.trunk(bev)
+        lap("trunk")
+        p3 = rpn.fpn18(batch["image"].permute(0, 3, 1, 2))
+        lap("fpn")
+        if kind == "tmpf":
+            concat = rpn.crops(p3, batch["idxs_norm"], batch["idxs_valid"])
+            lap("projection")
+            lap("fusion")
+            preds = rpn._outputs(trunk, trunk, concat)
+        else:
+            projected = project_image_to_bev(
+                p3, batch["proj_pix"], batch["proj_bev"],
+                batch["proj_valid"], trunk.shape[-2:])
+            lap("projection")
+            fused = rpn.fuse(trunk, projected)
+            lap("fusion")
+            preds = rpn._outputs(trunk, fused, fused)
+        lap("heads")
+        if kind == "fusion":
+            predict(spec, preds, batch["anchors"],
+                    batch.get("anchors_mask"))
+            lap("predict")
+            return out
+        proposals = select_proposals(net.pspec, spec, preds,
+                                     batch["anchors"])
+        lap("proposals")
+        crops = net.crops(preds["gated_bev_feat"], proposals)
+        concat_crops = net.crops(preds["gated_concat_feat"], proposals)
+        lap("crops")
+        head = net.second_rpn(crops, concat_crops)
+        B, N = proposals["indices"].shape
+        preds.update({"proposals": proposals,
+                      "second_box_preds": head["box_preds"].reshape(B, N, -1)
+                      + proposals["box_enc"],
+                      "second_cls_preds": head["cls_preds"].reshape(B, N,
+                                                                    -1)})
+        lap("head")
+        predict_two_stage(spec, preds, batch["anchors"])
+        lap("predict")
+    return out
+
+
+def check_roi_by_channels(fwd_calls, bwd_calls, timer, dtimer, what):
+    """`check_roi_calls` once for each channel count of the recorded calls
+    (the fusion models crop two maps: the BEV trunk and the fused or
+    z-slice map). Returns {channels: aggregates}."""
+    out = {}
+    for C in sorted({args[0].shape[1] for args, _ in fwd_calls}):
+        out[C] = check_roi_calls(
+            [c for c in fwd_calls if c[0][0].shape[1] == C],
+            [c for c in bwd_calls if c[0][0].shape[1] == C], timer, dtimer,
+            f"{what} C={C}")
+    return out
+
+
+def run_fusion_eval(dev, timer, dtimer, kind):
+    """The eval forward of the fusion model `kind` ("fusion",
+    "fusion_2st", "tmpf") on second_car_fhd.config, fp32 as JAX builds the
+    fusion models, random weights from seed 0, through its steps maker's
+    eval step, on BATCH examples (pairs for tmpf) at MAX_VOXELS voxels a
+    frame with the KITTI camera canvas (`fusion_eval_inputs`). Returns
+    (the launch counts, the report, {channels: ROI-align aggregates})."""
+    what, build, make_steps, predict_fn, pairs, two = FUSION_KINDS[kind]
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    net, spec, info, assigner, _ = build(cfg.model, dev)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    batch = fusion_eval_inputs(cfg, assigner, info, dev, pairs)
+    eval_step = make_steps(spec, vspec)[1]
+    state = TrainState(net, None)
+    cam = {k: tuple(batch[k].shape) for k in (
+        ZSLICE_KEYS if pairs else PROJECTION_KEYS)}
+    valid = batch["idxs_valid"] if pairs else batch["proj_valid"]
+    report["inputs"] = dict(camera=cam, valid=valid.sum().item())
+    say(f"{what} eval: batch {BATCH}{' pairs' if pairs else ''}, "
+        f"{MAX_VOXELS} voxels a frame, camera {cam} "
+        f"({report['inputs']['valid']} valid "
+        f"{'z-slice cells' if pairs else 'projected points'}), fp32"
+        + (f", {TWO_STAGE_PROPOSALS} proposals an example" if two else ""))
+
+    def forward():
+        return eval_step(state, batch)
+
+    with recording(RECORDED_2ST) as calls:
+        forward()
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"{what} eval capture: {n}")
+    want_n = {"gather_gemm": SPARSE_CONVS, "nms_overlap": 1,
+              "nms_suppress": 2 if two else 1,
+              "roi_align_fwd": 2 if two else 0,
+              "standup_overlap": 1 if two else 0}
+    if {k: n[k] for k in want_n} != want_n:
+        fail(f"{what} eval: recorded {n}, expected {want_n}")
+    if pairs:
+        check_folded(calls, 2 * BATCH, f"{what} eval")
+    report["conv_max_abs_err"] = check_calls_exact(calls, f"{what} eval")
+    report["fp64_ratio"] = check_fp32_calls(calls, f"{what} eval")
+    over_bits = riou.nms_overlap(*calls["nms_overlap"][0][0])[0]
+    rot_sup = [c for c in calls["nms_suppress"]
+               if c[0][0].shape == over_bits.shape and
+               torch.equal(c[0][0], over_bits)]
+    if len(rot_sup) != 1:
+        fail(f"{what} eval: no suppression call read the overlap bitmask")
+    report["nms"] = check_nms_pair(
+        {"nms_overlap": calls["nms_overlap"], "nms_suppress": rot_sup},
+        timer, dtimer, f"{what} eval")[2]
+    roi = {}
+    if two:
+        report["standup"] = check_standup_calls(
+            calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+            f"{what} eval")
+        roi = check_roi_by_channels(calls["roi_align_fwd"], [], timer,
+                                    dtimer, f"{what} eval")
+        report["roi_align_fwd"] = {C: {k: a["roi_align_fwd"][k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "err")}
+            for C, a in roi.items()}
+    del calls
+
+    reset_counts()
+    det = forward()
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one {what} forward: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS, "rotated_iou": 1,
+            "nms_suppress": 2 if two else 1,
+            "roi_align_fwd": 2 if two else 0,
+            "standup_overlap": 1 if two else 0, "roi_align_bwd": 0,
+            "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want or not counts["row_gather"]:
+        fail(f"{what} forward launches {counts}, expected {want} and row "
+             f"gathers")
+    if (paths["mma"], paths["fma"]) != (0, SPARSE_CONVS):
+        fail(f"{what}: not every sparse conv took the fp32 path: {paths}")
+    report["launches"] = counts
+    report["host_syncs"] = host_syncs(forward)
+    if report["host_syncs"]:
+        fail(f"the {what} eval step synchronised the host "
+             f"{report['host_syncs']} times")
+    with torch.no_grad():
+        vox = fusion_voxelize(kind)(vspec, batch, dev)[0]
+        preds = fusion_forward(kind, net, vox, batch)
+    predict_fails_on_sync(spec, preds, batch["anchors"], f"{what} eval",
+                          predict_fn)
+    for k in ("voxel_overflow", "stage_overflow"):
+        report[k] = int(det[k])
+        if report[k]:
+            fail(f"{what} eval: {k} {report[k]}, expected 0")
+    for k in ("boxes", "scores"):
+        if not torch.isfinite(det[k]).all():
+            fail(f"{what} eval: non-finite {k}")
+    report["valid"] = det["valid"].sum(1).tolist()
+    say(f"{what} eval: no host sync (the eval step, and "
+        f"{predict_fn.__name__} under set_sync_debug_mode('error')); "
+        f"voxel_overflow 0, stage_overflow 0; valid detections "
+        f"{report['valid']}")
+
+    fwd = timed_forwards(forward, FUSION_TIMED, BATCH)
+    report["forward"] = fwd
+    report["split"] = fusion_split(kind, net, spec, vspec, batch, dev)
+    say(f"{what} {'pairs' if pairs else 'frames'}/s "
+        f"{BATCH / fwd['median_s']:.3f} (median "
+        f"{1e3 * fwd['median_s']:.2f} ms of {FUSION_TIMED} batch-{BATCH} "
+        f"forwards, cuDNN TF32 off); peak memory "
+        f"{fwd['peak_mem_bytes'] / 2 ** 30:.2f} GiB; one split: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in report["split"].items()))
+    report["profile"] = profile_forward(forward, fwd["median_s"],
+                                        f"{what} forward")
+    del net, state
+    report["reference"] = check_fusion_reference(cfg, dev, kind, batch)
+    report["reference64"] = check_fusion_forward64(dev, kind)
+    return counts, report, roi
+
+
+def check_fusion_reference(cfg, dev, kind, batch):
+    """One fp32 example (pair) of the phase's input through the fusion
+    model card (kernels) against CPU (plain versions) from the same seeded
+    weights: the two-stage kinds by `check_refine_reference` (stage 1 end
+    to end, then the proposals, both crops, the head and predict's NMS on
+    the card's inputs); the one-stage model's forward (box, class and
+    direction predictions, the fused map) within PRED_TOL and predict's
+    rotated NMS on the same candidates equal."""
+    what, build, _, _, pairs, two = FUSION_KINDS[kind]
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    one = {k: v[:1] for k, v in batch.items()}
+    if two:
+        def stage1(net, one, device):
+            vox = fusion_voxelize(kind)(vspec, one, device)[0]
+            if kind == "tmpf":
+                return net.stage1(*vox, *[one[k] for k in ZSLICE_KEYS])
+            return net.stage1(*[vox[k] for k in (
+                "voxels", "num_points", "coordinates", "voxel_valid")],
+                *[one[k] for k in PROJECTION_KEYS])
+        return check_refine_reference(
+            cfg, dev, what, build, stage1, "gated_bev_feat", one,
+            one["anchors"], concat_key="gated_concat_feat")
+    cpu = torch.device("cpu")
+    outs = {}
+    for device in (dev, cpu):
+        net, spec = build(cfg.model, device)[:2]
+        b = {k: v.to(device) for k, v in one.items()}
+        with torch.no_grad():
+            vox = device_voxelize(vspec, b["points"], b["points_mask"],
+                                  device)
+            t0 = time.perf_counter()
+            preds = fusion_forward(kind, net, vox, b)
+            secs = time.perf_counter() - t0
+            with recording([(nms_ops, "nms")]) as calls:
+                predict(spec, preds, b["anchors"])
+        outs[device.type] = (preds, calls["nms"][0], secs)
+    errs = {}
+    for k in ("box_preds", "cls_preds", "dir_cls_preds",
+              "gated_concat_feat"):
+        if k not in outs["cpu"][0]:
+            continue
+        a, h = outs["cuda"][0][k].cpu(), outs["cpu"][0][k]
+        errs[k] = (a - h).abs().max().item()
+        if not torch.allclose(a, h, **PRED_TOL):
+            fail(f"{what} reference: {k} card vs CPU max abs err "
+                 f"{errs[k]:.3g} over {PRED_TOL}")
+    args, kwargs = outs["cuda"][1]
+    sel_c, keep_c = nms_ops.nms(*args, **kwargs)
+    sel_h, keep_h = nms_ops.nms(*[a.cpu() for a in args], **kwargs)
+    if not (torch.equal(sel_c.cpu(), sel_h) and
+            torch.equal(keep_c.cpu(), keep_h)):
+        fail(f"{what} reference: predict's rotated NMS differs card vs CPU "
+             f"on the same candidates")
+    say(f"{what} reference (fp32, 1 example, card vs CPU; the CPU's forward "
+        f"in {outs['cpu'][2]:.1f} s): " +
+        ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
+        f"; predict's rotated NMS equal on the same candidates "
+        f"({int(keep_c.sum())} kept)")
+    return dict(cpu_s=outs["cpu"][2], errs=errs, kept=int(keep_c.sum()))
+
+
+def _flat_outputs(preds, prefix=""):
+    out = {}
+    for k, v in preds.items():
+        if isinstance(v, dict):
+            out.update(_flat_outputs(v, f"{prefix}{k}."))
+        elif torch.is_tensor(v):
+            out[prefix + k] = v.detach().cpu()
+    return out
+
+
+def check_fusion_forward64(dev, kind):
+    """The fusion model `kind` in fp64 on one example (pair) of the
+    PointPillars config (the sparse kernels take no fp64; full width, its
+    fusion RPN, REF_IMAGE_HW camera canvas, TWO_STAGE_REF_PROPOSALS
+    proposals drawn from the positive anchors and a hundredth of the
+    others), card (kernels) against CPU (plain versions) from the same
+    seeded weights, in train mode without grad (the norms on the batch's
+    statistics: a random PointPillars model's eval outputs overflow,
+    `calibrate_norms_`): every float output within REF64_TOL of its
+    scale, every integer and boolean output (the proposals) equal."""
+    what, build_fn, _, _, pairs, _ = FUSION_KINDS[kind]
+    cfg = load_pipeline_config(PP_CONFIG)
+    cpu = torch.device("cpu")
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     cfg.train_input_reader
+                                     .max_number_of_voxels)
+    outs = {}
+    for device in (dev, cpu):
+        net, spec, info, assigner, _ = build_fn(
+            cfg.model, device, 0, TWO_STAGE_REF_PROPOSALS)
+        net.double().train()
+        if device == dev:
+            one = {k: v.double() if v.is_floating_point() else v
+                   for k, v in fusion_train_inputs(
+                       cfg, assigner, info, cpu, 1, PP_POINTS, pairs,
+                       REF_IMAGE_HW).items()}
+            g = torch.Generator().manual_seed(0)
+            one["anchors_mask"] = (one["labels"] > 0) | (torch.rand(
+                one["labels"].shape, generator=g) < 0.01)
+        b = {k: v.to(device) for k, v in one.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            vox = fusion_voxelize(kind)(vspec, b, device)[0]
+            outs[device.type] = _flat_outputs(
+                fusion_forward(kind, net, vox, b))
+        outs[device.type + "_s"] = time.perf_counter() - t0
+    c, h = outs["cuda"], outs["cpu"]
+    if set(c) != set(h):
+        fail(f"{what} fp64 reference: outputs {sorted(c)} vs {sorted(h)}")
+    worst = 0.0
+    for k, want in h.items():
+        got = c[k]
+        if want.is_floating_point():
+            e = errors(got, want)[1]
+            worst = max(worst, e)
+            if not e <= REF64_TOL:
+                fail(f"{what} fp64 reference: {k} {e:.3g} of its scale "
+                     f"apart card vs CPU, over {REF64_TOL}")
+        elif not torch.equal(got, want):
+            fail(f"{what} fp64 reference: {k} differs card vs CPU")
+    say(f"{what} fp64 forward reference (PointPillars config, 1 "
+        f"{'pair' if pairs else 'example'}, camera {REF_IMAGE_HW}, train "
+        f"mode, card vs CPU; the CPU's forward in {outs['cpu_s']:.1f} s): "
+        f"{len(h)} outputs, floats within {worst:.2e} of their scale, "
+        f"integers and masks equal")
+    return dict(cpu_s=outs["cpu_s"], worst=worst, outputs=len(h))
+
+
+def run_fusion_train(dev, timer, dtimer, kind):
+    """The train step of the fusion model `kind` (its steps maker, fp32,
+    the config's Adam) on TRAIN_BATCH synthetic scans (pairs for tmpf)
+    with camera images on the KITTI canvas, TRAIN_VOXELS voxels a frame
+    (shuffle_overflow). Returns (the launch counts, the report,
+    {channels: ROI-align aggregates})."""
+    what, build, make_steps, _, pairs, two = FUSION_KINDS[kind]
+    report = {}
+    cfg = load_pipeline_config(CONFIG)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, None,
+                                                  build=build)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     TRAIN_VOXELS, shuffle_overflow=True)
+    batch = fusion_train_inputs(cfg, assigner, info, dev, TRAIN_BATCH,
+                                pairs=pairs)
+    step = make_steps(spec, vspec)[0]
+    loss_of, voxelize = fusion_loss_of(kind), fusion_voxelize(kind)
+    say(f"{what} train: batch {TRAIN_BATCH} synthetic "
+        f"{'pairs' if pairs else 'scans'} with camera images "
+        f"{FUSION_IMAGE_HW}, {TRAIN_VOXELS} voxels a frame "
+        f"(shuffle_overflow), fp32 as in JAX, positive anchors "
+        f"{(batch['labels'] > 0).sum(1).tolist()}")
+
+    with recording(RECORDED_2ST_TRAIN) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    say(f"{what} train capture: {n}; loss {float(metrics['loss']):.4f}")
+    want_n = {"gather_gemm": SPARSE_CONVS,
+              "gather_gemm_dgrad": SPARSE_CONVS - 1,
+              "sparse_wgrad": SPARSE_CONVS,
+              "roi_align_fwd": 2 if two else 0,
+              "roi_align_bwd": 2 if two else 0,
+              "standup_overlap": 1 if two else 0,
+              "nms_suppress": 1 if two else 0}
+    if n != want_n:
+        fail(f"{what} train: recorded {n}, expected {want_n}")
+    if pairs:
+        check_folded(calls, 2 * TRAIN_BATCH, f"{what} train")
+    check_step_calls(f"{what} train", calls, timer, dtimer, timed=False)
+    report["fp64_ratio"] = check_fp32_calls(calls, f"{what} train")
+    roi = {}
+    if two:
+        roi = check_roi_by_channels(calls["roi_align_fwd"],
+                                    calls["roi_align_bwd"], timer, dtimer,
+                                    f"{what} train")
+        report["roi_align"] = {C: {n: {k: a[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "err")
+            + (("scratch_bytes", "partials_bytes")
+               if n == "roi_align_bwd" else ())}
+            for n, a in aggs.items()} for C, aggs in roi.items()}
+        report["standup"] = check_standup_calls(
+            calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+            f"{what} train")
+    del calls
+
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one {what} train step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS,
+            "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+            "sparse_wgrad": SPARSE_CONVS,
+            "roi_align_fwd": 2 if two else 0,
+            "roi_align_bwd": 2 if two else 0,
+            "standup_overlap": 1 if two else 0,
+            "nms_suppress": 1 if two else 0, "rotated_iou": 0, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"{what} train step launches {counts}, expected {want}")
+    want_paths = {"mma": 0, "fma": 2 * SPARSE_CONVS - 1, "wgrad_mma": 0,
+                  "wgrad_fma": SPARSE_CONVS}
+    if paths != want_paths:
+        fail(f"{what} train step: sparse kernels by path {paths}, expected "
+             f"{want_paths}")
+    params = dict(state.module.named_parameters())
+    for name, p in params.items():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"{what} {name}: gradient missing or not finite")
+    nonzero = {
+        "fusion": ("rpn.fpn18.stem.weight", "rpn.crop_gate.conv.weight",
+                   "rpn.depth_refine0.conv.weight", "middle.subm.0.weight",
+                   "rpn.conv_cls.weight"),
+        "fusion_2st": ("stage1.rpn.fpn18.stem.weight",
+                       "stage1.rpn.crop_gate.conv.weight",
+                       "second_rpn.cls_tower.convs.0.weight",
+                       "second_rpn.conv_box_second.weight",
+                       "stage1.middle.subm.0.weight"),
+        "tmpf": ("bev_fusion.conv_gating_bev.weight",
+                 "rpn.concat_compress.weight",
+                 "second_rpn.cls_tower.convs.0.weight",
+                 "second_rpn.conv_box_second.weight",
+                 "middle.subm.0.weight"),
+    }[kind]
+    for name in nonzero:
+        if not params[name].grad.abs().max() > 0:
+            fail(f"{what} {name}: gradient all zero")
+    if kind == "tmpf" and any(p.grad.any() for n, p in params.items()
+                              if n.startswith("rpn.fpn18.")):
+        fail(f"{what}: a gradient reached the FPN, which JAX stops")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"{what} train metrics not finite: {m}")
+    report["metrics"], report["launches"] = m, counts
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the {what} train step synchronised the host {n_syncs} times")
+    say(f"{what} train step: no host sync; every gradient finite, "
+        f"{', '.join(nonzero)} nonzero" +
+        ("; the FPN's zero (JAX's stop_gradient)" if kind == "tmpf" else "")
+        + "; " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    check_determinism(state, spec, vspec, batch, what, loss_of, voxelize)
+    report["speed"], report["profile"] = timed_steps(
+        step, state, spec, vspec, batch, FUSION_TIMED, f"{what} train",
+        loss_of=loss_of, voxelize=voxelize)
+    state.module.train()
+    report["forward_split"] = fusion_split(kind, state.module, spec, vspec,
+                                           batch, dev)
+    say(f"{what} train: one train-mode forward split: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in report["forward_split"].items()))
+    del state
+    report["overfit"] = check_overfit(cfg, dev, None, step, batch, what,
+                                      build=build)
+    torch.backends.cudnn.deterministic = False
+    report["reference64"] = check_2st_train_reference(
+        dev, what, build, make_steps,
+        lambda c, a, i, d, n, mp: fusion_train_inputs(
+            c, a, i, d, n, mp, pairs, REF_IMAGE_HW),
+        "second_num_pos" if two else "num_pos")
+    return counts, report, roi
 
 
 def run_tracking_phase(dev):

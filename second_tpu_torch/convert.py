@@ -12,7 +12,14 @@ A two-stage tree (`second_tpu.models.TwoStageVoxelNet`: `stage1/...` and
 `stage1.*` and `second_rpn.*` the same way, and a temporal tree
 (`second_tpu.models.temporal.TemporalVoxelNet`: `vfe`, `middle`,
 `bev_fusion/conv_gating_bev`, `rpn`, `second_rpn`) onto
-`TemporalVoxelNet`'s and `TemporalSequenceVoxelNet`'s names.
+`TemporalVoxelNet`'s and `TemporalSequenceVoxelNet`'s names. The
+camera-fusion trees map the same way: `FusionVoxelNet`'s (`vfe`,
+`middle`, `rpn` with `trunk`, `fpn18`, `depth_refine0/1`, `bev_gate`,
+`crop_gate`, `fusion_refine0/1`, `conv_box`, `conv_cls`, `conv_dir_cls`),
+`FusionTwoStageVoxelNet`'s (that under `stage1`, and `second_rpn`) and
+`TemporalFusionVoxelNet`'s (the temporal tree with `rpn` a
+`ZSliceFusionRPN`: `trunk`, `fpn18`, `concat_compress` and the 1x1
+heads); `ResNetFPN18`'s auto-named flax modules map as `_fpn18` lists.
 `tracking_state_dict_from_jax(params)` maps the tracking net's tree
 (`second_tpu.models.tracking.SequenceTrackNet` / `TrackNet`, flax's
 automatic names) onto `models/tracking.py`'s.
@@ -104,6 +111,10 @@ def _convert(params, stats) -> dict:
                 out[f"{name}.num_batches_tracked"] = torch.zeros(
                     (), dtype=torch.int64)
 
+    if "head" not in params["rpn"]:
+        _camera_rpn(out, params["rpn"], None if stats is None
+                    else stats.get("rpn", {}))
+        return out
     hp = params["rpn"]["head"]
     for i, attr in enumerate(("box", "cls", "dir")[:len(_numbered(hp,
                                                                   "Conv"))]):
@@ -125,9 +136,65 @@ def _convert(params, stats) -> dict:
 
 
 def _conv(out, name, c):
-    """A flax nn.Conv (kernel HWIO, bias) → torch Conv2d entries (OIHW)."""
+    """A flax nn.Conv (kernel HWIO, bias if it has one) → torch Conv2d
+    entries (OIHW)."""
     out[f"{name}.weight"] = _t(np.asarray(c["kernel"]).transpose(3, 2, 0, 1))
-    out[f"{name}.bias"] = _t(c["bias"])
+    if "bias" in c:
+        out[f"{name}.bias"] = _t(c["bias"])
+
+
+def _batch_norm(out, name, params, stats):
+    """A flax BatchNorm (with its statistics where `stats` is not None) →
+    a torch BatchNorm's entries."""
+    _norm(out, name, params, stats)
+    if stats is not None:
+        out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _sub(stats, name):
+    return None if stats is None else stats[name]
+
+
+def _fpn18(out, name, p, s):
+    """`ResNetFPN18`'s flax tree (auto-named: the stem `Conv_0` and
+    `BatchNorm_0`, `BasicBlock_0..7` with `Conv_0..2` / `BatchNorm_0..2`,
+    the FPN's `Conv_1..4`) → the port's `stem`, `stem_norm`,
+    `blocks.i.{conv1,norm1,conv2,norm2,down,down_norm}`, `lateral5`,
+    `lateral4`, `lateral3`, `smooth`."""
+    _conv(out, f"{name}.stem", p["Conv_0"])
+    _batch_norm(out, f"{name}.stem_norm", p["BatchNorm_0"],
+                _sub(s, "BatchNorm_0"))
+    for i, bp in enumerate(_numbered(p, "BasicBlock")):
+        bs = _sub(s, f"BasicBlock_{i}")
+        for j, (conv, norm) in enumerate((("conv1", "norm1"),
+                                          ("conv2", "norm2"),
+                                          ("down", "down_norm"))):
+            if f"Conv_{j}" in bp:
+                _conv(out, f"{name}.blocks.{i}.{conv}", bp[f"Conv_{j}"])
+                _batch_norm(out, f"{name}.blocks.{i}.{norm}",
+                            bp[f"BatchNorm_{j}"], _sub(bs, f"BatchNorm_{j}"))
+    for j, lat in enumerate(("lateral5", "lateral4", "lateral3", "smooth")):
+        _conv(out, f"{name}.{lat}", p[f"Conv_{j + 1}"])
+
+
+def _camera_rpn(out, rp, rs):
+    """A fusion RPN's tree beyond the trunk (`FusionRPN`: `fpn18`,
+    `depth_refine0/1`, `bev_gate`, `crop_gate`, `fusion_refine0/1`;
+    `ZSliceFusionRPN`: `fpn18`, `concat_compress`; both: `conv_box`,
+    `conv_cls`, `conv_dir_cls`) → the port's `rpn.*` names."""
+    _fpn18(out, "rpn.fpn18", rp["fpn18"], _sub(rs, "fpn18"))
+    for name in ("depth_refine0", "depth_refine1", "fusion_refine0",
+                 "fusion_refine1"):
+        if name in rp:
+            _conv(out, f"rpn.{name}.conv", rp[name]["Conv_0"])
+            _batch_norm(out, f"rpn.{name}.norm", rp[name]["BatchNorm_0"],
+                        None if rs is None else rs[name]["BatchNorm_0"])
+    for name in ("bev_gate", "crop_gate"):
+        if name in rp:
+            _conv(out, f"rpn.{name}.conv", rp[name]["Conv_0"])
+    for name in ("concat_compress", "conv_box", "conv_cls", "conv_dir_cls"):
+        if name in rp:
+            _conv(out, f"rpn.{name}", rp[name])
 
 
 def _second_rpn(out, hp):
@@ -142,8 +209,8 @@ def _second_rpn(out, hp):
 
 def _convert_any(params, stats) -> dict:
     """A one-stage tree, a two-stage one (`stage1` and `second_rpn`) or a
-    temporal one (`vfe`, `middle`, `bev_fusion`, `rpn` and
-    `second_rpn`)."""
+    temporal one (`vfe`, `middle`, `bev_fusion`, `rpn` and `second_rpn`),
+    each with the plain or a camera RPN."""
     if "second_rpn" not in params:
         return _convert(params, stats)
     if "stage1" in params:

@@ -8,6 +8,10 @@ points around each car plus ground clutter in 0-16 m ahead and ±8 m to the
 sides, drawn from the caller's numpy generator. The layout and numbers are
 those of the JAX package's tracking-tree test
 (`tests/test_tracking_train.py`, `test_temporal_cli_on_fabricated_tracking_tree`).
+With `image_shape` the tree has a camera too: `image_02/0000/FFFFFF.png`,
+each frame's cloud rendered through the tree's calibration
+(`data/synthetic.py` `render_synthetic_image`) as 8-bit RGB, the frames the
+reader loads for the temporal-fusion model.
 """
 
 from __future__ import annotations
@@ -30,9 +34,11 @@ CALIB = "\n".join([
 
 
 def write_tracking_tree(root, rng: np.random.Generator,
-                        num_frames: int = 4) -> pathlib.Path:
+                        num_frames: int = 4,
+                        image_shape=None) -> pathlib.Path:
     """Write sequence 0000 of `num_frames` frames under `root` (the split
-    directory a reader's `kitti_root_path` names) and return it."""
+    directory a reader's `kitti_root_path` names), with an (H, W) camera
+    frame each where `image_shape` is given, and return it."""
     root = pathlib.Path(root)
     (root / "label_02").mkdir(parents=True, exist_ok=True)
     (root / "calib").mkdir(exist_ok=True)
@@ -58,4 +64,28 @@ def write_tracking_tree(root, rng: np.random.Generator,
             [cloud, rng.uniform(0, 1, (len(cloud), 1)).astype(np.float32)],
             1)
         cloud.tofile(velo / f"{f:06d}.bin")
+        if image_shape is not None:
+            _write_frame_image(root, f, cloud, image_shape)
     return root
+
+
+def _write_frame_image(root, frame, cloud, image_shape):
+    from PIL import Image
+
+    from .synthetic import render_synthetic_image
+    cam = {}
+    for line in CALIB.splitlines():
+        key, *vals = line.split()
+        cam[key.rstrip(":")] = np.array(vals, np.float64)
+    P2 = np.eye(4)
+    P2[:3] = cam["P2"].reshape(3, 4)
+    rect = np.eye(4)
+    rect[:3, :3] = cam["R_rect"].reshape(3, 3)
+    velo2cam = np.eye(4)
+    velo2cam[:3] = cam["Tr_velo_cam"].reshape(3, 4)
+    img = render_synthetic_image(cloud, tuple(image_shape), rect, velo2cam,
+                                 P2)
+    out = root / "image_02" / "0000"
+    out.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.clip(img * 255, 0, 255).astype(np.uint8)).save(
+        out / f"{frame:06d}.png")

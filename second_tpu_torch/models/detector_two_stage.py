@@ -40,20 +40,25 @@ class RoiSpec:
 
 
 class RefineStage:
-    """The second stage, shared by the two-stage and the temporal detector:
-    proposals from stage 1's outputs, rotated crops of a BEV map, the
-    refine head `second_rpn`. The host module carries `spec`, `pspec`,
-    `roi` and `second_rpn`."""
+    """The second stage, shared by the two-stage, temporal and fusion
+    detectors: proposals from stage 1's outputs, rotated crops of a BEV map
+    (and of a second map for the classification tower), the refine head
+    `second_rpn`. The host module carries `spec`, `pspec`, `roi` and
+    `second_rpn`."""
 
-    def refine(self, stage1, anchors, anchors_mask=None, crop_map=None):
+    def refine(self, stage1, anchors, anchors_mask=None, crop_map=None,
+               concat_map=None):
         """The second stage on stage 1's outputs; the crops come from
-        `crop_map` [B, C, H, W] (the RPN's trunk unless given)."""
+        `crop_map` [B, C, H, W] (the RPN's trunk unless given), and with
+        `concat_map` [B, C', H, W] the classification tower takes crops of
+        that map at the same proposals (JAX's dual-crop fusion refine)."""
         proposals = select_proposals(self.pspec, self.spec, stage1, anchors,
                                      anchors_mask)
         crops = self.crops(stage1["trunk"] if crop_map is None else crop_map,
                            proposals)
         B, N = proposals["indices"].shape
-        out = self.second_rpn(crops)
+        out = self.second_rpn(crops, None if concat_map is None
+                              else self.crops(concat_map, proposals))
         result = {**stage1, "proposals": proposals,
                   # residual refinement in encoding space (reference
                   # spatio :870)

@@ -102,13 +102,15 @@ class SecondStageHead(nn.Module):
     (and, with `use_direction_classifier`, 2-way direction) logits, each
     from a crop-sized VALID conv over its tower (box and direction on the
     reg tower, cls on the cls tower). With `concat_crops` the cls tower
-    takes those (JAX's fusion variants)."""
+    takes those (JAX's fusion variants), of `concat_channels` channels
+    (`in_channels` unless given: flax's towers infer theirs)."""
 
     def __init__(self, in_channels, num_class=1, box_code_size=7,
-                 features=128, crop_size=14, use_direction_classifier=False):
+                 features=128, crop_size=14, use_direction_classifier=False,
+                 concat_channels=None):
         super().__init__()
         self.reg_tower = ConvTower(in_channels, features)
-        self.cls_tower = ConvTower(in_channels, features)
+        self.cls_tower = ConvTower(concat_channels or in_channels, features)
         k = crop_size
         self.conv_box_second = nn.Conv2d(features, box_code_size, k)
         self.conv_cls_second = nn.Conv2d(features, num_class, k)

@@ -1,7 +1,9 @@
-"""Temporal two-frame detector (the reference's "spatio" model) and its
-N-frame sequence form — the port of `second_tpu/models/temporal.py`
-(`GatedBEVFusion`, `TemporalVoxelNet`, `compute_temporal_loss`,
-`predict_temporal`, `TemporalSequenceVoxelNet`, `build_temporal_voxelnet`).
+"""Temporal two-frame detector (the reference's "spatio" model), its
+N-frame sequence form and its camera-fusion form — the port of
+`second_tpu/models/temporal.py` (`GatedBEVFusion`, `TemporalVoxelNet`,
+`compute_temporal_loss`, `predict_temporal`, `TemporalSequenceVoxelNet`,
+`build_temporal_voxelnet`, `TemporalFusionVoxelNet`,
+`build_temporal_fusion_voxelnet`).
 
 The current and the previous frame go through one weight-shared VFE and
 sparse middle, folded into the batch axis (2B frames in one backbone call:
@@ -20,6 +22,7 @@ from torch import nn
 from ..device import resolve_device
 from .detector_two_stage import (RefineStage, RoiSpec,
                                  compute_two_stage_loss, predict_two_stage)
+from .fusion import ZSliceFusionRPN, fusion_args
 from .middle import MIDDLE_REGISTRY
 from .rpn import RPN
 from .second_stage import ProposalSpec, SecondStageHead
@@ -127,6 +130,88 @@ compute_temporal_loss = compute_two_stage_loss
 predict_temporal = predict_two_stage
 
 
+class TemporalFusionVoxelNet(RefineStage, nn.Module):
+    """The complete reference spatio model: the two-frame gated BEV fusion
+    of `TemporalVoxelNet` (both frames through one backbone call, folded
+    into the batch axis), then the camera RPN (`ZSliceFusionRPN`: the
+    current frame's image cropped per z-slice) and a second stage that
+    crops both the RPN's trunk (the regression tower) and the z-slice map
+    (the classification tower), with a stage-2 direction head where the
+    config has the direction classifier. `vfe`, `middle`, `bev_fusion`,
+    `rpn` and `second_rpn`, the JAX module's names."""
+
+    backbone = TemporalVoxelNet.backbone
+
+    def __init__(self, vfe_class_name, vfe_kwargs, middle_class_name,
+                 middle_kwargs, rpn_kwargs, spec, pspec: ProposalSpec,
+                 roi: RoiSpec):
+        super().__init__()
+        self.spec, self.pspec, self.roi = spec, pspec, roi
+        self.vfe = VFE_REGISTRY[vfe_class_name](**vfe_kwargs)
+        self.middle = MIDDLE_REGISTRY[middle_class_name](**middle_kwargs)
+        channels = self.middle.out_channels
+        self.bev_fusion = GatedBEVFusion(channels)
+        self.rpn = ZSliceFusionRPN(channels, **rpn_kwargs)
+        self.second_rpn = SecondStageHead(
+            self.rpn.trunk_channels, spec.num_class, spec.box_code_size,
+            crop_size=roi.crop_size,
+            use_direction_classifier=spec.use_direction_classifier,
+            concat_channels=self.rpn.concat_channels)
+
+    def stage1(self, cur, prev, image, idxs_norm, idxs_valid):
+        """Both frames through one backbone call, the gate, the camera RPN
+        on the fused map: stage 1's outputs (gated_bev_feat the RPN's trunk,
+        gated_concat_feat the z-slice map) and stage_overflow."""
+        stacked = {k: torch.cat([cur[k], prev[k]], 0) for k in _FRAME_KEYS}
+        bev, overflow = self.backbone(stacked)
+        B = cur["voxels"].shape[0]
+        fused = self.bev_fusion(bev[:B], bev[B:])
+        preds = self.rpn(fused, image, idxs_norm, idxs_valid)
+        preds["stage_overflow"] = overflow
+        return preds
+
+    def forward(self, cur, prev, image, idxs_norm, idxs_valid, anchors,
+                anchors_mask=None):
+        """cur / prev: the voxelized frames (as `TemporalVoxelNet`'s); image
+        [B, Hi, Wi, 3] the current frame's camera; idxs_norm [B, D, H, W, 2]
+        and idxs_valid [B, D, H, W] the z-slice projection
+        (`compute_bev_zslice_projection`); anchors [B, A, 7] and the optional
+        anchors mask [B, A] → the two-stage outputs."""
+        preds = self.stage1(cur, prev, image, idxs_norm, idxs_valid)
+        return self.refine(preds, anchors, anchors_mask,
+                           crop_map=preds["gated_bev_feat"],
+                           concat_map=preds["gated_concat_feat"])
+
+
+# the compressed width of the z-slice stack (JAX's builder sets it)
+CONCAT_FEATURES = 256
+
+
+def build_temporal_fusion_voxelnet(cfg, num_proposals: int = 512,
+                                   device="cuda", seed: int = 0):
+    """ModelConfig → (TemporalFusionVoxelNet, spec, info, assigner,
+    coder): the one-stage builder's VFE and middle, the camera RPN with
+    the RPN's `dtype` dropped (fp32, as JAX's builder), its z-slice stack
+    compressed to CONCAT_FEATURES channels, `num_proposals` proposals an
+    example. The module is in eval mode on `device` (the CUDA
+    card unless the caller asks for the CPU), weights drawn by
+    `init_weights_` from `seed`."""
+    from .build import init_weights_
+    from .detector import build_detector_spec
+    dev = resolve_device(device)
+    args, info, assigner, coder = fusion_args(cfg)
+    rpn_kwargs = dict(args[4], concat_features=CONCAT_FEATURES)
+    vg = cfg.voxel_generator
+    roi = RoiSpec(pc_range=tuple(vg.point_cloud_range),
+                  voxel_size=tuple(vg.voxel_size),
+                  out_stride=info.out_size_factor)
+    module = TemporalFusionVoxelNet(
+        *args[:4], rpn_kwargs, spec=build_detector_spec(cfg),
+        pspec=ProposalSpec(num_proposals=num_proposals), roi=roi)
+    init_weights_(module, seed)
+    return module.to(dev).eval(), module.spec, info, assigner, coder
+
+
 def build_temporal_voxelnet(cfg, num_proposals: int = 512, device="cuda",
                             seed: int = 0, sequence: bool = False):
     """ModelConfig → (module, spec, info, assigner, coder), temporal: the
@@ -155,5 +240,6 @@ def build_temporal_voxelnet(cfg, num_proposals: int = 512, device="cuda",
 
 
 __all__ = ["GatedBEVFusion", "TemporalVoxelNet", "TemporalSequenceVoxelNet",
-           "compute_temporal_loss", "predict_temporal",
-           "build_temporal_voxelnet"]
+           "TemporalFusionVoxelNet", "compute_temporal_loss",
+           "predict_temporal", "build_temporal_voxelnet",
+           "build_temporal_fusion_voxelnet"]

@@ -14,20 +14,28 @@ Usage:
     python -m second_tpu_torch.train.run evaluate --config_path C \
         --model_dir D [--synthetic] [--device cpu]
 
-Ported: `model_type="one_stage"` (SECOND car.fhd and multi-class,
-PointPillars), `"two_stage"` (any of them as stage 1 of the rotated-ROI
-refine detector, `models/detector_two_stage.py`) and `"temporal"` (the
-two-frame gated-fusion detector, `models/temporal.py`), on the KITTI infos
-the config's input readers name (`data/kitti_dataset.py`, prepared by
-`python -m second_tpu_torch.data.kitti_dataset`; for `temporal`, (cur,
-prev) frame pairs of the KITTI-tracking split root the readers'
-`kitti_root_path` names, `data/tracking.py`) or, with `synthetic=True`, on
-the scan scenes the JAX trainer uses under `--synthetic` (frame pairs,
-`SyntheticPairDataset`, for `temporal`); with the config's
-anchor-area mask: computed on the host for target assignment in training,
-on the device from the voxelizer's coords in evaluation. Every other model
-type and data-parallel training raise `NotImplementedError` naming their
-ROADMAP item.
+Every model type of the JAX trainer: `model_type="one_stage"` (SECOND
+car.fhd and multi-class, PointPillars), `"two_stage"` (any of them as stage
+1 of the rotated-ROI refine detector, `models/detector_two_stage.py`),
+`"temporal"` (the two-frame gated-fusion detector, `models/temporal.py`),
+and the camera-fusion ones: `"fusion"` (`models/fusion.py`
+`FusionVoxelNet`), `"fusion_two_stage"` (`models/detector_fusion_two_stage.py`)
+and `"temporal_fusion"` (`models/temporal.py` `TemporalFusionVoxelNet`),
+whose examples carry the camera image on an `image_hw` canvas (`--image_hw
+H W`; 192 x 624 for synthetic data, KITTI's 384 x 1248 otherwise) and its
+projections. The data: the KITTI infos the config's input readers name
+(`data/kitti_dataset.py`, prepared by `python -m
+second_tpu_torch.data.kitti_dataset`, with the `image_2` frames for the
+fusion types; for `temporal` and `temporal_fusion`, (cur, prev) frame
+pairs of the KITTI-tracking split root the readers' `kitti_root_path`
+names, `data/tracking.py`, with its `image_02` frames for
+`temporal_fusion`) or, with `synthetic=True`, the scan scenes the JAX
+trainer uses under `--synthetic` (frame pairs, `SyntheticPairDataset`, for
+the temporal types; rendered camera images for the fusion types). The
+config's anchor-area mask is computed on the host for target assignment in
+training; in evaluation on the device from the voxelizer's coords, except
+for the fusion types, whose eval examples carry the host mask, as JAX's
+trainer prepares them. Data-parallel training is not ported.
 """
 
 from __future__ import annotations
@@ -49,7 +57,9 @@ from ..data import kitti
 from ..data.kitti_dataset import KittiDataset
 from ..data.synthetic import SyntheticDataset
 from ..device import resolve_device
-from ..models import (build_temporal_voxelnet, build_two_stage_voxelnet,
+from ..models import (build_fusion_two_stage_voxelnet,
+                      build_fusion_voxelnet, build_temporal_fusion_voxelnet,
+                      build_temporal_voxelnet, build_two_stage_voxelnet,
                       build_voxelnet)
 from ..utils import kitti_eval
 from .checkpoint import CheckpointManager
@@ -57,13 +67,26 @@ from .metrics import MetricsLogger, Scalar, StageTimer
 from .prefetch import PrefetchIterator, bounded_ordered_map
 from .state import (VoxelizeSpec, create_state, make_eval_step,
                     make_train_step)
-from .steps_multistage import make_temporal_steps, make_two_stage_steps
+from .steps_multistage import (make_fusion_steps,
+                               make_fusion_two_stage_steps,
+                               make_temporal_fusion_steps,
+                               make_temporal_steps, make_two_stage_steps)
 
-_NOT_PORTED = {
-    "fusion": "ROADMAP item 14 (fusion)",
-    "fusion_two_stage": "ROADMAP item 14 (fusion)",
-    "temporal_fusion": "ROADMAP item 14 (fusion)",
+# model type → (builder, steps maker); one_stage's are `build_voxelnet`
+# with the config's mixed precision and `make_train_step` /
+# `make_eval_step`. Every other model is fp32 on every config, as JAX's
+# `Trainer` builds it (`build_*_voxelnet(cfg.model)`)
+_MULTISTAGE = {
+    "two_stage": (build_two_stage_voxelnet, make_two_stage_steps),
+    "temporal": (build_temporal_voxelnet, make_temporal_steps),
+    "fusion": (build_fusion_voxelnet, make_fusion_steps),
+    "fusion_two_stage": (build_fusion_two_stage_voxelnet,
+                         make_fusion_two_stage_steps),
+    "temporal_fusion": (build_temporal_fusion_voxelnet,
+                        make_temporal_fusion_steps),
 }
+MODEL_TYPES = ("one_stage", *_MULTISTAGE)
+FUSION_TYPES = ("fusion", "fusion_two_stage", "temporal_fusion")
 
 
 def _synthetic_lidar_to_camera_annos(boxes, names=None, scores=None):
@@ -128,14 +151,13 @@ def apply_config_patches(cfg, patches):
 class Trainer:
     def __init__(self, config_path, model_dir, synthetic=False,
                  dataset_size=256, max_points=20000, total_steps=None,
-                 model_type="one_stage", patches=None, device="cuda"):
-        if model_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"model_type {model_type!r} is not ported yet: "
-                f"{_NOT_PORTED[model_type]}")
-        if model_type not in ("one_stage", "two_stage", "temporal"):
+                 model_type="one_stage", patches=None, device="cuda",
+                 image_hw=None):
+        if model_type not in MODEL_TYPES:
             raise ValueError(f"unknown model_type {model_type!r}")
         self.model_type = model_type
+        self.use_fusion = model_type in FUSION_TYPES
+        self.use_zslice = model_type == "temporal_fusion"
         self.device = resolve_device(device)
         self.cfg = apply_config_patches(load_pipeline_config(config_path),
                                         patches)
@@ -144,19 +166,15 @@ class Trainer:
         # keep the resolved config beside the run (reference train.py:114-122)
         shutil.copy(config_path, self.model_dir / "pipeline.config")
 
-        # the two-stage and temporal models are fp32 on every config, as
-        # JAX's `Trainer` builds them (`build_two_stage_voxelnet(cfg.model)`,
-        # `build_temporal_voxelnet(cfg.model)`)
         if model_type == "one_stage":
             (self.module, self.spec, self.info, self.assigner,
              self.coder) = build_voxelnet(
                 self.cfg.model, device=self.device,
                 mixed_precision=self.cfg.train_config.enable_mixed_precision)
         else:
-            build = build_two_stage_voxelnet if model_type == "two_stage" \
-                else build_temporal_voxelnet
             (self.module, self.spec, self.info, self.assigner,
-             self.coder) = build(self.cfg.model, device=self.device)
+             self.coder) = _MULTISTAGE[model_type][0](self.cfg.model,
+                                                      device=self.device)
         # shuffle_overflow: the train cap is sized for memory (reference
         # trains fhd at 16k voxels vs 40k eval, config `:121-123`) so
         # overflow is expected — drop a pseudorandom subset, not the
@@ -172,6 +190,13 @@ class Trainer:
             self.cfg.eval_input_reader.max_number_of_voxels
             or self.cfg.train_input_reader.max_number_of_voxels)
         vg = self.cfg.model.voxel_generator
+        # the camera canvas of the fusion types' examples
+        self.image_shape = tuple(image_hw) if image_hw else (
+            (192, 624) if synthetic else (384, 1248))
+        fusion_kwargs = dict(use_fusion=self.use_fusion,
+                             image_shape=self.image_shape,
+                             out_stride=self.info.out_size_factor,
+                             use_zslice=self.use_zslice)
         # the anchor-area mask, where the config asks for one, prunes the
         # target assignment on the host (`runtime.points_to_voxel` → SAT)
         self.prep = ExamplePrep(
@@ -182,10 +207,12 @@ class Trainer:
                        anchor_area_threshold=(
                            self.cfg.train_input_reader.anchor_area_threshold),
                        voxel_size=tuple(vg.voxel_size),
-                       pc_range=tuple(vg.point_cloud_range)))
+                       pc_range=tuple(vg.point_cloud_range),
+                       **fusion_kwargs))
         # eval-time prep: no target assignment (the reference's
         # prep_pointcloud with training=False); the anchor-area mask moves
-        # onto the device, computed from the voxelizer's coords
+        # onto the device, computed from the voxelizer's coords, except for
+        # the fusion types (JAX's trainer prepares theirs on the host)
         self.eval_prep = ExamplePrep(
             self.assigner, self.info.feature_map_size,
             PrepConfig(max_points=max_points, training=False,
@@ -193,16 +220,19 @@ class Trainer:
                            self.cfg.eval_input_reader.anchor_area_threshold),
                        voxel_size=tuple(vg.voxel_size),
                        pc_range=tuple(vg.point_cloud_range),
-                       device_anchors_mask=True))
+                       device_anchors_mask=not self.use_fusion,
+                       **fusion_kwargs))
         self.synthetic = synthetic
-        pairs = model_type == "temporal"
+        pairs = model_type in ("temporal", "temporal_fusion")
         if synthetic and pairs:
             from ..data.synthetic import SyntheticPairDataset
-            pc_range = tuple(vg.point_cloud_range)
+            pair_kwargs = dict(pc_range=tuple(vg.point_cloud_range),
+                               with_image=self.use_zslice,
+                               image_shape=self.image_shape)
             self.train_ds = SyntheticPairDataset(dataset_size, seed=1,
-                                                 pc_range=pc_range)
+                                                 **pair_kwargs)
             self.eval_ds = SyntheticPairDataset(max(32, dataset_size // 8),
-                                                seed=2, pc_range=pc_range)
+                                                seed=2, **pair_kwargs)
         elif synthetic:
             # scan geometry (not uniform scatter): realistic voxel
             # occupancy and sparse-stage dilation. Scenes carry every class
@@ -216,6 +246,8 @@ class Trainer:
                 cls_kwargs["num_cyclists"] = (1, 4)
             if "Car" not in cls:
                 cls_kwargs["num_cars"] = (0, 0)
+            cls_kwargs.update(with_image=self.use_fusion,
+                              image_shape=self.image_shape)
             self.train_ds = SyntheticDataset(dataset_size, seed=1,
                                              pc_range=pc_range, scan=True,
                                              **cls_kwargs)
@@ -225,22 +257,26 @@ class Trainer:
         elif pairs:
             # KITTI tracking-benchmark sequences → (cur, prev) frame pairs
             # (reader root = the tracking split dir: label_02, velodyne,
-            # calib)
+            # calib; temporal_fusion also loads the image_02 frames)
             from ..data.tracking import (KittiTrackingDataset,
                                          TrackingPairDataset)
             self.train_ds = TrackingPairDataset(KittiTrackingDataset(
-                self.cfg.train_input_reader.kitti_root_path))
+                self.cfg.train_input_reader.kitti_root_path,
+                load_image=self.use_zslice))
             self.eval_ds = TrackingPairDataset(KittiTrackingDataset(
-                self.cfg.eval_input_reader.kitti_root_path))
+                self.cfg.eval_input_reader.kitti_root_path,
+                load_image=self.use_zslice))
         else:
             self.train_ds = KittiDataset(
                 self.cfg.train_input_reader.kitti_info_path,
                 self.cfg.train_input_reader.kitti_root_path,
-                training=True, input_cfg=self.cfg.train_input_reader)
+                training=True, load_image=self.use_fusion,
+                input_cfg=self.cfg.train_input_reader)
             self.eval_ds = KittiDataset(
                 self.cfg.eval_input_reader.kitti_info_path,
                 self.cfg.eval_input_reader.kitti_root_path,
-                training=False, input_cfg=self.cfg.eval_input_reader)
+                training=False, load_image=self.use_fusion,
+                input_cfg=self.cfg.eval_input_reader)
 
         self.total_steps = total_steps or self.cfg.train_config.steps
         # the in-graph anchors mask: its SAT corners uploaded once
@@ -253,9 +289,7 @@ class Trainer:
                                             self.eval_vspec,
                                             mask_info=self._eval_mask_info)
         else:
-            steps = make_two_stage_steps if model_type == "two_stage" \
-                else make_temporal_steps
-            self.train_step, self.eval_step = steps(
+            self.train_step, self.eval_step = _MULTISTAGE[model_type][1](
                 self.spec, self.vspec, self.eval_vspec,
                 mask_info=self._eval_mask_info)
         self.ckpt = CheckpointManager(self.model_dir)
@@ -503,8 +537,7 @@ def main(argv=None):
     parser.add_argument("--max_points", type=int, default=20000)
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--model_type", default="one_stage",
-                        choices=["one_stage", "two_stage", "temporal",
-                                 *_NOT_PORTED])
+                        choices=MODEL_TYPES)
     parser.add_argument("--patchs", action="append", default=None,
                         metavar="PATH=VALUE",
                         help="runtime config patch, repeatable "
@@ -521,11 +554,15 @@ def main(argv=None):
                              "torch.profiler into model_dir/profile")
     parser.add_argument("--device", default="cuda",
                         help="torch device; the CUDA card by default")
+    parser.add_argument("--image_hw", type=int, nargs=2, default=None,
+                        metavar=("H", "W"),
+                        help="camera canvas override for fusion model types")
     args = parser.parse_args(argv)
     trainer = Trainer(args.config_path, args.model_dir, args.synthetic,
                       args.dataset_size, args.max_points,
                       total_steps=args.steps, model_type=args.model_type,
-                      patches=args.patchs, device=args.device)
+                      patches=args.patchs, device=args.device,
+                      image_hw=args.image_hw)
     if args.command == "train":
         trainer.train(args.steps, profile_steps=args.profile_steps)
     else:

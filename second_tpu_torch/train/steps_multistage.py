@@ -1,15 +1,22 @@
-"""Train and eval steps for the two-stage and the temporal detector — the
-port of `second_tpu/train/steps_multistage.py` (`make_two_stage_steps`,
-`make_temporal_steps`; the counterpart of its `create_two_stage_state` and
-`create_temporal_state` is `train/state.py` `create_state`, which serves
-every detector: the port's modules need no example batch to build).
+"""Train and eval steps for the two-stage, temporal and camera-fusion
+detectors — the port of `second_tpu/train/steps_multistage.py`
+(`make_two_stage_steps`, `make_temporal_steps`, `make_fusion_steps`,
+`make_fusion_two_stage_steps`, `make_temporal_fusion_steps`; the
+counterpart of its `create_two_stage_state`, `create_temporal_state` and
+`create_fusion_state` is `train/state.py` `create_state`, which serves
+every detector: the port's modules need no example batch, camera inputs
+included, to build).
 
 The steps are `train/state.py`'s: the same voxelize, backward, gradient
 norm, clip and optimizer step, and no host sync; only the forward (stage 1,
 proposals, crops, refine head) and the loss ((stage 1 + stage 2) / 2)
 differ. The temporal steps voxelize the previous frame too, from the
 batch's `p_points` / `p_points_mask`, with the same spec. The eval steps
-decode and NMS the refined proposals (`predict_two_stage`).
+decode and NMS the refined proposals (`predict_two_stage`); the one-stage
+fusion model's decode and NMS its RPN's predictions (`predict`). The
+fusion steps pass the batch's camera inputs on: `image` [B, Hi, Wi, 3]
+and the points' projections `proj_pix`, `proj_bev`, `proj_valid`, or for
+the temporal-fusion model the z-slice grids `idxs_norm`, `idxs_valid`.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from ..models.detector import compute_loss, predict
 from ..models.detector_two_stage import (compute_two_stage_loss,
                                          predict_two_stage)
 from ..ops.anchors_mask import anchors_mask_from_coords
@@ -143,3 +151,122 @@ def make_temporal_steps(spec, vspec: VoxelizeSpec,
     return step_of(vspec, forward_loss, _metrics_of,
                    voxelize=voxelize_pair), eval_step
 
+
+
+_PROJECTION_KEYS = ("image", "proj_pix", "proj_bev", "proj_valid")
+_ZSLICE_KEYS = ("image", "idxs_norm", "idxs_valid")
+
+
+def _camera(batch, keys=_PROJECTION_KEYS):
+    return [batch[k] for k in keys]
+
+
+def make_fusion_steps(spec, vspec: VoxelizeSpec,
+                      eval_vspec: VoxelizeSpec = None, mask_info=None):
+    """(train_step, eval_step) for the one-stage `FusionVoxelNet`: batches
+    as `make_train_step`'s plus `image`, `proj_pix`, `proj_bev` and
+    `proj_valid` (the reference's `--use_fusion` example keys). The metrics
+    are JAX's keys (loss, cls_loss, loc_loss, num_pos, grad_norm,
+    voxel_overflow, stage_overflow, dir_loss with the direction
+    classifier); eval decodes and NMSes the RPN's predictions under the
+    batch's anchors_mask (or the device mask from `mask_info` where the
+    batch has none)."""
+    eval_vspec = eval_vspec or vspec
+
+    def forward(net, vox, batch):
+        return net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                   vox["voxel_valid"], *_camera(batch))
+
+    def forward_loss(net, vox, batch):
+        preds = forward(net, vox, batch)
+        return preds, compute_loss(spec, preds, batch["labels"],
+                                   batch["reg_targets"], batch["anchors"],
+                                   batch.get("gt_boxes_padded"),
+                                   batch.get("gt_valid"))
+
+    def metrics_of(aux):
+        out = {"cls_loss": aux["cls_loss_reduced"].detach(),
+               "loc_loss": aux["loc_loss_reduced"].detach(),
+               "num_pos": aux["num_pos"]}
+        if "dir_loss_reduced" in aux:
+            out["dir_loss"] = aux["dir_loss_reduced"].detach()
+        return out
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict):
+        net = state.module
+        net.eval()
+        vox = device_voxelize(eval_vspec, batch["points"],
+                              batch["points_mask"], state.device)
+        preds = forward(net, vox, batch)
+        mask = batch.get("anchors_mask", _eval_mask(batch, vox, mask_info))
+        det = predict(spec, preds, batch["anchors"], mask)
+        det["voxel_overflow"] = vox["voxel_overflow"]
+        det["stage_overflow"] = preds["stage_overflow"]
+        return det
+
+    return step_of(vspec, forward_loss, metrics_of), eval_step
+
+
+def make_fusion_two_stage_steps(spec, vspec: VoxelizeSpec,
+                                eval_vspec: VoxelizeSpec = None,
+                                mask_info=None):
+    """(train_step, eval_step) for `FusionTwoStageVoxelNet` (the reference's
+    fused endtoend path): `make_two_stage_steps`' with the camera inputs of
+    `make_fusion_steps`."""
+    eval_vspec = eval_vspec or vspec
+
+    def forward(net, vox, batch, anchors_mask=None):
+        return net(vox["voxels"], vox["num_points"], vox["coordinates"],
+                   vox["voxel_valid"], *_camera(batch), batch["anchors"],
+                   anchors_mask=batch.get("anchors_mask", anchors_mask))
+
+    def forward_loss(net, vox, batch):
+        preds = forward(net, vox, batch)
+        return preds, _loss(spec, preds, batch)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict):
+        net = state.module
+        net.eval()
+        vox = device_voxelize(eval_vspec, batch["points"],
+                              batch["points_mask"], state.device)
+        preds = forward(net, vox, batch, _eval_mask(batch, vox, mask_info))
+        det = predict_two_stage(spec, preds, batch["anchors"])
+        det["voxel_overflow"] = vox["voxel_overflow"]
+        det["stage_overflow"] = preds["stage_overflow"]
+        return det
+
+    return step_of(vspec, forward_loss, _metrics_of), eval_step
+
+
+def make_temporal_fusion_steps(spec, vspec: VoxelizeSpec,
+                               eval_vspec: VoxelizeSpec = None,
+                               mask_info=None):
+    """(train_step, eval_step) for `TemporalFusionVoxelNet` (the full spatio
+    model): `make_temporal_steps`' with the current frame's camera inputs,
+    `image`, `idxs_norm` [B, D, H, W, 2] and `idxs_valid` [B, D, H, W]."""
+    eval_vspec = eval_vspec or vspec
+
+    def forward(net, pair, batch, anchors_mask=None):
+        return net(*pair, *_camera(batch, _ZSLICE_KEYS), batch["anchors"],
+                   anchors_mask=batch.get("anchors_mask", anchors_mask))
+
+    def forward_loss(net, pair, batch):
+        preds = forward(net, pair, batch)
+        return preds, _loss(spec, preds, batch)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict):
+        net = state.module
+        net.eval()
+        pair, overflow = voxelize_pair(eval_vspec, batch, state.device)
+        preds = forward(net, pair, batch,
+                        _eval_mask(batch, pair[0], mask_info))
+        det = predict_two_stage(spec, preds, batch["anchors"])
+        det["voxel_overflow"] = overflow
+        det["stage_overflow"] = preds["stage_overflow"]
+        return det
+
+    return step_of(vspec, forward_loss, _metrics_of,
+                   voxelize=voxelize_pair), eval_step

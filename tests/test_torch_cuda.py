@@ -1299,7 +1299,7 @@ def test_roi_align_forward_matches_plain(dev, dtype, kind):
 
 
 @pytest.mark.parametrize("samples", [1, 2])
-@pytest.mark.parametrize("C", [1, 33, 64, 128, 160])
+@pytest.mark.parametrize("C", [1, 33, 64, 128, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float64])
 def test_roi_align_forward_is_plain_bitwise(dev, dtype, C, samples):
@@ -1457,6 +1457,51 @@ def test_roi_align_backward_widths_and_samples(dev, C, out, s):
     g = torch.Generator().manual_seed(52)
     grad = torch.randn(14, C, *out, generator=g).to(dev)
     _check_bwd(feat, coords, grad, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("kind", ["random", "edge"])
+def test_roi_align_backward_256_channels(dev, dtype, kind):
+    """The temporal-fusion refine's second crop: 256 channels (the walk's
+    slices of 256), the detector's 14 x 14 bins of 2 x 2 samples, 64 rois
+    an example over a 40 x 36 map: the backward within ROI_BWD_TOL of
+    autograd of the plain version as at 128 channels, bitwise over two
+    calls, its counts the plain mirror's; the forward bitwise the plain
+    version."""
+    from second_tpu_torch.ops.cuda import roi_align as ra
+    feat, coords, s = _roi_inputs(dev, dtype, kind, B=2, C=256, H=40, W=36,
+                                  N=64, seed=53)
+    g = torch.Generator().manual_seed(54)
+    grad = torch.randn(128, 256, 14, 14, generator=g).to(coords.dtype)
+    _check_bwd(feat, coords, grad.to(dev), s)
+    got = ra.roi_align(feat, coords, s)
+    assert _same_bits(got, ra.roi_align_plain(feat, coords, s))
+
+
+def test_projection_winners_card_matches_cpu(dev):
+    """The fusion RPN's projection on the card: the winners of 30 000
+    points over the fhd BEV grid (200 x 176 cells, many points a cell, a
+    third invalid) equal the CPU's, and the canvas of a 256-channel P3 map
+    the CPU's bit for bit."""
+    from second_tpu_torch.models import fusion
+    g = torch.Generator().manual_seed(55)
+    B, P = 2, 30000
+    bev = torch.stack([torch.randint(0, 200, (B, P), generator=g),
+                       torch.randint(0, 176, (B, P), generator=g)], -1)
+    pix = torch.stack([torch.randint(0, 48, (B, P), generator=g),
+                       torch.randint(0, 156, (B, P), generator=g)], -1)
+    valid = torch.rand((B, P), generator=g) < 0.66
+    p3 = torch.randn(B, 256, 48, 156, generator=g)
+    want = fusion.projection_winners(bev.int(), valid, (200, 176))
+    got = fusion.projection_winners(bev.int().to(dev), valid.to(dev),
+                                    (200, 176))
+    assert torch.equal(got.cpu(), want)
+    canvas = fusion.project_image_to_bev(p3.to(dev), pix.int().to(dev),
+                                         bev.int().to(dev), valid.to(dev),
+                                         (200, 176))
+    assert torch.equal(canvas.cpu(), fusion.project_image_to_bev(
+        p3, pix.int(), bev.int(), valid, (200, 176)))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -384,6 +384,10 @@ def test_port_imports_nothing_of_jax():
             "second_tpu_torch/ops/cuda/roi_align.py",
             "second_tpu_torch/models/second_stage.py",
             "second_tpu_torch/models/detector_two_stage.py",
+            "second_tpu_torch/models/fusion.py",
+            "second_tpu_torch/models/detector_fusion_two_stage.py",
+            "second_tpu_torch/models/temporal.py",
+            "second_tpu_torch/data/fake_tracking.py",
             "second_tpu_torch/train/steps_multistage.py"} <= scanned
     bad = []
     for path in PORT_FILES:

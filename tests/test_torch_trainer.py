@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from second_tpu.testing import TINY_SPARSE_PIPELINE
-from second_tpu_torch.train import checkpoint
+from second_tpu_torch.train import checkpoint, run
 from second_tpu_torch.train.run import Trainer
 
 
@@ -105,17 +105,23 @@ def test_trainer_crash_saves(tiny_config, tmp_path, monkeypatch,
 
 
 def test_trainer_refuses_what_is_not_ported(tiny_config, tmp_path):
-    """Model types not ported yet are refused by their ROADMAP item (the
-    KITTI reader, the two-stage and the temporal detector, once refused
-    here, are ported: `test_torch_kitti.py`, `test_torch_two_stage.py`,
-    `test_torch_temporal.py`; the temporal model with the camera branch
-    comes with item 14's fusion)."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Every model type of JAX's trainer is ported (the KITTI reader, the
+    two-stage, the temporal and, with item 14, the three camera-fusion
+    types, once refused here: `test_torch_kitti.py`,
+    `test_torch_two_stage.py`, `test_torch_temporal.py`,
+    `test_torch_fusion*.py`, `test_torch_temporal_fusion.py`): the
+    Trainer and the CLI offer exactly JAX's six, and refuse any other
+    type by name."""
+    assert run.MODEL_TYPES == ("one_stage", "two_stage", "temporal",
+                               "fusion", "fusion_two_stage",
+                               "temporal_fusion")
+    with pytest.raises(ValueError, match="'fusion_3d'"):
         Trainer(str(tiny_config), tmp_path, synthetic=True,
-                model_type="fusion_two_stage", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Trainer(str(tiny_config), tmp_path, synthetic=False,
-                model_type="temporal_fusion", device="cpu")
+                model_type="fusion_3d", device="cpu")
+    with pytest.raises(SystemExit):
+        run.main(["train", "--config_path", str(tiny_config),
+                  "--model_dir", str(tmp_path), "--model_type",
+                  "fusion_3d"])
 
 
 def test_checkpoint_manager_keeps_max_and_restores(tmp_path):
