@@ -247,18 +247,54 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    prepared sequence; `nms_vid` on 512 random detections card against
    CPU.
 
+26. serve: the detection server (`serve.build_server`, port 0, max batch
+   8, a 5 ms window) on second_car_fhd.config, fp32 as `InferenceContext`
+   builds it (JAX's `build_voxelnet(cfg.model)` on every config), over a
+   checkpoint the port's `Trainer` writes in 2 steps, max_points 30 000:
+   the kernel calls of a batch-8 forward against their plain versions (and
+   fp64; the NMS pair); each of 64 fhd bench scans (seeds 0-63) alone
+   through `InferenceContext.inference` as the reference, and its noise
+   across batch sizes 1-8; 64 octet-stream requests from 8 client threads,
+   each answer held to its cloud's reference (keep sets equal but for as
+   many flips as the batch-size sweep showed; boxes and scores within the
+   answer's rounding and twice the sweep's difference); a batch larger
+   than 1; the launches of the served batches (14 gather-GEMMs and one NMS
+   pair a batch, all fp32); requests/s, /stats' batch histogram and
+   p50/p90/p99; a JSON request, two malformed ones (400), /healthz.
+27. trk-det: `TrackingTrainer(detector_config=second_car_fhd.config,
+   detector_dir=<the serve checkpoint>)` on synthetic sequences: one
+   sequence's detections (one `inference_batch`, its kernel calls against
+   their plain versions) equal to the detector's own output through
+   `nms_vid` and carried by the prepared sequence; 3 train steps and an
+   evaluation (finite losses and MOTA); 14 gather-GEMMs and one NMS pair
+   a detector forward.
+28. joint train: `JointTrainer` (`models/joint_track.py`) on
+   second_car_fhd.config, fp32, 4-frame synthetic windows, 16 detections a
+   frame, 16 000 voxels a frame, Adam: every sparse forward, dX and
+   weight-gradient call (and fp64), the ROI-align forward and backward at
+   14 x 14 (proposals) and 16 x 16 (tracking crops), the standup bitmask
+   and the det↔gt `riou_matrix` call against their plain versions;
+   launches 14 / 13 / 14 (fp32, the window's 8 frames folded),
+   roi_align_fwd 2, roi_align_bwd 2, standup_overlap 1, nms_suppress 1,
+   rotated IoU 1; every gradient finite, the tracking loss's gradient into
+   the second stage nonzero; no host sync; bitwise gradients over two
+   runs; the loss halved on one window; steps/s, split, peak memory; the
+   `detector_dir` graft of a temporal checkpoint.
+
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the eighteen paths (fhd eval, fhd train, pp eval, pp train, mc
-eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp eval,
+summed over the twenty-one paths (fhd eval, fhd train, pp eval, pp train,
+mc eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp eval,
 tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st train,
-tmpf eval, tmpf train) and by path,
+tmpf eval, tmpf train, serve, trk det, joint train) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
 "mc_eval" (the mc eval's fp32 convs, bounded as 3xTF32 on the tensor
 cores, with the bound at the CUDA cores' fp32 rate as "bound_cores_ms"),
-and the 256-channel ROI-align calls of the tmpf phases under
-"tmpf_eval_c256" / "tmpf_train_c256". The last line is {"ok": true, "device": {...}}. With
+the 256-channel ROI-align calls of the tmpf phases under
+"tmpf_eval_c256" / "tmpf_train_c256", the joint step's `riou_matrix`
+call under "joint_train" and its 16 x 16 ROI-align calls under
+"joint_train_s16". The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
 
@@ -270,6 +306,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from contextlib import contextmanager
@@ -371,7 +408,8 @@ KITTI_FRAMES, KITTI_CLUTTER = 6, 20000
 PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
          "mc_train", "kitti", "fhd_iou_train", "2st_eval", "2st_train",
          "tmp_eval", "tmp_train", "fusion_eval", "fusion_train",
-         "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train")
+         "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train",
+         "serve", "trk_det", "joint_train")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -1484,6 +1522,14 @@ def run(dev, out=None):
     report["tmp_trainer_launches"], report["tmp_trainer"] = \
         run_tmp_trainer(dev)
     report["tracking"] = run_tracking_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        serve_counts, serve_dir, report["serve"] = run_serve(
+            dev, timer, dtimer, tmp)
+        trk_det_counts, report["trk_det"] = run_trk_det(
+            dev, timer, dtimer, serve_dir, tmp)
+        joint_counts, joint_riou, joint_roi16, report["joint_train"] = \
+            run_joint_train(dev, timer, dtimer, tmp)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
@@ -1491,12 +1537,17 @@ def run(dev, out=None):
                                tmp_train_counts,
                                *(fusion_counts[f"{k}_{p}"]
                                  for k in FUSION_KINDS
-                                 for p in ("eval", "train")))))
+                                 for p in ("eval", "train")),
+                               serve_counts, trk_det_counts, joint_counts)))
     # the 256-channel ROI-align calls of the temporal-fusion phases, under
-    # "tmpf_eval_c256" / "tmpf_train_c256"
+    # "tmpf_eval_c256" / "tmpf_train_c256"; the joint step's riou_matrix
+    # call under "joint_train", its 16 x 16 tracking crops under
+    # "joint_train_s16"
     path_aggs = {"pp_eval": pp_eval_aggs, "pp_train": pp_train_aggs,
                  "mc_eval": mc_eval_aggs,
-                 **{f"{k}_c256": v for k, v in roi_256.items()}}
+                 **{f"{k}_c256": v for k, v in roi_256.items()},
+                 "joint_train": {"rotated_iou": joint_riou},
+                 "joint_train_s16": joint_roi16}
 
     def numbers(a):
         out = dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
@@ -5146,6 +5197,596 @@ def run_tracking_phase(dev):
         f"({report['nms_vid_kept']} kept; nms_overlap and nms_suppress once "
         f"each)")
     return report
+
+
+# ------------------------------------- serving, detector tracking, joint
+
+# the serve phase: requests (distinct `lidar_scan_scene` clouds, seeds
+# 0..SERVE_REQUESTS-1) sent by SERVE_CLIENTS client threads to
+# `build_server(port=0, max_batch=SERVE_MAX_BATCH, window_ms=SERVE_WINDOW_MS)`
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+SERVE_MAX_BATCH, SERVE_WINDOW_MS = 8, 5.0
+# an answer's boxes and scores are rounded to 4 decimals by the server
+ANSWER_ROUNDING = 5e-5
+# the trk-det phase's train steps and evaluated sequences; the joint
+# phase's window (frames) and detections a frame
+TRK_DET_STEPS, TRK_DET_EVAL_SEQUENCES = 3, 2
+JOINT_FRAMES, JOINT_DETS = 4, 16
+# the joint step's recorded calls: the temporal step's and the det↔gt
+# rotated-IoU matrix
+RECORDED_JOINT = RECORDED_2ST_TRAIN + [(riou, "riou_matrix")]
+
+
+def answer_diff(det, ref):
+    """(keep set differs, largest abs difference of boxes and scores) of
+    one cloud's detections against its reference."""
+    if len(det["scores"]) != len(ref["scores"]) or \
+            list(det["class_names"]) != list(ref["class_names"]):
+        return True, 0.0
+    if not len(ref["scores"]):
+        return False, 0.0
+    return False, float(max(
+        np.abs(np.asarray(det["boxes"], np.float64) - ref["boxes"]).max(),
+        np.abs(np.asarray(det["scores"], np.float64) - ref["scores"]).max()))
+
+
+def serve_clouds(cfg):
+    """SERVE_REQUESTS distinct fhd bench scans (seeds 0..), float32 [P, 4]."""
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    return [lidar_scan_scene(np.random.default_rng(s), pc_range=pc_range,
+                             num_azimuth=512)[0].astype(np.float32)
+            for s in range(SERVE_REQUESTS)]
+
+
+def http_json(url, data=None, ctype="application/json"):
+    """(status, decoded JSON) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=data,
+        headers={"Content-Type": ctype} if data is not None else {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_serve(dev, timer, dtimer, tmp):
+    """The detection server (`serve.build_server`) on the card with
+    second_car_fhd.config, fp32 as `InferenceContext` builds it (JAX's
+    `build_voxelnet(cfg.model)`), over the checkpoint of a 2-step port
+    `Trainer` written here, max_points MAX_POINTS: every kernel call of a
+    batch-8 forward against its plain version (and fp64), the reference
+    (each cloud alone through `InferenceContext.inference`) and its noise
+    across batch sizes 1-8 on the card, SERVE_REQUESTS octet-stream
+    requests from SERVE_CLIENTS threads (each answer against its cloud's
+    reference: keep sets equal but for as many flips as the batch-size
+    sweep showed, boxes and scores within the rounding and twice the
+    sweep's difference), the launches of the served batches, requests/s
+    and /stats' batch histogram and latency quantiles, one JSON request
+    and two malformed ones. Returns (the launch counts of the served
+    requests, the checkpoint's directory, the report)."""
+    import threading
+    from second_tpu_torch.serve import build_server
+    from second_tpu_torch.train.run import Trainer
+    report = {}
+    model_dir = tmp / "serve_model"
+    tr = Trainer(CONFIG, model_dir, synthetic=True, dataset_size=8,
+                 max_points=MAX_POINTS, total_steps=2,
+                 patches=["train_config.steps_per_eval=0"], device=dev)
+    try:
+        tr.train(2)
+    finally:
+        tr.logger.close()
+    del tr
+    t0 = time.perf_counter()
+    server, batcher = build_server(CONFIG, model_dir, port=0,
+                                   max_batch=SERVE_MAX_BATCH,
+                                   window_ms=SERVE_WINDOW_MS,
+                                   max_points=MAX_POINTS, device=dev)
+    report["build_s"] = time.perf_counter() - t0
+    ctx = batcher.ctx
+    if ctx.restored_step != 2 or any(p.dtype != torch.float32 for p in
+                                     ctx.module.parameters()):
+        fail(f"serve: restored step {ctx.restored_step} (want 2) or the "
+             f"net not fp32")
+    clouds = serve_clouds(ctx.cfg)
+    sizes = [len(c) for c in clouds]
+    say(f"serve: second_car_fhd.config fp32 from the Trainer's step-2 "
+        f"checkpoint (built and warmed in {report['build_s']:.1f} s); "
+        f"{SERVE_REQUESTS} scans of {min(sizes)}-{max(sizes)} points "
+        f"({sum(s > MAX_POINTS for s in sizes)} above max_points "
+        f"{MAX_POINTS})")
+    try:
+        # the kernel calls of one batch-8 forward against their plain
+        # versions
+        with recording() as calls:
+            ctx.inference_batch(clouds[:SERVE_MAX_BATCH])
+            torch.cuda.synchronize()
+        check_calls_exact(calls, "serve")
+        report["fp64_ratio"] = check_fp32_calls(calls, "serve")
+        check_nms_pair(calls, timer, dtimer, "serve")
+        del calls
+
+        # the reference, each cloud alone, and its noise across batch sizes
+        refs = [ctx.inference(c) for c in clouds]
+        sweep_err, sweep_flips = 0.0, 0
+        batches = [clouds[i:i + SERVE_MAX_BATCH]
+                   for i in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)]
+        batches += [clouds[:b] for b in range(2, SERVE_MAX_BATCH)]
+        offsets = list(range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)) + \
+            [0] * (SERVE_MAX_BATCH - 2)
+        for off, batch in zip(offsets, batches):
+            for i, det in enumerate(ctx.inference_batch(batch)):
+                flip, err = answer_diff(det, refs[off + i])
+                sweep_flips += flip
+                sweep_err = max(sweep_err, err)
+        tol = ANSWER_ROUNDING + 2 * sweep_err + 1e-6
+        kept = [len(r["scores"]) for r in refs]
+        say(f"serve reference: {SERVE_REQUESTS} clouds alone, "
+            f"{min(kept)}-{max(kept)} detections kept; batch sizes 2-"
+            f"{SERVE_MAX_BATCH} against 1: largest difference "
+            f"{sweep_err:.3g}, {sweep_flips} keep sets differ; answers held "
+            f"within {tol:.3g}")
+
+        port = server.server_address[1]
+        url = f"http://127.0.0.1:{port}"
+        serving = threading.Thread(target=server.serve_forever, daemon=True)
+        serving.start()
+        answers = [None] * SERVE_REQUESTS
+
+        def client(k):
+            for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
+                answers[i] = http_json(f"{url}/v1/detect",
+                                       clouds[i].tobytes(),
+                                       "application/octet-stream")
+
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        reset_counts()
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts, paths = launch_counts(), conv_path_counts()
+        _, stats = http_json(f"{url}/stats")
+        flips, worst = 0, 0.0
+        for i, ((code, out), ref) in enumerate(zip(answers, refs)):
+            if code != 200 or out["status"] != "ok":
+                fail(f"serve request {i}: {code} {out}")
+            det = {"boxes": np.asarray(out["boxes"]).reshape(-1, 7),
+                   "scores": np.asarray(out["scores"]),
+                   "class_names": out["class_names"]}
+            if out["num_detections"] != len(out["scores"]):
+                fail(f"serve request {i}: num_detections "
+                     f"{out['num_detections']} for {len(out['scores'])}")
+            flip, err = answer_diff(det, ref)
+            flips += flip
+            worst = max(worst, err)
+        if flips > sweep_flips or worst > tol:
+            fail(f"serve: {flips} answers' keep sets differ from their "
+                 f"cloud's alone (the sweep: {sweep_flips}), the largest "
+                 f"difference {worst:.3g} (tolerance {tol:.3g})")
+        hist = {int(k): v for k, v in stats["batch_hist"].items()}
+        nb = stats["batches"]
+        if stats["requests"] != SERVE_REQUESTS or \
+                sum(k * v for k, v in hist.items()) != SERVE_REQUESTS or \
+                max(hist) < 2:
+            fail(f"serve /stats: {stats} (want {SERVE_REQUESTS} requests "
+                 f"and a batch larger than 1)")
+        want = {"sparse_gather_gemm": SPARSE_CONVS * nb, "rotated_iou": nb,
+                "nms_suppress": nb, "sparse_gather_gemm_dgrad": 0,
+                "sparse_wgrad": 0, "d3_iou": 0, "roi_align_fwd": 0,
+                "roi_align_bwd": 0, "standup_overlap": 0}
+        if {k: counts[k] for k in want} != want or not counts["row_gather"] \
+                or paths["fma"] != SPARSE_CONVS * nb:
+            fail(f"serve: launches {counts} by path {paths} for {nb} "
+                 f"batches, expected {want} on the fp32 path")
+        lat = stats["latency_ms"]
+        report.update(requests=SERVE_REQUESTS, clients=SERVE_CLIENTS,
+                      wall_s=wall, requests_per_s=SERVE_REQUESTS / wall,
+                      stats=stats, flips=flips, sweep_flips=sweep_flips,
+                      worst_diff=worst, sweep_diff=sweep_err, tolerance=tol,
+                      launches=counts)
+        say(f"serve: {SERVE_REQUESTS} octet-stream requests from "
+            f"{SERVE_CLIENTS} clients in {wall:.3f} s: requests/s "
+            f"{SERVE_REQUESTS / wall:.3f}; {nb} batches, histogram "
+            f"{dict(sorted(hist.items()))}; latency p50 {lat['p50']} p90 "
+            f"{lat['p90']} p99 {lat['p99']} ms (/stats); every answer "
+            f"its cloud's alone ({flips} keep sets differ, largest "
+            f"difference {worst:.3g}); launches {counts} ({card_line()})")
+
+        one = clouds[0][:2000].round(3)
+        code, out = http_json(f"{url}/v1/detect", json.dumps(
+            {"points": one.tolist()}).encode())
+        flip, err = answer_diff(
+            {"boxes": np.asarray(out.get("boxes", [])).reshape(-1, 7),
+             "scores": np.asarray(out.get("scores", [])),
+             "class_names": out.get("class_names", [])},
+            ctx.inference(one)) if code == 200 else (True, 0.0)
+        if flip or err > tol:
+            fail(f"serve JSON request: {code}, keep differs {flip}, "
+                 f"difference {err:.3g}")
+        for body, ctype in ((b"\x00" * 10, "application/octet-stream"),
+                            (b"{not json", "application/json")):
+            code, out = http_json(f"{url}/v1/detect", body, ctype)
+            if code != 400 or out.get("status") != "error":
+                fail(f"serve malformed request: {code} {out}")
+        code, health = http_json(f"{url}/healthz")
+        if code != 200 or health["classes"] != ["Car"]:
+            fail(f"serve /healthz: {code} {health}")
+        say("serve: a JSON request answered as its cloud alone, two "
+            "malformed ones 400 with their error, /healthz ok")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    return counts, model_dir, report
+
+
+def run_trk_det(dev, timer, dtimer, detector_dir, tmp):
+    """Tracking a detector's detections on the card:
+    `TrackingTrainer(detector_config=second_car_fhd.config,
+    detector_dir=<the serve phase's checkpoint>)` on synthetic sequences
+    (4 frames, 16 detections): one sequence's detections, one
+    `inference_batch`, against the detector's own output through
+    `nms_vid`, their kernel calls against the plain versions, the prepared
+    sequence carrying them; TRK_DET_STEPS train steps (finite losses) and
+    an evaluation over TRK_DET_EVAL_SEQUENCES sequences (finite MOTA);
+    the detector's launches, 14 gather-GEMMs and one NMS pair a sequence.
+    Returns (the launch counts of the steps and the evaluation, the
+    report)."""
+    from second_tpu_torch.data.tracking import nms_vid
+    from second_tpu_torch.train.run_tracking import TrackingTrainer
+    report = {}
+    t0 = time.perf_counter()
+    tr = TrackingTrainer(tmp / "trk_det", detector_config=CONFIG,
+                         detector_dir=detector_dir,
+                         detector_max_points=MAX_POINTS, device=dev)
+    report["build_s"] = time.perf_counter() - t0
+    if tr.det_ctx.restored_step != 2:
+        fail(f"trk-det: the detector restored step "
+             f"{tr.det_ctx.restored_step}, not the serve checkpoint's 2")
+    frames = tr._sequence(0)
+    with recording() as calls:
+        dets = tr._detections(frames)
+        torch.cuda.synchronize()
+    check_calls_exact(calls, "trk-det")
+    check_nms_pair(calls, timer, dtimer, "trk-det")
+    del calls
+    want = [nms_vid(d["boxes"], d["scores"]) for d in
+            tr.det_ctx.inference_batch([f["points"] for f in frames])]
+    n = [len(s) for _, s in dets]
+    if [len(s) for _, s in want] != n or not sum(n) or not all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(dets, want)):
+        fail(f"trk-det: the sequence's detections {n} are not the "
+             f"detector's through nms_vid ({[len(s) for _, s in want]})")
+    arrays = tr.prep(frames, np.random.default_rng(0), detections=dets)
+    D = arrays["det_valid"].shape[1]
+    for t, (boxes, scores) in enumerate(dets):
+        k = min(len(scores), D)
+        order = np.argsort(-scores)[:D] if len(scores) > D else \
+            np.arange(k)
+        if arrays["det_valid"][t].sum() != k or not np.array_equal(
+                arrays["det_boxes"][t, :k], boxes[order]):
+            fail(f"trk-det: frame {t}'s prepared detections are not the "
+                 f"detector's")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = tr.train(TRK_DET_STEPS, log_every=1)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = tr.evaluate(TRK_DET_EVAL_SEQUENCES)
+    eval_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    forwards = TRK_DET_STEPS + TRK_DET_EVAL_SEQUENCES
+    if not (np.isfinite(res["first_loss"]) and
+            np.isfinite(res["last_loss"]) and np.isfinite(summary["mota"])):
+        fail(f"trk-det: losses {res}, MOTA {summary.get('mota')}")
+    if counts["sparse_gather_gemm"] != SPARSE_CONVS * forwards or \
+            counts["rotated_iou"] != forwards or \
+            counts["nms_suppress"] != forwards:
+        fail(f"trk-det: launches {counts}, expected {SPARSE_CONVS} sparse "
+             f"convs and one NMS pair in each of {forwards} detector "
+             f"forwards")
+    report.update(detections=n, losses=res, mota=summary, train_s=train_s,
+                  eval_s=eval_s, launches=counts)
+    say(f"trk-det: the step-2 detector's detections ({n} a frame after "
+        f"nms_vid) on sequence 0, equal to its own output; {TRK_DET_STEPS} "
+        f"steps in {train_s:.1f} s, losses {res['first_loss']:.4f} -> "
+        f"{res['last_loss']:.4f}; evaluate on {TRK_DET_EVAL_SEQUENCES} "
+        f"sequences in {eval_s:.1f} s: mota {summary['mota']:.3f} motp "
+        f"{summary['motp']:.3f} id_switches {summary['id_switches']:.0f}; "
+        f"launches {counts}")
+    return counts, report
+
+
+def check_riou_matrix_calls(calls, timer, dtimer, what):
+    """Each recorded `riou_matrix` call against its plain version, timed
+    beside it, with its bound counted from this call's boxes: every pair's
+    clip as the plain version clips it (`riou_ops`), each box's corners,
+    the boxes in and the matrix out. No PyTorch call computes it. The IoU
+    is held within RIOU_TOL at every pair of boxes with a finite, positive
+    area; a pair with a box of zero area (the zero boxes of the padded gt
+    slots, which the caller masks out) has no IoU: the clip keeps all of
+    the other box and the union rounds to 0, so both versions divide
+    rounding noise by the clamp; those pairs are counted, not compared.
+    Returns the aggregate."""
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
+               library_device_ms=None, bytes_s=0.0, ops_s=0.0, err=0.0)
+    for i, (args, _) in enumerate(calls):
+        b1, b2 = args[0], args[1]
+        crit = args[2] if len(args) > 2 else -1
+        got = riou.riou_matrix(b1, b2, crit)
+        want = riou.riou_matrix_plain(b1, b2, crit)
+        torch.cuda.synchronize()
+
+        def proper(b):
+            area = b[:, 2] * b[:, 3]
+            return torch.isfinite(b).all(1) & torch.isfinite(area) & \
+                (area > 0)
+        defined = proper(b1)[:, None] & proper(b2)[None, :]
+        err = errors(got[defined], want[defined])[0]
+        if err > RIOU_TOL or not torch.isfinite(got[defined]).all():
+            fail(f"{what} riou_matrix {i}: max abs err {err:.3g} over the "
+                 f"pairs of boxes with an area")
+        N, K = b1.shape[0], b2.shape[0]
+        ii = torch.arange(N, device=b1.device).repeat_interleave(K)
+        jj = torch.arange(K, device=b1.device).repeat(N)
+        ops = riou_ops(b1, b2, ii, jj) + (N + K) * RIOU_BOX_OPS
+        nbytes = (N + K) * 5 * 4 + N * K * 4
+        fns = [lambda: riou.riou_matrix(b1, b2, crit),
+               lambda: riou.riou_matrix_plain(b1, b2, crit)]
+        ms, pms = timer(fns[0], 20), timer(fns[1], 5)
+        dev_ms = dtimer(fns[:1])[0]
+        agg["ms"] += ms
+        agg["plain_ms"] += pms
+        agg["device_ms"] += dev_ms
+        agg["bytes_s"] += nbytes / HBM_BYTES_PER_S
+        agg["ops_s"] += ops / PEAK_OPS_PER_S[torch.float32]
+        agg["err"] = max(agg["err"], err)
+        say(f"{what} riou_matrix {i} [{N}, 5] x [{K}, 5]: err {err:.2e} "
+            f"over {int(defined.sum())} pairs of boxes with an area "
+            f"({int((~defined).sum())} with a zero-area box not compared), "
+            f"{int((want[defined] > 0).sum())} overlapping; kernel "
+            f"{ms:.4f} ms "
+            f"(device {dev_ms:.4f})  plain {pms:.4f} ms  bound "
+            f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.6f} ms")
+    return agg
+
+
+def joint_grads(jt, batch, key="loss"):
+    """The gradients of one loss term of the joint trainer's module on one
+    window (train mode), without an optimizer step."""
+    jt.optimizer.zero_grad()
+    with torch.enable_grad():
+        losses = jt.loss(batch)
+        losses[key].backward()
+    return {n: None if p.grad is None else p.grad.detach().clone()
+            for n, p in jt.module.named_parameters()}, losses
+
+
+def joint_split(jt, batch):
+    """One joint step split at its stage boundaries (synchronised ms):
+    voxelize, the detector (both stages on the window's 8 frames), the
+    tracking half (`JointDetTrack.track`: selection, crops, point sets,
+    heads), the loss, backward, the optimizer."""
+    from second_tpu_torch.models import joint_track
+    from second_tpu_torch.models.temporal import _FRAME_KEYS
+    split, mod = {}, jt.module
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[key] = 1e3 * (time.perf_counter() - t0)
+        return out
+    frames = timed("voxelize_ms", lambda: jt.frames(batch))
+    mod.train()
+    jt.optimizer.zero_grad()
+    cur = {k: frames[k] for k in _FRAME_KEYS}
+    prev = {k: torch.cat([v[:1], v[:-1]], 0) for k, v in cur.items()}
+    with torch.enable_grad():
+        preds = timed("detector_ms", lambda: mod.detector(
+            cur, prev, batch["anchors"]))
+        preds = timed("tracking_ms", lambda: mod.track(
+            preds, frames, batch["anchors"]))
+        losses = timed("loss_ms", lambda: joint_track.compute_joint_loss(
+            jt.spec, preds, batch))
+        timed("backward_ms", lambda: losses["loss"].backward())
+    timed("optimizer_ms", jt.optimizer.step)
+    return split
+
+
+def run_joint_train(dev, timer, dtimer, tmp):
+    """Joint detector + tracker training on the card (`JointTrainer`,
+    `models/joint_track.py`) with second_car_fhd.config, fp32 as JAX
+    builds it, JOINT_FRAMES-frame synthetic windows, JOINT_DETS detections
+    a frame, the train reader's 16 000 voxels a frame, Adam: every sparse
+    forward, dX and weight-gradient call (and fp64), the ROI-align forward
+    and backward calls of both crop sizes (the proposals' 14 x 14 and the
+    tracking crops' 16 x 16), the standup bitmask and the det↔gt
+    `riou_matrix` call against their plain versions; launches (gather-GEMM
+    14 with the window's 8 frames folded, dX 13, weight gradient 14, all
+    fp32; roi_align_fwd 2, roi_align_bwd 2, standup_overlap 1,
+    nms_suppress 1, rotated IoU 1: the matrix); every gradient finite, the
+    tracking loss's gradient into the second stage nonzero; no host sync
+    in a step; gradients bitwise equal over two runs; the loss halved on
+    one window; steps/s, a split, peak memory; and the `detector_dir`
+    graft of a temporal checkpoint. Returns (the launch counts of one
+    step, the riou_matrix and 16 x 16 ROI-align aggregates, the report)."""
+    from second_tpu_torch.train.checkpoint import CheckpointManager
+    from second_tpu_torch.train.run_tracking import JointTrainer
+    from second_tpu_torch.train.state import create_state
+    report = {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    jt = JointTrainer(tmp / "joint", CONFIG, num_frames=JOINT_FRAMES,
+                      num_dets=JOINT_DETS, device=dev)
+    if not jt.cfg.train_config.enable_mixed_precision or \
+            jt.module.detector.middle.dtype is not None or any(
+                p.dtype != torch.float32 for p in jt.module.parameters()):
+        fail("joint train: the model is not fp32 on a config that asks for "
+             "mixed precision")
+    batch = jt._window(1)
+    say(f"joint train: {JOINT_FRAMES}-frame synthetic windows, "
+        f"{JOINT_DETS} detections a frame, {jt.vspec.max_voxels} voxels a "
+        f"frame, fp32 as in JAX, "
+        f"{jt.module.detector.pspec.num_proposals} proposals a frame")
+
+    with recording(RECORDED_JOINT) as calls:
+        jt.train_step(batch)
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    want_n = {"gather_gemm": SPARSE_CONVS,
+              "gather_gemm_dgrad": SPARSE_CONVS - 1,
+              "sparse_wgrad": SPARSE_CONVS, "roi_align_fwd": 2,
+              "roi_align_bwd": 2, "standup_overlap": 1, "nms_suppress": 1,
+              "riou_matrix": 1}
+    if n != want_n:
+        fail(f"joint train: recorded {n}, expected {want_n}")
+    check_folded(calls, 2 * JOINT_FRAMES, "joint train")
+    check_step_calls("joint train", calls, timer, dtimer, timed=False)
+    report["fp64_ratio"] = check_fp32_calls(calls, "joint train")
+    by_size = {}
+    for key in ("roi_align_fwd", "roi_align_bwd"):
+        for c in calls[key]:
+            size = c[0][1].shape[2] // c[0][-1]
+            by_size.setdefault(size, {}).setdefault(key, []).append(c)
+    if sorted(by_size) != [14, 16]:
+        fail(f"joint train: ROI-align crop sizes {sorted(by_size)}, "
+             f"expected 14 (proposals) and 16 (tracking)")
+    roi = {s: check_roi_calls(c["roi_align_fwd"], c["roi_align_bwd"],
+                              timer, dtimer, f"joint train {s}x{s}")
+           for s, c in sorted(by_size.items())}
+    report["roi_align"] = {f"{s}x{s}": {n_: {k: a[k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "err")}
+        for n_, a in aggs.items()} for s, aggs in roi.items()}
+    report["standup"] = check_standup_calls(
+        calls["standup_overlap"], calls["nms_suppress"], timer, dtimer,
+        "joint train")
+    riou_agg = check_riou_matrix_calls(calls["riou_matrix"], timer, dtimer,
+                                       "joint train")
+    del calls
+
+    reset_counts()
+    losses = jt.train_step(batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one joint train step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": SPARSE_CONVS,
+            "sparse_gather_gemm_dgrad": SPARSE_CONVS - 1,
+            "sparse_wgrad": SPARSE_CONVS, "roi_align_fwd": 2,
+            "roi_align_bwd": 2, "standup_overlap": 1, "nms_suppress": 1,
+            "rotated_iou": 1, "d3_iou": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"joint train step launches {counts}, expected {want}")
+    want_paths = {"mma": 0, "fma": 2 * SPARSE_CONVS - 1, "wgrad_mma": 0,
+                  "wgrad_fma": SPARSE_CONVS}
+    if paths != want_paths:
+        fail(f"joint train step: sparse kernels by path {paths}, expected "
+             f"{want_paths}")
+    for name, p in jt.module.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"joint {name}: gradient missing or not finite")
+    m = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"joint train losses not finite: {m}")
+    n_syncs = host_syncs(lambda: jt.train_step(batch))
+    if n_syncs:
+        fail(f"the joint train step synchronised the host {n_syncs} times")
+    tg, tl = joint_grads(jt, batch, "tracking_loss")
+    second = sum(float(g.abs().sum()) for k, g in tg.items()
+                 if k.startswith("detector.second_rpn.") and g is not None)
+    backbone = float(tg["detector.middle.subm.0.weight"].abs().sum())
+    if not second > 0 or not float(tg["w_det.Dense_0.weight"].abs().sum()):
+        fail(f"joint train: the tracking loss's gradient into the second "
+             f"stage {second}, into w_det "
+             f"{float(tg['w_det.Dense_0.weight'].abs().sum())}")
+    report.update(losses=m, launches=counts,
+                  tracking_grad_second_stage=second,
+                  tracking_grad_backbone=backbone)
+    say(f"joint train step: no host sync; every gradient finite; the "
+        f"tracking loss's gradient (|sum|) into the second stage "
+        f"{second:.4g}, the sparse middle {backbone:.4g}; "
+        + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    g1, _ = joint_grads(jt, batch)
+    g2, _ = joint_grads(jt, batch)
+    same = sum(torch.equal(g1[k], g2[k]) for k in g1 if g1[k] is not None)
+    if same != sum(g is not None for g in g1.values()):
+        fail(f"joint train: two backward passes from one state: "
+             f"{len(g1) - same} gradients differ")
+    say(f"joint train determinism: {same} gradients bitwise equal over two "
+        f"runs")
+
+    for _ in range(2):
+        jt.train_step(batch)
+    times = []
+    for _ in range(TEMPORAL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        jt.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats()
+    jt.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    split = joint_split(jt, batch)
+    report["speed"] = dict(median_s=med, steps_per_s=1 / med, times_s=times,
+                           peak_mem_bytes=peak, **split)
+    say(f"joint train steps/s {1 / med:.3f} (median {1e3 * med:.2f} ms of "
+        f"{TEMPORAL_TIMED} {JOINT_FRAMES}-frame windows, "
+        f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; one split: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f" ({card_line()})")
+    del jt
+
+    fit = JointTrainer(tmp / "joint_fit", CONFIG, num_frames=JOINT_FRAMES,
+                       num_dets=JOINT_DETS, lr=OVERFIT_LR, device=dev)
+    fit_losses = []
+    for _ in range(OVERFIT_STEPS):
+        fit_losses.append(float(fit.train_step(batch)["loss"]))
+        if fit_losses[-1] < 0.5 * fit_losses[0]:
+            break
+    if not fit_losses[-1] < 0.5 * fit_losses[0]:
+        fail(f"joint overfit at lr {OVERFIT_LR}: the loss went "
+             f"{fit_losses[0]:.4f} -> {fit_losses[-1]:.4f} in "
+             f"{len(fit_losses)} steps, not below half")
+    say(f"joint learning: Adam at lr {OVERFIT_LR} on one window, the loss "
+        f"{fit_losses[0]:.4f} -> {fit_losses[-1]:.4f} (below half) in "
+        f"{len(fit_losses)} steps")
+    report["overfit"] = fit_losses
+    del fit
+    torch.backends.cudnn.deterministic = False
+
+    # the --detector_dir graft: a temporal model's checkpoint, strictly
+    cfg = load_pipeline_config(CONFIG)
+    det_state = create_state(build_temporal(cfg.model, dev)[0],
+                             cfg.train_config.optimizer, 1)
+    CheckpointManager(tmp / "joint_detector").save(det_state, 1)
+    graft = JointTrainer(tmp / "joint_graft", CONFIG,
+                         detector_dir=tmp / "joint_detector",
+                         num_frames=JOINT_FRAMES, num_dets=JOINT_DETS,
+                         device=dev)
+    want_sd = det_state.module.state_dict()
+    if not graft.restored_detector or not all(
+            torch.equal(v, want_sd[k])
+            for k, v in graft.module.detector.state_dict().items()):
+        fail("joint train: the temporal checkpoint did not graft into the "
+             "detector")
+    say("joint train: a temporal detector's checkpoint grafted into the "
+        "detector (strict), every tensor equal")
+    return counts, riou_agg, roi[16], report
 
 
 if __name__ == "__main__":

@@ -22,7 +22,11 @@ camera-fusion trees map the same way: `FusionVoxelNet`'s (`vfe`,
 heads); `ResNetFPN18`'s auto-named flax modules map as `_fpn18` lists.
 `tracking_state_dict_from_jax(params)` maps the tracking net's tree
 (`second_tpu.models.tracking.SequenceTrackNet` / `TrackNet`, flax's
-automatic names) onto `models/tracking.py`'s.
+automatic names) onto `models/tracking.py`'s. The joint detector +
+tracker's tree (`second_tpu.models.joint_track.JointDetTrack`: the
+temporal tree under `detector`, the tracking heads `appearance`,
+`point_net`, `fusion`, `w_det` and `w_link` beside it) maps onto
+`models/joint_track.py`'s `detector.*` and the heads' names.
 Sparse kernels stay [K, Cin, Cout] in tap order; dense conv kernels go
 from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
 out), applied without a kernel transpose, to torch's (in, out, kh, kw)
@@ -225,16 +229,30 @@ def _convert_any(params, stats) -> dict:
     return out
 
 
+def _convert_joint(params, stats) -> dict:
+    """A joint tree: the detector's under `detector.`, the tracking heads'
+    beside it; any other tree as `_convert_any`."""
+    if "detector" not in params:
+        return _convert_any(params, stats)
+    out = {f"detector.{k}": v for k, v in _convert_any(
+        params["detector"],
+        None if stats is None else stats.get("detector", {})).items()}
+    out.update(tracking_state_dict_from_jax(
+        {k: v for k, v in params.items() if k != "detector"}))
+    return out
+
+
 def state_dict_from_jax(variables) -> dict:
-    return _convert_any(variables["params"],
-                        variables.get("batch_stats", {}))
+    return _convert_joint(variables["params"],
+                          variables.get("batch_stats", {}))
 
 
 def grads_from_jax(grads) -> dict:
     """A JAX gradient (or any tree with the params' structure) → {port
     parameter name: tensor}, the names of `VoxelNet.named_parameters()`
-    (of `TwoStageVoxelNet`'s for a two-stage tree)."""
-    return _convert_any(grads, None)
+    (of `TwoStageVoxelNet`'s for a two-stage tree, `JointDetTrack`'s for a
+    joint one)."""
+    return _convert_joint(grads, None)
 
 
 def tracking_state_dict_from_jax(params) -> dict:

@@ -12,6 +12,8 @@ from .fusion import (FusionRPN, FusionVoxelNet, ResNetFPN18,
                      ZSliceFusionRPN, build_fusion_voxelnet,
                      compute_bev_zslice_projection, compute_image_projection,
                      gather_image_features, project_image_to_bev)
+from .joint_track import (JointDetTrack, build_joint_det_track,
+                          compute_joint_loss)
 from .temporal import (TemporalFusionVoxelNet, TemporalSequenceVoxelNet,
                        TemporalVoxelNet, build_temporal_fusion_voxelnet,
                        build_temporal_voxelnet, compute_temporal_loss,
@@ -30,4 +32,5 @@ __all__ = ["NetInfo", "build_voxelnet", "calibrate_norms_",
            "compute_image_projection", "compute_bev_zslice_projection",
            "FusionTwoStageVoxelNet", "build_fusion_two_stage_voxelnet",
            "compute_fusion_two_stage_loss", "predict_fusion_two_stage",
-           "TemporalFusionVoxelNet", "build_temporal_fusion_voxelnet"]
+           "TemporalFusionVoxelNet", "build_temporal_fusion_voxelnet",
+           "JointDetTrack", "build_joint_det_track", "compute_joint_loss"]

@@ -1,22 +1,27 @@
 """Tracking training + MOT evaluation CLI — the port of
-`second_tpu/train/run_tracking.py` (`TrackingTrainer` and its CLI).
+`second_tpu/train/run_tracking.py` (`TrackingTrainer`, `JointTrainer` and
+their CLI).
 
 The `train_2st_spatio.py:66-138` equivalent (validate → validate_seq →
 write_kitti_result → evaluate_tracking): one `SequenceTrackNet` forward
 scores a whole padded [T, D] sequence window (det/link/new/end logits) on
 the card, the host runs the Hungarian solver and the id management per
 frame pair, and CLEAR-MOT metrics come from `utils.mot_metrics`.
-Detections are simulated from the gt, as in JAX's trainer without a
-detector. Runs on the CUDA card unless `--device cpu` is given.
-
-Not ported yet, and refused with the ROADMAP item that adds them:
-`--detector_config` / `--detector_dir` (tracking a trained detector's
-detections, which needs `core/inference_ctx.py`: item 17) and
-`--with_detector` (`JointTrainer`, `models/joint_track.py`: item 15).
+Detections are simulated from the gt unless `--detector_config` names a
+detector (`--detector_dir` its checkpoint), whose detections
+(`core/inference_ctx.py`, one batch a sequence) pass through `nms_vid`.
+`--with_detector` is the joint fine-tune (`JointTrainer`,
+`models/joint_track.py`): detection and tracking losses train together,
+the tracking loss's gradients reaching the temporal detector. Runs on the
+CUDA card unless `--device cpu` is given.
 
 Usage:
   python -m second_tpu_torch.train.run_tracking train --model_dir /tmp/tr
   python -m second_tpu_torch.train.run_tracking evaluate --model_dir /tmp/tr
+  python -m second_tpu_torch.train.run_tracking train --model_dir /tmp/tr \
+      --detector_config CFG --detector_dir DET   # a detector's detections
+  python -m second_tpu_torch.train.run_tracking train --model_dir /tmp/j \
+      --with_detector --detector_config CFG [--detector_dir TEMPORAL_DIR]
 """
 
 from __future__ import annotations
@@ -44,14 +49,6 @@ from ..utils.assignment import solve_frame_pair
 from ..utils.mot_metrics import MOTAccumulator
 from .checkpoint import CheckpointManager
 
-DETECTOR_NOT_PORTED = ("tracking a trained detector's detections "
-                       "(--detector_config, --detector_dir) is not ported "
-                       "yet: ROADMAP item 17 (core/inference_ctx.py)")
-JOINT_NOT_PORTED = ("joint detector + tracker training (--with_detector, "
-                    "JointTrainer) is not ported yet: ROADMAP item 15 "
-                    "(models/joint_track.py)")
-
-
 def _det_keep_reward(det_logit, logit_threshold):
     """Detection keep-reward for the joint assignment objective — the
     reference's `determine_det` eval path (spatio `:1658-1671`): sigmoid
@@ -73,10 +70,9 @@ class TrackingTrainer:
                  num_frames: int = 4, max_dets: int = 16,
                  feature_dim: int = 128, lr: float = 1e-3, seed: int = 0,
                  dataset_size: int = 64, detector_config: Optional[str] = None,
-                 detector_dir: Optional[str] = None, camera: bool = False,
+                 detector_dir: Optional[str] = None,
+                 detector_max_points: int = 25000, camera: bool = False,
                  device="cuda"):
-        if detector_config is not None or detector_dir is not None:
-            raise NotImplementedError(DETECTOR_NOT_PORTED)
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         os.makedirs(self.model_dir, exist_ok=True)
@@ -90,6 +86,15 @@ class TrackingTrainer:
                 size=dataset_size, seed=seed, num_frames=num_frames,
                 with_image=camera,
                 num_cars=(3, min(8, max_dets - 2)), num_ground=2000)
+        # tracking-by-detection with a real trained detector
+        # (`train_2st_spatio.py` runs the spatio detector then tracks;
+        # without these args detections are simulated from gt)
+        self.det_ctx = None
+        if detector_config is not None:
+            from ..core.inference_ctx import InferenceContext
+            self.det_ctx = InferenceContext(detector_config).build(
+                detector_dir, max_points=detector_max_points,
+                device=self.device)
         self.prep = TrackingPrep(TrackingPrepConfig(max_dets=max_dets))
         self._rng = np.random.default_rng(seed)
         # JAX's trainer prepares sequence 0 once to initialise its params;
@@ -119,8 +124,21 @@ class TrackingTrainer:
             item = [item[i] for i in range(len(item))]
         return item
 
+    def _detections(self, frames):
+        """Run the detector on a sequence's frames, one batch (None →
+        simulate from gt). Its outputs pass through `nms_vid` — the
+        reference's pre-tracking cleanup (score gate 0.2 + rotated NMS,
+        spatio `:1872-1910`)."""
+        if self.det_ctx is None:
+            return None
+        from ..data.tracking import nms_vid
+        dets = self.det_ctx.inference_batch([f["points"] for f in frames])
+        return [nms_vid(d["boxes"], d["scores"]) for d in dets]
+
     def _prep_item(self, idx: int) -> Dict[str, np.ndarray]:
-        return self.prep(self._sequence(idx), self._rng)
+        frames = self._sequence(idx)
+        return self.prep(frames, self._rng,
+                         detections=self._detections(frames))
 
     def _tensors(self, arrays) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v, device=self.device)
@@ -192,7 +210,8 @@ class TrackingTrainer:
         result_dir = Path(result_dir or (self.model_dir / "tracking_results"))
         for s in range(n):
             frames = self._sequence(s)
-            arrays = self.prep(frames, np.random.default_rng(10_000 + s))
+            arrays = self.prep(frames, np.random.default_rng(10_000 + s),
+                               detections=self._detections(frames))
             out = self._forward(arrays["crops"], arrays["points"],
                                 arrays["pmask"])
             link, end, new = (out["link_logits"], out["end_logits"],
@@ -255,6 +274,7 @@ class TrackingTrainer:
         (self.model_dir / "mot_summary.json").write_text(
             json.dumps(summary, indent=1))
         return summary
+
     def evaluate_windowed(self, window: int = 4,
                           num_sequences: Optional[int] = None,
                           det_score_threshold: float = 0.0) -> Dict:
@@ -267,7 +287,8 @@ class TrackingTrainer:
         acc = MOTAccumulator()
         for s in range(n):
             frames = self._sequence(s)
-            arrays = self.prep(frames, np.random.default_rng(10_000 + s))
+            arrays = self.prep(frames, np.random.default_rng(10_000 + s),
+                               detections=self._detections(frames))
             T = len(frames)
             stitcher = SequenceStitcher()
             stride = max(1, window - 1)
@@ -332,6 +353,171 @@ class TrackingTrainer:
         return summary
 
 
+class JointTrainer:
+    """Joint detector+tracker fine-tuning — the `train_2st_spatio.py:201-476`
+    loop: a temporal-detector checkpoint is restored and detection +
+    tracking losses train together, tracking-loss gradients reaching the
+    detector's second stage through the differentiable BEV-feature crops
+    (`models/joint_track.JointDetTrack`). Adam at `lr` (optax's) from
+    flax's initialisers drawn from `seed`; `detector_dir` grafts the latest
+    checkpoint of the port's `Trainer --model_type temporal` into the
+    detector (strictly: a name or shape that differs raises); checkpoints
+    (module, optimizer, step) under `model_dir` as `joint-N.pt`."""
+
+    def __init__(self, model_dir, detector_config, *,
+                 detector_dir: Optional[str] = None,
+                 data_root: Optional[str] = None, num_frames: int = 4,
+                 num_dets: int = 16, lr: float = 3e-4, seed: int = 0,
+                 dataset_size: int = 64, max_points: int = 12000,
+                 tracking_weight: float = 1.0, device="cuda"):
+        from ..config import load_pipeline_config
+        from ..data import ExamplePrep, PrepConfig
+        from ..models.joint_track import build_joint_det_track
+        from ..ops.voxelize import VoxelizeSpec
+
+        self.device = resolve_device(device)
+        self.model_dir = Path(model_dir)
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.cfg = load_pipeline_config(detector_config)
+        (self.module, self.spec, self.info, self.assigner,
+         self.coder) = build_joint_det_track(self.cfg.model,
+                                             num_dets=num_dets,
+                                             device=self.device)
+        init_train_weights_(self.module, seed)
+        vg = self.cfg.model.voxel_generator
+        self.vspec = VoxelizeSpec.from_config(
+            vg, self.cfg.train_input_reader.max_number_of_voxels)
+        self.prep = ExamplePrep(
+            self.assigner, self.info.feature_map_size,
+            PrepConfig(max_points=max_points, training=True,
+                       voxel_size=tuple(vg.voxel_size),
+                       pc_range=tuple(vg.point_cloud_range)))
+        self.num_frames = num_frames
+        self.tracking_weight = tracking_weight
+        if data_root:
+            self.dataset = KittiTrackingDataset(data_root)
+        else:
+            self.dataset = SyntheticTrackingDataset(
+                size=dataset_size, seed=seed, num_frames=num_frames,
+                num_cars=(3, min(8, num_dets - 2)), num_ground=2000,
+                pc_range=tuple(vg.point_cloud_range))
+        self._rng = np.random.default_rng(seed)
+        self._anchors = {}
+        # JAX's trainer prepares window 0 once to initialise its params;
+        # drawing it here too keeps the rng, so a seed gives JAX's windows
+        self._window(0)
+        self.restored_detector = False
+        if detector_dir is not None:
+            raw = CheckpointManager(detector_dir).restore_raw()
+            if raw is not None:
+                self.module.detector.load_state_dict(raw["model"],
+                                                     strict=True)
+                self.restored_detector = True
+        self.optimizer = torch.optim.Adam(self.module.parameters(), lr=lr)
+        self.step = 0
+        self.ckpt = CheckpointManager(self.model_dir, name="joint")
+
+    # -- checkpoint state ---------------------------------------------------
+    def state_dict(self) -> dict:
+        return {"model": self.module.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.module.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    # -- data -------------------------------------------------------------
+    def _window(self, idx: int) -> Dict[str, torch.Tensor]:
+        """One T-frame window → stacked fixed-shape tensors on the device
+        (detection targets per frame via ExamplePrep + aligned padded gt
+        track ids); the anchors are uploaded once."""
+        frames = self.dataset[idx % len(self.dataset)]
+        if not isinstance(frames, list):        # KittiTrackingSequence
+            frames = [frames[i] for i in range(len(frames))]
+        frames = frames[:self.num_frames]
+        while len(frames) < self.num_frames:
+            frames.append(frames[-1])
+        exs, ids_padded = [], []
+        G = self.prep._prep.max_gt
+        for f in frames:
+            exs.append(self.prep(f, self._rng))
+            names = np.asarray(f.get(
+                "gt_names", np.array(["Car"] * len(f["gt_boxes"]))))
+            keep = np.array([n in self.assigner.classes for n in names],
+                            bool) if len(names) else np.zeros(0, bool)
+            ids = np.asarray(f["track_ids"])[keep][:G]
+            pad = np.full(G, -1, np.int64)
+            pad[:len(ids)] = ids
+            ids_padded.append(pad)
+        batch = {k: torch.as_tensor(np.stack([e[k] for e in exs]),
+                                    device=self.device)
+                 for k in ("points", "points_mask", "labels", "reg_targets",
+                           "gt_boxes_padded", "gt_valid")}
+        batch["gt_ids"] = torch.as_tensor(np.stack(ids_padded),
+                                          device=self.device)
+        shape = (self.num_frames,) + self.prep.anchors.shape
+        if shape not in self._anchors:
+            self._anchors[shape] = torch.as_tensor(
+                np.broadcast_to(self.prep.anchors[None], shape).copy(),
+                device=self.device)
+        batch["anchors"] = self._anchors[shape]
+        return batch
+
+    def frames(self, batch) -> Dict[str, torch.Tensor]:
+        """The window's clouds voxelized on the device (no grad), with the
+        raw clouds: the module's `frames`."""
+        from ..models.temporal import _FRAME_KEYS
+        from ..ops.voxelize import device_voxelize
+        with torch.no_grad():
+            vox = device_voxelize(self.vspec, batch["points"],
+                                  batch["points_mask"], self.device)
+        out = {k: vox[k] for k in _FRAME_KEYS}
+        out["points"] = batch["points"]
+        out["points_mask"] = batch["points_mask"]
+        return out
+
+    def loss(self, batch):
+        """The joint loss dict of one window, the module in train mode
+        (its norms use and update batch statistics)."""
+        from ..models.joint_track import compute_joint_loss
+        frames = self.frames(batch)
+        self.module.train()
+        with torch.enable_grad():
+            preds = self.module(frames, batch["anchors"])
+            return compute_joint_loss(self.spec, preds, batch,
+                                      tracking_weight=self.tracking_weight)
+
+    # -- training ---------------------------------------------------------
+    def train_step(self, batch: Dict[str, torch.Tensor]):
+        """One Adam step on one window → the loss dict (0-d tensors on the
+        device; nothing here reads one on the host)."""
+        with torch.enable_grad():
+            losses = self.loss(batch)
+            self.optimizer.zero_grad()
+            losses["loss"].backward()
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    def train(self, steps: int = 100, log_every: int = 10) -> Dict:
+        history = []
+        t0 = time.time()
+        for step in range(steps):
+            losses = self.train_step(self._window(step))
+            if step % log_every == 0 or step == steps - 1:
+                rec = {"step": step,
+                       **{k: float(v) for k, v in losses.items()},
+                       "elapsed_s": round(time.time() - t0, 2)}
+                history.append(rec)
+                print(json.dumps(rec))
+        self.ckpt.save(self, self.step)
+        (self.model_dir / "log_joint.json").write_text(
+            json.dumps(history, indent=1))
+        return {"first_loss": history[0]["loss"],
+                "last_loss": history[-1]["loss"]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("action", choices=["train", "evaluate"])
@@ -345,9 +531,11 @@ def main(argv=None):
     parser.add_argument("--lr", type=float, default=1e-3)
     parser.add_argument("--num_sequences", type=int, default=None)
     parser.add_argument("--detector_config", default=None,
-                        help="not ported yet (ROADMAP item 17)")
+                        help="pipeline config of a trained detector: track "
+                             "its real detections instead of gt-simulated "
+                             "ones")
     parser.add_argument("--detector_dir", default=None,
-                        help="not ported yet (ROADMAP item 17)")
+                        help="checkpoint dir for --detector_config")
     parser.add_argument("--camera", action="store_true",
                         help="appearance net consumes camera image crops "
                              "(top_to_img): loads image_02 for KITTI roots, "
@@ -360,12 +548,26 @@ def main(argv=None):
                         help="evaluate in overlapping N-frame windows "
                              "stitched by align_id (0 = whole sequence)")
     parser.add_argument("--with_detector", action="store_true",
-                        help="not ported yet (ROADMAP item 15)")
+                        help="joint detector+tracker fine-tune "
+                             "(train_2st_spatio): tracking-loss gradients "
+                             "flow into the temporal detector; requires "
+                             "--detector_config (+ --detector_dir to resume "
+                             "from a temporal detector's checkpoint)")
+    parser.add_argument("--tracking_weight", type=float, default=1.0)
     parser.add_argument("--device", default="cuda",
                         help="torch device; the CUDA card by default")
     args = parser.parse_args(argv)
     if args.with_detector:
-        raise NotImplementedError(JOINT_NOT_PORTED)
+        if not args.detector_config:
+            parser.error("--with_detector needs --detector_config")
+        if args.action != "train":
+            parser.error("--with_detector is a training mode")
+        joint = JointTrainer(
+            args.model_dir, args.detector_config,
+            detector_dir=args.detector_dir, data_root=args.data_root,
+            num_frames=args.num_frames, num_dets=args.max_dets, lr=args.lr,
+            tracking_weight=args.tracking_weight, device=args.device)
+        return joint.train(args.steps)
     trainer = TrackingTrainer(
         args.model_dir, data_root=args.data_root,
         num_frames=args.num_frames, max_dets=args.max_dets,

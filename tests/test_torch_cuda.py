@@ -1874,3 +1874,103 @@ def test_temporal_sequence_matches_pair_model_on_card(dev, tmp_pairs):
     for k in ("box_preds", "cls_preds", "second_box_preds",
               "second_cls_preds"):
         torch.testing.assert_close(sp[k], pp[k], atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------ serving and joint tracking
+
+
+def _det_boxes(g, T, D, z=-1.5):
+    """[T, D, 7] lidar boxes spread over second_car_fhd.config's range."""
+    return torch.cat([torch.rand(T, D, 1, generator=g) * 66 + 2,
+                      torch.rand(T, D, 1, generator=g) * 76 - 38,
+                      torch.full((T, D, 1), z),
+                      1.2 + torch.rand(T, D, 3, generator=g) * 3,
+                      (torch.rand(T, D, 1, generator=g) - 0.5) * 6.3], -1)
+
+
+def test_roi_align_16x16_tracking_crops_card_matches_cpu(dev):
+    """The joint model's tracking crops at full width: 16 x 16 crops (2 x 2
+    samples a bin) of a [4, 128, 200, 176] fp32 map at 16 boxes a frame
+    (`crop_rois` at second_car_fhd.config's geometry), card (the ROI-align
+    kernels) against CPU (the plain version): the crops within 1e-4 of
+    their scale (the sample points' sin and cos an ulp apart), and under
+    autograd the map's and the boxes' gradients within 1e-4 of their
+    scale; one forward and one backward launch."""
+    from second_tpu_torch.models.second_stage import crop_rois
+    from second_tpu_torch.ops.cuda import roi_align
+    g = torch.Generator().manual_seed(51)
+    feat = torch.randn(4, 128, 200, 176, generator=g)
+    boxes = _det_boxes(g, 4, 16)
+    w = torch.randn(64, 128, 16, 16, generator=g)
+    geo = ((0.0, -40.0, -3.0, 70.4, 40.0, 1.0), (0.05, 0.05, 0.1), 8)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        f = feat.to(d).requires_grad_(True)
+        b = boxes.to(d).requires_grad_(True)
+        before = (roi_align.launches, roi_align.launches_bwd)
+        crops = crop_rois(f, b, *geo, crop_size=16)
+        (crops * w.to(d)).sum().backward()
+        if d.type == "cuda":
+            assert (roi_align.launches, roi_align.launches_bwd) == \
+                (before[0] + 1, before[1] + 1)
+        out.append((crops.detach().cpu(), f.grad.cpu(), b.grad.cpu()))
+    (c, gf, gb), (wc, wf, wb) = out
+    assert tuple(c.shape) == (64, 128, 16, 16)
+    assert _scaled_err(c, wc) <= 1e-4
+    assert _scaled_err(gf, wf) <= 1e-4
+    assert _scaled_err(gb, wb) <= 1e-4
+
+
+def test_match_dets_to_gt_card_matches_cpu(dev):
+    """`match_dets_to_gt` of a 4-frame window, 16 dets against 64 padded gt
+    slots a frame: one `riou_matrix` launch on the card, det_cls and
+    det_id equal to the CPU's (the plain IoU), some matched."""
+    from second_tpu_torch.models.joint_track import match_dets_to_gt
+    g = torch.Generator().manual_seed(52)
+    T, D, G = 4, 16, 64
+    gt = _det_boxes(g, T, G)
+    src = torch.randint(0, 20, (T, D), generator=g)
+    dets = torch.gather(gt, 1, src[..., None].expand(-1, -1, 7)).clone()
+    dets[..., :2] += torch.randn(T, D, 2, generator=g) * 0.3
+    dets[..., 6] += torch.randn(T, D, generator=g) * 0.2
+    det_valid = torch.rand(T, D, generator=g) < 0.9
+    gt_valid = torch.arange(G)[None].expand(T, G) < 20
+    gt_ids = torch.randint(0, 100, (T, G), generator=g)
+    before = riou.launches
+    got = match_dets_to_gt(*(a.to(dev) for a in (dets, det_valid, gt,
+                                                 gt_ids, gt_valid)))
+    assert riou.launches == before + 1
+    want = match_dets_to_gt(dets, det_valid, gt, gt_ids, gt_valid)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert 0 < int(want[0].sum()) < T * D
+
+
+def test_inference_context_card_matches_cpu(dev, tmp_path):
+    """`InferenceContext` on second_car_fhd.config (fp32, as it builds it)
+    from the same random weights (`init_weights_`, seed 0) on the card and
+    on the CPU, one fhd bench scan alone and in a batch of two: the same
+    keep set and labels, boxes and scores within 1e-3 (cuDNN against
+    oneDNN sums through the RPN)."""
+    from second_tpu_torch.core.inference_ctx import InferenceContext
+    from second_tpu_torch.models import init_weights_
+    ctxs = []
+    for d in (dev, torch.device("cpu")):
+        ctx = InferenceContext(FHD).build(tmp_path / "none",
+                                          max_points=30000, device=d)
+        init_weights_(ctx.module, 0)
+        ctxs.append(ctx)
+    cfg = ctxs[0].cfg
+    pc_range = tuple(cfg.model.voxel_generator.point_cloud_range)
+    clouds = [lidar_scan_scene(np.random.default_rng(s), pc_range=pc_range,
+                               num_azimuth=512)[0] for s in (0, 1)]
+    for pcs in (clouds[:1], clouds):
+        got = ctxs[0].inference_batch(pcs)
+        want = ctxs[1].inference_batch(pcs)
+        for a, b in zip(got, want):
+            assert len(a["scores"]) == len(b["scores"]) > 0
+            np.testing.assert_array_equal(a["labels"], b["labels"])
+            np.testing.assert_allclose(a["boxes"], b["boxes"], rtol=1e-3,
+                                       atol=1e-3)
+            np.testing.assert_allclose(a["scores"], b["scores"], rtol=1e-3,
+                                       atol=1e-3)

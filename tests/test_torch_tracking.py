@@ -387,8 +387,11 @@ def test_tracking_trainer_matches_jax(trainers):
 
 def test_tracking_cli_and_refused_flags(tmp_path, capsys):
     """`run_tracking` train then evaluate (memory tracker, a 2-frame window)
-    on the CPU restores the checkpoint and prints CLEAR-MOT; the flags
-    that need unported modules raise naming their ROADMAP item."""
+    on the CPU restores the checkpoint and prints CLEAR-MOT; the detector
+    flags are refused where they cannot run: `--with_detector` without
+    `--detector_config` is a usage error, a `--detector_config` that does
+    not exist raises (`tests/test_torch_joint_track.py` and
+    `tests/test_torch_inference_ctx.py` run both paths)."""
     args = ["--model_dir", str(tmp_path), "--device", "cpu", "--steps", "1",
             "--num_frames", "3", "--max_dets", "6", "--feature_dim", "8",
             "--num_sequences", "1"]
@@ -398,8 +401,9 @@ def test_tracking_cli_and_refused_flags(tmp_path, capsys):
     assert "mota" in out and "id_switches" in out
     assert "mota" in run_tracking.main(["evaluate", *args, "--window", "2"])
     assert '"windowed": true' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(SystemExit):
         run_tracking.main(["train", *args, "--with_detector"])
-    for flag in ("--detector_config", "--detector_dir"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-            run_tracking.main(["train", *args, flag, "x"])
+    for extra in ([], ["--with_detector"]):
+        with pytest.raises(FileNotFoundError):
+            run_tracking.main(["train", *args, *extra, "--detector_config",
+                               str(tmp_path / "missing.config")])
