@@ -280,12 +280,35 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    the second stage nonzero; no host sync; bitwise gradients over two
    runs; the loss halved on one window; steps/s, split, peak memory; the
    `detector_dir` graft of a temporal checkpoint.
+29-33. resnet eval / train, large eval / train, vfe1 eval: the other
+   middles and encoders, on second_car_fhd.config patched by the port's
+   `apply_config_patches` (`run_middle_eval`, `run_middle_train`):
+   SpMiddleResNetFHD (bf16 as build_voxelnet gives it: per forward 4 bf16 and
+   4 fp32 submanifold and 4 bf16 strided gather-GEMM launches),
+   SpMiddleFHDLarge (fp32, as JAX builds the stacks: 128-wide stages) and
+   VoxelFeatureExtractor [32, 128] into SpMiddleFHD (the middle's config
+   width left at 4; the bf16 first conv at 128 input channels; the
+   encoder's norm statistics calibrated on the batch). Eval: fhd eval's
+   input; every sparse conv against its plain version (and fp64 for fp32
+   calls) and timed, the calls over 64 channels in a set of their own; the
+   row gathers and the NMS pair against their plain versions; launches and
+   gather-GEMM paths; predict without a host sync; frames/s, peak memory,
+   the device time by kernel. Train: fhd train's batch; every forward, dX
+   and weight-gradient call against its plain version (the calls over 64
+   channels timed, fp32 calls bounded as 3xTF32; every fp32 call against
+   fp64 too: resnet train's 4 forward, 4 dX and 4 weight-gradient calls
+   on the fma paths, all of large train's), each conv's
+   backward against autograd of the plain gather-GEMM; launches 12 / 11 /
+   12 (resnet) or 14 / 13 / 14 (large) on their paths; every middle
+   parameter's gradient finite and nonzero; no host sync; steps/s and peak
+   memory.
 
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the twenty-one paths (fhd eval, fhd train, pp eval, pp train,
+summed over the twenty-six paths (fhd eval, fhd train, pp eval, pp train,
 mc eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp eval,
 tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st train,
-tmpf eval, tmpf train, serve, trk det, joint train) and by path,
+tmpf eval, tmpf train, serve, trk det, joint train, resnet eval, resnet
+train, large eval, large train, vfe1 eval) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
@@ -294,7 +317,11 @@ cores, with the bound at the CUDA cores' fp32 rate as "bound_cores_ms"),
 the 256-channel ROI-align calls of the tmpf phases under
 "tmpf_eval_c256" / "tmpf_train_c256", the joint step's `riou_matrix`
 call under "joint_train" and its 16 x 16 ROI-align calls under
-"joint_train_s16". The last line is {"ok": true, "device": {...}}. With
+"joint_train_s16", the resnet eval's convs under "resnet_eval" and the
+sparse-conv calls over 64 channels under "large_eval_c128",
+"large_train_c128" (forward, dX, weight gradient; fp32, bounded as 3xTF32
+with "bound_cores_ms" beside) and "vfe1_eval_c128".
+The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
 
@@ -409,7 +436,8 @@ PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
          "mc_train", "kitti", "fhd_iou_train", "2st_eval", "2st_train",
          "tmp_eval", "tmp_train", "fusion_eval", "fusion_train",
          "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train",
-         "serve", "trk_det", "joint_train")
+         "serve", "trk_det", "joint_train", "resnet_eval", "resnet_train",
+         "large_eval", "large_train", "vfe1_eval")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -942,6 +970,15 @@ def fp64_gate(args, got, tag, plain_fn=subm.gather_gemm_plain):
     return dict(fp64_rel_err=kernel_err, plain_fp64_rel_err=plain_err)
 
 
+def as_3xtf32(ops_cores_s):
+    """The seconds that fp32 operations taking `ops_cores_s` at the CUDA
+    cores' fp32 rate take as 3xTF32 on the tensor cores: three TF32
+    products an operation at the TF32 tensor-core rate, the least time the
+    card needs for products of fp32 accuracy."""
+    return 3 * ops_cores_s * PEAK_OPS_PER_S[torch.float32] / \
+        PEAK_TF32_OPS_PER_S
+
+
 def check_convs(calls, timer, dtimer, detail):
     """Each recorded sparse conv against its plain version (CONV_TOL), in
     its own dtype and in fp32 (fp32 also against fp64: `fp64_gate`), the
@@ -999,7 +1036,7 @@ def check_convs(calls, timer, dtimer, detail):
                 if dtype == torch.float32:
                     row["bound_cores_ms"] = 1e3 * max(bs, os_)
                     agg["ops_cores_s"] += os_
-                    os_ = 3 * 2.0 * C * D * row["found"] / PEAK_TF32_OPS_PER_S
+                    os_ = as_3xtf32(os_)
                 row["bound_ms"] = 1e3 * max(bs, os_)
                 row["bound_by"] = "bytes" if bs >= os_ else "operations"
                 for k in ("ms", "plain_ms", "library_ms"):
@@ -1530,6 +1567,28 @@ def run(dev, out=None):
             dev, timer, dtimer, serve_dir, tmp)
         joint_counts, joint_riou, joint_roi16, report["joint_train"] = \
             run_joint_train(dev, timer, dtimer, tmp)
+    # the other middles and encoders: SpMiddleResNetFHD in bf16 (4 bf16 +
+    # 4 fp32 submanifold and 4 bf16 strided convs a forward),
+    # SpMiddleFHDLarge in fp32 (its 128-wide stages), and
+    # VoxelFeatureExtractor's 128 channels into SpMiddleFHD's bf16 first conv
+    resnet_agg, _, resnet_counts, report["resnet_eval"] = run_middle_eval(
+        dev, timer, dtimer, "resnet eval", RESNET_PATCHES, RESNET_CONVS,
+        {"mma": 8, "fma": 4})
+    _, resnet_train_counts, report["resnet_train"] = run_middle_train(
+        dev, timer, dtimer, "resnet train", RESNET_PATCHES, RESNET_CONVS,
+        {"mma": 15, "fma": 8, "wgrad_mma": 8, "wgrad_fma": 4}, fp64=True)
+    _, large_wide, large_counts, report["large_eval"] = run_middle_eval(
+        dev, timer, dtimer, "large eval", LARGE_PATCHES, SPARSE_CONVS,
+        {"mma": 0, "fma": SPARSE_CONVS})
+    large_train_wide, large_train_counts, report["large_train"] = \
+        run_middle_train(dev, timer, dtimer, "large train", LARGE_PATCHES,
+                         SPARSE_CONVS,
+                         {"mma": 0, "fma": 2 * SPARSE_CONVS - 1,
+                          "wgrad_mma": 0, "wgrad_fma": SPARSE_CONVS},
+                         fp64=True)
+    _, vfe1_wide, vfe1_counts, report["vfe1_eval"] = run_middle_eval(
+        dev, timer, dtimer, "vfe1 eval", VFE1_PATCHES, SPARSE_CONVS,
+        {"mma": SPARSE_CONVS, "fma": 0}, calibrate=True)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
@@ -1538,7 +1597,10 @@ def run(dev, out=None):
                                *(fusion_counts[f"{k}_{p}"]
                                  for k in FUSION_KINDS
                                  for p in ("eval", "train")),
-                               serve_counts, trk_det_counts, joint_counts)))
+                               serve_counts, trk_det_counts, joint_counts,
+                               resnet_counts, resnet_train_counts,
+                               large_counts, large_train_counts,
+                               vfe1_counts)))
     # the 256-channel ROI-align calls of the temporal-fusion phases, under
     # "tmpf_eval_c256" / "tmpf_train_c256"; the joint step's riou_matrix
     # call under "joint_train", its 16 x 16 tracking crops under
@@ -1547,7 +1609,11 @@ def run(dev, out=None):
                  "mc_eval": mc_eval_aggs,
                  **{f"{k}_c256": v for k, v in roi_256.items()},
                  "joint_train": {"rotated_iou": joint_riou},
-                 "joint_train_s16": joint_roi16}
+                 "joint_train_s16": joint_roi16,
+                 "resnet_eval": {"sparse_gather_gemm": resnet_agg},
+                 "large_eval_c128": {"sparse_gather_gemm": large_wide},
+                 "large_train_c128": large_train_wide,
+                 "vfe1_eval_c128": {"sparse_gather_gemm": vfe1_wide}}
 
     def numbers(a):
         out = dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
@@ -1558,7 +1624,8 @@ def run(dev, out=None):
                    library_device_ms=a["library_device_ms"])
         if a.get("ops_cores_s"):
             out["bound_cores_ms"] = 1e3 * max(a["bytes_s"], a["ops_cores_s"])
-            out["fp64_err_ratio"] = a["fp64_ratio"]
+            if "fp64_ratio" in a:
+                out["fp64_err_ratio"] = a["fp64_ratio"]
         return out
 
     lines = []
@@ -1854,10 +1921,15 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
         if not timed:
             continue
         bs, os_ = bound(*args)
+        if args[0].dtype == torch.float32:
+            row["bound_cores_ms"] = 1e3 * max(bs, os_)
+            agg["ops_cores_s"] = agg.get("ops_cores_s", 0.0) + os_
+            os_ = as_3xtf32(os_)
         row.update(ms=timer(lambda: kernel(*args), 10),
                    plain_ms=timer(lambda: plain(*args), 3),
                    library_ms=timer(lambda: library(*args), 3),
-                   bound_ms=1e3 * max(bs, os_))
+                   bound_ms=1e3 * max(bs, os_),
+                   bound_by="bytes" if bs >= os_ else "operations")
         for k in ("ms", "plain_ms", "library_ms"):
             agg[k] += row[k]
         agg["bytes_s"] += bs
@@ -1887,14 +1959,21 @@ def check_train_calls(name, calls, kernel, plain, library, bound, timer,
             f"{row['max_abs_err']:.2e} rel {row['max_rel_err']:.2e}  kernel "
             f"{row['ms']:.4f} ms (device {kd:.4f})  plain "
             f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms "
-            f"(device {ld:.4f})  bound {row['bound_ms']:.4f} ms")
+            f"(device {ld:.4f})  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})" +
+            (f"  bound at the CUDA cores' fp32 rate "
+             f"{row['bound_cores_ms']:.4f} ms" if "bound_cores_ms" in row
+             else ""))
     say(f"{name}: {len(calls)} calls, {agg['found']} found taps, "
         f"{agg['device_kernels']:g} device kernels; kernel {agg['ms']:.4f} "
         f"ms (device {agg['device_ms']:.4f})  plain {agg['plain_ms']:.4f} ms  "
         f"library "
         f"{agg['library_ms']:.4f} ms (device "
         f"{agg['library_device_ms']:.4f})  bound "
-        f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms")
+        f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.4f} ms" +
+        (f"  bound at the CUDA cores' fp32 rate "
+         f"{1e3 * max(agg['bytes_s'], agg['ops_cores_s']):.4f} ms"
+         if "ops_cores_s" in agg else ""))
     return agg
 
 
@@ -2763,21 +2842,29 @@ FP64_CHECKED = (("conv", "gather_gemm", subm.gather_gemm,
                  subm.gather_gemm_wgrad_plain))
 
 
-def check_fp32_calls(calls, what):
+def check_fp32_calls(calls, what, mixed=False):
     """Each recorded sparse-conv call of an fp32 path (forward, and in a
     train step dX and the weight gradient) in fp32, its kernel output
-    against the plain version in fp64 (`fp64_gate`). Returns the largest
-    ratio of the kernel's error to the fp32 plain version's, by kind."""
-    worst = {}
+    against the plain version in fp64 (`fp64_gate`); on a `mixed` path
+    (bf16 and fp32 calls, as a residual middle's under mixed precision)
+    its fp32 calls, of which there must be some. Returns the largest ratio
+    of the kernel's error to the fp32 plain version's, by kind."""
+    worst, n = {}, 0
     for kind, key, kernel, plain in FP64_CHECKED:
         for i, (args, _) in enumerate(calls.get(key, ())):
             if args[0].dtype != torch.float32:
+                if mixed:
+                    continue
                 fail(f"{what} {kind} {i}: {args[0].dtype} features on the "
                      f"fp32 path")
             e = fp64_gate(args, kernel(*args), f"{what} {kind} {i}", plain)
             worst[kind] = max(worst.get(kind, 0.0), e["fp64_rel_err"] /
                               max(e["plain_fp64_rel_err"], 1e-30))
-    say(f"{what}: every sparse-conv call fp32; error against fp64 at most "
+            n += 1
+    if not n:
+        fail(f"{what}: no fp32 sparse-conv call to hold against fp64")
+    say(f"{what}: {'the' if mixed else 'every'} sparse-conv call"
+        f"{'s in' if mixed else ''} fp32 ({n}); error against fp64 at most "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()) +
         f" times the fp32 plain version's (gated at {FP32_ERR_RATIO})")
     return worst
@@ -5787,6 +5874,246 @@ def run_joint_train(dev, timer, dtimer, tmp):
     say("joint train: a temporal detector's checkpoint grafted into the "
         "detector (strict), every tensor equal")
     return counts, riou_agg, roi[16], report
+
+
+# ------------------------------------- the other middles and encoders
+
+# second_car_fhd.config with another middle or encoder, through the port's
+# `apply_config_patches` (the `--patchs` of the train CLI): the residual
+# middle, the 128-wide one, and VoxelFeatureExtractor [32, 128] into
+# SpMiddleFHD (the middle's config width left at 4)
+RESNET_PATCHES = ['model.middle_feature_extractor.module_class_name='
+                  '"SpMiddleResNetFHD"']
+LARGE_PATCHES = ['model.middle_feature_extractor.module_class_name='
+                 '"SpMiddleFHDLarge"']
+VFE1_PATCHES = ['model.voxel_feature_extractor.module_class_name='
+                '"VoxelFeatureExtractor"',
+                "model.voxel_feature_extractor.num_filters=[32, 128]"]
+# SpMiddleResNetFHD's sparse convs a forward: in each of its four residual
+# blocks one on the block's (bf16) input and one on the first norm's fp32
+# output, then the block's bf16 strided conv
+RESNET_CONVS = 12
+RESNET_TIMED = 8
+# the sparse-conv calls wider than 64 channels in or out, timed on their
+# own under "<path>_c128" in the kernels line
+WIDE = 64
+
+
+def patched_config(patches):
+    from second_tpu_torch.train.run import apply_config_patches
+    return apply_config_patches(load_pipeline_config(CONFIG), patches)
+
+
+def split_wide(calls):
+    """(narrow, wide): the recorded sparse-conv calls (forward, dX or
+    weight gradient: args[3] is [K, C, D] or [B, Q, D]) with at most and
+    with more than WIDE channels in or out."""
+    is_wide = [max(a[0].shape[2], a[3].shape[2]) > WIDE for a, _ in calls]
+    return ([c for c, w in zip(calls, is_wide) if not w],
+            [c for c, w in zip(calls, is_wide) if w])
+
+
+def conv_widths(calls):
+    return sorted({(a[0].shape[2], a[3].shape[2], str(a[0].dtype)[6:])
+                   for a, _ in calls})
+
+
+def run_middle_eval(dev, timer, dtimer, what, patches, n_convs,
+                    paths_want, calibrate=False):
+    """A middle or encoder of the registry on second_car_fhd.config patched
+    by `patches`, in the model's precision (the config's mixed precision:
+    bf16 where build_voxelnet gives the middle bf16, fp32 otherwise), batch
+    4, 40 000 voxels, the fhd bench scene: every sparse conv against its
+    plain version (CONV_TOL; fp32 also against fp64, FP32_ERR_RATIO) and
+    timed, the row gathers exact and timed, the NMS pair against its plain
+    version; launches (`n_convs` gather-GEMMs on `paths_want`, the NMS pair
+    once); predict without a host sync; frames/s, peak memory and the
+    device time by kernel. With `calibrate`, the random model's batch-norm
+    statistics are the batch's (`calibrated`): an encoder with norms (as
+    VoxelFeatureExtractor) under random statistics feeds the middle values
+    of 1e4 and more, where fp32 sums in another order differ by more than
+    CONV_TOL. Returns (the aggregates of all the convs and of the wide
+    ones, the launch counts, the report)."""
+    report = {}
+    cfg = patched_config(patches)
+    mixed = cfg.train_config.enable_mixed_precision
+    net, spec, info, assigner, _ = build_voxelnet(
+        cfg.model, device=dev, mixed_precision=mixed, seed=0)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    points, mask, anchors = build_inputs(cfg, assigner, info, dev)
+    if calibrate:
+        calibrated(net, vspec, points, mask, dev)
+    vfe_cfg = cfg.model.voxel_feature_extractor
+    vfe_out = type(net.vfe).out_width(tuple(vfe_cfg.num_filters),
+                                      cfg.model.num_point_features)
+    say(f"{what}: {type(net.vfe).__name__} ({vfe_out} out) -> "
+        f"{type(net.middle).__name__} ({net.middle.out_channels} BEV "
+        f"channels, dtype {getattr(net.middle, 'dtype', None)}), batch "
+        f"{BATCH}, {MAX_VOXELS} voxels, mixed precision {mixed}"
+        + (", norm statistics calibrated on the batch" if calibrate else ""))
+
+    def forward():
+        return detect(net, spec, vspec, points, mask, anchors, device=dev)
+
+    with recording() as calls:
+        forward()
+        torch.cuda.synchronize()
+    convs = calls["gather_gemm"]
+    report["widths"] = conv_widths(convs)
+    say(f"{what} capture: " + ", ".join(
+        f"{k} {len(v)} calls" for k, v in calls.items()) +
+        f"; conv widths (C, D, dtype) {report['widths']}")
+    if len(convs) != n_convs:
+        fail(f"{what}: expected {n_convs} sparse convs a forward, recorded "
+             f"{len(convs)}")
+    # the convs up to WIDE channels, then the wider ones, each set summed
+    report["convs"] = []
+    narrow, wide = split_wide(convs)
+    agg = check_convs(narrow, timer, dtimer, report["convs"])
+    agg_wide = None
+    if wide:
+        agg_wide = check_convs(wide, timer, dtimer, report["convs"])
+        say(f"{what}: the {len(wide)} convs wider than {WIDE} channels "
+            f"{conv_widths(wide)} above; card {card_line()}")
+        agg = {k: max(v, agg_wide[k]) if k in ("err", "fp64_ratio")
+               else v + agg_wide[k] for k, v in agg.items()}
+    report["gathers"] = []
+    check_gathers(calls["gather_rows"], timer, dtimer, report["gathers"])
+    _, _, report["nms"] = check_nms_pair(calls, timer, dtimer, what)
+    del calls
+
+    reset_counts()
+    det, vox, preds = forward()
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one {what} forward: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": n_convs, "rotated_iou": 1,
+            "nms_suppress": 1, "sparse_gather_gemm_dgrad": 0,
+            "sparse_wgrad": 0}
+    if {k: counts[k] for k in want} != want or not counts["row_gather"] or \
+            {k: paths[k] for k in paths_want} != paths_want:
+        fail(f"{what} forward launches {counts} {paths}, expected {want} "
+             f"and row gathers on {paths_want}")
+    predict_fails_on_sync(spec, preds, anchors, what)
+    A = anchors.shape[1]
+    for k, shape in (("box_preds", (BATCH, A, spec.box_code_size)),
+                     ("cls_preds", (BATCH, A, 1))):
+        if tuple(preds[k].shape) != shape or \
+                not torch.isfinite(preds[k]).all():
+            fail(f"{what} {k}: shape {tuple(preds[k].shape)} (want "
+                 f"{shape}) or non-finite values")
+    if not all(torch.isfinite(det[k]).all() for k in ("boxes", "scores")):
+        fail(f"{what}: non-finite detections")
+    report["voxel_overflow"] = int(vox["voxel_overflow"])
+    report["stage_overflow"] = int(preds["stage_overflow"])
+    report["valid"] = det["valid"].sum(1).tolist()
+    say(f"{what}: predict no host sync; voxel_overflow "
+        f"{report['voxel_overflow']} stage_overflow "
+        f"{report['stage_overflow']} valid detections {report['valid']}")
+    report["forward"] = timed_forwards(forward, RESNET_TIMED, BATCH)
+    med = report["forward"]["median_s"]
+    report["device_split"] = device_split(forward, dtimer, reps=3)
+    say(f"{what} frames/s {BATCH / med:.3f} (median {1e3 * med:.2f} ms of "
+        f"{RESNET_TIMED} batch-{BATCH} forwards); peak memory "
+        f"{report['forward']['peak_mem_bytes'] / 2 ** 30:.2f} GiB; "
+        f"{split_line(report['device_split'])}")
+    report["launches"] = counts
+    return agg, agg_wide, counts, report
+
+
+def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
+                     paths_want, fp64=False):
+    """One train step of the patched config's model (second_car_fhd's
+    batch 4 synthetic scans, 16 000 voxels with shuffle_overflow, the
+    config's Adam from flax's initialisers; the middle bf16 or fp32 as
+    `build_voxelnet` gives it): every forward, dX and weight-gradient call
+    against its plain version (GRAD_KERNEL_TOL), the calls wider than WIDE
+    channels timed (the others untimed), with `fp64` every fp32 call
+    against fp64 (`check_fp32_calls`; under mixed precision the fp32 ones
+    among the bf16); each conv's backward against autograd of the
+    plain gather-GEMM; launches (`n_convs` forward and weight-gradient
+    calls, one fewer dX: the first conv's input needs none) on
+    `paths_want`; every sparse weight's gradient finite and nonzero; no
+    host sync; steps/s and peak memory. Returns (the wide calls'
+    aggregates by kernel, the launch counts, the report)."""
+    report = {}
+    cfg = patched_config(patches)
+    mixed = cfg.train_config.enable_mixed_precision
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    state, spec, info, assigner = new_train_state(cfg, dev, mixed)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
+                                     TRAIN_VOXELS, shuffle_overflow=True)
+    batch = train_inputs(cfg, assigner, info, dev, TRAIN_BATCH)
+    step = make_train_step(spec, vspec)
+    say(f"{what}: {type(state.module.middle).__name__}, batch {TRAIN_BATCH} "
+        f"synthetic scans, {TRAIN_VOXELS} voxels, mixed precision {mixed}")
+    with recording(RECORDED_TRAIN) as calls:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    n = {k: len(v) for k, v in calls.items()}
+    want_n = {"gather_gemm": n_convs, "gather_gemm_dgrad": n_convs - 1,
+              "sparse_wgrad": n_convs}
+    if n != want_n:
+        fail(f"{what}: expected {want_n} calls a step, recorded {n}")
+    report["widths"] = conv_widths(calls["gather_gemm"])
+    say(f"{what} capture: {n}; conv widths (C, D, dtype) "
+        f"{report['widths']}")
+    aggs_wide = {}
+    report["calls"] = {}
+    for key, kname, kernel, plain, library, bound in (
+            ("gather_gemm", "sparse_gather_gemm", subm.gather_gemm,
+             subm.gather_gemm_plain, conv_library, conv_bound),
+            ("gather_gemm_dgrad", "sparse_gather_gemm_dgrad",
+             subm.gather_gemm_dgrad, subm.gather_gemm_plain, conv_library,
+             conv_bound),
+            ("sparse_wgrad", "sparse_wgrad", subm.sparse_wgrad,
+             subm.gather_gemm_wgrad_plain, wgrad_library, wgrad_bound)):
+        narrow, wide = split_wide(calls[key])
+        detail = report["calls"][key] = []
+        check_train_calls(f"{what} {key}", narrow, kernel, plain, library,
+                          bound, timer, dtimer, detail, timed=False)
+        if wide:
+            aggs_wide[kname] = check_train_calls(
+                f"{what} {key} c128", wide, kernel, plain, library, bound,
+                timer, dtimer, detail)
+    if fp64:
+        report["fp64_ratio"] = check_fp32_calls(calls, what, mixed)
+    report["conv_backward_worst"] = check_conv_backward(
+        calls["gather_gemm"], calls["sparse_wgrad"])
+    del calls
+
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts, paths = launch_counts(), conv_path_counts()
+    say(f"launches in one {what} step: {counts}; by path: {paths}")
+    want = {"sparse_gather_gemm": n_convs,
+            "sparse_gather_gemm_dgrad": n_convs - 1, "sparse_wgrad": n_convs}
+    if {k: counts[k] for k in want} != want or paths != paths_want:
+        fail(f"{what} step launches {counts} {paths}, expected {want} on "
+             f"{paths_want}")
+    sparse = [(name, p) for name, p in state.module.named_parameters()
+              if name.startswith("middle.")]
+    for name, p in sparse:
+        if p.grad is None or not torch.isfinite(p.grad).all() or \
+                not p.grad.abs().max() > 0:
+            fail(f"{what} {name}: gradient missing, not finite or all zero")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"{what} metrics not finite: {m}")
+    n_syncs = host_syncs(lambda: step(state, batch))
+    if n_syncs:
+        fail(f"the {what} step synchronised the host {n_syncs} times")
+    say(f"{what}: {len(sparse)} middle parameters' gradients finite and "
+        f"nonzero; no host sync; " +
+        ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    report["metrics"], report["launches"] = m, counts
+    report["speed"], _ = timed_steps(step, state, spec, vspec, batch,
+                                     RESNET_TIMED, what, profile=False)
+    del state
+    torch.backends.cudnn.deterministic = False
+    return aggs_wide, counts, report
 
 
 if __name__ == "__main__":

@@ -28,7 +28,6 @@ import argparse
 import ctypes
 import functools
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -48,14 +47,7 @@ def other_d3(src, tag, parent):
     directory with the port's flags for riou: fn(b1, b2) → [B, N, K]. The
     parent's takes (b1, b2, out, batch, n1, n2, stream), another takes this
     riou.cu's arguments."""
-    kernels.BUILD_DIR.mkdir(exist_ok=True)
-    lib_path = kernels.BUILD_DIR / f"libriou_{tag}.so"
-    cmd = [kernels._nvcc(), *kernels._flags("riou"), "-o", str(lib_path),
-           str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        sys.exit(f"nvcc {src} failed:\n{done.stdout}{done.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).d3_iou
+    fn = kernels.build_variant(src, f"riou_{tag}", "riou")[0].d3_iou
     fn.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p] \
         if parent else riou._D3_ARGTYPES

@@ -33,7 +33,6 @@ call it prints:
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -60,22 +59,12 @@ extern "C" int nms_empty(int batch, void* stream) {
 """
 
 
-def build(name, src, flags):
-    kernels.BUILD_DIR.mkdir(exist_ok=True)
-    path = kernels.BUILD_DIR / f"lib{name}.so"
-    done = subprocess.run([kernels._nvcc(), *flags, "-o", str(path),
-                           str(src)], capture_output=True, text=True)
-    if done.returncode:
-        sys.exit(f"nvcc {src} failed:\n{done.stdout}{done.stderr}")
-    return ctypes.CDLL(str(path))
-
-
 def empty_launch():
     """An empty kernel of a suppression's grid: (batch, stream) → None."""
     src = kernels.BUILD_DIR / "nms_empty.cu"
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     src.write_text(EMPTY_CU)
-    fn = build("nms_empty", src, kernels._flags("gather")).nms_empty
+    fn = kernels.build_variant(src, "nms_empty", "gather")[0].nms_empty
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -107,8 +96,8 @@ def suppressor(lib):
 
 def this_tree(name, macros):
     """This tree's riou.cu built with the port's flags and these macros."""
-    return build(name, kernels.CSRC / "riou.cu",
-                 [*kernels._flags("riou"), *(f"-D{m}" for m in macros)])
+    return kernels.build_variant(kernels.CSRC / "riou.cu", name, "riou",
+                                 [f"-D{m}" for m in macros])[0]
 
 
 def captured(dev):
@@ -177,8 +166,8 @@ def main():
     stage = suppressor(this_tree("riou_stage", ["NMS_SUPPRESS_STAGE_ONLY"]))
     others = {}
     if args.parent_src:
-        others["parent"] = suppressor(build("riou_parent", args.parent_src,
-                                            kernels._flags("riou")))
+        others["parent"] = suppressor(kernels.build_variant(
+            args.parent_src, "riou_parent", "riou")[0])
     staged_k = kernels.library("riou").nms_suppress_staged
     dtimer = cs.DeviceTimer(dev)
     for path, path_calls in calls.items():

@@ -25,7 +25,6 @@ trunk [4, 128, 200, 176], 2048 rois x 28 x 28 samples) and prints:
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -50,14 +49,7 @@ def parent_backward(src):
     """The parent's backward as a function (feat, coords, grad, s) →
     (grad_feat, grad_coords), from its roi_align.cu built into the build
     directory."""
-    kernels.BUILD_DIR.mkdir(exist_ok=True)
-    lib_path = kernels.BUILD_DIR / "libroi_align_parent.so"
-    cmd = [kernels._nvcc(), *kernels._flags("roi_align"), "-o",
-           str(lib_path), str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        sys.exit(f"nvcc {src} failed:\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(lib_path))
+    lib = kernels.build_variant(src, "roi_align_parent", "roi_align")[0]
     keys_fn, bwd_fn = lib.roi_align_keys, lib.roi_align_bwd
     keys_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]

@@ -29,7 +29,6 @@ trunk [4, 128, 200, 176], 2048 rois x 28 x 28 samples) and prints:
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -54,14 +53,7 @@ _TYPES = {(torch.bfloat16, torch.float32): 0,
 def build_lib(src, name, extra=()):
     """`src` built with the port's flags for roi_align (and `extra`) into
     the build directory as lib<name>.so, loaded."""
-    kernels.BUILD_DIR.mkdir(exist_ok=True)
-    path = kernels.BUILD_DIR / f"lib{name}.so"
-    cmd = [kernels._nvcc(), *kernels._flags("roi_align"), *extra, "-o",
-           str(path), str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        sys.exit(f"nvcc {src} failed:\n{done.stdout}{done.stderr}")
-    return ctypes.CDLL(str(path))
+    return kernels.build_variant(src, name, "roi_align", extra)[0]
 
 
 def port_forward(lib):

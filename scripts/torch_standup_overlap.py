@@ -40,7 +40,6 @@ all at threshold 0.7. For each it prints:
 import argparse
 import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -74,22 +73,13 @@ extern "C" int standup_empty(int words, int rows, int batch, int threads,
 """
 
 
-def build(name, src, flags):
-    kernels.BUILD_DIR.mkdir(exist_ok=True)
-    path = kernels.BUILD_DIR / f"lib{name}.so"
-    done = subprocess.run([kernels._nvcc(), *flags, "-o", str(path),
-                           str(src)], capture_output=True, text=True)
-    if done.returncode:
-        sys.exit(f"nvcc {src} failed:\n{done.stdout}{done.stderr}")
-    return ctypes.CDLL(str(path))
-
-
 def empty_launch():
     """An empty kernel of the port's grid: (cand) → None."""
     src = kernels.BUILD_DIR / "standup_empty.cu"
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     src.write_text(EMPTY_CU)
-    fn = build("standup_empty", src, kernels._flags("gather")).standup_empty
+    fn = kernels.build_variant(src, "standup_empty",
+                               "gather")[0].standup_empty
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     R, T = su_tile()
@@ -203,8 +193,8 @@ def main():
     empty = empty_launch()
     others = {}
     if args.parent_src:
-        others["parent"] = standup(build("riou_parent", args.parent_src,
-                                         kernels._flags("riou")))
+        others["parent"] = standup(kernels.build_variant(
+            args.parent_src, "riou_parent", "riou")[0])
     dtimer = cs.DeviceTimer(dev)
     for what, cand, valid, thr in calls:
         B, K = valid.shape

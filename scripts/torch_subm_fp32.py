@@ -27,7 +27,6 @@ mc eval phase: second_multiclass.config, batch 3 of the fhd bench scene,
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -45,14 +44,8 @@ from second_tpu_torch.ops.voxelize import VoxelizeSpec  # noqa: E402
 def parent_conv(src):
     """The parent's fp32 gather-GEMM as a function (feat, tap_idx, found,
     w) → out, from its subm.cu built into the build directory."""
-    kernels.BUILD_DIR.mkdir(exist_ok=True)
-    lib_path = kernels.BUILD_DIR / "libsubm_parent.so"
-    cmd = [kernels._nvcc(), *kernels._flags("subm"), "-o", str(lib_path),
-           str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        sys.exit(f"nvcc {src} failed:\n{done.stdout}{done.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).subm_gather_gemm_fma
+    fn = kernels.build_variant(src, "subm_parent",
+                               "subm")[0].subm_gather_gemm_fma
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int

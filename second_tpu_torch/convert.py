@@ -27,13 +27,22 @@ tracker's tree (`second_tpu.models.joint_track.JointDetTrack`: the
 temporal tree under `detector`, the tracking heads `appearance`,
 `point_net`, `fusion`, `w_det` and `w_link` beside it) maps onto
 `models/joint_track.py`'s `detector.*` and the heads' names.
-Sparse kernels stay [K, Cin, Cout] in tap order; dense conv kernels go
+A sparse middle's blocks are numbered per class in flax (`SubMBlock_i`,
+`DownBlock_i`, `SparseBasicBlock_i` with `proj`, `kernel0/1` and
+`MaskedBatchNorm_0/1`, `SparseBottleneck_i` with `proj`,
+`kernel1x1_a`, `kernel3x3`, `kernel1x1_b` and `MaskedBatchNorm_0..2`) and
+map onto the port's ModuleList of that kind (`subm`, `down`, `res`,
+`bottleneck`); the VFE layers' trees (`VFELayer_i/DenseBNReLU_0`) onto
+`vfe.vfe_layers.i.dense`, the encoder's own `DenseBNReLU_i` onto
+`vfe.layers.i`.
+Sparse kernels stay [K, Cin, Cout] in tap order, 1x1 kernels [Cin, Cout];
+dense conv kernels go
 from HWIO to OIHW; transposed-conv kernels go from flax's (kh, kw, in,
 out), applied without a kernel transpose, to torch's (in, out, kh, kw)
-with the spatial axes flipped; the pillar encoder's Dense kernels go from
+with the spatial axes flipped; the encoders' Dense kernels go from
 [in, out] to [out, in]. A model whose encoder or middle has no parameters
-(VFE-V3, the PointPillars scatter) has no tree for it; the IoU head's tree,
-`params["iou"]`, is there only with the IoU branch.
+(VFE-V3, `SimpleVoxel`, the PointPillars scatter) has no tree for it; the
+IoU head's tree, `params["iou"]`, is there only with the IoU branch.
 """
 
 from __future__ import annotations
@@ -66,31 +75,56 @@ def _norm(out, name, params, stats):
         out[f"{name}.running_var"] = _t(stats["var"])
 
 
+# flax's per-class block names in a sparse middle → the port's ModuleLists
+_MIDDLE_BLOCKS = (("SubMBlock", "subm"), ("DownBlock", "down"),
+                  ("SparseBasicBlock", "res"),
+                  ("SparseBottleneck", "bottleneck"))
+# the residual blocks' kernels, by the same name in both trees
+_RESIDUAL_KERNELS = ("proj", "kernel0", "kernel1", "kernel1x1_a",
+                     "kernel3x3", "kernel1x1_b")
+
+
+def _dense(out, name, p, s):
+    """A `DenseBNReLU` tree (`Dense_0` [in, out] → [out, in], `BatchNorm_0`)
+    → the port's `DenseBNReLU` entries under `name`."""
+    out[f"{name}.linear.weight"] = _t(np.asarray(p["Dense_0"]["kernel"]).T)
+    _batch_norm(out, f"{name}.norm", p["BatchNorm_0"],
+                None if s is None else s["BatchNorm_0"])
+
+
+def _middle(out, name, mp, ms):
+    """A sparse middle's tree (params mp, batch stats ms or None) → the
+    port's entries under `name`: each per-class numbered block onto the
+    ModuleList of its kind (`_MIDDLE_BLOCKS`)."""
+    for kind, attr in _MIDDLE_BLOCKS:
+        for i, p in enumerate(_numbered(mp, kind)):
+            pre = f"{name}.{attr}.{i}"
+            s = None if ms is None else ms[f"{kind}_{i}"]
+            if "kernel" in p:
+                out[f"{pre}.weight"] = _t(p["kernel"])
+            for k in _RESIDUAL_KERNELS:
+                if k in p:
+                    out[f"{pre}.{k}"] = _t(p[k])
+            for j, bn in enumerate(_numbered(p, "MaskedBatchNorm")):
+                _norm(out, f"{pre}.bn" if "kernel" in p else f"{pre}.bn{j}",
+                      bn, None if s is None else s[f"MaskedBatchNorm_{j}"])
+
+
 def _convert(params, stats) -> dict:
     """params (and batch_stats, or None for a params-only tree) → port
     names."""
     out = {}
     vp = params.get("vfe", {})
     vs = None if stats is None else stats.get("vfe", {})
-    for i in range(len(_numbered(vp, "DenseBNReLU"))):
-        p = vp[f"DenseBNReLU_{i}"]
-        out[f"vfe.layers.{i}.linear.weight"] = _t(
-            np.asarray(p["Dense_0"]["kernel"]).T)
-        s = None if vs is None else vs[f"DenseBNReLU_{i}"]["BatchNorm_0"]
-        _norm(out, f"vfe.layers.{i}.norm", p["BatchNorm_0"], s)
-        if s is not None:
-            out[f"vfe.layers.{i}.norm.num_batches_tracked"] = torch.zeros(
-                (), dtype=torch.int64)
+    for i, p in enumerate(_numbered(vp, "VFELayer")):
+        _dense(out, f"vfe.vfe_layers.{i}.dense", p["DenseBNReLU_0"],
+               None if vs is None else vs[f"VFELayer_{i}"]["DenseBNReLU_0"])
+    for i, p in enumerate(_numbered(vp, "DenseBNReLU")):
+        _dense(out, f"vfe.layers.{i}", p,
+               None if vs is None else vs[f"DenseBNReLU_{i}"])
 
-    mp = params.get("middle", {})
-    ms = None if stats is None else stats.get("middle", {})
-    for kind, attr in (("SubMBlock", "subm"), ("DownBlock", "down")):
-        n = len(_numbered(mp, kind))
-        for i in range(n):
-            p = mp[f"{kind}_{i}"]
-            out[f"middle.{attr}.{i}.weight"] = _t(p["kernel"])
-            s = None if ms is None else ms[f"{kind}_{i}"]["MaskedBatchNorm_0"]
-            _norm(out, f"middle.{attr}.{i}.bn", p["MaskedBatchNorm_0"], s)
+    _middle(out, "middle", params.get("middle", {}),
+            None if stats is None else stats.get("middle", {}))
 
     tp = params["rpn"]["trunk"]
     ts = None if stats is None else stats.get("rpn", {}).get("trunk", {})

@@ -47,18 +47,25 @@
 //     leave as one contiguous run of float4 stores (the tile's output rows
 //     are contiguous in [B*Q, D]), full 128-byte lines.
 // W is taken packed as [K, CP, DP] (the wrapper pads C to CP in {4, 8, 16,
-// 32, 64} and D to a multiple of 8 with zeros; at the main path's widths it
-// is the weight tensor as it is).
+// 32, 64, 128} and D to a multiple of 8 with zeros; at the main path's
+// widths it is the weight tensor as it is). Both entries take C and D up to
+// 128 (SpMiddleFHDLarge's deep stages; VoxelFeatureExtractor's 128-wide
+// output into a middle's first conv).
 //
 // subm_gather_gemm_mma (bf16 features and weights): stages of KS = 64
-// columns, 64 / CP taps a stage (16 at C = 4, 4 at C = 16, 1 at C = 64), A
+// columns of the voted taps concatenated, 64 / CP taps a stage (16 at C =
+// 4, 4 at C = 16, 1 at C = 64, half of one at C = 128), A
 // [MT, 64] bf16 by 16-byte copies where C is a multiple of 8 (8 bytes at C =
 // 4, element by element otherwise); per k16 each warp loads two A fragments
 // (ldmatrix) and every B fragment once (ldmatrix.trans) and issues 2 x DP/8
 // mma.sync.m16n8k16 bf16 with fp32 accumulators. bf16 x bf16 products are
 // exact in fp32 and the sums stay fp32, so only the order of the sums
 // differs from the plain version. Row strides are padded by 16 bytes so
-// ldmatrix reads no bank twice. At most KMAX taps.
+// ldmatrix reads no bank twice. At most KMAX taps. A block makes at most
+// MMA_NT = 8 n-tiles (64 output columns); wider outputs split a tile's
+// columns evenly over blocks (blockIdx.y: 2 x 64 at D = 128, 2 x 48 at D =
+// 96), each gathering the same rows, rather than doubling each warp's
+// accumulators.
 //
 // subm_gather_gemm_fma (fp32 features and weights, any number of taps):
 // the port of the same Pallas kernel on an fp32 config, where it is the
@@ -115,6 +122,8 @@ constexpr int F_KS = 32;            // fp32 A columns per pipeline stage
 constexpr int F_A_LD = F_KS + 4;    // fp32 A row stride, floats (144 bytes)
 constexpr int F_STAGES = 3;         // fp32 ring: 2 blocks an SM
 constexpr int F_NT = 4;             // fp32: at most 32 output columns a block
+constexpr int MMA_NT = 8;           // bf16: at most 64 output columns a block
+constexpr int MAX_C = 128;          // input and output channels, both entries
 
 enum AMode { A_CP16 = 0, A_CP8 = 1, A_ELEM = 2 };
 
@@ -392,7 +401,9 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][NT][4],
 
 // ------------------------------------------------------ bf16 tensor cores
 
-// NT: n-tiles of 8 output columns, DP = 8 * NT. cp_shift = log2(CP).
+// NT: n-tiles of 8 output columns a block; the block makes columns d0 ..
+// d0 + 8 NT - 1 (d0 = 8 NT blockIdx.y) of the DP packed ones (DP a multiple
+// of 8; DP = 8 NT where one block makes them all). cp_shift = log2(CP).
 template <int NT>
 __global__ void __launch_bounds__(MMA_THREADS, 3)
     gather_gemm_mma_kernel(const __nv_bfloat16* __restrict__ feat,
@@ -400,8 +411,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
                            const uint8_t* __restrict__ found,
                            const __nv_bfloat16* __restrict__ w,
                            float* __restrict__ out, int B, int N, int Q, int K,
-                           int C, int cp_shift, int D, int a_mode) {
-  constexpr int DP = NT * 8;
+                           int C, int cp_shift, int D, int DP, int a_mode) {
   constexpr int W_LD = w_ld<NT>();
   static_assert(MT * out_ld<NT>() * 4 <= mma_smem_bytes<NT>(),
                 "the epilogue tile fits the ring");
@@ -421,7 +431,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
   const int m0 = blockIdx.x * MT;
   const int CP = 1 << cp_shift;
   const int rows = min(MT, M - m0);
-  float* o = out + (long long)m0 * D;     // 16-byte aligned: m0 % 128 == 0
+  const int d0 = blockIdx.y * NT * 8;
+  const int cols = min(NT * 8, D - d0);
+  // 16-byte aligned: m0 % 128 == 0 and d0 % 8 == 0
+  float* o = out + (long long)m0 * D + d0;
 
   // 0-1. the tile's rulebook: one group of K <= KMAX taps
   if (tid == 0) s_mask = 0;
@@ -432,26 +445,29 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
   const unsigned mask = s_mask;
   const int nact = __popc(mask);
   if (nact == 0) {                       // no tap found: zeros, no pipeline
-    zero_tile(o, rows, D, D);
+    zero_tile(o, rows, D, cols);
     return;
   }
   tap_rows(tap_idx, N, Q, 0, K, mask, s_off, s_boff, s_found, s_row, s_list);
   __syncthreads();
 
-  // 2. the pipeline over stages of 64 A columns (64 / CP voted taps each)
-  const int tps = KS >> cp_shift;
-  const int nst = (nact + tps - 1) / tps;
+  // 2. the pipeline over stages of 64 columns of the voted taps
+  // concatenated: column j is channel j % CP of voted tap j / CP, so a
+  // stage holds 64 / CP taps, or half of one at CP = 128
+  const int acols = nact << cp_shift;
+  const int nst = (acols + KS - 1) / KS;
 
   auto load = [&](int s, int buf) {
     __nv_bfloat16* as = s_a + buf * MT * A_LD;
     __nv_bfloat16* ws = s_w + buf * KS * W_LD;
-    const int a0 = s * tps;
+    const int j0 = s * KS;
     if (a_mode == A_CP16) {          // 8 units of 16 bytes a row
 #pragma unroll
       for (int i = 0; i < MT * 8 / MMA_THREADS; ++i) {
         const int u = tid + i * MMA_THREADS;
         const int r = u >> 3, col = (u & 7) * 8;
-        const int a = a0 + (col >> cp_shift), c = col & (CP - 1);
+        const int j = j0 + col;
+        const int a = j >> cp_shift, c = j & (CP - 1);
         const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
         cp_async16(as + r * A_LD + col,
                    row >= 0 ? feat + (long long)row * C + c : feat, row >= 0);
@@ -461,7 +477,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
       for (int i = 0; i < MT * 16 / MMA_THREADS; ++i) {
         const int u = tid + i * MMA_THREADS;
         const int r = u >> 4, col = (u & 15) * 4;
-        const int a = a0 + (col >> cp_shift), c = col & (CP - 1);
+        const int j = j0 + col;
+        const int a = j >> cp_shift, c = j & (CP - 1);
         const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
         cp_async8(as + r * A_LD + col,
                   row >= 0 ? feat + (long long)row * C + c : feat, row >= 0);
@@ -469,19 +486,23 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
     } else {                         // element by element
       for (int e = tid; e < MT * KS; e += MMA_THREADS) {
         const int r = e / KS, col = e % KS;
-        const int a = a0 + (col >> cp_shift), c = col & (CP - 1);
+        const int j = j0 + col;
+        const int a = j >> cp_shift, c = j & (CP - 1);
         const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
         as[r * A_LD + col] = row >= 0 ? feat[(long long)row * C + c]
                                       : __float2bfloat16(0.f);
       }
     }
-    // W: 64 rows (slot j, channel kk) of DP columns, NT units of 16 bytes
+    // W: 64 rows (column j of A: voted tap j / CP, channel j % CP) of the
+    // block's 8 NT columns, NT units of 16 bytes (zeros past DP)
     for (int u = tid; u < KS * NT; u += MMA_THREADS) {
       const int kr = u / NT, cu = u - kr * NT;
-      const int a = a0 + (kr >> cp_shift), kk = kr & (CP - 1);
-      const bool ok = a < nact;
+      const int j = j0 + kr;
+      const int a = j >> cp_shift, kk = j & (CP - 1);
+      const bool ok = a < nact && d0 + cu * 8 < DP;
       cp_async16(ws + kr * W_LD + cu * 8,
-                 ok ? w + ((long long)s_list[a] * CP + kk) * DP + cu * 8 : w,
+                 ok ? w + ((long long)s_list[a] * CP + kk) * DP + d0 + cu * 8
+                    : w,
                  ok);
     }
   };
@@ -508,8 +529,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
     const int buf = s % STAGES;
     const __nv_bfloat16* as = s_a + buf * MT * A_LD;
     const __nv_bfloat16* ws = s_w + buf * KS * W_LD;
-    const int used = min(tps, nact - s * tps);
-    const int ksteps = ((used << cp_shift) + 15) >> 4;
+    const int ksteps = (min(KS, acols - s * KS) + 15) >> 4;
 #pragma unroll
     for (int ks = 0; ks < KS / 16; ++ks) {
       if (ks >= ksteps) break;
@@ -540,7 +560,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
   }
   cp_async_wait<0>();
   __syncthreads();
-  store_tile<NT>(acc, reinterpret_cast<float*>(smem), o, rows, D, D);
+  store_tile<NT>(acc, reinterpret_cast<float*>(smem), o, rows, D, cols);
 }
 
 // --------------------------------------- fp32 on TF32 tensor cores (3xTF32)
@@ -743,22 +763,24 @@ cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
   return e;
 }
 
+// NT n-tiles a block, `splits` blocks across the columns of a tile.
 template <int NT>
 cudaError_t launch_mma(const void* feat, const void* tap_idx,
                        const void* found, const void* w, void* out, int B,
                        int N, int Q, int K, int C, int cp_shift, int D,
-                       int a_mode, cudaStream_t stream) {
+                       int DP, int splits, int a_mode, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<NT>();
   static bool configured = false;
   cudaError_t e = configure(gather_gemm_mma_kernel<NT>, smem, configured);
   if (e != cudaSuccess) return e;
-  const unsigned blocks = (unsigned)(((long long)B * Q + MT - 1) / MT);
+  const dim3 blocks((unsigned)(((long long)B * Q + MT - 1) / MT),
+                    (unsigned)splits);
   gather_gemm_mma_kernel<NT><<<blocks, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(feat),
       static_cast<const int32_t*>(tap_idx),
       static_cast<const uint8_t*>(found),
       static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out), B, N, Q,
-      K, C, cp_shift, D, a_mode);
+      K, C, cp_shift, D, DP, a_mode);
   return cudaGetLastError();
 }
 
@@ -783,8 +805,8 @@ cudaError_t launch_tf32(const void* feat, const void* tap_idx,
 
 bool widths_ok(const void* w, const void* out, int B, int N, int Q, int K,
                int C, int cp_shift, int D) {
-  return C >= 1 && C <= 64 && D >= 1 && D <= 64 && K >= 1 && cp_shift >= 2 &&
-         cp_shift <= 6 && (1 << cp_shift) >= C &&
+  return C >= 1 && C <= MAX_C && D >= 1 && D <= MAX_C && K >= 1 &&
+         cp_shift >= 2 && cp_shift <= 7 && (1 << cp_shift) >= C &&
          (long long)B * Q < (1LL << 31) && (long long)B * N < (1LL << 31) &&
          !((uintptr_t)w & 15) && !((uintptr_t)out & 15);
 }
@@ -792,7 +814,8 @@ bool widths_ok(const void* w, const void* out, int B, int N, int Q, int K,
 }  // namespace
 
 // bf16 features [B, N, C] and packed weights [K, CP, DP] (CP = 1 << cp_shift
-// in 4..64, at least C; DP = D rounded up to 8), K <= 32, tensor cores.
+// in 4..128, at least C; DP = D rounded up to 8; C, D <= 128), K <= 32,
+// tensor cores.
 extern "C" int subm_gather_gemm_mma(const void* feat, const void* tap_idx,
                                     const void* found, const void* w,
                                     void* out, int B, int N, int Q, int K,
@@ -805,12 +828,15 @@ extern "C" int subm_gather_gemm_mma(const void* feat, const void* tap_idx,
                      : (C % 4 == 0 && !(fa & 7)) ? A_CP8
                                                  : A_ELEM;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // up to MMA_NT n-tiles a block; wider outputs split evenly over blocks
+  const int nt = (D + 7) / 8, DP = 8 * nt;
+  const int splits = (nt + MMA_NT - 1) / MMA_NT;
   cudaError_t e;
-  switch ((D + 7) / 8) {
-#define SUBM_MMA_CASE(nt)                                                    \
-  case nt:                                                                   \
-    e = launch_mma<nt>(feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, \
-                       D, a_mode, s);                                        \
+  switch ((nt + splits - 1) / splits) {
+#define SUBM_MMA_CASE(n)                                                     \
+  case n:                                                                    \
+    e = launch_mma<n>(feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, \
+                      D, DP, splits, a_mode, s);                             \
     break;
     SUBM_MMA_CASE(1)
     SUBM_MMA_CASE(2)

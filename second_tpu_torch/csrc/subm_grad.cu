@@ -23,8 +23,15 @@
 // (scripts/torch_gather_smem.py), whatever the copy: 16-byte cp.async, one
 // cp.async.bulk a row, or vector loads.
 //
-// Design (one launch a call). A block owns one tap k and a chunk of the
-// batch-flattened rows m = b*Q + q (a chunk may span examples). The
+// Design (one launch a call). A block owns one tap k, a chunk of the
+// batch-flattened rows m = b*Q + q (a chunk may span examples) and one
+// tile of at most 64 x 64 of the tap's [C, D] (blockIdx.z; one tile where
+// C and D are at most 64, up to four at 128 x 128: each tile's blocks scan
+// the found bytes and gather their own columns of the rows again). Whether
+// a call is tiled is a template argument (WIDE): where C and D are at most
+// 64 the tile's origin, widths and strides are the call's own, known to
+// the compiler as such, and the narrow calls of every train step take the
+// time they took before the tiling (scripts/torch_wide_kernels.py). The
 // chunking depends on the shapes and the card only (ops/cuda/subm.py
 // wgrad_chunks): about two waves of three 256-thread blocks an SM, so
 // that the card's block scheduler evens out taps that find many more rows
@@ -84,7 +91,8 @@
 //       train step's calls, on an NVIDIA H100 80GB HBM3 at 700 W
 //       (chip_smoke.py, which holds it to at most twice).
 //  4. The sum over chunks, in the same launch and without atomics in any
-//     sum: each block writes its [C, D] sum to partial[k, chunk] and its
+//     sum, for each tile on its own: each block writes its tile's sum to
+//     its slot of partial[k] and its
 //     used flag, fences, and takes a ticket from its group's counter (groups
 //     of 8 consecutive chunks); the block that takes the group's last ticket
 //     sums the group's used partials in chunk order, then takes a ticket
@@ -109,6 +117,8 @@ constexpr int RING_BYTES = 56 * 1024;      // 4 stages where they fit, else 3
 constexpr int MAX_CHUNKS = WIN;            // the last block lists the used flags
 constexpr int GROUP = 8;                   // chunks a group of the sum
 constexpr int MAX_ORDERED_TAPS = 64;       // taps the grid can reorder
+constexpr int TILE_W = 64;                 // a block's [C, D] tile: 64 x 64
+constexpr int MAX_C = 128;                 // input and output channels
 
 struct Args {
   const void* feat;
@@ -125,6 +135,10 @@ struct Args {
   int chunk_rows, stages;
   int tap_order[MAX_ORDERED_TAPS];  // the tap of each grid row, K <= 64
   int f_unit, g_unit;  // bytes a copy of a feature / dout row: 16, 8, 4, 2
+  // a tiled call's: last, after the fields every call reads (placed before
+  // chunk_rows they cost the untiled bf16 calls some 4% on an H100,
+  // scripts/torch_wide_kernels.py)
+  int CB, DB, TD;      // the widest tile's C and D (<= 64), tiles across D
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -254,21 +268,23 @@ __device__ __forceinline__ void block_prefix(int cnt, int* s_warp, int& pos,
   }
 }
 
-// Copies the rows idx[i0 .. i0 + TILE) (zeros from i = n on) of src [*,
-// width] into a [TILE, ld_bytes] stage.
+// Copies `width` columns of the rows idx[i0 .. i0 + TILE) (zeros from i = n
+// on) of src [*, src_ld] into a [TILE, ld_bytes] stage.
 template <int TILE, class T>
 __device__ __forceinline__ void issue_rows(unsigned char* dst, int ld_bytes,
                                            const T* __restrict__ src,
-                                           int width, int unit,
+                                           int src_ld, int width, int unit,
                                            const int* idx, int i0, int n) {
   const int row_bytes = width * (int)sizeof(T);
+  const int src_bytes = src_ld * (int)sizeof(T);
   if (unit >= 4) {
     const int per = row_bytes / unit;
     for (int w = threadIdx.x; w < TILE * per; w += THREADS) {
       const int r = w / per, u = w - r * per;
       const bool ok = i0 + r < n;
       const char* s = reinterpret_cast<const char*>(src) +
-                      (ok ? (long long)idx[i0 + r] * row_bytes + u * unit : 0);
+                      (ok ? (long long)idx[i0 + r] * src_bytes + u * unit
+                          : 0);
       cp_async(dst + r * ld_bytes + u * unit, s, unit, ok);
     }
   } else {
@@ -276,7 +292,7 @@ __device__ __forceinline__ void issue_rows(unsigned char* dst, int ld_bytes,
     const int ld = ld_bytes / (int)sizeof(T);
     for (int w = threadIdx.x; w < TILE * width; w += THREADS) {
       const int r = w / width, c = w - r * width;
-      d[r * ld + c] = i0 + r < n ? src[(long long)idx[i0 + r] * width + c]
+      d[r * ld + c] = i0 + r < n ? src[(long long)idx[i0 + r] * src_ld + c]
                                  : zero_of<T>();
     }
   }
@@ -292,6 +308,7 @@ template <int MTC, int NT>
 struct MmaPath {
   using T = __nv_bfloat16;
   static constexpr int MIN_BLOCKS = 3;
+  static constexpr int MIN_BLOCKS_WIDE = 3;
   static constexpr bool ZERO_RING = true;       // padded channels read as 0
   static constexpr int TILE = MTC == 1 ? 128 : 64;   // found rows a tile
   static constexpr int CP = MTC * 16, DP = NT * 8;
@@ -310,7 +327,7 @@ struct MmaPath {
 
   float acc[NT][4];
 
-  __device__ void init(int, int) {
+  __device__ void init(int, int, int, int) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -342,9 +359,12 @@ struct MmaPath {
     }
   }
 
-  // the block's [C, D] sum to dst: the row shares' tiles summed in warp
-  // order through shared memory (the ring, drained)
-  __device__ void finish(unsigned char* smem, float* dst, int C, int D) {
+  // the block's [C, D] sum to dst (row stride ld where STRIDED, else D):
+  // the row shares' tiles summed in warp order through shared memory (the
+  // ring, drained)
+  template <bool STRIDED>
+  __device__ void finish(unsigned char* smem, float* dst, int C, int D,
+                         int ld) {
     float* s_r = reinterpret_cast<float*>(smem);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int ct = warp % MTC, wk = warp / MTC;
@@ -373,7 +393,7 @@ struct MmaPath {
     }
     for (int e = threadIdx.x; e < C * D; e += THREADS) {
       const int c = e / D;
-      dst[e] = s_r[c * R_LD + (e - c * D)];
+      dst[STRIDED ? c * ld + (e - c * D) : e] = s_r[c * R_LD + (e - c * D)];
     }
   }
 };
@@ -383,6 +403,12 @@ struct MmaPath {
 struct FmaPath {
   using T = float;
   static constexpr int MIN_BLOCKS = 2;
+  // a tiled call: one block an SM, so up to 255 registers. Its ring of
+  // three 32 KB stages leaves room for two blocks at most, and at the
+  // 128-register cap of two the product loop of the 128 x 128 calls ran
+  // about 40% slower than with one block and 168 registers, on an H100
+  // (scripts/torch_wide_kernels.py)
+  static constexpr int MIN_BLOCKS_WIDE = 1;
   static constexpr bool ZERO_RING = false;  // only the real rows are read
   static constexpr int TILE = 64;           // found rows a tile
   static constexpr int J = 64 * 64 / THREADS;   // outputs a thread
@@ -397,9 +423,10 @@ struct FmaPath {
   int of[J], og[J];     // the outputs' channel c and column d
   int fl, gl;           // row strides of the stage, floats
 
-  __device__ void init(int C, int D) {
-    fl = f_ld_bytes(C) / 4;
-    gl = g_ld_bytes(D) / 4;
+  // C x D outputs; the stage holds rows of CB and DB columns
+  __device__ void init(int C, int D, int CB, int DB) {
+    fl = f_ld_bytes(CB) / 4;
+    gl = g_ld_bytes(DB) / 4;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int e = min((int)threadIdx.x + j * THREADS, C * D - 1);
@@ -431,11 +458,12 @@ struct FmaPath {
     }
   }
 
-  __device__ void finish(unsigned char*, float* dst, int C, int D) {
+  template <bool STRIDED>
+  __device__ void finish(unsigned char*, float* dst, int C, int D, int ld) {
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int e = threadIdx.x + j * THREADS;
-      if (e < C * D) dst[e] = acc[j];
+      if (e < C * D) dst[STRIDED ? of[j] * ld + og[j] : e] = acc[j];
     }
   }
 };
@@ -461,15 +489,18 @@ __device__ __forceinline__ float4 vzero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// out[i] = the sum over the used chunks c of base[c * n + i], in an order
-// fixed by n and chunks: where n < THREADS the block's threads form G groups
-// that each sum a run of consecutive chunks in chunk order, and the groups'
-// sums are added in group order (s_part holds them); else one group, J
-// columns a thread. UNROLL chunks' loads are in flight at a time.
-template <class V, int J, int UNROLL>
+// out[at(i)] = the sum over the used chunks c of base[c * n + i], in an
+// order fixed by n and chunks: where n < THREADS the block's threads form G
+// groups that each sum a run of consecutive chunks in chunk order, and the
+// groups' sums are added in group order (s_part holds them); else one
+// group, J columns a thread. UNROLL chunks' loads are in flight at a time.
+// Where STRIDED, the sum is a [n / w, w] tile, written to rows of stride
+// ld; else out[i].
+template <class V, int J, int UNROLL, bool STRIDED>
 __device__ __forceinline__ void sum_chunks(const V* base, V* out, int n,
-                                           int chunks, const int* s_used,
-                                           V* s_part) {
+                                           int w, int ld, int chunks,
+                                           const int* s_used, V* s_part) {
+  auto at = [&](int i) { return STRIDED ? i / w * ld + i % w : i; };
   const int span = min(n, THREADS);       // threads a group
   const int G = max(1, min(THREADS / span, chunks));
   const int g = threadIdx.x / span, col = threadIdx.x - g * span;
@@ -502,7 +533,7 @@ __device__ __forceinline__ void sum_chunks(const V* base, V* out, int n,
     if (g == 0)
 #pragma unroll
       for (int j = 0; j < J; ++j)
-        if (col + j * span < n) out[col + j * span] = s[j];
+        if (col + j * span < n) out[at(col + j * span)] = s[j];
     return;
   }
   if (g < G) s_part[g * n + col] = s[0];   // n < THREADS: one column
@@ -510,7 +541,7 @@ __device__ __forceinline__ void sum_chunks(const V* base, V* out, int n,
   if (g == 0) {
     V t = s_part[col];
     for (int h = 1; h < G; ++h) add(t, s_part[h * n + col]);
-    out[col] = t;
+    out[at(col)] = t;
   }
 }
 
@@ -529,29 +560,41 @@ __device__ __forceinline__ bool last_to_arrive(int* ticket, int count,
 }
 
 // out = the sum of the used ones of n [C, D] partials at base (used flags
-// at used), in a fixed order (sum_chunks); whether any was used. s_used and
-// s_part are shared scratch of n ints and THREADS float4s.
+// at used), in a fixed order (sum_chunks), written to rows of stride ld
+// where STRIDED (a tile of a wider dW), else contiguous; whether any was
+// used. s_used and s_part are shared scratch of n ints and THREADS
+// float4s.
+template <bool STRIDED>
 __device__ __forceinline__ bool sum_partials(const float* base,
                                              const int32_t* used, int n,
-                                             int CD, float* out, int* s_used,
-                                             int* s_part) {
+                                             int C, int D, int ld, float* out,
+                                             int* s_used, int* s_part) {
   for (int c = threadIdx.x; c < n; c += THREADS) s_used[c] = __ldcg(used + c);
   __syncthreads();
-  if (CD % 4 == 0) {
+  const int CD = C * D;
+  // float4s where every row of the tile starts 16-byte aligned
+  const bool vec = CD % 4 == 0 &&
+                   (!STRIDED || (D % 4 == 0 && ld % 4 == 0 &&
+                                 !((uintptr_t)base & 15) &&
+                                 !((uintptr_t)out & 15)));
+  if (vec) {
     const float4* b4 = reinterpret_cast<const float4*>(base);
     float4* o4 = reinterpret_cast<float4*>(out);
     float4* part = reinterpret_cast<float4*>(s_part);
     if (CD / 4 > THREADS)
-      sum_chunks<float4, 64 * 64 / 4 / THREADS, 4>(b4, o4, CD / 4, n, s_used,
-                                                   part);
+      sum_chunks<float4, TILE_W * TILE_W / 4 / THREADS, 4, STRIDED>(
+          b4, o4, CD / 4, D / 4, ld / 4, n, s_used, part);
     else
-      sum_chunks<float4, 1, 8>(b4, o4, CD / 4, n, s_used, part);
+      sum_chunks<float4, 1, 8, STRIDED>(b4, o4, CD / 4, D / 4, ld / 4, n,
+                                        s_used, part);
   } else {
     float* part = reinterpret_cast<float*>(s_part);
     if (CD > THREADS)
-      sum_chunks<float, 64 * 64 / THREADS, 1>(base, out, CD, n, s_used, part);
+      sum_chunks<float, TILE_W * TILE_W / THREADS, 1, STRIDED>(
+          base, out, CD, D, ld, n, s_used, part);
     else
-      sum_chunks<float, 1, 8>(base, out, CD, n, s_used, part);
+      sum_chunks<float, 1, 8, STRIDED>(base, out, CD, D, ld, n, s_used,
+                                       part);
   }
   bool any = false;
   for (int c = 0; c < n; ++c) any |= s_used[c] != 0;
@@ -561,14 +604,17 @@ __device__ __forceinline__ bool sum_partials(const float* base,
 
 // ------------------------------------------------------------- the kernel
 
-template <class P>
-__global__ void __launch_bounds__(THREADS, P::MIN_BLOCKS)
+template <class P, bool WIDE>
+__global__ void __launch_bounds__(THREADS,
+                                  WIDE ? P::MIN_BLOCKS_WIDE : P::MIN_BLOCKS)
     wgrad_kernel(const Args a) {
   using T = typename P::T;
   constexpr int TILE = P::TILE;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int stage_bytes = P::stage_bytes(a.C, a.D);
-  const int f_ld = P::f_ld_bytes(a.C), g_ld = P::g_ld_bytes(a.D);
+  // the stage's row widths: a tile's where the call is tiled, else C, D
+  const int CB = WIDE ? a.CB : a.C, DB = WIDE ? a.DB : a.D;
+  const int stage_bytes = P::stage_bytes(CB, DB);
+  const int f_ld = P::f_ld_bytes(CB), g_ld = P::g_ld_bytes(DB);
   unsigned char* ring = smem;
   int* s_m = reinterpret_cast<int*>(smem + a.stages * stage_bytes);
   int* s_row = s_m + WIN;
@@ -581,9 +627,16 @@ __global__ void __launch_bounds__(THREADS, P::MIN_BLOCKS)
   const int k = a.K <= MAX_ORDERED_TAPS ? a.tap_order[blockIdx.y] : blockIdx.y;
   const int m_begin = chunk * a.chunk_rows;
   const int m_end = min(a.B * a.Q, m_begin + a.chunk_rows);
+  // the block's tile of dW[k]: channels c0 .. c0 + Cl - 1, columns d0 ..
+  // d0 + Dl - 1 (all of it where the call is not tiled)
+  const int tile = WIDE ? blockIdx.z : 0, ntiles = WIDE ? gridDim.z : 1;
+  const int c0 = WIDE ? tile / a.TD * TILE_W : 0;
+  const int d0 = WIDE ? tile % a.TD * TILE_W : 0;
+  const int Cl = WIDE ? min(TILE_W, a.C - c0) : a.C;
+  const int Dl = WIDE ? min(TILE_W, a.D - d0) : a.D;
 
   P path;
-  path.init(a.C, a.D);
+  path.init(Cl, Dl, CB, DB);
   if (P::ZERO_RING)
     for (int i = tid; i < a.stages * stage_bytes / 16; i += THREADS)
       reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
@@ -637,9 +690,10 @@ __global__ void __launch_bounds__(THREADS, P::MIN_BLOCKS)
     const int tiles = (n + TILE - 1) / TILE;
     auto issue = [&](int t) {
       unsigned char* st = ring + (t % a.stages) * stage_bytes;
-      issue_rows<TILE>(st, f_ld, feat, a.C, a.f_unit, s_row, t * TILE, n);
-      issue_rows<TILE>(st + TILE * f_ld, g_ld, dout, a.D, a.g_unit, s_m,
+      issue_rows<TILE>(st, f_ld, feat + c0, a.C, Cl, a.f_unit, s_row,
                        t * TILE, n);
+      issue_rows<TILE>(st + TILE * f_ld, g_ld, dout + d0, a.D, Dl, a.g_unit,
+                       s_m, t * TILE, n);
     };
     for (int t = 0; t < a.stages - 1; ++t) {
       if (t < tiles) issue(t);
@@ -660,43 +714,52 @@ __global__ void __launch_bounds__(THREADS, P::MIN_BLOCKS)
     __syncthreads();                      // the lists and the ring are free
   }
 
-  const int CD = a.C * a.D;
-  if (chunks == 1) {                      // the block is the tap's sum
-    float* dst = a.dw + (long long)k * CD;
+  // dW[k]'s tile, rows of stride D; a (tap, tile)'s partials, each a
+  // contiguous [Cl, Dl], lie together in the tap's [chunks, C, D] (or
+  // [groups, C, D]) scratch, after those of the tiles before it
+  const long long CD = (long long)a.C * a.D;
+  const int CDl = Cl * Dl;
+  const long long before = (long long)c0 * a.D + (long long)Cl * d0;
+  float* dst = a.dw + k * CD + (long long)c0 * a.D + d0;
+  const int kt = k * ntiles + tile;       // the (tap, tile)'s flags, tickets
+  if (chunks == 1) {                      // the block is the tile's sum
     if (any)
-      path.finish(smem, dst, a.C, a.D);
+      path.template finish<WIDE>(smem, dst, Cl, Dl, a.D);
     else
-      for (int e = tid; e < CD; e += THREADS) dst[e] = 0.f;
+      for (int e = tid; e < CDl; e += THREADS)
+        dst[WIDE ? e / Dl * a.D + e % Dl : e] = 0.f;
     return;
   }
-  if (any) path.finish(smem, a.partial + ((long long)k * chunks + chunk) * CD,
-                       a.C, a.D);
-  if (tid == 0) a.used[k * chunks + chunk] = any;
+  float* part = a.partial + k * chunks * CD + chunks * before;
+  if (any)
+    path.template finish<false>(smem, part + (long long)chunk * CDl, Cl, Dl,
+                                Dl);
+  if (tid == 0) a.used[kt * chunks + chunk] = any;
 
   // the last block of the chunk's group sums the group's partials in chunk
-  // order into the group's partial; the last group of the tap sums the
-  // groups' partials in group order into dW[k]
+  // order into the group's partial; the last group of the (tap, tile) sums
+  // the groups' partials in group order into dW[k]'s tile
   const int groups = (chunks + GROUP - 1) / GROUP, g = chunk / GROUP;
   const int g0 = g * GROUP, gn = min(chunks, g0 + GROUP) - g0;
-  int* tickets = a.counter + (long long)k * (groups + 1);
+  int* tickets = a.counter + (long long)kt * (groups + 1);
   if (!last_to_arrive(tickets + g, gn, s_warp + WARPS)) return;
-  float* gsum = groups == 1 ? a.dw + (long long)k * CD
-                            : a.gpartial + ((long long)k * groups + g) * CD;
-  const bool used = sum_partials(a.partial + ((long long)k * chunks + g0) * CD,
-                                 a.used + k * chunks + g0, gn, CD, gsum, s_m,
-                                 s_row);
+  float* gpart = a.gpartial + k * groups * CD + groups * before;
+  float* gsum = groups == 1 ? dst : gpart + (long long)g * CDl;
+  const bool used = sum_partials<WIDE>(
+      part + (long long)g0 * CDl, a.used + kt * chunks + g0, gn, Cl, Dl,
+      groups == 1 ? a.D : Dl, gsum, s_m, s_row);
   if (tid == 0) tickets[g] = 0;           // ready for the next call
   if (groups == 1) return;
-  if (tid == 0) a.gused[k * groups + g] = used;
+  if (tid == 0) a.gused[kt * groups + g] = used;
   if (!last_to_arrive(tickets + groups, groups, s_warp + WARPS)) return;
-  sum_partials(a.gpartial + (long long)k * groups * CD, a.gused + k * groups,
-               groups, CD, a.dw + (long long)k * CD, s_m, s_row);
+  sum_partials<WIDE>(gpart, a.gused + kt * groups, groups, Cl, Dl, a.D, dst,
+                     s_m, s_row);
   if (tid == 0) tickets[groups] = 0;
 }
 
-template <class P>
-cudaError_t launch(Args a, int chunks, cudaStream_t stream) {
-  const int stage_bytes = P::stage_bytes(a.C, a.D);
+template <class P, bool WIDE>
+cudaError_t launch(Args a, int chunks, int tiles, cudaStream_t stream) {
+  const int stage_bytes = P::stage_bytes(a.CB, a.DB);
   a.stages = 4 * stage_bytes <= RING_BYTES ? 4 : 3;
   const int smem =
       a.stages * stage_bytes + (2 * WIN + WARPS + 1) * (int)sizeof(int);
@@ -704,39 +767,66 @@ cudaError_t launch(Args a, int chunks, cudaStream_t stream) {
   if (smem > configured) {
     // above 48 KB only on request; all of the SM's memory to shared
     cudaError_t e = cudaFuncSetAttribute(
-        wgrad_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        wgrad_kernel<P, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(wgrad_kernel<P>,
+      e = cudaFuncSetAttribute(wgrad_kernel<P, WIDE>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  wgrad_kernel<P><<<dim3(chunks, a.K), THREADS, smem, stream>>>(a);
+  wgrad_kernel<P, WIDE>
+      <<<dim3(chunks, a.K, tiles), THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int MTC>
-cudaError_t launch_mma(int nt, const Args& a, int chunks, cudaStream_t s) {
+// a tiled call's tiles are 64 channels tall (MTC = 4) unless C is at most
+// 64, and then 64 columns wide (NT = 8): no other tiled path is built
+template <int MTC, int NT, bool WIDE>
+cudaError_t launch_mma_path(const Args& a, int chunks, int tiles,
+                            cudaStream_t s) {
+  if constexpr (WIDE && MTC < 4 && NT < 8)
+    return cudaErrorInvalidValue;
+  else
+    return launch<MmaPath<MTC, NT>, WIDE>(a, chunks, tiles, s);
+}
+
+template <int MTC, bool WIDE>
+cudaError_t launch_mma(int nt, const Args& a, int chunks, int tiles,
+                       cudaStream_t s) {
   switch (nt) {
     case 2:
-      return launch<MmaPath<MTC, 2>>(a, chunks, s);
+      return launch_mma_path<MTC, 2, WIDE>(a, chunks, tiles, s);
     case 4:
-      return launch<MmaPath<MTC, 4>>(a, chunks, s);
+      return launch_mma_path<MTC, 4, WIDE>(a, chunks, tiles, s);
     case 6:
-      return launch<MmaPath<MTC, 6>>(a, chunks, s);
+      return launch_mma_path<MTC, 6, WIDE>(a, chunks, tiles, s);
     case 8:
-      return launch<MmaPath<MTC, 8>>(a, chunks, s);
+      return launch_mma_path<MTC, 8, WIDE>(a, chunks, tiles, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// the widest copy (16, 8 or 4 bytes) that tiles a row and its alignment; 2
-// (element by element) where none does
-int copy_unit(int row_bytes, const void* p) {
+template <bool WIDE>
+cudaError_t launch_paths(int mma, const Args& a, int chunks, int tiles,
+                         cudaStream_t s) {
+  if (!mma) return launch<FmaPath, WIDE>(a, chunks, tiles, s);
+  const int nt = (a.DB + 15) / 16 * 2;
+  return a.CB <= 16   ? launch_mma<1, WIDE>(nt, a, chunks, tiles, s)
+         : a.CB <= 32 ? launch_mma<2, WIDE>(nt, a, chunks, tiles, s)
+                      : launch_mma<4, WIDE>(nt, a, chunks, tiles, s);
+}
+
+// the widest copy (16, 8 or 4 bytes) that tiles a row of `width` elements
+// of `esz` bytes, each tile's columns of it (a tile starts at a multiple of
+// TILE_W) and its alignment; 2 (element by element) where none does
+int copy_unit(int width, int esz, const void* p) {
+  const int edge = width % TILE_W;
   for (int u = 16; u >= 4; u /= 2)
-    if (row_bytes % u == 0 && reinterpret_cast<uintptr_t>(p) % u == 0)
+    if ((width * esz) % u == 0 && (edge * esz) % u == 0 &&
+        (TILE_W * esz) % u == 0 && reinterpret_cast<uintptr_t>(p) % u == 0)
       return u;
   return 2;
 }
@@ -745,9 +835,10 @@ int copy_unit(int row_bytes, const void* p) {
 
 // dW [K, C, D] fp32 of features [B, N, C] and dout [B, Q, D], both bf16
 // (mma = 1, tensor cores) or both fp32 (mma = 0, CUDA cores), over the
-// rulebook tap_idx/found [B, K, Q]. partial [K, chunks, C, D] fp32, used
-// [K, chunks] int32, gpartial [K, groups, C, D] fp32 and gused [K, groups]
-// int32 (groups = ceil(chunks / 8)) are scratch; counter [K, groups + 1]
+// rulebook tap_idx/found [B, K, Q], C and D up to 128. With T tiles of
+// [C, D] (64 x 64 blocks), partial [K, chunks, C, D] fp32, used [K, T,
+// chunks] int32, gpartial [K, groups, C, D] fp32 and gused [K, T, groups]
+// int32 (groups = ceil(chunks / 8)) are scratch; counter [K, T, groups + 1]
 // int32 must be 0 and is left 0 (calls that share it run one after
 // another, on one stream). chunk_rows (a multiple of 16) rows a block,
 // chunks * chunk_rows >= B * Q.
@@ -758,7 +849,7 @@ extern "C" int subm_wgrad(int mma, const void* feat, const void* tap_idx,
                           int C, int D, int chunk_rows, int chunks,
                           void* stream) {
   const long long M = (long long)B * Q;
-  if (C < 1 || C > 64 || D < 1 || D > 64 || K < 1 || K > 65535 ||
+  if (C < 1 || C > MAX_C || D < 1 || D > MAX_C || K < 1 || K > 65535 ||
       chunk_rows < 16 || chunk_rows % 16 || chunks < 1 ||
       chunks > MAX_CHUNKS || chunks > 65535 ||
       (long long)chunks * chunk_rows < M ||
@@ -778,6 +869,10 @@ extern "C" int subm_wgrad(int mma, const void* feat, const void* tap_idx,
   a.counter = static_cast<int32_t*>(counter);
   a.dw = static_cast<float*>(dw);
   a.B = B, a.N = N, a.Q = Q, a.K = K, a.C = C, a.D = D;
+  a.CB = C < TILE_W ? C : TILE_W;
+  a.DB = D < TILE_W ? D : TILE_W;
+  a.TD = (D + TILE_W - 1) / TILE_W;
+  const int tiles = (C + TILE_W - 1) / TILE_W * a.TD;
   a.chunk_rows = chunk_rows;
   // the grid's rows take the taps centre out (a submanifold conv's centre
   // tap finds every active row, its face neighbours the most after it), so
@@ -805,15 +900,11 @@ extern "C" int subm_wgrad(int mma, const void* feat, const void* tap_idx,
   }
   a.stages = 3;                           // set by launch<P>
   const int esz = mma ? 2 : 4;
-  a.f_unit = copy_unit(C * esz, feat);
-  a.g_unit = copy_unit(D * esz, dout);
+  a.f_unit = copy_unit(C, esz, feat);
+  a.g_unit = copy_unit(D, esz, dout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!mma) return (int)launch<FmaPath>(a, chunks, s);
-  const int nt = (D + 15) / 16 * 2;
-  const cudaError_t e = C <= 16   ? launch_mma<1>(nt, a, chunks, s)
-                        : C <= 32 ? launch_mma<2>(nt, a, chunks, s)
-                                  : launch_mma<4>(nt, a, chunks, s);
-  return (int)e;
+  return (int)(tiles > 1 ? launch_paths<true>(mma, a, chunks, tiles, s)
+                         : launch_paths<false>(mma, a, chunks, tiles, s));
 }
 
 extern "C" const char* subm_grad_error_string(int e) {

@@ -20,7 +20,15 @@ from ..config import schema
 from ..core.anchors import build_box_coder, build_target_assigner
 from ..device import resolve_device
 from .detector import VoxelNet, build_detector_spec
-from .sparse_middle import DownBlock, MaskedBatchNorm, SubMBlock
+from .middle import MIDDLE_REGISTRY
+from .sparse_middle import (DownBlock, MaskedBatchNorm, SparseBasicBlock,
+                            SparseBottleneck, SubMBlock)
+from .voxel_encoder import VFE_REGISTRY
+
+# the middles that compute in bf16 under mixed precision, as JAX's
+# `build_voxelnet` has it (`second_tpu/models/build.py:71-75`); the stack
+# middles stay fp32
+BF16_MIDDLES = ("SpMiddleFHD", "SpMiddleFHDLite", "SpMiddleResNetFHD")
 
 
 @dataclasses.dataclass
@@ -53,9 +61,10 @@ def build_voxelnet(cfg: schema.ModelConfig, device="cuda",
     is in eval mode on `device` (the CUDA card unless the caller asks for
     the CPU), with weights drawn by `init_weights_` from `seed`.
 
-    Under `mixed_precision` the sparse middle and the RPN trunk compute in
-    bf16 (sparse-conv sums and normalisation stay fp32, the heads fp32); the
-    pillar encoder and the scatter stay fp32."""
+    Under `mixed_precision` the RPN trunk and the middles of
+    `BF16_MIDDLES` compute in bf16 (sparse-conv sums and normalisation stay
+    fp32, the heads fp32); the encoders, the stack middles and the scatter
+    stay fp32."""
     dev = resolve_device(device)
     args, info, target_assigner, box_coder = voxelnet_args(cfg,
                                                            mixed_precision)
@@ -77,26 +86,52 @@ def voxelnet_args(cfg: schema.ModelConfig, mixed_precision: bool = False):
     num_anchor_per_loc = target_assigner.num_anchors_per_location
 
     dtype = torch.bfloat16 if mixed_precision else None
-    middle_name = cfg.middle_feature_extractor.module_class_name
+    vfe_name = cfg.voxel_feature_extractor.module_class_name
+    if vfe_name not in VFE_REGISTRY:
+        raise ValueError(f"unknown voxel encoder {vfe_name!r}; registered: "
+                         f"{sorted(VFE_REGISTRY)}")
+    vfe_cls = VFE_REGISTRY[vfe_name]
+    vfe_kwargs = {
+        "num_filters": tuple(cfg.voxel_feature_extractor.num_filters),
+        "with_distance": cfg.voxel_feature_extractor.with_distance,
+    }
+    if vfe_cls.takes_point_width:
+        vfe_kwargs["num_input_features"] = cfg.num_point_features
+    if vfe_name == "PillarFeatureNet":
+        # fp32, as in JAX: `build_voxelnet` gives the encoder no dtype
+        vfe_kwargs["voxel_size"] = tuple(vg.voxel_size)
+        vfe_kwargs["pc_range"] = tuple(vg.point_cloud_range)
+    # the middle's input width is the encoder's output, as flax infers it
+    vfe_out = vfe_cls.out_width(vfe_kwargs["num_filters"],
+                                cfg.num_point_features)
+    mcfg = cfg.middle_feature_extractor
+    middle_name = mcfg.module_class_name
     if middle_name == "PointPillarsScatter":
         middle_downsample = 1
         middle_kwargs = {
             "output_shape": (ny, nx),
             "num_input_features": cfg.voxel_feature_extractor.num_filters[-1],
         }
-    elif middle_name == "SpMiddleFHD":
-        middle_downsample = cfg.middle_feature_extractor.downsample_factor
+    elif middle_name in MIDDLE_REGISTRY:
+        middle_downsample = mcfg.downsample_factor
         middle_kwargs = {
             # dense zyx shape is grid + (1, 0, 0)
             "output_shape": (nz + 1, ny, nx),
-            "num_input_features":
-                cfg.middle_feature_extractor.num_input_features,
-            "dtype": dtype,
+            "num_input_features": vfe_out,
         }
+        if middle_name == "SparseMiddleExtractor":
+            # JAX's exception: the config's width is the first strided
+            # conv's where num_filters_down1 is empty
+            middle_kwargs.update(
+                num_input_features=mcfg.num_input_features,
+                in_channels=vfe_out,
+                num_filters_down1=tuple(mcfg.num_filters_down1),
+                num_filters_down2=tuple(mcfg.num_filters_down2))
+        if middle_name in BF16_MIDDLES:
+            middle_kwargs["dtype"] = dtype
     else:
-        raise NotImplementedError(
-            f"middle {middle_name!r} is not ported yet (SpMiddleFHD and "
-            f"PointPillarsScatter are): ROADMAP item 12")
+        raise ValueError(f"unknown middle {middle_name!r}; registered: "
+                         f"{sorted(MIDDLE_REGISTRY)}")
     out_size_factor = middle_downsample * _rpn_out_stride(cfg.rpn)
     fmap = (1, ny // out_size_factor, nx // out_size_factor)
     rpn_kwargs = {
@@ -114,16 +149,6 @@ def voxelnet_args(cfg: schema.ModelConfig, mixed_precision: bool = False):
         "use_groupnorm": cfg.rpn.use_groupnorm,
         "num_groups": cfg.rpn.num_groups,
     }
-    vfe_name = cfg.voxel_feature_extractor.module_class_name
-    vfe_kwargs = {
-        "num_filters": tuple(cfg.voxel_feature_extractor.num_filters),
-        "with_distance": cfg.voxel_feature_extractor.with_distance,
-    }
-    if vfe_name == "PillarFeatureNet":
-        # fp32, as in JAX: `build_voxelnet` gives the encoder no dtype
-        vfe_kwargs["voxel_size"] = tuple(vg.voxel_size)
-        vfe_kwargs["pc_range"] = tuple(vg.point_cloud_range)
-        vfe_kwargs["num_input_features"] = cfg.num_point_features
     iou_kwargs = None
     if cfg.use_iou_branch:
         iou_kwargs = {"num_filters": tuple(cfg.iou.num_filters),
@@ -133,6 +158,17 @@ def voxelnet_args(cfg: schema.ModelConfig, mixed_precision: bool = False):
                    num_anchors=fmap[1] * fmap[2] * num_anchor_per_loc)
     return ((vfe_name, vfe_kwargs, middle_name, middle_kwargs, rpn_kwargs,
              iou_kwargs), info, target_assigner, box_coder)
+
+
+# the residual sparse blocks, whose kernels (`kernels()`) are drawn in
+# flax's order
+_RESIDUAL = (SparseBasicBlock, SparseBottleneck)
+
+
+def _kernel_fan_in(w) -> int:
+    """A sparse or 1x1 kernel's fan-in as flax counts it: K · Cin for
+    [K, Cin, Cout], Cin for [Cin, Cout]."""
+    return int(np.prod(w.shape[:-1]))
 
 
 # the norms with running statistics
@@ -168,6 +204,9 @@ def init_weights_(module: nn.Module, seed: int = 0) -> None:
         if isinstance(m, (SubMBlock, DownBlock)):
             K, cin, _ = m.weight.shape
             normal_(m.weight, (K * cin) ** -0.5)
+        elif isinstance(m, _RESIDUAL):
+            for w in m.kernels():
+                normal_(w, _kernel_fan_in(w) ** -0.5)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             normal_(m.weight, _fan_in(m) ** -0.5)
             if m.bias is not None:
@@ -191,9 +230,10 @@ def init_train_weights_(module: nn.Module, seed: int = 0) -> None:
     """flax's initialisers, the ones the JAX trainer starts from, drawn from
     a seeded CPU `torch.Generator` (the draws cannot equal flax's):
 
-      * sparse kernels [K, Cin, Cout]: `variance_scaling(1.0, "fan_in",
-        "normal")`, std (K · Cin)^-0.5
-        (`second_tpu/models/sparse_middle.py:78-79`);
+      * sparse kernels [K, Cin, Cout] and the residual blocks' 1x1 kernels
+        [Cin, Cout] (`proj`, the bottleneck's `kernel1x1_a/b`):
+        `variance_scaling(1.0, "fan_in", "normal")`, std (K · Cin)^-0.5,
+        or Cin^-0.5 (`second_tpu/models/sparse_middle.py:78-79`, `:105`);
       * dense conv, transposed-conv and Linear kernels: `nn.Conv`'s and
         `nn.Dense`'s default `lecun_normal`, a truncated normal of std
         fan_in^-0.5 (`_fan_in`), zero biases (the two-stage refine head's
@@ -205,6 +245,10 @@ def init_train_weights_(module: nn.Module, seed: int = 0) -> None:
             K, cin, _ = m.weight.shape
             m.weight.copy_(torch.randn(m.weight.shape, generator=g) *
                            (K * cin) ** -0.5)
+        elif isinstance(m, _RESIDUAL):
+            for w in m.kernels():
+                w.copy_(torch.randn(w.shape, generator=g) *
+                        _kernel_fan_in(w) ** -0.5)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
             t = torch.empty(w.shape)

@@ -94,6 +94,26 @@ def build(names=SOURCES) -> dict:
     return reports
 
 
+def build_variant(src, name: str, flags_of: str | None = None,
+                  extra=()) -> tuple[ctypes.CDLL, str]:
+    """Another version of a kernel source (a parent commit's, a variant's),
+    for the scripts that time versions against each other: `src` compiled
+    with the port's flags for `flags_of` (by default the source's own
+    name) and `extra` into `_build/lib<name>.so`, and loaded. Returns (the
+    library, nvcc's output, ptxas's register and spill lines among it);
+    raises with that output if the build fails."""
+    src = Path(src)
+    BUILD_DIR.mkdir(exist_ok=True)
+    out = BUILD_DIR / f"lib{name}.so"
+    cmd = [_nvcc(), *_flags(flags_of or src.stem), *extra, "-o", str(out),
+           str(src)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    log = done.stdout + done.stderr
+    if done.returncode:
+        raise RuntimeError(f"nvcc {src} failed ({done.returncode}):\n{log}")
+    return ctypes.CDLL(str(out)), log
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if it is missing."""
     with _LOCK:

@@ -55,6 +55,12 @@ launches_wgrad_fma = 0
 # the bf16 kernel takes at most this many taps (one vote bit each; the
 # fp32 kernel votes in groups of as many)
 MAX_TAPS_MMA = 32
+# input and output channels the kernels take (the forward's bf16 entry
+# splits more than 64 output columns over blocks, the weight gradient
+# tiles [C, D] in 64 x 64 blocks)
+MAX_CHANNELS = 128
+# the weight-gradient kernel's tile of [C, D]
+WGRAD_TILE = 64
 # the weight-gradient kernel scans a block's rows in windows of this many
 WGRAD_WINDOW = 2048
 # weight-gradient blocks to aim for, per SM: two waves of the three blocks
@@ -122,10 +128,10 @@ def gather_gemm_plain(features, tap_idx, found, weights):
 
 
 def padded_widths(C: int, D: int):
-    """(CP, DP): the input channels padded to a power of two from 4 to 64,
+    """(CP, DP): the input channels padded to a power of two from 4 to 128,
     so that a kernel's stage of columns (64 in bf16, 32 in fp32) holds
-    whole taps or whole halves of one, and the output channels padded to a
-    multiple of 8 (one mma n-tile)."""
+    whole taps or a whole half or quarter of one, and the output channels
+    padded to a multiple of 8 (one mma n-tile)."""
     CP = 4
     while CP < C:
         CP *= 2
@@ -174,9 +180,9 @@ def _check_rulebook(name, features, tap_idx, found, D):
         raise ValueError(
             f"{name}: shapes disagree: features {tuple(features.shape)}, "
             f"tap_idx {tuple(tap_idx.shape)}, found {tuple(found.shape)}")
-    if not 1 <= C <= 64 or not 1 <= D <= 64:
-        raise ValueError(f"{name}: the kernels take 1..64 input and output "
-                         f"channels, got {C} -> {D}")
+    if not 1 <= C <= MAX_CHANNELS or not 1 <= D <= MAX_CHANNELS:
+        raise ValueError(f"{name}: the kernels take 1..{MAX_CHANNELS} input "
+                         f"and output channels, got {C} -> {D}")
     if max(B * Q, B * N) >= 2 ** 31:
         raise ValueError(f"{name}: the kernels index rows with int32")
     if found.dtype != torch.bool:
@@ -289,11 +295,18 @@ def gather_gemm(features, tap_idx, found, weights):
                             found)
 
 
+def wgrad_tiles(C: int, D: int) -> int:
+    """The weight-gradient kernel's tiles of a tap's [C, D]: WGRAD_TILE x
+    WGRAD_TILE blocks, one where C and D are at most 64."""
+    return -(-C // WGRAD_TILE) * -(-D // WGRAD_TILE)
+
+
 def wgrad_chunks(M: int, K: int, sms: int):
-    """(chunk_rows, chunks): each weight-gradient block owns one tap and
-    `chunk_rows` (a multiple of 16: the kernel reads found bytes 8 at a
-    time) of the M batch-flattened rows, sized so that the K x chunks blocks
-    come to WGRAD_BLOCKS_PER_SM on each of the card's SMs, with at most
+    """(chunk_rows, chunks): each weight-gradient block owns one tap (one
+    tile of it: K counts the (tap, tile) pairs) and `chunk_rows` (a
+    multiple of 16: the kernel reads found bytes 8 at a time) of the M
+    batch-flattened rows, sized so that the K x chunks blocks come to
+    WGRAD_BLOCKS_PER_SM on each of the card's SMs, with at most
     WGRAD_MAX_CHUNKS chunks a tap. Depends on the shapes and the card only,
     so the sums run in the same order every time."""
     want = max(1, min(WGRAD_MAX_CHUNKS, WGRAD_BLOCKS_PER_SM * sms // K))
@@ -316,10 +329,11 @@ def sparse_wgrad(features, tap_idx, found, grad_out):
     """`gather_gemm_wgrad_plain` semantics; `csrc/subm_grad.cu` for CUDA
     tensors, one launch a call: bf16 features with bf16 grad_out on tensor
     cores, fp32 with fp32 on CUDA cores. Each block compacts the found rows
-    of its (tap, chunk) and writes a partial [C, D] sum; the last block of
-    each group of WGRAD_GROUP chunks sums the group's partials in chunk
-    order, and the last group of each tap the groups' sums in group order,
-    so the result is the same bits on every run."""
+    of its (tap, chunk) and writes a partial sum of its tile of [C, D]
+    (`wgrad_tiles`); the last block of each group of WGRAD_GROUP chunks sums
+    the group's partials in chunk order, and the last group of each (tap,
+    tile) the groups' sums in group order, so the result is the same bits
+    on every run."""
     dev = features.device
     if dev.type == "cpu":
         return gather_gemm_wgrad_plain(features, tap_idx, found, grad_out)
@@ -340,12 +354,13 @@ def sparse_wgrad(features, tap_idx, found, grad_out):
     if sms is None:
         sms = _sm_count[dev.index] = \
             torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk_rows, chunks = wgrad_chunks(M, K, sms)
+    tiles = wgrad_tiles(C, D)
+    chunk_rows, chunks = wgrad_chunks(M, K * tiles, sms)
     groups = -(-chunks // WGRAD_GROUP)
     partial = torch.empty((K, chunks, C, D), dtype=torch.float32, device=dev)
-    used = torch.empty((K, chunks), dtype=torch.int32, device=dev)
+    used = torch.empty((K, tiles, chunks), dtype=torch.int32, device=dev)
     gpartial = torch.empty((K, groups, C, D), dtype=torch.float32, device=dev)
-    gused = torch.empty((K, groups), dtype=torch.int32, device=dev)
+    gused = torch.empty((K, tiles, groups), dtype=torch.int32, device=dev)
     features = features.contiguous()
     grad_out = grad_out.contiguous()
     tap_idx = tap_idx.to(torch.int32).contiguous()
@@ -355,8 +370,8 @@ def sparse_wgrad(features, tap_idx, found, grad_out):
         int(mma), features.data_ptr(), tap_idx.data_ptr(), found.data_ptr(),
         grad_out.data_ptr(), partial.data_ptr(), used.data_ptr(),
         gpartial.data_ptr(), gused.data_ptr(),
-        _counters(dev, K * (groups + 1)).data_ptr(), dw.data_ptr(), B, N, Q,
-        K, C, D, chunk_rows, chunks, stream_ptr(dev))
+        _counters(dev, K * tiles * (groups + 1)).data_ptr(), dw.data_ptr(),
+        B, N, Q, K, C, D, chunk_rows, chunks, stream_ptr(dev))
     if rc:
         check("subm_grad", rc)
     global launches_wgrad, launches_wgrad_mma, launches_wgrad_fma

@@ -50,6 +50,30 @@ def sentinel(grid_dhw) -> int:
     return int(D * H * W)
 
 
+class _RowsWithGrad(torch.autograd.Function):
+    """`flat_rows(features, idx)` (the row-gather kernel on the card) with a
+    gradient: the rows' gradients summed back into their sources by
+    `index_add_`, as XLA's transpose of JAX's gather scatters them. The
+    active-set sort and the max pool gather features through it: an
+    encoder with parameters trains through the sort."""
+
+    @staticmethod
+    def forward(ctx, features, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = features.shape
+        return flat_rows(features, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        B, N, C = ctx.shape
+        off = (torch.arange(B, device=idx.device) * N).reshape(
+            (B,) + (1,) * (idx.dim() - 1))
+        dx = grad.new_zeros((B * N, C))
+        dx.index_add_(0, (idx.long() + off).reshape(-1), grad.reshape(-1, C))
+        return dx.reshape(B, N, C), None
+
+
 def sort_active(coords, features, valid, grid_dhw):
     """Sort each example's active set by linear key, invalid rows last.
 
@@ -58,8 +82,8 @@ def sort_active(coords, features, valid, grid_dhw):
     sen = sentinel(grid_dhw)
     keys = torch.where(valid, linearize(coords, grid_dhw), sen)
     keys, order = torch.sort(keys, dim=1, stable=True)
-    return (flat_rows(coords, order), flat_rows(features, order), keys < sen,
-            keys)
+    return (flat_rows(coords, order), _RowsWithGrad.apply(features, order),
+            keys < sen, keys)
 
 
 def _offsets(kernel_size: Tuple[int, int, int]) -> np.ndarray:
@@ -236,3 +260,26 @@ def densify(features, coords, valid, grid_dhw):
                          device=dev)
     canvas[keys.reshape(-1)] = features.reshape(B * N, C)
     return canvas[:B * cells].reshape(B, D, H, W, C)
+
+
+def sparse_max_pool3d_b(features, coords, keys_sorted, valid, grid_dhw,
+                        kernel_size, out_cap):
+    """Sparse max pool, stride = kernel, no padding (JAX
+    `sparse_max_pool3d_b`). Returns (out [B, M, C] in the feature dtype,
+    out_coords [B, M, 3], out_keys [B, M], out_valid [B, M], out_grid,
+    n_unique [B]) with M = out_cap: the output sites and their capacity cut
+    are the strided conv's (`downsample_coords`), each valid site takes the
+    max over the taps it found (`amax`: tied entries share the gradient
+    evenly, as JAX's reduce-max does), invalid sites are zero."""
+    kernel_size = tuple(int(k) for k in kernel_size)
+    out_coords, out_valid, out_keys, og, n_unique = downsample_coords(
+        coords, valid, grid_dhw, kernel_size, kernel_size, (0, 0, 0),
+        out_cap)
+    base = out_coords * constant(kernel_size, coords.device, torch.int32)
+    tap_idx, found = build_rulebook_b(keys_sorted, base, out_valid, grid_dhw,
+                                      kernel_size)
+    rows = _RowsWithGrad.apply(features, tap_idx)         # [B, K, M, C]
+    neg = torch.finfo(features.dtype).min
+    out = torch.where(found[..., None], rows, neg).amax(1)
+    out = torch.where(out_valid[..., None], out, 0.0)
+    return out, out_coords, out_keys, out_valid, og, n_unique

@@ -21,6 +21,7 @@ the pair model. This file
 imports torch, numpy and the port only, and the 3-D IoU cull's geometry
 cases from `test_torch_d3_cull.py` (which add hypothesis)."""
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -225,11 +226,35 @@ def test_gather_gemm_tile_spans_examples(dev, dtype):
 
 
 def test_gather_gemm_rejects_wide_channels(dev):
-    feats = torch.zeros(1, 4, 65, device=dev)
+    """Above MAX_CHANNELS (128) input or output channels: refused."""
     idx = torch.zeros(1, 27, 4, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="channels"):
-        subm.gather_gemm(feats, idx, idx.bool(), torch.zeros(27, 65, 8,
-                                                              device=dev))
+    for C, D in ((129, 8), (8, 129)):
+        feats = torch.zeros(1, 4, C, device=dev)
+        with pytest.raises(ValueError, match="channels"):
+            subm.gather_gemm(feats, idx, idx.bool(),
+                             torch.zeros(27, C, D, device=dev))
+
+
+# widths above 64: SpMiddleFHDLarge's deep stages (128 -> 128, 64 -> 128),
+# VoxelFeatureExtractor's 128 into a middle's first conv (128 -> 16), and
+# widths that pad (96 -> 128 columns of A) or split unevenly
+WIDE = [(128, 128), (96, 128), (128, 96), (96, 96), (128, 16), (64, 128),
+        (100, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D", WIDE)
+def test_gather_gemm_wide_channels(dev, dtype, C, D):
+    """C and D up to 128 against the plain version (the bf16 kernel with a
+    tap across two stages at CP = 128 and the output columns split over
+    blocks above 64; the fp32 kernel with a quarter of a tap a stage), at
+    an fhd-like fill across example boundaries; fp32 also against fp64
+    (FP32_ERR_RATIO)."""
+    args = _conv_case(dev, dtype, 3, 350, 400, 27, C, D, 0.1, seed=C + D)
+    got, _ = _run_conv(*args)
+    if dtype == torch.float32:
+        err, plain_err = _fp64_errors(*args, got)
+        assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
 
 
 def test_gather_gemm_rejects_too_many_taps_in_bf16(dev):
@@ -629,6 +654,28 @@ def test_sparse_wgrad_widths_and_taps(dev, dtype, K, C, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D", WIDE + [(128, 4), (4, 128), (65, 65)])
+def test_sparse_wgrad_wide_channels(dev, dtype, C, D):
+    """C and D up to 128: [C, D] in 64 x 64 tiles, each with its own
+    partials and tickets (four at 128 x 128; edge tiles of 32, 36, 8 and 1
+    columns); fp32 also against fp64 within FP32_ERR_RATIO of the fp32
+    plain version's own error."""
+    args = _wgrad_case(dev, dtype, 3, 350, 400, 27, C, D, 0.1, seed=C * D)
+    got, _ = _run_wgrad(*args)
+    if dtype == torch.float32:
+        err, plain_err = _fp64_errors(*args, got,
+                                      plain_fn=subm.gather_gemm_wgrad_plain)
+        assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_wgrad_wide_single_chunk(dev, dtype):
+    """128 x 128 with one chunk a tile (each tile's block writes its part of
+    dW[k] itself, rows of stride D)."""
+    _run_wgrad(*_wgrad_case(dev, dtype, 1, 40, 16, 27, 128, 128, 0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fill", [0.0, 1e-3, 0.04, 0.15, 1.0])
 def test_sparse_wgrad_found_densities(dev, dtype, fill):
     """Found densities from none (every block writes used = 0 and the last
@@ -868,6 +915,127 @@ def test_sparse_middle_weights_get_gradients_on_the_card(dev, dtype):
             torch.testing.assert_close(a, b, rtol=0,
                                        atol=1e-3 * b.abs().max().item())
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_backward_wide_matches_autograd_of_plain(dev, dtype):
+    """A 128 -> 128 submanifold conv on the card: dX (the gather-GEMM with
+    D = 128 on the transposed rulebook) and dW (four tiles) against
+    autograd through `gather_gemm_plain` on fp32 copies of the values the
+    kernels use (the features and the weights rounded to the feature
+    dtype; a bf16-exact cotangent), as chip_smoke.py's
+    `check_conv_backward` holds them: autograd through bf16 features would
+    add each tap's share in bf16. fp32: within 1e-4 of the largest entry;
+    bf16: the kernels round their fp32 sums to bf16 once, so within 2^-7
+    of each entry plus 1e-6 of the largest."""
+    grid = (8, 24, 24)
+    coords, _, valid, keys = _active_set(dev, 2, 800, grid, 31)
+    g = torch.Generator().manual_seed(32)
+    x = torch.randn(2, 800, 128, generator=g).to(dev).to(dtype)
+    w = (torch.randn(27, 128, 128, generator=g) / 60).to(dev)
+    w = w.to(dtype).float()
+    tap_idx, found = sp.subm_rulebook_b(coords, keys, valid, grid)
+    cot = torch.randn(2, 800, 128, generator=g).bfloat16().float().to(dev)
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (subm.gather_gemm(xa, tap_idx, found, wa) * cot).sum().backward()
+    xb = x.float().requires_grad_(True)
+    wb = w.clone().requires_grad_(True)
+    (subm.gather_gemm_plain(xb, tap_idx, found, wb) * cot).sum().backward()
+    torch.cuda.synchronize()
+    for got, want in ((xa.grad.float(), xb.grad), (wa.grad, wb.grad)):
+        scale = want.abs().max().item()
+        assert scale > 0
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4 * scale,
+                                       rtol=1e-4)
+        else:
+            bound = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + \
+                1e-6 * scale
+            assert ((got - want).abs() <= bound).all()
+
+
+def _pool_case(dev, seed):
+    """A sorted active set with many ties (post-ReLU zeros, quarters)."""
+    grid = (20, 24, 24)
+    coords, _, valid, keys = _active_set(dev, 2, 1200, grid, seed)
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.clamp(torch.round(torch.randn(2, 1200, 32, generator=g) *
+                                    2) / 4, min=0).to(dev)
+    return grid, coords, feats * valid[..., None], valid, keys
+
+
+@pytest.mark.parametrize("cap", [1200, 300])
+def test_max_pool_card_matches_cpu(dev, cap):
+    """`sparse_max_pool3d_b` (2, 1, 1) on the card against the CPU: sites,
+    keys, masks and site counts exact, the pooled features exact (a max
+    picks an input), and the gradient (ties shared evenly, scattered back
+    by `index_add_`) within 1e-6; the tap gather goes through the row
+    gather kernel."""
+    grid, coords, feats, valid, keys = _pool_case(dev, 33)
+    r = torch.randn(2, cap, 32, generator=torch.Generator().manual_seed(34))
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        f = feats.to(device).clone().requires_grad_(True)
+        before = gather.launches
+        got = sp.sparse_max_pool3d_b(f, coords.to(device), keys.to(device),
+                                     valid.to(device), grid, (2, 1, 1), cap)
+        (got[0] * r.to(device)).sum().backward()
+        if device.type == "cuda":
+            assert gather.launches > before
+        outs[device.type] = [t.cpu() if torch.is_tensor(t) else t
+                             for t in got] + [f.grad.cpu()]
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        if torch.is_tensor(a) and a.is_floating_point() and i == 6:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        elif torch.is_tensor(a):
+            assert torch.equal(a.detach(), b.detach()), i
+        else:
+            assert a == b
+    assert (outs["cpu"][5] > cap).any() == (cap == 300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["res", "bottleneck"])
+def test_residual_block_card_matches_cpu(dev, kind, dtype):
+    """`SparseBasicBlock` (12 -> 16, with its projection) and
+    `SparseBottleneck` (12 -> 4 x 8) in train mode on the card against the
+    CPU from the same weights: the output and every parameter's gradient.
+    fp32 within 1e-4 of each tensor's largest entry; bf16 (the blocks'
+    residual matmuls and the first conv in bf16, sums in another order
+    through two or three convs and the masked norms) within 2^-6 of it."""
+    from second_tpu_torch.models.sparse_middle import (SparseBasicBlock,
+                                                      SparseBottleneck)
+    grid = (8, 24, 24)
+    coords, _, valid, keys = _active_set(torch.device("cpu"), 2, 800, grid,
+                                         35)
+    g = torch.Generator().manual_seed(36)
+    x = torch.randn(2, 800, 12, generator=g) * valid[..., None]
+    proto = (SparseBasicBlock(12, 16) if kind == "res"
+             else SparseBottleneck(12, 8))
+    with torch.no_grad():
+        for p in proto.parameters():
+            if p.dim() > 1:
+                p.copy_(torch.randn(p.shape, generator=g) *
+                        np.prod(p.shape[:-1]) ** -0.5)
+    cot = None
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        blk = copy.deepcopy(proto).to(device).train()
+        c, m, k = coords.to(device), valid.to(device), keys.to(device)
+        rb = sp.subm_rulebook_b(c, k, m, grid)
+        launches = subm.launches
+        out = blk(x.to(device).to(dtype), c, k, m, grid, rb)
+        if device.type == "cuda":
+            assert subm.launches - launches == (2 if kind == "res" else 1)
+        if cot is None:
+            cot = torch.randn(out.shape, generator=g)
+        (out.float() * cot.to(device)).sum().backward()
+        res[device.type] = [out.detach().float().cpu()] + \
+            [p.grad.cpu() for p in blk.parameters()]
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * b.abs().max().item())
 
 
 # ---------------------------------------------------------- PointPillars
