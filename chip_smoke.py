@@ -302,13 +302,36 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    12 (resnet) or 14 / 13 / 14 (large) on their paths; every middle
    parameter's gradient finite and nonzero; no host sync; steps/s and peak
    memory.
+34. soft-nms (`run_soft_nms`): `ops/nms.py` `soft_nms` on the fhd eval
+   forward's NMS candidates (its recorded `nms` call: batch 4, 1000
+   decoded boxes an example, post 100), gaussian (sigma 0.5) and linear
+   (threshold 0.3): launches counted (the decay kernel, the pair IoU and
+   the row gather once a call, for all rows), each decay call's kernel
+   against its plain version (picks exact, scores within SOFT_RTOL), the
+   pair IoU against its plain version, each call card against CPU (picks
+   and keep exact, scores within SOFT_REF_RTOL), the pair cap's use; the
+   decay timed (events, device, plain, bound, the device time a step),
+   the whole soft_nms timed; one K = 4096 row of a dense rotated IoU,
+   100 steps, against plain and timed.
+35. dp (`run_dp`): an NCCL process group of one rank (the card is one):
+   the fhd `Trainer`'s data-parallel train steps (DDP; at one rank the
+   norms' statistics are the rank's own) against a plain `Trainer`'s on
+   the same batches (the same launches; the state bit for bit, else gated
+   at DP_PARAM_TOL of scale), steps/s of both and of the plain step with
+   the norms' statistics all-reduced over the group, in turns (what DDP
+   and what the norms' all-reduces cost a step); `make_dp_eval_step`
+   on the fhd eval input (launches counted; its statistics equal a host
+   count of its detections and the single-device eval's); the
+   row-sharded RPN and the sequence-parallel forward (4 frames) against
+   their unsharded forwards.
 
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the twenty-six paths (fhd eval, fhd train, pp eval, pp train,
-mc eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp eval,
-tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st train,
-tmpf eval, tmpf train, serve, trk det, joint train, resnet eval, resnet
-train, large eval, large train, vfe1 eval) and by path,
+summed over the twenty-nine paths (fhd eval, fhd train, pp eval, pp
+train, mc eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp
+eval, tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st
+train, tmpf eval, tmpf train, serve, trk det, joint train, resnet eval,
+resnet train, large eval, large train, vfe1 eval, soft nms, dp train, dp
+eval) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
@@ -320,7 +343,9 @@ call under "joint_train" and its 16 x 16 ROI-align calls under
 "joint_train_s16", the resnet eval's convs under "resnet_eval" and the
 sparse-conv calls over 64 channels under "large_eval_c128",
 "large_train_c128" (forward, dX, weight gradient; fp32, bounded as 3xTF32
-with "bound_cores_ms" beside) and "vfe1_eval_c128".
+with "bound_cores_ms" beside) and "vfe1_eval_c128", and the soft-NMS
+decay's K = 4096 row under "soft_nms_k4096" (the fhd call's numbers are
+its line's own).
 The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
@@ -368,7 +393,8 @@ from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
                                               _signed_area, rbbox_to_corners)
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.train.optimizer import build_optimizer
-from second_tpu_torch.train.state import (TrainState, make_train_step,
+from second_tpu_torch.train.state import (TrainState, make_eval_step,
+                                          make_train_step,
                                           voxelize_points)
 from second_tpu_torch.train.steps_multistage import (
     make_fusion_steps, make_fusion_two_stage_steps,
@@ -421,7 +447,7 @@ PP_EVAL_LAUNCHES = {"sparse_gather_gemm": 0, "row_gather": 6,
                     "rotated_iou": 1, "nms_suppress": 1,
                     "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0,
                     "d3_iou": 0, "roi_align_fwd": 0, "roi_align_bwd": 0,
-                    "standup_overlap": 0}
+                    "standup_overlap": 0, "soft_nms": 0}
 PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
 
 # SECOND multi-class (configs/second_multiclass.config: Car, Pedestrian,
@@ -437,7 +463,8 @@ PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
          "tmp_eval", "tmp_train", "fusion_eval", "fusion_train",
          "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train",
          "serve", "trk_det", "joint_train", "resnet_eval", "resnet_train",
-         "large_eval", "large_train", "vfe1_eval")
+         "large_eval", "large_train", "vfe1_eval", "soft_nms", "dp_train",
+         "dp_eval")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -550,7 +577,15 @@ TWO_STAGE_KERNELS = [
          counter="launches_standup", source="second_tpu_torch/csrc/riou.cu",
          replaces="second_tpu/ops/nms.py:183"),
 ]
-ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS + TWO_STAGE_KERNELS
+# soft-NMS's decay steps: JAX runs them as a `lax.scan` (no Pallas kernel);
+# no config reaches soft-NMS, the soft-nms phase drives it
+SOFT_NMS_KERNELS = [
+    dict(name="soft_nms", module=riou, fn="soft_nms_decay",
+         counter="launches_soft", source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/nms.py:230"),
+]
+ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS + TWO_STAGE_KERNELS + \
+    SOFT_NMS_KERNELS
 # the ROI-align kernels against their plain versions: the forward in the
 # plain version's order of operations (-fmad=false), bitwise; the
 # backward's sums in another order, within ROI_BWD_TOL of each gradient's
@@ -1589,6 +1624,13 @@ def run(dev, out=None):
     _, vfe1_wide, vfe1_counts, report["vfe1_eval"] = run_middle_eval(
         dev, timer, dtimer, "vfe1 eval", VFE1_PATCHES, SPARSE_CONVS,
         {"mma": SPARSE_CONVS, "fma": 0}, calibrate=True)
+    # soft-NMS on the fhd eval's decoded candidates, and multi-device at
+    # world size 1 (one card): an NCCL group, the Trainer's DP steps
+    aggs["soft_nms"], soft_k4096, soft_counts, report["soft_nms"] = \
+        run_soft_nms(dev, timer, dtimer, nms_call)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_train_counts, dp_eval_counts, report["dp"] = run_dp(dev,
+                                                               Path(tmp))
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
@@ -1600,7 +1642,8 @@ def run(dev, out=None):
                                serve_counts, trk_det_counts, joint_counts,
                                resnet_counts, resnet_train_counts,
                                large_counts, large_train_counts,
-                               vfe1_counts)))
+                               vfe1_counts, soft_counts, dp_train_counts,
+                               dp_eval_counts)))
     # the 256-channel ROI-align calls of the temporal-fusion phases, under
     # "tmpf_eval_c256" / "tmpf_train_c256"; the joint step's riou_matrix
     # call under "joint_train", its 16 x 16 tracking crops under
@@ -1613,7 +1656,8 @@ def run(dev, out=None):
                  "resnet_eval": {"sparse_gather_gemm": resnet_agg},
                  "large_eval_c128": {"sparse_gather_gemm": large_wide},
                  "large_train_c128": large_train_wide,
-                 "vfe1_eval_c128": {"sparse_gather_gemm": vfe1_wide}}
+                 "vfe1_eval_c128": {"sparse_gather_gemm": vfe1_wide},
+                 "soft_nms_k4096": {"soft_nms": soft_k4096}}
 
     def numbers(a):
         out = dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
@@ -6114,6 +6158,429 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
     del state
     torch.backends.cudnn.deterministic = False
     return aggs_wide, counts, report
+
+
+# ------------------------------------------------------------ soft-NMS
+
+# soft-NMS (`ops/nms.py` soft_nms; no config reaches it, JAX's tests call
+# it) on the fhd eval's decoded candidates: (method, sigma, iou_threshold)
+SOFT_NMS_RUNS = (("gaussian", 0.5, 0.3), ("linear", 0.5, 0.3))
+# the one long row: candidates (NMS_MAX_K), decay steps
+SOFT_NMS_K, SOFT_NMS_STEPS = 4096, 100
+# the decay kernel against its plain version on the same inputs: picks
+# exact, the finite scores within SOFT_RTOL relative (the same fp32
+# operations; torch's CUDA division by a scalar multiplies by its
+# reciprocal, an ulp away); the whole soft_nms card against CPU: picks and
+# keep exact, scores within SOFT_REF_RTOL (the corners' sin and cos an ulp
+# apart move the IoU by up to RIOU_TOL)
+SOFT_RTOL, SOFT_REF_RTOL = 1e-6, 1e-5
+# fp32 operations of one candidate in one decay step, counted from
+# csrc/riou.cu `soft_nms_decay_kernel`: the decay (gaussian: the square,
+# the negation, the division, exp: 4; linear: the comparison, the
+# difference, the select: 3), the finite test, the product and its select
+# (3), the pick's test and select (2), the thread's argmax (two
+# comparisons, the index comparison, two selects: 5)
+SOFT_STEP_OPS = {"gaussian": 4 + 3 + 2 + 5, "linear": 3 + 3 + 2 + 5}
+
+
+def soft_bound(R, K, m, method):
+    """The decay steps' bound on the card, from this call's sizes: bytes,
+    the m IoU rows of K fp32 a row read and the K scores, the m picks
+    (int64) and their scores written; operations, m steps of
+    SOFT_STEP_OPS a candidate at the fp32 rate. The m steps are also a
+    chain (each waits on the last one's pick), which no bound here
+    counts: the device time over m is printed as the time a step, and
+    scripts/torch_soft_nms_floor.py measures the chain's latency floor."""
+    return dict(bytes_s=R * (m * K * 4 + K * 4 + m * 12) / HBM_BYTES_PER_S,
+                ops_s=R * m * K * SOFT_STEP_OPS[method] /
+                PEAK_OPS_PER_S[torch.float32])
+
+
+def check_decay(got, want, what):
+    """The decay kernel's (picks, scores) against the plain version's:
+    picks exact, the same entries finite, the finite ones within
+    SOFT_RTOL relative. Returns the largest absolute error."""
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        n = int((got[0] != want[0]).sum())
+        fail(f"{what}: {n} picks differ from the plain version's")
+    fin = torch.isfinite(want[1])
+    if not torch.equal(torch.isfinite(got[1]), fin):
+        fail(f"{what}: the kernel's finite scores are not the plain "
+             f"version's")
+    if not fin.any():
+        return 0.0
+    err = (got[1][fin] - want[1][fin]).abs()
+    rel = (err / want[1][fin].abs().clamp(min=1e-30)).max().item()
+    if rel > SOFT_RTOL:
+        fail(f"{what}: scores {rel:.3g} relative from the plain version's")
+    return err.max().item()
+
+
+def run_soft_nms(dev, timer, dtimer, nms_call):
+    """soft-NMS on the fhd eval forward's NMS candidates (the recorded
+    `nms` call: batch 4, nms_pre_max_size 1000 decoded boxes an example,
+    post 100), gaussian (sigma 0.5) and linear (threshold 0.3), then one
+    K = 4096 row:
+    - counted: launch counts set to 0, both calls, counts read: the decay
+      kernel once a call for all 4 rows, the pair IoU and the row gather
+      once a call, nothing else;
+    - each decay call's kernel against its plain version on its own
+      inputs (`check_decay`), each pair IoU call against its plain version
+      (RIOU_TOL), the pair cap's use printed;
+    - each call card against CPU (every wrapper's plain version): picks
+      and keep exact, the rescored scores within SOFT_REF_RTOL;
+    - the gaussian call's decay timed (events, device, plain) with its
+      bound; the whole soft_nms timed;
+    - the 4096-candidate row: a dense rotated IoU of crowded boxes,
+      SOFT_NMS_STEPS steps, kernel against plain and timed.
+    Returns (the fhd call's aggregate, the K = 4096 row's, the launch
+    counts, the report)."""
+    (boxes, scores, valid), kw = nms_call
+    pre, post = kw["pre_max_size"], kw["post_max_size"]
+    B, N = scores.shape
+    report = dict(batch=B, candidates=N, pre_max_size=pre,
+                  post_max_size=post, runs={})
+
+    def soft(method, sigma, thr, b=boxes, s=scores, v=valid):
+        return nms_ops.soft_nms(b, s, v, pre_max_size=pre,
+                                post_max_size=post, sigma=sigma,
+                                iou_threshold=thr, method=method)
+
+    reset_counts()
+    with recording([(riou, "soft_nms_decay"), (riou, "riou_pairs")]) as \
+            calls:
+        outs = [soft(*run) for run in SOFT_NMS_RUNS]
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {**{k: 0 for k in counts}, "soft_nms": len(SOFT_NMS_RUNS),
+            "rotated_iou": len(SOFT_NMS_RUNS),
+            "row_gather": len(SOFT_NMS_RUNS)}
+    if counts != want:
+        fail(f"soft-nms: launches {counts}, expected {want}")
+    say(f"soft-nms: launches in the two calls {counts}")
+
+    err = 0.0
+    for ((args, kwargs), (pargs, _), (method, sigma, thr), out) in zip(
+            calls["soft_nms_decay"], calls["riou_pairs"], SOFT_NMS_RUNS,
+            outs):
+        what = f"soft-nms {method}"
+        iou, top, m = args[:3]
+        err = max(err, check_decay(riou.soft_nms_decay(*args, **kwargs),
+                                   riou.soft_nms_decay_plain(*args,
+                                                             **kwargs),
+                                   what))
+        pair_err, _ = errors(riou.riou_pairs(*pargs),
+                             riou.riou_pairs_plain(*pargs))
+        if pair_err > RIOU_TOL:
+            fail(f"{what}: the pair IoU {pair_err:.3g} from its plain "
+                 f"version")
+        plist, ok = nms_ops.soft_nms_pairs(
+            nms_ops.flat_rows(boxes, nms_ops.top_k(torch.where(
+                valid, scores, float("-inf")), pre)[1]),
+            torch.isfinite(top), min(8192, pre * pre))
+        ref = soft(method, sigma, thr, boxes.cpu(), scores.cpu(),
+                   valid.cpu())
+        if not (torch.equal(out[0].cpu(), ref[0]) and
+                torch.equal(out[2].cpu(), ref[2])):
+            fail(f"{what}: picks or keep differ card against CPU")
+        ref_rel = ((out[1].cpu() - ref[1]).abs() /
+                   ref[1].abs().clamp(min=1e-30)).max().item()
+        if ref_rel > SOFT_REF_RTOL:
+            fail(f"{what}: scores {ref_rel:.3g} relative from the CPU's")
+        run = dict(rows=int(top.shape[0]), K=int(top.shape[1]), steps=m,
+                   pairs_clipped=ok.sum(1).tolist(),
+                   kept=out[2].sum(1).tolist(), pair_err=pair_err,
+                   card_vs_cpu_rel=ref_rel)
+        report["runs"][method] = run
+        say(f"{what}: decay kernel = plain (picks exact), pair IoU within "
+            f"{pair_err:.2e}, card = CPU (picks and keep exact, scores "
+            f"within {ref_rel:.2e}); pairs clipped {run['pairs_clipped']} "
+            f"of the cap {plist.shape[1]}, kept {run['kept']}")
+
+    (args, kwargs), (method, _, _) = calls["soft_nms_decay"][0], \
+        SOFT_NMS_RUNS[0]
+    iou, top, m = args[:3]
+    R, K = top.shape
+
+    def timed(args, kwargs, method, what):
+        kern = (lambda: riou.soft_nms_decay(*args, **kwargs))
+        plain = (lambda: riou.soft_nms_decay_plain(*args, **kwargs))
+        # the kernel alone in the profiler: the plain version's some 700
+        # kernels a call overran its traces on the H100
+        R, K = args[1].shape
+        agg = dict(ms=timer(kern, 20), device_ms=dtimer([kern])[0],
+                   plain_ms=timer(plain, 3), library_ms=None,
+                   library_device_ms=None,
+                   **soft_bound(R, K, args[2], method))
+        say(f"{what} decay R={R} K={K} m={args[2]}: kernel "
+            f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f}, "
+            f"{1e3 * agg['device_ms'] / args[2]:.2f} us a step)  plain "
+            f"{agg['plain_ms']:.4f} ms  bound "
+            f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.6f} ms "
+            f"({'bytes' if agg['bytes_s'] >= agg['ops_s'] else 'ops'})")
+        return agg
+
+    agg = timed(args, kwargs, method, "soft-nms fhd")
+    agg["err"] = err
+    report["whole_ms"] = timer(lambda: soft(*SOFT_NMS_RUNS[0]), 10)
+    say(f"soft-nms fhd: the whole gaussian soft_nms (top-k, pair list, pair "
+        f"IoU, decay) {report['whole_ms']:.4f} ms")
+
+    g = torch.Generator().manual_seed(7)
+    n = SOFT_NMS_K
+    big = torch.stack([torch.rand(n, generator=g) * 70.4,
+                       torch.rand(n, generator=g) * 80 - 40,
+                       1.4 + 0.4 * torch.rand(n, generator=g),
+                       3.5 + 0.8 * torch.rand(n, generator=g),
+                       (torch.rand(n, generator=g) - 0.5) * 2 * np.pi],
+                      1).to(dev)
+    iou4k = riou.riou_matrix(big, big)[None]
+    top4k = torch.rand(1, n, generator=g).sort(1, descending=True)[0].to(dev)
+    args4k = (iou4k, top4k, SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
+    agg4k = timed(args4k, {}, "gaussian", "soft-nms K4096")
+    agg4k["err"] = check_decay(riou.soft_nms_decay(*args4k),
+                               riou.soft_nms_decay_plain(*args4k),
+                               "soft-nms K4096")
+    report["timing"] = {k: v for k, v in agg.items() if k != "err"}
+    report["timing_k4096"] = {k: v for k, v in agg4k.items() if k != "err"}
+    report["launches"] = counts
+    return agg, agg4k, counts, report
+
+
+# -------------------------------------------------------- multi-device
+
+# the dp phase: Trainer steps compared, DP (and plain with the norms'
+# all-reduces) against plain; steps timed each way, in turns; where their
+# parameters are not bit for bit the plain steps', their largest
+# difference over each tensor's scale
+DP_STEPS, DP_TIMED = 3, 8
+DP_PARAM_TOL = 1e-6
+
+
+def run_dp(dev, tmp):
+    """Multi-device at world size 1 (the machine has one card): a real
+    NCCL process group of one rank (a `file://` rendezvous in `tmp`), then
+    - dp train: two `Trainer`s on second_car_fhd.config (synthetic scans,
+      the config's batch 4, bf16, its Adam, flax's initialisers), one on
+      the data-parallel path (`_setup_dp_train`: DDP; the Trainer takes
+      it by itself only above one rank, where the norms' statistics are
+      all-reduced too), one plain; DP_STEPS steps each on the same
+      batches, counted: the same kernel launches; the parameters and norm
+      statistics after them bit for bit equal (else the largest difference
+      printed and gated at DP_PARAM_TOL of each tensor's scale); steps/s
+      in turns of the plain step, the DP step (the cost of DDP's buckets)
+      and the plain step under `sync_norms` over the group (the cost of
+      the norms' all-reduces, which a step above one rank pays; its
+      state, a third Trainer's, checked bit for bit too);
+    - dp eval: `make_dp_eval_step` on the fhd eval input (batch 4, 40 000
+      voxels, the in-graph anchors mask), counted: its statistics equal a
+      host count of its detections and the single-device eval's, its
+      detections the single-device ones;
+    - the row-sharded RPN (`make_spatial_forward`) on the fhd model's BEV
+      map against its unsharded forward, and the sequence-parallel
+      forward (`make_sp_sequence_forward`, the ring a local copy at one
+      rank) of a 4-frame sequence against `TemporalSequenceVoxelNet`.
+    Returns (the DP train steps' launch counts, the DP eval's, the
+    report)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from second_tpu_torch.parallel.eval_dp import (_local_stats,
+                                                   SCORE_THRESHOLDS,
+                                                   make_dp_eval_step,
+                                                   stats_to_dict)
+    from second_tpu_torch.parallel.mesh import make_group, sync_norms
+    from second_tpu_torch.parallel.spatial import make_spatial_forward
+    from second_tpu_torch.parallel.temporal_sp import \
+        make_sp_sequence_forward
+    from second_tpu_torch.train.run import Trainer
+    report = {}
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp / 'dp_rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300),
+        device_id=dev)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        group = make_group()
+        trainers = {}
+        for kind in ("plain", "dp", "norms"):
+            tr = Trainer(CONFIG, tmp / f"dp_{kind}", synthetic=True,
+                         dataset_size=8, max_points=MAX_POINTS, device=dev,
+                         patches=["train_config.steps_per_eval=0"])
+            if tr._train_group is not None:
+                fail("dp train: a Trainer at world size 1 took the "
+                     "data-parallel path by itself")
+            if kind == "dp":
+                tr._setup_dp_train()
+            trainers[kind] = tr
+
+        def norms_step(state, batch):
+            with sync_norms(group):
+                return trainers["norms"].train_step(state, batch)
+        steps = {"plain": trainers["plain"].train_step,
+                 "dp": trainers["dp"].train_step, "norms": norms_step}
+        bs = trainers["plain"].cfg.train_input_reader.batch_size
+        states, counts, losses = {}, {}, {}
+        for kind, tr in trainers.items():
+            it = tr._batch_iter(bs, np.random.default_rng(0))
+            batches = [next(it) for _ in range(DP_STEPS)]
+            state = tr._init_state()
+            reset_counts()
+            for b in batches:
+                state, metrics = steps[kind](state, b)
+                losses.setdefault(kind, []).append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            if (state.ddp is None) != (kind != "dp"):
+                fail(f"dp train: the {kind} Trainer's module is "
+                     f"{'' if state.ddp is None else 'not '}wrapped in DDP")
+            counts[kind] = launch_counts()
+            states[kind] = (state, batches)
+        for kind in ("dp", "norms"):
+            if counts[kind] != counts["plain"] or not all(
+                    counts[kind][k["name"]] for k in KERNELS[:2] +
+                    TRAIN_KERNELS):
+                fail(f"dp train: {kind} launches {counts[kind]}, the plain "
+                     f"steps' {counts['plain']}")
+        b = states["plain"][0].module.state_dict()
+        report["train"] = dict(steps=DP_STEPS, losses=losses,
+                               launches=counts["dp"])
+        for kind in ("dp", "norms"):
+            a = states[kind][0].module.state_dict()
+            worst, differ = 0.0, 0
+            for k in a:
+                if torch.equal(a[k], b[k]):
+                    continue
+                differ += 1
+                diff = (a[k].double() - b[k].double()).abs().max().item()
+                worst = max(worst, diff / max(
+                    b[k].double().abs().max().item(), 1e-30))
+            if worst > DP_PARAM_TOL:
+                fail(f"dp train: {kind}: {differ} state tensors differ from "
+                     f"the plain steps', by up to {worst:.3g} of their "
+                     f"scale")
+            report["train"][kind] = dict(tensors_differ=differ,
+                                         worst_rel_diff=worst)
+            say(f"dp train ({kind}): NCCL world size 1, {DP_STEPS} steps of "
+                f"the fhd Trainer " + ("through DDP" if kind == "dp" else
+                                       "with the norms' all-reduces")
+                + f" against the plain Trainer: losses {losses[kind]} and "
+                f"{losses['plain']}; "
+                + ("state bit for bit equal" if not differ else
+                   f"{differ} tensors differ, by at most {worst:.3g} of "
+                   f"scale") + f"; launches {counts[kind]}")
+        times = {k: [] for k in steps}
+        for i in range(DP_TIMED):
+            for kind, step in steps.items():
+                state, batches = states[kind]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, batches[i % DP_STEPS])
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+        speed = {k: 1.0 / statistics.median(v) for k, v in times.items()}
+        report["train"]["steps_per_s"] = speed
+        report["train"]["times_s"] = times
+        say(f"dp train steps/s {speed['dp']:.3f} (DDP) and "
+            f"{speed['norms']:.3f} (the norms' statistics all-reduced) "
+            f"against the plain Trainer's {speed['plain']:.3f} (median of "
+            f"{DP_TIMED} synchronised steps each, in turns; batch {bs})")
+
+        tr, state = trainers["dp"], states["dp"][0]
+        points, mask, anchors = build_inputs(tr.cfg, tr.assigner, tr.info,
+                                             dev)
+        batch = {"points": points, "points_mask": mask, "anchors": anchors}
+        dp_eval = make_dp_eval_step(tr.spec, tr.eval_vspec, group,
+                                    tr._eval_mask_info)
+        reset_counts()
+        det, stats = dp_eval(state, batch)
+        torch.cuda.synchronize()
+        eval_counts = launch_counts()
+        want = {"sparse_gather_gemm": SPARSE_CONVS, "rotated_iou": 1,
+                "nms_suppress": 1}
+        if {k: eval_counts[k] for k in want} != want or \
+                not eval_counts["row_gather"]:
+            fail(f"dp eval: launches {eval_counts}, expected {want} and "
+                 f"row gathers")
+        valid = det["valid"].cpu().numpy()
+        sc = np.where(valid, det["scores"].cpu().numpy(), -1.0)
+        host = [int(valid.sum())] + [int((sc >= t).sum())
+                                     for t in SCORE_THRESHOLDS]
+        ref = make_eval_step(tr.spec, tr.vspec, tr.eval_vspec,
+                             mask_info=tr._eval_mask_info)(state, batch)
+        ref_stats = _local_stats(ref).tolist() + \
+            [int(ref["voxel_overflow"])]
+        if stats[:-1].tolist() != host or stats.tolist() != ref_stats:
+            fail(f"dp eval: stats {stats.tolist()}, host count {host}, "
+                 f"single-device {ref_stats}")
+        if not torch.equal(det["valid"], ref["valid"]) or not all(
+                torch.allclose(det[k], ref[k], **DET_TOL)
+                for k in ("boxes", "scores")):
+            fail("dp eval: detections differ from the single-device eval's")
+        report["eval"] = dict(stats=stats_to_dict(stats),
+                              launches=eval_counts)
+        say(f"dp eval: stats {stats_to_dict(stats)} = a host count of its "
+            f"detections = the single-device eval's; detections equal; "
+            f"launches {eval_counts}")
+
+        net = state.module
+        seen = []
+        hook = net.rpn.register_forward_hook(
+            lambda mod, args, out: seen.append(args[0]))
+        detect(net, tr.spec, tr.eval_vspec, points, mask, anchors,
+               device=dev)
+        hook.remove()
+        bev = seen[0]
+        got = make_spatial_forward(net.rpn, group)(bev)
+        own = net.rpn(bev)
+        equal = all(torch.equal(got[k], own[k]) for k in own)
+        if not equal:
+            fail("dp spatial: the row-sharded RPN at world size 1 differs "
+                 "from its unsharded forward")
+        say(f"dp spatial: the fhd RPN on its BEV map {tuple(bev.shape)} "
+            f"row-sharded over the group (world size 1: no halo) = its "
+            f"unsharded forward, bit for bit")
+
+        T = TEMPORAL_SEQ_FRAMES
+        seq = build_temporal(tr.cfg.model, dev, sequence=True)[0]
+        prep = ExamplePrep(tr.assigner, tr.info.feature_map_size,
+                           PrepConfig(max_points=MAX_POINTS, training=False))
+        pc_range = tuple(tr.cfg.model.voxel_generator.point_cloud_range)
+        padded = [prep.pad_points(lidar_scan_scene(
+            np.random.default_rng(s), pc_range=pc_range,
+            num_azimuth=512)[0], np.random.default_rng(0))
+            for s in range(T)]
+        frames = device_voxelize(
+            tr.eval_vspec,
+            torch.as_tensor(np.stack([p for p, _ in padded]), device=dev),
+            torch.as_tensor(np.stack([m for _, m in padded]), device=dev),
+            dev)
+        seq_anchors = torch.as_tensor(prep.anchors, device=dev)
+        sp = make_sp_sequence_forward(seq, group)(frames, seq_anchors)
+        own = seq(frames, seq_anchors)
+        if sp["pair_valid"].tolist() != [False] + [True] * (T - 1):
+            fail(f"dp sequence: pair_valid {sp['pair_valid'].tolist()}")
+        errs = {}
+        for k in ("box_preds", "cls_preds"):
+            errs[k] = (sp[k][1:] - own[k]).abs().max().item()
+            if not torch.allclose(sp[k][1:], own[k], **PRED_TOL):
+                fail(f"dp sequence: {k} {errs[k]:.3g} from the unsharded "
+                     f"sequence model's")
+        same = (sp["proposals"]["indices"][1:] ==
+                own["proposals"]["indices"]).float().mean().item()
+        report["sequence"] = dict(frames=T, errs=errs, same_proposals=same)
+        say(f"dp sequence: {T} frames, the ring a local copy at world size "
+            f"1, pair_valid {sp['pair_valid'].tolist()}, its {T - 1} valid "
+            f"pairs' stage 1 against the unsharded sequence model within "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; {100 * same:.1f}% of the proposals the same")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    return counts["dp"], eval_counts, report
 
 
 if __name__ == "__main__":

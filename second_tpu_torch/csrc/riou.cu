@@ -27,7 +27,8 @@
 // 1 inter/area2), both off the main path; the two kernels of rotated NMS
 // for a whole batch, `nms_overlap` and `nms_suppress` (below);
 // `d3_iou`, the 3-D IoU of lidar boxes (below); and `standup_overlap`,
-// the bitmask of standup NMS (below). A non-finite box gives
+// the bitmask of standup NMS (below); and `soft_nms_decay`, the decay steps
+// of soft-NMS over a precomputed IoU matrix (below). A non-finite box gives
 // the plain version's non-finite results: the clamps and the winding sign
 // pass NaN through, as torch.clamp and torch.sign do.
 //
@@ -1162,6 +1163,109 @@ __global__ void __launch_bounds__(SU_THREADS)
         over[(base + r0 + r) * W + w] = 0u;
   }
 }
+
+// ------------------------------------------------------------ soft-NMS
+//
+// soft_nms_decay — replaces the decay `lax.scan` of `soft_nms`
+// (second_tpu/ops/nms.py:230-244; no Pallas counterpart): over a row's K
+// candidates, sorted by descending score, `m` steps each pick the highest
+// current score (ties to the lowest index, `jnp.argmax`; a row of -inf
+// picks 0), record it, multiply every finite score by the decay of its IoU
+// with the pick (exp(-iou^2 / sigma), or 1 - iou above the threshold),
+// keep -inf at -inf, and set the pick to -inf.
+// Bound on the H100: bytes, m IoU rows of K floats and the K scores a row
+// read once, the picks and their scores written once; but the m steps are
+// a chain, each waiting on the last one's pick, so what the card can reach
+// is m times a step's latency (a block-wide argmax and one dependent read
+// of an IoU row). Design: one block a row, of up to 1024 threads, each
+// holding at most SOFT_PER_THREAD of the row's scores in registers (K <=
+// NMS_MAX_K); a step is a warp-shuffle argmax, one across the warps through
+// shared memory, then each thread's coalesced read of the picked IoU row
+// at its own columns and the decay in fp32 with `expf` and an IEEE
+// division (the plain version's operations; the file is built without
+// fused multiply-adds), which also yields the thread's argmax for the next
+// step. Two barriers a step.
+constexpr int SOFT_PER_THREAD = 4;
+
+// (v, i) against (ov, oi): the larger value, at equal values the lower
+// index (-inf ties too, so a row of -inf picks its lowest index).
+__device__ __forceinline__ void soft_better(float& v, int& i, float ov,
+                                            int oi) {
+  if (ov > v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+__global__ void __launch_bounds__(1024)
+    soft_nms_decay_kernel(const float* __restrict__ iou,
+                          const float* __restrict__ scores,
+                          long long* __restrict__ picks,
+                          float* __restrict__ pick_scores, int k, int m,
+                          int gaussian, float sigma, float thr) {
+  __shared__ float red_v[32];
+  __shared__ int red_i[32];
+  __shared__ float best_v;
+  __shared__ int best_i;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long row = blockIdx.x;
+  const float* __restrict__ rs = scores + row * k;
+  const float* __restrict__ ri = iou + row * (long long)k * k;
+  float cur[SOFT_PER_THREAD];
+  float lv = -INFINITY;
+  int li = 0x7fffffff;
+#pragma unroll
+  for (int e = 0; e < SOFT_PER_THREAD; ++e) {
+    const int j = tid + e * blockDim.x;
+    cur[e] = j < k ? rs[j] : -INFINITY;
+    if (j < k) soft_better(lv, li, cur[e], j);
+  }
+  for (int s = 0; s < m; ++s) {
+    float v = lv;
+    int i = li;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      soft_better(v, i, __shfl_down_sync(FULL, v, off),
+                  __shfl_down_sync(FULL, i, off));
+    if (lane == 0) {
+      red_v[warp] = v;
+      red_i[warp] = i;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      v = lane < nwarps ? red_v[lane] : -INFINITY;
+      i = lane < nwarps ? red_i[lane] : 0x7fffffff;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        soft_better(v, i, __shfl_down_sync(FULL, v, off),
+                    __shfl_down_sync(FULL, i, off));
+      if (lane == 0) {
+        best_v = v;
+        best_i = i;
+        picks[row * m + s] = i;
+        pick_scores[row * m + s] = v;
+      }
+    }
+    __syncthreads();
+    const int b = best_i;
+    const float* __restrict__ brow = ri + (long long)b * k;
+    lv = -INFINITY;
+    li = 0x7fffffff;
+#pragma unroll
+    for (int e = 0; e < SOFT_PER_THREAD; ++e) {
+      const int j = tid + e * blockDim.x;
+      if (j < k) {
+        const float r = brow[j];
+        const float d = gaussian ? expf(-(r * r) / sigma)
+                                 : (r > thr ? 1.f - r : 1.f);
+        const float c = cur[e];
+        cur[e] = j == b ? -INFINITY : (isfinite(c) ? c * d : -INFINITY);
+        soft_better(lv, li, cur[e], j);
+      }
+    }
+  }
+}
 }  // namespace
 
 extern "C" int riou_pairs(const void* b1, const void* b2, const void* pi,
@@ -1322,6 +1426,27 @@ extern "C" int standup_overlap(const void* cand, const void* valid,
         static_cast<const float*>(cand), static_cast<const uint8_t*>(valid),
         static_cast<uint32_t*>(over), batch, k, (int)live_tiles,
         (float)thr);
+  return (int)cudaGetLastError();
+}
+
+// iou [R, K, K] fp32, scores [R, K] fp32 (each row sorted by descending
+// score; -inf an invalid candidate) → picks [R, m] int64 and their scores
+// [R, m] fp32, m steps of soft-NMS's decay a row (gaussian: exp(-iou^2 /
+// sigma), else linear: 1 - iou above thr).
+extern "C" int soft_nms_decay(const void* iou, const void* scores,
+                              void* picks, void* pick_scores, int rows,
+                              int k, int m, int gaussian, float sigma,
+                              float thr, void* stream) {
+  if (rows < 0 || k < 0 || m < 0 || k > NMS_MAX_K || m > k)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || k == 0 || m == 0) return 0;
+  int threads = (k + SOFT_PER_THREAD - 1) / SOFT_PER_THREAD;
+  threads = ((threads + 31) / 32) * 32;
+  soft_nms_decay_kernel<<<(unsigned)rows, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(iou), static_cast<const float*>(scores),
+      static_cast<long long*>(picks), static_cast<float*>(pick_scores), k, m,
+      gaussian, sigma, thr);
   return (int)cudaGetLastError();
 }
 

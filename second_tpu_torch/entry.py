@@ -1,5 +1,6 @@
-"""The port's model entry point — the counterpart of the JAX package's
-`__graft_entry__.entry()`.
+"""The port's model entry point and multi-device dry run — the
+counterparts of the JAX package's `__graft_entry__.entry()` and
+`dryrun_multichip`.
 
     from second_tpu_torch.entry import entry
     forward, args = entry()              # on the CUDA card
@@ -29,6 +30,9 @@ from .ops.voxelize import VoxelizeSpec
 CONFIG = Path(__file__).resolve().parent / "configs" / \
     "pointpillars_car.config"
 MAX_POINTS, MAX_VOXELS, BATCH = 20000, 12000, 1
+# the multi-device dry run's configuration
+TINY_CONFIG = Path(__file__).resolve().parent / "configs" / \
+    "tiny_sparse.config"
 
 
 def entry(device="cuda", seed: int = 0):
@@ -62,3 +66,63 @@ def entry(device="cuda", seed: int = 0):
                       device=dev)[0]
 
     return forward, example_args
+
+
+def dryrun_multichip(n_devices: int, steps: int = 2) -> dict:
+    """The counterpart of the JAX package's `dryrun_multichip`: the CLI's
+    data-parallel training (`train.run.Trainer` on synthetic scans of
+    `configs/tiny_sparse.config`, the train batch set to `n_devices`, 512
+    voxels) for `steps` steps at world size `n_devices`, in `n_devices` CPU
+    processes of a gloo group (`parallel.launch.run_world`; the machine
+    has one card). Every rank must take the data-parallel path, end at
+    the same finite parameters and log finite losses. Returns rank 0's
+    result."""
+    import tempfile
+
+    from .parallel.launch import run_world
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_world("second_tpu_torch.entry:dryrun_rank", n_devices,
+                            Path(tmp) / "world", args=(tmp, steps),
+                            deadline=300.0)
+    first = results[0]
+    for r, res in enumerate(results):
+        if not res["data_parallel"] or res["step"] != steps:
+            raise RuntimeError(f"dryrun_multichip: rank {r} took no "
+                               f"data-parallel step: {res}")
+        if not np.isfinite(res["param_sum"]) or \
+                res["param_sum"] != first["param_sum"]:
+            raise RuntimeError(f"dryrun_multichip: rank {r}'s parameters "
+                               f"differ from rank 0's or are not finite")
+    if len(first["losses"]) != steps or \
+            not np.isfinite(first["losses"]).all():
+        raise RuntimeError(f"dryrun_multichip: losses {first['losses']}")
+    print(f"dryrun_multichip({n_devices}): CLI DP train {steps} steps on "
+          f"{n_devices} ranks, losses {first['losses']}")
+    return first
+
+
+def dryrun_rank(tmp: str, steps: int) -> dict:
+    """One rank of `dryrun_multichip` (run by `parallel.launch`)."""
+    import json
+
+    import torch.distributed as dist
+
+    from .train.run import Trainer
+    n = dist.get_world_size()
+    trainer = Trainer(TINY_CONFIG, Path(tmp) / "model", synthetic=True,
+                      dataset_size=2 * n, max_points=2048, device="cpu",
+                      patches=[f"train_input_reader.batch_size={n}",
+                               "train_input_reader.max_number_of_voxels=512",
+                               "train_config.save_summary_steps=1"])
+    state = trainer.train(total_steps=steps)
+    losses = []
+    if trainer.is_chief:
+        log = Path(tmp) / "model" / "log.json"
+        losses = [rec["train.loss"] for rec in map(json.loads,
+                                                   log.read_text().split(
+                                                       "\n")[:-1])
+                  if "train.loss" in rec]
+    return {"data_parallel": trainer._train_group is not None,
+            "step": state.step, "losses": np.asarray(losses),
+            "param_sum": float(sum(p.double().abs().sum()
+                                   for p in state.module.parameters()))}

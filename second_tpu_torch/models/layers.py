@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import at_least_fp32
+from ..parallel.mesh import global_moments
 
 
 def _flax_batch_norm(bn, x, dims):
@@ -24,10 +25,12 @@ def _flax_batch_norm(bn, x, dims):
     (x − mean) · (rsqrt(var + eps) · scale) + bias, and the running update
     ra = 0.99 · ra + 0.01 · stat with the biased variance. torch's own
     training step updates `running_var` with the unbiased variance, n/(n−1)
-    away from flax's."""
+    away from flax's. In a data-parallel step (`parallel.mesh.sync_norms`)
+    the statistics are the whole batch's over the ranks (`global_moments`,
+    differentiably), as XLA's SPMD step computes flax's norm over the
+    global batch."""
     x = at_least_fp32(x)
-    mean = x.mean(dims)
-    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    mean, var = global_moments(x, dims)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(m * mean)
@@ -86,9 +89,13 @@ class ConvBlock(nn.Module):
                               padding=0, bias=False)
         self.norm = _norm(features, use_groupnorm, num_groups)
 
-    def forward(self, x):
+    def forward(self, x, pad_h=None):
+        """x [B, C, H, W]; `pad_h` (before, after) rows of zeros in place of
+        H's SAME padding (the row-sharded forward, `parallel/spatial.py`,
+        brings its halo rows and pads none)."""
         H, W = x.shape[-2:]
-        ph = same_padding(H, self.kernel_size, self.stride)
+        ph = same_padding(H, self.kernel_size, self.stride) \
+            if pad_h is None else pad_h
         pw = same_padding(W, self.kernel_size, self.stride)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         dtype = self.dtype or x.dtype

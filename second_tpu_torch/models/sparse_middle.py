@@ -22,6 +22,7 @@ from torch import nn
 from ..device import at_least_fp32
 from ..ops import sparse_conv as sp
 from ..ops.cuda.subm import MAX_CHANNELS
+from ..parallel.mesh import global_moments
 from .middle import register_middle
 
 
@@ -42,8 +43,9 @@ class MaskedBatchNorm(nn.Module):
     normalises with the masked batch statistics (the valid-row count
     clamped to 1, the biased variance) and updates the running statistics
     as ra = 0.99 · ra + 0.01 · stat, as JAX's does
-    (`second_tpu/models/sparse_middle.py:42-50`); eval uses the running
-    statistics."""
+    (`second_tpu/models/sparse_middle.py:42-50`), over the whole batch of
+    all the ranks in a data-parallel step (`global_moments`); eval uses the
+    running statistics."""
 
     MOMENTUM = 0.99                     # flax's: the running share kept
 
@@ -60,9 +62,7 @@ class MaskedBatchNorm(nn.Module):
         x = at_least_fp32(x)
         m = mask[..., None].to(x.dtype)
         if self.training:
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum((0, 1)) / count
-            var = (torch.square(x - mean) * m).sum((0, 1)) / count
+            mean, var = global_moments(x, (0, 1), mask)
             with torch.no_grad():
                 keep = self.MOMENTUM
                 self.running_mean.mul_(keep).add_((1 - keep) * mean)

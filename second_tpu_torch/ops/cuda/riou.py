@@ -15,10 +15,11 @@ suppression, JAX `_greedy_suppress_over`) take a whole batch and meet in an
 overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
 j // 32 of row i says that the higher-ranked box i suppresses box j.
 `standup_overlap` writes that bitmask for standup NMS (the standup IoU of
-axis-aligned boxes, thresholded). Each launches `csrc/riou.cu` for CUDA
-tensors and takes its plain version, built on `ops/rotated_iou.py`, for
-CPU tensors. None has a backward: under grad mode, boxes that require
-grad raise.
+axis-aligned boxes, thresholded). `soft_nms_decay` runs the decay steps
+of soft-NMS (JAX `soft_nms`'s `lax.scan`) over a precomputed IoU matrix.
+Each launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
+built on `ops/rotated_iou.py`, for CPU tensors. None has a backward: under
+grad mode, inputs that require grad raise.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ launches_suppress = 0
 launches_d3 = 0
 # launches of the standup-NMS bitmask kernel
 launches_standup = 0
+# launches of the soft-NMS decay kernel
+launches_soft = 0
 
 NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
 NMS_CLUSTERS = (1, 2, 4, 8, 16)
@@ -65,6 +68,9 @@ _STANDUP_ARGTYPES = [ctypes.c_void_p] * 3 + \
 # over, valid, keep, batch, k, stream
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# iou, scores, picks, pick_scores, rows, k, m, gaussian, sigma, thr, stream
+_SOFT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+    [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 # the C launch functions, resolved at their first launch
 _pairs_launch = None
 _matrix_launch = None
@@ -72,6 +78,7 @@ _overlap_launch = None
 _suppress_launch = None
 _d3_launch = None
 _standup_launch = None
+_soft_launch = None
 
 
 def _resolve_pairs():
@@ -102,6 +109,12 @@ def _resolve_standup():
     global _standup_launch
     _standup_launch = function("riou", "standup_overlap", _STANDUP_ARGTYPES)
     return _standup_launch
+
+
+def _resolve_soft():
+    global _soft_launch
+    _soft_launch = function("riou", "soft_nms_decay", _SOFT_ARGTYPES)
+    return _soft_launch
 
 
 def _resolve_d3():
@@ -562,3 +575,75 @@ def nms_suppress(over_bits, valid):
     global launches_suppress
     launches_suppress += 1
     return keep
+
+
+# -------------------------------------------------------------- soft-NMS
+
+
+def soft_nms_decay_plain(iou, scores, m, method="gaussian", sigma=0.5,
+                         iou_threshold=0.3):
+    """The decay steps of soft-NMS (JAX `soft_nms`'s `lax.scan`), every row
+    at once: iou [R, K, K], scores [R, K] sorted by descending score (-inf
+    an invalid candidate) → (picks [R, m] int64, their scores [R, m]). A
+    step picks the highest current score (ties to the lowest index; a row
+    of -inf picks 0), multiplies every finite score by the decay of its
+    IoU with the pick, exp(-iou² / sigma) for "gaussian", else 1 - iou
+    where iou > iou_threshold (1 elsewhere), keeps -inf at -inf (no
+    -inf · 0), then sets the pick to -inf."""
+    R = scores.shape[0]
+    rows = torch.arange(R, device=scores.device)
+    cur = scores.clone()
+    picks, picked = [], []
+    for _ in range(m):
+        best = torch.argmax(cur, dim=1)
+        picks.append(best)
+        picked.append(cur[rows, best])
+        row = iou[rows, best]
+        if method == "gaussian":
+            decay = torch.exp(-(row * row) / sigma)
+        else:
+            decay = torch.where(row > iou_threshold, 1.0 - row, 1.0)
+        cur = torch.where(torch.isfinite(cur), cur * decay, float("-inf"))
+        cur[rows, best] = float("-inf")
+    if not m:
+        return (torch.zeros((R, 0), dtype=torch.int64, device=scores.device),
+                scores.new_zeros((R, 0)))
+    return torch.stack(picks, 1), torch.stack(picked, 1)
+
+
+def soft_nms_decay(iou, scores, m, method="gaussian", sigma=0.5,
+                   iou_threshold=0.3):
+    """`soft_nms_decay_plain` semantics; the CUDA kernel for CUDA tensors
+    (fp32, K <= NMS_MAX_K, every row in one launch)."""
+    refuse_grad("soft_nms_decay", iou, scores)
+    dev = scores.device
+    if dev.type == "cpu":
+        return soft_nms_decay_plain(iou, scores, m, method, sigma,
+                                    iou_threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"soft_nms_decay: unsupported device {dev}")
+    if scores.dim() != 2 or iou.shape != (*scores.shape, scores.shape[1]) \
+            or iou.dtype != torch.float32 or scores.dtype != torch.float32 \
+            or iou.device != dev:
+        raise ValueError(f"soft_nms_decay: expected iou [R, K, K] and scores "
+                         f"[R, K] float32 on one device, got "
+                         f"{tuple(iou.shape)} {iou.dtype} and "
+                         f"{tuple(scores.shape)} {scores.dtype}")
+    R, K = scores.shape
+    if K > NMS_MAX_K or not 0 <= m <= K or R > 2 ** 31 - 1:
+        raise ValueError(f"soft_nms_decay: {R} rows of {K} candidates, {m} "
+                         f"steps; the kernel takes K <= {NMS_MAX_K} and "
+                         f"m <= K")
+    picks = torch.empty((R, m), dtype=torch.int64, device=dev)
+    picked = torch.empty((R, m), dtype=torch.float32, device=dev)
+    if R * K * m == 0:
+        return picks, picked
+    iou, scores = iou.contiguous(), scores.contiguous()
+    rc = (_soft_launch or _resolve_soft())(
+        iou.data_ptr(), scores.data_ptr(), picks.data_ptr(),
+        picked.data_ptr(), R, K, m, int(method == "gaussian"), sigma,
+        iou_threshold, stream_ptr(dev))
+    check("riou", rc)
+    global launches_soft
+    launches_soft += 1
+    return picks, picked

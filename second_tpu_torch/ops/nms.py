@@ -1,6 +1,6 @@
 """Masked, fixed-size non-maximum suppression — the port of
-`second_tpu/ops/nms.py` (`nms`, `nearest_nms`, `multiclass_nms` and their
-helpers).
+`second_tpu/ops/nms.py` (`nms`, `nearest_nms`, `multiclass_nms`,
+`soft_nms` and their helpers).
 
 Selection returns fixed-size [post_max_size] indices plus a keep mask, as
 the JAX package does. Both entry points take one example ([N, ...]) or a
@@ -14,6 +14,11 @@ gather of the candidates, the overlap bitmask (`nms_overlap`, rotated;
 suppression kernel (`nms_suppress`), then a batched top-k of the kept
 scores. Multi-class NMS runs every class of every example as one such
 batch of B·C rows.
+
+Soft-NMS decays the scores of overlapping boxes instead of removing them:
+the candidates' IoU matrix (sparse and rotated, `sparse_rotated_iou_matrix`,
+or the dense standup one), then the `m` decay steps of every row in one
+launch (`soft_nms_decay`).
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import torch
 
 from .box_ops import rbbox2d_to_near_bbox
 from .cuda.gather import flat_rows
-from .cuda.riou import nms_overlap, nms_suppress, standup_overlap
+from .cuda.riou import (nms_overlap, nms_suppress, riou_pairs,
+                        soft_nms_decay, standup_maybe, standup_overlap)
+from .rotated_iou import standup_iou_matrix
 
 
 def top_k(values, k):
@@ -117,3 +124,94 @@ def nearest_nms(boxes_rbv, scores, valid, *, pre_max_size, post_max_size,
     return nms(rbbox2d_to_near_bbox(boxes_rbv), scores, valid,
                pre_max_size=pre_max_size, post_max_size=post_max_size,
                iou_threshold=iou_threshold, rotated=False)
+
+
+def soft_nms_pairs(cand, valid, max_pairs, min_bound=0.0):
+    """The pairs soft-NMS clips, at a fixed size: cand [B, K, 5], valid
+    [B, K] → (plist [B, max_pairs] int64 of i * K + j, ok [B, max_pairs]
+    bool). The pairs are `standup_maybe`'s at `min_bound` (i < j, both
+    valid, the standup-envelope bound on their IoU above it) in row-major
+    order, the first `max_pairs` of them; a slot past an example's pairs
+    holds 0 and is not ok (JAX `_sparse_rotated_iou_matrix`'s `plist` and
+    `pair_ok`). Found by a search in the running count, so nothing is read
+    on the host."""
+    B, K = valid.shape
+    maybe = standup_maybe(cand, valid, min_bound).reshape(B, K * K)
+    count = torch.cumsum(maybe, 1)
+    want = torch.arange(1, max_pairs + 1, device=cand.device,
+                        dtype=count.dtype).expand(B, -1).contiguous()
+    plist = torch.searchsorted(count, want)
+    ok = plist < K * K
+    return torch.where(ok, plist, 0), ok
+
+
+def sparse_rotated_iou_matrix(cand, top_valid, max_pairs, min_bound=0.0):
+    """The symmetric rotated-IoU matrix [K, K] (or [B, K, K]) of candidates
+    [K, 5] (or [B, K, 5]), computed sparsely (JAX
+    `_sparse_rotated_iou_matrix`): only `soft_nms_pairs`' pairs are clipped
+    (`riou_pairs`), every other entry is 0, the pairs past the cap
+    included, and each IoU is written into both triangles.
+
+    `riou_pairs`' criterion -1 is JAX's IoU here: inter / max(a_i + a_j -
+    inter, 1e-12) with a = w · l of each box, in JAX's order
+    (`inter / jnp.maximum(areas[pi] + areas[pj] - inter, 1e-12)`). On the
+    same intersections and boxes the plain version's value is that
+    expression's, run op by op, bit for bit (`tests/test_torch_soft_nms.py`;
+    XLA's jit of it rounds some values an ulp or two apart), and the
+    kernel's `pair_iou` runs the same operations, built without fused
+    multiply-adds; the intersections themselves differ by the corners' sin
+    and cos (an ulp)."""
+    if cand.dim() == 2:
+        return sparse_rotated_iou_matrix(cand[None], top_valid[None],
+                                         max_pairs, min_bound)[0]
+    B, K = top_valid.shape
+    plist, ok = soft_nms_pairs(cand, top_valid, max_pairs, min_bound)
+    off = (torch.arange(B, device=cand.device) * K)[:, None]
+    flat = cand.reshape(B * K, 5)
+    iou = riou_pairs(flat, flat, (off + plist // K).reshape(-1),
+                     (off + plist % K).reshape(-1)).view(B, -1)
+    # the slots that are not ok all write 0 at entry 0, the diagonal
+    iou = torch.where(ok, iou, 0.0)
+    out = torch.zeros((B, K * K), dtype=iou.dtype, device=cand.device)
+    out = out.scatter_(1, plist, iou).view(B, K, K)
+    return torch.maximum(out, out.transpose(1, 2))
+
+
+def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
+             sigma=0.5, iou_threshold=0.3, score_threshold=1e-3,
+             method="gaussian", rotated=True, max_pairs=8192):
+    """Soft-NMS (Bodla et al.; JAX `soft_nms`): instead of removing the
+    boxes that overlap a pick, their scores decay by exp(-iou² / sigma)
+    ("gaussian") or by 1 - iou above `iou_threshold` (any other method).
+
+    boxes [N, 5] rotated BEV boxes (or standup [N, 4] with rotated=False),
+    scores [N], valid [N] bool; or each with a leading batch axis B. The
+    top min(pre_max_size, N) valid candidates (stable top-k); their IoU
+    matrix, the rotated one sparsely over the first min(max_pairs, k²)
+    pairs that can overlap (pairs past that cap count as IoU 0), the
+    standup one dense; then min(post_max_size, k) decay steps, every row
+    in one launch. Returns (indices [m] into the inputs, in pick order,
+    the rescored scores where kept and 0 elsewhere, keep [m]: finite and
+    at least `score_threshold`)."""
+    if boxes.dim() == 2:
+        idx, out, keep = soft_nms(
+            boxes[None], scores[None], valid[None],
+            pre_max_size=pre_max_size, post_max_size=post_max_size,
+            sigma=sigma, iou_threshold=iou_threshold,
+            score_threshold=score_threshold, method=method, rotated=rotated,
+            max_pairs=max_pairs)
+        return idx[0], out[0], keep[0]
+    masked = torch.where(valid, scores, float("-inf"))
+    k = min(pre_max_size, boxes.shape[1])
+    top_scores, top_idx = top_k(masked, k)
+    cand = flat_rows(boxes, top_idx)
+    if rotated:
+        iou = sparse_rotated_iou_matrix(cand, torch.isfinite(top_scores),
+                                        min(max_pairs, k * k))
+    else:
+        iou = standup_iou_matrix(cand, cand)
+    picks, picked = soft_nms_decay(iou, top_scores, min(post_max_size, k),
+                                   method, sigma, iou_threshold)
+    keep = torch.isfinite(picked) & (picked >= score_threshold)
+    return (top_idx.gather(-1, picks), torch.where(keep, picked, 0.0),
+            keep)

@@ -100,12 +100,19 @@ class MetricsLogger:
         self._txt = open(self._dir / "log.txt", "a")
         self._echo = echo
         self._tb = None
-        if use_tensorboard:
+        # the TensorBoard writer is made at the first record: importing it
+        # takes seconds, which a run that logs nothing does not pay
+        self._want_tb = use_tensorboard
+
+    def _writer(self):
+        if self._want_tb:
+            self._want_tb = False
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(log_dir=str(self._dir / "summary"))
             except Exception:
                 self._tb = None
+        return self._tb
 
     def log(self, step: int, metrics: Dict, prefix: str = ""):
         flat = flatten_metrics(metrics, prefix)
@@ -121,7 +128,7 @@ class MetricsLogger:
         self._txt.flush()
         if self._echo:
             print(line, flush=True)
-        if self._tb is not None:
+        if self._writer() is not None:
             for k, v in flat.items():
                 if isinstance(v, float):
                     self._tb.add_scalar(k, v, step)
@@ -131,7 +138,7 @@ class MetricsLogger:
         self._txt.flush()
         if self._echo:
             print(text, flush=True)
-        if self._tb is not None:
+        if self._writer() is not None:
             self._tb.add_text(tag, text, step)
 
     def close(self):

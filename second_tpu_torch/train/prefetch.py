@@ -14,7 +14,10 @@ from typing import Callable, Iterator
 
 
 class PrefetchIterator:
-    """Wrap a batch-producing iterator with N worker threads + a queue."""
+    """Wrap a batch-producing iterator with N worker threads + a queue.
+    Batches come out in the order they were made, whichever worker made
+    each: a data-parallel step's ranks each take their slice of the same
+    k-th global batch."""
 
     def __init__(self, make_batch: Callable[[], dict], num_workers: int = 2,
                  prefetch_size: int = 4):
@@ -22,6 +25,9 @@ class PrefetchIterator:
         self._queue: queue.Queue = queue.Queue(maxsize=prefetch_size)
         self._stop = threading.Event()
         self._lock = threading.Lock()
+        self._made = 0                # batches made (under the lock)
+        self._next = 0                # the next batch __next__ hands out
+        self._ready: dict = {}        # batches taken off the queue early
         self._threads = [
             threading.Thread(target=self._worker, daemon=True)
             for _ in range(num_workers)]
@@ -32,13 +38,15 @@ class PrefetchIterator:
         while not self._stop.is_set():
             try:
                 with self._lock:      # batch order/rng stays deterministic
+                    seq = self._made
+                    self._made += 1
                     batch = self._make_batch()
             except Exception as e:    # surface errors on the consumer side
-                self._queue.put(e)
+                self._queue.put((seq, e))
                 return
             while not self._stop.is_set():
                 try:
-                    self._queue.put(batch, timeout=0.5)
+                    self._queue.put((seq, batch), timeout=0.5)
                     break
                 except queue.Full:
                     continue
@@ -47,9 +55,15 @@ class PrefetchIterator:
         return self
 
     def __next__(self) -> dict:
-        item = self._queue.get()
-        if isinstance(item, Exception):
-            raise item
+        # workers enqueue in any order once out of the lock: hold the
+        # batches that come early until their turn
+        while self._next not in self._ready:
+            seq, item = self._queue.get()
+            if isinstance(item, Exception):
+                raise item
+            self._ready[seq] = item
+        item = self._ready.pop(self._next)
+        self._next += 1
         return item
 
     def close(self):

@@ -35,12 +35,22 @@ the temporal types; rendered camera images for the fusion types). The
 config's anchor-area mask is computed on the host for target assignment in
 training; in evaluation on the device from the voxelizer's coords, except
 for the fusion types, whose eval examples carry the host mask, as JAX's
-trainer prepares them. Data-parallel training is not ported.
+trainer prepares them.
+
+Data parallelism, as JAX's `Trainer` takes it up over its devices: under a
+`torch.distributed` process group of more than one rank (`torchrun
+--nproc_per_node=N -m second_tpu_torch.train.run ...`: NCCL on the cards,
+gloo with `--device cpu`), training runs data-parallel where the train
+reader's batch divides by the ranks, and evaluation where the eval
+reader's does (`parallel/`): every rank builds the same global batch and
+takes its slice; only rank 0 writes checkpoints, logs and results.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import pathlib
 import pickle
 import shutil
@@ -61,6 +71,7 @@ from ..models import (build_fusion_two_stage_voxelnet,
                       build_fusion_voxelnet, build_temporal_fusion_voxelnet,
                       build_temporal_voxelnet, build_two_stage_voxelnet,
                       build_voxelnet)
+from ..parallel.mesh import data_sharding, make_dp_train_step, make_group
 from ..utils import kitti_eval
 from .checkpoint import CheckpointManager
 from .metrics import MetricsLogger, Scalar, StageTimer
@@ -148,6 +159,19 @@ def apply_config_patches(cfg, patches):
     return cfg
 
 
+class _Silent:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def log_text(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(self, config_path, model_dir, synthetic=False,
                  dataset_size=256, max_points=20000, total_steps=None,
@@ -159,12 +183,17 @@ class Trainer:
         self.use_fusion = model_type in FUSION_TYPES
         self.use_zslice = model_type == "temporal_fusion"
         self.device = resolve_device(device)
+        # the process group this trainer is a rank of (one rank without)
+        self.group = make_group()
+        self.rank, self.world = data_sharding(self.group)
+        self.is_chief = self.rank == 0
         self.cfg = apply_config_patches(load_pipeline_config(config_path),
                                         patches)
         self.model_dir = pathlib.Path(model_dir)
         self.model_dir.mkdir(parents=True, exist_ok=True)
         # keep the resolved config beside the run (reference train.py:114-122)
-        shutil.copy(config_path, self.model_dir / "pipeline.config")
+        if self.is_chief:
+            shutil.copy(config_path, self.model_dir / "pipeline.config")
 
         if model_type == "one_stage":
             (self.module, self.spec, self.info, self.assigner,
@@ -292,9 +321,61 @@ class Trainer:
             self.train_step, self.eval_step = _MULTISTAGE[model_type][1](
                 self.spec, self.vspec, self.eval_vspec,
                 mask_info=self._eval_mask_info)
+        # data parallelism over the group's ranks where a reader's batch
+        # divides by them (JAX `:256-299`): the eval step sharded with its
+        # statistics reduced, and the train step sharded through DDP with
+        # the norms' statistics over the global batch
+        self._last_eval_stats = None
+        if self.world > 1 and \
+                self.cfg.eval_input_reader.batch_size % self.world == 0:
+            if model_type == "one_stage":
+                self._setup_dp_eval()
+            else:
+                self._setup_dp_eval_generic()
+        self._train_group = None
+        if self.world > 1 and \
+                self.cfg.train_input_reader.batch_size % self.world == 0:
+            self._setup_dp_train()
         self.ckpt = CheckpointManager(self.model_dir)
-        self.logger = MetricsLogger(self.model_dir)
+        self.logger = MetricsLogger(self.model_dir) if self.is_chief \
+            else _Silent()
         self.timer = StageTimer()
+
+    def _setup_dp_train(self):
+        """The train step over the group: each rank's slice of the global
+        batch, through DDP (`parallel.mesh.make_dp_train_step`, which wraps
+        the module, and so broadcasts it from rank 0, at its first step)."""
+        self._train_group = self.group
+        self.train_step = make_dp_train_step(self.train_step, self.group)
+
+    def _setup_dp_eval(self):
+        """The one-stage eval step over the group: each rank's slice,
+        statistics reduced, detections gathered
+        (`parallel.eval_dp.make_dp_eval_step`)."""
+        from ..parallel.eval_dp import make_dp_eval_step, stats_to_dict
+        dp_step = make_dp_eval_step(self.spec, self.eval_vspec, self.group,
+                                    mask_info=self._eval_mask_info)
+
+        def eval_step(state, batch):
+            det, stats = dp_step(state, batch)
+            det["voxel_overflow"] = stats[-1]
+            self._last_eval_stats = stats_to_dict(stats)
+            return det
+
+        self.eval_step = eval_step
+
+    def _setup_dp_eval_generic(self):
+        """Any other model type's eval step over the group
+        (`parallel.eval_dp.make_dp_eval_any`)."""
+        from ..parallel.eval_dp import make_dp_eval_any, stats_to_dict
+        dp_step = make_dp_eval_any(self.eval_step, self.group)
+
+        def eval_step(state, batch):
+            det, stats = dp_step(state, batch)
+            self._last_eval_stats = stats_to_dict(stats)
+            return det
+
+        self.eval_step = eval_step
 
     # -- data --------------------------------------------------------------
     def _to_device(self, batch, dev_const):
@@ -384,21 +465,26 @@ class Trainer:
                     self.logger.log(step, log, prefix="train")
                     self.timer.clear()
                 if time.time() - last_ckpt_time > tc.save_checkpoints_secs:
-                    self.ckpt.save(state, step)
+                    self._save(state, step)
                     last_ckpt_time = time.time()
                 if tc.steps_per_eval and step % tc.steps_per_eval == 0:
-                    self.ckpt.save(state, step)
+                    self._save(state, step)
                     self.evaluate(state)
         except BaseException:
             # crash-save, like the reference's try/except around the loop
-            self.ckpt.save(state, state.step)
+            self._save(state, state.step)
             raise
         finally:
             if profiler is not None:
                 profiler.stop()
             batches.close()
-        self.ckpt.save(state, state.step)
+        self._save(state, state.step)
         return state
+
+    def _save(self, state, step):
+        """A checkpoint, written by rank 0 only."""
+        if self.is_chief:
+            self.ckpt.save(state, step)
 
     def _start_profile(self):
         from torch.profiler import (ProfilerActivity, profile,
@@ -498,8 +584,19 @@ class Trainer:
                 gt_annos, dt_annos, classes)
             text = text + "\n" + coco_text
         step = state.step
-        # detections persisted like the reference's (train.py:443,501:
-        # per-frame KITTI annos under eval_results/step_N/result.pkl)
+        if self.is_chief:
+            self._write_results(step, predict_test, dt_annos, gt_annos)
+        self.logger.log_text(step, "eval", text)
+        self.logger.log(step, {"frames_per_sec": fps,
+                               "frames_per_sec_steady": steady_fps,
+                               **overflow, **{
+            k: v[1] for k, v in detail.items() if "/3d" in k}}, prefix="eval")
+        return detail
+
+    def _write_results(self, step, predict_test, dt_annos, gt_annos):
+        """The detections persisted like the reference's (train.py:443,501:
+        per-frame KITTI annos under eval_results/step_N/result.pkl), by
+        rank 0."""
         result_name = "predict_test" if predict_test else "eval_results"
         result_dir = self.model_dir / result_name / f"step_{step}"
         result_dir.mkdir(parents=True, exist_ok=True)
@@ -518,12 +615,6 @@ class Trainer:
             lines = kitti.annos_to_kitti_label(anno)
             with open(txt_dir / f"{idx:06d}.txt", "w") as f:
                 f.write("\n".join(lines) + ("\n" if lines else ""))
-        self.logger.log_text(step, "eval", text)
-        self.logger.log(step, {"frames_per_sec": fps,
-                               "frames_per_sec_steady": steady_fps,
-                               **overflow, **{
-            k: v[1] for k, v in detail.items() if "/3d" in k}}, prefix="eval")
-        return detail
 
 
 def main(argv=None):
@@ -558,17 +649,45 @@ def main(argv=None):
                         metavar=("H", "W"),
                         help="camera canvas override for fusion model types")
     args = parser.parse_args(argv)
-    trainer = Trainer(args.config_path, args.model_dir, args.synthetic,
-                      args.dataset_size, args.max_points,
-                      total_steps=args.steps, model_type=args.model_type,
-                      patches=args.patchs, device=args.device,
-                      image_hw=args.image_hw)
-    if args.command == "train":
-        trainer.train(args.steps, profile_steps=args.profile_steps)
-    else:
-        trainer.evaluate(max_frames=args.max_frames,
-                         ckpt_step=args.ckpt_step,
-                         predict_test=args.predict_test)
+    device, joined = join_launch_group(args.device)
+    try:
+        trainer = Trainer(args.config_path, args.model_dir, args.synthetic,
+                          args.dataset_size, args.max_points,
+                          total_steps=args.steps,
+                          model_type=args.model_type, patches=args.patchs,
+                          device=device, image_hw=args.image_hw)
+        if args.command == "train":
+            trainer.train(args.steps, profile_steps=args.profile_steps)
+        else:
+            trainer.evaluate(max_frames=args.max_frames,
+                             ckpt_step=args.ckpt_step,
+                             predict_test=args.predict_test)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+# how long a collective waits for the other ranks before it fails
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def join_launch_group(device):
+    """Join the process group that `torchrun` describes in the environment
+    (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), if it does:
+    NCCL with this rank on card LOCAL_RANK, or gloo where `device` is the
+    CPU, collectives timing out after GROUP_TIMEOUT. Returns (this rank's
+    device, whether a group was joined)."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, False
+    import torch.distributed as dist
+    if torch.device(device).type == "cpu":
+        dist.init_process_group("gloo", timeout=GROUP_TIMEOUT)
+        return device, True
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", timeout=GROUP_TIMEOUT)
+    return f"cuda:{local}", True
 
 
 if __name__ == "__main__":

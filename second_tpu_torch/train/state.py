@@ -14,7 +14,7 @@ tensor on the host; the step count is a Python int, as the JAX loop's
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -28,11 +28,14 @@ from .optimizer import ClippedOptimizer, build_optimizer
 @dataclasses.dataclass
 class TrainState:
     """The module (its parameters and norm statistics), the optimizer (its
-    moments), the update count and the lr schedule."""
+    moments), the update count and the lr schedule; under data parallelism
+    also `ddp`, the module in `DistributedDataParallel`, which the step
+    runs its forward through (`parallel.mesh.wrap_ddp`)."""
     module: nn.Module
     optimizer: ClippedOptimizer
     step: int = 0
     lr_sched: Callable = None
+    ddp: Optional[nn.Module] = None
 
     @property
     def device(self) -> torch.device:
@@ -111,7 +114,8 @@ def step_of(vspec: VoxelizeSpec, forward_loss, metrics_of,
     metrics."""
 
     def train_step(state: TrainState, batch: Dict):
-        net, dev = state.module, state.device
+        net = state.module if state.ddp is None else state.ddp
+        dev = state.device
         with torch.no_grad():
             vox, voxel_overflow = voxelize(vspec, batch, dev)
         net.train()

@@ -2142,3 +2142,84 @@ def test_inference_context_card_matches_cpu(dev, tmp_path):
                                        atol=1e-3)
             np.testing.assert_allclose(a["scores"], b["scores"], rtol=1e-3,
                                        atol=1e-3)
+
+
+# ------------------------------------------------------------ soft-NMS
+
+
+def _decay_inputs(g, R, K):
+    """R rows of K candidates: a symmetric IoU matrix, 70% zeros; scores
+    sorted descending, row 1 all -inf, row 2 with ties, row 3 with an
+    invalid tail."""
+    iou = torch.rand(R, K, K, generator=g)
+    iou = torch.where(torch.rand(R, K, K, generator=g) < 0.7, 0.0, iou)
+    iou = torch.maximum(iou, iou.transpose(1, 2))
+    scores = torch.rand(R, K, generator=g).sort(1, descending=True)[0]
+    if R > 3:
+        scores[1] = float("-inf")
+        scores[2, K // 4:K // 2] = scores[2, K // 4]
+        scores[3, K // 2:] = float("-inf")
+    return iou, scores
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+@pytest.mark.parametrize("K", [1, 31, 33, 257, 1000, 4096])
+def test_soft_nms_decay_matches_plain(dev, K, method):
+    """The decay kernel (one block a row, the scores in registers, a
+    block-wide argmax a step) against its plain version on the card: picks
+    exact, their scores within 1e-6 relative (-inf where the plain
+    version's are); every block width it picks from K."""
+    g = torch.Generator().manual_seed(K)
+    R = 1 if K == 4096 else 5
+    iou, scores = _decay_inputs(g, R, K)
+    m = min(K, 100)
+    before = riou.launches_soft
+    got = riou.soft_nms_decay(iou.to(dev), scores.to(dev), m, method, 0.5,
+                              0.3)
+    assert riou.launches_soft == before + 1
+    want = riou.soft_nms_decay_plain(iou.to(dev), scores.to(dev), m, method,
+                                     0.5, 0.3)
+    assert torch.equal(got[0], want[0])
+    fin = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    torch.testing.assert_close(got[1][fin], want[1][fin], rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("rotated", [True, False])
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_card_matches_cpu(dev, rotated, method):
+    """`soft_nms` on a batch of 3 rows of 300 crowded candidates, the pair
+    cap binding, card (the row gather, the pair IoU and the decay kernels)
+    against CPU (their plain versions): picks and keep exact, scores
+    within 1e-5 (the card's and the CPU's sin and cos round the corners an
+    ulp apart)."""
+    g = torch.Generator().manual_seed(3)
+    boxes = torch.stack([_boxes(g, 300) for _ in range(3)])
+    if not rotated:
+        boxes = torch.cat([boxes[..., :2] - boxes[..., 2:4] / 2,
+                           boxes[..., :2] + boxes[..., 2:4] / 2], -1)
+    scores = torch.rand(3, 300, generator=g)
+    valid = torch.rand(3, 300, generator=g) < 0.9
+    kw = dict(pre_max_size=256, post_max_size=100, sigma=0.5,
+              iou_threshold=0.3, score_threshold=0.6, method=method,
+              rotated=rotated, max_pairs=2048)
+    got = nms.soft_nms(boxes.to(dev), scores.to(dev), valid.to(dev), **kw)
+    want = nms.soft_nms(boxes, scores, valid, **kw)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+    assert want[2].any() and not want[2].all()
+
+
+def test_soft_nms_decay_refuses_what_it_cannot_take(dev):
+    iou = torch.zeros(1, 8, 8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        riou.soft_nms_decay(iou.double(), torch.zeros(1, 8, device=dev,
+                                                      dtype=torch.float64), 2)
+    with pytest.raises(ValueError, match="m <= K"):
+        riou.soft_nms_decay(iou, torch.zeros(1, 8, device=dev), 9)
+    big = torch.zeros(1, riou.NMS_MAX_K + 1, device=dev)
+    with pytest.raises(ValueError, match="K <="):
+        riou.soft_nms_decay(torch.zeros(1, 1, 1, device=dev).expand(
+            1, big.shape[1], big.shape[1]), big, 1)

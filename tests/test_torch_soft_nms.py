@@ -1,0 +1,335 @@
+"""Soft-NMS in the port against the JAX package's, on the CPU: `soft_nms`
+(gaussian and linear, rotated and standup, one example and a batch of rows,
+a pair cap that binds), its sparse rotated-IoU matrix and pair list, the
+port's host oracle (`core/nms_np.py`), and the decay steps' plain version
+(`soft_nms_decay_plain`, what the CUDA kernel is held to on the card)
+against a step-by-step numpy loop.
+
+JAX's functions run jitted (eagerly, the decay scan runs op by op). The
+tolerances: picks, keep masks and pair lists exact; the rescored scores
+within 1e-6 relative where both sides decay by the same IoU values (the
+standup matrix, or JAX's own rotated matrix fed to the port's decay);
+the rotated IoU matrices equal where either is 0 and within 1e-5
+elsewhere, and the scores rescored by them within 1e-5 relative: XLA's and
+torch's fp32 sin and cos put the box corners one ulp apart (9.5e-7 at
+coordinates of 20 m), and the clip turns that into IoU values up to
+2.6e-6 apart on these boxes (3.1e-6 relative in a score decayed some 15
+times), the bound `tests/test_torch_ops.py` holds the rotated IoU to; the
+fp64 oracle within 1e-4 relative, as `tests/test_round2_parity.py` holds
+JAX's to it.
+"""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from second_tpu.ops import nms as jax_nms
+from second_tpu.ops.rotated_iou import rbbox_to_corners as jax_corners
+from second_tpu_torch.core.nms_np import soft_nms as soft_nms_np
+from second_tpu_torch.ops.cuda.riou import (soft_nms_decay,
+                                            soft_nms_decay_plain)
+from second_tpu_torch.ops.nms import (soft_nms, soft_nms_pairs,
+                                      sparse_rotated_iou_matrix)
+
+SCORE_RTOL = 1e-6
+ROTATED_SCORE_RTOL = 1e-5
+IOU_ATOL = 1e-5
+ORACLE_RTOL = 1e-4
+
+
+def _boxes(rng, n, rotated=True, spread=20.0, size=(2.0, 5.0)):
+    """n boxes in a few clusters, so that many pairs overlap."""
+    centers = rng.uniform(0, spread, (max(n // 6, 1), 2))
+    xy = centers[rng.integers(0, len(centers), n)] + rng.normal(0, 1.0,
+                                                                (n, 2))
+    wl = rng.uniform(*size, (n, 2))
+    if rotated:
+        yaw = rng.uniform(-np.pi, np.pi, (n, 1))
+        return np.concatenate([xy, wl, yaw], 1).astype(np.float32)
+    return np.concatenate([xy - wl / 2, xy + wl / 2], 1).astype(np.float32)
+
+
+def _inputs(seed, rows, n, rotated):
+    rng = np.random.default_rng(seed)
+    boxes = np.stack([_boxes(rng, n, rotated) for _ in range(rows)])
+    scores = rng.uniform(0.05, 1.0, (rows, n)).astype(np.float32)
+    valid = rng.uniform(size=(rows, n)) < 0.85
+    return boxes, scores, valid
+
+
+@partial(jax.jit, static_argnames=("kw",))
+def _jax_soft_nms(boxes, scores, valid, kw):
+    fn = partial(jax_nms.soft_nms, **dict(kw))
+    return jax.vmap(fn)(boxes, scores, valid)
+
+
+def _jax_run(boxes, scores, valid, **kw):
+    out = _jax_soft_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                        jnp.asarray(valid), tuple(sorted(kw.items())))
+    return [np.asarray(o) for o in out]
+
+
+def _port_run(boxes, scores, valid, **kw):
+    out = soft_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                   torch.from_numpy(valid), **kw)
+    return [o.numpy() for o in out]
+
+
+def _assert_same(port, ref, rtol=SCORE_RTOL):
+    (idx, rescored, keep), (jidx, jrescored, jkeep) = port, ref
+    np.testing.assert_array_equal(keep, jkeep)
+    np.testing.assert_array_equal(idx, jidx)
+    np.testing.assert_allclose(rescored, jrescored, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("rows", [1, 3], ids=["one", "batch"])
+@pytest.mark.parametrize("rotated", [True, False],
+                         ids=["rotated", "standup"])
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_matches_jax(method, rotated, rows):
+    """Picks, keep and the rescored scores against JAX's `soft_nms`
+    (`jax.vmap` of it over the rows): 64 boxes a row, 15% invalid, the top
+    48 as candidates, 40 steps, the score threshold among the decayed
+    scores."""
+    boxes, scores, valid = _inputs(7, rows, 64, rotated)
+    kw = dict(pre_max_size=48, post_max_size=40, sigma=0.5,
+              iou_threshold=0.3, score_threshold=0.4, method=method,
+              rotated=rotated)
+    ref = _jax_run(boxes, scores, valid, **kw)
+    if rows == 1:
+        port = _port_run(boxes[0], scores[0], valid[0], **kw)
+        port = [p[None] for p in port]
+    else:
+        port = _port_run(boxes, scores, valid, **kw)
+    _assert_same(port, ref, ROTATED_SCORE_RTOL if rotated else SCORE_RTOL)
+    # the case is not trivial: scores decayed, some dropped by the threshold
+    assert ref[2].any() and not ref[2].all()
+    picked = np.take_along_axis(scores, ref[0], 1)
+    assert (ref[1][ref[2]] < picked[ref[2]]).any()
+
+
+def _jax_pair_list(cand, valid, max_pairs, min_bound=0.0):
+    """The pair list of JAX's `_sparse_rotated_iou_matrix`
+    (second_tpu/ops/nms.py:127-146): its own operations on its own
+    corners, returned as (plist, pair_ok)."""
+    K = cand.shape[0]
+    corners = jax_corners(cand)
+    standup = jnp.concatenate([corners.min(-2), corners.max(-2)], -1)
+    lt = jnp.maximum(standup[:, None, :2], standup[None, :, :2])
+    rb = jnp.minimum(standup[:, None, 2:], standup[None, :, 2:])
+    wh = jnp.maximum(rb - lt, 0.0)
+    inter_st = wh[..., 0] * wh[..., 1]
+    areas = cand[:, 2] * cand[:, 3]
+    asum = areas[:, None] + areas[None, :]
+    bound = inter_st / jnp.maximum(asum - inter_st, 1e-12)
+    upper = jnp.triu(jnp.ones((K, K), bool), k=1)
+    maybe = (bound > min_bound) & upper & valid[:, None] & valid[None, :]
+    flat = maybe.reshape(-1)
+    pos = jnp.cumsum(flat) - 1
+    lin = jnp.arange(K * K, dtype=jnp.int32)
+    scatter_to = jnp.where(flat & (pos < max_pairs), pos, max_pairs)
+    plist = jnp.zeros((max_pairs,), jnp.int32).at[scatter_to].set(
+        lin, mode="drop")
+    pair_n = jnp.minimum(flat.sum(), max_pairs)
+    return plist, jnp.arange(max_pairs) < pair_n, flat.sum()
+
+
+@pytest.mark.parametrize("max_pairs", [4096, 96], ids=["all", "capped"])
+def test_sparse_iou_matrix_and_pairs_match_jax(max_pairs):
+    """The pair list exactly JAX's (capped and not), and the sparse IoU
+    matrix JAX's `_sparse_rotated_iou_matrix`: 0 at the same entries (the
+    pairs past the cap too), within IOU_ATOL elsewhere; one example and a
+    batch of two."""
+    boxes, _, valid = _inputs(3, 2, 64, True)
+    jpairs = jax.jit(_jax_pair_list, static_argnums=2)
+    jmatrix = jax.jit(jax_nms._sparse_rotated_iou_matrix, static_argnums=2)
+    plist, ok = soft_nms_pairs(torch.from_numpy(boxes),
+                               torch.from_numpy(valid), max_pairs)
+    got = sparse_rotated_iou_matrix(torch.from_numpy(boxes),
+                                    torch.from_numpy(valid), max_pairs)
+    for b in range(2):
+        jplist, jok, total = jpairs(jnp.asarray(boxes[b]),
+                                    jnp.asarray(valid[b]), max_pairs)
+        np.testing.assert_array_equal(plist[b].numpy(), np.asarray(jplist))
+        np.testing.assert_array_equal(ok[b].numpy(), np.asarray(jok))
+        if max_pairs < 4096:
+            assert int(total) > max_pairs, "the cap does not bind"
+        ref = np.asarray(jmatrix(jnp.asarray(boxes[b]),
+                                 jnp.asarray(valid[b]), max_pairs))
+        one = sparse_rotated_iou_matrix(torch.from_numpy(boxes[b]),
+                                        torch.from_numpy(valid[b]),
+                                        max_pairs).numpy()
+        for mat in (got[b].numpy(), one):
+            np.testing.assert_array_equal(mat == 0, ref == 0)
+            np.testing.assert_allclose(mat, ref, rtol=0, atol=IOU_ATOL)
+        assert (ref > 0).sum() > 20
+
+
+def test_pair_iou_denominator_is_jaxs_bit_for_bit():
+    """`riou_pairs`' criterion -1 (`iou_from_inter`, what the plain version
+    and the kernel compute) against JAX's expression in
+    `_sparse_rotated_iou_matrix`, inter / max(a_i + a_j - inter, 1e-12)
+    with a = w · l, on the same intersections and boxes, run op by op: bit
+    for bit, touching and zero-area boxes included. (XLA's jit of the
+    expression fuses it and rounds 14% of these values 1-2 ulp apart.)"""
+    from second_tpu_torch.ops.rotated_iou import iou_from_inter
+    rng = np.random.default_rng(2)
+    n = 4096
+    boxes = np.concatenate([rng.uniform(-40, 40, (n, 2)),
+                            rng.uniform(0, 6, (n, 2)),
+                            rng.uniform(-np.pi, np.pi, (n, 1))],
+                           1).astype(np.float32)
+    boxes[:8, 2] = 0.0                          # zero-area boxes
+    pi, pj = rng.integers(0, n, n), rng.integers(0, n, n)
+    areas = boxes[:, 2] * boxes[:, 3]
+    inter = (rng.uniform(0, 1, n) * np.minimum(areas[pi], areas[pj])
+             ).astype(np.float32)
+    inter[:16] = 0.0
+
+    def jax_iou(cand, inter, pi, pj):
+        a = cand[:, 2] * cand[:, 3]
+        return inter / jnp.maximum(a[pi] + a[pj] - inter, 1e-12)
+
+    with jax.disable_jit():
+        want = np.asarray(jax_iou(jnp.asarray(boxes), jnp.asarray(inter),
+                                  jnp.asarray(pi), jnp.asarray(pj)))
+    tb = torch.from_numpy(boxes)
+    ta = tb[:, 2] * tb[:, 3]
+    got = iou_from_inter(torch.from_numpy(inter), ta[pi], ta[pj], -1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_max_pairs_binds(method):
+    """A cap that binds: 300 crowded candidates, more than 512 pairs that
+    can overlap, cut at 512 (the pairs past it decay nothing), against
+    JAX's at the same cap; and the same boxes uncapped pick otherwise."""
+    rng = np.random.default_rng(11)
+    boxes = _boxes(rng, 300, spread=12.0)[None]
+    scores = rng.uniform(0.05, 1.0, (1, 300)).astype(np.float32)
+    valid = np.ones((1, 300), bool)
+    kw = dict(pre_max_size=300, post_max_size=40, sigma=0.5,
+              iou_threshold=0.3, score_threshold=0.05, method=method,
+              max_pairs=512)
+    _, ok = soft_nms_pairs(torch.from_numpy(boxes), torch.from_numpy(valid),
+                           512)
+    assert bool(ok.all())
+    ref = _jax_run(boxes, scores, valid, **kw)
+    _assert_same(_port_run(boxes, scores, valid, **kw), ref,
+                 ROTATED_SCORE_RTOL)
+    uncapped = _port_run(boxes, scores, valid, **{**kw, "max_pairs": 8192})
+    assert not np.array_equal(uncapped[1], ref[1])
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_decay_on_jax_iou_matches_jax(method):
+    """The decay steps alone: the port's `soft_nms_decay` on JAX's own
+    rotated IoU matrix of JAX's candidates gives JAX's picks exactly and
+    its rescored scores within SCORE_RTOL (a batch of 3 rows, the pair cap
+    binding in none)."""
+    boxes, scores, valid = _inputs(9, 3, 64, True)
+    kw = dict(pre_max_size=48, post_max_size=24, sigma=0.5,
+              iou_threshold=0.3, score_threshold=0.05, method=method)
+    ref = _jax_run(boxes, scores, valid, **kw)
+    masked = torch.from_numpy(np.where(valid, scores, -np.inf))
+    top, top_idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    top, top_idx = top[:, :48], top_idx[:, :48]
+    jmatrix = jax.jit(jax_nms._sparse_rotated_iou_matrix, static_argnums=2)
+    iou = torch.stack([torch.from_numpy(np.array(jmatrix(
+        jnp.asarray(boxes[b][top_idx[b].numpy()]),
+        jnp.asarray(np.isfinite(top[b].numpy())), 8192)))
+        for b in range(3)])
+    picks, picked = soft_nms_decay(iou, top, 24, method, 0.5, 0.3)
+    keep = torch.isfinite(picked) & (picked >= 0.05)
+    port = [top_idx.gather(1, picks).numpy(),
+            torch.where(keep, picked, 0.0).numpy(), keep.numpy()]
+    _assert_same(port, ref)
+
+
+def test_soft_nms_matches_host_oracle():
+    """Standup gaussian soft-NMS against the port's fp64 host oracle, as
+    `tests/test_round2_parity.py` holds JAX's: the kept indices in pick
+    order and their rescored values."""
+    rng = np.random.default_rng(0)
+    n = 32
+    centers = rng.uniform(0, 20, (n, 2))
+    sizes = rng.uniform(2, 5, (n, 2))
+    xyxy = np.concatenate([centers - sizes / 2, centers + sizes / 2],
+                          1).astype(np.float32)
+    scores = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    keep_np, scores_np = soft_nms_np(xyxy, scores, sigma=0.5,
+                                     score_threshold=0.05,
+                                     method="gaussian")
+    idx, rescored, keep = soft_nms(
+        torch.from_numpy(xyxy), torch.from_numpy(scores),
+        torch.ones(n, dtype=torch.bool), pre_max_size=n, post_max_size=n,
+        sigma=0.5, score_threshold=0.05, method="gaussian", rotated=False)
+    np.testing.assert_array_equal(idx[keep].numpy(), keep_np)
+    np.testing.assert_allclose(rescored[keep].numpy(), scores_np,
+                               rtol=ORACLE_RTOL)
+
+
+def _decay_loop(iou, scores, m, method, sigma, thr):
+    """The decay steps, one row at a time, one candidate at a time, in
+    numpy fp32."""
+    picks, picked = [], []
+    for r in range(scores.shape[0]):
+        cur = scores[r].copy()
+        pr, sr = [], []
+        for _ in range(m):
+            best = 0
+            for j in range(len(cur)):       # the first of the largest
+                if cur[j] > cur[best]:
+                    best = j
+            pr.append(best)
+            sr.append(cur[best])
+            for j in range(len(cur)):
+                x = iou[r, best, j]
+                if method == "gaussian":
+                    d = np.exp(np.float32(-(x * x)) / np.float32(sigma))
+                else:
+                    d = np.float32(1.0) - x if x > thr else np.float32(1.0)
+                cur[j] = cur[j] * d if np.isfinite(cur[j]) else -np.inf
+            cur[best] = -np.inf
+        picks.append(pr)
+        picked.append(sr)
+    return np.asarray(picks), np.asarray(picked, np.float32)
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_decay_plain_matches_loop(method):
+    """`soft_nms_decay_plain` (the kernel's reference on the card) against
+    a scalar numpy loop: 4 rows of 40 candidates, one of them all -inf
+    (it picks index 0 every step, with score -inf), one with ties and
+    invalid tails; picks exact, scores within SCORE_RTOL; `soft_nms_decay`
+    on CPU tensors is the plain version."""
+    rng = np.random.default_rng(5)
+    R, K, m = 4, 40, 30
+    iou = rng.uniform(0, 1, (R, K, K)).astype(np.float32)
+    iou = np.where(rng.uniform(size=(R, K, K)) < 0.7, 0.0, iou)
+    iou = np.maximum(iou, iou.transpose(0, 2, 1)).astype(np.float32)
+    scores = -np.sort(-rng.uniform(0.01, 1, (R, K)), 1).astype(np.float32)
+    scores[1] = -np.inf
+    scores[2, 5:9] = scores[2, 5]              # ties
+    scores[3, 30:] = -np.inf                   # invalid candidates
+    want = _decay_loop(iou, scores, m, method, 0.5, 0.3)
+    got = soft_nms_decay_plain(torch.from_numpy(iou),
+                               torch.from_numpy(scores), m, method, 0.5,
+                               0.3)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_allclose(got[1].numpy(), want[1], rtol=SCORE_RTOL,
+                               atol=0)
+    assert (want[0][1] == 0).all() and np.isneginf(want[1][1]).all()
+    same = soft_nms_decay(torch.from_numpy(iou), torch.from_numpy(scores),
+                          m, method, 0.5, 0.3)
+    assert torch.equal(same[0], got[0]) and torch.equal(same[1], got[1])
+
+
+def test_soft_nms_decay_refuses_grad():
+    iou = torch.zeros(1, 4, 4, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        soft_nms_decay(iou, torch.zeros(1, 4), 2)
