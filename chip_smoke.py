@@ -304,15 +304,20 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    memory.
 34. soft-nms (`run_soft_nms`): `ops/nms.py` `soft_nms` on the fhd eval
    forward's NMS candidates (its recorded `nms` call: batch 4, 1000
-   decoded boxes an example, post 100), gaussian (sigma 0.5) and linear
-   (threshold 0.3): launches counted (the decay kernel, the pair IoU and
-   the row gather once a call, for all rows), each decay call's kernel
-   against its plain version (picks exact, scores within SOFT_RTOL), the
-   pair IoU against its plain version, each call card against CPU (picks
-   and keep exact, scores within SOFT_REF_RTOL), the pair cap's use; the
-   decay timed (events, device, plain, bound, the device time a step),
-   the whole soft_nms timed; one K = 4096 row of a dense rotated IoU,
-   100 steps, against plain and timed.
+   decoded boxes an example, post 100), rotated gaussian (sigma 0.5) and
+   linear (threshold 0.3), and standup gaussian on their standup
+   envelopes: launches counted (the pair-list decay kernel and the pair
+   IoU once a rotated call, the dense decay kernel once in the standup
+   call, the row gather once a call, for all rows), each decay call's
+   kernel against its plain version (picks exact, scores within
+   SOFT_RTOL), the pair IoU against its plain version, each call card
+   against CPU (picks and keep exact, scores within SOFT_REF_RTOL), the
+   pair cap's use; each decay call timed (events, device, plain, bound,
+   the device time at m = 1 and so a later step's), the whole gaussian
+   soft_nms timed; K = 4096 rows of crowded boxes, 100 steps: the pair
+   kernel on their pair lists at 8192 pairs (shared memory) and 32768
+   (past it), and the dense kernel on their dense rotated IoU, each
+   against plain and timed.
 35. dp (`run_dp`): an NCCL process group of one rank (the card is one):
    the fhd `Trainer`'s data-parallel train steps (DDP; at one rank the
    norms' statistics are the rank's own) against a plain `Trainer`'s on
@@ -344,8 +349,11 @@ call under "joint_train" and its 16 x 16 ROI-align calls under
 sparse-conv calls over 64 channels under "large_eval_c128",
 "large_train_c128" (forward, dX, weight gradient; fp32, bounded as 3xTF32
 with "bound_cores_ms" beside) and "vfe1_eval_c128", and the soft-NMS
-decay's K = 4096 row under "soft_nms_k4096" (the fhd call's numbers are
-its line's own).
+decays: the pair kernel's linear fhd call under "soft_nms_linear" and
+its K = 4096 rows under "soft_nms_k4096_p8192" / "soft_nms_k4096_p32768",
+the dense kernel's K = 4096 row under "soft_nms_k4096" (the gaussian fhd
+call's numbers, and the standup call's for the dense kernel, are their
+lines' own).
 The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
@@ -447,7 +455,8 @@ PP_EVAL_LAUNCHES = {"sparse_gather_gemm": 0, "row_gather": 6,
                     "rotated_iou": 1, "nms_suppress": 1,
                     "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0,
                     "d3_iou": 0, "roi_align_fwd": 0, "roi_align_bwd": 0,
-                    "standup_overlap": 0, "soft_nms": 0}
+                    "standup_overlap": 0, "soft_nms": 0,
+                    "soft_nms_pairs": 0}
 PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
 
 # SECOND multi-class (configs/second_multiclass.config: Car, Pedestrian,
@@ -582,6 +591,10 @@ TWO_STAGE_KERNELS = [
 SOFT_NMS_KERNELS = [
     dict(name="soft_nms", module=riou, fn="soft_nms_decay",
          counter="launches_soft", source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/nms.py:230"),
+    dict(name="soft_nms_pairs", module=riou, fn="soft_nms_decay_pairs",
+         counter="launches_soft_pairs",
+         source="second_tpu_torch/csrc/riou.cu",
          replaces="second_tpu/ops/nms.py:230"),
 ]
 ALL_KERNELS = KERNELS + TRAIN_KERNELS + IOU_KERNELS + TWO_STAGE_KERNELS + \
@@ -1626,8 +1639,9 @@ def run(dev, out=None):
         {"mma": SPARSE_CONVS, "fma": 0}, calibrate=True)
     # soft-NMS on the fhd eval's decoded candidates, and multi-device at
     # world size 1 (one card): an NCCL group, the Trainer's DP steps
-    aggs["soft_nms"], soft_k4096, soft_counts, report["soft_nms"] = \
+    soft_aggs, soft_others, soft_counts, report["soft_nms"] = \
         run_soft_nms(dev, timer, dtimer, nms_call)
+    aggs.update(soft_aggs)
     with tempfile.TemporaryDirectory() as tmp:
         dp_train_counts, dp_eval_counts, report["dp"] = run_dp(dev,
                                                                Path(tmp))
@@ -1657,7 +1671,7 @@ def run(dev, out=None):
                  "large_eval_c128": {"sparse_gather_gemm": large_wide},
                  "large_train_c128": large_train_wide,
                  "vfe1_eval_c128": {"sparse_gather_gemm": vfe1_wide},
-                 "soft_nms_k4096": {"soft_nms": soft_k4096}}
+                 **soft_others}
 
     def numbers(a):
         out = dict(max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
@@ -1666,6 +1680,8 @@ def run(dev, out=None):
                    else "operations",
                    library_ms=a["library_ms"], device_ms=a["device_ms"],
                    library_device_ms=a["library_device_ms"])
+        if "step_device_us" in a:
+            out["step_device_us"] = a["step_device_us"]
         if a.get("ops_cores_s"):
             out["bound_cores_ms"] = 1e3 * max(a["bytes_s"], a["ops_cores_s"])
             if "fp64_ratio" in a:
@@ -6165,9 +6181,12 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
 # soft-NMS (`ops/nms.py` soft_nms; no config reaches it, JAX's tests call
 # it) on the fhd eval's decoded candidates: (method, sigma, iou_threshold)
 SOFT_NMS_RUNS = (("gaussian", 0.5, 0.3), ("linear", 0.5, 0.3))
-# the one long row: candidates (NMS_MAX_K), decay steps
+# the long rows: candidates (NMS_MAX_K), decay steps; the pair kernel's
+# pair lists there: the fhd cap (its adjacency in shared memory) and one
+# past shared memory (in the device scratch)
 SOFT_NMS_K, SOFT_NMS_STEPS = 4096, 100
-# the decay kernel against its plain version on the same inputs: picks
+SOFT_NMS_K_PAIRS = (8192, 32768)
+# the decay kernels against their plain versions on the same inputs: picks
 # exact, the finite scores within SOFT_RTOL relative (the same fp32
 # operations; torch's CUDA division by a scalar multiplies by its
 # reciprocal, an ulp away); the whole soft_nms card against CPU: picks and
@@ -6181,12 +6200,20 @@ SOFT_RTOL, SOFT_REF_RTOL = 1e-6, 1e-5
 # (3), the pick's test and select (2), the thread's argmax (two
 # comparisons, the index comparison, two selects: 5)
 SOFT_STEP_OPS = {"gaussian": 4 + 3 + 2 + 5, "linear": 3 + 3 + 2 + 5}
+# ... of the decay over a pair list, as the function needs them whatever
+# kernel does it: each step's argmax, a comparison a candidate; the decay
+# of each of the pick's neighbours (the decay's 4 or 3, the finite test,
+# the product and its select); the adjacency, a count and a placement
+# each way of each ok pair
+SOFT_PAIR_ARGMAX_OPS = 1
+SOFT_PAIR_DECAY_OPS = {"gaussian": 4 + 3, "linear": 3 + 3}
+SOFT_PAIR_BUILD_OPS = 4
 
 
 def soft_bound(R, K, m, method):
-    """The decay steps' bound on the card, from this call's sizes: bytes,
-    the m IoU rows of K fp32 a row read and the K scores, the m picks
-    (int64) and their scores written; operations, m steps of
+    """The dense decay steps' bound on the card, from this call's sizes:
+    bytes, the m IoU rows of K fp32 a row read and the K scores, the m
+    picks (int64) and their scores written; operations, m steps of
     SOFT_STEP_OPS a candidate at the fp32 rate. The m steps are also a
     chain (each waits on the last one's pick), which no bound here
     counts: the device time over m is printed as the time a step, and
@@ -6196,10 +6223,35 @@ def soft_bound(R, K, m, method):
                 PEAK_OPS_PER_S[torch.float32])
 
 
+def soft_pairs_bound(plist, ok, scores, picks, method):
+    """The pair-list decay's bound on the card, from this call's data:
+    bytes, the pair list (int64), its ok flags and IoU (fp32) and the K
+    scores read once, the m picks (int64) and their scores written;
+    operations, SOFT_PAIR_ARGMAX_OPS a candidate a step, the decay of
+    each pick's neighbours (counted from the ok pairs), the adjacency's
+    SOFT_PAIR_BUILD_OPS an ok pair, at the fp32 rate. The chain of m steps
+    is not counted (scripts/torch_soft_nms_floor.py)."""
+    R, P = plist.shape
+    K, m = scores.shape[1], picks.shape[1]
+    rows = torch.arange(R, device=plist.device)[:, None].expand(-1, P)
+    deg = torch.zeros((R, K), dtype=torch.int64, device=plist.device)
+    for end in (plist // K, plist % K):
+        deg.index_put_((rows[ok], end[ok]), torch.ones_like(end[ok]),
+                       accumulate=True)
+    walked = int(deg.gather(1, picks).sum())
+    ops = R * m * K * SOFT_PAIR_ARGMAX_OPS + \
+        walked * SOFT_PAIR_DECAY_OPS[method] + \
+        int(ok.sum()) * SOFT_PAIR_BUILD_OPS
+    return dict(bytes_s=(R * P * (8 + 1 + 4) + R * K * 4 + R * m * 12) /
+                HBM_BYTES_PER_S,
+                ops_s=ops / PEAK_OPS_PER_S[torch.float32],
+                neighbours_walked=walked)
+
+
 def check_decay(got, want, what):
-    """The decay kernel's (picks, scores) against the plain version's:
-    picks exact, the same entries finite, the finite ones within
-    SOFT_RTOL relative. Returns the largest absolute error."""
+    """A decay kernel's (picks, scores) against the plain version's: picks
+    exact, the same entries finite, the finite ones within SOFT_RTOL
+    relative. Returns the largest absolute error."""
     torch.cuda.synchronize()
     if not torch.equal(got[0], want[0]):
         n = int((got[0] != want[0]).sum())
@@ -6220,67 +6272,61 @@ def check_decay(got, want, what):
 def run_soft_nms(dev, timer, dtimer, nms_call):
     """soft-NMS on the fhd eval forward's NMS candidates (the recorded
     `nms` call: batch 4, nms_pre_max_size 1000 decoded boxes an example,
-    post 100), gaussian (sigma 0.5) and linear (threshold 0.3), then one
-    K = 4096 row:
-    - counted: launch counts set to 0, both calls, counts read: the decay
-      kernel once a call for all 4 rows, the pair IoU and the row gather
-      once a call, nothing else;
+    post 100), gaussian (sigma 0.5) and linear (threshold 0.3), rotated,
+    and gaussian standup on the same boxes' standup envelopes; then
+    K = 4096 rows:
+    - counted: launch counts set to 0, the three calls, counts read: the
+      pair-list decay kernel once a rotated call for all 4 rows, with the
+      pair IoU; the dense decay kernel once in the standup call; the row
+      gather once a call; nothing else;
     - each decay call's kernel against its plain version on its own
       inputs (`check_decay`), each pair IoU call against its plain version
       (RIOU_TOL), the pair cap's use printed;
     - each call card against CPU (every wrapper's plain version): picks
       and keep exact, the rescored scores within SOFT_REF_RTOL;
-    - the gaussian call's decay timed (events, device, plain) with its
-      bound; the whole soft_nms timed;
-    - the 4096-candidate row: a dense rotated IoU of crowded boxes,
-      SOFT_NMS_STEPS steps, kernel against plain and timed.
-    Returns (the fhd call's aggregate, the K = 4096 row's, the launch
+    - each rotated call's pair-list decay timed (events, device, plain)
+      with its bound (`soft_pairs_bound`) and, at m = 1, its prologue and
+      one step; the standup call's dense decay the same (`soft_bound`);
+      the whole gaussian soft_nms timed in turns with the same call by
+      the earlier route (the pair list densified on the card, the dense
+      decay kernel), whose outputs must be the same;
+    - the 4096-candidate rows: crowded boxes, their pair lists at the
+      SOFT_NMS_K_PAIRS caps (in shared memory, past it), SOFT_NMS_STEPS
+      steps, the pair kernel against plain and timed; and the dense
+      kernel on their dense rotated IoU, against plain and timed.
+    Returns (the aggregates by kernel: the fhd gaussian calls' numbers;
+    the aggregates of the other calls by kernels-line key, the launch
     counts, the report)."""
     (boxes, scores, valid), kw = nms_call
     pre, post = kw["pre_max_size"], kw["post_max_size"]
     B, N = scores.shape
     report = dict(batch=B, candidates=N, pre_max_size=pre,
                   post_max_size=post, runs={})
+    standup = nms_ops.rbbox2d_to_near_bbox(boxes)
 
-    def soft(method, sigma, thr, b=boxes, s=scores, v=valid):
+    def soft(method, sigma, thr, b=boxes, s=scores, v=valid, rotated=True):
         return nms_ops.soft_nms(b, s, v, pre_max_size=pre,
                                 post_max_size=post, sigma=sigma,
-                                iou_threshold=thr, method=method)
+                                iou_threshold=thr, method=method,
+                                rotated=rotated)
 
     reset_counts()
-    with recording([(riou, "soft_nms_decay"), (riou, "riou_pairs")]) as \
-            calls:
+    with recording([(riou, "soft_nms_decay_pairs"), (riou, "riou_pairs"),
+                    (riou, "soft_nms_decay")]) as calls:
         outs = [soft(*run) for run in SOFT_NMS_RUNS]
+        out_standup = soft(*SOFT_NMS_RUNS[0], b=standup, rotated=False)
         torch.cuda.synchronize()
     counts = launch_counts()
-    want = {**{k: 0 for k in counts}, "soft_nms": len(SOFT_NMS_RUNS),
-            "rotated_iou": len(SOFT_NMS_RUNS),
-            "row_gather": len(SOFT_NMS_RUNS)}
+    runs = len(SOFT_NMS_RUNS)
+    want = {**{k: 0 for k in counts}, "soft_nms_pairs": runs,
+            "rotated_iou": runs, "row_gather": runs + 1, "soft_nms": 1}
     if counts != want:
         fail(f"soft-nms: launches {counts}, expected {want}")
-    say(f"soft-nms: launches in the two calls {counts}")
+    say(f"soft-nms: launches in the three calls {counts}")
 
-    err = 0.0
-    for ((args, kwargs), (pargs, _), (method, sigma, thr), out) in zip(
-            calls["soft_nms_decay"], calls["riou_pairs"], SOFT_NMS_RUNS,
-            outs):
-        what = f"soft-nms {method}"
-        iou, top, m = args[:3]
-        err = max(err, check_decay(riou.soft_nms_decay(*args, **kwargs),
-                                   riou.soft_nms_decay_plain(*args,
-                                                             **kwargs),
-                                   what))
-        pair_err, _ = errors(riou.riou_pairs(*pargs),
-                             riou.riou_pairs_plain(*pargs))
-        if pair_err > RIOU_TOL:
-            fail(f"{what}: the pair IoU {pair_err:.3g} from its plain "
-                 f"version")
-        plist, ok = nms_ops.soft_nms_pairs(
-            nms_ops.flat_rows(boxes, nms_ops.top_k(torch.where(
-                valid, scores, float("-inf")), pre)[1]),
-            torch.isfinite(top), min(8192, pre * pre))
-        ref = soft(method, sigma, thr, boxes.cpu(), scores.cpu(),
-                   valid.cpu())
+    def card_vs_cpu(out, what, method, sigma, thr, b, rotated):
+        ref = soft(method, sigma, thr, b.cpu(), scores.cpu(), valid.cpu(),
+                   rotated)
         if not (torch.equal(out[0].cpu(), ref[0]) and
                 torch.equal(out[2].cpu(), ref[2])):
             fail(f"{what}: picks or keep differ card against CPU")
@@ -6288,44 +6334,129 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
                    ref[1].abs().clamp(min=1e-30)).max().item()
         if ref_rel > SOFT_REF_RTOL:
             fail(f"{what}: scores {ref_rel:.3g} relative from the CPU's")
+        return ref_rel
+
+    errs = {}
+    for ((args, kwargs), (pargs, _), (method, sigma, thr), out) in zip(
+            calls["soft_nms_decay_pairs"], calls["riou_pairs"],
+            SOFT_NMS_RUNS, outs):
+        what = f"soft-nms {method}"
+        plist, ok, _, top, m = args[:5]
+        errs[method] = check_decay(
+            riou.soft_nms_decay_pairs(*args, **kwargs),
+            riou.soft_nms_decay_pairs_plain(*args, **kwargs), what)
+        pair_err, _ = errors(riou.riou_pairs(*pargs),
+                             riou.riou_pairs_plain(*pargs))
+        if pair_err > RIOU_TOL:
+            fail(f"{what}: the pair IoU {pair_err:.3g} from its plain "
+                 f"version")
+        ref_rel = card_vs_cpu(out, what, method, sigma, thr, boxes, True)
         run = dict(rows=int(top.shape[0]), K=int(top.shape[1]), steps=m,
                    pairs_clipped=ok.sum(1).tolist(),
                    kept=out[2].sum(1).tolist(), pair_err=pair_err,
                    card_vs_cpu_rel=ref_rel)
         report["runs"][method] = run
-        say(f"{what}: decay kernel = plain (picks exact), pair IoU within "
-            f"{pair_err:.2e}, card = CPU (picks and keep exact, scores "
-            f"within {ref_rel:.2e}); pairs clipped {run['pairs_clipped']} "
-            f"of the cap {plist.shape[1]}, kept {run['kept']}")
+        say(f"{what}: pair-list decay kernel = plain (picks exact), pair "
+            f"IoU within {pair_err:.2e}, card = CPU (picks and keep exact, "
+            f"scores within {ref_rel:.2e}); pairs clipped "
+            f"{run['pairs_clipped']} of the cap {plist.shape[1]}, kept "
+            f"{run['kept']}")
+    (args_st, kwargs_st), = calls["soft_nms_decay"]
+    errs["standup"] = check_decay(
+        riou.soft_nms_decay(*args_st, **kwargs_st),
+        riou.soft_nms_decay_plain(*args_st, **kwargs_st), "soft-nms standup")
+    ref_rel = card_vs_cpu(out_standup, "soft-nms standup",
+                          *SOFT_NMS_RUNS[0], standup, False)
+    report["runs"]["standup"] = dict(kept=out_standup[2].sum(1).tolist(),
+                                     card_vs_cpu_rel=ref_rel)
+    say(f"soft-nms standup: dense decay kernel = plain (picks exact), card "
+        f"= CPU (scores within {ref_rel:.2e}), kept "
+        f"{report['runs']['standup']['kept']}")
 
-    (args, kwargs), (method, _, _) = calls["soft_nms_decay"][0], \
-        SOFT_NMS_RUNS[0]
-    iou, top, m = args[:3]
-    R, K = top.shape
-
-    def timed(args, kwargs, method, what):
-        kern = (lambda: riou.soft_nms_decay(*args, **kwargs))
-        plain = (lambda: riou.soft_nms_decay_plain(*args, **kwargs))
+    def timed(kernel, args, kwargs, method, what):
+        """The decay kernel (`soft_nms_decay_pairs` or `soft_nms_decay`)
+        on `args` timed beside its plain version, with its bound; the
+        pair kernel also at m = 1 (its prologue and one step)."""
+        pairs = kernel == "soft_nms_decay_pairs"
+        fn = getattr(riou, kernel)
+        plain_fn = getattr(riou, f"{kernel}_plain")
+        m_at = 4 if pairs else 2
+        kern = (lambda: fn(*args, **kwargs))
+        plain = (lambda: plain_fn(*args, **kwargs))
+        one = (lambda: fn(*args[:m_at], 1, *args[m_at + 1:], **kwargs))
+        top, m = args[m_at - 1], args[m_at]
+        R, K = top.shape
+        picks = kern()[0]
         # the kernel alone in the profiler: the plain version's some 700
         # kernels a call overran its traces on the H100
-        R, K = args[1].shape
-        agg = dict(ms=timer(kern, 20), device_ms=dtimer([kern])[0],
-                   plain_ms=timer(plain, 3), library_ms=None,
-                   library_device_ms=None,
-                   **soft_bound(R, K, args[2], method))
-        say(f"{what} decay R={R} K={K} m={args[2]}: kernel "
-            f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f}, "
-            f"{1e3 * agg['device_ms'] / args[2]:.2f} us a step)  plain "
-            f"{agg['plain_ms']:.4f} ms  bound "
+        dev_ms = dtimer([kern, one])
+        agg = dict(ms=timer(kern, 20), device_ms=dev_ms[0],
+                   step1_device_ms=dev_ms[1], plain_ms=timer(plain, 3),
+                   library_ms=None, library_device_ms=None,
+                   **(soft_pairs_bound(args[0], args[1], top, picks, method)
+                      if pairs else soft_bound(R, K, m, method)))
+        steps_us = 1e3 * (agg["device_ms"] - agg["step1_device_ms"]) / \
+            max(m - 1, 1)
+        agg["step_device_us"] = steps_us
+        say(f"{what} decay R={R} K={K} m={m}"
+            + (f" P={args[0].shape[1]}" if pairs else "") +
+            f": kernel {agg['ms']:.4f} ms (device {agg['device_ms']:.4f}; "
+            f"m = 1 {agg['step1_device_ms']:.4f}, so {steps_us:.3f} us a "
+            f"later step)  plain {agg['plain_ms']:.4f} ms  bound "
             f"{1e3 * max(agg['bytes_s'], agg['ops_s']):.6f} ms "
             f"({'bytes' if agg['bytes_s'] >= agg['ops_s'] else 'ops'})")
         return agg
 
-    agg = timed(args, kwargs, method, "soft-nms fhd")
-    agg["err"] = err
-    report["whole_ms"] = timer(lambda: soft(*SOFT_NMS_RUNS[0]), 10)
+    aggs, others = {}, {}
+    for (args, kwargs), (method, _, _) in zip(calls["soft_nms_decay_pairs"],
+                                              SOFT_NMS_RUNS):
+        agg = timed("soft_nms_decay_pairs", args, kwargs, method,
+                    f"soft-nms fhd {method}")
+        agg["err"] = errs[method]
+        if method == SOFT_NMS_RUNS[0][0]:
+            aggs["soft_nms_pairs"] = agg
+        else:
+            others[f"soft_nms_{method}"] = {"soft_nms_pairs": agg}
+    aggs["soft_nms"] = timed("soft_nms_decay", args_st, kwargs_st,
+                             SOFT_NMS_RUNS[0][0], "soft-nms fhd standup")
+    aggs["soft_nms"]["err"] = errs["standup"]
+
+    def soft_dense(method, sigma, thr):
+        """The same rotated call by the earlier route: the pair list
+        densified on the card (`sparse_rotated_iou_matrix`: a zero fill,
+        a scatter, the transposed maximum) and the dense decay kernel."""
+        masked = torch.where(valid, scores, float("-inf"))
+        k = min(pre, N)
+        top, idx = nms_ops.top_k(masked, k)
+        iou = nms_ops.sparse_rotated_iou_matrix(
+            nms_ops.flat_rows(boxes, idx), torch.isfinite(top),
+            min(8192, k * k))
+        picks, picked = riou.soft_nms_decay(iou, top, min(post, k), method,
+                                            sigma, thr)
+        keep = torch.isfinite(picked) & (picked >= 1e-3)
+        return idx.gather(-1, picks), torch.where(keep, picked, 0.0), keep
+
+    dense_out = soft_dense(*SOFT_NMS_RUNS[0])
+    if not all(torch.equal(a, b) for a, b in zip(dense_out, outs[0])):
+        fail("soft-nms fhd: the dense route's picks, scores or keep differ "
+             "from the pair route's")
+    new, old = (lambda: soft(*SOFT_NMS_RUNS[0])), \
+        (lambda: soft_dense(*SOFT_NMS_RUNS[0]))
+    # in turns, new, old, old, new; events (the host's enqueue included:
+    # the call is some 40 small launches) and device-only
+    ms = [timer(fn, 10) for fn in (new, old, old, new)]
+    report["whole_ms"], report["whole_dense_ms"] = \
+        (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    report["whole_turns_ms"] = ms
+    report["whole_device_ms"], report["whole_dense_device_ms"] = \
+        dtimer([new, old])
     say(f"soft-nms fhd: the whole gaussian soft_nms (top-k, pair list, pair "
-        f"IoU, decay) {report['whole_ms']:.4f} ms")
+        f"IoU, decay) {report['whole_ms']:.4f} ms (device "
+        f"{report['whole_device_ms']:.4f}); by the earlier route (the pair "
+        f"list densified, the dense decay) {report['whole_dense_ms']:.4f} "
+        f"ms (device {report['whole_dense_device_ms']:.4f}), the same "
+        f"outputs; in turns new, old, old, new: "
+        f"{', '.join(f'{t:.4f}' for t in ms)}")
 
     g = torch.Generator().manual_seed(7)
     n = SOFT_NMS_K
@@ -6335,17 +6466,36 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
                        3.5 + 0.8 * torch.rand(n, generator=g),
                        (torch.rand(n, generator=g) - 0.5) * 2 * np.pi],
                       1).to(dev)
-    iou4k = riou.riou_matrix(big, big)[None]
     top4k = torch.rand(1, n, generator=g).sort(1, descending=True)[0].to(dev)
-    args4k = (iou4k, top4k, SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
-    agg4k = timed(args4k, {}, "gaussian", "soft-nms K4096")
-    agg4k["err"] = check_decay(riou.soft_nms_decay(*args4k),
-                               riou.soft_nms_decay_plain(*args4k),
-                               "soft-nms K4096")
-    report["timing"] = {k: v for k, v in agg.items() if k != "err"}
-    report["timing_k4096"] = {k: v for k, v in agg4k.items() if k != "err"}
+    for cap in SOFT_NMS_K_PAIRS:
+        plist, ok = nms_ops.soft_nms_pairs(big[None], torch.isfinite(top4k),
+                                           cap)
+        if not bool(ok.all()):
+            fail(f"soft-nms K4096: fewer than {cap} pairs")
+        args4k = (plist, ok, nms_ops.pair_iou(big[None], plist), top4k,
+                  SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
+        what = f"soft-nms K4096 P{cap}"
+        agg = timed("soft_nms_decay_pairs", args4k, {}, "gaussian", what)
+        agg["err"] = check_decay(riou.soft_nms_decay_pairs(*args4k),
+                                 riou.soft_nms_decay_pairs_plain(*args4k),
+                                 what)
+        agg["scratch_bytes"] = riou.soft_pairs_scratch(n, cap)
+        others[f"soft_nms_k4096_p{cap}"] = {"soft_nms_pairs": agg}
+    args4k = (riou.riou_matrix(big, big)[None], top4k, SOFT_NMS_STEPS,
+              "gaussian", 0.5, 0.3)
+    agg = timed("soft_nms_decay", args4k, {}, "gaussian",
+                "soft-nms K4096 dense")
+    agg["err"] = check_decay(riou.soft_nms_decay(*args4k),
+                             riou.soft_nms_decay_plain(*args4k),
+                             "soft-nms K4096 dense")
+    others["soft_nms_k4096"] = {"soft_nms": agg}
+    report["timing"] = {k: {f: v for f, v in a.items() if f != "err"}
+                        for k, a in aggs.items()}
+    report["timing_other"] = {
+        key: {f: v for f, v in a.items() if f != "err"}
+        for key, d in others.items() for a in d.values()}
     report["launches"] = counts
-    return agg, agg4k, counts, report
+    return aggs, others, counts, report
 
 
 # -------------------------------------------------------- multi-device

@@ -27,8 +27,10 @@
 // 1 inter/area2), both off the main path; the two kernels of rotated NMS
 // for a whole batch, `nms_overlap` and `nms_suppress` (below);
 // `d3_iou`, the 3-D IoU of lidar boxes (below); and `standup_overlap`,
-// the bitmask of standup NMS (below); and `soft_nms_decay`, the decay steps
-// of soft-NMS over a precomputed IoU matrix (below). A non-finite box gives
+// the bitmask of standup NMS (below); and `soft_nms_decay` and
+// `soft_nms_decay_pairs`, the decay steps of soft-NMS over a precomputed
+// IoU matrix (standup soft-NMS) or the capped pair list of rotated
+// soft-NMS (below). A non-finite box gives
 // the plain version's non-finite results: the clamps and the winding sign
 // pass NaN through, as torch.clamp and torch.sign do.
 //
@@ -1266,6 +1268,262 @@ __global__ void __launch_bounds__(1024)
     }
   }
 }
+
+// soft_nms_decay_pairs_kernel — the same decay steps (it replaces the same
+// `lax.scan`, second_tpu/ops/nms.py:230-244) where rotated soft-NMS runs
+// them: over the capped pair list it clips, not a dense IoU matrix. Its
+// inputs are plist [R, P] (i * K + j, i < j), ok [R, P] and the pairs' IoU
+// [R, P]. A pair's value is what the dense matrix (`torch.maximum(out,
+// out.T)`, JAX `jnp.maximum(out, out.T)`) holds at (i, j) and at (j, i):
+// max(iou, 0), NaN kept as NaN; a slot that is not ok adds nothing. Every
+// other entry of that matrix is 0, and a 0 decays nothing (exp(-0 / sigma)
+// and 1 - 0 are 1), so a step changes only the pick and its neighbours.
+// Bound on the H100: bytes (the pair list, the scores, the picks), a few
+// hundred KB a call; but the m steps are a chain, each waiting on the last
+// one's pick, so what the card reaches is a prologue plus m times a step's
+// latency. Design: one block a row.
+// - Prologue: the row's adjacency in both directions, in shared memory: a
+//   count per candidate (shared atomics), a block prefix sum, a fill. An
+//   entry is a 16-bit neighbour and the fp32 decay its pair's value gives
+//   (expf, an IEEE division, no FMA: the plain version's operations, done
+//   once a pair and not once a step), 6 bytes; the order inside a
+//   candidate's list is the atomics' and does not matter, since a step
+//   changes each neighbour once. Where the 2P entries do not fit beside
+//   the K scores and K + 1 offsets (SP_SMEM), the same kernel (its
+//   template argument) keeps them in a global scratch, where they stay in
+//   L2: no row is refused for its P.
+// - The scores stay in shared memory, each warp owning a span of 32 x PER
+//   consecutive ones (PER 1, 2 or 4 as K needs, at most 32 warps), PER
+//   consecutive a lane (one vector load), so that a warp's lanes, and the
+//   warps, hold their scores in index order. A step: every warp loads the
+//   warps' (key, index) maxima, written the step before into one of two
+//   slot buffers, and reduces them itself: `__reduce_max_sync` over an int
+//   key ordered as torch.argmax ranks the scores (NaN above +inf, -0 equal
+//   to +0), then `__reduce_min_sync` over the indices at that key (ties to
+//   the lowest index; a row of -inf picks 0): no barrier broadcasts the
+//   pick. The pick's owner writes it out and sets it to
+//   -inf; every warp walks the pick's list and multiplies the neighbours
+//   in its own span by their decays (-inf stays -inf); only a warp whose
+//   span changed recomputes its slot, the others carry it over into the
+//   other buffer. One barrier a step, and no read of device memory where
+//   the adjacency fits.
+// - The dense version turns every non-finite score to -inf at each step.
+//   Here a NaN or +inf (in the scores, or from a decay) marks its warp,
+//   which sweeps its span to -inf at its next step, after the pick: the
+//   same scores.
+constexpr int SP_MAX_WARPS = 32;
+constexpr int SP_SMEM = 226 * 1024;      // dynamic shared memory a block
+constexpr int SP_UNROLL = 8;             // slots a thread loads at once
+
+// a score's key: int order is torch.argmax's order of the scores
+__device__ __forceinline__ int sp_key(float v) {
+  if (v != v) return INT32_MAX;
+  if (v == 0.f) return 0;
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// The best (key, index) of a warp whose lanes hold theirs in index order:
+// the largest key, and the lowest lane's index at that key.
+__device__ __forceinline__ int2 sp_warp_best(int key, int idx) {
+  const int wk = __reduce_max_sync(FULL, key);
+  const int wi = __reduce_min_sync(FULL, key == wk ? idx : INT32_MAX);
+  return make_int2(wk, wi);
+}
+
+// The warp's best (key, index) over cur[lo, hi), PER consecutive scores a
+// lane ((INT32_MIN, INT32_MAX) for an empty span), and whether the span
+// holds a NaN or +inf.
+template <int PER>
+__device__ __forceinline__ int2 sp_span_max(const float* cur, int lo, int hi,
+                                            int lane, bool& dirty) {
+  const int j0 = lo + lane * PER;
+  float v[PER];
+  if (j0 + PER <= hi) {
+    if (PER == 4)
+      *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(
+          cur + j0);
+    else if (PER == 2)
+      *reinterpret_cast<float2*>(v) = *reinterpret_cast<const float2*>(
+          cur + j0);
+    else
+      v[0] = cur[j0];
+  } else {
+#pragma unroll
+    for (int t = 0; t < PER; ++t) v[t] = j0 + t < hi ? cur[j0 + t] : 0.f;
+  }
+  int bk = INT32_MIN, bi = INT32_MAX;
+  bool odd = false;
+#pragma unroll
+  for (int t = 0; t < PER; ++t)
+    if (j0 + t < hi) {
+      const int key = sp_key(v[t]);
+      if (key > bk) {
+        bk = key;
+        bi = j0 + t;
+      }
+      odd |= !isfinite(v[t]) && v[t] != -INFINITY;
+    }
+  dirty = __any_sync(FULL, odd);
+  return sp_warp_best(bk, bi);
+}
+
+template <int PER, bool SMEM_ADJ>
+__global__ void __launch_bounds__(1024)
+    soft_nms_decay_pairs_kernel(const long long* __restrict__ plist,
+                                const uint8_t* __restrict__ ok,
+                                const float* __restrict__ iou,
+                                const float* __restrict__ scores,
+                                long long* __restrict__ picks,
+                                float* __restrict__ pick_scores,
+                                unsigned char* __restrict__ scratch, int k,
+                                int p, int m, int gaussian, float sigma,
+                                float thr) {
+  extern __shared__ __align__(16) unsigned char sp_smem[];
+  __shared__ int2 slot[2][SP_MAX_WARPS];
+  __shared__ int warp_sum[SP_MAX_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nwarps = nt >> 5;
+  const long long row = blockIdx.x;
+  float* cur = reinterpret_cast<float*>(sp_smem);
+  int* beg = reinterpret_cast<int*>(cur + k);
+  // an entry: the neighbour, and the decay its pair's value gives
+  float* dec = SMEM_ADJ ? reinterpret_cast<float*>(beg + k + 1)
+                        : reinterpret_cast<float*>(scratch + row * 12LL * p);
+  uint16_t* nbr = reinterpret_cast<uint16_t*>(dec + 2LL * p);
+  plist += row * p;
+  ok += row * p;
+  iou += row * p;
+
+  // the count of each candidate's neighbours; each thread's loads of
+  // SP_UNROLL slots issued together, not one dependent load at a time
+  for (int j = tid; j < k; j += nt) {
+    cur[j] = scores[row * k + j];
+    beg[j] = 0;
+  }
+  __syncthreads();
+  for (int q0 = tid; q0 < p; q0 += nt * SP_UNROLL) {
+    bool o[SP_UNROLL];
+    int pq[SP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SP_UNROLL; ++u) {
+      const int q = q0 + u * nt;
+      o[u] = q < p && ok[q];
+      pq[u] = q < p ? (int)plist[q] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < SP_UNROLL; ++u)
+      if (o[u]) {
+        atomicAdd(&beg[pq[u] / k], 1);
+        atomicAdd(&beg[pq[u] % k], 1);
+      }
+  }
+  __syncthreads();
+  // their inclusive prefix sum in place, a run of consecutive counts a
+  // thread
+  const int run = (k + nt - 1) / nt;
+  const int lo = min(tid * run, k), hi = min(lo + run, k);
+  int sum = 0;
+  for (int j = lo; j < hi; ++j) sum += beg[j];
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? warp_sum[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(FULL, w, off);
+      if (lane >= off) w += o;
+    }
+    if (lane < nwarps) warp_sum[lane] = w;
+  }
+  __syncthreads();
+  int acc = incl - sum + (warp ? warp_sum[warp - 1] : 0);
+  for (int j = lo; j < hi; ++j) {
+    acc += beg[j];
+    beg[j] = acc;
+  }
+  if (tid == 0) beg[k] = warp_sum[nwarps - 1];
+  __syncthreads();
+  // the fill: each slot's two entries taken from the top of the two
+  // candidates' ranges, so that beg[i] ends at i's first entry; the decay
+  // in the plain version's operations (expf, an IEEE division)
+  for (int q0 = tid; q0 < p; q0 += nt * SP_UNROLL) {
+    bool o[SP_UNROLL];
+    int pq[SP_UNROLL];
+    float v[SP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SP_UNROLL; ++u) {
+      const int q = q0 + u * nt;
+      o[u] = q < p && ok[q];
+      pq[u] = q < p ? (int)plist[q] : 0;
+      v[u] = q < p ? iou[q] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < SP_UNROLL; ++u)
+      if (o[u]) {
+        const int i = pq[u] / k, j = pq[u] % k;
+        const float x = v[u] > 0.f ? v[u] : (v[u] != v[u] ? v[u] : 0.f);
+        const float d = gaussian ? expf(-(x * x) / sigma)
+                                 : (x > thr ? 1.f - x : 1.f);
+        int e = atomicSub(&beg[i], 1) - 1;
+        nbr[e] = (uint16_t)j;
+        dec[e] = d;
+        e = atomicSub(&beg[j], 1) - 1;
+        nbr[e] = (uint16_t)i;
+        dec[e] = d;
+      }
+  }
+
+  const int w_lo = min(warp * 32 * PER, k), w_hi = min(w_lo + 32 * PER, k);
+  bool dirty;
+  __syncthreads();
+  int2 mine = sp_span_max<PER>(cur, w_lo, w_hi, lane, dirty);
+  if (lane == 0) slot[0][warp] = mine;
+  int buf = 0;
+  __syncthreads();
+  for (int s = 0; s < m; ++s) {
+    const int2 sl = lane < nwarps ? slot[buf][lane]
+                                  : make_int2(INT32_MIN, INT32_MAX);
+    const int b = sp_warp_best(sl.x, sl.y).y;
+    const bool own = b >= w_lo && b < w_hi;
+    if (own && lane == 0) {
+      picks[row * m + s] = b;
+      pick_scores[row * m + s] = cur[b];
+    }
+    const bool changed = own || dirty;
+    if (dirty) {
+      __syncwarp();
+      for (int j = w_lo + lane; j < w_hi; j += 32)
+        if (!isfinite(cur[j])) cur[j] = -INFINITY;
+      __syncwarp();
+    }
+    const int e1 = beg[b + 1];
+    bool hit = false;
+    for (int e = beg[b] + lane; e < e1; e += 32) {
+      const int j = nbr[e];
+      const float d = dec[e];
+      if (j >= w_lo && j < w_hi) {
+        const float c = cur[j];
+        cur[j] = isfinite(c) ? c * d : -INFINITY;
+        hit = true;
+      }
+    }
+    if (own && lane == 0) cur[b] = -INFINITY;
+    if (__any_sync(FULL, hit) || changed) {
+      __syncwarp();
+      mine = sp_span_max<PER>(cur, w_lo, w_hi, lane, dirty);
+    }
+    buf ^= 1;
+    if (lane == 0) slot[buf][warp] = mine;
+    __syncthreads();
+  }
+}
 }  // namespace
 
 extern "C" int riou_pairs(const void* b1, const void* b2, const void* pi,
@@ -1447,6 +1705,74 @@ extern "C" int soft_nms_decay(const void* iou, const void* scores,
       static_cast<const float*>(iou), static_cast<const float*>(scores),
       static_cast<long long*>(picks), static_cast<float*>(pick_scores), k, m,
       gaussian, sigma, thr);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the pair kernel's block: the K scores, the K + 1
+// offsets and, with `adj`, the 2P adjacency entries of 6 bytes.
+static size_t soft_pairs_smem(int k, long long p, bool adj) {
+  return (size_t)k * 4 + (size_t)(k + 1) * 4 + (adj ? (size_t)p * 12 : 0);
+}
+
+// Bytes of global scratch a row of `soft_nms_decay_pairs` needs: 0 where
+// its adjacency fits in shared memory, else its 2P entries.
+extern "C" long long soft_nms_pairs_scratch(int k, long long p) {
+  return soft_pairs_smem(k, p, true) <= (size_t)SP_SMEM ? 0 : 12 * p;
+}
+
+// plist [R, P] int64 (i * K + j, i < j), ok [R, P] bytes, iou [R, P] fp32,
+// scores [R, K] fp32 (each row sorted by descending score; -inf an invalid
+// candidate) → picks [R, m] int64 and their scores [R, m] fp32, the decay
+// steps of `soft_nms_decay` over the matrix the pairs make; scratch holds
+// R * soft_nms_pairs_scratch(K, P) bytes (null where that is 0).
+extern "C" int soft_nms_decay_pairs(const void* plist, const void* ok,
+                                    const void* iou, const void* scores,
+                                    void* picks, void* pick_scores,
+                                    void* scratch, int rows, int k,
+                                    long long p, int m, int gaussian,
+                                    float sigma, float thr, void* stream) {
+  if (rows < 0 || k < 0 || m < 0 || p < 0 || k > NMS_MAX_K || m > k ||
+      p > (1LL << 28))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || k == 0 || m == 0) return 0;
+  const bool staged = soft_nms_pairs_scratch(k, p) == 0;
+  if (!staged && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const long long*, const uint8_t*, const float*,
+                          const float*, long long*, float*, unsigned char*,
+                          int, int, int, int, float, float);
+  // [scores a lane: 1, 2, 4][adjacency in shared memory]
+  static const Kernel kernels[3][2] = {
+      {soft_nms_decay_pairs_kernel<1, false>,
+       soft_nms_decay_pairs_kernel<1, true>},
+      {soft_nms_decay_pairs_kernel<2, false>,
+       soft_nms_decay_pairs_kernel<2, true>},
+      {soft_nms_decay_pairs_kernel<4, false>,
+       soft_nms_decay_pairs_kernel<4, true>}};
+  static bool sized = false;
+  if (!sized) {
+    for (int i = 0; i < 3; ++i) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernels[i][1], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          SP_SMEM);
+      if (e != cudaSuccess) return (int)e;
+    }
+    sized = true;
+  }
+  // a warp a span of 32 x per scores, at most SP_MAX_WARPS warps
+  int per = 1, log_per = 0;
+  while (per < 4 && (k + 32 * per - 1) / (32 * per) > SP_MAX_WARPS) {
+    per *= 2;
+    ++log_per;
+  }
+  const int warps = (k + 32 * per - 1) / (32 * per);
+  kernels[log_per][staged]<<<(unsigned)rows, warps * 32,
+                             soft_pairs_smem(k, p, staged),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(plist), static_cast<const uint8_t*>(ok),
+      static_cast<const float*>(iou), static_cast<const float*>(scores),
+      static_cast<long long*>(picks), static_cast<float*>(pick_scores),
+      static_cast<unsigned char*>(scratch), k, (int)p, m, gaussian, sigma,
+      thr);
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,9 @@ overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
 j // 32 of row i says that the higher-ranked box i suppresses box j.
 `standup_overlap` writes that bitmask for standup NMS (the standup IoU of
 axis-aligned boxes, thresholded). `soft_nms_decay` runs the decay steps
-of soft-NMS (JAX `soft_nms`'s `lax.scan`) over a precomputed IoU matrix.
+of soft-NMS (JAX `soft_nms`'s `lax.scan`) over a precomputed IoU matrix
+(standup soft-NMS), `soft_nms_decay_pairs` over the capped pair list of
+rotated soft-NMS, which holds that matrix's only nonzero entries.
 Each launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
 built on `ops/rotated_iou.py`, for CPU tensors. None has a backward: under
 grad mode, inputs that require grad raise.
@@ -25,13 +27,14 @@ grad mode, inputs that require grad raise.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ..box_ops import bev_boxes
 from ..rotated_iou import (iou_from_inter, quad_intersection_area,
                            rbbox_to_corners, standup_iou_matrix)
-from . import check, function, refuse_grad, stream_ptr
+from . import check, function, library, refuse_grad, stream_ptr
 
 # launches since the last reset (set to 0 to reset): of the rotated-IoU
 # kernels (`nms_overlap` on the main path, `riou_pairs`, `riou_matrix`), of
@@ -41,8 +44,10 @@ launches_suppress = 0
 launches_d3 = 0
 # launches of the standup-NMS bitmask kernel
 launches_standup = 0
-# launches of the soft-NMS decay kernel
+# launches of the soft-NMS decay kernels: over a dense IoU matrix, and
+# over a pair list
 launches_soft = 0
+launches_soft_pairs = 0
 
 NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
 NMS_CLUSTERS = (1, 2, 4, 8, 16)
@@ -71,6 +76,11 @@ _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
 # iou, scores, picks, pick_scores, rows, k, m, gaussian, sigma, thr, stream
 _SOFT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
     [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+# plist, ok, iou, scores, picks, pick_scores, scratch, rows, k, p, m,
+# gaussian, sigma, thr, stream
+_SOFT_PAIRS_ARGTYPES = [ctypes.c_void_p] * 7 + \
+    [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 # the C launch functions, resolved at their first launch
 _pairs_launch = None
 _matrix_launch = None
@@ -79,6 +89,7 @@ _suppress_launch = None
 _d3_launch = None
 _standup_launch = None
 _soft_launch = None
+_soft_pairs_launch = None
 
 
 def _resolve_pairs():
@@ -115,6 +126,24 @@ def _resolve_soft():
     global _soft_launch
     _soft_launch = function("riou", "soft_nms_decay", _SOFT_ARGTYPES)
     return _soft_launch
+
+
+def _resolve_soft_pairs():
+    global _soft_pairs_launch
+    _soft_pairs_launch = function("riou", "soft_nms_decay_pairs",
+                                  _SOFT_PAIRS_ARGTYPES)
+    return _soft_pairs_launch
+
+
+def soft_pairs_scratch(K, P):
+    """Bytes of device scratch a row of `soft_nms_decay_pairs` takes: 0
+    where its adjacency fits in the block's shared memory (csrc/riou.cu
+    `soft_nms_pairs_scratch`)."""
+    fn = library("riou").soft_nms_pairs_scratch
+    if fn.restype is not ctypes.c_longlong:
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
+    return int(fn(K, P))
 
 
 def _resolve_d3():
@@ -646,4 +675,83 @@ def soft_nms_decay(iou, scores, m, method="gaussian", sigma=0.5,
     check("riou", rc)
     global launches_soft
     launches_soft += 1
+    return picks, picked
+
+
+def pair_matrix(plist, ok, iou, K):
+    """The symmetric [B, K, K] matrix a capped pair list makes (JAX
+    `_sparse_rotated_iou_matrix`'s scatter): plist [B, P] of i * K + j
+    (i < j), ok [B, P], the pairs' values iou [B, P]; each ok value at
+    (i, j) and (j, i) as `max(out, out.T)` leaves it (negatives 0, NaN
+    kept), every other entry 0. The slots that are not ok all write 0 at
+    entry 0, the diagonal."""
+    B = plist.shape[0]
+    iou = torch.where(ok, iou, 0.0)
+    out = torch.zeros((B, K * K), dtype=iou.dtype, device=iou.device)
+    out = out.scatter_(1, plist, iou).view(B, K, K)
+    return torch.maximum(out, out.transpose(1, 2))
+
+
+def soft_nms_decay_pairs_plain(plist, ok, iou, scores, m, method="gaussian",
+                               sigma=0.5, iou_threshold=0.3):
+    """`soft_nms_decay_plain` over the matrix the pairs make
+    (`pair_matrix`): plist [R, P] int64, ok [R, P] bool, iou [R, P],
+    scores [R, K] → (picks [R, m] int64, their scores [R, m])."""
+    return soft_nms_decay_plain(pair_matrix(plist, ok, iou, scores.shape[1]),
+                                scores, m, method, sigma, iou_threshold)
+
+
+def soft_nms_decay_pairs(plist, ok, iou, scores, m, method="gaussian",
+                         sigma=0.5, iou_threshold=0.3):
+    """`soft_nms_decay_pairs_plain` semantics; the CUDA kernel for CUDA
+    tensors (fp32, K <= NMS_MAX_K, every row in one launch; the pairs'
+    adjacency in shared memory where it fits, else in a device scratch).
+    The kernel walks only the pairs, which relies on a 0 decaying nothing:
+    it refuses a gaussian sigma of 0 or NaN, where exp(-0 / sigma) is
+    NaN."""
+    refuse_grad("soft_nms_decay_pairs", iou, scores)
+    dev = scores.device
+    if dev.type == "cpu":
+        return soft_nms_decay_pairs_plain(plist, ok, iou, scores, m, method,
+                                          sigma, iou_threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"soft_nms_decay_pairs: unsupported device {dev}")
+    if scores.dim() != 2 or plist.dim() != 2 \
+            or plist.shape[0] != scores.shape[0] \
+            or ok.shape != plist.shape or iou.shape != plist.shape \
+            or plist.dtype != torch.int64 or ok.dtype != torch.bool \
+            or iou.dtype != torch.float32 or scores.dtype != torch.float32 \
+            or not (plist.device == ok.device == iou.device == dev):
+        raise ValueError(
+            f"soft_nms_decay_pairs: expected plist [R, P] int64, ok [R, P] "
+            f"bool, iou [R, P] and scores [R, K] float32 on one device, got "
+            f"{tuple(plist.shape)} {plist.dtype}, {tuple(ok.shape)} "
+            f"{ok.dtype}, {tuple(iou.shape)} {iou.dtype}, "
+            f"{tuple(scores.shape)} {scores.dtype}")
+    R, K = scores.shape
+    P = plist.shape[1]
+    if K > NMS_MAX_K or not 0 <= m <= K or P > 2 ** 28:
+        raise ValueError(f"soft_nms_decay_pairs: {R} rows of {K} candidates "
+                         f"and {P} pairs, {m} steps; the kernel takes K <= "
+                         f"{NMS_MAX_K}, m <= K and P <= 2^28")
+    if method == "gaussian" and (math.isnan(sigma) or sigma == 0):
+        raise ValueError(f"soft_nms_decay_pairs: sigma {sigma}: a 0 IoU "
+                         f"would decay by NaN")
+    picks = torch.empty((R, m), dtype=torch.int64, device=dev)
+    picked = torch.empty((R, m), dtype=torch.float32, device=dev)
+    if R * K * m == 0:
+        return picks, picked
+    per_row = soft_pairs_scratch(K, P)
+    scratch = torch.empty((R * per_row,), dtype=torch.uint8, device=dev) \
+        if per_row else None
+    plist, ok, iou = plist.contiguous(), ok.contiguous(), iou.contiguous()
+    scores = scores.contiguous()
+    rc = (_soft_pairs_launch or _resolve_soft_pairs())(
+        plist.data_ptr(), ok.data_ptr(), iou.data_ptr(), scores.data_ptr(),
+        picks.data_ptr(), picked.data_ptr(),
+        scratch.data_ptr() if per_row else None, R, K, P, m,
+        int(method == "gaussian"), sigma, iou_threshold, stream_ptr(dev))
+    check("riou", rc)
+    global launches_soft_pairs
+    launches_soft_pairs += 1
     return picks, picked

@@ -15,10 +15,11 @@ suppression kernel (`nms_suppress`), then a batched top-k of the kept
 scores. Multi-class NMS runs every class of every example as one such
 batch of B·C rows.
 
-Soft-NMS decays the scores of overlapping boxes instead of removing them:
-the candidates' IoU matrix (sparse and rotated, `sparse_rotated_iou_matrix`,
-or the dense standup one), then the `m` decay steps of every row in one
-launch (`soft_nms_decay`).
+Soft-NMS decays the scores of overlapping boxes instead of removing them.
+Rotated, it clips the capped pair list (`soft_nms_pairs`, `pair_iou`) and
+runs the `m` decay steps of every row over that list in one launch
+(`soft_nms_decay_pairs`): no [B, K, K] matrix is built. Standup, the steps
+run over the dense standup IoU matrix (`soft_nms_decay`).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import torch
 
 from .box_ops import rbbox2d_to_near_bbox
 from .cuda.gather import flat_rows
-from .cuda.riou import (nms_overlap, nms_suppress, riou_pairs,
-                        soft_nms_decay, standup_maybe, standup_overlap)
+from .cuda.riou import (nms_overlap, nms_suppress, pair_matrix, riou_pairs,
+                        soft_nms_decay, soft_nms_decay_pairs, standup_maybe,
+                        standup_overlap)
 from .rotated_iou import standup_iou_matrix
 
 
@@ -164,17 +166,19 @@ def sparse_rotated_iou_matrix(cand, top_valid, max_pairs, min_bound=0.0):
     if cand.dim() == 2:
         return sparse_rotated_iou_matrix(cand[None], top_valid[None],
                                          max_pairs, min_bound)[0]
-    B, K = top_valid.shape
     plist, ok = soft_nms_pairs(cand, top_valid, max_pairs, min_bound)
+    return pair_matrix(plist, ok, pair_iou(cand, plist), top_valid.shape[1])
+
+
+def pair_iou(cand, plist):
+    """The rotated IoU [B, P] of each listed pair of candidates cand
+    [B, K, 5], plist [B, P] of i * K + j (`riou_pairs`, criterion -1, one
+    launch for the batch); a slot that is not ok clips the pair (0, 0)."""
+    B, K = cand.shape[:2]
     off = (torch.arange(B, device=cand.device) * K)[:, None]
     flat = cand.reshape(B * K, 5)
-    iou = riou_pairs(flat, flat, (off + plist // K).reshape(-1),
-                     (off + plist % K).reshape(-1)).view(B, -1)
-    # the slots that are not ok all write 0 at entry 0, the diagonal
-    iou = torch.where(ok, iou, 0.0)
-    out = torch.zeros((B, K * K), dtype=iou.dtype, device=cand.device)
-    out = out.scatter_(1, plist, iou).view(B, K, K)
-    return torch.maximum(out, out.transpose(1, 2))
+    return riou_pairs(flat, flat, (off + plist // K).reshape(-1),
+                      (off + plist % K).reshape(-1)).view(B, -1)
 
 
 def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
@@ -190,7 +194,8 @@ def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
     matrix, the rotated one sparsely over the first min(max_pairs, k²)
     pairs that can overlap (pairs past that cap count as IoU 0), the
     standup one dense; then min(post_max_size, k) decay steps, every row
-    in one launch. Returns (indices [m] into the inputs, in pick order,
+    in one launch (rotated: over the pair list itself, with no [B, k, k]
+    matrix built). Returns (indices [m] into the inputs, in pick order,
     the rescored scores where kept and 0 elsewhere, keep [m]: finite and
     at least `score_threshold`)."""
     if boxes.dim() == 2:
@@ -205,13 +210,17 @@ def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
     k = min(pre_max_size, boxes.shape[1])
     top_scores, top_idx = top_k(masked, k)
     cand = flat_rows(boxes, top_idx)
+    m = min(post_max_size, k)
     if rotated:
-        iou = sparse_rotated_iou_matrix(cand, torch.isfinite(top_scores),
-                                        min(max_pairs, k * k))
+        plist, ok = soft_nms_pairs(cand, torch.isfinite(top_scores),
+                                   min(max_pairs, k * k))
+        picks, picked = soft_nms_decay_pairs(
+            plist, ok, pair_iou(cand, plist), top_scores, m, method, sigma,
+            iou_threshold)
     else:
-        iou = standup_iou_matrix(cand, cand)
-    picks, picked = soft_nms_decay(iou, top_scores, min(post_max_size, k),
-                                   method, sigma, iou_threshold)
+        picks, picked = soft_nms_decay(standup_iou_matrix(cand, cand),
+                                       top_scores, m, method, sigma,
+                                       iou_threshold)
     keep = torch.isfinite(picked) & (picked >= score_threshold)
     return (top_idx.gather(-1, picks), torch.where(keep, picked, 0.0),
             keep)

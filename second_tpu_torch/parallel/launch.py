@@ -2,7 +2,7 @@
 multi-device tests, `entry.dryrun_multichip` and their helpers share.
 
     results = run_world("pkg.module:function", world=2, rundir=tmp,
-                        args=(...,), deadline=120)
+                        args=(...,), deadline=360)
 
 `run_world` starts `world` children of this interpreter (`python -m
 second_tpu_torch.parallel.launch RUNDIR RANK`), each on one thread. Each
@@ -10,12 +10,13 @@ joins a gloo process group through a `file://` rendezvous in `rundir` (no
 TCP port, so concurrent test workers cannot collide), with a timeout on
 its collectives, calls `function(*args)` and writes what it returns, with
 every tensor turned into numpy, to `rundir` (its output goes to
-`rundir/log_<rank>.txt`). The parent joins the children by a deadline:
-past it, or as soon as one child fails, it kills them all and raises with
-the failed child's traceback. It returns each rank's result,
-rank 0 first. The children import the named module and what it imports,
-nothing of the parent's; `paths` are put before the package's root on
-their `sys.path`.
+`rundir/log_<rank>.txt`, with the seconds it took to join the group, to
+run `function` and to wait for the other ranks at the end). The parent
+joins the children by a deadline: past it, or as soon as one child fails,
+it kills them all and raises with the failed child's traceback. It
+returns each rank's result, rank 0 first. The children import the named
+module and what it imports, nothing of the parent's; `paths` are put
+before the package's root on their `sys.path`.
 """
 
 from __future__ import annotations
@@ -34,9 +35,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 # the children's group: gloo on the CPU (one card cannot hold a world of
-# more than one NCCL rank), its collectives timing out after TIMEOUT s
+# more than one NCCL rank), its collectives timing out after TIMEOUT s: a
+# rank that hangs in a collective fails with its traceback before a
+# caller's deadline. A rank waits there for the slowest rank, 0.5 s at
+# most in the multi-device tests' world on a loaded host (its log's
+# "waited"), but a rank's own work between two collectives can take
+# tens of seconds there
 BACKEND = "gloo"
-TIMEOUT = 60.0
+TIMEOUT = 180.0
 
 
 def to_numpy(x):
@@ -120,6 +126,7 @@ def run_world(fn: str, world: int, rundir, args=(), deadline: float = 120.0,
 
 def _child(rundir: Path, rank: int) -> int:
     import torch.distributed as dist
+    t0 = time.monotonic()
     torch.set_num_threads(1)
     with open(rundir / "job.pkl", "rb") as f:
         job = pickle.load(f)
@@ -128,13 +135,18 @@ def _child(rundir: Path, rank: int) -> int:
             BACKEND, init_method=f"file://{rundir / 'rendezvous'}",
             rank=rank, world_size=job["world"],
             timeout=datetime.timedelta(seconds=TIMEOUT))
+        t1 = time.monotonic()
         module, name = job["fn"].split(":")
         result = to_numpy(getattr(importlib.import_module(module), name)(
             *job["args"]))
+        t2 = time.monotonic()
         # no rank leaves the group before every rank has joined it and
         # returned: a peer that closes its connections early fails the
         # others' (gloo's full mesh is still being connected)
         dist.barrier()
+        print(f"run_world: rank {rank} joined in {t1 - t0:.1f} s, ran in "
+              f"{t2 - t1:.1f} s, waited {time.monotonic() - t2:.1f} s",
+              flush=True)
         tmp = rundir / f"result_{rank}.pkl.tmp"
         with open(tmp, "wb") as f:
             pickle.dump(result, f)

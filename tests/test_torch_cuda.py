@@ -2190,8 +2190,9 @@ def test_soft_nms_decay_matches_plain(dev, K, method):
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
 def test_soft_nms_card_matches_cpu(dev, rotated, method):
     """`soft_nms` on a batch of 3 rows of 300 crowded candidates, the pair
-    cap binding, card (the row gather, the pair IoU and the decay kernels)
-    against CPU (their plain versions): picks and keep exact, scores
+    cap binding, card (the row gather, the pair IoU and the decay kernels:
+    the pair-list one rotated, one launch, the dense one standup) against
+    CPU (their plain versions): picks and keep exact, scores
     within 1e-5 (the card's and the CPU's sin and cos round the corners an
     ulp apart)."""
     g = torch.Generator().manual_seed(3)
@@ -2204,12 +2205,126 @@ def test_soft_nms_card_matches_cpu(dev, rotated, method):
     kw = dict(pre_max_size=256, post_max_size=100, sigma=0.5,
               iou_threshold=0.3, score_threshold=0.6, method=method,
               rotated=rotated, max_pairs=2048)
+    before = (riou.launches_soft, riou.launches_soft_pairs)
     got = nms.soft_nms(boxes.to(dev), scores.to(dev), valid.to(dev), **kw)
+    # rotated: the pair-list kernel, no dense IoU matrix; standup: the dense
+    assert (riou.launches_soft, riou.launches_soft_pairs) == \
+        (before[0] + (not rotated), before[1] + rotated)
     want = nms.soft_nms(boxes, scores, valid, **kw)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2].cpu(), want[2])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
     assert want[2].any() and not want[2].all()
+
+
+def _pair_decay_inputs(g, R, K, P):
+    """R rows of K candidates and P pair slots a row: distinct pairs
+    i < j in row-major order (as `soft_nms_pairs` lists them), their IoU
+    in [0, 1) with a tenth 0 and a tenth slightly negative, a tenth of the
+    slots not ok and the slots past a row's pairs 0 and not ok; scores
+    sorted descending, row 1 all -inf, row 2 with ties, row 3 with an
+    invalid tail."""
+    plist = torch.zeros(R, P, dtype=torch.int64)
+    ok = torch.zeros(R, P, dtype=torch.bool)
+    for r in range(R):
+        a = torch.randint(0, K, (2, 3 * P), generator=g)
+        lo, hi = a.min(0).values, a.max(0).values
+        flat = torch.unique((lo * K + hi)[lo < hi])[:P]
+        plist[r, :len(flat)] = flat
+        ok[r, :len(flat)] = True
+    ok &= torch.rand(R, P, generator=g) >= 0.1
+    iou = torch.rand(R, P, generator=g)
+    u = torch.rand(R, P, generator=g)
+    iou = torch.where(u < 0.1, 0.0, torch.where(u < 0.2, -1e-3 * iou, iou))
+    scores = torch.rand(R, K, generator=g).sort(1, descending=True)[0]
+    scores[1] = float("-inf")
+    scores[2, K // 4:K // 2] = scores[2, K // 4]
+    scores[3, K // 2:] = float("-inf")
+    return plist, ok, iou, scores
+
+
+def _check_pair_decay(got, want):
+    """Picks exact, NaN where the plain version's are NaN, the same
+    entries finite, the finite ones within 1e-6 relative."""
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    got, want = got[1].cpu(), want[1].cpu()
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin & ~want.isnan()], want[~fin & ~want.isnan()])
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+@pytest.mark.parametrize("K,P", [(1, 8), (33, 64), (257, 2048),
+                                 (1000, 8192), (1000, 32768), (4096, 8192),
+                                 (4096, 32768)])
+def test_soft_nms_decay_pairs_matches_plain(dev, K, P, method):
+    """The pair-list decay kernel (one block a row, the pairs' adjacency in
+    shared memory, or past it in a device scratch: at P = 32768 for both
+    K) against its plain version on the card: picks exact, their scores
+    within 1e-6 relative; 4 rows (one of -inf, one with ties, one with an
+    invalid tail), 100 steps, one launch."""
+    g = torch.Generator().manual_seed(K + P)
+    plist, ok, iou, scores = _pair_decay_inputs(g, 4, K, P)
+    assert (riou.soft_pairs_scratch(K, P) > 0) == (P == 32768)
+    args = [t.to(dev) for t in (plist, ok, iou, scores)]
+    m = min(K, 100)
+    before = riou.launches_soft_pairs
+    got = riou.soft_nms_decay_pairs(*args, m, method, 0.5, 0.3)
+    assert riou.launches_soft_pairs == before + 1
+    _check_pair_decay(got, riou.soft_nms_decay_pairs_plain(
+        *args, m, method, 0.5, 0.3))
+
+
+@pytest.mark.parametrize("K,P", [(1000, 8192), (4096, 32768)])
+def test_soft_nms_decay_pairs_every_candidate_picked(dev, K, P):
+    """m = K: every candidate picked once, then (the row all -inf) index
+    0; kernel against plain as above."""
+    g = torch.Generator().manual_seed(3 * K)
+    args = [t.to(dev) for t in _pair_decay_inputs(g, 4, K, P)]
+    got = riou.soft_nms_decay_pairs(*args, K, "gaussian", 0.5, 0.3)
+    want = riou.soft_nms_decay_pairs_plain(*args, K, "gaussian", 0.5, 0.3)
+    _check_pair_decay(got, want)
+    assert torch.equal(want[0][0].sort()[0].cpu(), torch.arange(K))
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_decay_pairs_non_finite_as_the_cpu(dev, method):
+    """NaN IoU values and NaN and +inf scores: the kernel against the
+    plain version on the CPU (torch.argmax's order there: NaN above +inf,
+    the first of equals): a NaN neighbour is picked the step after it
+    appears and every other non-finite score turns -inf."""
+    g = torch.Generator().manual_seed(5)
+    plist, ok, iou, scores = _pair_decay_inputs(g, 4, 1000, 8192)
+    iou[0, :200:7] = float("nan")
+    iou[3, 100:300:5] = float("nan")
+    scores[0, 10], scores[0, 500] = float("nan"), float("inf")
+    scores[2, 900], scores[2, 901] = float("inf"), float("nan")
+    want = riou.soft_nms_decay_pairs_plain(plist, ok, iou, scores, 200,
+                                           method, 0.5, 0.3)
+    got = riou.soft_nms_decay_pairs(plist.to(dev), ok.to(dev), iou.to(dev),
+                                    scores.to(dev), 200, method, 0.5, 0.3)
+    _check_pair_decay(got, want)
+    # the two NaN scores, and (gaussian) the NaN decays; a NaN IoU decays
+    # a linear score by 1 (NaN > thr is false)
+    assert (want[1].isnan().sum() > 2) == (method == "gaussian")
+
+
+def test_soft_nms_decay_pairs_refuses_what_it_cannot_take(dev):
+    plist = torch.zeros(1, 4, dtype=torch.int64, device=dev)
+    ok = torch.zeros(1, 4, dtype=torch.bool, device=dev)
+    iou = torch.zeros(1, 4, device=dev)
+    scores = torch.zeros(1, 8, device=dev)
+    with pytest.raises(ValueError, match="int64"):
+        riou.soft_nms_decay_pairs(plist.int(), ok, iou, scores, 2)
+    with pytest.raises(ValueError, match="m <= K"):
+        riou.soft_nms_decay_pairs(plist, ok, iou, scores, 9)
+    with pytest.raises(ValueError, match="sigma"):
+        riou.soft_nms_decay_pairs(plist, ok, iou, scores, 2, "gaussian", 0.0)
+    big = torch.zeros(1, riou.NMS_MAX_K + 1, device=dev)
+    with pytest.raises(ValueError, match="K <="):
+        riou.soft_nms_decay_pairs(plist, ok, iou, big, 1)
 
 
 def test_soft_nms_decay_refuses_what_it_cannot_take(dev):

@@ -1,7 +1,7 @@
 """Multi-device execution in the port (`second_tpu_torch/parallel/`, the
 `Trainer`'s data parallelism) on the CPU: one world of 2 gloo processes
 (`parallel/launch.py`: a `file://` rendezvous in a temporary directory, a
-120 s deadline past which the world is killed and the test fails) runs every
+DEADLINE past which the world is killed and the test fails) runs every
 rank-side check of `test_torch_parallel_ranks.py`; this process builds the
 inputs, runs the JAX references and the port's single-device references,
 and compares. On the tiny sparse pipeline (`configs/tiny_sparse.config`,
@@ -69,18 +69,24 @@ from second_tpu_torch.parallel.eval_dp import _local_stats
 from second_tpu_torch.parallel.launch import run_world
 from second_tpu_torch.parallel.spatial import make_spatial_forward
 from second_tpu_torch.train.optimizer import build_optimizer
-from second_tpu_torch.train.run import Trainer, apply_config_patches
+from second_tpu_torch.train.run import apply_config_patches
 from second_tpu_torch.train.state import (TrainState, make_eval_step,
                                           make_train_step)
 
 from test_torch_model import _random_variables
 from test_torch_parallel_ranks import _here, trainer_steps
+from test_torch_temporal import one_thread
 
 WORLD = 2
 BATCH = 4
 MAX_VOXELS = 2048
 PROPOSALS = 16
-DEADLINE = 120.0
+# the world's deadline, there to turn a hang into a failure: the world
+# took 95 s beside 8 busy processes on 8 cores and passed 120 s (its
+# earlier deadline) beside 16 before its Trainer jobs shared a build and
+# dropped TensorBoard's import; since, 86 s beside 13. DEADLINE is some 4
+# times that, for a host more loaded than any measured here
+DEADLINE = 360.0
 TRAIN_STEPS = 3          # the Trainer's train loop, at world 2 and at 1
 # the three-step optimizer of test_torch_train: momentum SGD at a fixed lr
 SGD_PATCHES = ['train_config.optimizer.kind="momentum_optimizer"',
@@ -230,14 +236,15 @@ def world(tmp_path_factory):
         _save(tmp / "frames.npz", anchors=anchors, **_np(frames)),
         PROPOSALS)))
 
-    # the Trainer's train loop over a few steps, then its first step with
-    # a train batch divisible by 2 and not
-    jobs.append(("trainer_steps", (str(TINY_CONFIG), str(tmp / "steps"),
-                                   BATCH, TRAIN_STEPS)))
-    for b in (BATCH, 3):
-        jobs.append(("trainer_first_step", (str(TINY_CONFIG),
-                                            str(tmp / f"trainer{b}"), b,
-                                            TRAINER_PATCHES, b == BATCH)))
+    # the Trainer's train loop over a few steps with a train batch
+    # divisible by 2, then its evaluate; its first step with one that is
+    # not
+    jobs.append(("trainer_steps", (str(TINY_CONFIG),
+                                   str(tmp / f"trainer{BATCH}"), BATCH,
+                                   TRAIN_STEPS, True)))
+    jobs.append(("trainer_first_step", (str(TINY_CONFIG),
+                                        str(tmp / "trainer3"), 3,
+                                        TRAINER_PATCHES)))
 
     # the world runs while this process computes the references
     ranks = []
@@ -246,7 +253,9 @@ def world(tmp_path_factory):
         args=(jobs,), deadline=DEADLINE, paths=[_here()])))
     runner.start()
     try:
-        out["refs"] = _references(out)
+        # the port's side here on one thread, beside the world's two
+        with one_thread():
+            out["refs"] = _references(out)
     finally:
         runner.join()
     if isinstance(ranks[0], BaseException):
@@ -312,22 +321,10 @@ def _references(w):
         refs["seq_own"] = seq(_tensors(frames),
                               torch.from_numpy(np.array(anchors)))
 
-    one = Trainer(TINY_CONFIG, w["tmp"] / "one", synthetic=True,
-                  dataset_size=8, max_points=2000, device="cpu",
-                  patches=[f"train_input_reader.batch_size={BATCH}",
-                           *TRAINER_PATCHES])
-    batch = next(one._batch_iter(BATCH, np.random.default_rng(0)))
-    _, metrics = one.train_step(one._init_state(), batch)
-    one.logger.close()
-    refs["trainer"] = (one._train_group is None, float(metrics["loss"]))
-
     # the first TRAIN_STEPS global batches as the reader makes them, and a
     # one-rank Trainer's train loop over them
-    batches = one._batch_iter(BATCH, np.random.default_rng(0))
-    refs["stream"] = [float(next(batches)["points"].double().sum())
-                      for _ in range(TRAIN_STEPS)]
     refs["steps"] = trainer_steps(TINY_CONFIG, w["tmp"] / "one_steps",
-                                  BATCH, TRAIN_STEPS)
+                                  BATCH, TRAIN_STEPS, stream=True)
     return refs
 
 
@@ -523,9 +520,9 @@ def test_trainer_data_parallel_train_loop_keeps_the_batch_order(world):
     so every step is the single-device step over one global batch: each
     step's loss within JAX_RTOL of a one-rank Trainer's train loop on the
     same stream."""
-    got, one = _result(world, -3), world["refs"]["steps"]
+    got, one = _result(world, -2), world["refs"]["steps"]
     assert got["data_parallel"] and not one["data_parallel"]
-    stream = world["refs"]["stream"]
+    stream = one["stream"]
     assert got["seen"][:, 0].tolist() == stream
     assert one["seen"][:, 0].tolist() == stream
     np.testing.assert_allclose(got["seen"][:, 1], one["seen"][:, 1],
@@ -541,9 +538,10 @@ def test_trainer_data_parallel_by_batch_divisibility(world):
     results: one file of 4 frames' detections."""
     dp, solo = _result(world, -2), _result(world, -1)
     assert dp["data_parallel"] and not solo["data_parallel"]
-    one_rank, loss = world["refs"]["trainer"]
-    assert one_rank
-    np.testing.assert_allclose(float(dp["loss"]), loss, rtol=JAX_RTOL)
+    one = world["refs"]["steps"]
+    assert not one["data_parallel"]
+    np.testing.assert_allclose(dp["seen"][0, 1], one["seen"][0, 1],
+                               rtol=JAX_RTOL)
     assert dp["eval_stats"]["num_detections"] > 0
     results = list((world["tmp"] / f"trainer{BATCH}").glob(
         "predict_test/step_*/result.pkl"))

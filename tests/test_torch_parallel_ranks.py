@@ -28,6 +28,7 @@ from second_tpu_torch.parallel.mesh import (globalise, make_dp_train_step,
 from second_tpu_torch.parallel.spatial import gather_rows, \
     make_spatial_forward
 from second_tpu_torch.parallel.temporal_sp import make_sp_sequence_forward
+from second_tpu_torch.train.metrics import MetricsLogger
 from second_tpu_torch.train.optimizer import build_optimizer
 from second_tpu_torch.train.prefetch import PrefetchIterator
 from second_tpu_torch.train.run import Trainer, apply_config_patches
@@ -150,35 +151,53 @@ def sp_sequence(cfg_path, state_path, frames_path, proposals):
     return globalise(preds, group)
 
 
-def trainer_first_step(cfg_path, model_dir, batch_size, patches,
-                       evaluate=False):
-    """A `Trainer` on the group: whether it took the data-parallel path,
-    and the loss of its first train step on its first global batch; with
-    `evaluate`, then `evaluate` over 4 frames, detections written without
-    scoring (`predict_test`): its reduced statistics."""
+def _no_tensorboard(trainer):
+    """Rank 0's logger writing its log files without TensorBoard
+    summaries: their first record imports TensorBoard (and TensorFlow),
+    some 20 s on an idle host, which rank 0 alone would pay inside the
+    world while the other rank waits at a collective."""
+    if trainer.is_chief:
+        trainer.logger.close()
+        trainer.logger = MetricsLogger(trainer.model_dir,
+                                       use_tensorboard=False)
+
+
+def trainer_first_step(cfg_path, model_dir, batch_size, patches):
+    """A `Trainer` on the group (no TensorBoard summaries): whether it took
+    the data-parallel path, and the loss of its first train step on its
+    first global batch."""
     trainer = Trainer(cfg_path, model_dir, synthetic=True, dataset_size=8,
                       max_points=2000, device="cpu",
                       patches=[f"train_input_reader.batch_size={batch_size}",
                                *patches])
+    _no_tensorboard(trainer)
     batch = next(trainer._batch_iter(batch_size, np.random.default_rng(0)))
-    state = trainer._init_state()
-    state, metrics = trainer.train_step(state, batch)
-    out = {"data_parallel": trainer._train_group is not None,
-           "loss": metrics["loss"]}
-    if evaluate:
-        trainer.evaluate(state, max_frames=4, predict_test=True)
-        out["eval_stats"] = trainer._last_eval_stats
-    return out
+    _, metrics = trainer.train_step(trainer._init_state(), batch)
+    trainer.logger.close()
+    return {"data_parallel": trainer._train_group is not None,
+            "loss": metrics["loss"]}
 
 
-def trainer_steps(cfg_path, model_dir, batch_size, steps, patches=()):
-    """A `Trainer`'s `train` over `steps` steps, its input made by 4
-    prefetch workers: for each step the sum of the points of the global
-    batch it took and the step's loss."""
+def trainer_steps(cfg_path, model_dir, batch_size, steps, evaluate=False,
+                  stream=False):
+    """A `Trainer`'s `train` over `steps` steps (no TensorBoard
+    summaries), its input made by 4 prefetch workers: for each step the sum
+    of the points of the global batch it took and the step's loss. With
+    `stream`, first the sums of the first `steps` global batches as its
+    reader makes them; with `evaluate`, then `evaluate` over 4 frames,
+    detections written without scoring (`predict_test`): its reduced
+    statistics."""
     trainer = Trainer(cfg_path, model_dir, synthetic=True, dataset_size=8,
                       max_points=2000, device="cpu",
                       patches=[f"train_input_reader.batch_size={batch_size}",
-                               "train_input_reader.num_workers=4", *patches])
+                               "train_input_reader.num_workers=4",
+                               "eval_input_reader.num_workers=1"])
+    _no_tensorboard(trainer)
+    out = {}
+    if stream:
+        batches = trainer._batch_iter(batch_size, np.random.default_rng(0))
+        out["stream"] = [float(next(batches)["points"].double().sum())
+                         for _ in range(steps)]
     step, seen = trainer.train_step, []
 
     def recorded(state, batch):
@@ -188,16 +207,25 @@ def trainer_steps(cfg_path, model_dir, batch_size, steps, patches=()):
         return state, metrics
 
     trainer.train_step = recorded
-    trainer.train(total_steps=steps)
+    state = trainer.train(total_steps=steps)
+    out.update(data_parallel=trainer._train_group is not None,
+               seen=np.array(seen))
+    if evaluate:
+        trainer.evaluate(state, max_frames=4, predict_test=True)
+        out["eval_stats"] = trainer._last_eval_stats
     trainer.logger.close()
-    return {"data_parallel": trainer._train_group is not None,
-            "seen": np.array(seen)}
+    return out
 
 
 def bundle(jobs):
     """Each (function name of this module, args) of `jobs`, in order:
-    their results."""
-    return [globals()[name](*args) for name, args in jobs]
+    their results. Each job's seconds go to the rank's log."""
+    out = []
+    for name, args in jobs:
+        t0 = time.monotonic()
+        out.append(globals()[name](*args))
+        print(f"job {name} {time.monotonic() - t0:.1f} s", flush=True)
+    return out
 
 
 # ------------------------------------------------------- the launcher

@@ -3,7 +3,12 @@
 a pair cap that binds), its sparse rotated-IoU matrix and pair list, the
 port's host oracle (`core/nms_np.py`), and the decay steps' plain version
 (`soft_nms_decay_plain`, what the CUDA kernel is held to on the card)
-against a step-by-step numpy loop.
+against a step-by-step numpy loop. The pair-list decay's plain version
+(`soft_nms_decay_pairs_plain`, rotated soft-NMS's path) bit for bit the
+dense one on the same pairs, its pair values' edge cases (negative and NaN
+IoU, slots that are not ok), and a numpy mirror of its kernel's walk
+(`_walk_mirror`: per-warp slot maxima carried over, only the pick's
+neighbours decayed, non-finite scores swept a step later) against it.
 
 JAX's functions run jitted (eagerly, the decay scan runs op by op). The
 tolerances: picks, keep masks and pair lists exact; the rescored scores
@@ -30,10 +35,12 @@ import torch
 from second_tpu.ops import nms as jax_nms
 from second_tpu.ops.rotated_iou import rbbox_to_corners as jax_corners
 from second_tpu_torch.core.nms_np import soft_nms as soft_nms_np
-from second_tpu_torch.ops.cuda.riou import (soft_nms_decay,
+from second_tpu_torch.ops.cuda.riou import (pair_matrix, soft_nms_decay,
+                                            soft_nms_decay_pairs,
+                                            soft_nms_decay_pairs_plain,
                                             soft_nms_decay_plain)
-from second_tpu_torch.ops.nms import (soft_nms, soft_nms_pairs,
-                                      sparse_rotated_iou_matrix)
+from second_tpu_torch.ops.nms import (pair_iou, soft_nms, soft_nms_pairs,
+                                      sparse_rotated_iou_matrix, top_k)
 
 SCORE_RTOL = 1e-6
 ROTATED_SCORE_RTOL = 1e-5
@@ -333,3 +340,201 @@ def test_soft_nms_decay_refuses_grad():
     iou = torch.zeros(1, 4, 4, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         soft_nms_decay(iou, torch.zeros(1, 4), 2)
+
+
+# ------------------------------------------------- the pair-list decay
+
+
+def _candidates(seed, rows, n, k):
+    """The top k of n clustered rotated boxes a row, as soft_nms takes
+    them: (cand [rows, k, 5], their scores [rows, k], -inf where
+    invalid)."""
+    boxes, scores, valid = _inputs(seed, rows, n, True)
+    masked = torch.from_numpy(np.where(valid, scores, -np.inf))
+    top, idx = top_k(masked, k)
+    cand = torch.from_numpy(boxes).gather(1, idx[..., None].expand(-1, -1,
+                                                                   5))
+    return cand.contiguous(), top
+
+
+@pytest.mark.parametrize("max_pairs", [2304, 96], ids=["all", "capped"])
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_pairs_plain_is_the_dense_decay_bit_for_bit(method, max_pairs):
+    """`soft_nms_decay_pairs_plain` on the pair list equals
+    `soft_nms_decay_plain` on `sparse_rotated_iou_matrix`'s matrix of the
+    same candidates bit for bit, picks and scores: 3 rows of 48
+    candidates, every pair listed (48² slots) or the cap binding (96)."""
+    cand, top = _candidates(4, 3, 64, 48)
+    valid = torch.isfinite(top)
+    plist, ok = soft_nms_pairs(cand, valid, max_pairs)
+    if max_pairs < 2304:
+        assert bool(ok.all())
+    else:
+        assert not bool(ok.all())
+    got = soft_nms_decay_pairs_plain(plist, ok, pair_iou(cand, plist), top,
+                                     40, method, 0.5, 0.3)
+    want = soft_nms_decay_plain(sparse_rotated_iou_matrix(cand, valid,
+                                                          max_pairs),
+                                top, 40, method, 0.5, 0.3)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.isfinite(want[1]).any()
+
+
+def _edge_pairs():
+    """One row of 12 candidates and 10 pair slots: IoU -0.0, -1e-7, NaN
+    and values in (0, 1]; two slots that are not ok, holding pairs and
+    values that must add nothing. Returns (plist, ok, iou, scores, the
+    dense matrix written out by hand: max(iou, 0) with NaN kept, at (i, j)
+    and (j, i))."""
+    K = 12
+    pairs = [(0, 1, 0.6), (0, 2, -0.0), (0, 3, -1e-7), (1, 4, 0.45),
+             (2, 5, float("nan")), (3, 6, 0.31), (0, 7, 1.0), (4, 8, 0.2),
+             (5, 9, 0.9), (6, 10, 0.8)]
+    plist = torch.tensor([[i * K + j for i, j, _ in pairs]])
+    iou = torch.tensor([[v for _, _, v in pairs]], dtype=torch.float32)
+    ok = torch.ones_like(plist, dtype=torch.bool)
+    ok[0, 8:] = False
+    dense = torch.zeros(1, K, K)
+    for q, (i, j, v) in enumerate(pairs):
+        if ok[0, q]:
+            v = v if v != v or v > 0 else 0.0
+            dense[0, i, j] = dense[0, j, i] = v
+    scores = torch.tensor([[0.95, 0.9, 0.85, 0.8, 0.75, 0.7, 0.65, 0.6,
+                            0.55, 0.5, 0.45, float("-inf")]])
+    return plist, ok, iou, scores, dense
+
+
+@pytest.mark.parametrize("method,thr", [("gaussian", 0.3), ("linear", 0.3),
+                                        ("linear", -0.1)])
+def test_pairs_plain_edge_values_decay_as_the_dense_matrix(method, thr):
+    """The pair values' edge cases give the dense matrix's decay: -0.0 and
+    -1e-7 act as 0 (at threshold -0.1 a 0 decays by 1 - 0, -1e-7 would
+    raise its neighbour's score), a NaN IoU is NaN both ways (gaussian:
+    its neighbour's score turns NaN, is picked next as torch.argmax ranks
+    NaN, and the other non-finite scores turn -inf; linear: NaN > thr is
+    false, it decays by 1), slots that are not ok add nothing; and the
+    kernel's walk (`_walk_mirror`) the same."""
+    plist, ok, iou, scores, dense = _edge_pairs()
+    assert torch.equal(pair_matrix(plist, ok, iou, 12).isnan(),
+                       dense.isnan())
+    assert torch.equal(torch.nan_to_num(pair_matrix(plist, ok, iou, 12)),
+                       torch.nan_to_num(dense))
+    got = soft_nms_decay_pairs_plain(plist, ok, iou, scores, 12, method,
+                                     0.5, thr)
+    want = soft_nms_decay_plain(dense, scores, 12, method, 0.5, thr)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].isnan(), want[1].isnan())
+    assert torch.equal(torch.nan_to_num(got[1]), torch.nan_to_num(want[1]))
+    assert want[1].isnan().any() == (method == "gaussian")
+    mirror = _walk_mirror(plist.numpy(), ok.numpy(), iou.numpy(),
+                          scores.numpy(), 12, method, 0.5, thr)
+    np.testing.assert_array_equal(mirror[0], want[0].numpy())
+    np.testing.assert_allclose(mirror[1], want[1].numpy(), rtol=SCORE_RTOL,
+                               atol=0)
+
+
+def _order(v):
+    """torch.argmax's order of a score: NaN above +inf, -0 equal to 0."""
+    return (1, 0.0) if np.isnan(v) else (0, float(v))
+
+
+def _walk_mirror(plist, ok, iou, scores, m, method, sigma, thr, span=32):
+    """The decay steps as `soft_nms_decay_pairs_kernel` (csrc/riou.cu)
+    takes them, in numpy fp32: each candidate's neighbours listed in both
+    directions; the scores in spans of `span`, each span's (largest by
+    `_order`, lowest index) kept as its slot and recomputed only where the
+    step changed the span; a step picks the best slot, writes the pick
+    out, sweeps the non-finite scores (other than -inf) of the spans that
+    held one to -inf, decays the pick's neighbours and sets the pick to
+    -inf."""
+    R, K = scores.shape
+    picks = np.zeros((R, m), np.int64)
+    picked = np.zeros((R, m), np.float32)
+    spans = [(lo, min(lo + span, K)) for lo in range(0, K, span)]
+
+    def best_of(cur, lo, hi):
+        b = lo
+        for j in range(lo + 1, hi):
+            if _order(cur[j]) > _order(cur[b]):
+                b = j
+        odd = any(not np.isfinite(v) and v != -np.inf for v in cur[lo:hi])
+        return (_order(cur[b]), b), odd
+
+    for r in range(R):
+        adj = [[] for _ in range(K)]
+        for q in np.flatnonzero(ok[r]):
+            i, j = divmod(int(plist[r, q]), K)
+            v = iou[r, q]
+            v = v if np.isnan(v) or v > 0 else np.float32(0.0)
+            adj[i].append((j, v))
+            adj[j].append((i, v))
+        cur = scores[r].astype(np.float32).copy()
+        slots = [best_of(cur, lo, hi) for lo, hi in spans]
+        for s in range(m):
+            b = max(slots, key=lambda x: (x[0][0], -x[0][1]))[0][1]
+            picks[r, s], picked[r, s] = b, cur[b]
+            changed = {w for w, (_, odd) in enumerate(slots) if odd}
+            for w in changed:
+                lo, hi = spans[w]
+                cur[lo:hi] = np.where(np.isfinite(cur[lo:hi]), cur[lo:hi],
+                                      -np.inf)
+            for j, v in adj[b]:
+                if method == "gaussian":
+                    d = np.exp(np.float32(-(v * v)) / np.float32(sigma))
+                else:
+                    d = np.float32(1.0) - v if v > thr else np.float32(1.0)
+                cur[j] = cur[j] * d if np.isfinite(cur[j]) else -np.inf
+                changed.add(j // span)
+            cur[b] = -np.inf
+            changed.add(b // span)
+            for w in changed:
+                slots[w] = best_of(cur, *spans[w])
+    return picks, picked
+
+
+@pytest.mark.parametrize("span", [32, 128])
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_walk_mirror_matches_pairs_plain(method, span):
+    """The kernel's walk (`_walk_mirror`) against the plain version on
+    random pair lists: 4 rows of 300 candidates, 600 slots (10% not ok),
+    picks exact and scores within SCORE_RTOL (numpy's exp and torch's an
+    ulp apart; NaN where NaN); row 1 all -inf
+    (it picks 0 each step), row 2 with ties and a NaN and a +inf score,
+    row 3 with NaN IoU values; 120 steps, at the kernel's span of 32
+    scores a warp and at 128 (K = 4096's)."""
+    rng = np.random.default_rng(21)
+    R, K, P, m = 4, 300, 600, 120
+    iu, ju = np.triu_indices(K, 1)
+    plist = np.stack([np.sort(rng.choice(iu * K + ju, P, replace=False))
+                      for _ in range(R)])
+    ok = rng.uniform(size=(R, P)) < 0.9
+    iou = rng.uniform(-0.05, 1.0, (R, P)).astype(np.float32)
+    iou[3, :40] = np.nan
+    scores = -np.sort(-rng.uniform(0.01, 1, (R, K))).astype(np.float32)
+    scores[1] = -np.inf
+    scores[2, 50:60] = scores[2, 50]
+    scores[2, 70], scores[2, 80] = np.nan, np.inf
+    want = soft_nms_decay_pairs_plain(
+        torch.from_numpy(plist), torch.from_numpy(ok),
+        torch.from_numpy(iou), torch.from_numpy(scores), m, method, 0.5,
+        0.3)
+    got = _walk_mirror(plist, ok, iou, scores, m, method, 0.5, 0.3, span)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1].numpy(), rtol=SCORE_RTOL,
+                               atol=0)
+    assert (want[0][1] == 0).all() and torch.isnan(want[1][2]).any()
+    # a NaN IoU decays by NaN (gaussian) or by 1 (NaN > thr is false)
+    assert bool(torch.isnan(want[1][3]).any()) == (method == "gaussian")
+
+
+def test_soft_nms_decay_pairs_on_cpu_is_the_plain_version():
+    """`soft_nms_decay_pairs` on CPU tensors is its plain version; it
+    refuses a gradient."""
+    plist, ok, iou, scores, _ = _edge_pairs()
+    got = soft_nms_decay_pairs(plist, ok, iou, scores, 6)
+    want = soft_nms_decay_pairs_plain(plist, ok, iou, scores, 6)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].nan_to_num(), want[1].nan_to_num())
+    with pytest.raises(RuntimeError, match="no backward"):
+        soft_nms_decay_pairs(plist, ok, iou.requires_grad_(), scores, 2)
