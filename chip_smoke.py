@@ -307,17 +307,21 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    decoded boxes an example, post 100), rotated gaussian (sigma 0.5) and
    linear (threshold 0.3), and standup gaussian on their standup
    envelopes: launches counted (the pair-list decay kernel and the pair
-   IoU once a rotated call, the dense decay kernel once in the standup
-   call, the row gather once a call, for all rows), each decay call's
-   kernel against its plain version (picks exact, scores within
-   SOFT_RTOL), the pair IoU against its plain version, each call card
+   IoU once a rotated call, the standup decay kernel once in the standup
+   call and the dense one never, the row gather once a call, for all
+   rows), the standup call's peak allocation below a [B, K, K] matrix,
+   each decay call's kernel against its plain version (picks exact, NaN
+   where NaN, scores within SOFT_RTOL), the dense kernel on the standup
+   call's dense matrix, both on rows with NaN and +inf scores and NaN
+   IoU values, the pair IoU against its plain version, each call card
    against CPU (picks and keep exact, scores within SOFT_REF_RTOL), the
    pair cap's use; each decay call timed (events, device, plain, bound,
    the device time at m = 1 and so a later step's), the whole gaussian
-   soft_nms timed; K = 4096 rows of crowded boxes, 100 steps: the pair
-   kernel on their pair lists at 8192 pairs (shared memory) and 32768
-   (past it), and the dense kernel on their dense rotated IoU, each
-   against plain and timed.
+   rotated and standup soft_nms timed in turns with their earlier
+   routes; K = 4096 rows of crowded boxes, 100 steps: the pair kernel on
+   their pair lists at 8192 pairs (shared memory) and 32768 (past it),
+   the standup kernel on their standup envelopes and the dense kernel on
+   their dense rotated IoU, each against plain and timed.
 35. dp (`run_dp`): an NCCL process group of one rank (the card is one):
    the fhd `Trainer`'s data-parallel train steps (DDP; at one rank the
    norms' statistics are the rank's own) against a plain `Trainer`'s on
@@ -351,9 +355,10 @@ sparse-conv calls over 64 channels under "large_eval_c128",
 with "bound_cores_ms" beside) and "vfe1_eval_c128", and the soft-NMS
 decays: the pair kernel's linear fhd call under "soft_nms_linear" and
 its K = 4096 rows under "soft_nms_k4096_p8192" / "soft_nms_k4096_p32768",
-the dense kernel's K = 4096 row under "soft_nms_k4096" (the gaussian fhd
-call's numbers, and the standup call's for the dense kernel, are their
-lines' own).
+the standup kernel's under "soft_nms_standup_k4096", the dense kernel's
+under "soft_nms_k4096" (the gaussian fhd call's numbers are the pair and
+standup kernels' lines' own, the dense kernel's those of the standup
+call's dense matrix).
 The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
@@ -398,7 +403,8 @@ from second_tpu_torch.ops.anchors_mask import anchors_mask_from_coords
 from second_tpu_torch.ops.box_ops import bev_boxes
 from second_tpu_torch.ops.cuda import gather, riou, roi_align, subm
 from second_tpu_torch.ops.rotated_iou import (_clip_halfplane, _next_vertex,
-                                              _signed_area, rbbox_to_corners)
+                                              _signed_area, rbbox_to_corners,
+                                              standup_iou_matrix)
 from second_tpu_torch.ops.voxelize import VoxelizeSpec, device_voxelize
 from second_tpu_torch.train.optimizer import build_optimizer
 from second_tpu_torch.train.state import (TrainState, make_eval_step,
@@ -456,7 +462,7 @@ PP_EVAL_LAUNCHES = {"sparse_gather_gemm": 0, "row_gather": 6,
                     "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0,
                     "d3_iou": 0, "roi_align_fwd": 0, "roi_align_bwd": 0,
                     "standup_overlap": 0, "soft_nms": 0,
-                    "soft_nms_pairs": 0}
+                    "soft_nms_standup": 0, "soft_nms_pairs": 0}
 PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
 
 # SECOND multi-class (configs/second_multiclass.config: Car, Pedestrian,
@@ -591,6 +597,10 @@ TWO_STAGE_KERNELS = [
 SOFT_NMS_KERNELS = [
     dict(name="soft_nms", module=riou, fn="soft_nms_decay",
          counter="launches_soft", source="second_tpu_torch/csrc/riou.cu",
+         replaces="second_tpu/ops/nms.py:230"),
+    dict(name="soft_nms_standup", module=riou, fn="soft_nms_decay_standup",
+         counter="launches_soft_standup",
+         source="second_tpu_torch/csrc/riou.cu",
          replaces="second_tpu/ops/nms.py:230"),
     dict(name="soft_nms_pairs", module=riou, fn="soft_nms_decay_pairs",
          counter="launches_soft_pairs",
@@ -6197,8 +6207,8 @@ SOFT_RTOL, SOFT_REF_RTOL = 1e-6, 1e-5
 # csrc/riou.cu `soft_nms_decay_kernel`: the decay (gaussian: the square,
 # the negation, the division, exp: 4; linear: the comparison, the
 # difference, the select: 3), the finite test, the product and its select
-# (3), the pick's test and select (2), the thread's argmax (two
-# comparisons, the index comparison, two selects: 5)
+# (3), the pick's test and select (2), the thread's argmax (the score's
+# key, its comparison, two selects, the index: 5)
 SOFT_STEP_OPS = {"gaussian": 4 + 3 + 2 + 5, "linear": 3 + 3 + 2 + 5}
 # ... of the decay over a pair list, as the function needs them whatever
 # kernel does it: each step's argmax, a comparison a candidate; the decay
@@ -6208,6 +6218,15 @@ SOFT_STEP_OPS = {"gaussian": 4 + 3 + 2 + 5, "linear": 3 + 3 + 2 + 5}
 SOFT_PAIR_ARGMAX_OPS = 1
 SOFT_PAIR_DECAY_OPS = {"gaussian": 4 + 3, "linear": 3 + 3}
 SOFT_PAIR_BUILD_OPS = 4
+# ... of the standup decay, as the function needs them: each step's
+# argmax, a comparison a candidate; the test whether the pick meets each
+# candidate (two maxima, two minima, two differences, two comparisons:
+# 8); the decay of each candidate that meets it (the product of the
+# widths, the sum of the areas, the difference, the division and its
+# test: 5; the decay's 4 or 3; the finite test, the product and its
+# select: 3)
+SOFT_STANDUP_MEET_OPS = 8
+SOFT_STANDUP_DECAY_OPS = {"gaussian": 5 + 4 + 3, "linear": 5 + 3 + 3}
 
 
 def soft_bound(R, K, m, method):
@@ -6221,6 +6240,24 @@ def soft_bound(R, K, m, method):
     return dict(bytes_s=R * (m * K * 4 + K * 4 + m * 12) / HBM_BYTES_PER_S,
                 ops_s=R * m * K * SOFT_STEP_OPS[method] /
                 PEAK_OPS_PER_S[torch.float32])
+
+
+def soft_standup_bound(cand, scores, picks, method):
+    """The standup decay's bound on the card, from this call's data:
+    bytes, the K boxes (16 B) and scores (4 B) a row read once, the m
+    picks (int64) and their scores written; operations, the argmax and
+    the meet test a candidate a step (SOFT_PAIR_ARGMAX_OPS +
+    SOFT_STANDUP_MEET_OPS) and SOFT_STANDUP_DECAY_OPS for each pair of a
+    pick and a candidate whose IoU is not 0 (counted from the picks), at
+    the fp32 rate. The chain of m steps is not counted
+    (scripts/torch_soft_nms_floor.py measures a step's floor)."""
+    (R, K), m = scores.shape, picks.shape[1]
+    pb = cand.gather(1, picks[..., None].expand(-1, -1, 4))
+    met = int((standup_iou_matrix(pb, cand) != 0).sum())
+    ops = R * m * K * (SOFT_PAIR_ARGMAX_OPS + SOFT_STANDUP_MEET_OPS) + \
+        met * SOFT_STANDUP_DECAY_OPS[method]
+    return dict(bytes_s=R * (20 * K + 12 * m) / HBM_BYTES_PER_S,
+                ops_s=ops / PEAK_OPS_PER_S[torch.float32], pairs_met=met)
 
 
 def soft_pairs_bound(plist, ok, scores, picks, method):
@@ -6250,15 +6287,19 @@ def soft_pairs_bound(plist, ok, scores, picks, method):
 
 def check_decay(got, want, what):
     """A decay kernel's (picks, scores) against the plain version's: picks
-    exact, the same entries finite, the finite ones within SOFT_RTOL
-    relative. Returns the largest absolute error."""
+    exact, NaN where NaN, the same entries finite and the others equal,
+    the finite ones within SOFT_RTOL relative. Returns the largest
+    absolute error."""
     torch.cuda.synchronize()
     if not torch.equal(got[0], want[0]):
         n = int((got[0] != want[0]).sum())
         fail(f"{what}: {n} picks differ from the plain version's")
     fin = torch.isfinite(want[1])
-    if not torch.equal(torch.isfinite(got[1]), fin):
-        fail(f"{what}: the kernel's finite scores are not the plain "
+    odd = ~fin & ~want[1].isnan()
+    if not (torch.equal(torch.isfinite(got[1]), fin) and
+            torch.equal(got[1].isnan(), want[1].isnan()) and
+            torch.equal(got[1][odd], want[1][odd])):
+        fail(f"{what}: the kernel's non-finite scores are not the plain "
              f"version's")
     if not fin.any():
         return 0.0
@@ -6277,23 +6318,29 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
     K = 4096 rows:
     - counted: launch counts set to 0, the three calls, counts read: the
       pair-list decay kernel once a rotated call for all 4 rows, with the
-      pair IoU; the dense decay kernel once in the standup call; the row
-      gather once a call; nothing else;
+      pair IoU; the standup decay kernel once in the standup call, whose
+      peak allocation stays below a [B, K, K] fp32 matrix; the row gather
+      once a call; nothing else (the dense decay kernel never);
     - each decay call's kernel against its plain version on its own
       inputs (`check_decay`), each pair IoU call against its plain version
-      (RIOU_TOL), the pair cap's use printed;
+      (RIOU_TOL), the pair cap's use printed; the dense kernel on the
+      standup call's dense matrix; the standup and dense kernels on the
+      standup call's rows with NaN and +inf scores and NaN IoU values;
     - each call card against CPU (every wrapper's plain version): picks
       and keep exact, the rescored scores within SOFT_REF_RTOL;
     - each rotated call's pair-list decay timed (events, device, plain)
       with its bound (`soft_pairs_bound`) and, at m = 1, its prologue and
-      one step; the standup call's dense decay the same (`soft_bound`);
-      the whole gaussian soft_nms timed in turns with the same call by
-      the earlier route (the pair list densified on the card, the dense
-      decay kernel), whose outputs must be the same;
+      one step; the standup call's standup decay (`soft_standup_bound`)
+      and the dense decay of its dense matrix (`soft_bound`) the same;
+      the whole gaussian soft_nms, rotated and standup, timed in turns
+      with the same call by its earlier route (the pair list densified on
+      the card, or the dense standup matrix; the dense decay kernel),
+      whose outputs must be the same;
     - the 4096-candidate rows: crowded boxes, their pair lists at the
       SOFT_NMS_K_PAIRS caps (in shared memory, past it), SOFT_NMS_STEPS
-      steps, the pair kernel against plain and timed; and the dense
-      kernel on their dense rotated IoU, against plain and timed.
+      steps, the pair kernel against plain and timed; the standup kernel
+      on their standup envelopes and the dense kernel on their dense
+      rotated IoU, against plain and timed.
     Returns (the aggregates by kernel: the fhd gaussian calls' numbers;
     the aggregates of the other calls by kernels-line key, the launch
     counts, the report)."""
@@ -6312,17 +6359,31 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
 
     reset_counts()
     with recording([(riou, "soft_nms_decay_pairs"), (riou, "riou_pairs"),
-                    (riou, "soft_nms_decay")]) as calls:
+                    (riou, "soft_nms_decay_standup")]) as calls:
         outs = [soft(*run) for run in SOFT_NMS_RUNS]
+        torch.cuda.synchronize()
+        # the standup call's peak allocation: no [B, K, K] matrix is built
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         out_standup = soft(*SOFT_NMS_RUNS[0], b=standup, rotated=False)
         torch.cuda.synchronize()
+        standup_peak = torch.cuda.max_memory_allocated(dev) - base
     counts = launch_counts()
     runs = len(SOFT_NMS_RUNS)
     want = {**{k: 0 for k in counts}, "soft_nms_pairs": runs,
-            "rotated_iou": runs, "row_gather": runs + 1, "soft_nms": 1}
+            "rotated_iou": runs, "row_gather": runs + 1,
+            "soft_nms_standup": 1}
     if counts != want:
         fail(f"soft-nms: launches {counts}, expected {want}")
     say(f"soft-nms: launches in the three calls {counts}")
+    k_st = min(pre, N)
+    matrix_bytes = B * k_st * k_st * 4
+    if standup_peak >= matrix_bytes:
+        fail(f"soft-nms standup: {standup_peak} bytes allocated at the "
+             f"call's peak, as much as a [B, K, K] matrix ({matrix_bytes})")
+    report["standup_peak_bytes"] = standup_peak
+    say(f"soft-nms standup: the call's peak allocation {standup_peak} "
+        f"bytes; a [B, K, K] fp32 matrix would take {matrix_bytes}")
 
     def card_vs_cpu(out, what, method, sigma, thr, b, rotated):
         ref = soft(method, sigma, thr, b.cpu(), scores.cpu(), valid.cpu(),
@@ -6361,22 +6422,61 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
             f"scores within {ref_rel:.2e}); pairs clipped "
             f"{run['pairs_clipped']} of the cap {plist.shape[1]}, kept "
             f"{run['kept']}")
-    (args_st, kwargs_st), = calls["soft_nms_decay"]
+    (args_st, kwargs_st), = calls["soft_nms_decay_standup"]
     errs["standup"] = check_decay(
-        riou.soft_nms_decay(*args_st, **kwargs_st),
-        riou.soft_nms_decay_plain(*args_st, **kwargs_st), "soft-nms standup")
+        riou.soft_nms_decay_standup(*args_st, **kwargs_st),
+        riou.soft_nms_decay_standup_plain(*args_st, **kwargs_st),
+        "soft-nms standup")
     ref_rel = card_vs_cpu(out_standup, "soft-nms standup",
                           *SOFT_NMS_RUNS[0], standup, False)
     report["runs"]["standup"] = dict(kept=out_standup[2].sum(1).tolist(),
                                      card_vs_cpu_rel=ref_rel)
-    say(f"soft-nms standup: dense decay kernel = plain (picks exact), card "
-        f"= CPU (scores within {ref_rel:.2e}), kept "
+    say(f"soft-nms standup: standup decay kernel = plain (picks exact), "
+        f"card = CPU (scores within {ref_rel:.2e}), kept "
         f"{report['runs']['standup']['kept']}")
+    # the dense kernel on the same call's dense standup matrix (the route
+    # the standup kernel replaced), and both on NaN rows: NaN and +inf
+    # scores (torch.argmax ranks NaN first) and NaN IoU values (two
+    # overlapping infinite boxes: the second decays to NaN by the first; a
+    # NaN coordinate)
+    cand_st, top_st = args_st[:2]
+    dense_args = (standup_iou_matrix(cand_st, cand_st), top_st,
+                  *args_st[2:])
+    errs["dense"] = check_decay(
+        riou.soft_nms_decay(*dense_args, **kwargs_st),
+        riou.soft_nms_decay_plain(*dense_args, **kwargs_st),
+        "soft-nms standup dense")
+    inf, nan = float("inf"), float("nan")
+    cand_nan, top_nan = cand_st.clone(), top_st.clone()
+    cand_nan[0, 3] = cand_nan[0, 20] = torch.tensor([-inf, -inf, inf, inf])
+    cand_nan[0, 7, 0] = nan
+    top_nan[0, 10], top_nan[0, 5] = nan, inf
+    top_nan[0, 3], top_nan[0, 20] = 2.0, 1.5      # the infinite boxes next
+    top_nan[1, 20], top_nan[1, 21] = inf, nan
+    nan_args = (cand_nan, top_nan, *args_st[2:])
+    dense_nan = (standup_iou_matrix(cand_nan, cand_nan), top_nan,
+                 *args_st[2:])
+    want_nan = riou.soft_nms_decay_plain(*dense_nan, **kwargs_st)
+    if not (int(want_nan[0][0, 0]) == 10 and int(want_nan[0][1, 0]) == 21
+            and int(want_nan[1].isnan().sum()) > 2):
+        fail("soft-nms NaN row: the plain version does not pick the NaN "
+             "scores first")
+    errs["dense_nan"] = check_decay(
+        riou.soft_nms_decay(*dense_nan, **kwargs_st), want_nan,
+        "soft-nms dense NaN row")
+    errs["standup_nan"] = check_decay(
+        riou.soft_nms_decay_standup(*nan_args, **kwargs_st),
+        riou.soft_nms_decay_standup_plain(*nan_args, **kwargs_st),
+        "soft-nms standup NaN row")
+    say(f"soft-nms NaN row: dense and standup decay kernels = plain "
+        f"(picks exact, {int(want_nan[1].isnan().sum())} NaN scores in the "
+        f"same places)")
 
     def timed(kernel, args, kwargs, method, what):
-        """The decay kernel (`soft_nms_decay_pairs` or `soft_nms_decay`)
-        on `args` timed beside its plain version, with its bound; the
-        pair kernel also at m = 1 (its prologue and one step)."""
+        """The decay kernel (`soft_nms_decay_pairs`, `soft_nms_decay` or
+        `soft_nms_decay_standup`) on `args` timed beside its plain
+        version, with its bound, and at m = 1 (its prologue and one
+        step)."""
         pairs = kernel == "soft_nms_decay_pairs"
         fn = getattr(riou, kernel)
         plain_fn = getattr(riou, f"{kernel}_plain")
@@ -6394,7 +6494,10 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
                    step1_device_ms=dev_ms[1], plain_ms=timer(plain, 3),
                    library_ms=None, library_device_ms=None,
                    **(soft_pairs_bound(args[0], args[1], top, picks, method)
-                      if pairs else soft_bound(R, K, m, method)))
+                      if pairs else soft_standup_bound(args[0], top, picks,
+                                                       method)
+                      if kernel == "soft_nms_decay_standup"
+                      else soft_bound(R, K, m, method)))
         steps_us = 1e3 * (agg["device_ms"] - agg["step1_device_ms"]) / \
             max(m - 1, 1)
         agg["step_device_us"] = steps_us
@@ -6417,9 +6520,14 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
             aggs["soft_nms_pairs"] = agg
         else:
             others[f"soft_nms_{method}"] = {"soft_nms_pairs": agg}
-    aggs["soft_nms"] = timed("soft_nms_decay", args_st, kwargs_st,
-                             SOFT_NMS_RUNS[0][0], "soft-nms fhd standup")
-    aggs["soft_nms"]["err"] = errs["standup"]
+    aggs["soft_nms_standup"] = timed("soft_nms_decay_standup", args_st,
+                                     kwargs_st, SOFT_NMS_RUNS[0][0],
+                                     "soft-nms fhd standup")
+    aggs["soft_nms_standup"]["err"] = max(errs["standup"],
+                                          errs["standup_nan"])
+    aggs["soft_nms"] = timed("soft_nms_decay", dense_args, kwargs_st,
+                             SOFT_NMS_RUNS[0][0], "soft-nms fhd standup dense")
+    aggs["soft_nms"]["err"] = max(errs["dense"], errs["dense_nan"])
 
     def soft_dense(method, sigma, thr):
         """The same rotated call by the earlier route: the pair list
@@ -6436,27 +6544,52 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
         keep = torch.isfinite(picked) & (picked >= 1e-3)
         return idx.gather(-1, picks), torch.where(keep, picked, 0.0), keep
 
+    def soft_dense_standup(method, sigma, thr):
+        """The standup call by the earlier route: the dense standup IoU
+        matrix and the dense decay kernel."""
+        masked = torch.where(valid, scores, float("-inf"))
+        k = min(pre, N)
+        top, idx = nms_ops.top_k(masked, k)
+        cand = nms_ops.flat_rows(standup, idx)
+        picks, picked = riou.soft_nms_decay(standup_iou_matrix(cand, cand),
+                                            top, min(post, k), method, sigma,
+                                            thr)
+        keep = torch.isfinite(picked) & (picked >= 1e-3)
+        return idx.gather(-1, picks), torch.where(keep, picked, 0.0), keep
+
+    def in_turns(new, old, key, what, route):
+        """The whole call `new` timed in turns with `old` (new, old, old,
+        new; events, the host's enqueue included), and device-only."""
+        ms = [timer(fn, 10) for fn in (new, old, old, new)]
+        report[f"{key}_ms"], report[f"{key}_dense_ms"] = \
+            (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        report[f"{key}_turns_ms"] = ms
+        report[f"{key}_device_ms"], report[f"{key}_dense_device_ms"] = \
+            dtimer([new, old])
+        say(f"soft-nms fhd: {what} {report[f'{key}_ms']:.4f} ms (device "
+            f"{report[f'{key}_device_ms']:.4f}); by the earlier route "
+            f"({route}) {report[f'{key}_dense_ms']:.4f} ms (device "
+            f"{report[f'{key}_dense_device_ms']:.4f}), the same outputs; in "
+            f"turns new, old, old, new: {', '.join(f'{t:.4f}' for t in ms)}")
+
     dense_out = soft_dense(*SOFT_NMS_RUNS[0])
     if not all(torch.equal(a, b) for a, b in zip(dense_out, outs[0])):
         fail("soft-nms fhd: the dense route's picks, scores or keep differ "
              "from the pair route's")
-    new, old = (lambda: soft(*SOFT_NMS_RUNS[0])), \
-        (lambda: soft_dense(*SOFT_NMS_RUNS[0]))
-    # in turns, new, old, old, new; events (the host's enqueue included:
-    # the call is some 40 small launches) and device-only
-    ms = [timer(fn, 10) for fn in (new, old, old, new)]
-    report["whole_ms"], report["whole_dense_ms"] = \
-        (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-    report["whole_turns_ms"] = ms
-    report["whole_device_ms"], report["whole_dense_device_ms"] = \
-        dtimer([new, old])
-    say(f"soft-nms fhd: the whole gaussian soft_nms (top-k, pair list, pair "
-        f"IoU, decay) {report['whole_ms']:.4f} ms (device "
-        f"{report['whole_device_ms']:.4f}); by the earlier route (the pair "
-        f"list densified, the dense decay) {report['whole_dense_ms']:.4f} "
-        f"ms (device {report['whole_dense_device_ms']:.4f}), the same "
-        f"outputs; in turns new, old, old, new: "
-        f"{', '.join(f'{t:.4f}' for t in ms)}")
+    # the rotated call is some 40 small launches, the standup one some 10
+    in_turns(lambda: soft(*SOFT_NMS_RUNS[0]),
+             lambda: soft_dense(*SOFT_NMS_RUNS[0]), "whole",
+             "the whole gaussian soft_nms (top-k, pair list, pair IoU, "
+             "decay)", "the pair list densified, the dense decay")
+    dense_st_out = soft_dense_standup(*SOFT_NMS_RUNS[0])
+    if not all(torch.equal(a, b) for a, b in zip(dense_st_out,
+                                                 out_standup)):
+        fail("soft-nms fhd standup: the dense route's picks, scores or keep "
+             "differ from the standup kernel's")
+    in_turns(lambda: soft(*SOFT_NMS_RUNS[0], b=standup, rotated=False),
+             lambda: soft_dense_standup(*SOFT_NMS_RUNS[0]), "whole_standup",
+             "the whole gaussian standup soft_nms (top-k, the row gather, "
+             "decay)", "the dense standup matrix, the dense decay")
 
     g = torch.Generator().manual_seed(7)
     n = SOFT_NMS_K
@@ -6481,6 +6614,14 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
                                  what)
         agg["scratch_bytes"] = riou.soft_pairs_scratch(n, cap)
         others[f"soft_nms_k4096_p{cap}"] = {"soft_nms_pairs": agg}
+    args4k = (nms_ops.rbbox2d_to_near_bbox(big)[None].contiguous(), top4k,
+              SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
+    what = "soft-nms K4096 standup"
+    agg = timed("soft_nms_decay_standup", args4k, {}, "gaussian", what)
+    agg["err"] = check_decay(riou.soft_nms_decay_standup(*args4k),
+                             riou.soft_nms_decay_standup_plain(*args4k),
+                             what)
+    others["soft_nms_standup_k4096"] = {"soft_nms_standup": agg}
     args4k = (riou.riou_matrix(big, big)[None], top4k, SOFT_NMS_STEPS,
               "gaussian", 0.5, 0.3)
     agg = timed("soft_nms_decay", args4k, {}, "gaussian",

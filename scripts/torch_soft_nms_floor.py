@@ -1,11 +1,33 @@
-"""The latency floors of the two soft-NMS decay kernels' steps, on one
+"""The latency floors of the three soft-NMS decay kernels' steps, on one
 card.
 
     python3 scripts/torch_soft_nms_floor.py [--variant NAME=RIOU_CU ...]
 
-Both decay kernels (`second_tpu_torch/csrc/riou.cu`) run `m` steps a row,
+The decay kernels (`second_tpu_torch/csrc/riou.cu`) run `m` steps a row,
 each waiting on the last one's pick, so their bytes bounds (chip_smoke.py
-`soft_bound`, `soft_pairs_bound`) are not what they can reach.
+`soft_bound`, `soft_standup_bound`, `soft_pairs_bound`) are not what they
+can reach.
+
+The standup kernel (`soft_nms_decay_standup_kernel`, standup soft-NMS): a
+step is the slot reduction every warp makes itself, the pick's box read
+from shared memory, each lane's meet test of its PER candidates held in
+registers with the pick and the IoU and decay of those that meet, then
+one barrier. Timed, for K = 1000 and K = 4096 standup envelopes of
+crowded boxes (the sides of PAIR_ROWS), each warm and after an L2 flush:
+- standup slots: K steps of the slot reduction alone (a launch picks
+  every candidate once, so that every step decays finite scores, as the
+  kernel's steps do), the pick's owner setting its register to -inf and
+  recomputing its best (no box, no IoU);
+- standup step: K steps of slots, the pick's box, the meet test of every
+  candidate and the IoU and gaussian decay of those that meet, in the
+  real kernel's code without its output writes: the floor of the real
+  kernel's step (a launch's prologue, some 3-6 us, is a K-th of it a
+  step);
+- standup m = 1, 100, K: `soft_nms_decay_standup` itself, gaussian,
+  device-only time from the profiler after an L2 flush (as for the pair
+  kernel below), a later step from m = K and m = 1; beside it the dense
+  kernel on the same row's dense standup matrix at m = COLD_STEPS; each
+  `--variant`'s standup kernel beside it (checked equal first).
 
 The pair-list kernel (`soft_nms_decay_pairs_kernel`, rotated soft-NMS): a
 prologue stages the row's adjacency in shared memory, then a step is a
@@ -34,10 +56,11 @@ an L2 flush (a 128 MB fill):
   (`pair_matrix` of the list) at m = COLD_STEPS, the same function by the
   old structure.
 
-The dense kernel (`soft_nms_decay_kernel`, standup soft-NMS): a step
-cannot be shorter than its chain of a block-wide argmax (a warp-shuffle
-reduction, a barrier, one across the warps, a barrier) and one dependent
-read of the picked IoU row. This script times that chain alone, in
+The dense kernel (`soft_nms_decay_kernel`, any IoU matrix; standup
+soft-NMS's until the standup kernel): a step cannot be shorter than its
+chain of a block-wide argmax (a warp's `sp_warp_best`, a barrier, one
+across the warps, a barrier) and one dependent read of the picked IoU
+row. This script times that chain alone, in
 kernels built with the port's flags for riou.cu, with the real kernel's
 block (K / 4 threads rounded up to a warp, at most 4 scores a thread in
 registers), for K = 1000 (the fhd call's rows) and K = 4096 (NMS_MAX_K):
@@ -78,6 +101,7 @@ import chip_smoke as cs  # noqa: E402
 from second_tpu_torch.ops import cuda as kernels  # noqa: E402
 from second_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from second_tpu_torch.ops.cuda import riou  # noqa: E402
+from second_tpu_torch.ops.rotated_iou import standup_iou_matrix  # noqa: E402
 
 REPS = 5
 STEPS = 10000            # argmax and skeleton steps a launch
@@ -213,10 +237,6 @@ int launch_slots(const void* vals, int k, int d, int steps, int walk,
   return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-}
-
 __global__ void chase_kernel(const int* __restrict__ next, int steps,
                              int* out) {
   int i = 0;
@@ -224,57 +244,48 @@ __global__ void chase_kernel(const int* __restrict__ next, int steps,
   out[0] = i;
 }
 
-// the real kernel's block-wide argmax; with `mat`, then the read of the
-// picked row, whose values become the thread's scores
+// the real kernel's block-wide argmax over (key, index); with `mat`, then
+// the read of the picked row, whose values become the thread's scores
 template <bool READ>
 __global__ void __launch_bounds__(1024)
     step_kernel(const float* __restrict__ mat,
                 const float* __restrict__ vals, int k, int steps,
                 int* out) {
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
+  __shared__ int2 red[32];
   __shared__ int best_i;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   float cur[PER];
-  float lv = -CUDART_INF_F;
-  int li = 0x7fffffff;
+  int lk = INT32_MIN, li = INT32_MAX;
 #pragma unroll
   for (int e = 0; e < PER; ++e) {
     const int j = tid + e * blockDim.x;
     cur[e] = j < k ? vals[j] : -CUDART_INF_F;
-    if (j < k) better(lv, li, cur[e], j);
+    if (j < k && sp_key(cur[e]) > lk) { lk = sp_key(cur[e]); li = j; }
   }
   for (int s = 0; s < steps; ++s) {
-    float v = lv;
-    int i = li;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      better(v, i, __shfl_down_sync(FULL, v, off),
-             __shfl_down_sync(FULL, i, off));
-    if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
+    const int2 w = sp_warp_best(lk, li);
+    if (lane == 0) red[warp] = w;
     __syncthreads();
     if (warp == 0) {
-      v = lane < nwarps ? red_v[lane] : -CUDART_INF_F;
-      i = lane < nwarps ? red_i[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        better(v, i, __shfl_down_sync(FULL, v, off),
-               __shfl_down_sync(FULL, i, off));
-      if (lane == 0) best_i = i;
+      const int2 r = lane < nwarps ? red[lane]
+                                   : make_int2(INT32_MIN, INT32_MAX);
+      const int2 b = sp_warp_best(r.x, r.y);
+      if (lane == 0) best_i = b.y;
     }
     __syncthreads();
     const int b = best_i;
     const float* __restrict__ row = mat + (long long)b * k;
-    lv = -CUDART_INF_F;
-    li = 0x7fffffff;
+    lk = INT32_MIN;
+    li = INT32_MAX;
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int j = tid + e * blockDim.x;
       if (j < k) {
         if (READ) cur[e] = row[j];
         else if (j == b) cur[e] = -CUDART_INF_F;
-        better(lv, li, cur[e], j);
+        const int key = sp_key(cur[e]);
+        if (key > lk) { lk = key; li = j; }
       }
     }
   }
@@ -309,6 +320,126 @@ extern "C" int floor_step(const void* mat, const void* vals, int k,
         (const float*)mat, (const float*)vals, k, steps, (int*)out);
   return (int)cudaGetLastError();
 }
+
+// the standup kernel's steps (csrc/riou.cu soft_nms_decay_standup_kernel)
+// without its output writes: with IOU, the pick's box from shared memory,
+// each lane's meet test of its PER candidates and the IoU and gaussian
+// decay (sigma a runtime value, as in the kernel) of those that meet;
+// without, the slot reduction alone (the pick's owner sets it to -inf);
+// a lane's best recomputed only where it changed, a warp's slot only
+// where a lane did
+template <int PER, bool IOU>
+__global__ void __launch_bounds__(1024)
+    standup_kernel(const float4* __restrict__ cand,
+                   const float* __restrict__ vals, int k, int steps,
+                   float sigma, int* out) {
+  extern __shared__ float4 box[];
+  __shared__ int2 slot[2][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int j0 = tid * PER;
+  float x1[PER], y1[PER], x2[PER], y2[PER], area[PER], cur[PER];
+  bool nan[PER];
+  int lk = INT32_MIN, li = INT32_MAX;
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int j = j0 + t;
+    const float4 b = j < k ? cand[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < k) box[j] = b;
+    x1[t] = b.x; y1[t] = b.y; x2[t] = b.z; y2[t] = b.w;
+    nan[t] = b.x != b.x || b.y != b.y || b.z != b.z || b.w != b.w;
+    area[t] = (b.z - b.x + 0.f) * (b.w - b.y + 0.f);
+    cur[t] = j < k ? vals[j] : -CUDART_INF_F;
+    if (j < k && sp_key(cur[t]) > lk) { lk = sp_key(cur[t]); li = j; }
+  }
+  int2 mine = sp_warp_best(lk, li);
+  if (lane == 0) slot[0][warp] = mine;
+  int buf = 0;
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int2 sl = lane < nwarps ? slot[buf][lane]
+                                  : make_int2(INT32_MIN, INT32_MAX);
+    const int b = sp_warp_best(sl.x, sl.y).y;
+    bool changed = false;
+    if (IOU) {
+      const float4 pb = box[b];
+      const bool pnan = pb.x != pb.x || pb.y != pb.y || pb.z != pb.z ||
+                        pb.w != pb.w;
+#pragma unroll
+      for (int t = 0; t < PER; ++t) {
+        const int j = j0 + t;
+        const float c = cur[t];
+        const float wx = fminf(pb.z, x2[t]) - fmaxf(pb.x, x1[t]);
+        const float wy = fminf(pb.w, y2[t]) - fmaxf(pb.y, y1[t]);
+        const bool meet = wx > 0.f && wy > 0.f && !pnan && !nan[t];
+        if (j == b) {
+          cur[t] = -CUDART_INF_F;
+          changed = true;
+        } else if (j < k && isfinite(c)) {
+          if (meet) {
+            const float ap = (pb.z - pb.x + 0.f) * (pb.w - pb.y + 0.f);
+            const float inter = (wx + 0.f) * (wy + 0.f);
+            const float r = inter > 0.f ? inter / ((ap + area[t]) - inter)
+                                        : 0.f;
+            cur[t] = c * expf(-(r * r) / sigma);
+            changed = true;
+          }
+        } else if (j < k && c != -CUDART_INF_F) {
+          cur[t] = -CUDART_INF_F;
+          changed = true;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < PER; ++t)
+        if (j0 + t == b) {
+          cur[t] = -CUDART_INF_F;
+          changed = true;
+        }
+    }
+    if (changed) {
+      lk = INT32_MIN;
+      li = INT32_MAX;
+#pragma unroll
+      for (int t = 0; t < PER; ++t) {
+        const int key = sp_key(cur[t]);
+        if (j0 + t < k && key > lk) { lk = key; li = j0 + t; }
+      }
+    }
+    if (__any_sync(FULL, changed)) mine = sp_warp_best(lk, li);
+    buf ^= 1;
+    if (lane == 0) slot[buf][warp] = mine;
+    __syncthreads();
+  }
+  if (tid == 0) out[0] = mine.y;
+}
+
+template <int PER>
+int launch_standup(const void* cand, const void* vals, int k, int steps,
+                   int iou, void* out, cudaStream_t stream) {
+  const int warps = (k + 32 * PER - 1) / (32 * PER);
+  for (auto fn : {standup_kernel<PER, true>, standup_kernel<PER, false>}) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, 4096 * 16);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (iou)
+    standup_kernel<PER, true><<<1, warps * 32, (size_t)k * 16, stream>>>(
+        (const float4*)cand, (const float*)vals, k, steps, 0.5f, (int*)out);
+  else
+    standup_kernel<PER, false><<<1, warps * 32, (size_t)k * 16, stream>>>(
+        (const float4*)cand, (const float*)vals, k, steps, 0.5f, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int floor_standup(const void* cand, const void* vals, int k,
+                             int steps, int iou, int per, void* out,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (per == 4) return launch_standup<4>(cand, vals, k, steps, iou, out, st);
+  if (per == 2) return launch_standup<2>(cand, vals, k, steps, iou, out, st);
+  return launch_standup<1>(cand, vals, k, steps, iou, out, st);
+}
 """
 
 
@@ -325,7 +456,10 @@ def build():
                                ctypes.c_void_p]
     lib.floor_slots.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p, ctypes.c_void_p]
-    for fn in (lib.floor_chase, lib.floor_step, lib.floor_slots):
+    lib.floor_standup.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
+    for fn in (lib.floor_chase, lib.floor_step, lib.floor_slots,
+               lib.floor_standup):
         fn.restype = ctypes.c_int
     return lib
 
@@ -402,10 +536,27 @@ def kernel_per(K):
 
 
 def variant(name, src):
-    """Another version of riou.cu (with the same C entry), built with the
-    port's flags for riou.cu: its pair kernel as a function of
-    `soft_nms_decay_pairs`' arguments."""
+    """Another version of riou.cu (with the same C entries), built with the
+    port's flags for riou.cu: (its pair kernel as a function of
+    `soft_nms_decay_pairs`' arguments, its standup kernel as one of
+    `soft_nms_decay_standup`'s or None where the source has none)."""
     lib = kernels.build_variant(src, f"riou_{name}", "riou")[0]
+    try:
+        st = lib.soft_nms_decay_standup
+        st.argtypes = riou._SOFT_ARGTYPES
+        st.restype = ctypes.c_int
+    except AttributeError:
+        st = None
+
+    def standup(cand, scores, m, method, sigma, thr):
+        R, K = scores.shape
+        picks = torch.empty((R, m), dtype=torch.int64, device=scores.device)
+        picked = torch.empty((R, m), device=scores.device)
+        checked(st(cand.data_ptr(), scores.data_ptr(), picks.data_ptr(),
+                   picked.data_ptr(), R, K, m, int(method == "gaussian"),
+                   sigma, thr, kernels.stream_ptr(scores.device)), name)
+        return picks, picked
+
     fn = lib.soft_nms_decay_pairs
     fn.argtypes = riou._SOFT_PAIRS_ARGTYPES
     fn.restype = ctypes.c_int
@@ -426,13 +577,14 @@ def variant(name, src):
                    int(method == "gaussian"), sigma, thr,
                    kernels.stream_ptr(scores.device)), name)
         return picks, picked
-    return call
+    return call, standup if st is not None else None
 
 
 def pair_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
     """The pair-list kernel's step floor and its times, for each of
     PAIR_ROWS (the module's docstring), with each variant build of
     riou.cu's pair kernel (its picks checked against the default's)."""
+    variants = [(name, fn[0]) for name, fn in variants]
     for K, side in PAIR_ROWS:
         plist, ok, iou, scores = crowded_row(K, side, gen, dev)
         d = 2 * PAIRS // K
@@ -489,13 +641,78 @@ def pair_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
                   f"{later / floor!r} x the floor")
 
 
+def standup_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
+    """The standup kernel's step floor and its times, for K = 1000 and 4096
+    standup envelopes of crowded boxes (the module's docstring), with each
+    variant build's standup kernel (its picks and scores checked against
+    the default's)."""
+    variants = [(name, fn[1]) for name, fn in variants if fn[1] is not None]
+    for K, side in PAIR_ROWS:
+        boxes = torch.stack([torch.rand(K, generator=gen) * side,
+                             torch.rand(K, generator=gen) * side,
+                             1.4 + 0.4 * torch.rand(K, generator=gen),
+                             3.5 + 0.8 * torch.rand(K, generator=gen),
+                             (torch.rand(K, generator=gen) - 0.5) * 2 *
+                             np.pi], 1).to(dev)
+        cand = nms_ops.rbbox2d_to_near_bbox(boxes)[None].contiguous()
+        scores = torch.rand(1, K, generator=gen).sort(
+            1, descending=True)[0].to(dev)
+        vals = scores[0].contiguous()
+        per = kernel_per(K)
+        floors = {}
+        for cold in ("", " cold"):
+            for iou in (0, 1):
+                name = f"standup {('slots', 'step')[iou]} per {per}{cold}"
+                ms = event_ms(lambda i=iou: checked(lib.floor_standup(
+                    cand.data_ptr(), vals.data_ptr(), K, K, i, per,
+                    out.data_ptr(), stream), "standup"),
+                    (lambda: l2.fill_(1)) if cold else None)
+                floors[name] = 1e3 * min(ms) / K
+                print(f"K {K} {name}: {K} steps a launch, us a step "
+                      f"{', '.join(repr(1e3 * t / K) for t in ms)}")
+        kernel = [("standup", riou.soft_nms_decay_standup)] + variants
+        want = riou.soft_nms_decay_standup(cand, scores, K, "gaussian", 0.5,
+                                           0.3)
+        for name, fn in variants:
+            got = fn(cand, scores, K, "gaussian", 0.5, 0.3)
+            if not (torch.equal(got[0], want[0]) and
+                    torch.equal(got[1], want[1])):
+                sys.exit(f"K {K}: standup variant {name} differs from the "
+                         f"default")
+        runs = [((name, m), lambda fn=fn, m=m: fn(
+            cand, scores, m, "gaussian", 0.5, 0.3))
+            for name, fn in kernel for m in (1, COLD_STEPS, K)]
+        dense = standup_iou_matrix(cand, cand)
+        runs.append((("dense", COLD_STEPS), lambda: riou.soft_nms_decay(
+            dense, scores, COLD_STEPS, "gaussian", 0.5, 0.3)))
+        got = dict(zip((key for key, _ in runs),
+                       dtimer([fn for _, fn in runs])))
+        for cold in ("", " cold"):
+            print(f"K {K} standup{cold or ' warm'} (least of {REPS}): floor "
+                  f"of a step {floors[f'standup step per {per}{cold}']!r} "
+                  f"us, the slots alone "
+                  f"{floors[f'standup slots per {per}{cold}']!r} us")
+        floor = floors[f"standup step per {per} cold"]
+        print(f"K {K} standup device, after an L2 flush (median of 5): the "
+              f"dense kernel on the same row's dense matrix "
+              f"{got['dense', COLD_STEPS]!r} ms for {COLD_STEPS} steps")
+        for name, _ in kernel:
+            later = 1e3 * (got[name, K] - got[name, 1]) / (K - 1)
+            print(f"K {K} standup device, after an L2 flush: {name} "
+                  f"{got[name, COLD_STEPS]!r} ms for {COLD_STEPS} steps, "
+                  f"{got[name, K]!r} for {K}; its prologue and first step "
+                  f"{got[name, 1]!r} ms, a later step {later!r} us (from "
+                  f"m = {K}), {later / floor!r} x the floor")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--variant", action="append", default=[],
                         metavar="NAME=RIOU_CU",
-                        help="also time the pair kernel of this version of "
-                             "riou.cu (e.g. a design variant, or the "
-                             "parent's), in turns with the built one")
+                        help="also time the pair and standup kernels of "
+                             "this version of riou.cu (e.g. a design "
+                             "variant, or the parent's), in turns with the "
+                             "built ones")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -545,10 +762,12 @@ def main():
               f"{COLD_STEPS} steps: floor {best['skeleton cold']!r} us, the "
               f"kernel {best['kernel cold']!r} us a step, "
               f"{best['kernel cold'] / best['skeleton cold']!r} x")
-    pair_floor(lib, cs.DeviceTimer(dev),
-               [(name, variant(name, src)) for name, src in
-                     (v.split("=", 1) for v in args.variant)],
-               stream, out, l2, gen, dev)
+    variants = [(name, variant(name, src)) for name, src in
+                (v.split("=", 1) for v in args.variant)]
+    standup_floor(lib, cs.DeviceTimer(dev), variants, stream, out, l2, gen,
+                  dev)
+    pair_floor(lib, cs.DeviceTimer(dev), variants, stream, out, l2, gen,
+               dev)
 
 
 if __name__ == "__main__":

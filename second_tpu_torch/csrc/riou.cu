@@ -27,10 +27,11 @@
 // 1 inter/area2), both off the main path; the two kernels of rotated NMS
 // for a whole batch, `nms_overlap` and `nms_suppress` (below);
 // `d3_iou`, the 3-D IoU of lidar boxes (below); and `standup_overlap`,
-// the bitmask of standup NMS (below); and `soft_nms_decay` and
-// `soft_nms_decay_pairs`, the decay steps of soft-NMS over a precomputed
-// IoU matrix (standup soft-NMS) or the capped pair list of rotated
-// soft-NMS (below). A non-finite box gives
+// the bitmask of standup NMS (below); and the decay steps of soft-NMS
+// (below): `soft_nms_decay` over any precomputed IoU matrix,
+// `soft_nms_decay_standup` over standup candidates' boxes (standup
+// soft-NMS) and `soft_nms_decay_pairs` over the capped pair list of
+// rotated soft-NMS. A non-finite box gives
 // the plain version's non-finite results: the clamps and the winding sign
 // pass NaN through, as torch.clamp and torch.sign do.
 //
@@ -1171,32 +1172,42 @@ __global__ void __launch_bounds__(SU_THREADS)
 // soft_nms_decay — replaces the decay `lax.scan` of `soft_nms`
 // (second_tpu/ops/nms.py:230-244; no Pallas counterpart): over a row's K
 // candidates, sorted by descending score, `m` steps each pick the highest
-// current score (ties to the lowest index, `jnp.argmax`; a row of -inf
-// picks 0), record it, multiply every finite score by the decay of its IoU
-// with the pick (exp(-iou^2 / sigma), or 1 - iou above the threshold),
-// keep -inf at -inf, and set the pick to -inf.
+// current score (torch.argmax's and jnp.argmax's order: NaN above +inf, -0
+// equal to +0, ties to the lowest index; a row of -inf picks 0), record
+// it, multiply every finite score by the decay of its IoU with the pick
+// (exp(-iou^2 / sigma), or 1 - iou above the threshold), turn every score
+// that was not finite to -inf, and set the pick to -inf.
 // Bound on the H100: bytes, m IoU rows of K floats and the K scores a row
 // read once, the picks and their scores written once; but the m steps are
 // a chain, each waiting on the last one's pick, so what the card can reach
 // is m times a step's latency (a block-wide argmax and one dependent read
 // of an IoU row). Design: one block a row, of up to 1024 threads, each
 // holding at most SOFT_PER_THREAD of the row's scores in registers (K <=
-// NMS_MAX_K); a step is a warp-shuffle argmax, one across the warps through
-// shared memory, then each thread's coalesced read of the picked IoU row
-// at its own columns and the decay in fp32 with `expf` and an IEEE
-// division (the plain version's operations; the file is built without
-// fused multiply-adds), which also yields the thread's argmax for the next
-// step. Two barriers a step.
+// NMS_MAX_K); a step is a warp's argmax over (key, index) (`sp_warp_best`),
+// one across the warps through shared memory, then each thread's coalesced
+// read of the picked IoU row at its own columns and the decay in fp32 with
+// `expf` and an IEEE division (the plain version's operations; the file is
+// built without fused multiply-adds), which also yields the thread's
+// argmax for the next step; the pick's owner writes it and its score out.
+// Two barriers a step. It takes any IoU matrix; standup soft-NMS runs
+// `soft_nms_decay_standup_kernel` (below), which needs none.
 constexpr int SOFT_PER_THREAD = 4;
 
-// (v, i) against (ov, oi): the larger value, at equal values the lower
-// index (-inf ties too, so a row of -inf picks its lowest index).
-__device__ __forceinline__ void soft_better(float& v, int& i, float ov,
-                                            int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// a score's key: int order is torch.argmax's order of the scores (NaN
+// above +inf, -0 equal to +0)
+__device__ __forceinline__ int sp_key(float v) {
+  if (v != v) return INT32_MAX;
+  if (v == 0.f) return 0;
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// The best (key, index) of a warp: the largest key, and the lowest index
+// at that key ((INT32_MIN, INT32_MAX) from a lane that holds no score).
+__device__ __forceinline__ int2 sp_warp_best(int key, int idx) {
+  const int wk = __reduce_max_sync(FULL, key);
+  const int wi = __reduce_min_sync(FULL, key == wk ? idx : INT32_MAX);
+  return make_int2(wk, wi);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -1205,9 +1216,7 @@ __global__ void __launch_bounds__(1024)
                           long long* __restrict__ picks,
                           float* __restrict__ pick_scores, int k, int m,
                           int gaussian, float sigma, float thr) {
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ float best_v;
+  __shared__ int2 red[32];
   __shared__ int best_i;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -1215,45 +1224,31 @@ __global__ void __launch_bounds__(1024)
   const float* __restrict__ rs = scores + row * k;
   const float* __restrict__ ri = iou + row * (long long)k * k;
   float cur[SOFT_PER_THREAD];
-  float lv = -INFINITY;
-  int li = 0x7fffffff;
+  int lk = INT32_MIN, li = INT32_MAX;
 #pragma unroll
   for (int e = 0; e < SOFT_PER_THREAD; ++e) {
     const int j = tid + e * blockDim.x;
     cur[e] = j < k ? rs[j] : -INFINITY;
-    if (j < k) soft_better(lv, li, cur[e], j);
+    if (j < k && sp_key(cur[e]) > lk) {   // j rises with e: ties keep the
+      lk = sp_key(cur[e]);                // lower index
+      li = j;
+    }
   }
   for (int s = 0; s < m; ++s) {
-    float v = lv;
-    int i = li;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      soft_better(v, i, __shfl_down_sync(FULL, v, off),
-                  __shfl_down_sync(FULL, i, off));
-    if (lane == 0) {
-      red_v[warp] = v;
-      red_i[warp] = i;
-    }
+    const int2 w = sp_warp_best(lk, li);
+    if (lane == 0) red[warp] = w;
     __syncthreads();
     if (warp == 0) {
-      v = lane < nwarps ? red_v[lane] : -INFINITY;
-      i = lane < nwarps ? red_i[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        soft_better(v, i, __shfl_down_sync(FULL, v, off),
-                    __shfl_down_sync(FULL, i, off));
-      if (lane == 0) {
-        best_v = v;
-        best_i = i;
-        picks[row * m + s] = i;
-        pick_scores[row * m + s] = v;
-      }
+      const int2 r = lane < nwarps ? red[lane]
+                                   : make_int2(INT32_MIN, INT32_MAX);
+      const int2 b = sp_warp_best(r.x, r.y);
+      if (lane == 0) best_i = b.y;
     }
     __syncthreads();
     const int b = best_i;
     const float* __restrict__ brow = ri + (long long)b * k;
-    lv = -INFINITY;
-    li = 0x7fffffff;
+    lk = INT32_MIN;
+    li = INT32_MAX;
 #pragma unroll
     for (int e = 0; e < SOFT_PER_THREAD; ++e) {
       const int j = tid + e * blockDim.x;
@@ -1262,10 +1257,154 @@ __global__ void __launch_bounds__(1024)
         const float d = gaussian ? expf(-(r * r) / sigma)
                                  : (r > thr ? 1.f - r : 1.f);
         const float c = cur[e];
+        if (j == b) {
+          picks[row * m + s] = b;
+          pick_scores[row * m + s] = c;
+        }
         cur[e] = j == b ? -INFINITY : (isfinite(c) ? c * d : -INFINITY);
-        soft_better(lv, li, cur[e], j);
+        const int key = sp_key(cur[e]);
+        if (key > lk) {
+          lk = key;
+          li = j;
+        }
       }
     }
+  }
+}
+
+// soft_nms_decay_standup_kernel — the same decay steps (it replaces the
+// same `lax.scan`, second_tpu/ops/nms.py:230-244) where standup soft-NMS
+// runs them, with the IoU matrix they read (`standup_iou_matrix`,
+// second_tpu/ops/rotated_iou.py:191-201, built densely at nms.py:225-227)
+// folded in: its input is the candidates' xyxy boxes [R, K, 4], not an
+// [R, K, K] matrix, and a step computes the pick's row of that matrix.
+// Bound on the H100: bytes, the boxes and scores read once (20 B a
+// candidate), the picks and their scores written once (12 B a step), some
+// 85 KB on the fhd call; but the m steps are a chain, each waiting on the
+// last one's pick, so what the card reaches is a prologue plus m times a
+// step's latency. Design: one block a row.
+// - Prologue: the row's boxes staged in shared memory (16 B each, 64 KB at
+//   K 4096); each lane holds PER consecutive candidates (PER 1, 2 or 4 as
+//   K needs, at most 32 warps; a warp a span of 32 x PER consecutive ones,
+//   as in the pair kernel): their coordinates, areas, whether a coordinate
+//   is NaN, and scores in registers, each area computed once in the plain
+//   version's order, (x2 - x1 + 0) * (y2 - y1 + 0); the decay of a 0 IoU,
+//   d0, computed once by the same expression as any other.
+// - A step: every warp reduces the warps' double-buffered (key, index)
+//   slots itself (`sp_warp_best`; no barrier broadcasts the pick) and
+//   reads the pick's box from shared memory. The IoU of the pick (as
+//   `boxes1`) with a candidate, in `standup_iou_matrix`'s order: lt and rb
+//   by max and min, wh = rb - lt + 0, inter = wx * wy where both are > 0,
+//   iou = inter / ((a_pick + a_j) - inter) where inter > 0, else 0: the
+//   dense matrix's entry bit for bit (no fused multiply-adds in this
+//   file). A NaN coordinate in either box makes a width NaN and the IoU 0
+//   (as `(wh > 0).all(-1)` does), so the widths are taken with fminf and
+//   fmaxf and the pair meets only where neither box holds a NaN: where
+//   both do not, fminf and fmaxf are torch.minimum and torch.maximum; the
+//   + 0 changes no width that is > 0. A pair that does not meet has IoU 0
+//   and decays by d0, which is 1 unless sigma is 0 or NaN: so each lane
+//   decays (fp32, `expf`, an IEEE division) only its finite candidates
+//   that meet the pick, or all of them where d0 is not 1; turns a NaN or
+//   +inf score to -inf; sets the pick to -inf (its owner writes it and its
+//   score out); and recomputes its best (key, index) only where one of its
+//   candidates changed, the warp its slot only where a lane did, into the
+//   other slot buffer. One barrier a step.
+template <int PER>
+__global__ void __launch_bounds__(1024)
+    soft_nms_decay_standup_kernel(const float4* __restrict__ cand,
+                                  const float* __restrict__ scores,
+                                  long long* __restrict__ picks,
+                                  float* __restrict__ pick_scores, int k,
+                                  int m, int gaussian, float sigma,
+                                  float thr) {
+  extern __shared__ float4 ss_box[];
+  __shared__ int2 slot[2][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long row = blockIdx.x;
+  const int j0 = tid * PER;
+  cand += row * k;
+  scores += row * k;
+  float x1[PER], y1[PER], x2[PER], y2[PER], area[PER], cur[PER];
+  bool nan[PER];
+  int lk = INT32_MIN, li = INT32_MAX;
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int j = j0 + t;
+    const float4 b = j < k ? cand[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < k) ss_box[j] = b;
+    x1[t] = b.x;
+    y1[t] = b.y;
+    x2[t] = b.z;
+    y2[t] = b.w;
+    nan[t] = b.x != b.x || b.y != b.y || b.z != b.z || b.w != b.w;
+    area[t] = (b.z - b.x + 0.f) * (b.w - b.y + 0.f);
+    cur[t] = j < k ? scores[j] : -INFINITY;
+    if (j < k && sp_key(cur[t]) > lk) {
+      lk = sp_key(cur[t]);
+      li = j;
+    }
+  }
+  const float r0 = 0.f;
+  const float d0 = gaussian ? expf(-(r0 * r0) / sigma)
+                            : (r0 > thr ? 1.f - r0 : 1.f);
+  const bool all = d0 != 1.f;
+  int2 mine = sp_warp_best(lk, li);
+  if (lane == 0) slot[0][warp] = mine;
+  int buf = 0;
+  __syncthreads();
+  for (int s = 0; s < m; ++s) {
+    const int2 sl = lane < nwarps ? slot[buf][lane]
+                                  : make_int2(INT32_MIN, INT32_MAX);
+    const int b = sp_warp_best(sl.x, sl.y).y;
+    const float4 pb = ss_box[b];
+    const bool pnan = pb.x != pb.x || pb.y != pb.y || pb.z != pb.z ||
+                      pb.w != pb.w;
+    bool changed = false;
+#pragma unroll
+    for (int t = 0; t < PER; ++t) {
+      const int j = j0 + t;
+      const float c = cur[t];
+      const float wx = fminf(pb.z, x2[t]) - fmaxf(pb.x, x1[t]);
+      const float wy = fminf(pb.w, y2[t]) - fmaxf(pb.y, y1[t]);
+      const bool meet = wx > 0.f && wy > 0.f && !pnan && !nan[t];
+      if (j == b) {
+        picks[row * m + s] = b;
+        pick_scores[row * m + s] = c;
+        cur[t] = -INFINITY;
+        changed = true;
+      } else if (j < k && isfinite(c)) {
+        if (meet || all) {
+          const float ap = (pb.z - pb.x + 0.f) * (pb.w - pb.y + 0.f);
+          const float inter = meet ? (wx + 0.f) * (wy + 0.f) : 0.f;
+          const float r = inter > 0.f ? inter / ((ap + area[t]) - inter)
+                                      : 0.f;
+          const float d = gaussian ? expf(-(r * r) / sigma)
+                                   : (r > thr ? 1.f - r : 1.f);
+          cur[t] = c * d;
+          changed = true;
+        }
+      } else if (j < k && c != -INFINITY) {
+        cur[t] = -INFINITY;
+        changed = true;
+      }
+    }
+    if (changed) {
+      lk = INT32_MIN;
+      li = INT32_MAX;
+#pragma unroll
+      for (int t = 0; t < PER; ++t) {
+        const int key = sp_key(cur[t]);
+        if (j0 + t < k && key > lk) {
+          lk = key;
+          li = j0 + t;
+        }
+      }
+    }
+    if (__any_sync(FULL, changed)) mine = sp_warp_best(lk, li);
+    buf ^= 1;
+    if (lane == 0) slot[buf][warp] = mine;
+    __syncthreads();
   }
 }
 
@@ -1314,22 +1453,6 @@ __global__ void __launch_bounds__(1024)
 constexpr int SP_MAX_WARPS = 32;
 constexpr int SP_SMEM = 226 * 1024;      // dynamic shared memory a block
 constexpr int SP_UNROLL = 8;             // slots a thread loads at once
-
-// a score's key: int order is torch.argmax's order of the scores
-__device__ __forceinline__ int sp_key(float v) {
-  if (v != v) return INT32_MAX;
-  if (v == 0.f) return 0;
-  const int b = __float_as_int(v);
-  return b >= 0 ? b : b ^ 0x7fffffff;
-}
-
-// The best (key, index) of a warp whose lanes hold theirs in index order:
-// the largest key, and the lowest lane's index at that key.
-__device__ __forceinline__ int2 sp_warp_best(int key, int idx) {
-  const int wk = __reduce_max_sync(FULL, key);
-  const int wi = __reduce_min_sync(FULL, key == wk ? idx : INT32_MAX);
-  return make_int2(wk, wi);
-}
 
 // The warp's best (key, index) over cur[lo, hi), PER consecutive scores a
 // lane ((INT32_MIN, INT32_MAX) for an empty span), and whether the span
@@ -1703,6 +1826,49 @@ extern "C" int soft_nms_decay(const void* iou, const void* scores,
   soft_nms_decay_kernel<<<(unsigned)rows, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(iou), static_cast<const float*>(scores),
+      static_cast<long long*>(picks), static_cast<float*>(pick_scores), k, m,
+      gaussian, sigma, thr);
+  return (int)cudaGetLastError();
+}
+
+// cand [R, K, 4] xyxy fp32, scores [R, K] fp32 (each row sorted by
+// descending score; -inf an invalid candidate) → picks [R, m] int64 and
+// their scores [R, m] fp32, the decay steps of `soft_nms_decay` over the
+// candidates' standup IoU matrix, computed a row a step.
+extern "C" int soft_nms_decay_standup(const void* cand, const void* scores,
+                                      void* picks, void* pick_scores,
+                                      int rows, int k, int m, int gaussian,
+                                      float sigma, float thr,
+                                      void* stream) {
+  if (rows < 0 || k < 0 || m < 0 || k > NMS_MAX_K || m > k)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || k == 0 || m == 0) return 0;
+  using Kernel = void (*)(const float4*, const float*, long long*, float*,
+                          int, int, int, float, float);
+  // [scores a lane: 1, 2, 4]
+  static const Kernel kernels[3] = {soft_nms_decay_standup_kernel<1>,
+                                    soft_nms_decay_standup_kernel<2>,
+                                    soft_nms_decay_standup_kernel<4>};
+  static bool sized = false;
+  if (!sized) {
+    for (int i = 0; i < 3; ++i) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          NMS_MAX_K * 16);
+      if (e != cudaSuccess) return (int)e;
+    }
+    sized = true;
+  }
+  // a lane per consecutive candidates, at most 32 warps
+  int per = 1, log_per = 0;
+  while (per < 4 && (k + 32 * per - 1) / (32 * per) > 32) {
+    per *= 2;
+    ++log_per;
+  }
+  const int warps = (k + 32 * per - 1) / (32 * per);
+  kernels[log_per]<<<(unsigned)rows, warps * 32, (size_t)k * 16,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(cand), static_cast<const float*>(scores),
       static_cast<long long*>(picks), static_cast<float*>(pick_scores), k, m,
       gaussian, sigma, thr);
   return (int)cudaGetLastError();

@@ -16,9 +16,11 @@ overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
 j // 32 of row i says that the higher-ranked box i suppresses box j.
 `standup_overlap` writes that bitmask for standup NMS (the standup IoU of
 axis-aligned boxes, thresholded). `soft_nms_decay` runs the decay steps
-of soft-NMS (JAX `soft_nms`'s `lax.scan`) over a precomputed IoU matrix
-(standup soft-NMS), `soft_nms_decay_pairs` over the capped pair list of
-rotated soft-NMS, which holds that matrix's only nonzero entries.
+of soft-NMS (JAX `soft_nms`'s `lax.scan`) over any precomputed IoU matrix,
+`soft_nms_decay_standup` over standup candidates' boxes (standup soft-NMS:
+each step computes the pick's row of their IoU matrix), and
+`soft_nms_decay_pairs` over the capped pair list of rotated soft-NMS,
+which holds that matrix's only nonzero entries.
 Each launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
 built on `ops/rotated_iou.py`, for CPU tensors. None has a backward: under
 grad mode, inputs that require grad raise.
@@ -44,9 +46,10 @@ launches_suppress = 0
 launches_d3 = 0
 # launches of the standup-NMS bitmask kernel
 launches_standup = 0
-# launches of the soft-NMS decay kernels: over a dense IoU matrix, and
-# over a pair list
+# launches of the soft-NMS decay kernels: over a dense IoU matrix, over
+# standup boxes, and over a pair list
 launches_soft = 0
+launches_soft_standup = 0
 launches_soft_pairs = 0
 
 NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
@@ -73,7 +76,8 @@ _STANDUP_ARGTYPES = [ctypes.c_void_p] * 3 + \
 # over, valid, keep, batch, k, stream
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# iou, scores, picks, pick_scores, rows, k, m, gaussian, sigma, thr, stream
+# iou (or cand), scores, picks, pick_scores, rows, k, m, gaussian, sigma,
+# thr, stream: `soft_nms_decay` (and `soft_nms_decay_standup`)
 _SOFT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
     [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 # plist, ok, iou, scores, picks, pick_scores, scratch, rows, k, p, m,
@@ -89,6 +93,7 @@ _suppress_launch = None
 _d3_launch = None
 _standup_launch = None
 _soft_launch = None
+_soft_standup_launch = None
 _soft_pairs_launch = None
 
 
@@ -126,6 +131,13 @@ def _resolve_soft():
     global _soft_launch
     _soft_launch = function("riou", "soft_nms_decay", _SOFT_ARGTYPES)
     return _soft_launch
+
+
+def _resolve_soft_standup():
+    global _soft_standup_launch
+    _soft_standup_launch = function("riou", "soft_nms_decay_standup",
+                                    _SOFT_ARGTYPES)
+    return _soft_standup_launch
 
 
 def _resolve_soft_pairs():
@@ -675,6 +687,60 @@ def soft_nms_decay(iou, scores, m, method="gaussian", sigma=0.5,
     check("riou", rc)
     global launches_soft
     launches_soft += 1
+    return picks, picked
+
+
+def soft_nms_decay_standup_plain(cand, scores, m, method="gaussian",
+                                 sigma=0.5, iou_threshold=0.3):
+    """`soft_nms_decay_plain` over the candidates' standup IoU matrix
+    (`standup_iou_matrix(cand, cand)`, JAX's at second_tpu/ops/nms.py:227):
+    cand [R, K, 4] xyxy, scores [R, K] → (picks [R, m] int64, their scores
+    [R, m])."""
+    return soft_nms_decay_plain(standup_iou_matrix(cand, cand), scores, m,
+                                method, sigma, iou_threshold)
+
+
+def soft_nms_decay_standup(cand, scores, m, method="gaussian", sigma=0.5,
+                           iou_threshold=0.3):
+    """`soft_nms_decay_standup_plain` semantics; the CUDA kernel for CUDA
+    tensors (fp32, K <= NMS_MAX_K, every row in one launch; each step
+    computes the pick's row of the standup IoU matrix, which is never
+    built)."""
+    refuse_grad("soft_nms_decay_standup", cand, scores)
+    if scores.dim() != 2 or cand.shape != (*scores.shape, 4) or \
+            not 0 <= m <= scores.shape[1]:
+        raise ValueError(f"soft_nms_decay_standup: expected cand [R, K, 4], "
+                         f"scores [R, K] and 0 <= m <= K, got "
+                         f"{tuple(cand.shape)}, {tuple(scores.shape)}, {m}")
+    dev = scores.device
+    if dev.type == "cpu":
+        return soft_nms_decay_standup_plain(cand, scores, m, method, sigma,
+                                            iou_threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"soft_nms_decay_standup: unsupported device {dev}")
+    if cand.dtype != torch.float32 or scores.dtype != torch.float32 or \
+            cand.device != dev:
+        raise ValueError(f"soft_nms_decay_standup: expected cand and scores "
+                         f"float32 on one device, got {cand.dtype} on "
+                         f"{cand.device} and {scores.dtype} on {dev}")
+    R, K = scores.shape
+    if K > NMS_MAX_K or R > 2 ** 31 - 1:
+        raise ValueError(f"soft_nms_decay_standup: {R} rows of {K} "
+                         f"candidates; the kernel takes K <= {NMS_MAX_K}")
+    picks = torch.empty((R, m), dtype=torch.int64, device=dev)
+    picked = torch.empty((R, m), dtype=torch.float32, device=dev)
+    if R * K * m == 0:
+        return picks, picked
+    cand, scores = cand.contiguous(), scores.contiguous()
+    if cand.data_ptr() % 16:            # the kernel reads a box as a float4
+        cand = cand.clone()
+    rc = (_soft_standup_launch or _resolve_soft_standup())(
+        cand.data_ptr(), scores.data_ptr(), picks.data_ptr(),
+        picked.data_ptr(), R, K, m, int(method == "gaussian"), sigma,
+        iou_threshold, stream_ptr(dev))
+    check("riou", rc)
+    global launches_soft_standup
+    launches_soft_standup += 1
     return picks, picked
 
 

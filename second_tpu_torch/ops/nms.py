@@ -19,7 +19,8 @@ Soft-NMS decays the scores of overlapping boxes instead of removing them.
 Rotated, it clips the capped pair list (`soft_nms_pairs`, `pair_iou`) and
 runs the `m` decay steps of every row over that list in one launch
 (`soft_nms_decay_pairs`): no [B, K, K] matrix is built. Standup, the steps
-run over the dense standup IoU matrix (`soft_nms_decay`).
+run over the candidates' boxes (`soft_nms_decay_standup`: each step
+computes the pick's row of their standup IoU matrix), none built either.
 """
 
 from __future__ import annotations
@@ -29,9 +30,8 @@ import torch
 from .box_ops import rbbox2d_to_near_bbox
 from .cuda.gather import flat_rows
 from .cuda.riou import (nms_overlap, nms_suppress, pair_matrix, riou_pairs,
-                        soft_nms_decay, soft_nms_decay_pairs, standup_maybe,
-                        standup_overlap)
-from .rotated_iou import standup_iou_matrix
+                        soft_nms_decay_pairs, soft_nms_decay_standup,
+                        standup_maybe, standup_overlap)
 
 
 def top_k(values, k):
@@ -193,9 +193,10 @@ def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
     top min(pre_max_size, N) valid candidates (stable top-k); their IoU
     matrix, the rotated one sparsely over the first min(max_pairs, k²)
     pairs that can overlap (pairs past that cap count as IoU 0), the
-    standup one dense; then min(post_max_size, k) decay steps, every row
-    in one launch (rotated: over the pair list itself, with no [B, k, k]
-    matrix built). Returns (indices [m] into the inputs, in pick order,
+    standup one whole; then min(post_max_size, k) decay steps, every row
+    in one launch, with no [B, k, k] matrix built (rotated: over the pair
+    list itself; standup: a step computes the pick's row of the matrix
+    from the boxes). Returns (indices [m] into the inputs, in pick order,
     the rescored scores where kept and 0 elsewhere, keep [m]: finite and
     at least `score_threshold`)."""
     if boxes.dim() == 2:
@@ -218,9 +219,8 @@ def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
             plist, ok, pair_iou(cand, plist), top_scores, m, method, sigma,
             iou_threshold)
     else:
-        picks, picked = soft_nms_decay(standup_iou_matrix(cand, cand),
-                                       top_scores, m, method, sigma,
-                                       iou_threshold)
+        picks, picked = soft_nms_decay_standup(cand, top_scores, m, method,
+                                               sigma, iou_threshold)
     keep = torch.isfinite(picked) & (picked >= score_threshold)
     return (top_idx.gather(-1, picks), torch.where(keep, picked, 0.0),
             keep)

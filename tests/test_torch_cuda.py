@@ -2191,7 +2191,8 @@ def test_soft_nms_decay_matches_plain(dev, K, method):
 def test_soft_nms_card_matches_cpu(dev, rotated, method):
     """`soft_nms` on a batch of 3 rows of 300 crowded candidates, the pair
     cap binding, card (the row gather, the pair IoU and the decay kernels:
-    the pair-list one rotated, one launch, the dense one standup) against
+    the pair-list one rotated, the standup one standup, one launch, the
+    dense one never) against
     CPU (their plain versions): picks and keep exact, scores
     within 1e-5 (the card's and the CPU's sin and cos round the corners an
     ulp apart)."""
@@ -2205,16 +2206,146 @@ def test_soft_nms_card_matches_cpu(dev, rotated, method):
     kw = dict(pre_max_size=256, post_max_size=100, sigma=0.5,
               iou_threshold=0.3, score_threshold=0.6, method=method,
               rotated=rotated, max_pairs=2048)
-    before = (riou.launches_soft, riou.launches_soft_pairs)
+    before = (riou.launches_soft, riou.launches_soft_pairs,
+              riou.launches_soft_standup)
     got = nms.soft_nms(boxes.to(dev), scores.to(dev), valid.to(dev), **kw)
-    # rotated: the pair-list kernel, no dense IoU matrix; standup: the dense
-    assert (riou.launches_soft, riou.launches_soft_pairs) == \
-        (before[0] + (not rotated), before[1] + rotated)
+    # rotated: the pair-list kernel; standup: the standup kernel; no dense
+    # IoU matrix either way
+    assert (riou.launches_soft, riou.launches_soft_pairs,
+            riou.launches_soft_standup) == \
+        (before[0], before[1] + rotated, before[2] + (not rotated))
     want = nms.soft_nms(boxes, scores, valid, **kw)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2].cpu(), want[2])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
     assert want[2].any() and not want[2].all()
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_decay_non_finite_as_the_cpu(dev, method):
+    """The dense decay kernel on NaN IoU values and NaN and +inf scores
+    against its plain version on the card (picks exact, NaN where NaN, the
+    finite scores within 1e-6 relative), and its picks and NaN scores
+    those of the plain version on the CPU (torch.argmax's order there: NaN
+    above +inf, the first of equals): a NaN score is picked the step it
+    appears, and every other non-finite score turns -inf. (Its finite
+    scores lie up to 2.3e-6 relative from the CPU's: some 200 decays a
+    score by the card's and the CPU's exp, an ulp apart each.)"""
+    g = torch.Generator().manual_seed(6)
+    iou, scores = _decay_inputs(g, 4, 1000)
+    iou[0, 3, ::7] = float("nan")
+    iou[0, ::7, 3] = float("nan")
+    iou[3, 100:300:5, 40] = float("nan")
+    scores[0, 10], scores[0, 500] = float("nan"), float("inf")
+    scores[2, 900], scores[2, 901] = float("inf"), float("nan")
+    want = riou.soft_nms_decay_plain(iou, scores, 200, method, 0.5, 0.3)
+    args = (iou.to(dev), scores.to(dev), 200, method, 0.5, 0.3)
+    got = riou.soft_nms_decay(*args)
+    _check_pair_decay(got, riou.soft_nms_decay_plain(*args))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].isnan().cpu(), want[1].isnan())
+    assert want[0][0, 0] == 10 and want[0][2, 0] == 901
+    assert (want[1].isnan().sum() > 2) == (method == "gaussian")
+
+
+def _standup_decay_inputs(g, R, K):
+    """R rows of K crowded standup candidates (xyxy, some boxes repeated
+    exactly), scores sorted descending: row 1 all -inf, row 2 with ties,
+    row 3 with an invalid tail; row 0 (and row 4) with non-finite boxes
+    (two overlapping infinite ones, NaN and +-inf coordinates, a zero
+    width) and NaN and +inf scores, one NaN score among the last K / 8
+    boxes, moved far from the others (from K 257: a warp whose scores
+    change only through the pick or the sweep of non-finite scores)."""
+    side = 8.0 * (K / 300) ** 0.5
+    xy = torch.rand(R, K, 2, generator=g) * side
+    wl = 0.5 + 3.0 * torch.rand(R, K, 2, generator=g)
+    cand = torch.cat([xy, xy + wl], -1)
+    cand[:, 1::9] = cand[:, :-1:9][:, :cand[:, 1::9].shape[1]]
+    scores = torch.rand(R, K, generator=g).sort(1, descending=True)[0]
+    inf, nan = float("inf"), float("nan")
+    if K >= 24:
+        for r in (0, 4) if R > 4 else (0,):
+            cand[r, 3] = cand[r, 20] = torch.tensor([-inf, -inf, inf, inf])
+            cand[r, 7, 0], cand[r, 8, 3] = nan, inf
+            cand[r, 9, 1], cand[r, 11, 2] = -inf, cand[r, 11, 0]
+            scores[r, 12], scores[r, 15] = nan, inf
+            scores[r, K - 2] = nan
+            if K >= 257:
+                cand[r, K - K // 8:] += 1000.0
+    if R > 3:
+        scores[1] = float("-inf")
+        scores[2, K // 4:K // 2] = scores[2, K // 4]
+        scores[3, K // 2:] = float("-inf")
+    return cand, scores
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+@pytest.mark.parametrize("K", [1, 31, 33, 257, 1000, 4096])
+def test_soft_nms_decay_standup_matches_plain(dev, K, method):
+    """The standup decay kernel (one block a row, the boxes in shared
+    memory and each lane's in registers, the pick's IoU row computed a
+    step) against its plain version (the dense standup matrix, the dense
+    decay) on the card: picks exact, NaN where NaN, their finite scores
+    within 1e-6 relative; 5 rows (one of -inf, one with ties, one with an
+    invalid tail, two with non-finite boxes and scores), 100 steps, one
+    launch; every span width it picks from K."""
+    g = torch.Generator().manual_seed(K + 1)
+    R = 2 if K == 4096 else 5
+    cand, scores = (t.to(dev) for t in _standup_decay_inputs(g, R, K))
+    m = min(K, 100)
+    before = (riou.launches_soft_standup, riou.launches_soft)
+    got = riou.soft_nms_decay_standup(cand, scores, m, method, 0.5, 0.3)
+    assert (riou.launches_soft_standup, riou.launches_soft) == \
+        (before[0] + 1, before[1])
+    want = riou.soft_nms_decay_standup_plain(cand, scores, m, method, 0.5,
+                                             0.3)
+    _check_pair_decay(got, want)
+    if K >= 24:
+        assert want[0][0, 0] == 12 and torch.isnan(want[1][0, 0])
+
+
+@pytest.mark.parametrize("K", [1000, 4096])
+def test_soft_nms_decay_standup_every_candidate_picked(dev, K):
+    """m = K: every finite candidate picked once, then (the row all -inf)
+    index 0; kernel against plain as above."""
+    g = torch.Generator().manual_seed(5 * K)
+    cand, scores = (t.to(dev) for t in _standup_decay_inputs(g, 1, K))
+    got = riou.soft_nms_decay_standup(cand, scores, K, "gaussian", 0.5, 0.3)
+    want = riou.soft_nms_decay_standup_plain(cand, scores, K, "gaussian",
+                                             0.5, 0.3)
+    _check_pair_decay(got, want)
+    assert (want[0][0, -3:] == 0).all()
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_soft_nms_decay_standup_non_finite_as_the_cpu(dev, method):
+    """The standup decay kernel on non-finite boxes and scores against the
+    plain version on the CPU: 5 rows of 1000, 200 steps."""
+    g = torch.Generator().manual_seed(8)
+    cand, scores = _standup_decay_inputs(g, 5, 1000)
+    want = riou.soft_nms_decay_standup_plain(cand, scores, 200, method, 0.5,
+                                             0.3)
+    got = riou.soft_nms_decay_standup(cand.to(dev), scores.to(dev), 200,
+                                      method, 0.5, 0.3)
+    _check_pair_decay(got, want)
+    assert (want[1].isnan().sum() > 2) == (method == "gaussian")
+
+
+def test_soft_nms_decay_standup_refuses_what_it_cannot_take(dev):
+    cand = torch.zeros(1, 8, 4, device=dev)
+    scores = torch.zeros(1, 8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        riou.soft_nms_decay_standup(cand.double(), scores, 2)
+    with pytest.raises(ValueError, match="one device"):
+        riou.soft_nms_decay_standup(cand.cpu(), scores, 2)
+    with pytest.raises(ValueError, match="m <= K"):
+        riou.soft_nms_decay_standup(cand, scores, 9)
+    big = torch.zeros(1, riou.NMS_MAX_K + 1, device=dev)
+    with pytest.raises(ValueError, match="K <="):
+        riou.soft_nms_decay_standup(torch.zeros(1, big.shape[1], 4,
+                                                device=dev), big, 1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        riou.soft_nms_decay_standup(cand.requires_grad_(), scores, 2)
 
 
 def _pair_decay_inputs(g, R, K, P):

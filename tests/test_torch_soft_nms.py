@@ -9,6 +9,11 @@ dense one on the same pairs, its pair values' edge cases (negative and NaN
 IoU, slots that are not ok), and a numpy mirror of its kernel's walk
 (`_walk_mirror`: per-warp slot maxima carried over, only the pick's
 neighbours decayed, non-finite scores swept a step later) against it.
+The standup decay (`soft_nms_decay_standup`, standup soft-NMS's path,
+whose kernel computes the pick's IoU row from the boxes): a numpy mirror of
+the kernel's IoU bit for bit `standup_iou_matrix`'s rows, edge boxes
+included, and its plain version's steps against JAX's `lax.scan` on JAX's
+own standup matrix, NaN scores and NaN IoU values included.
 
 JAX's functions run jitted (eagerly, the decay scan runs op by op). The
 tolerances: picks, keep masks and pair lists exact; the rescored scores
@@ -35,12 +40,13 @@ import torch
 from second_tpu.ops import nms as jax_nms
 from second_tpu.ops.rotated_iou import rbbox_to_corners as jax_corners
 from second_tpu_torch.core.nms_np import soft_nms as soft_nms_np
-from second_tpu_torch.ops.cuda.riou import (pair_matrix, soft_nms_decay,
-                                            soft_nms_decay_pairs,
-                                            soft_nms_decay_pairs_plain,
-                                            soft_nms_decay_plain)
+from second_tpu_torch.ops.cuda.riou import (
+    pair_matrix, soft_nms_decay, soft_nms_decay_pairs,
+    soft_nms_decay_pairs_plain, soft_nms_decay_plain,
+    soft_nms_decay_standup, soft_nms_decay_standup_plain)
 from second_tpu_torch.ops.nms import (pair_iou, soft_nms, soft_nms_pairs,
                                       sparse_rotated_iou_matrix, top_k)
+from second_tpu_torch.ops.rotated_iou import standup_iou_matrix
 
 SCORE_RTOL = 1e-6
 ROTATED_SCORE_RTOL = 1e-5
@@ -538,3 +544,254 @@ def test_soft_nms_decay_pairs_on_cpu_is_the_plain_version():
     assert torch.equal(got[1].nan_to_num(), want[1].nan_to_num())
     with pytest.raises(RuntimeError, match="no backward"):
         soft_nms_decay_pairs(plist, ok, iou.requires_grad_(), scores, 2)
+
+
+# ------------------------------------------------------ the standup decay
+
+
+def _standup_row_mirror(pick, boxes):
+    """The IoU of box `pick` [4] with each of `boxes` [K, 4] as
+    `soft_nms_decay_standup_kernel` (csrc/riou.cu) computes it, in numpy
+    fp32 with no fused multiply-add: the widths by fmin and fmax, the pair
+    meeting where both are > 0 and neither box holds a NaN, inter = (wx +
+    0) * (wy + 0) where it meets, iou = inter / ((a_pick + a_j) - inter)
+    where inter > 0, each area (x2 - x1 + 0) * (y2 - y1 + 0). Returns
+    (iou [K], meet [K])."""
+    zero = np.float32(0.0)
+    with np.errstate(all="ignore"):
+        wx = np.fmin(pick[2], boxes[:, 2]) - np.fmax(pick[0], boxes[:, 0])
+        wy = np.fmin(pick[3], boxes[:, 3]) - np.fmax(pick[1], boxes[:, 1])
+        meet = (wx > 0) & (wy > 0) & ~np.isnan(boxes).any(1) & \
+            ~np.isnan(pick).any()
+        inter = np.where(meet, (wx + zero) * (wy + zero), zero)
+        ap = (pick[2] - pick[0] + zero) * (pick[3] - pick[1] + zero)
+        area = (boxes[:, 2] - boxes[:, 0] + zero) * \
+            (boxes[:, 3] - boxes[:, 1] + zero)
+        iou = np.where(inter > 0, inter / ((ap + area) - inter), zero)
+    return iou.astype(np.float32), meet
+
+
+def _standup_edge_boxes():
+    """xyxy boxes that meet the IoU's edge cases: NaN and +-inf
+    coordinates, two infinite boxes (their IoU inf / (inf + inf - inf) is
+    NaN), zero width and height, touching edges, -0.0 coordinates, an
+    inverted box, and areas that overflow."""
+    inf, nan = np.inf, np.nan
+    return np.array([
+        [0.0, 0.0, 2.0, 2.0], [2.0, 0.0, 4.0, 2.0],     # touching edges
+        [1.0, 1.0, 3.0, 3.0], [-0.0, -0.0, 1.0, 1.0],
+        [0.0, -0.0, -0.0, 1.0],                         # zero width
+        [0.5, 0.5, 1.5, 0.5],                           # zero height
+        [nan, 0.0, 1.0, 1.0], [0.0, 0.0, 1.0, nan],
+        [-inf, -inf, inf, inf], [-inf, -inf, inf, inf],
+        [-inf, 0.0, 1.0, 1.0], [0.0, 0.0, inf, 1.0],
+        [3.0, 3.0, 1.0, 1.0],                           # inverted
+        [-3e38, -3e38, 3e38, 3e38], [-1e-38, 0.0, 1e-38, 1.0],
+        [0.25, 0.25, 0.75, 0.75], [1.0 - 2 ** -23, 0.0, 2.0, 2.0],
+    ], np.float32)
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edge"])
+def test_standup_kernel_iou_mirror_is_the_matrix_bit_for_bit(kind):
+    """The kernel's per-lane IoU (`_standup_row_mirror`, the pick as
+    `boxes1`) equals every row of `standup_iou_matrix(cand, cand)` (what
+    the plain version decays by) bit for bit, NaN where it is NaN, and
+    every pair it does not meet is 0 there: 300 seeded clustered boxes with
+    some copied exactly, or the edge boxes against themselves and 40
+    seeded ones."""
+    rng = np.random.default_rng(13)
+    boxes = _boxes(rng, 300, rotated=False, spread=15.0)
+    boxes[::17] = boxes[1::17][:len(boxes[::17])]       # identical pairs
+    if kind == "edge":
+        boxes = np.concatenate([_standup_edge_boxes(), boxes[:40]])
+    want = standup_iou_matrix(torch.from_numpy(boxes),
+                              torch.from_numpy(boxes)).numpy()
+    rows = [_standup_row_mirror(b, boxes) for b in boxes]
+    got = np.stack([iou for iou, _ in rows])
+    meet = np.stack([m for _, m in rows])
+    assert (want[~meet] == 0).all()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+    assert (want > 0).sum() > len(boxes)
+    if kind == "edge":
+        assert nan.sum() >= 4 and np.isinf(boxes).any()
+
+
+def _identity_top_k(x, k):
+    """`lax.top_k` that keeps the input order, so that JAX's `soft_nms`
+    decays its own candidates as given."""
+    idx = jnp.broadcast_to(jnp.arange(k, dtype=jnp.int32),
+                           x.shape[:-1] + (k,))
+    return x[..., :k], idx
+
+
+def _standup_rows():
+    """5 rows of 40 standup candidates, scores sorted descending: seeded
+    clustered boxes; a row with a NaN and a +inf score (NaN is picked
+    first, the +inf turns -inf); a row with two overlapping infinite boxes
+    (their IoU NaN: gaussian decays the second to NaN, picked next) and a
+    NaN coordinate; a row with ties, an invalid tail and a NaN and a +inf
+    score 20 apart, the +inf among 8 boxes far from the others; a row of
+    -inf."""
+    rng = np.random.default_rng(17)
+    R, K = 5, 40
+    cand = np.stack([_boxes(rng, K, rotated=False, spread=10.0)
+                     for _ in range(R)])
+    scores = -np.sort(-rng.uniform(0.05, 1.0, (R, K)), 1).astype(np.float32)
+    scores[1, 6], scores[1, 3] = np.nan, np.inf
+    cand[2, 2] = cand[2, 5] = [-np.inf, -np.inf, np.inf, np.inf]
+    cand[2, 9, 1] = np.nan
+    scores[3, 10:16] = scores[3, 10]
+    scores[3, 30:] = -np.inf
+    scores[3, 5], scores[3, 25] = np.nan, np.inf
+    cand[3, 24:32] += 1000.0
+    scores[4] = -np.inf
+    return cand, scores
+
+
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_standup_decay_plain_matches_jax_scan(method, monkeypatch):
+    """The plain version's decay steps (`soft_nms_decay_standup_plain`, the
+    kernel's reference on the card) against JAX's `soft_nms` scan on JAX's
+    own `standup_iou_matrix` of the same candidates, jitted, its top-k
+    replaced by the identity so that only the decay is compared: picks
+    exact (torch.argmax's and jnp.argmax's NaN order), the finite scores
+    where JAX's are finite and within SCORE_RTOL."""
+    cand, scores = _standup_rows()
+    R, K = scores.shape
+    m = 30
+    monkeypatch.setattr(jax.lax, "top_k", _identity_top_k)
+    fn = jax.jit(jax.vmap(partial(
+        jax_nms.soft_nms, pre_max_size=K, post_max_size=m, sigma=0.5,
+        iou_threshold=0.3, score_threshold=-np.inf, method=method,
+        rotated=False)))
+    jidx, jscores, jkeep = (np.asarray(o) for o in fn(
+        jnp.asarray(cand), jnp.asarray(scores), jnp.ones((R, K), bool)))
+    picks, picked = soft_nms_decay_standup_plain(
+        torch.from_numpy(cand), torch.from_numpy(scores), m, method, 0.5,
+        0.3)
+    picks, picked = picks.numpy(), picked.numpy()
+    np.testing.assert_array_equal(picks, jidx)
+    np.testing.assert_array_equal(np.isfinite(picked), jkeep)
+    np.testing.assert_allclose(picked[jkeep], jscores[jkeep],
+                               rtol=SCORE_RTOL, atol=0)
+    assert picks[1, 0] == 6 and np.isnan(picked[1, 0]) and 3 not in picks[1]
+    # the second infinite box: NaN by the gaussian decay, picked at once
+    first = list(picks[2]).index(2)
+    assert (picks[2, first + 1] == 5) == (method == "gaussian")
+    assert np.isnan(picked[2, first + 1]) == (method == "gaussian")
+    assert (picks[4] == 0).all()
+
+
+def test_soft_nms_decay_standup_on_cpu_is_the_plain_version():
+    """`soft_nms_decay_standup` on CPU tensors is its plain version, NaN
+    where it is NaN."""
+    cand, scores = (torch.from_numpy(a) for a in _standup_rows())
+    for method in ("gaussian", "linear"):
+        got = soft_nms_decay_standup(cand, scores, 40, method, 0.5, 0.3)
+        want = soft_nms_decay_standup_plain(cand, scores, 40, method, 0.5,
+                                            0.3)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].isnan(), want[1].isnan())
+        assert torch.equal(got[1].nan_to_num(), want[1].nan_to_num())
+
+
+def test_soft_nms_decay_standup_refuses_grad_and_bad_shapes():
+    cand, scores = torch.zeros(2, 8, 4), torch.zeros(2, 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        soft_nms_decay_standup(cand.requires_grad_(), scores, 2)
+    cand = cand.detach()
+    for c, sc, m in ((torch.zeros(2, 8, 5), scores, 2),
+                     (torch.zeros(2, 7, 4), scores, 2),
+                     (cand, torch.zeros(16), 2), (cand, scores, 9),
+                     (cand, scores, -1)):
+        with pytest.raises(ValueError, match="cand \\[R, K, 4\\]"):
+            soft_nms_decay_standup(c, sc, m)
+
+
+def _decay_np(r, method, sigma, thr):
+    with np.errstate(all="ignore"):
+        if method == "gaussian":
+            return np.exp(np.float32(-(r * r)) / np.float32(sigma))
+        return np.where(r > np.float32(thr), np.float32(1.0) - r,
+                        np.float32(1.0)).astype(np.float32)
+
+
+def _standup_steps_mirror(cand, scores, m, method, sigma, thr, span=32):
+    """The decay steps as `soft_nms_decay_standup_kernel` takes them, in
+    numpy fp32: each step picks the best of the spans' slots (`_order`,
+    the lowest index), computes the pick's meet test with every candidate
+    (`_standup_row_mirror`) and decays only the finite candidates that
+    meet it (all of them where d0, the decay of a 0 IoU, is not 1), turns
+    NaN and +inf scores to -inf, sets the pick to -inf, and recomputes
+    only the slots of spans where a candidate changed."""
+    R, K = scores.shape
+    picks = np.zeros((R, m), np.int64)
+    picked = np.zeros((R, m), np.float32)
+    spans = [(lo, min(lo + span, K)) for lo in range(0, K, span)]
+    d0 = _decay_np(np.float32(0.0), method, sigma, thr)
+    every = not d0 == 1
+
+    def best_of(cur, lo, hi):
+        b = lo
+        for j in range(lo + 1, hi):
+            if _order(cur[j]) > _order(cur[b]):
+                b = j
+        return _order(cur[b]), b
+
+    for r in range(R):
+        boxes, cur = cand[r], scores[r].astype(np.float32).copy()
+        slots = [best_of(cur, lo, hi) for lo, hi in spans]
+        for s in range(m):
+            b = max(slots, key=lambda x: (x[0], -x[1]))[1]
+            picks[r, s], picked[r, s] = b, cur[b]
+            iou, meet = _standup_row_mirror(boxes[b], boxes)
+            fin = np.isfinite(cur)
+            upd = fin & (meet | every)
+            with np.errstate(all="ignore"):
+                new = np.where(upd, cur * _decay_np(iou, method, sigma, thr),
+                               cur).astype(np.float32)
+            new = np.where(fin, new, np.float32(-np.inf))
+            new[b] = -np.inf
+            changed = upd | (~fin & (cur != -np.inf))
+            changed[b] = True
+            cur = new
+            for w, (lo, hi) in enumerate(spans):
+                if changed[lo:hi].any():
+                    slots[w] = best_of(cur, lo, hi)
+    return picks, picked
+
+
+@pytest.mark.parametrize("sigma", [0.5, 0.0], ids=["sigma", "sigma0"])
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_standup_steps_mirror_matches_plain(method, sigma):
+    """The standup kernel's steps (`_standup_steps_mirror`: the meet test,
+    the decay of meeting pairs only, the slots of unchanged spans carried
+    over) against its plain version, which decays every candidate by its
+    whole IoU row: picks exact, NaN where NaN, the finite scores within
+    SCORE_RTOL (numpy's exp and torch's an ulp apart); the rows of
+    `_standup_rows` (NaN and +inf scores, infinite and NaN boxes, ties,
+    -inf rows) and 100 crowded boxes, at spans of 32 and 8; sigma 0 decays
+    every pair that does not meet by NaN (-0 / 0)."""
+    cand, scores = _standup_rows()
+    rng = np.random.default_rng(23)
+    crowd = _boxes(rng, 40, rotated=False, spread=4.0)[None]
+    cand = np.concatenate([cand, crowd])
+    scores = np.concatenate([scores, -np.sort(-rng.uniform(
+        0.05, 1, (1, 40))).astype(np.float32)])
+    want = soft_nms_decay_standup_plain(torch.from_numpy(cand),
+                                        torch.from_numpy(scores), 36,
+                                        method, sigma, 0.3)
+    for span in (32, 8):
+        got = _standup_steps_mirror(cand, scores, 36, method, sigma, 0.3,
+                                    span)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(np.isnan(got[1]),
+                                      want[1].isnan().numpy())
+        fin = np.isfinite(got[1])
+        np.testing.assert_array_equal(fin, torch.isfinite(want[1]).numpy())
+        np.testing.assert_allclose(got[1][fin], want[1].numpy()[fin],
+                                   rtol=SCORE_RTOL, atol=0)
+    assert bool(want[1].isnan().any())
