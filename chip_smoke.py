@@ -333,14 +333,30 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    count of its detections and the single-device eval's); the
    row-sharded RPN and the sequence-parallel forward (4 frames) against
    their unsharded forwards.
+36. vfe256 eval and vfe256 train (`run_middle_eval` / `run_middle_train`
+   on second_car_fhd.config with `VFE256_PATCHES`:
+   `VoxelFeatureExtractor` [32, 256] into SpMiddleFHD, bf16): as vfe1
+   eval (norms calibrated) and as resnet train; the first conv 256 -> 16,
+   its dX 16 -> 256 (the encoder learns, so the first conv's input takes
+   a gradient: 14 dX calls a step) and its weight gradient [27, 256, 16]
+   timed apart; launches 14 mma (eval), 14 / 14 / 14 (paths mma 28,
+   wgrad 14).
+37. wide convs (`run_wide_convs`): the fhd eval forward's four stage
+   rulebooks with random features and weights of 256 -> 256 and 200 ->
+   136 channels, in bf16 and fp32: every forward, dX (the transposed
+   rulebook, the weights [K, D, C]) and weight-gradient call against its
+   plain version (CONV_TOL, GRAD_KERNEL_TOL; fp32 also against fp64 at
+   FP32_ERR_RATIO) and timed (events, device, bound, library); one bf16
+   5 x 5 x 5 conv (K = 125, 64 -> 64) on stage 0's sites. Compare-only
+   launches: no path.
 
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the twenty-nine paths (fhd eval, fhd train, pp eval, pp
+summed over the thirty-one paths (fhd eval, fhd train, pp eval, pp
 train, mc eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp
 eval, tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st
 train, tmpf eval, tmpf train, serve, trk det, joint train, resnet eval,
 resnet train, large eval, large train, vfe1 eval, soft nms, dp train, dp
-eval) and by path,
+eval, vfe256 eval, vfe256 train) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
@@ -352,7 +368,10 @@ call under "joint_train" and its 16 x 16 ROI-align calls under
 "joint_train_s16", the resnet eval's convs under "resnet_eval" and the
 sparse-conv calls over 64 channels under "large_eval_c128",
 "large_train_c128" (forward, dX, weight gradient; fp32, bounded as 3xTF32
-with "bound_cores_ms" beside) and "vfe1_eval_c128", and the soft-NMS
+with "bound_cores_ms" beside), "vfe1_eval_c128", "vfe256_eval_c256"
+and "vfe256_train_c256", the wide convs' calls under "wide_c256" (bf16),
+"wide_c256_fp32" and "wide_k125" (forward, dX, weight gradient), and the
+soft-NMS
 decays: the pair kernel's linear fhd call under "soft_nms_linear" and
 its K = 4096 rows under "soft_nms_k4096_p8192" / "soft_nms_k4096_p32768",
 the standup kernel's under "soft_nms_standup_k4096", the dense kernel's
@@ -399,6 +418,7 @@ from second_tpu_torch.models import (build_fusion_two_stage_voxelnet,
                                      predict_temporal, predict_two_stage)
 from second_tpu_torch.ops import cuda as kernels
 from second_tpu_torch.ops import nms as nms_ops
+from second_tpu_torch.ops import sparse_conv
 from second_tpu_torch.ops.anchors_mask import anchors_mask_from_coords
 from second_tpu_torch.ops.box_ops import bev_boxes
 from second_tpu_torch.ops.cuda import gather, riou, roi_align, subm
@@ -479,7 +499,7 @@ PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
          "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train",
          "serve", "trk_det", "joint_train", "resnet_eval", "resnet_train",
          "large_eval", "large_train", "vfe1_eval", "soft_nms", "dp_train",
-         "dp_eval")
+         "dp_eval", "vfe256_eval", "vfe256_train")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -1655,6 +1675,19 @@ def run(dev, out=None):
     with tempfile.TemporaryDirectory() as tmp:
         dp_train_counts, dp_eval_counts, report["dp"] = run_dp(dev,
                                                                Path(tmp))
+    # convs past 128 channels: VoxelFeatureExtractor's 256 into
+    # SpMiddleFHD's first conv, eval and a train step (the encoder learns:
+    # a dX for every conv), and the wide convs on the fhd stage rulebooks
+    _, vfe256_wide, vfe256_counts, report["vfe256_eval"] = run_middle_eval(
+        dev, timer, dtimer, "vfe256 eval", VFE256_PATCHES, SPARSE_CONVS,
+        {"mma": SPARSE_CONVS, "fma": 0}, calibrate=True)
+    vfe256_train_wide, vfe256_train_counts, report["vfe256_train"] = \
+        run_middle_train(dev, timer, dtimer, "vfe256 train", VFE256_PATCHES,
+                         SPARSE_CONVS,
+                         {"mma": 2 * SPARSE_CONVS, "fma": 0,
+                          "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0},
+                         n_dgrad=SPARSE_CONVS)
+    wide_aggs, report["wide_convs"] = run_wide_convs(dev, timer, dtimer)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
@@ -1667,7 +1700,8 @@ def run(dev, out=None):
                                resnet_counts, resnet_train_counts,
                                large_counts, large_train_counts,
                                vfe1_counts, soft_counts, dp_train_counts,
-                               dp_eval_counts)))
+                               dp_eval_counts, vfe256_counts,
+                               vfe256_train_counts)))
     # the 256-channel ROI-align calls of the temporal-fusion phases, under
     # "tmpf_eval_c256" / "tmpf_train_c256"; the joint step's riou_matrix
     # call under "joint_train", its 16 x 16 tracking crops under
@@ -1681,6 +1715,9 @@ def run(dev, out=None):
                  "large_eval_c128": {"sparse_gather_gemm": large_wide},
                  "large_train_c128": large_train_wide,
                  "vfe1_eval_c128": {"sparse_gather_gemm": vfe1_wide},
+                 "vfe256_eval_c256": {"sparse_gather_gemm": vfe256_wide},
+                 "vfe256_train_c256": vfe256_train_wide,
+                 **wide_aggs,
                  **soft_others}
 
     def numbers(a):
@@ -5959,6 +5996,13 @@ LARGE_PATCHES = ['model.middle_feature_extractor.module_class_name='
 VFE1_PATCHES = ['model.voxel_feature_extractor.module_class_name='
                 '"VoxelFeatureExtractor"',
                 "model.voxel_feature_extractor.num_filters=[32, 128]"]
+# VoxelFeatureExtractor [32, 256] into SpMiddleFHD: its first conv 256 -> 16
+VFE256_PATCHES = VFE1_PATCHES[:1] + [
+    "model.voxel_feature_extractor.num_filters=[32, 256]"]
+# the wide convs phase: (C, D) on the fhd scene's stage rulebooks, and the
+# 5 x 5 x 5 conv's widths on stage 0's sites
+WIDE_PAIRS = ((256, 256), (200, 136))
+K125_WIDTHS = (64, 64)
 # SpMiddleResNetFHD's sparse convs a forward: in each of its four residual
 # blocks one on the block's (bf16) input and one on the first norm's fp32
 # output, then the block's bf16 strided conv
@@ -6092,7 +6136,7 @@ def run_middle_eval(dev, timer, dtimer, what, patches, n_convs,
 
 
 def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
-                     paths_want, fp64=False):
+                     paths_want, fp64=False, n_dgrad=None):
     """One train step of the patched config's model (second_car_fhd's
     batch 4 synthetic scans, 16 000 voxels with shuffle_overflow, the
     config's Adam from flax's initialisers; the middle bf16 or fp32 as
@@ -6102,9 +6146,9 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
     against fp64 (`check_fp32_calls`; under mixed precision the fp32 ones
     among the bf16); each conv's backward against autograd of the
     plain gather-GEMM; launches (`n_convs` forward and weight-gradient
-    calls, one fewer dX: the first conv's input needs none) on
-    `paths_want`; every sparse weight's gradient finite and nonzero; no
-    host sync; steps/s and peak memory. Returns (the wide calls'
+    calls, one fewer dX where the first conv's input needs none, else
+    `n_dgrad`) on `paths_want`; every sparse weight's gradient finite and
+    nonzero; no host sync; steps/s and peak memory. Returns (the wide calls'
     aggregates by kernel, the launch counts, the report)."""
     report = {}
     cfg = patched_config(patches)
@@ -6122,7 +6166,8 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
     n = {k: len(v) for k, v in calls.items()}
-    want_n = {"gather_gemm": n_convs, "gather_gemm_dgrad": n_convs - 1,
+    n_dgrad = n_convs - 1 if n_dgrad is None else n_dgrad
+    want_n = {"gather_gemm": n_convs, "gather_gemm_dgrad": n_dgrad,
               "sparse_wgrad": n_convs}
     if n != want_n:
         fail(f"{what}: expected {want_n} calls a step, recorded {n}")
@@ -6145,7 +6190,7 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
                           bound, timer, dtimer, detail, timed=False)
         if wide:
             aggs_wide[kname] = check_train_calls(
-                f"{what} {key} c128", wide, kernel, plain, library, bound,
+                f"{what} {key} wide", wide, kernel, plain, library, bound,
                 timer, dtimer, detail)
     if fp64:
         report["fp64_ratio"] = check_fp32_calls(calls, what, mixed)
@@ -6159,7 +6204,7 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
     counts, paths = launch_counts(), conv_path_counts()
     say(f"launches in one {what} step: {counts}; by path: {paths}")
     want = {"sparse_gather_gemm": n_convs,
-            "sparse_gather_gemm_dgrad": n_convs - 1, "sparse_wgrad": n_convs}
+            "sparse_gather_gemm_dgrad": n_dgrad, "sparse_wgrad": n_convs}
     if {k: counts[k] for k in want} != want or paths != paths_want:
         fail(f"{what} step launches {counts} {paths}, expected {want} on "
              f"{paths_want}")
@@ -6184,6 +6229,102 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
     del state
     torch.backends.cudnn.deterministic = False
     return aggs_wide, counts, report
+
+
+def fp64_gates(name, calls, kernel, plain, agg):
+    """The fp32 calls among `calls` once more through `kernel`, each against
+    `plain` in fp64 (`fp64_gate`); the worst ratio to the fp32 plain
+    version's own error goes into `agg` as "fp64_ratio"."""
+    for i, (args, _) in enumerate(calls):
+        if args[0].dtype != torch.float32:
+            continue
+        r = fp64_gate(args, kernel(*args), f"{name} {i}", plain)
+        agg["fp64_ratio"] = max(agg.get("fp64_ratio", 0.0),
+                                r["fp64_rel_err"] /
+                                max(r["plain_fp64_rel_err"], 1e-30))
+
+
+def run_wide_convs(dev, timer, dtimer):
+    """Sparse convs wider than the repo's configs take, on the fhd eval
+    forward's own active sets: its four stage rulebooks (recorded from
+    `subm_rulebook_b`) with random features [4, N, C], weights [27, C, D]
+    and output gradients of the WIDE_PAIRS widths, in bf16 and fp32: the
+    forward (`check_convs`), dX on the transposed rulebook with the
+    weights [27, D, C] as a view and the weight gradient
+    (`check_train_calls`), the fp32 ones also against fp64 (FP32_ERR_RATIO);
+    then one bf16 5 x 5 x 5 conv (K = 125) of K125_WIDTHS on stage 0's
+    sites, forward and weight gradient. Launches made here compare
+    kernels and count on no path. Returns ({key: {kernel: aggregate}}, the
+    report)."""
+    report = {"convs": [], "dgrad": [], "wgrad": []}
+    cfg = load_pipeline_config(CONFIG)
+    net, spec, info, assigner, _ = build_voxelnet(
+        cfg.model, device=dev, mixed_precision=True, seed=0)
+    vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator, MAX_VOXELS)
+    points, mask, anchors = build_inputs(cfg, assigner, info, dev)
+    with recording([(sparse_conv, "subm_rulebook_b")]) as calls:
+        detect(net, spec, vspec, points, mask, anchors, device=dev)
+        torch.cuda.synchronize()
+    del net
+    stages = [a for a, _ in calls["subm_rulebook_b"]]
+    if len(stages) != 4:
+        fail(f"wide convs: expected SpMiddleFHD's 4 stage rulebooks, "
+             f"recorded {len(stages)}")
+    g = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    for dtype, key in ((torch.bfloat16, "wide_c256"),
+                       (torch.float32, "wide_c256_fp32")):
+        fwd, dgrad, wgrad = [], [], []
+        for coords, keys, valid, grid in (a[:4] for a in stages):
+            tap_idx, found = sparse_conv.subm_rulebook_b(coords, keys,
+                                                         valid, grid)
+            B, K, N = tap_idx.shape
+            inv = sparse_conv.transpose_rulebook_b(tap_idx, found, N)
+            for C, D in WIDE_PAIRS:
+                f = torch.randn(B, N, C, device=dev, generator=g).to(dtype)
+                w = torch.randn(K, C, D, device=dev, generator=g) / \
+                    np.sqrt(K * C * 0.1)
+                dout = torch.randn(B, N, D, device=dev, generator=g).to(dtype)
+                fwd.append(((f, tap_idx, found, w), {}))
+                dgrad.append(((dout, *inv, w.transpose(1, 2)), {}))
+                wgrad.append(((f, tap_idx, found, dout), {}))
+        say(f"wide convs {str(dtype)[6:]}: stages N "
+            f"{[a[0].shape[1] for a in stages]}, widths {WIDE_PAIRS}")
+        aggs = {"sparse_gather_gemm": check_convs(fwd, timer, dtimer,
+                                                  report["convs"])}
+        for name, kname, cl, kernel, plain, library, bound in (
+                ("dgrad", "sparse_gather_gemm_dgrad", dgrad,
+                 subm.gather_gemm_dgrad, subm.gather_gemm_plain,
+                 conv_library, conv_bound),
+                ("wgrad", "sparse_wgrad", wgrad, subm.sparse_wgrad,
+                 subm.gather_gemm_wgrad_plain, wgrad_library, wgrad_bound)):
+            aggs[kname] = check_train_calls(
+                f"wide {name} {str(dtype)[6:]}", cl, kernel, plain, library,
+                bound, timer, dtimer, report[name])
+            fp64_gates(f"wide {name}", cl, kernel, plain, aggs[kname])
+        out[key] = aggs
+        del fwd, dgrad, wgrad
+    # the 125-tap conv on stage 0's sites
+    coords, keys, valid, grid = stages[0][:4]
+    tap_idx, found = sparse_conv.subm_rulebook_b(coords, keys, valid, grid,
+                                                 (5, 5, 5))
+    B, K, N = tap_idx.shape
+    C, D = K125_WIDTHS
+    f = torch.randn(B, N, C, device=dev, generator=g).bfloat16()
+    w = torch.randn(K, C, D, device=dev, generator=g) / np.sqrt(K * C * 0.1)
+    dout = torch.randn(B, N, D, device=dev, generator=g).bfloat16()
+    say(f"wide convs: K = {K} taps on stage 0 ({N} rows), {C} -> {D}, "
+        f"{int(found.sum())} found taps")
+    out["wide_k125"] = {
+        "sparse_gather_gemm": check_convs([((f, tap_idx, found, w), {})],
+                                          timer, dtimer, report["convs"]),
+        "sparse_wgrad": check_train_calls(
+            "wide k125 wgrad", [((f, tap_idx, found, dout), {})],
+            subm.sparse_wgrad, subm.gather_gemm_wgrad_plain, wgrad_library,
+            wgrad_bound, timer, dtimer, report["wgrad"])}
+    say(f"wide convs: every call within its tolerance of its plain version; "
+        f"card {card_line()}")
+    return out, report
 
 
 # ------------------------------------------------------------ soft-NMS

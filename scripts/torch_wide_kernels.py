@@ -4,21 +4,22 @@
         --parent_grad_src SUBM_GRAD_CU [--grad_variant NAME=SUBM_GRAD_CU ...]
 
 SUBM_CU and SUBM_GRAD_CU are the parent's `subm.cu` and `subm_grad.cu`
-with the same C entries (`subm_gather_gemm_mma`, `subm_wgrad`), for
-instance those of the commit before the kernels took 128 channels (64
-channels at most), unpacked with `git show`. Each `--grad_variant` is
-another `subm_grad.cu` with this tree's `subm_wgrad` entry, for instance an
-earlier version of the 128-channel tiling.
+with the C entries `subm_gather_gemm_mma` / `subm_gather_gemm_fma` (whose
+packed-width argument is log2 CP, as before the kernels took any width:
+the script passes it so) and `subm_wgrad`, unpacked with `git show`. Each
+`--grad_variant` is another `subm_grad.cu` with this tree's `subm_wgrad`
+entry, for instance an earlier version of the 128-channel tiling.
 
 The script captures the SECOND car.fhd eval forward's 14 bf16 gather-GEMM
 calls (chip_smoke.py's fhd inputs), the fhd train step's 14 bf16
-weight-gradient calls (chip_smoke.py's train batch), and the fp32
-weight-gradient calls of SpMiddleFHDLarge's train step (chip_smoke.py's
-LARGE_PATCHES): those of 64 channels at most and those over 64, as two
-sets. It builds the other sources into `second_tpu_torch/_build/` under
-other names with this tree's flags, checks that every version gives this
-tree's bits on every call (the parent only on calls of 64 channels at
-most), and times each set with each version in turns (the versions in
+weight-gradient calls (chip_smoke.py's train batch), and the fp32 forward
+and weight-gradient calls of SpMiddleFHDLarge's train step (chip_smoke.py's
+LARGE_PATCHES), the weight gradients of 64 channels at most and those over
+64 as two sets: every call at most 128 channels wide, the widths the
+parent took. It builds the other sources into `second_tpu_torch/_build/`
+under other names with this tree's flags, checks that every version gives
+this tree's bits on every call, and times each set with each version in
+turns (the versions in
 order, then reversed, twice): device-only ms from chip_smoke.py's
 DeviceTimer (L2 flushed before each call, median of 5), summed over the
 set. It prints the card's name and power limit, and the registers and
@@ -71,8 +72,9 @@ def wgrad_stats(log: str):
 
 
 def captured(dev):
-    """(fhd eval forward convs, fhd train weight gradients, the large
-    middle's fp32 weight gradients of at most and over 64 channels)."""
+    """(fhd eval forward convs, the large middle's fp32 forward convs, fhd
+    train weight gradients, the large middle's fp32 weight gradients of at
+    most and over 64 channels)."""
     cfg = load_pipeline_config(cs.CONFIG)
     with torch.no_grad():
         net, spec, info, assigner, _ = build_voxelnet(
@@ -86,7 +88,7 @@ def captured(dev):
     convs = [a for a, _ in calls["gather_gemm"]]
     del net
     torch.backends.cudnn.deterministic = True
-    sets = []
+    sets, large_convs = [], []
     for patches in ((), cs.LARGE_PATCHES):
         pcfg = cs.patched_config(patches) if patches else cfg
         state, spec, info, assigner = cs.new_train_state(
@@ -99,9 +101,21 @@ def captured(dev):
             make_train_step(spec, tvspec)(state, batch)
             torch.cuda.synchronize()
         sets.append(calls["sparse_wgrad"])
+        large_convs = [a for a, _ in calls["gather_gemm"]]
         del state
     narrow32, wide = cs.split_wide(sets[1])
-    return convs, *([a for a, _ in s] for s in (sets[0], narrow32, wide))
+    return convs, large_convs, *([a for a, _ in s]
+                                 for s in (sets[0], narrow32, wide))
+
+
+def shift_entry(fn):
+    """A gather-GEMM entry that takes log2 CP (the parent's) as one that
+    takes CP (this tree's wrapper passes CP)."""
+    def call(*a):
+        a = list(a)
+        a[10] = int(a[10]).bit_length() - 1
+        return fn(*a)
+    return call
 
 
 def in_turns(dt, fns, wrapper, calls, launch):
@@ -147,8 +161,13 @@ def main():
             print(f"ptxas {tag}: {ln}")
 
     this_mma, this_wgrad = subm._resolve_mma(), subm._resolve_wgrad()
-    other_mma = built["parent_subm"][0].subm_gather_gemm_mma
-    other_mma.argtypes, other_mma.restype = subm._MMA_ARGTYPES, ctypes.c_int
+    this_fma = subm._resolve_fma()
+    others = {}
+    for entry in ("mma", "fma"):
+        fn = getattr(built["parent_subm"][0], f"subm_gather_gemm_{entry}")
+        fn.argtypes, fn.restype = subm._MMA_ARGTYPES, ctypes.c_int
+        others[entry] = shift_entry(fn)
+    other_mma, other_fma = others["mma"], others["fma"]
     wgrads = {"this": this_wgrad}
     for tag, (lib, _) in built.items():
         if tag != "parent_subm":
@@ -156,15 +175,20 @@ def main():
             fn.argtypes, fn.restype = subm._WGRAD_ARGTYPES, ctypes.c_int
             wgrads[tag] = fn
 
-    convs, fhd, narrow32, wide = captured(dev)
+    convs, large_convs, fhd, narrow32, wide = captured(dev)
     print(f"calls: {len(convs)} forward convs "
-          f"{sorted({(a[0].shape[2], a[3].shape[2]) for a in convs})}; "
+          f"{sorted({(a[0].shape[2], a[3].shape[2]) for a in convs})}, "
+          f"{len(large_convs)} large train fp32 forward convs "
+          f"{sorted({(a[0].shape[2], a[3].shape[2]) for a in large_convs})}; "
           f"weight gradients: fhd train {len(fhd)} bf16, large train "
           f"{len(narrow32)} fp32 of 64 channels at most and {len(wide)} "
           f"over 64 {sorted({(a[0].shape[2], a[3].shape[2]) for a in wide})}")
 
     def use_mma(fn):
         subm._mma_launch = fn
+
+    def use_fma(fn):
+        subm._fma_launch = fn
 
     def use_wgrad(fn):
         subm._wgrad_launch = fn
@@ -184,11 +208,25 @@ def main():
             print(f"forward {tag}: " + " ".join(f"{t:.4f}" for t in ts) +
                   " ms (device, summed over the calls)")
         use_mma(this_mma)
+        outs = {}
+        for tag, fn in (("this", this_fma), ("parent", other_fma)):
+            use_fma(fn)
+            outs[tag] = [subm.gather_gemm(*a) for a in large_convs]
+        same = sum(torch.equal(x, y) for x, y in zip(outs["this"],
+                                                     outs["parent"]))
+        print(f"bits large train fp32 forward: parent {same} of "
+              f"{len(large_convs)} calls equal")
+        times = in_turns(dt, {"this": this_fma, "parent": other_fma},
+                         subm.gather_gemm, large_convs, use_fma)
+        for tag, ts in times.items():
+            print(f"large train fp32 forward {tag}: " +
+                  " ".join(f"{t:.4f}" for t in ts) +
+                  " ms (device, summed over the calls)")
+        use_fma(this_fma)
         for what, calls in (("fhd train bf16", fhd),
                             ("large train fp32 <= 64", narrow32),
                             ("large train fp32 > 64", wide)):
-            fns = {t: f for t, f in wgrads.items()
-                   if t != "parent" or "> 64" not in what}
+            fns = wgrads
             outs = {}
             for tag, fn in fns.items():
                 use_wgrad(fn)

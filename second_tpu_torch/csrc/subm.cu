@@ -32,7 +32,8 @@
 //     past an example's last active site) writes its zeros and ends. Each
 //     thread then owns one row and loads its tap_idx only where found, eight
 //     taps' loads in flight together, into a [KMAX, MT] table of feature
-//     rows (-1 where not found). Taps are voted in groups of KMAX = 32.
+//     rows (-1 where not found). Taps are voted in groups of KMAX = 32, the
+//     table refilled a group at a time (2. runs once a group).
 //  2. Pipeline: a ring of shared-memory stages holds the gathered A rows
 //     and the matching W slices. Both come in by cp.async, unfound rows
 //     and padded channels zero-filled (src-size 0), so the gathers of the
@@ -46,26 +47,35 @@
 //     row stride padded so each half-warp's float2 stores hit 32 banks) and
 //     leave as one contiguous run of float4 stores (the tile's output rows
 //     are contiguous in [B*Q, D]), full 128-byte lines.
-// W is taken packed as [K, CP, DP] (the wrapper pads C to CP in {4, 8, 16,
-// 32, 64, 128} and D to a multiple of 8 with zeros; at the main path's
-// widths it is the weight tensor as it is). Both entries take C and D up to
-// 128 (SpMiddleFHDLarge's deep stages; VoxelFeatureExtractor's 128-wide
-// output into a middle's first conv).
+// W is taken packed as [K, CP, DP] (the wrapper pads C to CP, a power of
+// two from 4 to 64 or above 64 a multiple of 64, and D to a multiple of 8
+// with zeros; at the main path's widths it is the weight tensor as it is).
+// Both entries take any C and D: SpMiddleFHDLarge's 128-wide deep stages,
+// an encoder's 128 or 256 channels into a middle's first conv, a
+// bottleneck's 256. Where CP is at most 128 and (bf16) K at most KMAX, a
+// tap's columns are found by shifts (template argument GEN false: the
+// instantiations every config of the repo ran before wider convs were
+// taken); otherwise (GEN) a stage of columns lies within one tap wherever
+// CP exceeds the stage (CP a multiple of 64: a tap spans CP / 64 bf16 or
+// CP / 32 fp32 stages), its tap and first channel found by one division
+// a stage, and the bf16 entry walks the taps in vote groups as the fp32
+// one does.
 //
 // subm_gather_gemm_mma (bf16 features and weights): stages of KS = 64
 // columns of the voted taps concatenated, 64 / CP taps a stage (16 at C =
-// 4, 4 at C = 16, 1 at C = 64, half of one at C = 128), A
+// 4, 4 at C = 16, 1 at C = 64, half of one at C = 128, 1 / 4 at C =
+// 256), A
 // [MT, 64] bf16 by 16-byte copies where C is a multiple of 8 (8 bytes at C =
 // 4, element by element otherwise); per k16 each warp loads two A fragments
 // (ldmatrix) and every B fragment once (ldmatrix.trans) and issues 2 x DP/8
 // mma.sync.m16n8k16 bf16 with fp32 accumulators. bf16 x bf16 products are
 // exact in fp32 and the sums stay fp32, so only the order of the sums
 // differs from the plain version. Row strides are padded by 16 bytes so
-// ldmatrix reads no bank twice. At most KMAX taps. A block makes at most
+// ldmatrix reads no bank twice. Any number of taps. A block makes at most
 // MMA_NT = 8 n-tiles (64 output columns); wider outputs split a tile's
 // columns evenly over blocks (blockIdx.y: 2 x 64 at D = 128, 2 x 48 at D =
-// 96), each gathering the same rows, rather than doubling each warp's
-// accumulators.
+// 96, 4 x 64 at D = 256), each gathering the same rows, rather than
+// doubling each warp's accumulators.
 //
 // subm_gather_gemm_fma (fp32 features and weights, any number of taps):
 // the port of the same Pallas kernel on an fp32 config, where it is the
@@ -123,7 +133,7 @@ constexpr int F_A_LD = F_KS + 4;    // fp32 A row stride, floats (144 bytes)
 constexpr int F_STAGES = 3;         // fp32 ring: 2 blocks an SM
 constexpr int F_NT = 4;             // fp32: at most 32 output columns a block
 constexpr int MMA_NT = 8;           // bf16: at most 64 output columns a block
-constexpr int MAX_C = 128;          // input and output channels, both entries
+constexpr int NARROW_CP = 128;      // the widest CP taken by shifts (!GEN)
 
 enum AMode { A_CP16 = 0, A_CP8 = 1, A_ELEM = 2 };
 
@@ -217,6 +227,34 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   asm("cvt.rna.tf32.f32 %0, %1;\n"
       : "=r"(small)
       : "f"(x - __uint_as_float(big)));
+}
+
+// Column j of a stage of `ks` columns starting at column j0 of the voted
+// taps concatenated (CP columns a tap) -> (voted tap a, channel c). By
+// shifts (cp_shift = log2 CP) unless GEN and CP >= ks: then CP is a
+// multiple of ks, the stage lies within one tap, and (sa, sc), the
+// stage's tap and first channel, were found once by `stage_origin`.
+template <bool GEN>
+__device__ __forceinline__ void column(int j, int j0, int ks, int CP,
+                                       int cp_shift, int sa, int sc, int& a,
+                                       int& c) {
+  if (GEN && CP >= ks) {
+    a = sa;
+    c = sc + (j - j0);
+  } else {
+    a = j >> cp_shift;
+    c = j & (CP - 1);
+  }
+}
+
+template <bool GEN>
+__device__ __forceinline__ void stage_origin(int j0, int ks, int CP, int& sa,
+                                             int& sc) {
+  sa = sc = 0;
+  if (GEN && CP >= ks) {
+    sa = j0 / CP;
+    sc = j0 - sa * CP;
+  }
 }
 
 template <int NT>
@@ -403,15 +441,17 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][NT][4],
 
 // NT: n-tiles of 8 output columns a block; the block makes columns d0 ..
 // d0 + 8 NT - 1 (d0 = 8 NT blockIdx.y) of the DP packed ones (DP a multiple
-// of 8; DP = 8 NT where one block makes them all). cp_shift = log2(CP).
-template <int NT>
+// of 8; DP = 8 NT where one block makes them all). cpx: log2(CP) where
+// !GEN (CP <= 128, K <= KMAX), CP itself where GEN (any CP the wrapper
+// packs, any K: the taps in vote groups of KMAX).
+template <int NT, bool GEN>
 __global__ void __launch_bounds__(MMA_THREADS, 3)
     gather_gemm_mma_kernel(const __nv_bfloat16* __restrict__ feat,
                            const int32_t* __restrict__ tap_idx,
                            const uint8_t* __restrict__ found,
                            const __nv_bfloat16* __restrict__ w,
                            float* __restrict__ out, int B, int N, int Q, int K,
-                           int C, int cp_shift, int D, int DP, int a_mode) {
+                           int C, int cpx, int D, int DP, int a_mode) {
   constexpr int W_LD = w_ld<NT>();
   static_assert(MT * out_ld<NT>() * 4 <= mma_smem_bytes<NT>(),
                 "the epilogue tile fits the ring");
@@ -429,136 +469,182 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = B * Q;
   const int m0 = blockIdx.x * MT;
-  const int CP = 1 << cp_shift;
+  // where GEN, cp_shift is used only where CP < KS (a power of two)
+  const int CP = GEN ? cpx : 1 << cpx;
+  const int cp_shift = GEN ? __ffs(cpx) - 1 : cpx;
   const int rows = min(MT, M - m0);
   const int d0 = blockIdx.y * NT * 8;
   const int cols = min(NT * 8, D - d0);
   // 16-byte aligned: m0 % 128 == 0 and d0 % 8 == 0
   float* o = out + (long long)m0 * D + d0;
 
-  // 0-1. the tile's rulebook: one group of K <= KMAX taps
-  if (tid == 0) s_mask = 0;
-  tile_rows(m0, M, N, Q, K, s_off, s_boff);
-  __syncthreads();
-  vote_taps(found, Q, K, 0, K, m0, rows, s_off, s_found, &s_mask);
-  __syncthreads();
-  const unsigned mask = s_mask;
-  const int nact = __popc(mask);
-  if (nact == 0) {                       // no tap found: zeros, no pipeline
-    zero_tile(o, rows, D, cols);
-    return;
-  }
-  tap_rows(tap_idx, N, Q, 0, K, mask, s_off, s_boff, s_found, s_row, s_list);
-  __syncthreads();
-
-  // 2. the pipeline over stages of 64 columns of the voted taps
-  // concatenated: column j is channel j % CP of voted tap j / CP, so a
-  // stage holds 64 / CP taps, or half of one at CP = 128
-  const int acols = nact << cp_shift;
-  const int nst = (acols + KS - 1) / KS;
-
-  auto load = [&](int s, int buf) {
-    __nv_bfloat16* as = s_a + buf * MT * A_LD;
-    __nv_bfloat16* ws = s_w + buf * KS * W_LD;
-    const int j0 = s * KS;
-    if (a_mode == A_CP16) {          // 8 units of 16 bytes a row
-#pragma unroll
-      for (int i = 0; i < MT * 8 / MMA_THREADS; ++i) {
-        const int u = tid + i * MMA_THREADS;
-        const int r = u >> 3, col = (u & 7) * 8;
-        const int j = j0 + col;
-        const int a = j >> cp_shift, c = j & (CP - 1);
-        const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
-        cp_async16(as + r * A_LD + col,
-                   row >= 0 ? feat + (long long)row * C + c : feat, row >= 0);
-      }
-    } else if (a_mode == A_CP8) {    // 16 units of 8 bytes a row
-#pragma unroll
-      for (int i = 0; i < MT * 16 / MMA_THREADS; ++i) {
-        const int u = tid + i * MMA_THREADS;
-        const int r = u >> 4, col = (u & 15) * 4;
-        const int j = j0 + col;
-        const int a = j >> cp_shift, c = j & (CP - 1);
-        const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
-        cp_async8(as + r * A_LD + col,
-                  row >= 0 ? feat + (long long)row * C + c : feat, row >= 0);
-      }
-    } else {                         // element by element
-      for (int e = tid; e < MT * KS; e += MMA_THREADS) {
-        const int r = e / KS, col = e % KS;
-        const int j = j0 + col;
-        const int a = j >> cp_shift, c = j & (CP - 1);
-        const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
-        as[r * A_LD + col] = row >= 0 ? feat[(long long)row * C + c]
-                                      : __float2bfloat16(0.f);
-      }
-    }
-    // W: 64 rows (column j of A: voted tap j / CP, channel j % CP) of the
-    // block's 8 NT columns, NT units of 16 bytes (zeros past DP)
-    for (int u = tid; u < KS * NT; u += MMA_THREADS) {
-      const int kr = u / NT, cu = u - kr * NT;
-      const int j = j0 + kr;
-      const int a = j >> cp_shift, kk = j & (CP - 1);
-      const bool ok = a < nact && d0 + cu * 8 < DP;
-      cp_async16(ws + kr * W_LD + cu * 8,
-                 ok ? w + ((long long)s_list[a] * CP + kk) * DP + d0 + cu * 8
-                    : w,
-                 ok);
-    }
-  };
-
   float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nst) load(s, s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < nst; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();                 // stage s landed; s - 1 is consumed
-    if (s + STAGES - 1 < nst) load(s + STAGES - 1, (s + STAGES - 1) % STAGES);
-    cp_async_commit();
+  // 2. the pipeline over stages of 64 columns of the voted taps of the
+  // group starting at tap kg, concatenated: column j is channel j % CP of
+  // voted tap j / CP, so a stage holds 64 / CP taps, or part of one where
+  // CP > 64
+  auto pipeline = [&](int kg, int nact) {
+    const int acols = GEN ? nact * CP : nact << cp_shift;
+    const int nst = (acols + KS - 1) / KS;
 
-    const int buf = s % STAGES;
-    const __nv_bfloat16* as = s_a + buf * MT * A_LD;
-    const __nv_bfloat16* ws = s_w + buf * KS * W_LD;
-    const int ksteps = (min(KS, acols - s * KS) + 15) >> 4;
+    auto load = [&](int s, int buf) {
+      __nv_bfloat16* as = s_a + buf * MT * A_LD;
+      __nv_bfloat16* ws = s_w + buf * KS * W_LD;
+      const int j0 = s * KS;
+      int sa, sc;
+      stage_origin<GEN>(j0, KS, CP, sa, sc);
+      if (a_mode == A_CP16) {          // 8 units of 16 bytes a row
 #pragma unroll
-    for (int ks = 0; ks < KS / 16; ++ks) {
-      if (ks >= ksteps) break;
-      uint32_t a[2][4];
+        for (int i = 0; i < MT * 8 / MMA_THREADS; ++i) {
+          const int u = tid + i * MMA_THREADS;
+          const int r = u >> 3, col = (u & 7) * 8;
+          int a, c;
+          column<GEN>(j0 + col, j0, KS, CP, cp_shift, sa, sc, a, c);
+          const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
+          cp_async16(as + r * A_LD + col,
+                     row >= 0 ? feat + (long long)row * C + c : feat,
+                     row >= 0);
+        }
+      } else if (a_mode == A_CP8) {    // 16 units of 8 bytes a row
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[mt], as + (warp * 32 + mt * 16 + (lane & 15)) * A_LD +
-                               ks * 16 + (lane >> 4) * 8);
-      const __nv_bfloat16* wrow = ws + (ks * 16 + (lane & 15)) * W_LD;
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, wrow + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        for (int i = 0; i < MT * 16 / MMA_THREADS; ++i) {
+          const int u = tid + i * MMA_THREADS;
+          const int r = u >> 4, col = (u & 15) * 4;
+          int a, c;
+          column<GEN>(j0 + col, j0, KS, CP, cp_shift, sa, sc, a, c);
+          const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
+          cp_async8(as + r * A_LD + col,
+                    row >= 0 ? feat + (long long)row * C + c : feat,
+                    row >= 0);
+        }
+      } else {                         // element by element
+        for (int e = tid; e < MT * KS; e += MMA_THREADS) {
+          const int r = e / KS, col = e % KS;
+          int a, c;
+          column<GEN>(j0 + col, j0, KS, CP, cp_shift, sa, sc, a, c);
+          const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
+          as[r * A_LD + col] = row >= 0 ? feat[(long long)row * C + c]
+                                        : __float2bfloat16(0.f);
         }
       }
-      if (NT & 1) {
-        uint32_t b[2];
-        ldmatrix_x2_trans(b, wrow + (NT - 1) * 8);
+      // W: 64 rows (column j of A: tap kg + s_list[j / CP], channel j % CP)
+      // of the block's 8 NT columns, NT units of 16 bytes (zeros past DP)
+      for (int u = tid; u < KS * NT; u += MMA_THREADS) {
+        const int kr = u / NT, cu = u - kr * NT;
+        int a, kk;
+        column<GEN>(j0 + kr, j0, KS, CP, cp_shift, sa, sc, a, kk);
+        const bool ok = a < nact && d0 + cu * 8 < DP;
+        cp_async16(ws + kr * W_LD + cu * 8,
+                   ok ? w + ((long long)(kg + s_list[a]) * CP + kk) * DP +
+                            d0 + cu * 8
+                      : w,
+                   ok);
+      }
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nst) load(s, s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();                 // stage s landed; s - 1 is consumed
+      if (s + STAGES - 1 < nst)
+        load(s + STAGES - 1, (s + STAGES - 1) % STAGES);
+      cp_async_commit();
+
+      const int buf = s % STAGES;
+      const __nv_bfloat16* as = s_a + buf * MT * A_LD;
+      const __nv_bfloat16* ws = s_w + buf * KS * W_LD;
+      const int ksteps = (min(KS, acols - s * KS) + 15) >> 4;
+#pragma unroll
+      for (int ks = 0; ks < KS / 16; ++ks) {
+        if (ks >= ksteps) break;
+        uint32_t a[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
-          mma_bf16(acc[mt][NT - 1], a[mt], b[0], b[1]);
+          ldmatrix_x4(a[mt], as + (warp * 32 + mt * 16 + (lane & 15)) * A_LD +
+                                 ks * 16 + (lane >> 4) * 8);
+        const __nv_bfloat16* wrow = ws + (ks * 16 + (lane & 15)) * W_LD;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, wrow + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+          }
+        }
+        if (NT & 1) {
+          uint32_t b[2];
+          ldmatrix_x2_trans(b, wrow + (NT - 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_bf16(acc[mt][NT - 1], a[mt], b[0], b[1]);
+        }
       }
     }
+    cp_async_wait<0>();
+  };
+
+  if constexpr (!GEN) {
+    // 0-1. the tile's rulebook: one group of K <= KMAX taps
+    if (tid == 0) s_mask = 0;
+    tile_rows(m0, M, N, Q, K, s_off, s_boff);
+    __syncthreads();
+    vote_taps(found, Q, K, 0, K, m0, rows, s_off, s_found, &s_mask);
+    __syncthreads();
+    const unsigned mask = s_mask;
+    const int nact = __popc(mask);
+    if (nact == 0) {                     // no tap found: zeros, no pipeline
+      zero_tile(o, rows, D, cols);
+      return;
+    }
+    tap_rows(tap_idx, N, Q, 0, K, mask, s_off, s_boff, s_found, s_row,
+             s_list);
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    pipeline(0, nact);
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    tile_rows(m0, M, N, Q, K, s_off, s_boff);
+    bool any = false;                    // block-uniform
+    for (int kg = 0; kg < K; kg += KMAX) {
+      // 0-1. the group's rulebook, as the fp32 kernel takes it: the mask
+      // is zeroed before the barrier that precedes the votes, and every
+      // thread read the last group's mask before its pipeline's barriers
+      const int nk = min(KMAX, K - kg);
+      if (tid == 0) s_mask = 0;
+      __syncthreads();
+      vote_taps(found, Q, K, kg, nk, m0, rows, s_off, s_found, &s_mask);
+      __syncthreads();
+      const unsigned mask = s_mask;
+      const int nact = __popc(mask);
+      if (nact == 0) continue;
+      any = true;
+      tap_rows(tap_idx, N, Q, kg, nk, mask, s_off, s_boff, s_found, s_row,
+               s_list);
+      __syncthreads();
+      pipeline(kg, nact);
+    }
+    if (!any) {                          // no tap found: zeros
+      zero_tile(o, rows, D, cols);
+      return;
+    }
   }
-  cp_async_wait<0>();
   __syncthreads();
   store_tile<NT>(acc, reinterpret_cast<float*>(smem), o, rows, D, cols);
 }
@@ -567,15 +653,16 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
 
 // NT: n-tiles of 8 output columns a block; the block makes columns d0 ..
 // d0 + 8 NT - 1 (d0 = 8 NT blockIdx.y) of the DP packed ones (DP a multiple
-// of 8). cp_shift = log2(CP).
-template <int NT>
+// of 8). cpx: log2(CP) where !GEN (CP <= 128), CP itself where GEN (a
+// multiple of 64).
+template <int NT, bool GEN>
 __global__ void __launch_bounds__(MMA_THREADS, F_STAGES > 2 ? 2 : 3)
     gather_gemm_tf32_kernel(const float* __restrict__ feat,
                             const int32_t* __restrict__ tap_idx,
                             const uint8_t* __restrict__ found,
                             const float* __restrict__ w,
                             float* __restrict__ out, int B, int N, int Q,
-                            int K, int C, int cp_shift, int D, int DP,
+                            int K, int C, int cpx, int D, int DP,
                             int a_mode) {
   constexpr int W_LD = f_w_ld<NT>();
   static_assert(MT * out_ld<NT>() * 4 <= tf32_smem_bytes<NT>(),
@@ -595,7 +682,8 @@ __global__ void __launch_bounds__(MMA_THREADS, F_STAGES > 2 ? 2 : 3)
   const int g = lane >> 2, t = lane & 3;        // the mma fragments' lanes
   const int M = B * Q;
   const int m0 = blockIdx.x * MT;
-  const int CP = 1 << cp_shift;
+  const int CP = GEN ? cpx : 1 << cpx;
+  const int cp_shift = GEN ? __ffs(cpx) - 1 : cpx;  // GEN: unused
   const int rows = min(MT, M - m0);
   const int d0 = blockIdx.y * NT * 8;
   const int cols = min(NT * 8, D - d0);
@@ -640,19 +728,21 @@ __global__ void __launch_bounds__(MMA_THREADS, F_STAGES > 2 ? 2 : 3)
 
     // 2. the pipeline over stages of 32 A columns of the voted taps
     // concatenated: column j is channel j % CP of voted tap j / CP
-    const int acols = nact << cp_shift;
+    const int acols = GEN ? nact * CP : nact << cp_shift;
     const int nst = (acols + F_KS - 1) / F_KS;
     auto load = [&](int s, int buf) {
       float* as = s_a + buf * MT * F_A_LD;
       float* ws = s_w + buf * F_KS * W_LD;
       const int j0 = s * F_KS;
+      int sa, sc;
+      stage_origin<GEN>(j0, F_KS, CP, sa, sc);
       if (a_mode == A_CP16) {        // 8 units of 4 floats a row
 #pragma unroll
         for (int i = 0; i < MT * 8 / MMA_THREADS; ++i) {
           const int u = tid + i * MMA_THREADS;
           const int r = u >> 3, col = (u & 7) * 4;
-          const int j = j0 + col;
-          const int a = j >> cp_shift, c = j & (CP - 1);
+          int a, c;
+          column<GEN>(j0 + col, j0, F_KS, CP, cp_shift, sa, sc, a, c);
           const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
           cp_async16(as + r * F_A_LD + col,
                      row >= 0 ? feat + (long long)row * C + c : feat,
@@ -661,8 +751,8 @@ __global__ void __launch_bounds__(MMA_THREADS, F_STAGES > 2 ? 2 : 3)
       } else {                       // one float a copy
         for (int e = tid; e < MT * F_KS; e += MMA_THREADS) {
           const int r = e / F_KS, col = e % F_KS;
-          const int j = j0 + col;
-          const int a = j >> cp_shift, c = j & (CP - 1);
+          int a, c;
+          column<GEN>(j0 + col, j0, F_KS, CP, cp_shift, sa, sc, a, c);
           const int row = (a < nact && c < C) ? s_row[s_list[a]][r] : -1;
           cp_async4(as + r * F_A_LD + col,
                     row >= 0 ? feat + (long long)row * C + c : feat,
@@ -673,8 +763,8 @@ __global__ void __launch_bounds__(MMA_THREADS, F_STAGES > 2 ? 2 : 3)
       // of the block's 8 NT columns, 2 NT units of 16 bytes (zeros past DP)
       for (int u = tid; u < F_KS * 2 * NT; u += MMA_THREADS) {
         const int kr = u / (2 * NT), cu = u - kr * (2 * NT);
-        const int j = j0 + kr;
-        const int a = j >> cp_shift, kk = j & (CP - 1);
+        int a, kk;
+        column<GEN>(j0 + kr, j0, F_KS, CP, cp_shift, sa, sc, a, kk);
         const bool ok = a < nact && d0 + cu * 4 < DP;
         cp_async16(ws + kr * W_LD + cu * 4,
                    ok ? w + ((long long)(kg + s_list[a]) * CP + kk) * DP +
@@ -764,63 +854,75 @@ cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
 }
 
 // NT n-tiles a block, `splits` blocks across the columns of a tile.
-template <int NT>
+template <int NT, bool GEN>
 cudaError_t launch_mma(const void* feat, const void* tap_idx,
                        const void* found, const void* w, void* out, int B,
-                       int N, int Q, int K, int C, int cp_shift, int D,
-                       int DP, int splits, int a_mode, cudaStream_t stream) {
+                       int N, int Q, int K, int C, int cpx, int D, int DP,
+                       int splits, int a_mode, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<NT>();
   static bool configured = false;
-  cudaError_t e = configure(gather_gemm_mma_kernel<NT>, smem, configured);
+  cudaError_t e = configure(gather_gemm_mma_kernel<NT, GEN>, smem,
+                            configured);
   if (e != cudaSuccess) return e;
   const dim3 blocks((unsigned)(((long long)B * Q + MT - 1) / MT),
                     (unsigned)splits);
-  gather_gemm_mma_kernel<NT><<<blocks, MMA_THREADS, smem, stream>>>(
+  gather_gemm_mma_kernel<NT, GEN><<<blocks, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(feat),
       static_cast<const int32_t*>(tap_idx),
       static_cast<const uint8_t*>(found),
       static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out), B, N, Q,
-      K, C, cp_shift, D, DP, a_mode);
+      K, C, cpx, D, DP, a_mode);
   return cudaGetLastError();
 }
 
 // NT n-tiles a block, DP / (8 NT) blocks across the columns of a tile.
-template <int NT>
+template <int NT, bool GEN>
 cudaError_t launch_tf32(const void* feat, const void* tap_idx,
                         const void* found, const void* w, void* out, int B,
-                        int N, int Q, int K, int C, int cp_shift, int D,
-                        int DP, int a_mode, cudaStream_t stream) {
+                        int N, int Q, int K, int C, int cpx, int D, int DP,
+                        int a_mode, cudaStream_t stream) {
   constexpr size_t smem = tf32_smem_bytes<NT>();
   static bool configured = false;
-  cudaError_t e = configure(gather_gemm_tf32_kernel<NT>, smem, configured);
+  cudaError_t e = configure(gather_gemm_tf32_kernel<NT, GEN>, smem,
+                            configured);
   if (e != cudaSuccess) return e;
   const dim3 blocks((unsigned)(((long long)B * Q + MT - 1) / MT),
                     (unsigned)((DP + NT * 8 - 1) / (NT * 8)));
-  gather_gemm_tf32_kernel<NT><<<blocks, MMA_THREADS, smem, stream>>>(
+  gather_gemm_tf32_kernel<NT, GEN><<<blocks, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(feat), static_cast<const int32_t*>(tap_idx),
       static_cast<const uint8_t*>(found), static_cast<const float*>(w),
-      static_cast<float*>(out), B, N, Q, K, C, cp_shift, D, DP, a_mode);
+      static_cast<float*>(out), B, N, Q, K, C, cpx, D, DP, a_mode);
   return cudaGetLastError();
 }
 
+// CP as the wrapper packs it: a power of two from 4 to 64, or above 64 a
+// multiple of 64, at least C; the rows, a vote group's columns and the
+// grid within what int32 indices and the grid's y extent take.
 bool widths_ok(const void* w, const void* out, int B, int N, int Q, int K,
-               int C, int cp_shift, int D) {
-  return C >= 1 && C <= MAX_C && D >= 1 && D <= MAX_C && K >= 1 &&
-         cp_shift >= 2 && cp_shift <= 7 && (1 << cp_shift) >= C &&
+               int C, int CP, int D) {
+  return C >= 1 && D >= 1 && K >= 1 && CP >= C && CP >= 4 &&
+         (CP <= 64 ? (CP & (CP - 1)) == 0 : CP % 64 == 0) &&
+         (long long)KMAX * CP < (1LL << 31) &&
+         (long long)(D + 7) / 8 <= 65535LL &&
          (long long)B * Q < (1LL << 31) && (long long)B * N < (1LL << 31) &&
          !((uintptr_t)w & 15) && !((uintptr_t)out & 15);
 }
 
+int log2_of(int CP) {                    // CP a power of two
+  int s = 0;
+  while ((1 << s) < CP) ++s;
+  return s;
+}
+
 }  // namespace
 
-// bf16 features [B, N, C] and packed weights [K, CP, DP] (CP = 1 << cp_shift
-// in 4..128, at least C; DP = D rounded up to 8; C, D <= 128), K <= 32,
-// tensor cores.
+// bf16 features [B, N, C] and packed weights [K, CP, DP] (CP as widths_ok
+// takes it; DP = D rounded up to 8), any number of taps, tensor cores.
 extern "C" int subm_gather_gemm_mma(const void* feat, const void* tap_idx,
                                     const void* found, const void* w,
                                     void* out, int B, int N, int Q, int K,
-                                    int C, int cp_shift, int D, void* stream) {
-  if (!widths_ok(w, out, B, N, Q, K, C, cp_shift, D) || K > KMAX)
+                                    int C, int CP, int D, void* stream) {
+  if (!widths_ok(w, out, B, N, Q, K, C, CP, D))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * Q == 0) return 0;
   const uintptr_t fa = (uintptr_t)feat;
@@ -828,15 +930,31 @@ extern "C" int subm_gather_gemm_mma(const void* feat, const void* tap_idx,
                      : (C % 4 == 0 && !(fa & 7)) ? A_CP8
                                                  : A_ELEM;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool gen = CP > NARROW_CP || K > KMAX;
+  const int cpx = gen ? CP : log2_of(CP);
   // up to MMA_NT n-tiles a block; wider outputs split evenly over blocks
   const int nt = (D + 7) / 8, DP = 8 * nt;
   const int splits = (nt + MMA_NT - 1) / MMA_NT;
+  const int per = (nt + splits - 1) / splits;
   cudaError_t e;
-  switch ((nt + splits - 1) / splits) {
-#define SUBM_MMA_CASE(n)                                                     \
-  case n:                                                                    \
-    e = launch_mma<n>(feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, \
-                      D, DP, splits, a_mode, s);                             \
+  if (gen) {
+    // 2, 4 or 8 n-tiles a block (the columns past DP are zero weights):
+    // three instantiations, not eight, keep the build short
+    const int n = per <= 2 ? 2 : per <= 4 ? 4 : 8;
+    e = n == 2 ? launch_mma<2, true>(feat, tap_idx, found, w, out, B, N, Q,
+                                     K, C, cpx, D, DP, splits, a_mode, s)
+        : n == 4
+            ? launch_mma<4, true>(feat, tap_idx, found, w, out, B, N, Q, K,
+                                  C, cpx, D, DP, splits, a_mode, s)
+            : launch_mma<8, true>(feat, tap_idx, found, w, out, B, N, Q, K,
+                                  C, cpx, D, DP, splits, a_mode, s);
+    return (int)e;
+  }
+  switch (per) {
+#define SUBM_MMA_CASE(n)                                                    \
+  case n:                                                                   \
+    e = launch_mma<n, false>(feat, tap_idx, found, w, out, B, N, Q, K, C,   \
+                             cpx, D, DP, splits, a_mode, s);                \
     break;
     SUBM_MMA_CASE(1)
     SUBM_MMA_CASE(2)
@@ -857,20 +975,30 @@ extern "C" int subm_gather_gemm_mma(const void* feat, const void* tap_idx,
 extern "C" int subm_gather_gemm_fma(const void* feat, const void* tap_idx,
                                     const void* found, const void* w,
                                     void* out, int B, int N, int Q, int K,
-                                    int C, int cp_shift, int D, void* stream) {
-  if (!widths_ok(w, out, B, N, Q, K, C, cp_shift, D))
+                                    int C, int CP, int D, void* stream) {
+  if (!widths_ok(w, out, B, N, Q, K, C, CP, D))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * Q == 0) return 0;
   const int a_mode =
       (C % 4 == 0 && !((uintptr_t)feat & 15)) ? A_CP16 : A_ELEM;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool gen = CP > NARROW_CP;
+  const int cpx = gen ? CP : log2_of(CP);
   const int nt = (D + 7) / 8, DP = 8 * nt;
+  // GEN: 2 or 4 n-tiles a block (zero weights past DP)
+  if (gen)
+    return (int)(nt <= 2 ? launch_tf32<2, true>(feat, tap_idx, found, w, out,
+                                                B, N, Q, K, C, cpx, D, DP,
+                                                a_mode, s)
+                         : launch_tf32<4, true>(feat, tap_idx, found, w, out,
+                                                B, N, Q, K, C, cpx, D, DP,
+                                                a_mode, s));
   // up to F_NT n-tiles a block; wider outputs split over blocks
   switch (nt < F_NT ? nt : F_NT) {
-#define SUBM_TF32_CASE(n)                                                    \
-  case n:                                                                    \
-    return (int)launch_tf32<n>(feat, tap_idx, found, w, out, B, N, Q, K, C, \
-                               cp_shift, D, DP, a_mode, s);
+#define SUBM_TF32_CASE(n)                                                   \
+  case n:                                                                   \
+    return (int)launch_tf32<n, false>(feat, tap_idx, found, w, out, B, N, Q, \
+                                      K, C, cpx, D, DP, a_mode, s);
     SUBM_TF32_CASE(1)
     SUBM_TF32_CASE(2)
     SUBM_TF32_CASE(3)

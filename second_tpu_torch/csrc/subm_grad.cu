@@ -26,8 +26,9 @@
 // Design (one launch a call). A block owns one tap k, a chunk of the
 // batch-flattened rows m = b*Q + q (a chunk may span examples) and one
 // tile of at most 64 x 64 of the tap's [C, D] (blockIdx.z; one tile where
-// C and D are at most 64, up to four at 128 x 128: each tile's blocks scan
-// the found bytes and gather their own columns of the rows again). Whether
+// C and D are at most 64, four at 128 x 128, ceil(C / 64) ceil(D / 64) at
+// any width: each tile's blocks scan the found bytes and gather their own
+// columns of the rows again). Whether
 // a call is tiled is a template argument (WIDE): where C and D are at most
 // 64 the tile's origin, widths and strides are the call's own, known to
 // the compiler as such, and the narrow calls of every train step take the
@@ -118,7 +119,6 @@ constexpr int MAX_CHUNKS = WIN;            // the last block lists the used flag
 constexpr int GROUP = 8;                   // chunks a group of the sum
 constexpr int MAX_ORDERED_TAPS = 64;       // taps the grid can reorder
 constexpr int TILE_W = 64;                 // a block's [C, D] tile: 64 x 64
-constexpr int MAX_C = 128;                 // input and output channels
 
 struct Args {
   const void* feat;
@@ -304,11 +304,23 @@ __device__ __forceinline__ void issue_rows(unsigned char* dst, int ld_bytes,
 // tiles of D, even (DP = 8 NT). Each of the 8 warps owns one channel tile
 // and a share of the tile's rows: 4 x 2 warps at MTC = 4 (32 rows a warp),
 // 2 x 4 at MTC = 2 (16 rows), 1 x 8 at MTC = 1 with 128-row tiles (16 rows).
-template <int MTC, int NT>
+// FRESH (calls with C or D past 128): a stage's products go to fresh
+// registers and are added to the accumulators with compensation, as the
+// fp32 path adds its tiles. A chain of mma.sync over all of a chunk's rows
+// drifts from the exact sum as the chunk grows: without the compensation
+// a 256 x 256 call over the fhd scene's stage 0 lay 2.9e-6 of the scale
+// from the fp64 sum and the [27, 256, 16] call of the vfe256 train step
+// 8.3e-6, with it 1.6e-7 and 3.0e-7 (the fp32 plain version 5.4e-7 and
+// 2.7e-5; NVIDIA H100 80GB HBM3, 700.00 W, scripts/torch_wide_wgrad.py
+// --old_grad_src). Two
+// blocks an SM (the accumulators, a stage's products and the carried
+// roundings); the calls up to 128 channels keep FRESH off and their
+// instantiations as they were.
+template <int MTC, int NT, bool FRESH = false>
 struct MmaPath {
   using T = __nv_bfloat16;
   static constexpr int MIN_BLOCKS = 3;
-  static constexpr int MIN_BLOCKS_WIDE = 3;
+  static constexpr int MIN_BLOCKS_WIDE = FRESH ? 2 : 3;
   static constexpr bool ZERO_RING = true;       // padded channels read as 0
   static constexpr int TILE = MTC == 1 ? 128 : 64;   // found rows a tile
   static constexpr int CP = MTC * 16, DP = NT * 8;
@@ -326,16 +338,48 @@ struct MmaPath {
   }
 
   float acc[NT][4];
+  float cmp[FRESH ? NT : 1][4];           // FRESH: the carried roundings
 
   __device__ void init(int, int, int, int) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    if constexpr (FRESH)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cmp[j][e] = 0.f;
   }
 
   // the product of one stage, whose rows from `rows` on are zero
   __device__ void compute(const unsigned char* stage, int rows) {
+    if constexpr (FRESH) {
+      float p[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+      products(stage, rows, p);
+      // compensated sum over the stages (Kahan): the rounding of acc + p
+      // is carried to the next stage
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = p[j][e] - cmp[j][e];
+          const float t = acc[j][e] + y;
+          cmp[j][e] = (t - acc[j][e]) - y;
+          acc[j][e] = t;
+        }
+      return;
+    }
+    products(stage, rows, acc);
+  }
+
+  // one stage's products, accumulated into d
+  __device__ __forceinline__ void products(const unsigned char* stage,
+                                           int rows, float (&d)[NT][4]) {
     const T* sf = reinterpret_cast<const T*>(stage);
     const T* sg = sf + TILE * F_LD;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -353,8 +397,8 @@ struct MmaPath {
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, grow + np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        mma_bf16(d[2 * np], a, b[0], b[1]);
+        mma_bf16(d[2 * np + 1], a, b[2], b[3]);
       }
     }
   }
@@ -813,6 +857,11 @@ template <bool WIDE>
 cudaError_t launch_paths(int mma, const Args& a, int chunks, int tiles,
                          cudaStream_t s) {
   if (!mma) return launch<FmaPath, WIDE>(a, chunks, tiles, s);
+  // past 128 channels (tiled calls only): FRESH, one instantiation of full
+  // 64 x 64 tiles (a narrower C or D leaves zero columns in the ring)
+  if constexpr (WIDE)
+    if (a.C > 128 || a.D > 128)
+      return launch<MmaPath<4, 8, true>, WIDE>(a, chunks, tiles, s);
   const int nt = (a.DB + 15) / 16 * 2;
   return a.CB <= 16   ? launch_mma<1, WIDE>(nt, a, chunks, tiles, s)
          : a.CB <= 32 ? launch_mma<2, WIDE>(nt, a, chunks, tiles, s)
@@ -835,7 +884,7 @@ int copy_unit(int width, int esz, const void* p) {
 
 // dW [K, C, D] fp32 of features [B, N, C] and dout [B, Q, D], both bf16
 // (mma = 1, tensor cores) or both fp32 (mma = 0, CUDA cores), over the
-// rulebook tap_idx/found [B, K, Q], C and D up to 128. With T tiles of
+// rulebook tap_idx/found [B, K, Q], any C and D. With T tiles of
 // [C, D] (64 x 64 blocks), partial [K, chunks, C, D] fp32, used [K, T,
 // chunks] int32, gpartial [K, groups, C, D] fp32 and gused [K, T, groups]
 // int32 (groups = ceil(chunks / 8)) are scratch; counter [K, T, groups + 1]
@@ -849,7 +898,9 @@ extern "C" int subm_wgrad(int mma, const void* feat, const void* tap_idx,
                           int C, int D, int chunk_rows, int chunks,
                           void* stream) {
   const long long M = (long long)B * Q;
-  if (C < 1 || C > MAX_C || D < 1 || D > MAX_C || K < 1 || K > 65535 ||
+  const long long tiles_ll = (long long)((C + TILE_W - 1) / TILE_W) *
+                            ((D + TILE_W - 1) / TILE_W);
+  if (C < 1 || D < 1 || tiles_ll > 65535 || K < 1 || K > 65535 ||
       chunk_rows < 16 || chunk_rows % 16 || chunks < 1 ||
       chunks > MAX_CHUNKS || chunks > 65535 ||
       (long long)chunks * chunk_rows < M ||
@@ -872,7 +923,7 @@ extern "C" int subm_wgrad(int mma, const void* feat, const void* tap_idx,
   a.CB = C < TILE_W ? C : TILE_W;
   a.DB = D < TILE_W ? D : TILE_W;
   a.TD = (D + TILE_W - 1) / TILE_W;
-  const int tiles = (C + TILE_W - 1) / TILE_W * a.TD;
+  const int tiles = (int)tiles_ll;
   a.chunk_rows = chunk_rows;
   // the grid's rows take the taps centre out (a submanifold conv's centre
   // tap finds every active row, its face neighbours the most after it), so

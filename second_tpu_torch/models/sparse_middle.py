@@ -7,8 +7,7 @@ op-spec `SparseMiddleStack` with its seven registry entries, and
 
 Activations are batched active sets (coords, features, valid, keys) of
 static capacity; every sparse conv applies through the gather-GEMM kernel,
-which takes at most `MAX_CHANNELS` input and output channels: a wider conv
-is refused when the block is built.
+at any width.
 """
 
 from __future__ import annotations
@@ -21,18 +20,12 @@ from torch import nn
 
 from ..device import at_least_fp32
 from ..ops import sparse_conv as sp
-from ..ops.cuda.subm import MAX_CHANNELS
 from ..parallel.mesh import global_moments
 from .middle import register_middle
 
 
 def _sparse_kernel(K, cin, cout):
-    """A sparse conv's [K, cin, cout] kernel, refused above the kernels'
-    width."""
-    if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
-        raise ValueError(
-            f"sparse conv {cin} -> {cout} channels: the gather-GEMM kernels "
-            f"take 1..{MAX_CHANNELS} input and output channels")
+    """A sparse conv's [K, cin, cout] kernel."""
     return nn.Parameter(torch.empty(K, cin, cout))
 
 
@@ -208,7 +201,7 @@ class MaxPoolBlock(nn.Module):
 
 def _to_bev(feats, coords, valid, grid):
     """Active set → dense BEV map [B, D*C, H, W] (channel index d*C + c)."""
-    dense = sp.densify(feats, coords, valid, grid)        # [B, D, H, W, C]
+    dense = sp.densify_b(feats, coords, valid, grid)        # [B, D, H, W, C]
     B, D, H, W, C = dense.shape
     return dense.permute(0, 1, 4, 2, 3).reshape(B, D * C, H, W)
 

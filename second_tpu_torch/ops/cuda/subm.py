@@ -52,13 +52,6 @@ launches_wgrad = 0
 launches_wgrad_mma = 0
 launches_wgrad_fma = 0
 
-# the bf16 kernel takes at most this many taps (one vote bit each; the
-# fp32 kernel votes in groups of as many)
-MAX_TAPS_MMA = 32
-# input and output channels the kernels take (the forward's bf16 entry
-# splits more than 64 output columns over blocks, the weight gradient
-# tiles [C, D] in 64 x 64 blocks)
-MAX_CHANNELS = 128
 # the weight-gradient kernel's tile of [C, D]
 WGRAD_TILE = 64
 # the weight-gradient kernel scans a block's rows in windows of this many
@@ -73,11 +66,15 @@ WGRAD_WINDOW = 2048
 WGRAD_BLOCKS_PER_SM = 6
 # at most this many chunks a tap (the partials a tap's sum reads)
 WGRAD_MAX_CHUNKS = 64
+# a call's fp32 partials ([K, chunks, C, D] and the groups' [K, groups, C,
+# D]) stay within this many bytes: fewer chunks a tap where they would not
+# (past 256 x 256 at 27 taps; the repo's configs' calls take at most 13 MB)
+WGRAD_SCRATCH_BYTES = 256 * 2 ** 20
 # the partials of this many consecutive chunks are summed first, then the
 # groups' sums (the kernel's GROUP)
 WGRAD_GROUP = 8
 
-# feat, tap_idx, found, w, out, B, N, Q, K, C, cp_shift, D, stream (both
+# feat, tap_idx, found, w, out, B, N, Q, K, C, CP, D, stream (both
 # gather-GEMM entries)
 _MMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # mma, feat, tap_idx, found, dout, partial, used, gpartial, gused, counter,
@@ -128,10 +125,13 @@ def gather_gemm_plain(features, tap_idx, found, weights):
 
 
 def padded_widths(C: int, D: int):
-    """(CP, DP): the input channels padded to a power of two from 4 to 128,
-    so that a kernel's stage of columns (64 in bf16, 32 in fp32) holds
-    whole taps or a whole half or quarter of one, and the output channels
-    padded to a multiple of 8 (one mma n-tile)."""
+    """(CP, DP): the input channels padded to a power of two from 4 to 64,
+    and above 64 to a multiple of 64 (320 stays 320), so that a kernel's
+    stage of columns (64 in bf16, 32 in fp32) holds whole taps or lies
+    within one; the output channels padded to a multiple of 8 (one mma
+    n-tile)."""
+    if C > 64:
+        return -(-C // 64) * 64, -(-D // 8) * 8
     CP = 4
     while CP < C:
         CP *= 2
@@ -180,9 +180,8 @@ def _check_rulebook(name, features, tap_idx, found, D):
         raise ValueError(
             f"{name}: shapes disagree: features {tuple(features.shape)}, "
             f"tap_idx {tuple(tap_idx.shape)}, found {tuple(found.shape)}")
-    if not 1 <= C <= MAX_CHANNELS or not 1 <= D <= MAX_CHANNELS:
-        raise ValueError(f"{name}: the kernels take 1..{MAX_CHANNELS} input "
-                         f"and output channels, got {C} -> {D}")
+    if C < 1 or D < 1:
+        raise ValueError(f"{name}: no channels, {C} -> {D}")
     if max(B * Q, B * N) >= 2 ** 31:
         raise ValueError(f"{name}: the kernels index rows with int32")
     if found.dtype != torch.bool:
@@ -205,9 +204,6 @@ def _launch_gather_gemm(features, tap_idx, found, weights):
         raise ValueError(f"gather_gemm: weights {tuple(weights.shape)} on "
                          f"{weights.device} do not fit [{K}, {C}, D]")
     mma = features.dtype == torch.bfloat16
-    if mma and K > MAX_TAPS_MMA:
-        raise ValueError(f"gather_gemm: the bf16 kernel takes at most "
-                         f"{MAX_TAPS_MMA} taps, got {K}")
     features = features.contiguous()
     tap_idx = tap_idx.to(torch.int32).contiguous()
     found = found.contiguous()
@@ -221,8 +217,8 @@ def _launch_gather_gemm(features, tap_idx, found, weights):
     launch = (_mma_launch or _resolve_mma()) if mma else \
         (_fma_launch or _resolve_fma())
     rc = launch(features.data_ptr(), tap_idx.data_ptr(), found.data_ptr(),
-                w.data_ptr(), out.data_ptr(), B, N, Q, K, C,
-                CP.bit_length() - 1, D, stream_ptr(dev))
+                w.data_ptr(), out.data_ptr(), B, N, Q, K, C, CP, D,
+                stream_ptr(dev))
     if rc:
         check("subm", rc)
     global launches_mma, launches_fma
@@ -301,17 +297,44 @@ def wgrad_tiles(C: int, D: int) -> int:
     return -(-C // WGRAD_TILE) * -(-D // WGRAD_TILE)
 
 
-def wgrad_chunks(M: int, K: int, sms: int):
+def wgrad_max_chunks(K: int, C: int, D: int) -> int:
+    """The chunks a tap whose fp32 partials, K chunks [C, D] and the
+    groups' sums (one a WGRAD_GROUP chunks), fit WGRAD_SCRATCH_BYTES;
+    WGRAD_MAX_CHUNKS where more would fit, and 1 (no partials) where none
+    does."""
+    per_chunk = 4 * K * C * D * (1 + 1 / WGRAD_GROUP)
+    return max(1, min(WGRAD_MAX_CHUNKS,
+                      int(WGRAD_SCRATCH_BYTES // per_chunk)))
+
+
+def wgrad_chunks(M: int, K: int, sms: int, max_chunks=None):
     """(chunk_rows, chunks): each weight-gradient block owns one tap (one
     tile of it: K counts the (tap, tile) pairs) and `chunk_rows` (a
     multiple of 16: the kernel reads found bytes 8 at a time) of the M
     batch-flattened rows, sized so that the K x chunks blocks come to
     WGRAD_BLOCKS_PER_SM on each of the card's SMs, with at most
-    WGRAD_MAX_CHUNKS chunks a tap. Depends on the shapes and the card only,
-    so the sums run in the same order every time."""
-    want = max(1, min(WGRAD_MAX_CHUNKS, WGRAD_BLOCKS_PER_SM * sms // K))
+    `max_chunks` (WGRAD_MAX_CHUNKS by default) chunks a tap. Depends on
+    the shapes and the card only, so the sums run in the same order every
+    time."""
+    want = max(1, min(max_chunks or WGRAD_MAX_CHUNKS,
+                      WGRAD_BLOCKS_PER_SM * sms // K))
     rows = -(-max(1, -(-M // want)) // 16) * 16
     return rows, max(1, -(-M // rows))
+
+
+def wgrad_plan(M: int, K: int, C: int, D: int, sms: int):
+    """(chunk_rows, chunks) of a weight-gradient call of M rows, K taps and
+    [C, D]. Up to 128 channels the card's blocks are shared over the
+    (tap, tile) pairs (`wgrad_chunks` of K x tiles). Past 128 the chunks
+    are counted from the taps alone: the tiles' blocks fill the card
+    anyway, and the heaviest tap's chunk (a submanifold conv's centre tap
+    finds every row) is what the call waits for: at 256 x 256 on the fhd
+    scene's stage 0, 2 chunks a tap took 1.69 ms in bf16 and 12.76 in
+    fp32, this plan's 29 1.07 and 8.01 (NVIDIA H100 80GB HBM3, 700.00 W;
+    scripts/torch_wide_wgrad.py). Within WGRAD_SCRATCH_BYTES either way."""
+    wide = C > 128 or D > 128
+    return wgrad_chunks(M, K if wide else K * wgrad_tiles(C, D), sms,
+                        wgrad_max_chunks(K, C, D))
 
 
 def _counters(dev, n: int):
@@ -355,11 +378,15 @@ def sparse_wgrad(features, tap_idx, found, grad_out):
         sms = _sm_count[dev.index] = \
             torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = wgrad_tiles(C, D)
-    chunk_rows, chunks = wgrad_chunks(M, K * tiles, sms)
+    chunk_rows, chunks = wgrad_plan(M, K, C, D, sms)
     groups = -(-chunks // WGRAD_GROUP)
-    partial = torch.empty((K, chunks, C, D), dtype=torch.float32, device=dev)
+    # the kernel reads no partials with one chunk a tap, and no groups'
+    # sums with one group
+    partial = torch.empty((K, chunks, C, D) if chunks > 1 else (0,),
+                          dtype=torch.float32, device=dev)
     used = torch.empty((K, tiles, chunks), dtype=torch.int32, device=dev)
-    gpartial = torch.empty((K, groups, C, D), dtype=torch.float32, device=dev)
+    gpartial = torch.empty((K, groups, C, D) if groups > 1 else (0,),
+                           dtype=torch.float32, device=dev)
     gused = torch.empty((K, tiles, groups), dtype=torch.int32, device=dev)
     features = features.contiguous()
     grad_out = grad_out.contiguous()

@@ -1,5 +1,8 @@
-"""Sparse 3D convolution — the port of `second_tpu/ops/sparse_conv.py`'s
-batch-native path.
+"""Sparse 3D convolution — the port of `second_tpu/ops/sparse_conv.py`:
+its batch-native path (the `_b` functions), and its single-example public
+functions (`lookup`, `subm_rulebook`, `subm_conv3d`, `downsample_coords`,
+`sparse_conv3d`, `sparse_max_pool3d`, `densify`), each the B = 1 case of
+its batched counterpart, so it runs through the same kernels on the card.
 
 An active set is (coords [B, N, 3] zyx int32, features [B, N, C], valid
 [B, N]) with static capacity N, kept sorted by linear key (invalid rows
@@ -16,7 +19,7 @@ the JAX package exactly:
   * the tap order is `itertools.product` over (z, y, x), with the kernel
     origin at coords - k//2 (submanifold) or out*stride - pad (strided);
   * strided-conv capacity overflow keeps the rank-stratified subset of the
-    active output sites (`downsample_coords`).
+    active output sites (`downsample_coords_b`).
 
 Applying a rulebook is the gather-GEMM kernel (`ops/cuda/subm.py`), an
 autograd Function whose input gradient applies the same kernel with the
@@ -177,8 +180,8 @@ def out_grid(grid_dhw, kernel_size, stride, padding):
     return tuple(int(v) for v in (g + 2 * p - k) // s + 1)
 
 
-def downsample_coords(coords, valid, grid_dhw, kernel_size, stride, padding,
-                      out_cap):
+def downsample_coords_b(coords, valid, grid_dhw, kernel_size, stride,
+                        padding, out_cap):
     """Active output sites of a strided sparse conv, per example.
 
     Returns (out_coords [B, M, 3] int32 sorted, out_valid [B, M], out_keys
@@ -230,11 +233,17 @@ def downsample_coords(coords, valid, grid_dhw, kernel_size, stride, padding,
 
 
 def sparse_conv3d_b(features, coords, keys_sorted, valid, grid_dhw, weights,
-                    kernel_size, stride, padding, out_cap, bias=None):
+                    kernel_size, stride, padding, out_cap, bias=None,
+                    precomputed=None):
     """Strided sparse conv. Returns (out [B, M, Cout] fp32, out_coords
-    [B, M, 3], out_keys [B, M], out_valid [B, M], out_grid, n_unique [B])."""
-    out_coords, out_valid, out_keys, og, n_unique = downsample_coords(
-        coords, valid, grid_dhw, kernel_size, stride, padding, out_cap)
+    [B, M, 3], out_keys [B, M], out_valid [B, M], out_grid, n_unique [B]).
+    `precomputed` (the tuple `downsample_coords_b` returns) reuses the
+    output sites."""
+    if precomputed is None:
+        precomputed = downsample_coords_b(coords, valid, grid_dhw,
+                                          kernel_size, stride, padding,
+                                          out_cap)
+    out_coords, out_valid, out_keys, og, n_unique = precomputed
     dev = coords.device
     base = out_coords * constant(stride, dev, torch.int32) - \
         constant(padding, dev, torch.int32)
@@ -247,7 +256,7 @@ def sparse_conv3d_b(features, coords, keys_sorted, valid, grid_dhw, weights,
     return out, out_coords, out_keys, out_valid, og, n_unique
 
 
-def densify(features, coords, valid, grid_dhw):
+def densify_b(features, coords, valid, grid_dhw):
     """Scatter active sets [B, N, C] to dense [B, D, H, W, C] canvases."""
     B, N, C = features.shape
     D, H, W = grid_dhw
@@ -263,19 +272,22 @@ def densify(features, coords, valid, grid_dhw):
 
 
 def sparse_max_pool3d_b(features, coords, keys_sorted, valid, grid_dhw,
-                        kernel_size, out_cap):
-    """Sparse max pool, stride = kernel, no padding (JAX
+                        kernel_size, out_cap, stride=None,
+                        padding=(0, 0, 0)):
+    """Sparse max pool, stride the kernel unless given (JAX
     `sparse_max_pool3d_b`). Returns (out [B, M, C] in the feature dtype,
     out_coords [B, M, 3], out_keys [B, M], out_valid [B, M], out_grid,
     n_unique [B]) with M = out_cap: the output sites and their capacity cut
-    are the strided conv's (`downsample_coords`), each valid site takes the
-    max over the taps it found (`amax`: tied entries share the gradient
+    are the strided conv's (`downsample_coords_b`), each valid site takes
+    the max over the taps it found (`amax`: tied entries share the gradient
     evenly, as JAX's reduce-max does), invalid sites are zero."""
     kernel_size = tuple(int(k) for k in kernel_size)
-    out_coords, out_valid, out_keys, og, n_unique = downsample_coords(
-        coords, valid, grid_dhw, kernel_size, kernel_size, (0, 0, 0),
-        out_cap)
-    base = out_coords * constant(kernel_size, coords.device, torch.int32)
+    stride = kernel_size if stride is None else tuple(int(s) for s in stride)
+    out_coords, out_valid, out_keys, og, n_unique = downsample_coords_b(
+        coords, valid, grid_dhw, kernel_size, stride, padding, out_cap)
+    dev = coords.device
+    base = out_coords * constant(stride, dev, torch.int32) - \
+        constant(padding, dev, torch.int32)
     tap_idx, found = build_rulebook_b(keys_sorted, base, out_valid, grid_dhw,
                                       kernel_size)
     rows = _RowsWithGrad.apply(features, tap_idx)         # [B, K, M, C]
@@ -283,3 +295,82 @@ def sparse_max_pool3d_b(features, coords, keys_sorted, valid, grid_dhw,
     out = torch.where(found[..., None], rows, neg).amax(1)
     out = torch.where(out_valid[..., None], out, 0.0)
     return out, out_coords, out_keys, out_valid, og, n_unique
+
+
+# ------------------------------------------- single-example functions (JAX's)
+
+
+def lookup(keys_sorted, query_keys, query_valid):
+    """Binary-search query keys in one example's sorted (sentinel-padded)
+    keys [N]. Returns (idx [Q] int32 clamped to N - 1, found [Q] bool), as
+    JAX's `lookup`."""
+    idx = torch.searchsorted(keys_sorted, query_keys.to(keys_sorted.dtype))
+    idx = idx.clamp_(max=keys_sorted.shape[0] - 1)
+    hit = gather_rows(keys_sorted[:, None], idx)[:, 0] == query_keys
+    return idx.to(torch.int32), hit & query_valid
+
+
+def subm_rulebook(coords, keys_sorted, valid, grid_dhw,
+                  kernel_size=(3, 3, 3)):
+    """One example's submanifold rulebook: (tap_idx [K, N] int32, found
+    [K, N] bool), the port's per-tap form (`subm_rulebook_b` at B = 1), not
+    JAX's window slabs; `subm_conv3d` takes it as its `rulebook`."""
+    tap_idx, found = subm_rulebook_b(coords[None], keys_sorted[None],
+                                     valid[None], grid_dhw, kernel_size)
+    return tap_idx[0], found[0]
+
+
+def subm_conv3d(features, coords, keys_sorted, valid, grid_dhw, weights,
+                bias=None, rulebook=None):
+    """Submanifold conv of one example: features [N, Cin] → [N, Cout] fp32,
+    zero on invalid rows; weights [K, Cin, Cout] with K = k³ taps (any k).
+    `rulebook` is `subm_rulebook`'s."""
+    if rulebook is not None:
+        rulebook = (rulebook[0][None], rulebook[1][None])
+    return subm_conv3d_b(features[None], coords[None], keys_sorted[None],
+                         valid[None], grid_dhw, weights, bias, rulebook)[0]
+
+
+def downsample_coords(coords, valid, grid_dhw, kernel_size, stride, padding,
+                      out_cap):
+    """One example's active output sites of a strided sparse conv: (out_coords
+    [M, 3] int32 sorted, out_valid [M], out_keys [M], out_grid, n_unique
+    (a 0-d int32 tensor)), as JAX's `downsample_coords`."""
+    oc, ov, ok, og, nu = downsample_coords_b(
+        coords[None], valid[None], grid_dhw, kernel_size, stride, padding,
+        out_cap)
+    return oc[0], ov[0], ok[0], og, nu[0]
+
+
+def sparse_conv3d(features, coords, keys_sorted, valid, grid_dhw, weights,
+                  kernel_size, stride, padding, out_cap, bias=None,
+                  precomputed=None):
+    """Strided sparse conv of one example: (out [M, Cout] fp32, out_coords,
+    out_keys, out_valid, out_grid, n_unique), as JAX's `sparse_conv3d`;
+    `precomputed` is `downsample_coords`'s tuple."""
+    if precomputed is not None:
+        oc, ov, ok, og, nu = precomputed
+        precomputed = (oc[None], ov[None], ok[None], og, nu[None])
+    out, oc, ok, ov, og, nu = sparse_conv3d_b(
+        features[None], coords[None], keys_sorted[None], valid[None],
+        grid_dhw, weights, kernel_size, stride, padding, out_cap, bias,
+        precomputed)
+    return out[0], oc[0], ok[0], ov[0], og, nu[0]
+
+
+def sparse_max_pool3d(features, coords, keys_sorted, valid, grid_dhw,
+                      kernel_size, out_cap, stride=None, padding=(0, 0, 0)):
+    """Sparse max pool of one example (stride the kernel unless given): (out
+    [M, C], out_coords, out_keys, out_valid, out_grid, n_unique), as JAX's
+    `sparse_max_pool3d`."""
+    out, oc, ok, ov, og, nu = sparse_max_pool3d_b(
+        features[None], coords[None], keys_sorted[None], valid[None],
+        grid_dhw, kernel_size, out_cap, stride, padding)
+    return out[0], oc[0], ok[0], ov[0], og, nu[0]
+
+
+def densify(features, coords, valid, grid_dhw, batch_idx=None):
+    """Scatter one example's active set [N, C] to a dense [D, H, W, C]
+    canvas. `batch_idx` is taken and unused, as in JAX's `densify`."""
+    return densify_b(features[None], coords[None], valid[None],
+                     grid_dhw)[0]

@@ -1,6 +1,6 @@
 """Static-shape voxelizer — the port of `second_tpu/ops/voxelize.py`
-`voxelize` and `second_tpu/train/state.py` `VoxelizeSpec` /
-`device_voxelize`.
+`voxelize` / `voxelize_batch` (batched, as `voxelize_batch`) and
+`second_tpu/train/state.py` `VoxelizeSpec` / `device_voxelize`.
 
 Sort-based, on whatever device the points lie on: points are keyed by
 voxel id, stably sorted (invalid rows last), segmented and scattered into
@@ -103,6 +103,12 @@ def voxelize(points, points_mask, *, voxel_size, point_cloud_range,
         "point_voxel": point_voxel,
         "voxel_overflow": torch.clamp(num_unique - V, min=0).to(torch.int32),
     }
+
+
+def voxelize_batch(points, points_mask, **kw):
+    """JAX's `voxelize_batch` (its `voxelize` mapped over a leading batch
+    axis): this module's `voxelize`, which takes the batch itself."""
+    return voxelize(points, points_mask, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,10 +14,19 @@ row-sharded ones for the call:
   (`dist.batch_isend_irecv`); zeros stand only at the global borders. The
   shard height must divide by the stride.
 - a `DeconvBlock` (kernel = stride) and the 1 x 1 heads need no halo;
-- the batch norms in eval are per element.
-Any other layer (a GroupNorm normalises each example over all its rows; a
-conv of another shape) is refused by name, as is a shard height a stride
-does not divide. The input is never gathered.
+- the batch norms in eval are per element;
+- a GroupNorm (an RPN with `use_groupnorm`) normalises each example over
+  all its rows: each rank sums its rows' values and squares per example
+  and group, the sums are all-reduced over the group, and the rows are
+  normalised by flax's GroupNorm formula (mean and mean square, variance
+  their difference clipped at 0, eps 1e-3), as XLA reduces JAX's over the
+  sharded rows.
+Any other layer (a conv of another shape) is refused by name, as is a shard
+height a stride does not divide. The input is never gathered. `train=True`
+runs the same forward under no gradient, as JAX's `run` applies the module
+with `train=True` and no mutable collection: a module with batch norms is
+refused there (its batch statistics; JAX's fails), and so is an input that
+asks for a gradient (the halo exchange has no backward).
 """
 
 from __future__ import annotations
@@ -36,10 +45,10 @@ from .mesh import data_sharding, gather_ranks
 # the layers the row rule covers (the conv modules inside the blocks hold
 # their weights; the heads' 1 x 1 convs are checked for their shape)
 _COVERED = (RPN, RPNBase, RPNHead, nn.ModuleList, ConvBlock, DeconvBlock,
-            FlaxBatchNorm2d, nn.Conv2d, nn.ConvTranspose2d)
+            FlaxBatchNorm2d, nn.GroupNorm, nn.Conv2d, nn.ConvTranspose2d)
 
 
-def _check_layers(module):
+def _check_layers(module, train):
     held = {id(m.conv) for m in module.modules()
             if isinstance(m, (ConvBlock, DeconvBlock))}
     for name, m in module.named_modules():
@@ -48,11 +57,11 @@ def _check_layers(module):
             raise ValueError(f"make_spatial_forward: layer {name} "
                              f"({type(m).__name__}) is not covered by the "
                              f"row-sharding rule")
-        if isinstance(m, (ConvBlock, DeconvBlock)) and \
-                not isinstance(m.norm, FlaxBatchNorm2d):
-            raise ValueError(f"make_spatial_forward: layer {name}.norm "
-                             f"({type(m.norm).__name__}) normalises each "
-                             f"example over all its rows")
+        if train and isinstance(m, FlaxBatchNorm2d):
+            raise ValueError(f"make_spatial_forward: train=True with batch "
+                             f"norm {name}: its batch statistics would be "
+                             f"updated, and the forward takes no mutable "
+                             f"state (JAX's fails there too)")
         if isinstance(m, nn.Conv2d) and id(m) not in held and (
                 m.kernel_size != (1, 1) or m.stride != (1, 1) or
                 m.padding != (0, 0)):
@@ -121,41 +130,68 @@ def _conv_rows(block, name, group, x):
     return y[:, :, :h // s]
 
 
+def _group_norm_rows(norm, group, x):
+    """`norm` (an nn.GroupNorm) on this rank's rows x [B, C, h, W] of the
+    global map, as flax's GroupNorm on all the rows: the per-example,
+    per-group sums of x and x² all-reduced over the group, mean and mean
+    square from them, the variance their difference clipped at 0, then
+    (x - mean) · (rsqrt(var + eps) · scale) + bias."""
+    B, C, h, W = x.shape
+    G = norm.num_groups
+    world = data_sharding(group)[1]
+    xg = x.reshape(B, G, C // G, h, W)
+    sums = torch.stack([xg.sum((2, 3, 4)), (xg * xg).sum((2, 3, 4))])
+    dist.all_reduce(sums, group=group)
+    mean, mean2 = sums / (C // G * h * W * world)       # [B, G] each
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + norm.eps)[..., None] * \
+        norm.weight.to(x.dtype).view(G, C // G)
+    y = (xg - mean[..., None, None, None]) * mul[..., None, None] + \
+        norm.bias.to(x.dtype).view(G, C // G)[..., None, None]
+    return y.reshape(B, C, h, W)
+
+
 @contextlib.contextmanager
 def _rows(module, group):
     blocks = [(n, m) for n, m in module.named_modules()
               if isinstance(m, ConvBlock)]
+    norms = [m for m in module.modules() if isinstance(m, nn.GroupNorm)] \
+        if data_sharding(group)[1] > 1 else []
     try:
         for name, m in blocks:
             m.forward = (lambda x, m=m, name=name:
                          _conv_rows(m, name, group, x))
+        for m in norms:
+            m.forward = lambda x, m=m: _group_norm_rows(m, group, x)
         yield
     finally:
         for _, m in blocks:
+            m.__dict__.pop("forward", None)
+        for m in norms:
             m.__dict__.pop("forward", None)
 
 
 def make_spatial_forward(module, group=None, spatial_dim: int = 2,
                          train: bool = False):
-    """`run(x) -> out`: the eval forward of the dense BEV module `module`
-    (an RPN, NCHW) on this rank's rows x [B, C, h, W] of a global map
-    [B, C, world · h, W]; `out` is the module's output for those rows
-    (`gather_rows` puts the ranks' outputs together). The parameters must
-    be the same on every rank (`mesh.replicate_state`). Only the rows
-    (spatial_dim 2) are sharded, and only in eval: the halo exchange has no
-    backward."""
+    """`run(x) -> out`: the forward of the dense BEV module `module` (an
+    RPN, NCHW) on this rank's rows x [B, C, h, W] of a global map
+    [B, C, world · h, W], in eval mode or, with `train`, in train mode
+    (a module without batch norms); `out` is the module's output for those
+    rows (`gather_rows` puts the ranks' outputs together). The parameters
+    must be the same on every rank (`mesh.replicate_state`). Only the rows
+    (spatial_dim 2) are sharded, and no gradient is taken: the halo
+    exchange has no backward."""
     if spatial_dim != 2:
         raise ValueError(f"make_spatial_forward: spatial_dim {spatial_dim}; "
                          f"the rows (2, NCHW) are sharded")
-    if train:
-        raise ValueError("make_spatial_forward: eval only (the halo "
-                         "exchange has no backward)")
-    _check_layers(module)
+    _check_layers(module, train)
 
-    @torch.no_grad()
     def run(x):
-        module.eval()
-        with _rows(module, group):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("make_spatial_forward: no gradient (the halo "
+                             "exchange has no backward)")
+        module.train(train)
+        with torch.no_grad(), _rows(module, group):
             return module(x)
 
     return run

@@ -225,14 +225,46 @@ def test_gather_gemm_tile_spans_examples(dev, dtype):
     _run_conv(*_conv_case(dev, dtype, 5, 64, 100, 27, 16, 16, 0.3))
 
 
-def test_gather_gemm_rejects_wide_channels(dev):
-    """Above MAX_CHANNELS (128) input or output channels: refused."""
-    idx = torch.zeros(1, 27, 4, dtype=torch.int32, device=dev)
-    for C, D in ((129, 8), (8, 129)):
-        feats = torch.zeros(1, 4, C, device=dev)
-        with pytest.raises(ValueError, match="channels"):
-            subm.gather_gemm(feats, idx, idx.bool(),
-                             torch.zeros(27, C, D, device=dev))
+# widths past 128: CP a multiple of 64 (200 -> 256 columns, 136 -> 192,
+# 384 stays 384; a tap over several stages), outputs split over up to 8
+# blocks, [C, D] in up to 64 weight-gradient tiles
+ANY_WIDTH = [(256, 256), (200, 136), (136, 200), (512, 64), (64, 512),
+             (384, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D", ANY_WIDTH)
+def test_gather_gemm_any_width(dev, dtype, C, D):
+    """C and D past 128, the kernels' generic instantiations: the forward,
+    dX (the same kernel on a rulebook over the outputs with the weights
+    [K, D, C] as a transposed view, D channels in and C out) and the weight
+    gradient, each against its plain version (fp32 also against fp64
+    within FP32_ERR_RATIO of the fp32 plain version's own error)."""
+    args = _conv_case(dev, dtype, 2, 300, 333, 27, C, D, 0.1, seed=C + D)
+    got, _ = _run_conv(*args)
+    if dtype == torch.float32:
+        err, plain_err = _fp64_errors(*args, got)
+        assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
+    g = torch.Generator().manual_seed(C * D)
+    dout = torch.randn(2, 300, D, generator=g).to(dtype).to(dev)
+    inv_idx, inv_found = (t.to(dev) for t in _rulebook(g, 2, 300, 27, 333,
+                                                        0.1))
+    wt = args[3].transpose(1, 2)
+    before = subm.launches_dgrad
+    dx = subm.gather_gemm_dgrad(dout, inv_idx, inv_found, wt)
+    assert subm.launches_dgrad == before + 1 and dx.shape == (2, 333, C)
+    torch.testing.assert_close(dx, subm.gather_gemm_plain(
+        dout, inv_idx, inv_found, wt), atol=1e-4, rtol=1e-4)
+    if dtype == torch.float32:
+        err, plain_err = _fp64_errors(dout, inv_idx, inv_found, wt, dx)
+        assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
+    wargs = _wgrad_case(dev, dtype, 2, 300, 333, 27, C, D, 0.1,
+                        seed=abs(C - D) + 7)
+    dw, _ = _run_wgrad(*wargs)
+    if dtype == torch.float32:
+        err, plain_err = _fp64_errors(*wargs, dw,
+                                      plain_fn=subm.gather_gemm_wgrad_plain)
+        assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
 
 
 # widths above 64: SpMiddleFHDLarge's deep stages (128 -> 128, 64 -> 128),
@@ -257,12 +289,18 @@ def test_gather_gemm_wide_channels(dev, dtype, C, D):
         assert err <= FP32_ERR_RATIO * plain_err + FP32_ERR_FLOOR
 
 
-def test_gather_gemm_rejects_too_many_taps_in_bf16(dev):
-    feats = torch.zeros(1, 4, 8, dtype=torch.bfloat16, device=dev)
-    idx = torch.zeros(1, 33, 4, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="taps"):
-        subm.gather_gemm(feats, idx, idx.bool(), torch.zeros(33, 8, 8,
-                                                              device=dev))
+@pytest.mark.parametrize("K,C,D", [(33, 16, 16), (64, 5, 7), (125, 16, 16),
+                                   (125, 64, 64), (125, 256, 40)])
+def test_gather_gemm_bf16_more_than_32_taps(dev, K, C, D):
+    """bf16 rulebooks of more taps than one vote takes (a 5 x 5 x 5 kernel
+    is 125): the kernel walks them in vote groups of 32, its row table
+    refilled a group at a time, at narrow and wide widths; the weight
+    gradient of the same call."""
+    args = _conv_case(dev, torch.bfloat16, 2, 200, 300, K, C, D, 0.1,
+                      seed=K)
+    _run_conv(*args)
+    _run_wgrad(*_wgrad_case(dev, torch.bfloat16, 2, 200, 300, K, C, D,
+                            0.1, seed=K + 1))
 
 
 def _fp64_errors(feats, tap_idx, found, w, got,
@@ -676,6 +714,21 @@ def test_sparse_wgrad_wide_single_chunk(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_wgrad_scratch_budget(dev, dtype, monkeypatch):
+    """A scratch budget (WGRAD_SCRATCH_BYTES) of 2.5 chunks' partials: the
+    wrapper gives each tap 2 chunks where the card's SMs would take 63,
+    and the sums still match the plain version."""
+    K, C, D, B, Q = 3, 64, 64, 2, 4000
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert subm.wgrad_chunks(B * Q, K, sms)[1] > 2
+    monkeypatch.setattr(subm, "WGRAD_SCRATCH_BYTES",
+                        2.5 * 4 * K * C * D * (1 + 1 / subm.WGRAD_GROUP))
+    assert subm.wgrad_max_chunks(K, C, D) == 2
+    assert subm.wgrad_chunks(B * Q, K, sms, 2)[1] == 2
+    _run_wgrad(*_wgrad_case(dev, dtype, B, 500, Q, K, C, D, 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fill", [0.0, 1e-3, 0.04, 0.15, 1.0])
 def test_sparse_wgrad_found_densities(dev, dtype, fill):
     """Found densities from none (every block writes used = 0 and the last
@@ -818,7 +871,7 @@ def test_conv_backward_matches_autograd_of_plain(dev, dtype, strided):
     g = torch.Generator().manual_seed(22)
     w = (torch.randn(27, 16, 32, generator=g) / 20).to(dev)
     if strided:
-        oc, ov, _, _, n_unique = sp.downsample_coords(
+        oc, ov, _, _, n_unique = sp.downsample_coords_b(
             coords, valid, grid, (3, 3, 3), (2, 2, 2), (1, 1, 1), 200)
         assert (n_unique > 200).all()
         tap_idx, found = sp.build_rulebook_b(keys, oc * 2 - 1, ov, grid,
@@ -917,10 +970,12 @@ def test_sparse_middle_weights_get_gradients_on_the_card(dev, dtype):
 
 
 
+@pytest.mark.parametrize("width", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_backward_wide_matches_autograd_of_plain(dev, dtype):
-    """A 128 -> 128 submanifold conv on the card: dX (the gather-GEMM with
-    D = 128 on the transposed rulebook) and dW (four tiles) against
+def test_conv_backward_wide_matches_autograd_of_plain(dev, dtype, width):
+    """A 128 -> 128 and a 256 -> 256 submanifold conv on the card: dX (the
+    gather-GEMM with D = width on the transposed rulebook) and dW (four or
+    sixteen tiles) against
     autograd through `gather_gemm_plain` on fp32 copies of the values the
     kernels use (the features and the weights rounded to the feature
     dtype; a bf16-exact cotangent), as chip_smoke.py's
@@ -931,11 +986,11 @@ def test_conv_backward_wide_matches_autograd_of_plain(dev, dtype):
     grid = (8, 24, 24)
     coords, _, valid, keys = _active_set(dev, 2, 800, grid, 31)
     g = torch.Generator().manual_seed(32)
-    x = torch.randn(2, 800, 128, generator=g).to(dev).to(dtype)
-    w = (torch.randn(27, 128, 128, generator=g) / 60).to(dev)
+    x = torch.randn(2, 800, width, generator=g).to(dev).to(dtype)
+    w = (torch.randn(27, width, width, generator=g) / 60).to(dev)
     w = w.to(dtype).float()
     tap_idx, found = sp.subm_rulebook_b(coords, keys, valid, grid)
-    cot = torch.randn(2, 800, 128, generator=g).bfloat16().float().to(dev)
+    cot = torch.randn(2, 800, width, generator=g).bfloat16().float().to(dev)
     xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     (subm.gather_gemm(xa, tap_idx, found, wa) * cot).sum().backward()
     xb = x.float().requires_grad_(True)

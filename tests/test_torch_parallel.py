@@ -102,9 +102,12 @@ DET_TOL = dict(rtol=1e-5, atol=1e-5)
 RPN_JAX_TOL = dict(rtol=2e-4, atol=2e-4)
 SEQ_JAX_TOL = dict(rtol=1e-4, atol=1e-4)
 OWN_TOL = dict(rtol=1e-5, atol=1e-5)
-# the row-sharded RPNs: (H, layer strides, upsample strides); global SAME
-# pads each stride-2 conv (0, 1), and at H = 40 both stages stride 2
-RPN_CASES = [(64, (1, 2), (1, 2)), (40, (2, 2), (1, 2))]
+# the row-sharded RPNs: (H, layer strides, upsample strides, group norm);
+# global SAME pads each stride-2 conv (0, 1), and at H = 40 both stages
+# stride 2; the group-normed RPN runs with train=True (a forward, as JAX's
+# `run` applies it)
+RPN_CASES = [(64, (1, 2), (1, 2), False), (40, (2, 2), (1, 2), False),
+             (64, (1, 2), (1, 2), True)]
 
 
 def _np(tree):
@@ -116,11 +119,12 @@ def _save(path, **arrays):
     return str(path)
 
 
-def _rpn_kwargs(strides, ups):
+def _rpn_kwargs(strides, ups, groupnorm=False):
     return dict(layer_nums=(2, 2), layer_strides=strides,
                 num_filters=(32, 32), upsample_strides=ups,
                 num_upsample_filters=(32, 32), num_anchor_per_loc=2,
-                use_direction_classifier=True)
+                use_direction_classifier=True, use_groupnorm=groupnorm,
+                num_groups=8)
 
 
 @pytest.fixture(scope="module")
@@ -183,24 +187,25 @@ def world(tmp_path_factory):
 
     # the row-sharded RPNs: JAX's RPN, random variables
     out["rpn"] = []
-    for i, (H, strides, ups) in enumerate(RPN_CASES):
+    for i, (H, strides, ups, gn) in enumerate(RPN_CASES):
         x = np.random.default_rng(i).normal(0, 1, (2, H, 48, 16)).astype(
             np.float32)
-        jrpn = JRPN(**_rpn_kwargs(strides, ups))
+        jrpn = JRPN(**_rpn_kwargs(strides, ups, gn))
         shapes = jax.eval_shape(lambda: jrpn.init(
             jax.random.PRNGKey(0), jnp.asarray(x), train=False))
         rv = _random_variables(shapes, np.random.default_rng(10 + i))
-        sd = state_dict_from_jax({"params": {"rpn": rv["params"]},
-                                  "batch_stats": {"rpn": rv["batch_stats"]}})
+        sd = state_dict_from_jax({
+            "params": {"rpn": rv["params"]},
+            "batch_stats": {"rpn": rv.get("batch_stats", {})}})
         sd = {k[len("rpn."):]: v for k, v in sd.items()}
         path = tmp / f"rpn{i}.pt"
         torch.save(sd, path)
         xt = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
-        kwargs = dict(in_channels=16, **_rpn_kwargs(strides, ups))
+        kwargs = dict(in_channels=16, **_rpn_kwargs(strides, ups, gn))
         out["rpn"].append(dict(x=x, xt=xt, variables=rv, sd=sd,
-                               kwargs=kwargs, jrpn=jrpn))
+                               kwargs=kwargs, jrpn=jrpn, train=gn))
         jobs.append(("spatial_rpn", (kwargs, str(path),
-                                     _save(tmp / f"x{i}.npz", x=xt))))
+                                     _save(tmp / f"x{i}.npz", x=xt), gn)))
 
     # the 4-frame sequence: JAX's model, its voxelized frames
     base = jax_build_temporal(jcfg.model, num_proposals=PROPOSALS)[0]
@@ -303,12 +308,12 @@ def _references(w):
 
     refs["rpn"] = []
     for r in w["rpn"]:
-        want = jax.jit(lambda v, x, m=r["jrpn"]: m.apply(v, x, train=False))(
-            r["variables"], jnp.asarray(r["x"]))
+        want = jax.jit(lambda v, x, m=r["jrpn"], t=r["train"]: m.apply(
+            v, x, train=t))(r["variables"], jnp.asarray(r["x"]))
         rpn = RPN(**r["kwargs"])
         rpn.load_state_dict(r["sd"], strict=True)
         refs["rpn"].append((_np(want),
-                            make_spatial_forward(rpn)(
+                            make_spatial_forward(rpn, train=r["train"])(
                                 torch.from_numpy(r["xt"]))))
 
     frames, anchors = w["frames"], w["anchors"]
@@ -462,11 +467,14 @@ def test_dp_eval_any_temporal_matches_single_device(world):
 
 
 @pytest.mark.parametrize("case", range(len(RPN_CASES)),
-                         ids=[f"H{h}" for h, _, _ in RPN_CASES])
+                         ids=[f"H{h}" + ("_groupnorm" if gn else "")
+                              for h, _, _, gn in RPN_CASES])
 def test_spatial_rpn_matches_jax_and_unsharded(world, case):
-    """The RPN's eval forward with its rows sharded over 2 ranks (halos
-    from the neighbours under the global SAME padding) against JAX's RPN
-    (RPN_JAX_TOL) and the port's unsharded forward (OWN_TOL)."""
+    """The RPN's forward with its rows sharded over 2 ranks (halos from the
+    neighbours under the global SAME padding; a group norm's sums
+    all-reduced over the ranks) against JAX's unsharded RPN (RPN_JAX_TOL)
+    and the port's unsharded forward (OWN_TOL): in eval, and the
+    group-normed RPN with train=True."""
     got = _result(world, 3 + case)
     want, own = world["refs"]["rpn"][case]
     for k in ("box_preds", "cls_preds", "dir_cls_preds"):
@@ -479,17 +487,22 @@ def test_spatial_rpn_matches_jax_and_unsharded(world, case):
 
 
 def test_spatial_forward_refuses_what_the_rule_does_not_cover():
-    """A GroupNorm trunk (each example normalised over all its rows) is
-    refused by layer name, and so is training."""
-    rpn = RPN(16, layer_nums=(1,), layer_strides=(1,), num_filters=(32,),
-              upsample_strides=(1,), num_upsample_filters=(32,),
-              use_groupnorm=True, num_groups=8)
-    with pytest.raises(ValueError, match="trunk.convs.0"):
+    """Training a batch-normed RPN (its batch statistics) is refused by
+    layer name, and so is a gradient (the halo exchange has no backward)
+    and a layer outside the rule; a group-normed RPN takes train=True."""
+    kw = dict(layer_nums=(1,), layer_strides=(1,), num_filters=(32,),
+              upsample_strides=(1,), num_upsample_filters=(32,))
+    with pytest.raises(ValueError, match="trunk.convs.0.norm"):
+        make_spatial_forward(RPN(16, **kw), train=True)
+    run = make_spatial_forward(RPN(16, use_groupnorm=True, num_groups=8,
+                                   **kw), train=True)
+    with pytest.raises(ValueError, match="no gradient"):
+        run(torch.zeros(1, 16, 8, 8, requires_grad=True))
+    assert run(torch.zeros(1, 16, 8, 8))["box_preds"].shape[0] == 1
+    rpn = RPN(16, **kw)
+    rpn.trunk.extra = torch.nn.Dropout()
+    with pytest.raises(ValueError, match="trunk.extra"):
         make_spatial_forward(rpn)
-    with pytest.raises(ValueError, match="eval only"):
-        make_spatial_forward(RPN(16, layer_nums=(1,), layer_strides=(1,),
-                                 num_filters=(32,), upsample_strides=(1,),
-                                 num_upsample_filters=(32,)), train=True)
 
 
 def test_sequence_parallel_forward_matches_jax(world):

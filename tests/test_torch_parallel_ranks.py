@@ -120,9 +120,9 @@ def dp_eval_temporal(cfg_path, batch_path, max_voxels, proposals):
             "ref_stats": _local_stats(ref)}
 
 
-def spatial_rpn(rpn_kwargs, state_path, x_path):
-    """The row-sharded RPN forward on this rank's rows of x, the ranks'
-    outputs gathered."""
+def spatial_rpn(rpn_kwargs, state_path, x_path, train=False):
+    """The row-sharded RPN forward (eval, or with `train` train mode) on
+    this rank's rows of x, the ranks' outputs gathered."""
     rpn = RPN(**rpn_kwargs)
     rpn.load_state_dict(torch.load(state_path), strict=True)
     group = make_group()
@@ -130,7 +130,8 @@ def spatial_rpn(rpn_kwargs, state_path, x_path):
     rank, world = torch.distributed.get_rank(), \
         torch.distributed.get_world_size()
     h = x.shape[2] // world
-    out = make_spatial_forward(rpn, group)(x[:, :, rank * h:(rank + 1) * h])
+    out = make_spatial_forward(rpn, group, train=train)(
+        x[:, :, rank * h:(rank + 1) * h])
     return gather_rows(out, group)
 
 

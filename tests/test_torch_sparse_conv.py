@@ -87,7 +87,7 @@ def test_strided_rulebook_matches_jax(kernel, stride, padding):
     cap = 96
     joc, jov, jok, jnu, jog = jsp._gen_output_sites_b(
         jc, jv, GRID, kernel, stride, padding, cap)
-    toc, tov, tok, tog, tnu = sp.downsample_coords(
+    toc, tov, tok, tog, tnu = sp.downsample_coords_b(
         tc, tv, GRID, kernel, stride, padding, cap)
     assert tog == jog
     for a, b in ((joc, toc), (jov, tov), (jok, tok), (jnu, tnu)):
@@ -202,6 +202,6 @@ def test_densify_matches_jax():
     coords, feats, valid = make_batch(rng, GRID, 64, 3)
     want = jax.vmap(lambda f, c, v: jsp.densify(f, c, v, GRID))(
         jnp.asarray(feats), jnp.asarray(coords), jnp.asarray(valid))
-    got = sp.densify(torch.from_numpy(feats), torch.from_numpy(coords),
-                     torch.from_numpy(valid), GRID)
+    got = sp.densify_b(torch.from_numpy(feats), torch.from_numpy(coords),
+                       torch.from_numpy(valid), GRID)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -168,8 +168,8 @@ def test_transposed_rulebook_of_strided_conv_inverts_it():
     tc, _, tv, tk = sp.sort_active(torch.from_numpy(coords),
                                    torch.from_numpy(feats),
                                    torch.from_numpy(valid), GRID)
-    oc, ov, _, _, nu = sp.downsample_coords(tc, tv, GRID, (3, 3, 3),
-                                            (2, 2, 2), (1, 1, 1), 48)
+    oc, ov, _, _, nu = sp.downsample_coords_b(tc, tv, GRID, (3, 3, 3),
+                                              (2, 2, 2), (1, 1, 1), 48)
     assert (nu > 48).all()
     base = oc * 2 - 1
     tap_idx, found = sp.build_rulebook_b(tk, base, ov, GRID, (3, 3, 3))

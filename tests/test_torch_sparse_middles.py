@@ -4,7 +4,8 @@ package's, on the CPU, with the same numpy-drawn weights carried across by
 the converter: `SparseBasicBlock` (fp32 and bf16), `SparseBottleneck`, the
 max pool and its tie gradient, and whole `SpMiddleResNetFHD` (fp32 and
 bf16), `SpMiddleFHDLite`, `SpMiddleFHDLarge`, `SpMiddleFHDV2`, a stack spec
-with every op kind and `SparseMiddleExtractor` fed 128 channels. Also: the
+with every op kind, a stack whose bottleneck feeds 256 channels to sparse
+convs, and `SparseMiddleExtractor` fed 128 channels. Also: the
 registries hold JAX's names, each stack's op spec is JAX's, and the new
 trees convert leaf for leaf. Then the tiny sparse pipeline with
 `SpMiddleResNetFHD` (the middle the reference's conv fusion config names)
@@ -71,6 +72,10 @@ EVERY_OP = (("subm", 16), ("res", 24), ("res", 24),
             ("down", 32, (3, 1, 1), (2, 1, 1), (0, 0, 0)))
 
 
+BOTTLENECK_256 = (("subm", 16), ("bottleneck", 64), ("subm", 256),
+                  ("down", 32, (3, 3, 3), (2, 2, 2), (1, 1, 1)))
+
+
 def _active_set(rng, grid, B, N, C, n_valid):
     """B examples of N rows: n_valid distinct active sites each (unsorted,
     the rest padding), fp32 features [B, N, C]."""
@@ -134,6 +139,10 @@ MIDDLE_CASES = {
     "large": ("SpMiddleFHDLarge", {}, (41, 16, 16), 4, 200, False),
     "fhd_v2": ("SpMiddleFHDV2", {}, (41, 16, 16), 4, 200, False),
     "every_op": ("stack", {"ops": EVERY_OP}, (21, 16, 16), 8, 150, False),
+    # a bottleneck's 4 x 64 = 256 channels into a 256 -> 256 submanifold
+    # conv and a 256 -> 32 strided conv, through the gather-GEMM at 256
+    "bottleneck_256": ("stack", {"ops": BOTTLENECK_256}, (21, 16, 16), 8,
+                       150, False),
     "extractor_128": ("SparseMiddleExtractor",
                       {"num_filters_down1": (32,),
                        "num_filters_down2": (16, 16)},

@@ -9,10 +9,11 @@ shape expected there; every encoder name builds through `build_voxelnet`;
 a config with `VoxelFeatureExtractor` [32, 128] whose middle's
 `num_input_features` stays at 4 builds (the middle takes its width from
 the encoder) and its forward matches JAX's; the camera-fusion model builds
-and runs with `SpMiddleResNetFHD`; a conv wider than the kernels take is
-refused at build time; the [32, 128] encoder trains through the sparse
-middle (an fp64 step's gradients against JAX's within GRAD64_TOL). fp32
-within 1e-4 (`TOL`)."""
+and runs with `SpMiddleResNetFHD`; convs wider than 128 channels
+(SparseMiddleExtractor's 160-wide chain, a [32, 256] encoder into
+SpMiddleFHD) build and match JAX's forward; the [32, 128] encoder trains
+through the sparse middle (an fp64 step's gradients against JAX's within
+GRAD64_TOL). fp32 within 1e-4 (`TOL`)."""
 
 import jax
 import jax.numpy as jnp
@@ -277,16 +278,40 @@ def test_fusion_model_runs_with_resnet_middle():
 
 
 @pytest.mark.parametrize("case", ["extractor", "vfe"])
-def test_conv_wider_than_the_kernels_is_refused_at_build(case):
-    """A sparse conv of more than 128 channels is refused when the model is
-    built, with the limit in the message: SparseMiddleExtractor with a
-    160-wide chain, or a 256-wide encoder into SpMiddleFHD."""
+def test_conv_wider_than_128_matches_jax(case):
+    """Sparse convs past 128 channels build and run as JAX's: the tiny
+    pipeline with SparseMiddleExtractor's 160-wide chain (a submanifold
+    conv 4 -> 160, then two z-only strided convs 160 -> 160), or
+    `VoxelFeatureExtractor` [32, 256] into SpMiddleFHD (its first conv
+    256 -> 16). The whole forward from JAX's voxels and weights (JAX
+    jitted) agrees within 1e-4, as the 128-wide encoder's test holds it,
+    and its overflow count exactly."""
     text = _pipeline(middle="SparseMiddleExtractor", down1=(160,)) \
         if case == "extractor" else _pipeline("VoxelFeatureExtractor",
                                               (32, 256))
-    cfg = loads_pipeline_config(text)
-    with pytest.raises(ValueError, match="1..128"):
-        build_voxelnet(cfg.model, device="cpu")
+    jcfg, cfg = jax_loads(text), loads_pipeline_config(text)
+    jmod = jax_build_voxelnet(jcfg.model)[0]
+    net = build_voxelnet(cfg.model, device="cpu")[0]
+    widths = [m.weight.shape[1:] for m in net.middle.modules()
+              if getattr(m, "weight", None) is not None and
+              m.weight.dim() == 3]
+    assert max(max(w) for w in widths) == (160 if case == "extractor"
+                                           else 256)
+    _, _, vox = _tiny_voxels(cfg)
+    args = tuple(jnp.asarray(vox[k].numpy()) for k in VOX_KEYS)
+    shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), *args))
+    variables = _random_variables(shapes, np.random.default_rng(1))
+    want, state = jax.jit(lambda v, *a: jmod.apply(
+        v, *a, mutable=["intermediates"]))(variables, *args)
+    net.load_state_dict(state_dict_from_jax(variables), strict=True)
+    with torch.no_grad():
+        got = net(*(vox[k] for k in VOX_KEYS))
+    for k in ("box_preds", "cls_preds", "dir_cls_preds"):
+        np.testing.assert_allclose(
+            got[k].numpy(), np.asarray(want[k]).reshape(got[k].shape),
+            **TOL, err_msg=k)
+    assert int(got["stage_overflow"]) == int(
+        sum_stage_overflow(state["intermediates"]))
 
 
 def _jax_grads64_at_encoder(text, variables, batch):
