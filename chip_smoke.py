@@ -308,20 +308,20 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    linear (threshold 0.3), and standup gaussian on their standup
    envelopes: launches counted (the pair-list decay kernel and the pair
    IoU once a rotated call, the standup decay kernel once in the standup
-   call and the dense one never, the row gather once a call, for all
-   rows), the standup call's peak allocation below a [B, K, K] matrix,
-   each decay call's kernel against its plain version (picks exact, NaN
-   where NaN, scores within SOFT_RTOL), the dense kernel on the standup
-   call's dense matrix, both on rows with NaN and +inf scores and NaN
-   IoU values, the pair IoU against its plain version, each call card
+   call, the row gather once a call, for all rows), the standup call's
+   peak allocation below a [B, K, K] matrix, each decay call's kernel
+   against its plain version (picks exact, NaN where NaN, scores within
+   SOFT_RTOL), the standup kernel on rows with NaN and +inf scores and
+   NaN boxes, the pair IoU against its plain version, each call card
    against CPU (picks and keep exact, scores within SOFT_REF_RTOL), the
    pair cap's use; each decay call timed (events, device, plain, bound,
    the device time at m = 1 and so a later step's), the whole gaussian
-   rotated and standup soft_nms timed in turns with their earlier
-   routes; K = 4096 rows of crowded boxes, 100 steps: the pair kernel on
-   their pair lists at 8192 pairs (shared memory) and 32768 (past it),
-   the standup kernel on their standup envelopes and the dense kernel on
-   their dense rotated IoU, each against plain and timed.
+   rotated and standup soft_nms timed; rows of 4096, 8192 and 16384
+   crowded boxes (past 4096 with a NaN and a +inf score, and a NaN box:
+   the kernels' wide routes), 100 steps: the pair kernel on their pair
+   lists at 8192 pairs (and, at 4096, 32768: past shared memory) and the
+   standup kernel on their standup envelopes, each against plain and
+   timed.
 35. dp (`run_dp`): an NCCL process group of one rank (the card is one):
    the fhd `Trainer`'s data-parallel train steps (DDP; at one rank the
    norms' statistics are the rank's own) against a plain `Trainer`'s on
@@ -350,13 +350,53 @@ Phases, one line each (any failure ends the run with a non-zero exit):
    5 x 5 x 5 conv (K = 125, 64 -> 64) on stage 0's sites. Compare-only
    launches: no path.
 
+38. nms large k (`run_nms_large_k`): rotated and standup NMS
+   (`nms_sorted`, threshold 0.01, the 8192-pair cap binding) on crowded
+   synthetic boxes at K = 4097, 8192 and 16384 (batch 4) and 46340 (batch
+   1, JAX's int32 pair-index bound), where the kernels take their wide
+   routes: `nms_overlap` and `nms_suppress` against their plain versions
+   (`check_nms_pair`: pair counts and keep exact, bits but at pairs
+   within RIOU_TOL of the threshold), `standup_overlap` bit for bit and
+   its keep, the standup bitmask's suppression, each timed (events,
+   device) with its bound; the plain versions build their pair matrices a
+   block of rows at a time.
+39. k8192 eval (`run_middle_eval`, `K8192_PATCHES`): the fhd eval
+   forward at `nms_pre_max_size` 8192 (batch 4, the fhd scene), its
+   NMS through the wide routes: every conv and gather against plain, the
+   NMS pair against plain and the whole `nms` call card against CPU
+   (indices and keep exact), launches, predict without a host sync,
+   frames/s.
+40. vfe1 train (`run_middle_train`, `VFE1_PATCHES`):
+   `VoxelFeatureExtractor` [32, 128] into SpMiddleFHD's bf16 train step:
+   as vfe256 train; its first conv's weight gradient [27, 128, 16] (the
+   tiled bf16 path up to 128 channels) printed as a share of the scale
+   and of its bound in `check_conv_backward`; launches 14 / 14 / 14
+   (paths mma 28, wgrad 14).
+41. the other middles, encoders and RPN options (`run_config_evals`,
+   `CONFIG_EVALS`): SpMiddleFHDLite, SparseMiddleExtractor,
+   SpMiddleD4HD, SpResNetD4HD, SpMiddleD4HDLite, SpMiddleD8HD,
+   SpMiddle2K, SpMiddleFHDV2, VoxelFeatureExtractorV2 and SimpleVoxel
+   into SpMiddleFHD, the group-normed RPN and a stack whose bottleneck
+   feeds 256 channels, each on second_car_fhd.config patched as JAX's
+   builder needs it, batch 4, the fhd scene: every sparse conv against
+   its plain version (fp32 ones also against fp64), the row gathers
+   exact, the NMS pair against plain, launches and gather-GEMM paths,
+   predict without a host sync, frames/s (`run_middle_eval` untimed by
+   call).
+42. fhdv2 train (`run_middle_train`, `FHDV2_PATCHES`): SpMiddleFHDV2's
+   fp32 train step, the model path of the sparse max pool's gradient:
+   every forward, dX and weight-gradient call against plain and fp64,
+   each conv's backward against autograd of the plain gather-GEMM,
+   launches 14 / 13 / 14 (fma 27, wgrad fma 14), steps/s.
+
 The line before the last is {"kernels": [...]}: per kernel its launches
-summed over the thirty-one paths (fhd eval, fhd train, pp eval, pp
+summed over the paths of `PATHS` (fhd eval, fhd train, pp eval, pp
 train, mc eval, mc train, kitti, fhd + IoU train, 2st eval, 2st train, tmp
 eval, tmp train, fusion eval, fusion train, fusion 2st eval, fusion 2st
 train, tmpf eval, tmpf train, serve, trk det, joint train, resnet eval,
 resnet train, large eval, large train, vfe1 eval, soft nms, dp train, dp
-eval, vfe256 eval, vfe256 train) and by path,
+eval, vfe256 eval, vfe256 train, vfe1 train, k8192 eval, the twelve
+CONFIG_EVALS phases and fhdv2 train) and by path,
 the numbers of the fhd calls (of the IoU-branch step for d3_iou, of the
 two-stage phases for the ROI-align and standup kernels), and those of the
 PointPillars and multi-class calls under "pp_eval" / "pp_train" /
@@ -368,16 +408,17 @@ call under "joint_train" and its 16 x 16 ROI-align calls under
 "joint_train_s16", the resnet eval's convs under "resnet_eval" and the
 sparse-conv calls over 64 channels under "large_eval_c128",
 "large_train_c128" (forward, dX, weight gradient; fp32, bounded as 3xTF32
-with "bound_cores_ms" beside), "vfe1_eval_c128", "vfe256_eval_c256"
-and "vfe256_train_c256", the wide convs' calls under "wide_c256" (bf16),
-"wide_c256_fp32" and "wide_k125" (forward, dX, weight gradient), and the
-soft-NMS
-decays: the pair kernel's linear fhd call under "soft_nms_linear" and
-its K = 4096 rows under "soft_nms_k4096_p8192" / "soft_nms_k4096_p32768",
-the standup kernel's under "soft_nms_standup_k4096", the dense kernel's
-under "soft_nms_k4096" (the gaussian fhd call's numbers are the pair and
-standup kernels' lines' own, the dense kernel's those of the standup
-call's dense matrix).
+with "bound_cores_ms" beside), "vfe1_eval_c128", "vfe1_train_c128",
+"vfe256_eval_c256" and "vfe256_train_c256", the wide convs' calls under
+"wide_c256" (bf16), "wide_c256_fp32" and "wide_k125" (forward, dX,
+weight gradient), the NMS kernels past 4096 candidates under
+"nms_k4097", "nms_k8192", "nms_k16384", "nms_k46340" (rotated_iou,
+nms_suppress, standup_overlap) and "nms_standup_k<K>" (the suppression
+of the standup bitmask), the k8192 eval's NMS pair under "k8192_eval",
+and the soft-NMS decays: the pair kernel's linear fhd call under
+"soft_nms_linear" and its long rows under "soft_nms_k<K>_p<P>", the
+standup kernel's under "soft_nms_standup_k<K>" (the gaussian fhd call's
+numbers are the pair and standup kernels' lines' own).
 The last line is {"ok": true, "device": {...}}. With
 --out, the per-call detail is written to that JSON file as well.
 """
@@ -481,8 +522,8 @@ PP_EVAL_LAUNCHES = {"sparse_gather_gemm": 0, "row_gather": 6,
                     "rotated_iou": 1, "nms_suppress": 1,
                     "sparse_gather_gemm_dgrad": 0, "sparse_wgrad": 0,
                     "d3_iou": 0, "roi_align_fwd": 0, "roi_align_bwd": 0,
-                    "standup_overlap": 0, "soft_nms": 0,
-                    "soft_nms_standup": 0, "soft_nms_pairs": 0}
+                    "standup_overlap": 0, "soft_nms_standup": 0,
+                    "soft_nms_pairs": 0}
 PP_TRAIN_LAUNCHES = {**{k: 0 for k in PP_EVAL_LAUNCHES}, "row_gather": 2}
 
 # SECOND multi-class (configs/second_multiclass.config: Car, Pedestrian,
@@ -499,7 +540,11 @@ PATHS = ("fhd_eval", "fhd_train", "pp_eval", "pp_train", "mc_eval",
          "fusion_2st_eval", "fusion_2st_train", "tmpf_eval", "tmpf_train",
          "serve", "trk_det", "joint_train", "resnet_eval", "resnet_train",
          "large_eval", "large_train", "vfe1_eval", "soft_nms", "dp_train",
-         "dp_eval", "vfe256_eval", "vfe256_train")
+         "dp_eval", "vfe256_eval", "vfe256_train", "vfe1_train",
+         "k8192_eval", "lite_eval", "extractor_eval", "d4hd_eval",
+         "resd4hd_eval", "d4hdlite_eval", "d8hd_eval", "2k_eval",
+         "fhdv2_eval", "fhdv2_train", "vfev2_eval", "simplev_eval",
+         "groupnorm_eval", "bottleneck256_eval")
 # the two-stage detector on second_car_fhd.config: proposals an example,
 # the timed forwards and steps of its phases; its fp64 reference step runs
 # the PointPillars config's two-stage detector (the sparse kernels take no
@@ -615,9 +660,6 @@ TWO_STAGE_KERNELS = [
 # soft-NMS's decay steps: JAX runs them as a `lax.scan` (no Pallas kernel);
 # no config reaches soft-NMS, the soft-nms phase drives it
 SOFT_NMS_KERNELS = [
-    dict(name="soft_nms", module=riou, fn="soft_nms_decay",
-         counter="launches_soft", source="second_tpu_torch/csrc/riou.cu",
-         replaces="second_tpu/ops/nms.py:230"),
     dict(name="soft_nms_standup", module=riou, fn="soft_nms_decay_standup",
          counter="launches_soft_standup",
          source="second_tpu_torch/csrc/riou.cu",
@@ -1254,13 +1296,14 @@ def old_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
     return torch.stack(idxs), torch.stack(keeps)
 
 
-def check_nms_pair(calls, timer, dtimer, what="nms"):
+def check_nms_pair(calls, timer, dtimer, what="nms", reps=(20, 5)):
     """The one recorded `nms_overlap` call and the one `nms_suppress` call
     of a forward against their plain versions on the same inputs: pair
     counts exact, bits exact but at pairs within RIOU_TOL of the threshold,
     keep exact (on the kernel's bitmask and along the all-plain chain);
-    timed by events and by the device timer, with their bounds. Returns
-    (overlap aggregate, suppression aggregate, detail)."""
+    timed by events (`reps`: the kernels', the plain versions') and by the
+    device timer, with their bounds. Returns (overlap aggregate,
+    suppression aggregate, detail)."""
     if len(calls["nms_overlap"]) != 1 or len(calls["nms_suppress"]) != 1:
         fail(f"{what}: expected one overlap and one suppression call a "
              f"forward, recorded {len(calls['nms_overlap'])} and "
@@ -1320,15 +1363,15 @@ def check_nms_pair(calls, timer, dtimer, what="nms"):
     dev_ms = dtimer([lambda: riou.nms_overlap(cand, valid, thr, max_pairs),
                      lambda: riou.nms_suppress(got, valid)])
     ov.update(ms=timer(lambda: riou.nms_overlap(cand, valid, thr,
-                                                max_pairs), 20),
+                                                max_pairs), reps[0]),
               device_ms=dev_ms[0],
               plain_ms=timer(lambda: riou.nms_overlap_plain(
-                  cand, valid, thr, max_pairs), 5),
+                  cand, valid, thr, max_pairs), reps[1]),
               library_ms=None, library_device_ms=None, err=0.0)
-    sup.update(ms=timer(lambda: riou.nms_suppress(got, valid), 20),
+    sup.update(ms=timer(lambda: riou.nms_suppress(got, valid), reps[0]),
                device_ms=dev_ms[1],
                plain_ms=timer(lambda: riou.nms_suppress_plain(got, valid),
-                              5),
+                              reps[1]),
                library_ms=None, library_device_ms=None, err=0.0)
     detail = dict(
         B=B, K=K, max_pairs=max_pairs, threshold=thr,
@@ -1688,6 +1731,29 @@ def run(dev, out=None):
                           "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0},
                          n_dgrad=SPARSE_CONVS)
     wide_aggs, report["wide_convs"] = run_wide_convs(dev, timer, dtimer)
+    # NMS past 4096 candidates an example (the kernels' wide routes): on
+    # crowded boxes up to JAX's bound, and the fhd eval forward at
+    # nms_pre_max_size 8192, its NMS card against CPU
+    nms_large_aggs, report["nms_large_k"] = run_nms_large_k(dev, timer,
+                                                            dtimer)
+    _, _, k8192_counts, report["k8192_eval"] = run_middle_eval(
+        dev, timer, dtimer, "k8192 eval", K8192_PATCHES, SPARSE_CONVS,
+        {"mma": SPARSE_CONVS, "fma": 0}, timed=False, nms_cpu=True)
+    # VoxelFeatureExtractor [32, 128]'s train step: its first conv's
+    # weight gradient [27, 128, 16], the tiled bf16 path up to 128 channels
+    vfe1_train_wide, vfe1_train_counts, report["vfe1_train"] = \
+        run_middle_train(dev, timer, dtimer, "vfe1 train", VFE1_PATCHES,
+                         SPARSE_CONVS,
+                         {"mma": 2 * SPARSE_CONVS, "fma": 0,
+                          "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0},
+                         n_dgrad=SPARSE_CONVS)
+    # the other middles, encoders and RPN options, and SpMiddleFHDV2's
+    # train step (the sparse max pool's gradient)
+    config_counts, config_reports = run_config_evals(dev, timer, dtimer)
+    report.update(config_reports)
+    _, fhdv2_train_counts, report["fhdv2_train"] = run_middle_train(
+        dev, timer, dtimer, "fhdv2 train", FHDV2_PATCHES, 14,
+        {"mma": 0, "fma": 27, "wgrad_mma": 0, "wgrad_fma": 14}, fp64=True)
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
@@ -1701,7 +1767,15 @@ def run(dev, out=None):
                                large_counts, large_train_counts,
                                vfe1_counts, soft_counts, dp_train_counts,
                                dp_eval_counts, vfe256_counts,
-                               vfe256_train_counts)))
+                               vfe256_train_counts, vfe1_train_counts,
+                               k8192_counts,
+                               *(config_counts[w.replace(" ", "_")]
+                                 for w, *_ in CONFIG_EVALS[:8]),
+                               fhdv2_train_counts,
+                               *(config_counts[w.replace(" ", "_")]
+                                 for w, *_ in CONFIG_EVALS[8:]))))
+    if len(by_path) != len(PATHS):
+        fail(f"{len(by_path)} paths counted, {len(PATHS)} named")
     # the 256-channel ROI-align calls of the temporal-fusion phases, under
     # "tmpf_eval_c256" / "tmpf_train_c256"; the joint step's riou_matrix
     # call under "joint_train", its 16 x 16 tracking crops under
@@ -1717,6 +1791,9 @@ def run(dev, out=None):
                  "vfe1_eval_c128": {"sparse_gather_gemm": vfe1_wide},
                  "vfe256_eval_c256": {"sparse_gather_gemm": vfe256_wide},
                  "vfe256_train_c256": vfe256_train_wide,
+                 "vfe1_train_c128": vfe1_train_wide,
+                 "k8192_eval": report["k8192_eval"]["nms_kernels"],
+                 **nms_large_aggs,
                  **wide_aggs,
                  **soft_others}
 
@@ -2106,14 +2183,17 @@ def check_step_calls(what, calls, timer, dtimer, timed=True):
     return aggs, detail
 
 
-def check_conv_backward(fwd_calls, wgrad_calls):
+def check_conv_backward(fwd_calls, wgrad_calls, detail=None):
     """Each conv of the step once more: its forward arguments and the
     gradient its backward received, through `gather_gemm` (the kernels'
     backward) and through autograd of `gather_gemm_plain` in fp32. The input
     gradient where the step computed one (every conv but the first), and
     the weight gradient; on the bf16 path the kernels' results are rounded
-    to bf16 once, so within one bf16 unit (BF16_UNIT). Returns the largest
-    error over the convs, relative to each tensor's largest entry."""
+    to bf16 once, so within one bf16 unit (BF16_UNIT). With `detail`, a
+    list, each conv's widths and, for dX and dW, the largest error over
+    the tensor's largest entry and over the bound at that entry (the
+    margin: at most 1 passes). Returns the largest error over the convs,
+    relative to each tensor's largest entry."""
     by_input = {(a[0].data_ptr(), a[1].data_ptr()): a[3]
                 for a, _ in wgrad_calls}
     worst = 0.0
@@ -2136,23 +2216,31 @@ def check_conv_backward(fwd_calls, wgrad_calls):
                 (fn(x, tap_idx, found, ww) * g.float()).sum().backward()
             grads.append((x.grad, ww.grad))
         torch.cuda.synchronize()
+        row = dict(conv=i, K=tap_idx.shape[1], C=f.shape[2], D=w.shape[2],
+                   dtype=str(f.dtype))
         for j, (got, want) in enumerate(zip(*grads)):
             if want is None:
                 continue
             got, want = got.float(), want.float()
             scale = want.abs().max().item()
             if f.dtype == torch.bfloat16:
-                ok = ((got - want).abs() <= BF16_UNIT * torch.maximum(
-                    got.abs(), want.abs()) + 1e-6 * scale).all()
+                bound = BF16_UNIT * torch.maximum(got.abs(), want.abs()) + \
+                    1e-6 * scale
             else:
-                ok = torch.allclose(got, want, rtol=GRAD_KERNEL_TOL,
-                                    atol=GRAD_KERNEL_TOL * scale)
+                bound = GRAD_KERNEL_TOL * (want.abs() + scale)
+            margin = ((got - want).abs() / bound.clamp(min=1e-30)).max()
+            ok = bool(margin <= 1)
             err = (got - want).abs().max().item()
             worst = max(worst, err / max(scale, 1e-30))
+            name = ("dX", "dW")[j]
+            row[f"{name}_rel"] = err / max(scale, 1e-30)
+            row[f"{name}_margin"] = margin.item()
             if not ok:
-                fail(f"conv {i}: {('dX', 'dW')[j]} differs from autograd of "
-                     f"the plain gather-GEMM, max abs err {err:.3g} at "
-                     f"scale {scale:.3g}")
+                fail(f"conv {i}: {name} differs from autograd of the plain "
+                     f"gather-GEMM, max abs err {err:.3g} at scale "
+                     f"{scale:.3g}, {margin.item():.3g} times its bound")
+        if detail is not None:
+            detail.append(row)
     say(f"conv backward: {len(fwd_calls)} convs' dX and dW equal autograd "
         f"of the plain gather-GEMM (largest error {worst:.2e} of the "
         f"tensor's scale)")
@@ -3641,7 +3729,15 @@ def standup_bound(cand, valid, peak=PEAK_OPS_PER_S[torch.float32]):
     B, K = valid.shape
     n_valid = valid.sum(1).double()
     tests = float((n_valid * (n_valid - 1) / 2).sum())
-    meets = int(standup_meets(cand, valid).sum())
+    # a block of rows at a time, as the plain versions build them
+    meets = 0
+    for r0, r1 in riou.row_blocks(B, K):
+        lo = torch.maximum(cand[:, r0:r1, None, :2], cand[:, None, :, :2])
+        hi = torch.minimum(cand[:, r0:r1, None, 2:], cand[:, None, :, 2:])
+        upper = torch.arange(K, device=cand.device)[None, :] > \
+            torch.arange(r0, r1, device=cand.device)[:, None]
+        meets += int((((hi - lo) > 0).all(-1) & upper &
+                      valid[:, r0:r1, None] & valid[:, None, :]).sum())
     nbytes = cand.numel() * cand.element_size() + valid.numel() + \
         B * K * ((K + 31) // 32) * 4
     ops = tests * STANDUP_TEST_OPS + meets * STANDUP_MEET_OPS + \
@@ -3649,12 +3745,13 @@ def standup_bound(cand, valid, peak=PEAK_OPS_PER_S[torch.float32]):
     return nbytes / HBM_BYTES_PER_S, ops / peak, tests, meets
 
 
-def check_standup_calls(calls, sup_calls, timer, dtimer, what):
+def check_standup_calls(calls, sup_calls, timer, dtimer, what,
+                        reps=(20, 5)):
     """Each recorded standup-bitmask call against its plain version (every
     bit equal), the suppression that read it against the plain one (keep
-    equal), timed beside the plain version with its bound
-    (`standup_bound`: the valid pairs' meet tests, the IoU of those that
-    meet, the boxes' areas, the bitmask written). No PyTorch call
+    equal), timed beside the plain version (`reps` events each) with its
+    bound (`standup_bound`: the valid pairs' meet tests, the IoU of those
+    that meet, the boxes' areas, the bitmask written). No PyTorch call
     computes the function: the library time is none. Returns the
     aggregate."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
@@ -3680,7 +3777,7 @@ def check_standup_calls(calls, sup_calls, timer, dtimer, what):
         bs, os_, tests, meets = standup_bound(cand, valid)
         fns = (lambda: riou.standup_overlap(cand, valid, thr),
                lambda: riou.standup_overlap_plain(cand, valid, thr))
-        ms = [timer(fns[0], 20), timer(fns[1], 5)]
+        ms = [timer(fns[0], reps[0]), timer(fns[1], reps[1])]
         dev_ms = dtimer(list(fns))
         agg["ms"] += ms[0]
         agg["plain_ms"] += ms[1]
@@ -6008,6 +6105,9 @@ K125_WIDTHS = (64, 64)
 # output, then the block's bf16 strided conv
 RESNET_CONVS = 12
 RESNET_TIMED = 8
+# the timed forwards of a phase run untimed by call (`run_middle_eval`'s
+# `timed` False)
+LIGHT_TIMED = 5
 # the sparse-conv calls wider than 64 channels in or out, timed on their
 # own under "<path>_c128" in the kernels line
 WIDE = 64
@@ -6033,7 +6133,7 @@ def conv_widths(calls):
 
 
 def run_middle_eval(dev, timer, dtimer, what, patches, n_convs,
-                    paths_want, calibrate=False):
+                    paths_want, calibrate=False, timed=True, nms_cpu=False):
     """A middle or encoder of the registry on second_car_fhd.config patched
     by `patches`, in the model's precision (the config's mixed precision:
     bf16 where build_voxelnet gives the middle bf16, fp32 otherwise), batch
@@ -6046,8 +6146,13 @@ def run_middle_eval(dev, timer, dtimer, what, patches, n_convs,
     statistics are the batch's (`calibrated`): an encoder with norms (as
     VoxelFeatureExtractor) under random statistics feeds the middle values
     of 1e4 and more, where fp32 sums in another order differ by more than
-    CONV_TOL. Returns (the aggregates of all the convs and of the wide
-    ones, the launch counts, the report)."""
+    CONV_TOL. With `timed` False, the convs and gathers are held against
+    their plain versions untimed (`check_calls_exact`, the fp32 convs also
+    against fp64), and no device split is taken: the aggregates are None.
+    With `nms_cpu`, the forward's NMS call also runs on the CPU (the plain
+    versions), its indices and keep mask equal to the card's. Returns (the
+    aggregates of all the convs and of the wide ones, the launch counts,
+    the report)."""
     report = {}
     cfg = patched_config(patches)
     mixed = cfg.train_config.enable_mixed_precision
@@ -6080,20 +6185,38 @@ def run_middle_eval(dev, timer, dtimer, what, patches, n_convs,
     if len(convs) != n_convs:
         fail(f"{what}: expected {n_convs} sparse convs a forward, recorded "
              f"{len(convs)}")
-    # the convs up to WIDE channels, then the wider ones, each set summed
-    report["convs"] = []
-    narrow, wide = split_wide(convs)
-    agg = check_convs(narrow, timer, dtimer, report["convs"])
-    agg_wide = None
-    if wide:
-        agg_wide = check_convs(wide, timer, dtimer, report["convs"])
-        say(f"{what}: the {len(wide)} convs wider than {WIDE} channels "
-            f"{conv_widths(wide)} above; card {card_line()}")
-        agg = {k: max(v, agg_wide[k]) if k in ("err", "fp64_ratio")
-               else v + agg_wide[k] for k, v in agg.items()}
-    report["gathers"] = []
-    check_gathers(calls["gather_rows"], timer, dtimer, report["gathers"])
-    _, _, report["nms"] = check_nms_pair(calls, timer, dtimer, what)
+    agg = agg_wide = None
+    if timed:
+        # the convs up to WIDE channels, then the wider ones, each set
+        # summed
+        report["convs"] = []
+        narrow, wide = split_wide(convs)
+        agg = check_convs(narrow, timer, dtimer, report["convs"])
+        if wide:
+            agg_wide = check_convs(wide, timer, dtimer, report["convs"])
+            say(f"{what}: the {len(wide)} convs wider than {WIDE} channels "
+                f"{conv_widths(wide)} above; card {card_line()}")
+            agg = {k: max(v, agg_wide[k]) if k in ("err", "fp64_ratio")
+                   else v + agg_wide[k] for k, v in agg.items()}
+        report["gathers"] = []
+        check_gathers(calls["gather_rows"], timer, dtimer, report["gathers"])
+    else:
+        report["conv_err"] = check_calls_exact(calls, what)
+        if any(a[0].dtype == torch.float32 for a, _ in convs):
+            report["fp64_ratio"] = check_fp32_calls(calls, what, mixed=True)
+    ov, sup, report["nms"] = check_nms_pair(calls, timer, dtimer, what)
+    report["nms_kernels"] = {"rotated_iou": ov, "nms_suppress": sup}
+    if nms_cpu:
+        (args, kwargs), = calls["nms"]
+        got = nms_ops.nms(*args, **kwargs)
+        want = nms_ops.nms(*(a.cpu() for a in args), **kwargs)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            fail(f"{what}: the NMS call's indices or keep differ card "
+                 f"against CPU")
+        report["nms_kept"] = got[1].sum(1).tolist()
+        say(f"{what}: NMS of {args[0].shape[1]} boxes an example at "
+            f"pre_max_size {kwargs['pre_max_size']}: card = CPU (indices "
+            f"and keep exact; {report['nms_kept']} kept)")
     del calls
 
     reset_counts()
@@ -6124,13 +6247,16 @@ def run_middle_eval(dev, timer, dtimer, what, patches, n_convs,
     say(f"{what}: predict no host sync; voxel_overflow "
         f"{report['voxel_overflow']} stage_overflow "
         f"{report['stage_overflow']} valid detections {report['valid']}")
-    report["forward"] = timed_forwards(forward, RESNET_TIMED, BATCH)
+    reps = RESNET_TIMED if timed else LIGHT_TIMED
+    report["forward"] = timed_forwards(forward, reps, BATCH)
     med = report["forward"]["median_s"]
-    report["device_split"] = device_split(forward, dtimer, reps=3)
+    split = ""
+    if timed:
+        report["device_split"] = device_split(forward, dtimer, reps=3)
+        split = f"; {split_line(report['device_split'])}"
     say(f"{what} frames/s {BATCH / med:.3f} (median {1e3 * med:.2f} ms of "
-        f"{RESNET_TIMED} batch-{BATCH} forwards); peak memory "
-        f"{report['forward']['peak_mem_bytes'] / 2 ** 30:.2f} GiB; "
-        f"{split_line(report['device_split'])}")
+        f"{reps} batch-{BATCH} forwards); peak memory "
+        f"{report['forward']['peak_mem_bytes'] / 2 ** 30:.2f} GiB" + split)
     report["launches"] = counts
     return agg, agg_wide, counts, report
 
@@ -6194,8 +6320,18 @@ def run_middle_train(dev, timer, dtimer, what, patches, n_convs,
                 timer, dtimer, detail)
     if fp64:
         report["fp64_ratio"] = check_fp32_calls(calls, what, mixed)
+    report["conv_backward"] = []
     report["conv_backward_worst"] = check_conv_backward(
-        calls["gather_gemm"], calls["sparse_wgrad"])
+        calls["gather_gemm"], calls["sparse_wgrad"], report["conv_backward"])
+    for row in report["conv_backward"]:
+        if max(row["C"], row["D"]) > WIDE:
+            say(f"{what} conv {row['conv']} {row['C']} -> {row['D']} "
+                f"{row['dtype'][6:]}: its weight gradient [{row['K']}, {row['C']}, "
+                f"{row['D']}] lies {row['dW_rel']:.3g} of the scale from "
+                f"autograd of the plain gather-GEMM in fp32, "
+                f"{row['dW_margin']:.3g} times its bound (one bf16 unit of "
+                f"the entry plus 1e-6 of the scale on the bf16 path); card "
+                f"{card_line()}")
     del calls
 
     reset_counts()
@@ -6327,16 +6463,188 @@ def run_wide_convs(dev, timer, dtimer):
     return out, report
 
 
+# --------------------- the other middles, encoders and RPN options
+
+MIDDLE = "model.middle_feature_extractor."
+VFE = "model.voxel_feature_extractor."
+# second_car_fhd.config with each middle, encoder and RPN option of the
+# port's registries that the phases above do not run, at full width: (what,
+# patches, sparse convs a forward, gather-GEMM launches by path, the
+# encoder's norm statistics calibrated). Where a middle's BEV map is not the
+# fhd one, the patch sets the config as JAX's builder needs it: the BEV
+# stride (`downsample_factor`: 4 for the D4HD family, 16 for SpMiddle2K, 2
+# for the bottleneck stack, 1 for SparseMiddleExtractor), SpMiddle2K's z
+# voxel 0.05 m (its five z-strided convs need 81 z cells; the fhd grid's 41
+# leave none), and SparseMiddleExtractor's widths and voxels as SECOND's
+# car.config gives them ([64], [64, 64]; 0.2 x 0.2 x 0.4 m). The stacks
+# compute in fp32 (JAX's builder gives them no dtype), SpMiddleFHDLite and
+# SpMiddleFHD in bf16.
+CONFIG_EVALS = (
+    ("lite eval", [f'{MIDDLE}module_class_name="SpMiddleFHDLite"'], 4,
+     {"mma": 4, "fma": 0}, False),
+    ("extractor eval",
+     [f'{MIDDLE}module_class_name="SparseMiddleExtractor"',
+      "model.voxel_generator.voxel_size=[0.2, 0.2, 0.4]",
+      f"{MIDDLE}downsample_factor=1", f"{MIDDLE}num_filters_down1=[64]",
+      f"{MIDDLE}num_filters_down2=[64, 64]"], 5, {"mma": 0, "fma": 5},
+     False),
+    ("d4hd eval", [f'{MIDDLE}module_class_name="SpMiddleD4HD"',
+                   f"{MIDDLE}downsample_factor=4"], 11,
+     {"mma": 0, "fma": 11}, False),
+    ("resd4hd eval", [f'{MIDDLE}module_class_name="SpResNetD4HD"',
+                      f"{MIDDLE}downsample_factor=4"], 16,
+     {"mma": 0, "fma": 16}, False),
+    ("d4hdlite eval", [f'{MIDDLE}module_class_name="SpMiddleD4HDLite"',
+                       f"{MIDDLE}downsample_factor=4"], 11,
+     {"mma": 0, "fma": 11}, False),
+    ("d8hd eval", [f'{MIDDLE}module_class_name="SpMiddleD8HD"'], 15,
+     {"mma": 0, "fma": 15}, False),
+    ("2k eval", [f'{MIDDLE}module_class_name="SpMiddle2K"',
+                 "model.voxel_generator.voxel_size=[0.05, 0.05, 0.05]",
+                 f"{MIDDLE}downsample_factor=16"], 17,
+     {"mma": 0, "fma": 17}, False),
+    ("fhdv2 eval", [f'{MIDDLE}module_class_name="SpMiddleFHDV2"'], 14,
+     {"mma": 0, "fma": 14}, False),
+    ("vfev2 eval", [f'{VFE}module_class_name="VoxelFeatureExtractorV2"',
+                    f"{VFE}num_filters=[32, 128]"], SPARSE_CONVS,
+     {"mma": SPARSE_CONVS, "fma": 0}, True),
+    ("simplev eval", [f'{VFE}module_class_name="SimpleVoxel"'],
+     SPARSE_CONVS, {"mma": SPARSE_CONVS, "fma": 0}, False),
+    ("groupnorm eval", ["model.rpn.use_groupnorm=True"], SPARSE_CONVS,
+     {"mma": SPARSE_CONVS, "fma": 0}, False),
+    ("bottleneck256 eval", [f'{MIDDLE}module_class_name="Bottleneck256"',
+                            f"{MIDDLE}downsample_factor=2"], 4,
+     {"mma": 0, "fma": 4}, False),
+)
+# tests/test_torch_sparse_middles.py's stack whose bottleneck feeds 256
+# channels (4 x 64) to a 256 -> 256 submanifold conv and a 256 -> 32
+# strided conv, registered for its phase as "Bottleneck256"
+BOTTLENECK_256 = (("subm", 16), ("bottleneck", 64), ("subm", 256),
+                  ("down", 32, (3, 3, 3), (2, 2, 2), (1, 1, 1)))
+# the train step of SpMiddleFHDV2, the model path of the sparse max pool's
+# gradient: fp32, 14 forward, 13 dX and 14 weight-gradient calls
+FHDV2_PATCHES = CONFIG_EVALS[7][1]
+# the fhd eval forward with NMS over 8192 candidates an example, past
+# NMS_MAX_K: its NMS kernels take their wide routes
+K8192_PATCHES = ["model.nms_pre_max_size=8192"]
+
+
+def run_config_evals(dev, timer, dtimer):
+    """Each CONFIG_EVALS phase through `run_middle_eval`, untimed by call:
+    every sparse conv against its plain version (fp32 ones also against
+    fp64), the row gathers exact, the NMS pair against its plain version,
+    launches and gather-GEMM paths, predict without a host sync, frames/s.
+    Returns ({path: launch counts}, {path: report})."""
+    from second_tpu_torch.models.middle import MIDDLE_REGISTRY
+    from second_tpu_torch.models.sparse_middle import partial_stack
+    MIDDLE_REGISTRY.setdefault("Bottleneck256",
+                               partial_stack(BOTTLENECK_256))
+    counts, reports = {}, {}
+    for what, patches, n_convs, paths, calibrate in CONFIG_EVALS:
+        path = what.replace(" ", "_")
+        _, _, counts[path], reports[path] = run_middle_eval(
+            dev, timer, dtimer, what, patches, n_convs, paths,
+            calibrate=calibrate, timed=False)
+        torch.cuda.empty_cache()
+    return counts, reports
+
+
+# the NMS kernels past NMS_MAX_K (their wide routes): (candidates an
+# example, batch), up to ROTATED_MAX_K; the threshold and the pair cap of
+# the fhd config's NMS
+NMS_LARGE_KS = ((4097, 4), (8192, 4), (16384, 4), (riou.ROTATED_MAX_K, 1))
+NMS_LARGE_THR, NMS_LARGE_CAP = 0.01, 8192
+
+
+def crowded_nms_boxes(g, B, K):
+    """B examples of K BEV boxes (x, y, w, l, yaw) over a square of side
+    1.2 sqrt(K) m, 0.5-3 m by 0.5-6 m: some 5 K pairs an example pass the
+    standup bound at NMS_LARGE_THR, so the pair cap binds; scores sorted,
+    10% invalid (-inf)."""
+    side = 1.2 * K ** 0.5
+    boxes = torch.stack([torch.rand(B, K, generator=g) * side,
+                         torch.rand(B, K, generator=g) * side,
+                         0.5 + 2.5 * torch.rand(B, K, generator=g),
+                         0.5 + 5.5 * torch.rand(B, K, generator=g),
+                         (torch.rand(B, K, generator=g) - 0.5) * 2 * np.pi],
+                        -1)
+    scores = torch.rand(B, K, generator=g).sort(1, descending=True)[0]
+    scores[torch.rand(B, K, generator=g) < 0.1] = float("-inf")
+    return boxes, scores
+
+
+def run_nms_large_k(dev, timer, dtimer):
+    """Rotated and standup NMS past NMS_MAX_K candidates an example, where
+    the kernels take their wide routes, on crowded synthetic boxes at each
+    of NMS_LARGE_KS: `nms_sorted` of the candidates (rotated, threshold
+    NMS_LARGE_THR, the NMS_LARGE_CAP pair cap) recorded, its
+    `nms_overlap` and `nms_suppress` calls against their plain versions
+    (`check_nms_pair`: pair counts, keep and bits exact, bits but at pairs
+    within RIOU_TOL of the threshold), and the same candidates' standup
+    envelopes through standup NMS: `standup_overlap` bit for bit and its
+    keep (`check_standup_calls`), the suppression of that bitmask timed
+    beside its plain version; each call by events and device-only with its
+    bound. The plain versions build their [B, K, K] pair matrices a block
+    of rows at a time (`riou.row_blocks`), so they run on the card at every
+    K. Returns ({kernels-line key: {kernel: aggregate}}, the report)."""
+    aggs, report = {}, {}
+    g = torch.Generator().manual_seed(21)
+    for K, B in NMS_LARGE_KS:
+        boxes, scores = crowded_nms_boxes(g, B, K)
+        cand, scores = boxes.to(dev), scores.to(dev)
+        reps = (3, 1) if K > 20000 else (10, 2)
+        kw = dict(post_max_size=500, iou_threshold=NMS_LARGE_THR)
+        what = f"nms K{K} B{B}"
+        with recording([(riou, "nms_overlap"),
+                        (riou, "nms_suppress")]) as calls:
+            nms_ops.nms_sorted(cand, scores, max_pairs=NMS_LARGE_CAP, **kw)
+            torch.cuda.synchronize()
+        ov, sup, report[f"K{K}"] = check_nms_pair(calls, timer, dtimer,
+                                                  what, reps)
+        if report[f"K{K}"]["pair_count"][0] <= NMS_LARGE_CAP:
+            fail(f"{what}: the pair cap does not bind")
+        del calls
+        standup = nms_ops.rbbox2d_to_near_bbox(cand)
+        with recording([(riou, "standup_overlap"),
+                        (riou, "nms_suppress")]) as calls:
+            nms_ops.nms_sorted(standup, scores, rotated=False, **kw)
+            torch.cuda.synchronize()
+        st = check_standup_calls(calls["standup_overlap"],
+                                 calls["nms_suppress"], timer, dtimer,
+                                 f"{what} standup", reps)
+        (bits, valid), _ = calls["nms_suppress"][0]
+        fns = [lambda: riou.nms_suppress(bits, valid),
+               lambda: riou.nms_suppress_plain(bits, valid)]
+        st_sup = dict(ms=timer(fns[0], reps[0]), device_ms=dtimer(fns[:1])[0],
+                      plain_ms=timer(fns[1], reps[1]), library_ms=None,
+                      library_device_ms=None, err=0.0,
+                      bytes_s=(bits.numel() * 4 + 2 * valid.numel()) /
+                      HBM_BYTES_PER_S, ops_s=0.0)
+        say(f"{what} standup nms_suppress: keep exact ({int(bits.ne(0).sum())}"
+            f" nonzero words); kernel {st_sup['ms']:.4f} ms (device "
+            f"{st_sup['device_ms']:.4f})  plain {st_sup['plain_ms']:.4f} ms  "
+            f"bound {1e3 * st_sup['bytes_s']:.6f} ms")
+        aggs[f"nms_k{K}"] = {"rotated_iou": ov, "nms_suppress": sup,
+                             "standup_overlap": st}
+        aggs[f"nms_standup_k{K}"] = {"nms_suppress": st_sup}
+        del calls, bits, valid, fns, cand, scores, standup
+        torch.cuda.empty_cache()
+    say(f"nms past {riou.NMS_MAX_K}: every call within its tolerance of its "
+        f"plain version up to K {riou.ROTATED_MAX_K}; card {card_line()}")
+    return aggs, report
+
+
 # ------------------------------------------------------------ soft-NMS
 
 # soft-NMS (`ops/nms.py` soft_nms; no config reaches it, JAX's tests call
 # it) on the fhd eval's decoded candidates: (method, sigma, iou_threshold)
 SOFT_NMS_RUNS = (("gaussian", 0.5, 0.3), ("linear", 0.5, 0.3))
-# the long rows: candidates (NMS_MAX_K), decay steps; the pair kernel's
-# pair lists there: the fhd cap (its adjacency in shared memory) and one
-# past shared memory (in the device scratch)
-SOFT_NMS_K, SOFT_NMS_STEPS = 4096, 100
-SOFT_NMS_K_PAIRS = (8192, 32768)
+# the long rows: candidates, decay steps; the pair kernel's pair lists
+# there: the fhd cap (at NMS_MAX_K its adjacency in shared memory) and, at
+# NMS_MAX_K, one past shared memory (in the device scratch); past
+# NMS_MAX_K both kernels take their wide routes
+SOFT_NMS_KS, SOFT_NMS_STEPS = (4096, 8192, 16384), 100
+SOFT_NMS_K_PAIRS = {4096: (8192, 32768), 8192: (8192,), 16384: (8192,)}
 # the decay kernels against their plain versions on the same inputs: picks
 # exact, the finite scores within SOFT_RTOL relative (the same fp32
 # operations; torch's CUDA division by a scalar multiplies by its
@@ -6344,14 +6652,7 @@ SOFT_NMS_K_PAIRS = (8192, 32768)
 # keep exact, scores within SOFT_REF_RTOL (the corners' sin and cos an ulp
 # apart move the IoU by up to RIOU_TOL)
 SOFT_RTOL, SOFT_REF_RTOL = 1e-6, 1e-5
-# fp32 operations of one candidate in one decay step, counted from
-# csrc/riou.cu `soft_nms_decay_kernel`: the decay (gaussian: the square,
-# the negation, the division, exp: 4; linear: the comparison, the
-# difference, the select: 3), the finite test, the product and its select
-# (3), the pick's test and select (2), the thread's argmax (the score's
-# key, its comparison, two selects, the index: 5)
-SOFT_STEP_OPS = {"gaussian": 4 + 3 + 2 + 5, "linear": 3 + 3 + 2 + 5}
-# ... of the decay over a pair list, as the function needs them whatever
+# fp32 operations of the decay over a pair list, as the function needs them whatever
 # kernel does it: each step's argmax, a comparison a candidate; the decay
 # of each of the pick's neighbours (the decay's 4 or 3, the finite test,
 # the product and its select); the adjacency, a count and a placement
@@ -6368,19 +6669,6 @@ SOFT_PAIR_BUILD_OPS = 4
 # select: 3)
 SOFT_STANDUP_MEET_OPS = 8
 SOFT_STANDUP_DECAY_OPS = {"gaussian": 5 + 4 + 3, "linear": 5 + 3 + 3}
-
-
-def soft_bound(R, K, m, method):
-    """The dense decay steps' bound on the card, from this call's sizes:
-    bytes, the m IoU rows of K fp32 a row read and the K scores, the m
-    picks (int64) and their scores written; operations, m steps of
-    SOFT_STEP_OPS a candidate at the fp32 rate. The m steps are also a
-    chain (each waits on the last one's pick), which no bound here
-    counts: the device time over m is printed as the time a step, and
-    scripts/torch_soft_nms_floor.py measures the chain's latency floor."""
-    return dict(bytes_s=R * (m * K * 4 + K * 4 + m * 12) / HBM_BYTES_PER_S,
-                ops_s=R * m * K * SOFT_STEP_OPS[method] /
-                PEAK_OPS_PER_S[torch.float32])
 
 
 def soft_standup_bound(cand, scores, picks, method):
@@ -6455,33 +6743,30 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
     """soft-NMS on the fhd eval forward's NMS candidates (the recorded
     `nms` call: batch 4, nms_pre_max_size 1000 decoded boxes an example,
     post 100), gaussian (sigma 0.5) and linear (threshold 0.3), rotated,
-    and gaussian standup on the same boxes' standup envelopes; then
-    K = 4096 rows:
+    and gaussian standup on the same boxes' standup envelopes; then rows
+    of SOFT_NMS_KS candidates:
     - counted: launch counts set to 0, the three calls, counts read: the
       pair-list decay kernel once a rotated call for all 4 rows, with the
       pair IoU; the standup decay kernel once in the standup call, whose
       peak allocation stays below a [B, K, K] fp32 matrix; the row gather
-      once a call; nothing else (the dense decay kernel never);
+      once a call; nothing else;
     - each decay call's kernel against its plain version on its own
       inputs (`check_decay`), each pair IoU call against its plain version
-      (RIOU_TOL), the pair cap's use printed; the dense kernel on the
-      standup call's dense matrix; the standup and dense kernels on the
-      standup call's rows with NaN and +inf scores and NaN IoU values;
+      (RIOU_TOL), the pair cap's use printed; the standup kernel on the
+      standup call's rows with NaN and +inf scores and NaN boxes;
     - each call card against CPU (every wrapper's plain version): picks
       and keep exact, the rescored scores within SOFT_REF_RTOL;
     - each rotated call's pair-list decay timed (events, device, plain)
       with its bound (`soft_pairs_bound`) and, at m = 1, its prologue and
       one step; the standup call's standup decay (`soft_standup_bound`)
-      and the dense decay of its dense matrix (`soft_bound`) the same;
-      the whole gaussian soft_nms, rotated and standup, timed in turns
-      with the same call by its earlier route (the pair list densified on
-      the card, or the dense standup matrix; the dense decay kernel),
-      whose outputs must be the same;
-    - the 4096-candidate rows: crowded boxes, their pair lists at the
-      SOFT_NMS_K_PAIRS caps (in shared memory, past it), SOFT_NMS_STEPS
+      the same; the whole gaussian soft_nms, rotated and standup, timed
+      (events and device);
+    - the long rows (SOFT_NMS_KS: 4096, and past NMS_MAX_K the kernels'
+      wide routes): crowded boxes, with a NaN and a +inf score past K =
+      4096, their pair lists at the SOFT_NMS_K_PAIRS caps, SOFT_NMS_STEPS
       steps, the pair kernel against plain and timed; the standup kernel
-      on their standup envelopes and the dense kernel on their dense
-      rotated IoU, against plain and timed.
+      on their standup envelopes (a NaN box past 4096), against plain and
+      timed.
     Returns (the aggregates by kernel: the fhd gaussian calls' numbers;
     the aggregates of the other calls by kernels-line key, the launch
     counts, the report)."""
@@ -6575,18 +6860,10 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
     say(f"soft-nms standup: standup decay kernel = plain (picks exact), "
         f"card = CPU (scores within {ref_rel:.2e}), kept "
         f"{report['runs']['standup']['kept']}")
-    # the dense kernel on the same call's dense standup matrix (the route
-    # the standup kernel replaced), and both on NaN rows: NaN and +inf
-    # scores (torch.argmax ranks NaN first) and NaN IoU values (two
-    # overlapping infinite boxes: the second decays to NaN by the first; a
-    # NaN coordinate)
+    # the standup kernel on NaN rows: NaN and +inf scores (torch.argmax
+    # ranks NaN first) and NaN IoU values (two overlapping infinite boxes:
+    # the second decays to NaN by the first; a NaN coordinate)
     cand_st, top_st = args_st[:2]
-    dense_args = (standup_iou_matrix(cand_st, cand_st), top_st,
-                  *args_st[2:])
-    errs["dense"] = check_decay(
-        riou.soft_nms_decay(*dense_args, **kwargs_st),
-        riou.soft_nms_decay_plain(*dense_args, **kwargs_st),
-        "soft-nms standup dense")
     inf, nan = float("inf"), float("nan")
     cand_nan, top_nan = cand_st.clone(), top_st.clone()
     cand_nan[0, 3] = cand_nan[0, 20] = torch.tensor([-inf, -inf, inf, inf])
@@ -6602,19 +6879,16 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
             and int(want_nan[1].isnan().sum()) > 2):
         fail("soft-nms NaN row: the plain version does not pick the NaN "
              "scores first")
-    errs["dense_nan"] = check_decay(
-        riou.soft_nms_decay(*dense_nan, **kwargs_st), want_nan,
-        "soft-nms dense NaN row")
     errs["standup_nan"] = check_decay(
         riou.soft_nms_decay_standup(*nan_args, **kwargs_st),
         riou.soft_nms_decay_standup_plain(*nan_args, **kwargs_st),
         "soft-nms standup NaN row")
-    say(f"soft-nms NaN row: dense and standup decay kernels = plain "
-        f"(picks exact, {int(want_nan[1].isnan().sum())} NaN scores in the "
-        f"same places)")
+    say(f"soft-nms NaN row: standup decay kernel = plain (picks exact, "
+        f"{int(want_nan[1].isnan().sum())} NaN scores in the same places, "
+        f"the plain version picking the NaN scores first)")
 
     def timed(kernel, args, kwargs, method, what):
-        """The decay kernel (`soft_nms_decay_pairs`, `soft_nms_decay` or
+        """The decay kernel (`soft_nms_decay_pairs` or
         `soft_nms_decay_standup`) on `args` timed beside its plain
         version, with its bound, and at m = 1 (its prologue and one
         step)."""
@@ -6636,9 +6910,7 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
                    library_ms=None, library_device_ms=None,
                    **(soft_pairs_bound(args[0], args[1], top, picks, method)
                       if pairs else soft_standup_bound(args[0], top, picks,
-                                                       method)
-                      if kernel == "soft_nms_decay_standup"
-                      else soft_bound(R, K, m, method)))
+                                                       method)))
         steps_us = 1e3 * (agg["device_ms"] - agg["step1_device_ms"]) / \
             max(m - 1, 1)
         agg["step_device_us"] = steps_us
@@ -6666,111 +6938,65 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
                                      "soft-nms fhd standup")
     aggs["soft_nms_standup"]["err"] = max(errs["standup"],
                                           errs["standup_nan"])
-    aggs["soft_nms"] = timed("soft_nms_decay", dense_args, kwargs_st,
-                             SOFT_NMS_RUNS[0][0], "soft-nms fhd standup dense")
-    aggs["soft_nms"]["err"] = max(errs["dense"], errs["dense_nan"])
 
-    def soft_dense(method, sigma, thr):
-        """The same rotated call by the earlier route: the pair list
-        densified on the card (`sparse_rotated_iou_matrix`: a zero fill,
-        a scatter, the transposed maximum) and the dense decay kernel."""
-        masked = torch.where(valid, scores, float("-inf"))
-        k = min(pre, N)
-        top, idx = nms_ops.top_k(masked, k)
-        iou = nms_ops.sparse_rotated_iou_matrix(
-            nms_ops.flat_rows(boxes, idx), torch.isfinite(top),
-            min(8192, k * k))
-        picks, picked = riou.soft_nms_decay(iou, top, min(post, k), method,
-                                            sigma, thr)
-        keep = torch.isfinite(picked) & (picked >= 1e-3)
-        return idx.gather(-1, picks), torch.where(keep, picked, 0.0), keep
-
-    def soft_dense_standup(method, sigma, thr):
-        """The standup call by the earlier route: the dense standup IoU
-        matrix and the dense decay kernel."""
-        masked = torch.where(valid, scores, float("-inf"))
-        k = min(pre, N)
-        top, idx = nms_ops.top_k(masked, k)
-        cand = nms_ops.flat_rows(standup, idx)
-        picks, picked = riou.soft_nms_decay(standup_iou_matrix(cand, cand),
-                                            top, min(post, k), method, sigma,
-                                            thr)
-        keep = torch.isfinite(picked) & (picked >= 1e-3)
-        return idx.gather(-1, picks), torch.where(keep, picked, 0.0), keep
-
-    def in_turns(new, old, key, what, route):
-        """The whole call `new` timed in turns with `old` (new, old, old,
-        new; events, the host's enqueue included), and device-only."""
-        ms = [timer(fn, 10) for fn in (new, old, old, new)]
-        report[f"{key}_ms"], report[f"{key}_dense_ms"] = \
-            (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-        report[f"{key}_turns_ms"] = ms
-        report[f"{key}_device_ms"], report[f"{key}_dense_device_ms"] = \
-            dtimer([new, old])
+    def whole(fn, key, what):
+        """The whole call timed by events (the host's enqueue included)
+        and device-only."""
+        report[f"{key}_ms"] = timer(fn, 10)
+        report[f"{key}_device_ms"], = dtimer([fn])
         say(f"soft-nms fhd: {what} {report[f'{key}_ms']:.4f} ms (device "
-            f"{report[f'{key}_device_ms']:.4f}); by the earlier route "
-            f"({route}) {report[f'{key}_dense_ms']:.4f} ms (device "
-            f"{report[f'{key}_dense_device_ms']:.4f}), the same outputs; in "
-            f"turns new, old, old, new: {', '.join(f'{t:.4f}' for t in ms)}")
+            f"{report[f'{key}_device_ms']:.4f})")
 
-    dense_out = soft_dense(*SOFT_NMS_RUNS[0])
-    if not all(torch.equal(a, b) for a, b in zip(dense_out, outs[0])):
-        fail("soft-nms fhd: the dense route's picks, scores or keep differ "
-             "from the pair route's")
     # the rotated call is some 40 small launches, the standup one some 10
-    in_turns(lambda: soft(*SOFT_NMS_RUNS[0]),
-             lambda: soft_dense(*SOFT_NMS_RUNS[0]), "whole",
-             "the whole gaussian soft_nms (top-k, pair list, pair IoU, "
-             "decay)", "the pair list densified, the dense decay")
-    dense_st_out = soft_dense_standup(*SOFT_NMS_RUNS[0])
-    if not all(torch.equal(a, b) for a, b in zip(dense_st_out,
-                                                 out_standup)):
-        fail("soft-nms fhd standup: the dense route's picks, scores or keep "
-             "differ from the standup kernel's")
-    in_turns(lambda: soft(*SOFT_NMS_RUNS[0], b=standup, rotated=False),
-             lambda: soft_dense_standup(*SOFT_NMS_RUNS[0]), "whole_standup",
-             "the whole gaussian standup soft_nms (top-k, the row gather, "
-             "decay)", "the dense standup matrix, the dense decay")
+    whole(lambda: soft(*SOFT_NMS_RUNS[0]), "whole",
+          "the whole gaussian soft_nms (top-k, pair list, pair IoU, decay)")
+    whole(lambda: soft(*SOFT_NMS_RUNS[0], b=standup, rotated=False),
+          "whole_standup", "the whole gaussian standup soft_nms (top-k, "
+          "the row gather, decay)")
 
     g = torch.Generator().manual_seed(7)
-    n = SOFT_NMS_K
-    big = torch.stack([torch.rand(n, generator=g) * 70.4,
-                       torch.rand(n, generator=g) * 80 - 40,
-                       1.4 + 0.4 * torch.rand(n, generator=g),
-                       3.5 + 0.8 * torch.rand(n, generator=g),
-                       (torch.rand(n, generator=g) - 0.5) * 2 * np.pi],
-                      1).to(dev)
-    top4k = torch.rand(1, n, generator=g).sort(1, descending=True)[0].to(dev)
-    for cap in SOFT_NMS_K_PAIRS:
-        plist, ok = nms_ops.soft_nms_pairs(big[None], torch.isfinite(top4k),
-                                           cap)
-        if not bool(ok.all()):
-            fail(f"soft-nms K4096: fewer than {cap} pairs")
-        args4k = (plist, ok, nms_ops.pair_iou(big[None], plist), top4k,
-                  SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
-        what = f"soft-nms K4096 P{cap}"
-        agg = timed("soft_nms_decay_pairs", args4k, {}, "gaussian", what)
-        agg["err"] = check_decay(riou.soft_nms_decay_pairs(*args4k),
-                                 riou.soft_nms_decay_pairs_plain(*args4k),
+    for n in SOFT_NMS_KS:
+        # crowded boxes over a square that grows with sqrt(n): as many
+        # neighbours a box at every n
+        side = (n / SOFT_NMS_KS[0]) ** 0.5
+        big = torch.stack([torch.rand(n, generator=g) * 70.4 * side,
+                           torch.rand(n, generator=g) * 80 * side - 40,
+                           1.4 + 0.4 * torch.rand(n, generator=g),
+                           3.5 + 0.8 * torch.rand(n, generator=g),
+                           (torch.rand(n, generator=g) - 0.5) * 2 * np.pi],
+                          1).to(dev)
+        top = torch.rand(1, n, generator=g).sort(1, descending=True)[0]
+        if n > riou.NMS_MAX_K:
+            top[0, 5], top[0, 17] = nan, inf
+        top = top.to(dev)
+        for cap in SOFT_NMS_K_PAIRS[n]:
+            plist, ok = nms_ops.soft_nms_pairs(big[None],
+                                               torch.ones_like(top, bool),
+                                               cap)
+            if not bool(ok.all()):
+                fail(f"soft-nms K{n}: fewer than {cap} pairs")
+            args_k = (plist, ok, nms_ops.pair_iou(big[None], plist), top,
+                      SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
+            what = f"soft-nms K{n} P{cap}"
+            agg = timed("soft_nms_decay_pairs", args_k, {}, "gaussian", what)
+            agg["err"] = check_decay(riou.soft_nms_decay_pairs(*args_k),
+                                     riou.soft_nms_decay_pairs_plain(*args_k),
+                                     what)
+            agg["scratch_bytes"] = riou.soft_pairs_scratch(n, cap)
+            others[f"soft_nms_k{n}_p{cap}"] = {"soft_nms_pairs": agg}
+        cand_k = nms_ops.rbbox2d_to_near_bbox(big)[None].contiguous()
+        if n > riou.NMS_MAX_K:
+            cand_k[0, 40, 1] = nan
+        args_k = (cand_k, top, SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
+        what = f"soft-nms K{n} standup"
+        agg = timed("soft_nms_decay_standup", args_k, {}, "gaussian", what)
+        agg["err"] = check_decay(riou.soft_nms_decay_standup(*args_k),
+                                 riou.soft_nms_decay_standup_plain(*args_k),
                                  what)
-        agg["scratch_bytes"] = riou.soft_pairs_scratch(n, cap)
-        others[f"soft_nms_k4096_p{cap}"] = {"soft_nms_pairs": agg}
-    args4k = (nms_ops.rbbox2d_to_near_bbox(big)[None].contiguous(), top4k,
-              SOFT_NMS_STEPS, "gaussian", 0.5, 0.3)
-    what = "soft-nms K4096 standup"
-    agg = timed("soft_nms_decay_standup", args4k, {}, "gaussian", what)
-    agg["err"] = check_decay(riou.soft_nms_decay_standup(*args4k),
-                             riou.soft_nms_decay_standup_plain(*args4k),
-                             what)
-    others["soft_nms_standup_k4096"] = {"soft_nms_standup": agg}
-    args4k = (riou.riou_matrix(big, big)[None], top4k, SOFT_NMS_STEPS,
-              "gaussian", 0.5, 0.3)
-    agg = timed("soft_nms_decay", args4k, {}, "gaussian",
-                "soft-nms K4096 dense")
-    agg["err"] = check_decay(riou.soft_nms_decay(*args4k),
-                             riou.soft_nms_decay_plain(*args4k),
-                             "soft-nms K4096 dense")
-    others["soft_nms_k4096"] = {"soft_nms": agg}
+        others[f"soft_nms_standup_k{n}"] = {"soft_nms_standup": agg}
+        del big, plist, ok, args_k, cand_k
+    say(f"soft-nms long rows: every decay call within its tolerance of its "
+        f"plain version; card {card_line()}")
     report["timing"] = {k: {f: v for f, v in a.items() if f != "err"}
                         for k, a in aggs.items()}
     report["timing_other"] = {

@@ -1,5 +1,4 @@
-"""The latency floors of the three soft-NMS decay kernels' steps, on one
-card.
+"""The latency floors of the soft-NMS decay kernels' steps, on one card.
 
     python3 scripts/torch_soft_nms_floor.py [--variant NAME=RIOU_CU ...]
 
@@ -25,9 +24,8 @@ crowded boxes (the sides of PAIR_ROWS), each warm and after an L2 flush:
   step);
 - standup m = 1, 100, K: `soft_nms_decay_standup` itself, gaussian,
   device-only time from the profiler after an L2 flush (as for the pair
-  kernel below), a later step from m = K and m = 1; beside it the dense
-  kernel on the same row's dense standup matrix at m = COLD_STEPS; each
-  `--variant`'s standup kernel beside it (checked equal first).
+  kernel below), a later step from m = K and m = 1; each `--variant`'s
+  standup kernel beside it (checked equal first).
 
 The pair-list kernel (`soft_nms_decay_pairs_kernel`, rotated soft-NMS): a
 prologue stages the row's adjacency in shared memory, then a step is a
@@ -52,18 +50,16 @@ an L2 flush (a 128 MB fill):
   (chip_smoke.py's `DeviceTimer`: the median of 5 runs, each after an L2
   flush; an event-timed launch this short also times the host's gap
   before it): a later step's time is the difference of m = K and m = 1
-  over K - 1; beside it the dense kernel on the same row's dense matrix
-  (`pair_matrix` of the list) at m = COLD_STEPS, the same function by the
-  old structure.
+  over K - 1.
 
-The dense kernel (`soft_nms_decay_kernel`, any IoU matrix; standup
-soft-NMS's until the standup kernel): a step cannot be shorter than its
-chain of a block-wide argmax (a warp's `sp_warp_best`, a barrier, one
+A decay over a dense IoU matrix (the design both kernels replaced; its
+kernel was removed once no path took it): a step cannot be shorter than
+its chain of a block-wide argmax (a warp's `sp_warp_best`, a barrier, one
 across the warps, a barrier) and one dependent read of the picked IoU
 row. This script times that chain alone, in
-kernels built with the port's flags for riou.cu, with the real kernel's
-block (K / 4 threads rounded up to a warp, at most 4 scores a thread in
-registers), for K = 1000 (the fhd call's rows) and K = 4096 (NMS_MAX_K):
+kernels built with the port's flags for riou.cu, with a block of K / 4
+threads rounded up to a warp, at most 4 scores a thread in registers, for
+K = 1000 (the fhd call's rows) and K = 4096 (NMS_MAX_K):
 
 - chase: one thread's dependent loads through a random cycle over one line
   in 32 of a K x K fp32 matrix's bytes, `__ldcg` (the L2's latency where the
@@ -74,12 +70,10 @@ registers), for K = 1000 (the fhd call's rows) and K = 4096 (NMS_MAX_K):
   columns, that row's values its next scores: the step without the decay's
   arithmetic. The matrix's largest entry in row b sits at column pi(b), pi
   one cycle through all K rows, so every step reads a row the last K - 1
-  steps did not (the real kernel reads a new row each step too);
-- kernel: `soft_nms_decay` itself, gaussian, on one row of the same matrix
-  with random scores, m = K steps (every candidate picked once);
-- skeleton cold, kernel cold: the same for COLD_STEPS steps (the fhd call's
-  m), each launch after the L2 is flushed (a 128 MB fill), as chip_smoke.py
-  times the kernel (`DeviceTimer`): the rows come from HBM.
+  steps did not (a dense decay reads a new row each step too);
+- skeleton cold: the same for COLD_STEPS steps (the fhd call's m), each
+  launch after the L2 is flushed (a 128 MB fill), as chip_smoke.py times
+  the kernels (`DeviceTimer`): the rows come from HBM.
 
 Each is timed with CUDA events, REPS launches after one warm-up, and
 printed per step (us) with the card's name and power limit. The floor of a
@@ -101,7 +95,6 @@ import chip_smoke as cs  # noqa: E402
 from second_tpu_torch.ops import cuda as kernels  # noqa: E402
 from second_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from second_tpu_torch.ops.cuda import riou  # noqa: E402
-from second_tpu_torch.ops.rotated_iou import standup_iou_matrix  # noqa: E402
 
 REPS = 5
 STEPS = 10000            # argmax and skeleton steps a launch
@@ -543,7 +536,7 @@ def variant(name, src):
     lib = kernels.build_variant(src, f"riou_{name}", "riou")[0]
     try:
         st = lib.soft_nms_decay_standup
-        st.argtypes = riou._SOFT_ARGTYPES
+        st.argtypes = riou._SOFT_STANDUP_ARGTYPES
         st.restype = ctypes.c_int
     except AttributeError:
         st = None
@@ -552,9 +545,11 @@ def variant(name, src):
         R, K = scores.shape
         picks = torch.empty((R, m), dtype=torch.int64, device=scores.device)
         picked = torch.empty((R, m), device=scores.device)
+        scratch = torch.empty(R * K, device=scores.device)   # past 4096
         checked(st(cand.data_ptr(), scores.data_ptr(), picks.data_ptr(),
-                   picked.data_ptr(), R, K, m, int(method == "gaussian"),
-                   sigma, thr, kernels.stream_ptr(scores.device)), name)
+                   picked.data_ptr(), scratch.data_ptr(), R, K, m,
+                   int(method == "gaussian"), sigma, thr,
+                   kernels.stream_ptr(scores.device)), name)
         return picks, picked
 
     fn = lib.soft_nms_decay_pairs
@@ -588,7 +583,6 @@ def pair_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
     for K, side in PAIR_ROWS:
         plist, ok, iou, scores = crowded_row(K, side, gen, dev)
         d = 2 * PAIRS // K
-        dense = riou.pair_matrix(plist, ok, iou, K)
         vals = scores[0].contiguous()
         kernel = [("pairs", riou.soft_nms_decay_pairs)] + variants
         want = riou.soft_nms_decay_pairs(plist, ok, iou, scores, COLD_STEPS,
@@ -617,8 +611,6 @@ def pair_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
         runs = [(name, m, lambda fn=fn, m=m: fn(plist, ok, iou, scores, m,
                                                 "gaussian", 0.5, 0.3))
                 for name, fn in kernel for m in (1, COLD_STEPS, K)]
-        runs.append(("dense", COLD_STEPS, lambda: riou.soft_nms_decay(
-            dense, scores, COLD_STEPS, "gaussian", 0.5, 0.3)))
         dev_ms = dtimer([fn for _, _, fn in runs])
         got = {(name, m): t for (name, m, _), t in zip(runs, dev_ms)}
         lanes = kernel_per(K)
@@ -628,9 +620,6 @@ def pair_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
                   f"{floors[f'walk per {lanes}{cold}']!r} us, the slots "
                   f"alone {floors[f'slots per {lanes}{cold}']!r} us")
         floor = floors[f"walk per {lanes} cold"]
-        print(f"K {K} P {PAIRS} device, after an L2 flush (median of 5): "
-              f"the dense kernel on the same row {got['dense', COLD_STEPS]!r}"
-              f" ms for {COLD_STEPS} steps")
         for name, _ in kernel:
             first = got[name, 1]
             later = 1e3 * (got[name, K] - first) / (K - 1)
@@ -682,9 +671,6 @@ def standup_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
         runs = [((name, m), lambda fn=fn, m=m: fn(
             cand, scores, m, "gaussian", 0.5, 0.3))
             for name, fn in kernel for m in (1, COLD_STEPS, K)]
-        dense = standup_iou_matrix(cand, cand)
-        runs.append((("dense", COLD_STEPS), lambda: riou.soft_nms_decay(
-            dense, scores, COLD_STEPS, "gaussian", 0.5, 0.3)))
         got = dict(zip((key for key, _ in runs),
                        dtimer([fn for _, fn in runs])))
         for cold in ("", " cold"):
@@ -693,9 +679,6 @@ def standup_floor(lib, dtimer, variants, stream, out, l2, gen, dev):
                   f"us, the slots alone "
                   f"{floors[f'standup slots per {per}{cold}']!r} us")
         floor = floors[f"standup step per {per} cold"]
-        print(f"K {K} standup device, after an L2 flush (median of 5): the "
-              f"dense kernel on the same row's dense matrix "
-              f"{got['dense', COLD_STEPS]!r} ms for {COLD_STEPS} steps")
         for name, _ in kernel:
             later = 1e3 * (got[name, K] - got[name, 1]) / (K - 1)
             print(f"K {K} standup device, after an L2 flush: {name} "
@@ -737,13 +720,9 @@ def main():
             "skeleton": (STEPS, lambda: checked(lib.floor_step(
                 mat.data_ptr(), vals.data_ptr(), K, STEPS, 1, out.data_ptr(),
                 stream), "skeleton")),
-            "kernel": (K, lambda: riou.soft_nms_decay(
-                mat[None], vals[None], K, "gaussian", 0.5, 0.3)),
             "skeleton cold": (COLD_STEPS, lambda: checked(lib.floor_step(
                 mat.data_ptr(), vals.data_ptr(), K, COLD_STEPS, 1,
                 out.data_ptr(), stream), "skeleton")),
-            "kernel cold": (COLD_STEPS, lambda: riou.soft_nms_decay(
-                mat[None], vals[None], COLD_STEPS, "gaussian", 0.5, 0.3)),
         }
         us = {}
         for name, (steps, fn) in per.items():
@@ -754,14 +733,10 @@ def main():
                   f"launch, ms {', '.join(repr(t) for t in ms)}; us a step "
                   f"{', '.join(repr(u) for u in us[name])}")
         best = {name: min(u) for name, u in us.items()}
-        print(f"K {K}: floor of a step (skeleton, least of {REPS}) "
+        print(f"K {K}: floor of a dense step (skeleton, least of {REPS}) "
               f"{best['skeleton']!r} us; chase + argmax "
-              f"{best['chase'] + best['argmax']!r} us; the kernel "
-              f"{best['kernel']!r} us a step, "
-              f"{best['kernel'] / best['skeleton']!r} x the floor; cold, "
-              f"{COLD_STEPS} steps: floor {best['skeleton cold']!r} us, the "
-              f"kernel {best['kernel cold']!r} us a step, "
-              f"{best['kernel cold'] / best['skeleton cold']!r} x")
+              f"{best['chase'] + best['argmax']!r} us; cold, {COLD_STEPS} "
+              f"steps: floor {best['skeleton cold']!r} us")
     variants = [(name, variant(name, src)) for name, src in
                 (v.split("=", 1) for v in args.variant)]
     standup_floor(lib, cs.DeviceTimer(dev), variants, stream, out, l2, gen,

@@ -28,10 +28,12 @@
 // for a whole batch, `nms_overlap` and `nms_suppress` (below);
 // `d3_iou`, the 3-D IoU of lidar boxes (below); and `standup_overlap`,
 // the bitmask of standup NMS (below); and the decay steps of soft-NMS
-// (below): `soft_nms_decay` over any precomputed IoU matrix,
-// `soft_nms_decay_standup` over standup candidates' boxes (standup
-// soft-NMS) and `soft_nms_decay_pairs` over the capped pair list of
-// rotated soft-NMS. A non-finite box gives
+// (below): `soft_nms_decay_standup` over standup candidates' boxes
+// (standup soft-NMS) and `soft_nms_decay_pairs` over the capped pair list
+// of rotated soft-NMS. Past NMS_MAX_K candidates an example, where one
+// block's shared memory no longer holds them, the NMS and soft-NMS entries
+// take a wide route of their own (each described where it is defined),
+// with the same results. A non-finite box gives
 // the plain version's non-finite results: the clamps and the winding sign
 // pass NaN through, as torch.clamp and torch.sign do.
 //
@@ -571,7 +573,13 @@ __global__ void __launch_bounds__(D3_ROWS)
 
 constexpr int NMS_THREADS = 1024;
 constexpr int NMS_WARPS = NMS_THREADS / 32;
-constexpr int NMS_MAX_K = 4096;          // a list entry packs i << 12 | j
+// the largest K of the routes that hold an example in one block's shared
+// memory (a list entry packs i << 12 | j); past it the wide routes
+constexpr int NMS_MAX_K = 4096;
+// the largest K of rotated NMS and soft-NMS: JAX indexes their candidate
+// pairs as int32 `arange(K * K)` (second_tpu/ops/nms.py:100, :142), so
+// K * K < 2^31
+constexpr int NMS_ROTATED_MAX_K = 46340;
 constexpr int NMS_MAX_CLUSTER = 16;      // 8 is portable, 16 fits an H100
 constexpr int NMS_LIST = 8192;           // pairs a block clips per chunk
 constexpr int NMS_SMEM = 226 * 1024;     // dynamic shared memory a block
@@ -608,6 +616,37 @@ __host__ __device__ inline size_t overlap_smem(int K, int over_words,
   return Kp * (16 + 4 + 1) + 20 * (size_t)K + 4 * ((size_t)K + 1) +
          4 * NMS_LIST + 4 * ((size_t)over_words + maybe_words) +
          4 * (NMS_MAX_CLUSTER + 1);
+}
+
+// A box's standup envelope (min x, min y, max x, max y of its corners)
+// and its area w * l, in the plain version's order of operations.
+__device__ __forceinline__ void standup_envelope(const float* __restrict__ q,
+                                                 float4& env, float& area) {
+  float qx[4], qy[4];
+  corners(q, qx, qy);
+  env = make_float4(fminf(fminf(qx[0], qx[1]), fminf(qx[2], qx[3])),
+                    fminf(fminf(qy[0], qy[1]), fminf(qy[2], qy[3])),
+                    fmaxf(fmaxf(qx[0], qx[1]), fmaxf(qx[2], qx[3])),
+                    fmaxf(fmaxf(qy[0], qy[1]), fmaxf(qy[2], qy[3])));
+  area = q[2] * q[3];
+}
+
+// Whether a pair's standup bound, inter / max(a_i + a_j - inter, 1e-12),
+// exceeds thr. The quotient q = inter / denom, correctly rounded, exceeds
+// thr exactly when inter exceeds thr * denom, unless the two lie within
+// 4e-7 of each other (or the product is tiny): only then is the division
+// computed.
+__device__ __forceinline__ bool bound_over(float4 si, float ai, float4 sj,
+                                           float aj, float thr) {
+  const float wx = fmaxf(fminf(si.z, sj.z) - fmaxf(si.x, sj.x), 0.f);
+  const float wy = fmaxf(fminf(si.w, sj.w) - fmaxf(si.y, sj.y), 0.f);
+  const float inter = wx * wy;
+  const float denom = fmaxf((ai + aj) - inter, 1e-12f);
+  const float p = thr * denom;
+  const bool sure = fabsf(p) >= 1e-30f;
+  bool m = sure && inter > p * 1.0000004f;
+  if (!m && !(sure && inter < p * 0.9999996f)) m = inter / denom > thr;
+  return m;
 }
 
 // In-place exclusive prefix of a[0, n) over the block (a[n] = the total,
@@ -685,15 +724,10 @@ __global__ void __launch_bounds__(NMS_THREADS, 1)
       vs[k] = 0;
       continue;
     }
-    float q[5], qx[4], qy[4];
+    float q[5];
 #pragma unroll
     for (int m = 0; m < 5; ++m) bx[5 * k + m] = q[m] = cb[5 * k + m];
-    corners(q, qx, qy);
-    su[k] = make_float4(fminf(fminf(qx[0], qx[1]), fminf(qx[2], qx[3])),
-                        fminf(fminf(qy[0], qy[1]), fminf(qy[2], qy[3])),
-                        fmaxf(fmaxf(qx[0], qx[1]), fmaxf(qx[2], qx[3])),
-                        fmaxf(fmaxf(qy[0], qy[1]), fmaxf(qy[2], qy[3])));
-    area[k] = q[2] * q[3];
+    standup_envelope(q, su[k], area[k]);
     vs[k] = valid[(size_t)b * K + k];
   }
   // this block's rows of the bitmask: in shared memory, or in place
@@ -701,11 +735,8 @@ __global__ void __launch_bounds__(NMS_THREADS, 1)
   for (int t = tid; t < rows * W; t += NMS_THREADS) ov[t] = 0u;
   __syncthreads();
 
-  // bound test: a warp a row, 32 columns a ballot word, kept in the
-  // block's maybe rows (shared memory, or the global scratch). The quotient
-  // q = inter / denom, correctly rounded, exceeds thr exactly when inter
-  // exceeds thr * denom, unless the two lie within 4e-7 of each other (or
-  // the product is tiny): only then is the division computed.
+  // bound test (`bound_over`): a warp a row, 32 columns a ballot word,
+  // kept in the block's maybe rows (shared memory, or the global scratch)
   uint32_t* mb = maybe_words ? mb_s : maybe + ((size_t)b * K + r0) * W;
   for (int i = r0 + warp; i < r1; i += NMS_WARPS) {
     int cnt = 0;
@@ -715,15 +746,7 @@ __global__ void __launch_bounds__(NMS_THREADS, 1)
       uint32_t upper = ~0u << ((i + 1) & 31);   // first word: columns > i
       for (int w = (i + 1) >> 5; w < W; ++w) {
         const int j = (w << 5) + lane;
-        const float4 sj = su[j];
-        const float wx = fmaxf(fminf(si.z, sj.z) - fmaxf(si.x, sj.x), 0.f);
-        const float wy = fmaxf(fminf(si.w, sj.w) - fmaxf(si.y, sj.y), 0.f);
-        const float inter = wx * wy;
-        const float denom = fmaxf((ai + area[j]) - inter, 1e-12f);
-        const float p = thr * denom;
-        const bool sure = fabsf(p) >= 1e-30f;
-        bool m = sure && inter > p * 1.0000004f;
-        if (!m && !(sure && inter < p * 0.9999996f)) m = inter / denom > thr;
+        const bool m = bound_over(si, ai, su[j], area[j], thr);
         const uint32_t word = __ballot_sync(FULL, m && vs[j]) & upper;
         upper = ~0u;
         if (lane == 0) mb[(size_t)(i - r0) * W + w] = word;
@@ -804,6 +827,142 @@ __global__ void __launch_bounds__(NMS_THREADS, 1)
   if (over_words) {
     uint32_t* dst = over + ((size_t)b * K + r0) * W;
     for (int t = tid; t < rows * W; t += NMS_THREADS) dst[t] = ov_s[t];
+  }
+}
+
+// nms_overlap past NMS_MAX_K candidates (the wide route): the same
+// bitmask and counts, for K up to NMS_ROTATED_MAX_K, from four kernels over
+// global memory, where one block's shared memory no longer holds an
+// example. Bound on the H100: operations, as above (K(K-1)/2 bound tests
+// an example); a simple design, right first:
+// 1. `nms_wide_prep_kernel`, a thread a box: its standup envelope and area
+//    into a scratch (float4 and float [B, K]; 0.9 MB at K 46 340, which
+//    stays in L2).
+// 2. `nms_wide_bound_kernel`, a block of 32 rows (a warp a row), the
+//    columns from the block's first row on staged in shared memory
+//    NMS_WIDE_COLS at a time (envelope, area, valid flag): each warp tests
+//    its row against the staged columns above its diagonal, 32 at a time
+//    into a ballot word of the maybe bitmask (global [B, K, W]), and
+//    counts the row's pairs.
+// 3. `nms_wide_scan_kernel`, a block an example: the exclusive prefix of
+//    its row counts in place (`block_exclusive_scan`) and its pair count.
+// 4. `nms_wide_clip_kernel`, a warp a row: a row's pairs take row-major
+//    ranks from its start and a prefix of popcounts over its words, a word
+//    a lane; the lane clips (`pair_iou`) its word's pairs ranked below the
+//    cap and writes the word of the bitmask, every word of every row (0
+//    where no pair is set), so nothing needs a zero fill or an atomic.
+constexpr int NMS_WIDE_COLS = 1024;   // columns a bound block stages at once
+
+__global__ void nms_wide_prep_kernel(const float* __restrict__ cand,
+                                     float4* __restrict__ env,
+                                     float* __restrict__ area, long long n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  float q[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) q[m] = cand[5 * t + m];
+  standup_envelope(q, env[t], area[t]);
+}
+
+__global__ void __launch_bounds__(NMS_THREADS)
+    nms_wide_bound_kernel(const float4* __restrict__ env,
+                          const float* __restrict__ area,
+                          const uint8_t* __restrict__ valid,
+                          uint32_t* __restrict__ maybe,
+                          int* __restrict__ start, int K, float thr) {
+  __shared__ float4 su[NMS_WIDE_COLS];
+  __shared__ float sa[NMS_WIDE_COLS];
+  __shared__ uint8_t sv[NMS_WIDE_COLS];
+  const int W = (K + 31) >> 5;
+  const int blocks = (K + NMS_WARPS - 1) / NMS_WARPS;   // row blocks
+  const int b = blockIdx.x / blocks;
+  const int r0 = (blockIdx.x - b * blocks) * NMS_WARPS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = r0 + warp;
+  const long long base = (long long)b * K;
+  const bool row_ok = i < K && valid[base + i];
+  float4 si = make_float4(0.f, 0.f, 0.f, 0.f);
+  float ai = 0.f;
+  if (row_ok) {
+    si = env[base + i];
+    ai = area[base + i];
+  }
+  uint32_t* mb = maybe + (base + i) * W;
+  int cnt = 0;
+  // the staged chunks start at the word of the block's first row + 1
+  for (int c0 = ((r0 + 1) >> 5) << 5; c0 < (W << 5); c0 += NMS_WIDE_COLS) {
+    __syncthreads();
+    for (int c = tid; c < NMS_WIDE_COLS; c += NMS_THREADS) {
+      const int j = c0 + c;
+      const bool in = j < K;
+      su[c] = in ? env[base + j] : make_float4(0.f, 0.f, 0.f, 0.f);
+      sa[c] = in ? area[base + j] : 0.f;
+      sv[c] = in ? valid[base + j] : 0;
+    }
+    __syncthreads();
+    if (!row_ok) continue;
+    const int w_end = min(W, (c0 + NMS_WIDE_COLS) >> 5);
+    for (int w = max((i + 1) >> 5, c0 >> 5); w < w_end; ++w) {
+      const int c = (w << 5) - c0 + lane;
+      const bool m = bound_over(si, ai, su[c], sa[c], thr);
+      uint32_t word = __ballot_sync(FULL, m && sv[c]);
+      if (w == (i + 1) >> 5) word &= ~0u << ((i + 1) & 31);  // columns > i
+      if (lane == 0) mb[w] = word;
+      cnt += __popc(word);
+    }
+  }
+  if (i < K && lane == 0) start[b * (K + 1LL) + i] = cnt;
+}
+
+__global__ void __launch_bounds__(NMS_THREADS)
+    nms_wide_scan_kernel(int* __restrict__ start, int* __restrict__ count,
+                         int K) {
+  __shared__ int warp_sums[NMS_WARPS];
+  const int b = blockIdx.x;
+  const int total = block_exclusive_scan(start + b * (K + 1LL), K,
+                                         warp_sums);
+  if (threadIdx.x == 0) count[b] = total;
+}
+
+__global__ void nms_wide_clip_kernel(const float* __restrict__ cand,
+                                     const uint32_t* __restrict__ maybe,
+                                     const int* __restrict__ start,
+                                     uint32_t* __restrict__ over, int batch,
+                                     int K, float thr, int cap) {
+  const int lane = threadIdx.x & 31;
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (r >= (long long)batch * K) return;
+  const int b = (int)(r / K), i = (int)(r - (long long)b * K);
+  const int W = (K + 31) >> 5;
+  const int* st = start + b * (K + 1LL);
+  const int rs = st[i], re = st[i + 1];
+  const uint32_t* mb = maybe + r * W;
+  uint32_t* ov = over + r * W;
+  const float* cb = cand + (long long)b * K * 5;
+  const int first = (i + 1) >> 5;
+  int base = rs;
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const int w = w0 + lane;
+    // a row with no pair below the cap reads no maybe word
+    uint32_t word = rs < re && rs < cap && w < W && w >= first ? mb[w] : 0u;
+    const int p = __popc(word);
+    int incl = p;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int rank = base + incl - p;
+    uint32_t out = 0u;
+    while (word && rank < cap) {
+      const int bit = __ffs(word) - 1;
+      word &= word - 1;
+      if (pair_iou(cb + 5 * i, cb + 5 * ((w << 5) + bit), -1) > thr)
+        out |= 1u << bit;
+      ++rank;
+    }
+    if (w < W) ov[w] = out;
+    base += __shfl_sync(FULL, incl, 31);
   }
 }
 
@@ -978,6 +1137,76 @@ __global__ void __launch_bounds__(SUP_THREADS)
   }
 }
 
+
+// nms_suppress past NMS_MAX_K candidates (the wide route; rotated NMS up to
+// NMS_ROTATED_MAX_K, standup NMS at any K whose bitmask the card holds):
+// the same keep set. Bound: bytes (the bitmask read once), a serial walk
+// over the W words. A simple design, right first: one block an example;
+// the rows removed so far, W words, in dynamic shared memory (5.8 KB at
+// K 46 340). Warp 0 settles word g as the kernel above does (its diagonal
+// block transposed by 32 ballots, then rounds of ballots over the open
+// rows) and publishes its kept rows; then the whole block ORs each kept
+// row's words past g into the removed mask, a thread a word (the kept
+// rows read in place, coalesced). Two barriers a word.
+__global__ void __launch_bounds__(SUP_THREADS)
+    nms_suppress_wide_kernel(const uint32_t* __restrict__ over,
+                             const uint8_t* __restrict__ valid,
+                             uint8_t* __restrict__ keep, int K) {
+  extern __shared__ uint32_t removed[];
+  __shared__ uint32_t kept_word;
+  const int W = (K + 31) >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long b = blockIdx.x;
+  const uint32_t* ov = over + b * K * W;
+  const uint8_t* vb = valid + b * K;
+  uint8_t* kb = keep + b * K;
+  for (int w = threadIdx.x; w < W; w += SUP_THREADS) removed[w] = 0u;
+  __syncthreads();
+  for (int g = 0; g < W; ++g) {
+    if (warp == 0) {
+      const int row = (g << 5) + lane;
+      const bool in = row < K;
+      const uint32_t v = __ballot_sync(FULL, in && vb[row]);
+      const uint32_t diag = in ? ov[(size_t)row * W + g] : 0u;
+      // row lane's earlier rows of its word that suppress it
+      uint32_t pred = 0;
+      if (__any_sync(FULL, diag)) {
+#pragma unroll
+        for (int t = 0; t < 32; ++t) {
+          const uint32_t c = __ballot_sync(FULL, (diag >> t) & 1u);
+          if (lane == t) pred = c & ((1u << t) - 1u);
+        }
+      }
+      uint32_t open = v & ~removed[g], kept = 0;
+      if (__any_sync(FULL, pred & open)) {
+        while (open) {
+          const bool mine_open = (open >> lane) & 1u;
+          const uint32_t newk =
+              __ballot_sync(FULL, mine_open && !(pred & (kept | open)));
+          const uint32_t gone =
+              __ballot_sync(FULL, mine_open && (pred & kept));
+          kept |= newk;
+          open &= ~(newk | gone);
+        }
+      } else {
+        kept = open;
+      }
+      if (in) kb[row] = (kept >> lane) & 1u;
+      if (lane == 0) kept_word = kept;
+    }
+    __syncthreads();
+    const uint32_t kw = kept_word;
+    if (kw) {
+      for (int w = g + 1 + threadIdx.x; w < W; w += SUP_THREADS) {
+        uint32_t acc = 0u;
+        for (uint32_t k = kw; k; k &= k - 1)
+          acc |= ov[(size_t)((g << 5) + __ffs(k) - 1) * W + w];
+        removed[w] |= acc;
+      }
+    }
+    __syncthreads();
+  }
+}
 
 // standup_overlap — replaces the standup branch of `nms`
 // (second_tpu/ops/nms.py:183): the dense standup IoU matrix of the
@@ -1169,29 +1398,19 @@ __global__ void __launch_bounds__(SU_THREADS)
 
 // ------------------------------------------------------------ soft-NMS
 //
-// soft_nms_decay — replaces the decay `lax.scan` of `soft_nms`
-// (second_tpu/ops/nms.py:230-244; no Pallas counterpart): over a row's K
-// candidates, sorted by descending score, `m` steps each pick the highest
-// current score (torch.argmax's and jnp.argmax's order: NaN above +inf, -0
-// equal to +0, ties to the lowest index; a row of -inf picks 0), record
-// it, multiply every finite score by the decay of its IoU with the pick
-// (exp(-iou^2 / sigma), or 1 - iou above the threshold), turn every score
-// that was not finite to -inf, and set the pick to -inf.
-// Bound on the H100: bytes, m IoU rows of K floats and the K scores a row
-// read once, the picks and their scores written once; but the m steps are
-// a chain, each waiting on the last one's pick, so what the card can reach
-// is m times a step's latency (a block-wide argmax and one dependent read
-// of an IoU row). Design: one block a row, of up to 1024 threads, each
-// holding at most SOFT_PER_THREAD of the row's scores in registers (K <=
-// NMS_MAX_K); a step is a warp's argmax over (key, index) (`sp_warp_best`),
-// one across the warps through shared memory, then each thread's coalesced
-// read of the picked IoU row at its own columns and the decay in fp32 with
-// `expf` and an IEEE division (the plain version's operations; the file is
-// built without fused multiply-adds), which also yields the thread's
-// argmax for the next step; the pick's owner writes it and its score out.
-// Two barriers a step. It takes any IoU matrix; standup soft-NMS runs
-// `soft_nms_decay_standup_kernel` (below), which needs none.
-constexpr int SOFT_PER_THREAD = 4;
+// The decay steps of soft-NMS — they replace the decay `lax.scan` of
+// `soft_nms` (second_tpu/ops/nms.py:230-244; no Pallas counterpart): over a
+// row's K candidates, sorted by descending score, `m` steps each pick the
+// highest current score (torch.argmax's and jnp.argmax's order: NaN above
+// +inf, -0 equal to +0, ties to the lowest index; a row of -inf picks 0),
+// record it, multiply every finite score by the decay of its IoU with the
+// pick (exp(-iou^2 / sigma), or 1 - iou above the threshold), turn every
+// score that was not finite to -inf, and set the pick to -inf. The m steps
+// are a chain, each waiting on the last one's pick. Two kernels, each with
+// the IoU it needs folded in, so no [R, K, K] matrix is read:
+// `soft_nms_decay_standup_kernel` (standup soft-NMS, from the boxes) and
+// `soft_nms_decay_pairs_kernel` (rotated soft-NMS, over the capped pair
+// list); past NMS_MAX_K candidates each takes a wide route (below).
 
 // a score's key: int order is torch.argmax's order of the scores (NaN
 // above +inf, -0 equal to +0)
@@ -1208,68 +1427,6 @@ __device__ __forceinline__ int2 sp_warp_best(int key, int idx) {
   const int wk = __reduce_max_sync(FULL, key);
   const int wi = __reduce_min_sync(FULL, key == wk ? idx : INT32_MAX);
   return make_int2(wk, wi);
-}
-
-__global__ void __launch_bounds__(1024)
-    soft_nms_decay_kernel(const float* __restrict__ iou,
-                          const float* __restrict__ scores,
-                          long long* __restrict__ picks,
-                          float* __restrict__ pick_scores, int k, int m,
-                          int gaussian, float sigma, float thr) {
-  __shared__ int2 red[32];
-  __shared__ int best_i;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const long long row = blockIdx.x;
-  const float* __restrict__ rs = scores + row * k;
-  const float* __restrict__ ri = iou + row * (long long)k * k;
-  float cur[SOFT_PER_THREAD];
-  int lk = INT32_MIN, li = INT32_MAX;
-#pragma unroll
-  for (int e = 0; e < SOFT_PER_THREAD; ++e) {
-    const int j = tid + e * blockDim.x;
-    cur[e] = j < k ? rs[j] : -INFINITY;
-    if (j < k && sp_key(cur[e]) > lk) {   // j rises with e: ties keep the
-      lk = sp_key(cur[e]);                // lower index
-      li = j;
-    }
-  }
-  for (int s = 0; s < m; ++s) {
-    const int2 w = sp_warp_best(lk, li);
-    if (lane == 0) red[warp] = w;
-    __syncthreads();
-    if (warp == 0) {
-      const int2 r = lane < nwarps ? red[lane]
-                                   : make_int2(INT32_MIN, INT32_MAX);
-      const int2 b = sp_warp_best(r.x, r.y);
-      if (lane == 0) best_i = b.y;
-    }
-    __syncthreads();
-    const int b = best_i;
-    const float* __restrict__ brow = ri + (long long)b * k;
-    lk = INT32_MIN;
-    li = INT32_MAX;
-#pragma unroll
-    for (int e = 0; e < SOFT_PER_THREAD; ++e) {
-      const int j = tid + e * blockDim.x;
-      if (j < k) {
-        const float r = brow[j];
-        const float d = gaussian ? expf(-(r * r) / sigma)
-                                 : (r > thr ? 1.f - r : 1.f);
-        const float c = cur[e];
-        if (j == b) {
-          picks[row * m + s] = b;
-          pick_scores[row * m + s] = c;
-        }
-        cur[e] = j == b ? -INFINITY : (isfinite(c) ? c * d : -INFINITY);
-        const int key = sp_key(cur[e]);
-        if (key > lk) {
-          lk = key;
-          li = j;
-        }
-      }
-    }
-  }
 }
 
 // soft_nms_decay_standup_kernel — the same decay steps (it replaces the
@@ -1408,6 +1565,96 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// soft_nms_decay_standup_wide_kernel — the standup kernel's steps past
+// NMS_MAX_K candidates a row, where a lane's registers and the block's
+// shared memory no longer hold them: each lane owns `per` consecutive
+// candidates (per = ceil(K / 1024)), whose boxes it reads from the input
+// (L2-resident) and whose current scores live in a device scratch [R, K];
+// every step it walks them all: the same meet test, IoU, decay and -inf
+// rules in the same operations (so the same bits), and its best (key,
+// index) over them. One barrier a step; a simple design, right first.
+__global__ void __launch_bounds__(1024)
+    soft_nms_decay_standup_wide_kernel(const float4* __restrict__ cand,
+                                       const float* __restrict__ scores,
+                                       long long* __restrict__ picks,
+                                       float* __restrict__ pick_scores,
+                                       float* __restrict__ cur, int k, int m,
+                                       int per, int gaussian, float sigma,
+                                       float thr) {
+  __shared__ int2 slot[2][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long row = blockIdx.x;
+  const int j0 = tid * per, j1 = min(j0 + per, k);
+  cand += row * k;
+  scores += row * k;
+  cur += row * k;
+  int lk = INT32_MIN, li = INT32_MAX;
+  for (int j = j0; j < j1; ++j) {
+    const float c = scores[j];
+    cur[j] = c;
+    if (sp_key(c) > lk) {
+      lk = sp_key(c);
+      li = j;
+    }
+  }
+  const float r0 = 0.f;
+  const float d0 = gaussian ? expf(-(r0 * r0) / sigma)
+                            : (r0 > thr ? 1.f - r0 : 1.f);
+  const bool all = d0 != 1.f;
+  int2 mine = sp_warp_best(lk, li);
+  if (lane == 0) slot[0][warp] = mine;
+  int buf = 0;
+  __syncthreads();
+  for (int s = 0; s < m; ++s) {
+    const int2 sl = lane < nwarps ? slot[buf][lane]
+                                  : make_int2(INT32_MIN, INT32_MAX);
+    const int b = sp_warp_best(sl.x, sl.y).y;
+    const float4 pb = cand[b];
+    const bool pnan = pb.x != pb.x || pb.y != pb.y || pb.z != pb.z ||
+                      pb.w != pb.w;
+    lk = INT32_MIN;
+    li = INT32_MAX;
+    for (int j = j0; j < j1; ++j) {
+      const float c = cur[j];
+      float nc = c;
+      if (j == b) {
+        picks[row * m + s] = b;
+        pick_scores[row * m + s] = c;
+        nc = -INFINITY;
+      } else if (isfinite(c)) {
+        const float4 q = cand[j];
+        const bool qnan = q.x != q.x || q.y != q.y || q.z != q.z ||
+                          q.w != q.w;
+        const float wx = fminf(pb.z, q.z) - fmaxf(pb.x, q.x);
+        const float wy = fminf(pb.w, q.w) - fmaxf(pb.y, q.y);
+        const bool meet = wx > 0.f && wy > 0.f && !pnan && !qnan;
+        if (meet || all) {
+          const float ap = (pb.z - pb.x + 0.f) * (pb.w - pb.y + 0.f);
+          const float aq = (q.z - q.x + 0.f) * (q.w - q.y + 0.f);
+          const float inter = meet ? (wx + 0.f) * (wy + 0.f) : 0.f;
+          const float r = inter > 0.f ? inter / ((ap + aq) - inter) : 0.f;
+          const float d = gaussian ? expf(-(r * r) / sigma)
+                                   : (r > thr ? 1.f - r : 1.f);
+          nc = c * d;
+        }
+      } else {
+        nc = -INFINITY;
+      }
+      if (j == b || nc != c) cur[j] = nc;   // NaN != NaN: rewritten too
+      const int key = sp_key(nc);
+      if (key > lk) {
+        lk = key;
+        li = j;
+      }
+    }
+    mine = sp_warp_best(lk, li);
+    buf ^= 1;
+    if (lane == 0) slot[buf][warp] = mine;
+    __syncthreads();
+  }
+}
+
 // soft_nms_decay_pairs_kernel — the same decay steps (it replaces the same
 // `lax.scan`, second_tpu/ops/nms.py:230-244) where rotated soft-NMS runs
 // them: over the capped pair list it clips, not a dense IoU matrix. Its
@@ -1446,10 +1693,16 @@ __global__ void __launch_bounds__(1024)
 //   span changed recomputes its slot, the others carry it over into the
 //   other buffer. One barrier a step, and no read of device memory where
 //   the adjacency fits.
-// - The dense version turns every non-finite score to -inf at each step.
+// - The plain version turns every non-finite score to -inf at each step.
 //   Here a NaN or +inf (in the scores, or from a decay) marks its warp,
 //   which sweeps its span to -inf at its next step, after the pick: the
 //   same scores.
+// - Past NMS_MAX_K candidates (up to NMS_ROTATED_MAX_K; PER = 0, the wide
+//   route): a lane holds `per` consecutive scores, a multiple of 4 (so a
+//   span of 32 x per still leaves at most 32 warps), and the scores, the
+//   offsets and the adjacency all live in the device scratch (8K + 12P
+//   bytes a row, 16-aligned), where they stay in L2; the steps are the
+//   same. A simple route, right first.
 constexpr int SP_MAX_WARPS = 32;
 constexpr int SP_SMEM = 226 * 1024;      // dynamic shared memory a block
 constexpr int SP_UNROLL = 8;             // slots a thread loads at once
@@ -1491,6 +1744,54 @@ __device__ __forceinline__ int2 sp_span_max(const float* cur, int lo, int hi,
   return sp_warp_best(bk, bi);
 }
 
+// sp_span_max's wide form: `per` (a multiple of 4) consecutive scores a
+// lane, read 4 at a time, in index order.
+__device__ __forceinline__ int2 sp_span_max_wide(const float* cur, int lo,
+                                                 int hi, int lane, int per,
+                                                 bool& dirty) {
+  const int j0 = lo + lane * per, j1 = min(j0 + per, hi);
+  int bk = INT32_MIN, bi = INT32_MAX;
+  bool odd = false;
+  for (int j = j0; j < j1; j += 4) {
+    float v[4];
+    if (j + 4 <= j1) {
+      *reinterpret_cast<float4*>(v) =
+          *reinterpret_cast<const float4*>(cur + j);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[t] = j + t < j1 ? cur[j + t] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (j + t < j1) {
+        const int key = sp_key(v[t]);
+        if (key > bk) {
+          bk = key;
+          bi = j + t;
+        }
+        odd |= !isfinite(v[t]) && v[t] != -INFINITY;
+      }
+  }
+  dirty = __any_sync(FULL, odd);
+  return sp_warp_best(bk, bi);
+}
+
+// The wide route's lane count and scratch layout: per (a multiple of 4)
+// scores a lane for at most 32 warps; a row's scores and K + 1 offsets,
+// then (16-aligned) its 2P adjacency entries, the row 16-aligned.
+__host__ __device__ inline int sp_wide_per(int k) {
+  return ((k + 1023) / 1024 + 3) & ~3;
+}
+__host__ __device__ inline long long sp_wide_adj_offset(int k) {
+  return (8LL * k + 4 + 15) & ~15LL;
+}
+__host__ __device__ inline long long sp_wide_row_bytes(int k, long long p) {
+  return (sp_wide_adj_offset(k) + 12 * p + 15) & ~15LL;
+}
+
+// PER 1, 2 or 4 (K up to NMS_MAX_K; the adjacency in shared memory with
+// SMEM_ADJ, else in the scratch), or 0: the wide route (everything in the
+// scratch, SMEM_ADJ false)
 template <int PER, bool SMEM_ADJ>
 __global__ void __launch_bounds__(1024)
     soft_nms_decay_pairs_kernel(const long long* __restrict__ plist,
@@ -1508,11 +1809,15 @@ __global__ void __launch_bounds__(1024)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockDim.x, nwarps = nt >> 5;
   const long long row = blockIdx.x;
-  float* cur = reinterpret_cast<float*>(sp_smem);
+  constexpr bool WIDE = PER == 0;
+  const int per = WIDE ? sp_wide_per(k) : PER;
+  unsigned char* wrow = scratch + (WIDE ? row * sp_wide_row_bytes(k, p) : 0);
+  float* cur = reinterpret_cast<float*>(WIDE ? wrow : sp_smem);
   int* beg = reinterpret_cast<int*>(cur + k);
   // an entry: the neighbour, and the decay its pair's value gives
-  float* dec = SMEM_ADJ ? reinterpret_cast<float*>(beg + k + 1)
-                        : reinterpret_cast<float*>(scratch + row * 12LL * p);
+  float* dec = WIDE ? reinterpret_cast<float*>(wrow + sp_wide_adj_offset(k))
+               : SMEM_ADJ ? reinterpret_cast<float*>(beg + k + 1)
+                          : reinterpret_cast<float*>(scratch + row * 12LL * p);
   uint16_t* nbr = reinterpret_cast<uint16_t*>(dec + 2LL * p);
   plist += row * p;
   ok += row * p;
@@ -1603,10 +1908,16 @@ __global__ void __launch_bounds__(1024)
       }
   }
 
-  const int w_lo = min(warp * 32 * PER, k), w_hi = min(w_lo + 32 * PER, k);
+  const int w_lo = min(warp * 32 * per, k), w_hi = min(w_lo + 32 * per, k);
   bool dirty;
+  auto span_max = [&]() {
+    if constexpr (WIDE)
+      return sp_span_max_wide(cur, w_lo, w_hi, lane, per, dirty);
+    else
+      return sp_span_max<PER>(cur, w_lo, w_hi, lane, dirty);
+  };
   __syncthreads();
-  int2 mine = sp_span_max<PER>(cur, w_lo, w_hi, lane, dirty);
+  int2 mine = span_max();
   if (lane == 0) slot[0][warp] = mine;
   int buf = 0;
   __syncthreads();
@@ -1640,7 +1951,7 @@ __global__ void __launch_bounds__(1024)
     if (own && lane == 0) cur[b] = -INFINITY;
     if (__any_sync(FULL, hit) || changed) {
       __syncwarp();
-      mine = sp_span_max<PER>(cur, w_lo, w_hi, lane, dirty);
+      mine = span_max();
     }
     buf ^= 1;
     if (lane == 0) slot[buf][warp] = mine;
@@ -1755,24 +2066,76 @@ extern "C" int nms_overlap(const void* cand, const void* valid, void* over,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// Bytes of device scratch `nms_overlap_wide` takes: a standup envelope
+// (float4) and an area a box, then each example's K + 1 row starts.
+extern "C" long long nms_overlap_wide_scratch(int batch, int k) {
+  return 20LL * batch * k + 4LL * batch * (k + 1LL);
+}
+
+// nms_overlap's contract past NMS_MAX_K candidates (up to
+// NMS_ROTATED_MAX_K), whatever the cluster: the same over, maybe and
+// count; scratch holds nms_overlap_wide_scratch(batch, k) bytes.
+extern "C" int nms_overlap_wide(const void* cand, const void* valid,
+                                void* over, void* maybe, void* count,
+                                void* scratch, int batch, int k, float thr,
+                                int cap, void* stream) {
+  if (batch == 0 || k == 0) return 0;
+  if (batch < 0 || k < 0 || k > NMS_ROTATED_MAX_K || cap < 0 ||
+      (long long)batch * ((k + NMS_WARPS - 1) / NMS_WARPS) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)batch * k;
+  float4* env = static_cast<float4*>(scratch);
+  float* area = reinterpret_cast<float*>(env + n);
+  int* start = reinterpret_cast<int*>(area + n);
+  nms_wide_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(cand), env, area, n);
+  nms_wide_bound_kernel<<<(unsigned)(batch * ((k + NMS_WARPS - 1) /
+                                              NMS_WARPS)),
+                          NMS_THREADS, 0, st>>>(
+      env, area, static_cast<const uint8_t*>(valid),
+      static_cast<uint32_t*>(maybe), start, k, thr);
+  nms_wide_scan_kernel<<<(unsigned)batch, NMS_THREADS, 0, st>>>(
+      start, static_cast<int*>(count), k);
+  nms_wide_clip_kernel<<<(unsigned)((n * 32 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(cand), static_cast<const uint32_t*>(maybe),
+      start, static_cast<uint32_t*>(over), batch, k, thr, cap);
+  return (int)cudaGetLastError();
+}
+
 // Whether nms_suppress stages a bitmask of K rows in shared memory (1) or
 // reads it in place (0): its rows padded to W + 1 words fit SUP_SMEM.
 extern "C" int nms_suppress_staged(int k) {
   return (size_t)k * (((k + 31) >> 5) + 1) * 4 <= (size_t)SUP_SMEM;
 }
 
-// over [B, K, W] words, valid [B, K] bytes → keep [B, K] bytes (0 / 1).
+// over [B, K, W] words, valid [B, K] bytes → keep [B, K] bytes (0 / 1);
+// past NMS_MAX_K candidates the wide kernel (its removed mask of W words
+// in shared memory: K up to 32 * SUP_SMEM / 4).
 extern "C" int nms_suppress(const void* over, const void* valid, void* keep,
                             int batch, int k, void* stream) {
   if (batch == 0 || k == 0) return 0;
-  if (k < 0 || k > NMS_MAX_K) return (int)cudaErrorInvalidValue;
+  const int W = (k + 31) >> 5;
+  if (batch < 0 || k < 0 || (size_t)W * 4 > (size_t)SUP_SMEM)
+    return (int)cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         nms_suppress_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SUP_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(nms_suppress_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SUP_SMEM);
     if (e != cudaSuccess) return (int)e;
     sized = true;
+  }
+  if (k > NMS_MAX_K) {
+    nms_suppress_wide_kernel<<<(unsigned)batch, SUP_THREADS, (size_t)W * 4,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(over),
+        static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), k);
+    return (int)cudaGetLastError();
   }
   const int staged = nms_suppress_staged(k);
   nms_suppress_kernel<<<(unsigned)batch, SUP_THREADS,
@@ -1810,39 +2173,36 @@ extern "C" int standup_overlap(const void* cand, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// iou [R, K, K] fp32, scores [R, K] fp32 (each row sorted by descending
-// score; -inf an invalid candidate) → picks [R, m] int64 and their scores
-// [R, m] fp32, m steps of soft-NMS's decay a row (gaussian: exp(-iou^2 /
-// sigma), else linear: 1 - iou above thr).
-extern "C" int soft_nms_decay(const void* iou, const void* scores,
-                              void* picks, void* pick_scores, int rows,
-                              int k, int m, int gaussian, float sigma,
-                              float thr, void* stream) {
-  if (rows < 0 || k < 0 || m < 0 || k > NMS_MAX_K || m > k)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0 || k == 0 || m == 0) return 0;
-  int threads = (k + SOFT_PER_THREAD - 1) / SOFT_PER_THREAD;
-  threads = ((threads + 31) / 32) * 32;
-  soft_nms_decay_kernel<<<(unsigned)rows, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(iou), static_cast<const float*>(scores),
-      static_cast<long long*>(picks), static_cast<float*>(pick_scores), k, m,
-      gaussian, sigma, thr);
-  return (int)cudaGetLastError();
+// Bytes of device scratch a row of `soft_nms_decay_standup` needs: 0 up
+// to NMS_MAX_K candidates, else its K current scores (the wide kernel).
+extern "C" long long soft_nms_standup_scratch(int k) {
+  return k > NMS_MAX_K ? 4LL * k : 0;
 }
 
 // cand [R, K, 4] xyxy fp32, scores [R, K] fp32 (each row sorted by
 // descending score; -inf an invalid candidate) → picks [R, m] int64 and
-// their scores [R, m] fp32, the decay steps of `soft_nms_decay` over the
-// candidates' standup IoU matrix, computed a row a step.
+// their scores [R, m] fp32, the decay steps over the candidates' standup
+// IoU matrix, computed a row a step; scratch holds R *
+// soft_nms_standup_scratch(K) bytes (null where that is 0).
 extern "C" int soft_nms_decay_standup(const void* cand, const void* scores,
                                       void* picks, void* pick_scores,
-                                      int rows, int k, int m, int gaussian,
-                                      float sigma, float thr,
+                                      void* scratch, int rows, int k, int m,
+                                      int gaussian, float sigma, float thr,
                                       void* stream) {
-  if (rows < 0 || k < 0 || m < 0 || k > NMS_MAX_K || m > k)
+  if (rows < 0 || k < 0 || m < 0 || m > k)
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || k == 0 || m == 0) return 0;
+  if (k > NMS_MAX_K) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int per = (k + 1023) / 1024;
+    const int threads = ((k + per - 1) / per + 31) / 32 * 32;
+    soft_nms_decay_standup_wide_kernel<<<(unsigned)rows, threads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(cand), static_cast<const float*>(scores),
+        static_cast<long long*>(picks), static_cast<float*>(pick_scores),
+        static_cast<float*>(scratch), k, m, per, gaussian, sigma, thr);
+    return (int)cudaGetLastError();
+  }
   using Kernel = void (*)(const float4*, const float*, long long*, float*,
                           int, int, int, float, float);
   // [scores a lane: 1, 2, 4]
@@ -1881,28 +2241,42 @@ static size_t soft_pairs_smem(int k, long long p, bool adj) {
 }
 
 // Bytes of global scratch a row of `soft_nms_decay_pairs` needs: 0 where
-// its adjacency fits in shared memory, else its 2P entries.
+// its adjacency fits in shared memory, else its 2P entries; past
+// NMS_MAX_K candidates, the wide route's row (`sp_wide_row_bytes`).
 extern "C" long long soft_nms_pairs_scratch(int k, long long p) {
+  if (k > NMS_MAX_K) return sp_wide_row_bytes(k, p);
   return soft_pairs_smem(k, p, true) <= (size_t)SP_SMEM ? 0 : 12 * p;
 }
 
 // plist [R, P] int64 (i * K + j, i < j), ok [R, P] bytes, iou [R, P] fp32,
 // scores [R, K] fp32 (each row sorted by descending score; -inf an invalid
 // candidate) → picks [R, m] int64 and their scores [R, m] fp32, the decay
-// steps of `soft_nms_decay` over the matrix the pairs make; scratch holds
-// R * soft_nms_pairs_scratch(K, P) bytes (null where that is 0).
+// steps over the matrix the pairs make; scratch holds R *
+// soft_nms_pairs_scratch(K, P) bytes (null where that is 0).
 extern "C" int soft_nms_decay_pairs(const void* plist, const void* ok,
                                     const void* iou, const void* scores,
                                     void* picks, void* pick_scores,
                                     void* scratch, int rows, int k,
                                     long long p, int m, int gaussian,
                                     float sigma, float thr, void* stream) {
-  if (rows < 0 || k < 0 || m < 0 || p < 0 || k > NMS_MAX_K || m > k ||
-      p > (1LL << 28))
+  if (rows < 0 || k < 0 || m < 0 || p < 0 || k > NMS_ROTATED_MAX_K ||
+      m > k || p > (1LL << 28))
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || k == 0 || m == 0) return 0;
   const bool staged = soft_nms_pairs_scratch(k, p) == 0;
   if (!staged && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (k > NMS_MAX_K) {
+    soft_nms_decay_pairs_kernel<0, false><<<
+        (unsigned)rows, (k + 32 * sp_wide_per(k) - 1) / (32 * sp_wide_per(k))
+                            * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(plist),
+        static_cast<const uint8_t*>(ok), static_cast<const float*>(iou),
+        static_cast<const float*>(scores), static_cast<long long*>(picks),
+        static_cast<float*>(pick_scores),
+        static_cast<unsigned char*>(scratch), k, (int)p, m, gaussian, sigma,
+        thr);
+    return (int)cudaGetLastError();
+  }
   using Kernel = void (*)(const long long*, const uint8_t*, const float*,
                           const float*, long long*, float*, unsigned char*,
                           int, int, int, int, float, float);

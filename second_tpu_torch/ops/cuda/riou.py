@@ -15,15 +15,21 @@ suppression, JAX `_greedy_suppress_over`) take a whole batch and meet in an
 overlap bitmask [B, K, ceil(K / 32)] of int32 words: bit j % 32 of word
 j // 32 of row i says that the higher-ranked box i suppresses box j.
 `standup_overlap` writes that bitmask for standup NMS (the standup IoU of
-axis-aligned boxes, thresholded). `soft_nms_decay` runs the decay steps
-of soft-NMS (JAX `soft_nms`'s `lax.scan`) over any precomputed IoU matrix,
-`soft_nms_decay_standup` over standup candidates' boxes (standup soft-NMS:
-each step computes the pick's row of their IoU matrix), and
-`soft_nms_decay_pairs` over the capped pair list of rotated soft-NMS,
-which holds that matrix's only nonzero entries.
+axis-aligned boxes, thresholded). `soft_nms_decay_standup` runs the decay
+steps of soft-NMS (JAX `soft_nms`'s `lax.scan`) over standup candidates'
+boxes (standup soft-NMS: each step computes the pick's row of their IoU
+matrix), and `soft_nms_decay_pairs` over the capped pair list of rotated
+soft-NMS, which holds that matrix's only nonzero entries;
+`soft_nms_decay_plain` is those steps over any IoU matrix, their plain
+versions' core.
 Each launches `csrc/riou.cu` for CUDA tensors and takes its plain version,
 built on `ops/rotated_iou.py`, for CPU tensors. None has a backward: under
-grad mode, inputs that require grad raise.
+grad mode, inputs that require grad raise. On the card the rotated routes
+(`nms_overlap`, `soft_nms_decay_pairs`) take up to ROTATED_MAX_K
+candidates an example, the bound JAX's int32 pair index sets; the standup
+ones and `nms_suppress` any K whose tensors the card holds. Past
+NMS_MAX_K the kernels take wide routes of their own, with the same
+results.
 """
 
 from __future__ import annotations
@@ -46,13 +52,22 @@ launches_suppress = 0
 launches_d3 = 0
 # launches of the standup-NMS bitmask kernel
 launches_standup = 0
-# launches of the soft-NMS decay kernels: over a dense IoU matrix, over
-# standup boxes, and over a pair list
-launches_soft = 0
+# launches of the soft-NMS decay kernels: over standup boxes, and over a
+# pair list
 launches_soft_standup = 0
 launches_soft_pairs = 0
 
-NMS_MAX_K = 4096        # candidates an example (the kernel's list packing)
+# candidates an example of the kernels that hold an example in one block's
+# shared memory; past it the wide routes
+NMS_MAX_K = 4096
+# candidates an example of rotated NMS and soft-NMS: JAX indexes their pairs
+# as int32 `arange(K * K)` (second_tpu/ops/nms.py:100, :142), so K * K must
+# stay below 2^31
+ROTATED_MAX_K = 46340
+# candidates an example of `nms_suppress`'s wide kernel (its removed mask in
+# 200 KiB of shared memory), past what the card holds: their bitmask alone
+# would take 335 GB an example
+SUPPRESS_MAX_K = 32 * 200 * 1024 // 4
 NMS_CLUSTERS = (1, 2, 4, 8, 16)
 NMS_CLUSTER = 16        # blocks (SMs) an example in nms_overlap: the fastest
 D3_TAME = 1e12          # the largest field magnitude d3_iou's cull takes
@@ -67,6 +82,10 @@ _MATRIX_ARGTYPES = [ctypes.c_void_p] * 3 + \
 _OVERLAP_ARGTYPES = [ctypes.c_void_p] * 5 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p]
+# cand, valid, over, maybe, count, scratch, batch, k, thr, cap, stream
+_OVERLAP_WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + \
+    [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+     ctypes.c_void_p]
 # b1, b2, out, clipped, batch, n1, n2, stream
 _D3_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # cand, valid, over, batch, k, thr, double, stream
@@ -76,9 +95,9 @@ _STANDUP_ARGTYPES = [ctypes.c_void_p] * 3 + \
 # over, valid, keep, batch, k, stream
 _SUPPRESS_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# iou (or cand), scores, picks, pick_scores, rows, k, m, gaussian, sigma,
-# thr, stream: `soft_nms_decay` (and `soft_nms_decay_standup`)
-_SOFT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+# cand, scores, picks, pick_scores, scratch, rows, k, m, gaussian, sigma,
+# thr, stream
+_SOFT_STANDUP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
     [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 # plist, ok, iou, scores, picks, pick_scores, scratch, rows, k, p, m,
 # gaussian, sigma, thr, stream
@@ -89,10 +108,10 @@ _SOFT_PAIRS_ARGTYPES = [ctypes.c_void_p] * 7 + \
 _pairs_launch = None
 _matrix_launch = None
 _overlap_launch = None
+_overlap_wide_launch = None
 _suppress_launch = None
 _d3_launch = None
 _standup_launch = None
-_soft_launch = None
 _soft_standup_launch = None
 _soft_pairs_launch = None
 
@@ -115,6 +134,13 @@ def _resolve_overlap():
     return _overlap_launch
 
 
+def _resolve_overlap_wide():
+    global _overlap_wide_launch
+    _overlap_wide_launch = function("riou", "nms_overlap_wide",
+                                    _OVERLAP_WIDE_ARGTYPES)
+    return _overlap_wide_launch
+
+
 def _resolve_suppress():
     global _suppress_launch
     _suppress_launch = function("riou", "nms_suppress", _SUPPRESS_ARGTYPES)
@@ -127,16 +153,10 @@ def _resolve_standup():
     return _standup_launch
 
 
-def _resolve_soft():
-    global _soft_launch
-    _soft_launch = function("riou", "soft_nms_decay", _SOFT_ARGTYPES)
-    return _soft_launch
-
-
 def _resolve_soft_standup():
     global _soft_standup_launch
     _soft_standup_launch = function("riou", "soft_nms_decay_standup",
-                                    _SOFT_ARGTYPES)
+                                    _SOFT_STANDUP_ARGTYPES)
     return _soft_standup_launch
 
 
@@ -147,15 +167,30 @@ def _resolve_soft_pairs():
     return _soft_pairs_launch
 
 
+def _scratch_bytes(name, argtypes, *args):
+    """The bytes of device scratch that csrc/riou.cu's `name` counts."""
+    fn = getattr(library("riou"), name)
+    if fn.restype is not ctypes.c_longlong:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
 def soft_pairs_scratch(K, P):
     """Bytes of device scratch a row of `soft_nms_decay_pairs` takes: 0
-    where its adjacency fits in the block's shared memory (csrc/riou.cu
+    where its adjacency fits in the block's shared memory, else its
+    adjacency, or past NMS_MAX_K the wide route's whole row (csrc/riou.cu
     `soft_nms_pairs_scratch`)."""
-    fn = library("riou").soft_nms_pairs_scratch
-    if fn.restype is not ctypes.c_longlong:
-        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
-        fn.restype = ctypes.c_longlong
-    return int(fn(K, P))
+    return _scratch_bytes("soft_nms_pairs_scratch",
+                          [ctypes.c_int, ctypes.c_longlong], K, P)
+
+
+def check_rotated_k(name, K):
+    if K > ROTATED_MAX_K:
+        raise ValueError(
+            f"{name}: {K} candidates an example; rotated NMS takes at most "
+            f"{ROTATED_MAX_K}, as JAX's does: it indexes the candidate pairs "
+            f"as int32 arange(K * K), which overflows past that")
 
 
 def _resolve_d3():
@@ -379,34 +414,70 @@ def unpack_bits(words, K):
     return bits.reshape(*words.shape[:-1], -1)[..., :K].bool()
 
 
-def standup_maybe(cand, valid, iou_threshold):
-    """The pairs rotated NMS clips before its cap, [B, K, K] bool: i < j,
-    both valid, and the standup-envelope bound on their rotated IoU,
+# elements of a row block of a [B, K, K] pair matrix that the plain
+# versions build at once (their intermediates are some 2-8 times that), so
+# that K up to ROTATED_MAX_K fits the card and the host
+PLAIN_BLOCK = 1 << 24
+
+
+def row_blocks(B, K):
+    """The row ranges [r0, r1) of blocks of about PLAIN_BLOCK pairs."""
+    rows = max(1, PLAIN_BLOCK // max(B * K, 1))
+    return [(r0, min(r0 + rows, K)) for r0 in range(0, K, rows)]
+
+
+def standup_maybe(cand, valid, iou_threshold, rows=None):
+    """The pairs rotated NMS clips before its cap, [B, K, K] bool (with
+    `rows` (r0, r1), only rows r0 to r1 - 1: [B, r1 - r0, K]): i < j, both
+    valid, and the standup-envelope bound on their rotated IoU,
     inter / max(a_i + a_j - inter, 1e-12), above the threshold."""
     K = cand.shape[1]
+    r0, r1 = rows or (0, K)
     corners = rbbox_to_corners(cand)                          # [B, K, 4, 2]
     standup = torch.cat([corners.amin(-2), corners.amax(-2)], -1)
-    lt = torch.maximum(standup[:, :, None, :2], standup[:, None, :, :2])
-    rb = torch.minimum(standup[:, :, None, 2:], standup[:, None, :, 2:])
+    lt = torch.maximum(standup[:, r0:r1, None, :2], standup[:, None, :, :2])
+    rb = torch.minimum(standup[:, r0:r1, None, 2:], standup[:, None, :, 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     areas = cand[..., 2] * cand[..., 3]
-    asum = areas[:, :, None] + areas[:, None, :]
+    asum = areas[:, r0:r1, None] + areas[:, None, :]
     bound = inter / torch.clamp(asum - inter, min=1e-12)
-    upper = torch.ones((K, K), dtype=torch.bool, device=cand.device).triu(1)
-    return (bound > iou_threshold) & upper & valid[:, :, None] & \
+    upper = torch.arange(K, device=cand.device)[None, :] > \
+        torch.arange(r0, r1, device=cand.device)[:, None]
+    return (bound > iou_threshold) & upper & valid[:, r0:r1, None] & \
         valid[:, None, :]
 
 
 def capped_pairs(cand, valid, iou_threshold, max_pairs):
     """The pairs rotated NMS clips: the first `max_pairs` of each example's
-    `standup_maybe` pairs in row-major order, as (example b, i * K + j),
-    and each example's pair count before the cap [B] int32."""
+    `standup_maybe` pairs in row-major order, as (example b, i * K + j)
+    sorted by example then i * K + j, and each example's pair count before
+    the cap [B] int32. Built a block of rows at a time."""
     B, K = valid.shape
-    maybe = standup_maybe(cand, valid, iou_threshold).reshape(B, K * K)
-    capped = maybe & (torch.cumsum(maybe, 1) <= max_pairs)
-    b, lin = torch.nonzero(capped, as_tuple=True)
-    return b, lin, maybe.sum(1).to(torch.int32)
+    seen = torch.zeros(B, dtype=torch.int64, device=cand.device)
+    keys = []
+    for r0, r1 in row_blocks(B, K):
+        maybe = standup_maybe(cand, valid, iou_threshold,
+                              (r0, r1)).reshape(B, -1)
+        rank = seen[:, None] + torch.cumsum(maybe, 1)
+        b, lin = torch.nonzero(maybe & (rank <= max_pairs), as_tuple=True)
+        keys.append(b * K * K + r0 * K + lin)
+        seen += maybe.sum(1)
+    key = torch.cat(keys).sort()[0] if keys else \
+        torch.zeros(0, dtype=torch.int64, device=cand.device)
+    return key // (K * K), key % (K * K), seen.to(torch.int32)
+
+
+def pairs_to_bits(B, K, b, i, j):
+    """The bitmask [B, K, ceil(K / 32)] int32 with bit j of row i of example
+    b set for each of the (distinct) pairs given, and no other."""
+    W = (K + 31) // 32
+    words = torch.zeros(B * K * W, dtype=torch.int64, device=b.device)
+    # distinct pairs set distinct bits of a word: their sum is their OR
+    words.index_add_(0, (b * K + i) * W + j // 32,
+                     torch.ones_like(j) << (j % 32))
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32).view(B, K, W)
 
 
 def nms_overlap_plain(cand, valid, iou_threshold, max_pairs):
@@ -418,20 +489,25 @@ def nms_overlap_plain(cand, valid, iou_threshold, max_pairs):
     b, lin, count = capped_pairs(cand, valid, iou_threshold, max_pairs)
     flat = cand.reshape(B * K, 5)
     iou = riou_pairs_plain(flat, flat, b * K + lin // K, b * K + lin % K)
-    over = torch.zeros(B * K * K, dtype=torch.bool, device=cand.device)
-    over[(b * K * K + lin)[iou > iou_threshold]] = True
-    return pack_bits(over.view(B, K, K)), count
+    hit = iou > iou_threshold
+    return pairs_to_bits(B, K, b[hit], lin[hit] // K, lin[hit] % K), count
 
 
 def standup_overlap_plain(cand, valid, iou_threshold):
     """The strictly-upper `standup IoU > threshold` matrix of valid pairs,
     packed: cand [B, K, 4] xyxy → [B, K, ceil(K / 32)] int32 (the dense
-    `standup_iou_matrix`, then `pack_bits`)."""
-    K = cand.shape[1]
-    upper = torch.ones((K, K), dtype=torch.bool, device=cand.device).triu(1)
-    over = (standup_iou_matrix(cand, cand) > iou_threshold) & upper & \
-        valid[:, :, None] & valid[:, None, :]
-    return pack_bits(over)
+    `standup_iou_matrix`, then `pack_bits`, a block of rows at a time)."""
+    B, K = valid.shape
+    cols = torch.arange(K, device=cand.device)
+    out = [pack_bits((standup_iou_matrix(cand[:, r0:r1], cand) >
+                      iou_threshold) &
+                     (cols[None, :] > cols[r0:r1, None]) &
+                     valid[:, r0:r1, None] & valid[:, None, :])
+           for r0, r1 in row_blocks(B, K)]
+    if not out:
+        return torch.zeros((B, K, (K + 31) // 32), dtype=torch.int32,
+                           device=cand.device)
+    return torch.cat(out, 1)
 
 
 def nms_suppress_plain(over_bits, valid):
@@ -513,15 +589,13 @@ def _check_batch(name, tensor, valid, inner):
                          f"and {tuple(valid.shape)}")
     if valid.dtype != torch.bool or valid.device != tensor.device:
         raise ValueError(f"{name}: valid must be bool on {tensor.device}")
-    K = valid.shape[1]
-    if K > NMS_MAX_K:
-        raise ValueError(f"{name}: {K} candidates an example; the kernel "
-                         f"takes at most {NMS_MAX_K}")
 
 
 def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
     """`nms_overlap_plain` semantics; the CUDA kernel for CUDA tensors, with
-    `cluster` blocks an example (default NMS_CLUSTER)."""
+    `cluster` blocks an example (default NMS_CLUSTER) up to NMS_MAX_K
+    candidates, past it the wide route (`nms_overlap_wide`, which takes no
+    cluster shape), up to ROTATED_MAX_K."""
     refuse_grad("nms_overlap", cand)
     dev = cand.device
     if dev.type == "cpu":
@@ -532,6 +606,7 @@ def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
         raise ValueError(f"nms_overlap: cand must be [B, K, 5] float32, got "
                          f"{tuple(cand.shape)} {cand.dtype}")
     _check_batch("nms_overlap", cand, valid, (5,))
+    check_rotated_k("nms_overlap", valid.shape[1])
     if not 0 <= max_pairs < 2 ** 31:
         raise ValueError(f"nms_overlap: max_pairs {max_pairs} outside "
                          f"[0, 2**31)")
@@ -546,10 +621,20 @@ def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
         return over, count
     cand, valid = cand.contiguous(), valid.contiguous()
     maybe = torch.empty_like(over)
-    rc = (_overlap_launch or _resolve_overlap())(
-        cand.data_ptr(), valid.data_ptr(), over.data_ptr(),
-        maybe.data_ptr(), count.data_ptr(), B, K,
-        iou_threshold, max_pairs, cluster, stream_ptr(dev))
+    if K > NMS_MAX_K:
+        scratch = torch.empty(
+            (_scratch_bytes("nms_overlap_wide_scratch",
+                            [ctypes.c_int, ctypes.c_int], B, K),),
+            dtype=torch.uint8, device=dev)
+        rc = (_overlap_wide_launch or _resolve_overlap_wide())(
+            cand.data_ptr(), valid.data_ptr(), over.data_ptr(),
+            maybe.data_ptr(), count.data_ptr(), scratch.data_ptr(), B, K,
+            iou_threshold, max_pairs, stream_ptr(dev))
+    else:
+        rc = (_overlap_launch or _resolve_overlap())(
+            cand.data_ptr(), valid.data_ptr(), over.data_ptr(),
+            maybe.data_ptr(), count.data_ptr(), B, K,
+            iou_threshold, max_pairs, cluster, stream_ptr(dev))
     check("riou", rc)
     global launches
     launches += 1
@@ -592,7 +677,9 @@ def standup_overlap(cand, valid, iou_threshold):
 
 
 def nms_suppress(over_bits, valid):
-    """`nms_suppress_plain` semantics; the CUDA kernel for CUDA tensors."""
+    """`nms_suppress_plain` semantics; the CUDA kernel for CUDA tensors (a
+    wide kernel past NMS_MAX_K candidates; a removed mask of ceil(K / 32)
+    words in the block's shared memory: K up to SUPPRESS_MAX_K)."""
     refuse_grad("nms_suppress", over_bits)
     dev = over_bits.device
     if dev.type == "cpu":
@@ -605,6 +692,9 @@ def nms_suppress(over_bits, valid):
     _check_batch("nms_suppress", over_bits, valid,
                  ((valid.shape[-1] + 31) // 32,))
     B, K = valid.shape
+    if K > SUPPRESS_MAX_K:
+        raise ValueError(f"nms_suppress: {K} candidates an example; the "
+                         f"kernel takes at most {SUPPRESS_MAX_K}")
     keep = torch.empty((B, K), dtype=torch.bool, device=dev)
     if B * K == 0:
         return keep
@@ -652,44 +742,6 @@ def soft_nms_decay_plain(iou, scores, m, method="gaussian", sigma=0.5,
     return torch.stack(picks, 1), torch.stack(picked, 1)
 
 
-def soft_nms_decay(iou, scores, m, method="gaussian", sigma=0.5,
-                   iou_threshold=0.3):
-    """`soft_nms_decay_plain` semantics; the CUDA kernel for CUDA tensors
-    (fp32, K <= NMS_MAX_K, every row in one launch)."""
-    refuse_grad("soft_nms_decay", iou, scores)
-    dev = scores.device
-    if dev.type == "cpu":
-        return soft_nms_decay_plain(iou, scores, m, method, sigma,
-                                    iou_threshold)
-    if dev.type != "cuda":
-        raise ValueError(f"soft_nms_decay: unsupported device {dev}")
-    if scores.dim() != 2 or iou.shape != (*scores.shape, scores.shape[1]) \
-            or iou.dtype != torch.float32 or scores.dtype != torch.float32 \
-            or iou.device != dev:
-        raise ValueError(f"soft_nms_decay: expected iou [R, K, K] and scores "
-                         f"[R, K] float32 on one device, got "
-                         f"{tuple(iou.shape)} {iou.dtype} and "
-                         f"{tuple(scores.shape)} {scores.dtype}")
-    R, K = scores.shape
-    if K > NMS_MAX_K or not 0 <= m <= K or R > 2 ** 31 - 1:
-        raise ValueError(f"soft_nms_decay: {R} rows of {K} candidates, {m} "
-                         f"steps; the kernel takes K <= {NMS_MAX_K} and "
-                         f"m <= K")
-    picks = torch.empty((R, m), dtype=torch.int64, device=dev)
-    picked = torch.empty((R, m), dtype=torch.float32, device=dev)
-    if R * K * m == 0:
-        return picks, picked
-    iou, scores = iou.contiguous(), scores.contiguous()
-    rc = (_soft_launch or _resolve_soft())(
-        iou.data_ptr(), scores.data_ptr(), picks.data_ptr(),
-        picked.data_ptr(), R, K, m, int(method == "gaussian"), sigma,
-        iou_threshold, stream_ptr(dev))
-    check("riou", rc)
-    global launches_soft
-    launches_soft += 1
-    return picks, picked
-
-
 def soft_nms_decay_standup_plain(cand, scores, m, method="gaussian",
                                  sigma=0.5, iou_threshold=0.3):
     """`soft_nms_decay_plain` over the candidates' standup IoU matrix
@@ -703,9 +755,9 @@ def soft_nms_decay_standup_plain(cand, scores, m, method="gaussian",
 def soft_nms_decay_standup(cand, scores, m, method="gaussian", sigma=0.5,
                            iou_threshold=0.3):
     """`soft_nms_decay_standup_plain` semantics; the CUDA kernel for CUDA
-    tensors (fp32, K <= NMS_MAX_K, every row in one launch; each step
-    computes the pick's row of the standup IoU matrix, which is never
-    built)."""
+    tensors (fp32, every row in one launch; each step computes the pick's
+    row of the standup IoU matrix, which is never built; past NMS_MAX_K
+    candidates the wide kernel, its scores in a device scratch)."""
     refuse_grad("soft_nms_decay_standup", cand, scores)
     if scores.dim() != 2 or cand.shape != (*scores.shape, 4) or \
             not 0 <= m <= scores.shape[1]:
@@ -724,9 +776,10 @@ def soft_nms_decay_standup(cand, scores, m, method="gaussian", sigma=0.5,
                          f"float32 on one device, got {cand.dtype} on "
                          f"{cand.device} and {scores.dtype} on {dev}")
     R, K = scores.shape
-    if K > NMS_MAX_K or R > 2 ** 31 - 1:
+    if R > 2 ** 31 - 1 or K > 2 ** 31 - 1:
         raise ValueError(f"soft_nms_decay_standup: {R} rows of {K} "
-                         f"candidates; the kernel takes K <= {NMS_MAX_K}")
+                         f"candidates; the kernel takes at most 2^31 - 1 "
+                         f"of each")
     picks = torch.empty((R, m), dtype=torch.int64, device=dev)
     picked = torch.empty((R, m), dtype=torch.float32, device=dev)
     if R * K * m == 0:
@@ -734,10 +787,13 @@ def soft_nms_decay_standup(cand, scores, m, method="gaussian", sigma=0.5,
     cand, scores = cand.contiguous(), scores.contiguous()
     if cand.data_ptr() % 16:            # the kernel reads a box as a float4
         cand = cand.clone()
+    per_row = _scratch_bytes("soft_nms_standup_scratch", [ctypes.c_int], K)
+    scratch = torch.empty((R * per_row,), dtype=torch.uint8, device=dev) \
+        if per_row else None
     rc = (_soft_standup_launch or _resolve_soft_standup())(
         cand.data_ptr(), scores.data_ptr(), picks.data_ptr(),
-        picked.data_ptr(), R, K, m, int(method == "gaussian"), sigma,
-        iou_threshold, stream_ptr(dev))
+        picked.data_ptr(), scratch.data_ptr() if per_row else None, R, K, m,
+        int(method == "gaussian"), sigma, iou_threshold, stream_ptr(dev))
     check("riou", rc)
     global launches_soft_standup
     launches_soft_standup += 1
@@ -770,8 +826,9 @@ def soft_nms_decay_pairs_plain(plist, ok, iou, scores, m, method="gaussian",
 def soft_nms_decay_pairs(plist, ok, iou, scores, m, method="gaussian",
                          sigma=0.5, iou_threshold=0.3):
     """`soft_nms_decay_pairs_plain` semantics; the CUDA kernel for CUDA
-    tensors (fp32, K <= NMS_MAX_K, every row in one launch; the pairs'
-    adjacency in shared memory where it fits, else in a device scratch).
+    tensors (fp32, K <= ROTATED_MAX_K, every row in one launch; the pairs'
+    adjacency in shared memory where it fits, else in a device scratch;
+    past NMS_MAX_K candidates the wide route, its scores in the scratch).
     The kernel walks only the pairs, which relies on a 0 decaying nothing:
     it refuses a gaussian sigma of 0 or NaN, where exp(-0 / sigma) is
     NaN."""
@@ -796,10 +853,11 @@ def soft_nms_decay_pairs(plist, ok, iou, scores, m, method="gaussian",
             f"{tuple(scores.shape)} {scores.dtype}")
     R, K = scores.shape
     P = plist.shape[1]
-    if K > NMS_MAX_K or not 0 <= m <= K or P > 2 ** 28:
+    check_rotated_k("soft_nms_decay_pairs", K)
+    if not 0 <= m <= K or P > 2 ** 28:
         raise ValueError(f"soft_nms_decay_pairs: {R} rows of {K} candidates "
-                         f"and {P} pairs, {m} steps; the kernel takes K <= "
-                         f"{NMS_MAX_K}, m <= K and P <= 2^28")
+                         f"and {P} pairs, {m} steps; the kernel takes m <= K "
+                         f"and P <= 2^28")
     if method == "gaussian" and (math.isnan(sigma) or sigma == 0):
         raise ValueError(f"soft_nms_decay_pairs: sigma {sigma}: a 0 IoU "
                          f"would decay by NaN")

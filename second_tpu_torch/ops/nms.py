@@ -29,9 +29,10 @@ import torch
 
 from .box_ops import rbbox2d_to_near_bbox
 from .cuda.gather import flat_rows
-from .cuda.riou import (nms_overlap, nms_suppress, pair_matrix, riou_pairs,
-                        soft_nms_decay_pairs, soft_nms_decay_standup,
-                        standup_maybe, standup_overlap)
+from .cuda.riou import (check_rotated_k, nms_overlap, nms_suppress,
+                        pair_matrix, riou_pairs, soft_nms_decay_pairs,
+                        soft_nms_decay_standup, standup_maybe,
+                        standup_overlap)
 
 
 def top_k(values, k):
@@ -213,6 +214,8 @@ def soft_nms(boxes, scores, valid, *, pre_max_size, post_max_size,
     cand = flat_rows(boxes, top_idx)
     m = min(post_max_size, k)
     if rotated:
+        if cand.device.type == "cuda":      # before the [B, k, k] pair search
+            check_rotated_k("soft_nms", k)
         plist, ok = soft_nms_pairs(cand, torch.isfinite(top_scores),
                                    min(max_pairs, k * k))
         picks, picked = soft_nms_decay_pairs(

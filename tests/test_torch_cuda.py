@@ -451,7 +451,7 @@ def _check_overlap(cand, valid, thr, max_pairs, cluster=None):
 
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("cap", ["16", "8192", "K*K"])
-@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 4096])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 4096, 4097])
 def test_nms_overlap_matches_plain(dev, K, cap, B):
     g = torch.Generator().manual_seed(K + B)
     cand = _nms_boxes(g, B, K).to(dev)
@@ -491,7 +491,7 @@ def test_nms_overlap_crowded_pairs_span_chunks(dev):
 
 
 @pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 4096])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 4096, 4097])
 def test_nms_suppress_matches_plain(dev, K, B):
     """Exact greedy suppression over a random strictly-upper bitmask of
     valid pairs (about 4 overlaps a box), against the plain frontier
@@ -515,10 +515,11 @@ def test_nms_suppress_matches_plain(dev, K, B):
 
 @pytest.mark.parametrize("B", [1, 4, 9])
 @pytest.mark.parametrize("kind", ["random", "chain", "invalid"])
-@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 2048, 4096])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 1000, 2048, 4096, 4097])
 def test_nms_suppress_walk(dev, K, kind, B):
     """The suppression at the sizes that stage the bitmask in shared memory
-    (K up to 1000 here) and those that read it in place (2048, 4096), with
+    (K up to 1000 here), those that read it in place (2048, 4096) and the
+    wide kernel's (4097), with
     batches of 1, 4 and 9: random bitmasks keep what the plain frontier
     rounds keep; a chain (each row overlapping the next, every row valid:
     K / 2 frontier rounds) keeps every other row, as the plain walk mirror
@@ -553,17 +554,54 @@ def test_nms_suppress_walk(dev, K, kind, B):
         assert not got.any()
 
 
+@pytest.mark.parametrize("K", [4097, 8192])
+def test_nms_past_4096_matches_plain(dev, K):
+    """Past NMS_MAX_K candidates the kernels take their wide routes: the
+    overlap kernel's counts and bits (`_check_overlap`) and the
+    suppression's keep against their plain versions, at the 8192-pair cap
+    and uncapped, a batch of 4 rows crowded so that the cap binds (some
+    4 K pairs pass the bound); the whole rotated `nms` (one launch of each
+    kernel) against the CPU's."""
+    g = torch.Generator().manual_seed(K)
+    cand = _nms_boxes(g, 4, K)
+    cand[..., :2] *= 0.4
+    cand = cand.to(dev)
+    valid = _nms_valid(g, 4, K).to(dev)
+    for max_pairs in (8192, K * K):
+        got, count = _check_overlap(cand, valid, 0.01, max_pairs)
+        assert int(count[0]) > 8192 and int(count[1]) == 0
+        keep = riou.nms_suppress(got, valid)
+        assert torch.equal(keep, riou.nms_suppress_plain(got, valid))
+        assert 0 < int(keep[0].sum()) < int(valid[0].sum())
+    scores = torch.rand(4, K, generator=g).to(dev)
+    before = (riou.launches, riou.launches_suppress)
+    idx, keep = nms.nms(cand, scores, valid, pre_max_size=K,
+                        post_max_size=500, iou_threshold=0.01)
+    assert (riou.launches, riou.launches_suppress) == \
+        (before[0] + 1, before[1] + 1)
+    want = nms.nms(cand.cpu(), scores.cpu(), valid.cpu(), pre_max_size=K,
+                   post_max_size=500, iou_threshold=0.01)
+    assert torch.equal(idx.cpu(), want[0]) and torch.equal(keep.cpu(),
+                                                           want[1])
+
+
 def test_nms_kernels_reject_what_they_cannot_take(dev):
     """Past the kernels' limits the wrappers raise; they never take the
-    plain version for a CUDA tensor."""
+    plain version for a CUDA tensor. The rotated routes stop where JAX's
+    int32 pair index does, at K * K >= 2^31 (K = 46 341), before they
+    allocate anything."""
     g = torch.Generator().manual_seed(12)
-    big = _nms_boxes(g, 1, 4097).to(dev)
-    big_valid = torch.ones(1, 4097, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="at most 4096"):
+    big = _nms_boxes(g, 1, riou.ROTATED_MAX_K + 1).to(dev)
+    big_valid = torch.ones(1, big.shape[1], dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="int32"):
         riou.nms_overlap(big, big_valid, 0.01, 8192)
-    with pytest.raises(ValueError, match="at most 4096"):
-        riou.nms_suppress(torch.zeros(1, 4097, 129, dtype=torch.int32,
-                                      device=dev), big_valid)
+    with pytest.raises(ValueError, match="int32"):
+        nms.nms(big[0], big_valid[0].float(), big_valid[0],
+                pre_max_size=big.shape[1], post_max_size=100,
+                iou_threshold=0.01)
+    with pytest.raises(ValueError, match="int32"):
+        nms.soft_nms(big[0], big_valid[0].float(), big_valid[0],
+                     pre_max_size=big.shape[1], post_max_size=100)
     cand, valid = big[:, :100].contiguous(), big_valid[:, :100].contiguous()
     for max_pairs in (-1, 2 ** 31):
         with pytest.raises(ValueError, match="max_pairs"):
@@ -1774,8 +1812,9 @@ def _standup_boxes(g, B, K, dtype):
 
 
 # K on either side of a word, of the kernel's tile of rows (32) and of its
-# columns (8 words, 256), and the largest K the suppression takes
-STANDUP_KS = [1, 31, 32, 33, 63, 64, 65, 255, 256, 257, 2048, 4096]
+# columns (8 words, 256), and on either side of the suppression's wide
+# kernel (past NMS_MAX_K)
+STANDUP_KS = [1, 31, 32, 33, 63, 64, 65, 255, 256, 257, 2048, 4096, 4097]
 
 
 @pytest.mark.parametrize("K", STANDUP_KS)
@@ -2217,37 +2256,12 @@ def _decay_inputs(g, R, K):
     return iou, scores
 
 
-@pytest.mark.parametrize("method", ["gaussian", "linear"])
-@pytest.mark.parametrize("K", [1, 31, 33, 257, 1000, 4096])
-def test_soft_nms_decay_matches_plain(dev, K, method):
-    """The decay kernel (one block a row, the scores in registers, a
-    block-wide argmax a step) against its plain version on the card: picks
-    exact, their scores within 1e-6 relative (-inf where the plain
-    version's are); every block width it picks from K."""
-    g = torch.Generator().manual_seed(K)
-    R = 1 if K == 4096 else 5
-    iou, scores = _decay_inputs(g, R, K)
-    m = min(K, 100)
-    before = riou.launches_soft
-    got = riou.soft_nms_decay(iou.to(dev), scores.to(dev), m, method, 0.5,
-                              0.3)
-    assert riou.launches_soft == before + 1
-    want = riou.soft_nms_decay_plain(iou.to(dev), scores.to(dev), m, method,
-                                     0.5, 0.3)
-    assert torch.equal(got[0], want[0])
-    fin = torch.isfinite(want[1])
-    assert torch.equal(torch.isfinite(got[1]), fin)
-    torch.testing.assert_close(got[1][fin], want[1][fin], rtol=1e-6,
-                               atol=0)
-
-
 @pytest.mark.parametrize("rotated", [True, False])
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
 def test_soft_nms_card_matches_cpu(dev, rotated, method):
     """`soft_nms` on a batch of 3 rows of 300 crowded candidates, the pair
     cap binding, card (the row gather, the pair IoU and the decay kernels:
-    the pair-list one rotated, the standup one standup, one launch, the
-    dense one never) against
+    the pair-list one rotated, the standup one standup, one launch) against
     CPU (their plain versions): picks and keep exact, scores
     within 1e-5 (the card's and the CPU's sin and cos round the corners an
     ulp apart)."""
@@ -2261,46 +2275,16 @@ def test_soft_nms_card_matches_cpu(dev, rotated, method):
     kw = dict(pre_max_size=256, post_max_size=100, sigma=0.5,
               iou_threshold=0.3, score_threshold=0.6, method=method,
               rotated=rotated, max_pairs=2048)
-    before = (riou.launches_soft, riou.launches_soft_pairs,
-              riou.launches_soft_standup)
+    before = (riou.launches_soft_pairs, riou.launches_soft_standup)
     got = nms.soft_nms(boxes.to(dev), scores.to(dev), valid.to(dev), **kw)
-    # rotated: the pair-list kernel; standup: the standup kernel; no dense
-    # IoU matrix either way
-    assert (riou.launches_soft, riou.launches_soft_pairs,
-            riou.launches_soft_standup) == \
-        (before[0], before[1] + rotated, before[2] + (not rotated))
+    # rotated: the pair-list kernel; standup: the standup kernel
+    assert (riou.launches_soft_pairs, riou.launches_soft_standup) == \
+        (before[0] + rotated, before[1] + (not rotated))
     want = nms.soft_nms(boxes, scores, valid, **kw)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2].cpu(), want[2])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
     assert want[2].any() and not want[2].all()
-
-
-@pytest.mark.parametrize("method", ["gaussian", "linear"])
-def test_soft_nms_decay_non_finite_as_the_cpu(dev, method):
-    """The dense decay kernel on NaN IoU values and NaN and +inf scores
-    against its plain version on the card (picks exact, NaN where NaN, the
-    finite scores within 1e-6 relative), and its picks and NaN scores
-    those of the plain version on the CPU (torch.argmax's order there: NaN
-    above +inf, the first of equals): a NaN score is picked the step it
-    appears, and every other non-finite score turns -inf. (Its finite
-    scores lie up to 2.3e-6 relative from the CPU's: some 200 decays a
-    score by the card's and the CPU's exp, an ulp apart each.)"""
-    g = torch.Generator().manual_seed(6)
-    iou, scores = _decay_inputs(g, 4, 1000)
-    iou[0, 3, ::7] = float("nan")
-    iou[0, ::7, 3] = float("nan")
-    iou[3, 100:300:5, 40] = float("nan")
-    scores[0, 10], scores[0, 500] = float("nan"), float("inf")
-    scores[2, 900], scores[2, 901] = float("inf"), float("nan")
-    want = riou.soft_nms_decay_plain(iou, scores, 200, method, 0.5, 0.3)
-    args = (iou.to(dev), scores.to(dev), 200, method, 0.5, 0.3)
-    got = riou.soft_nms_decay(*args)
-    _check_pair_decay(got, riou.soft_nms_decay_plain(*args))
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].isnan().cpu(), want[1].isnan())
-    assert want[0][0, 0] == 10 and want[0][2, 0] == 901
-    assert (want[1].isnan().sum() > 2) == (method == "gaussian")
 
 
 def _standup_decay_inputs(g, R, K):
@@ -2335,7 +2319,7 @@ def _standup_decay_inputs(g, R, K):
 
 
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
-@pytest.mark.parametrize("K", [1, 31, 33, 257, 1000, 4096])
+@pytest.mark.parametrize("K", [1, 31, 33, 257, 1000, 4096, 4097])
 def test_soft_nms_decay_standup_matches_plain(dev, K, method):
     """The standup decay kernel (one block a row, the boxes in shared
     memory and each lane's in registers, the pick's IoU row computed a
@@ -2343,15 +2327,15 @@ def test_soft_nms_decay_standup_matches_plain(dev, K, method):
     decay) on the card: picks exact, NaN where NaN, their finite scores
     within 1e-6 relative; 5 rows (one of -inf, one with ties, one with an
     invalid tail, two with non-finite boxes and scores), 100 steps, one
-    launch; every span width it picks from K."""
+    launch; every span width it picks from K, and past NMS_MAX_K the wide
+    kernel."""
     g = torch.Generator().manual_seed(K + 1)
-    R = 2 if K == 4096 else 5
+    R = 2 if K >= 4096 else 5
     cand, scores = (t.to(dev) for t in _standup_decay_inputs(g, R, K))
     m = min(K, 100)
-    before = (riou.launches_soft_standup, riou.launches_soft)
+    before = riou.launches_soft_standup
     got = riou.soft_nms_decay_standup(cand, scores, m, method, 0.5, 0.3)
-    assert (riou.launches_soft_standup, riou.launches_soft) == \
-        (before[0] + 1, before[1])
+    assert riou.launches_soft_standup == before + 1
     want = riou.soft_nms_decay_standup_plain(cand, scores, m, method, 0.5,
                                              0.3)
     _check_pair_decay(got, want)
@@ -2395,10 +2379,6 @@ def test_soft_nms_decay_standup_refuses_what_it_cannot_take(dev):
         riou.soft_nms_decay_standup(cand.cpu(), scores, 2)
     with pytest.raises(ValueError, match="m <= K"):
         riou.soft_nms_decay_standup(cand, scores, 9)
-    big = torch.zeros(1, riou.NMS_MAX_K + 1, device=dev)
-    with pytest.raises(ValueError, match="K <="):
-        riou.soft_nms_decay_standup(torch.zeros(1, big.shape[1], 4,
-                                                device=dev), big, 1)
     with pytest.raises(RuntimeError, match="no backward"):
         riou.soft_nms_decay_standup(cand.requires_grad_(), scores, 2)
 
@@ -2444,16 +2424,18 @@ def _check_pair_decay(got, want):
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
 @pytest.mark.parametrize("K,P", [(1, 8), (33, 64), (257, 2048),
                                  (1000, 8192), (1000, 32768), (4096, 8192),
-                                 (4096, 32768)])
+                                 (4096, 32768), (4097, 8192)])
 def test_soft_nms_decay_pairs_matches_plain(dev, K, P, method):
     """The pair-list decay kernel (one block a row, the pairs' adjacency in
-    shared memory, or past it in a device scratch: at P = 32768 for both
-    K) against its plain version on the card: picks exact, their scores
+    shared memory, or past it in a device scratch: at P = 32768 for K 1000
+    and 4096; past NMS_MAX_K the wide route, everything in the scratch)
+    against its plain version on the card: picks exact, their scores
     within 1e-6 relative; 4 rows (one of -inf, one with ties, one with an
     invalid tail), 100 steps, one launch."""
     g = torch.Generator().manual_seed(K + P)
     plist, ok, iou, scores = _pair_decay_inputs(g, 4, K, P)
-    assert (riou.soft_pairs_scratch(K, P) > 0) == (P == 32768)
+    assert (riou.soft_pairs_scratch(K, P) > 0) == \
+        (P == 32768 or K > riou.NMS_MAX_K)
     args = [t.to(dev) for t in (plist, ok, iou, scores)]
     m = min(K, 100)
     before = riou.launches_soft_pairs
@@ -2508,19 +2490,40 @@ def test_soft_nms_decay_pairs_refuses_what_it_cannot_take(dev):
         riou.soft_nms_decay_pairs(plist, ok, iou, scores, 9)
     with pytest.raises(ValueError, match="sigma"):
         riou.soft_nms_decay_pairs(plist, ok, iou, scores, 2, "gaussian", 0.0)
-    big = torch.zeros(1, riou.NMS_MAX_K + 1, device=dev)
-    with pytest.raises(ValueError, match="K <="):
+    big = torch.zeros(1, riou.ROTATED_MAX_K + 1, device=dev)
+    with pytest.raises(ValueError, match="int32"):
         riou.soft_nms_decay_pairs(plist, ok, iou, big, 1)
 
 
-def test_soft_nms_decay_refuses_what_it_cannot_take(dev):
-    iou = torch.zeros(1, 8, 8, device=dev)
-    with pytest.raises(ValueError, match="float32"):
-        riou.soft_nms_decay(iou.double(), torch.zeros(1, 8, device=dev,
-                                                      dtype=torch.float64), 2)
-    with pytest.raises(ValueError, match="m <= K"):
-        riou.soft_nms_decay(iou, torch.zeros(1, 8, device=dev), 9)
-    big = torch.zeros(1, riou.NMS_MAX_K + 1, device=dev)
-    with pytest.raises(ValueError, match="K <="):
-        riou.soft_nms_decay(torch.zeros(1, 1, 1, device=dev).expand(
-            1, big.shape[1], big.shape[1]), big, 1)
+@pytest.mark.parametrize("K", [4097, 8192])
+def test_soft_nms_decays_past_4096_match_plain(dev, K):
+    """Both decay kernels past NMS_MAX_K (their wide routes) against their
+    plain versions: the standup one on crowded boxes with non-finite ones
+    (`_standup_decay_inputs`), the pair one on 8192 pairs
+    (`_pair_decay_inputs`), 2 rows, 100 steps, gaussian and linear; and
+    the whole `soft_nms`, rotated and standup, card against CPU on K
+    crowded candidates (picks and keep exact, scores within 1e-5)."""
+    g = torch.Generator().manual_seed(K + 2)
+    cand, scores = (t.to(dev) for t in _standup_decay_inputs(g, 2, K))
+    args = [t.to(dev) for t in _pair_decay_inputs(g, 4, K, 8192)]
+    for method in ("gaussian", "linear"):
+        _check_pair_decay(
+            riou.soft_nms_decay_standup(cand, scores, 100, method, 0.5, 0.3),
+            riou.soft_nms_decay_standup_plain(cand, scores, 100, method,
+                                              0.5, 0.3))
+        _check_pair_decay(
+            riou.soft_nms_decay_pairs(*args, 100, method, 0.5, 0.3),
+            riou.soft_nms_decay_pairs_plain(*args, 100, method, 0.5, 0.3))
+    boxes = _nms_boxes(g, 1, K)
+    sc = torch.rand(1, K, generator=g)
+    valid = torch.rand(1, K, generator=g) < 0.9
+    for rotated in (True, False):
+        b = boxes if rotated else torch.cat(
+            [boxes[..., :2] - boxes[..., 2:4] / 2,
+             boxes[..., :2] + boxes[..., 2:4] / 2], -1)
+        kw = dict(pre_max_size=K, post_max_size=100, rotated=rotated)
+        got = nms.soft_nms(b.to(dev), sc.to(dev), valid.to(dev), **kw)
+        want = nms.soft_nms(b, sc, valid, **kw)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[2].cpu(), want[2])
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)

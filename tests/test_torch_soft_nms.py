@@ -41,7 +41,7 @@ from second_tpu.ops import nms as jax_nms
 from second_tpu.ops.rotated_iou import rbbox_to_corners as jax_corners
 from second_tpu_torch.core.nms_np import soft_nms as soft_nms_np
 from second_tpu_torch.ops.cuda.riou import (
-    pair_matrix, soft_nms_decay, soft_nms_decay_pairs,
+    pair_matrix, soft_nms_decay_pairs,
     soft_nms_decay_pairs_plain, soft_nms_decay_plain,
     soft_nms_decay_standup, soft_nms_decay_standup_plain)
 from second_tpu_torch.ops.nms import (pair_iou, soft_nms, soft_nms_pairs,
@@ -240,7 +240,7 @@ def test_soft_nms_max_pairs_binds(method):
 
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
 def test_soft_nms_decay_on_jax_iou_matches_jax(method):
-    """The decay steps alone: the port's `soft_nms_decay` on JAX's own
+    """The decay steps alone: the port's `soft_nms_decay_plain` on JAX's own
     rotated IoU matrix of JAX's candidates gives JAX's picks exactly and
     its rescored scores within SCORE_RTOL (a batch of 3 rows, the pair cap
     binding in none)."""
@@ -256,7 +256,7 @@ def test_soft_nms_decay_on_jax_iou_matches_jax(method):
         jnp.asarray(boxes[b][top_idx[b].numpy()]),
         jnp.asarray(np.isfinite(top[b].numpy())), 8192)))
         for b in range(3)])
-    picks, picked = soft_nms_decay(iou, top, 24, method, 0.5, 0.3)
+    picks, picked = soft_nms_decay_plain(iou, top, 24, method, 0.5, 0.3)
     keep = torch.isfinite(picked) & (picked >= 0.05)
     port = [top_idx.gather(1, picks).numpy(),
             torch.where(keep, picked, 0.0).numpy(), keep.numpy()]
@@ -318,8 +318,7 @@ def test_soft_nms_decay_plain_matches_loop(method):
     """`soft_nms_decay_plain` (the kernel's reference on the card) against
     a scalar numpy loop: 4 rows of 40 candidates, one of them all -inf
     (it picks index 0 every step, with score -inf), one with ties and
-    invalid tails; picks exact, scores within SCORE_RTOL; `soft_nms_decay`
-    on CPU tensors is the plain version."""
+    invalid tails; picks exact, scores within SCORE_RTOL."""
     rng = np.random.default_rng(5)
     R, K, m = 4, 40, 30
     iou = rng.uniform(0, 1, (R, K, K)).astype(np.float32)
@@ -337,15 +336,19 @@ def test_soft_nms_decay_plain_matches_loop(method):
     np.testing.assert_allclose(got[1].numpy(), want[1], rtol=SCORE_RTOL,
                                atol=0)
     assert (want[0][1] == 0).all() and np.isneginf(want[1][1]).all()
-    same = soft_nms_decay(torch.from_numpy(iou), torch.from_numpy(scores),
-                          m, method, 0.5, 0.3)
-    assert torch.equal(same[0], got[0]) and torch.equal(same[1], got[1])
 
 
 def test_soft_nms_decay_refuses_grad():
-    iou = torch.zeros(1, 4, 4, requires_grad=True)
+    """The decay wrappers have no backward: scores or IoU values that
+    require grad raise under grad mode."""
+    scores = torch.zeros(1, 4, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        soft_nms_decay(iou, torch.zeros(1, 4), 2)
+        soft_nms_decay_standup(torch.zeros(1, 4, 4), scores, 2)
+    plist = torch.zeros(1, 2, dtype=torch.int64)
+    iou = torch.zeros(1, 2, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        soft_nms_decay_pairs(plist, torch.ones(1, 2, dtype=torch.bool), iou,
+                             torch.zeros(1, 4), 2)
 
 
 # ------------------------------------------------- the pair-list decay
