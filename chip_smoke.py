@@ -757,6 +757,20 @@ def say(msg):
     print(msg, flush=True)
 
 
+# seconds of each phase timed by `phase_time`, in the order they ran
+PHASE_S = {}
+
+
+@contextmanager
+def phase_time(name):
+    """Times the block as the phase `name`: prints its seconds, keeps them
+    in PHASE_S."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[name] = time.perf_counter() - t0
+    say(f"phase {name}: {PHASE_S[name]:.1f} s")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1712,8 +1726,9 @@ def run(dev, out=None):
         {"mma": SPARSE_CONVS, "fma": 0}, calibrate=True)
     # soft-NMS on the fhd eval's decoded candidates, and multi-device at
     # world size 1 (one card): an NCCL group, the Trainer's DP steps
-    soft_aggs, soft_others, soft_counts, report["soft_nms"] = \
-        run_soft_nms(dev, timer, dtimer, nms_call)
+    with phase_time("soft-nms"):
+        soft_aggs, soft_others, soft_counts, report["soft_nms"] = \
+            run_soft_nms(dev, timer, dtimer, nms_call)
     aggs.update(soft_aggs)
     with tempfile.TemporaryDirectory() as tmp:
         dp_train_counts, dp_eval_counts, report["dp"] = run_dp(dev,
@@ -1734,26 +1749,34 @@ def run(dev, out=None):
     # NMS past 4096 candidates an example (the kernels' wide routes): on
     # crowded boxes up to JAX's bound, and the fhd eval forward at
     # nms_pre_max_size 8192, its NMS card against CPU
-    nms_large_aggs, report["nms_large_k"] = run_nms_large_k(dev, timer,
-                                                            dtimer)
-    _, _, k8192_counts, report["k8192_eval"] = run_middle_eval(
-        dev, timer, dtimer, "k8192 eval", K8192_PATCHES, SPARSE_CONVS,
-        {"mma": SPARSE_CONVS, "fma": 0}, timed=False, nms_cpu=True)
+    with phase_time("nms large k"):
+        nms_large_aggs, report["nms_large_k"] = run_nms_large_k(dev, timer,
+                                                                dtimer)
+    with phase_time("k8192 eval"):
+        _, _, k8192_counts, report["k8192_eval"] = run_middle_eval(
+            dev, timer, dtimer, "k8192 eval", K8192_PATCHES, SPARSE_CONVS,
+            {"mma": SPARSE_CONVS, "fma": 0}, timed=False, nms_cpu=True)
     # VoxelFeatureExtractor [32, 128]'s train step: its first conv's
     # weight gradient [27, 128, 16], the tiled bf16 path up to 128 channels
-    vfe1_train_wide, vfe1_train_counts, report["vfe1_train"] = \
-        run_middle_train(dev, timer, dtimer, "vfe1 train", VFE1_PATCHES,
-                         SPARSE_CONVS,
-                         {"mma": 2 * SPARSE_CONVS, "fma": 0,
-                          "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0},
-                         n_dgrad=SPARSE_CONVS)
+    with phase_time("vfe1 train"):
+        vfe1_train_wide, vfe1_train_counts, report["vfe1_train"] = \
+            run_middle_train(dev, timer, dtimer, "vfe1 train", VFE1_PATCHES,
+                             SPARSE_CONVS,
+                             {"mma": 2 * SPARSE_CONVS, "fma": 0,
+                              "wgrad_mma": SPARSE_CONVS, "wgrad_fma": 0},
+                             n_dgrad=SPARSE_CONVS)
     # the other middles, encoders and RPN options, and SpMiddleFHDV2's
     # train step (the sparse max pool's gradient)
     config_counts, config_reports = run_config_evals(dev, timer, dtimer)
     report.update(config_reports)
-    _, fhdv2_train_counts, report["fhdv2_train"] = run_middle_train(
-        dev, timer, dtimer, "fhdv2 train", FHDV2_PATCHES, 14,
-        {"mma": 0, "fma": 27, "wgrad_mma": 0, "wgrad_fma": 14}, fp64=True)
+    with phase_time("fhdv2 train"):
+        _, fhdv2_train_counts, report["fhdv2_train"] = run_middle_train(
+            dev, timer, dtimer, "fhdv2 train", FHDV2_PATCHES, 14,
+            {"mma": 0, "fma": 27, "wgrad_mma": 0, "wgrad_fma": 14},
+            fp64=True)
+    report["phase_s"] = dict(PHASE_S)
+    say(f"phases timed: {sum(PHASE_S.values()):.1f} s in all ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()) + ")")
     by_path = dict(zip(PATHS, (counts, train_counts, pp_eval_counts,
                                pp_train_counts, mc_eval_counts,
                                mc_train_counts, kitti_counts, iou_counts,
@@ -2186,7 +2209,10 @@ def check_step_calls(what, calls, timer, dtimer, timed=True):
 def check_conv_backward(fwd_calls, wgrad_calls, detail=None):
     """Each conv of the step once more: its forward arguments and the
     gradient its backward received, through `gather_gemm` (the kernels'
-    backward) and through autograd of `gather_gemm_plain` in fp32. The input
+    backward) and through autograd of `gather_gemm_plain` in fp64 (an fp32
+    yardstick is itself off by more than a bf16 unit of an entry where a
+    weight gradient's sum cancels: 0.057 at a scale of 18.7 on the vfe1
+    step's [27, 128, 16] call). The input
     gradient where the step computed one (every conv but the first), and
     the weight gradient; on the bf16 path the kernels' results are rounded
     to bf16 once, so within one bf16 unit (BF16_UNIT). With `detail`, a
@@ -2204,16 +2230,18 @@ def check_conv_backward(fwd_calls, wgrad_calls, detail=None):
             fail(f"conv {i}: no weight-gradient call for its input")
         grads = []
         # the kernels on the step's own dtypes; autograd of the plain
-        # version on fp32 copies of the values the kernels use (the features
+        # version on fp64 copies of the values the kernels use (the features
         # and the weights rounded to the feature dtype), so its sums are
-        # fp32 throughout: autograd through bf16 tensors would round each
+        # fp64 throughout: autograd through bf16 tensors would round each
         # tap's share and add them in bf16
-        for fn, dtype in ((subm.gather_gemm, f.dtype),
-                          (subm.gather_gemm_plain, torch.float32)):
+        for fn, dtype, wdtype, gdtype in (
+                (subm.gather_gemm, f.dtype, w.dtype, torch.float32),
+                (subm.gather_gemm_plain, torch.float64, torch.float64,
+                 torch.float64)):
             with torch.enable_grad():
                 x = f.detach().to(dtype).requires_grad_(i > 0)
-                ww = w.detach().to(f.dtype).to(w.dtype).requires_grad_(True)
-                (fn(x, tap_idx, found, ww) * g.float()).sum().backward()
+                ww = w.detach().to(f.dtype).to(wdtype).requires_grad_(True)
+                (fn(x, tap_idx, found, ww) * g.to(gdtype)).sum().backward()
             grads.append((x.grad, ww.grad))
         torch.cuda.synchronize()
         row = dict(conv=i, K=tap_idx.shape[1], C=f.shape[2], D=w.shape[2],
@@ -3751,8 +3779,11 @@ def check_standup_calls(calls, sup_calls, timer, dtimer, what,
     bit equal), the suppression that read it against the plain one (keep
     equal), timed beside the plain version (`reps` events each) with its
     bound (`standup_bound`: the valid pairs' meet tests, the IoU of those
-    that meet, the boxes' areas, the bitmask written). No PyTorch call
-    computes the function: the library time is none. Returns the
+    that meet, the boxes' areas, the bitmask written). The kernel's device
+    time in a session of its own; the plain version's where it builds its
+    matrix in one row block (`riou.row_blocks`), else not timed (NaN: its
+    thousands of launches a run overflow a profiling session). No PyTorch
+    call computes the function: the library time is none. Returns the
     aggregate."""
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
                plain_device_ms=0.0, library_device_ms=None, bytes_s=0.0,
@@ -3778,7 +3809,8 @@ def check_standup_calls(calls, sup_calls, timer, dtimer, what,
         fns = (lambda: riou.standup_overlap(cand, valid, thr),
                lambda: riou.standup_overlap_plain(cand, valid, thr))
         ms = [timer(fns[0], reps[0]), timer(fns[1], reps[1])]
-        dev_ms = dtimer(list(fns))
+        dev_ms = dtimer(list(fns)) if len(riou.row_blocks(B, K)) == 1 \
+            else [dtimer(fns[:1])[0], float("nan")]
         agg["ms"] += ms[0]
         agg["plain_ms"] += ms[1]
         agg["device_ms"] += dev_ms[0]
@@ -6542,9 +6574,10 @@ def run_config_evals(dev, timer, dtimer):
     counts, reports = {}, {}
     for what, patches, n_convs, paths, calibrate in CONFIG_EVALS:
         path = what.replace(" ", "_")
-        _, _, counts[path], reports[path] = run_middle_eval(
-            dev, timer, dtimer, what, patches, n_convs, paths,
-            calibrate=calibrate, timed=False)
+        with phase_time(what):
+            _, _, counts[path], reports[path] = run_middle_eval(
+                dev, timer, dtimer, what, patches, n_convs, paths,
+                calibrate=calibrate, timed=False)
         torch.cuda.empty_cache()
     return counts, reports
 
@@ -6592,7 +6625,7 @@ def run_nms_large_k(dev, timer, dtimer):
     for K, B in NMS_LARGE_KS:
         boxes, scores = crowded_nms_boxes(g, B, K)
         cand, scores = boxes.to(dev), scores.to(dev)
-        reps = (3, 1) if K > 20000 else (10, 2)
+        reps = (3, 1) if K > 10000 else (10, 2)
         kw = dict(post_max_size=500, iou_threshold=NMS_LARGE_THR)
         what = f"nms K{K} B{B}"
         with recording([(riou, "nms_overlap"),
@@ -6971,7 +7004,7 @@ def run_soft_nms(dev, timer, dtimer, nms_call):
         top = top.to(dev)
         for cap in SOFT_NMS_K_PAIRS[n]:
             plist, ok = nms_ops.soft_nms_pairs(big[None],
-                                               torch.ones_like(top, bool),
+                                               torch.ones_like(top, dtype=torch.bool),
                                                cap)
             if not bool(ok.all()):
                 fail(f"soft-nms K{n}: fewer than {cap} pairs")

@@ -55,8 +55,12 @@ def parent_kernels(src):
     """The parent build's entries as functions of the wrappers' arguments:
     {name: fn}."""
     lib = kernels.build_variant(src, "riou_parent", "riou")[0]
+    # the parent's overlap entry takes no scratch
     ov = lib.nms_overlap
-    ov.argtypes, ov.restype = riou._OVERLAP_ARGTYPES, ctypes.c_int
+    ov.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    ov.restype = ctypes.c_int
     sup = lib.nms_suppress
     sup.argtypes, sup.restype = riou._SUPPRESS_ARGTYPES, ctypes.c_int
     su = lib.standup_overlap

@@ -52,34 +52,9 @@ an L2 flush (a 128 MB fill):
   before it): a later step's time is the difference of m = K and m = 1
   over K - 1.
 
-A decay over a dense IoU matrix (the design both kernels replaced; its
-kernel was removed once no path took it): a step cannot be shorter than
-its chain of a block-wide argmax (a warp's `sp_warp_best`, a barrier, one
-across the warps, a barrier) and one dependent read of the picked IoU
-row. This script times that chain alone, in
-kernels built with the port's flags for riou.cu, with a block of K / 4
-threads rounded up to a warp, at most 4 scores a thread in registers, for
-K = 1000 (the fhd call's rows) and K = 4096 (NMS_MAX_K):
-
-- chase: one thread's dependent loads through a random cycle over one line
-  in 32 of a K x K fp32 matrix's bytes, `__ldcg` (the L2's latency where the
-  matrix fits it, 4 MB at K = 1000);
-- argmax: STEPS block-wide argmaxes, the real kernel's code, each pick set
-  to -inf in its thread's registers before the next (no memory read);
-- skeleton: argmax and then each thread's read of the picked row at its own
-  columns, that row's values its next scores: the step without the decay's
-  arithmetic. The matrix's largest entry in row b sits at column pi(b), pi
-  one cycle through all K rows, so every step reads a row the last K - 1
-  steps did not (a dense decay reads a new row each step too);
-- skeleton cold: the same for COLD_STEPS steps (the fhd call's m), each
-  launch after the L2 is flushed (a 128 MB fill), as chip_smoke.py times
-  the kernels (`DeviceTimer`): the rows come from HBM.
-
-Each is timed with CUDA events, REPS launches after one warm-up, and
-printed per step (us) with the card's name and power limit. The floor of a
-dense step is the skeleton's time (warm, or cold to set beside
-chip_smoke.py's time); chase + argmax is its parts' sum. The floor of a
-pair-list step is the walk's time.
+The floors are timed with CUDA events, REPS launches after one warm-up,
+and printed per step (us) with the card's name and power limit. The floor
+of a pair-list step is the walk's time.
 """
 
 import argparse
@@ -97,9 +72,8 @@ from second_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from second_tpu_torch.ops.cuda import riou  # noqa: E402
 
 REPS = 5
-STEPS = 10000            # argmax and skeleton steps a launch
+STEPS = 10000            # slot and walk steps a launch
 COLD_STEPS = 100         # soft_nms's post_max_size on the fhd call
-KS = (1000, 4096)
 PAIRS = 8192             # soft_nms's max_pairs: the pair-list rows' P
 # the pair-list rows: (K, the side of the square of crowded boxes, m)
 PAIR_ROWS = ((1000, 35.0), (4096, 75.0))
@@ -108,8 +82,6 @@ SOURCE = r"""
 #include <math_constants.h>
 #include <stdint.h>
 #define FULL 0xffffffffu
-constexpr int PER = 4;   // SOFT_PER_THREAD
-
 // the pair-list kernel's slot key, warp reduction and span maximum
 // (csrc/riou.cu, its default build)
 __device__ __forceinline__ int sp_key(float v) {
@@ -230,61 +202,6 @@ int launch_slots(const void* vals, int k, int d, int steps, int walk,
   return (int)cudaGetLastError();
 }
 
-__global__ void chase_kernel(const int* __restrict__ next, int steps,
-                             int* out) {
-  int i = 0;
-  for (int s = 0; s < steps; ++s) i = __ldcg(next + i);
-  out[0] = i;
-}
-
-// the real kernel's block-wide argmax over (key, index); with `mat`, then
-// the read of the picked row, whose values become the thread's scores
-template <bool READ>
-__global__ void __launch_bounds__(1024)
-    step_kernel(const float* __restrict__ mat,
-                const float* __restrict__ vals, int k, int steps,
-                int* out) {
-  __shared__ int2 red[32];
-  __shared__ int best_i;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float cur[PER];
-  int lk = INT32_MIN, li = INT32_MAX;
-#pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    const int j = tid + e * blockDim.x;
-    cur[e] = j < k ? vals[j] : -CUDART_INF_F;
-    if (j < k && sp_key(cur[e]) > lk) { lk = sp_key(cur[e]); li = j; }
-  }
-  for (int s = 0; s < steps; ++s) {
-    const int2 w = sp_warp_best(lk, li);
-    if (lane == 0) red[warp] = w;
-    __syncthreads();
-    if (warp == 0) {
-      const int2 r = lane < nwarps ? red[lane]
-                                   : make_int2(INT32_MIN, INT32_MAX);
-      const int2 b = sp_warp_best(r.x, r.y);
-      if (lane == 0) best_i = b.y;
-    }
-    __syncthreads();
-    const int b = best_i;
-    const float* __restrict__ row = mat + (long long)b * k;
-    lk = INT32_MIN;
-    li = INT32_MAX;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      const int j = tid + e * blockDim.x;
-      if (j < k) {
-        if (READ) cur[e] = row[j];
-        else if (j == b) cur[e] = -CUDART_INF_F;
-        const int key = sp_key(cur[e]);
-        if (key > lk) { lk = key; li = j; }
-      }
-    }
-  }
-  if (tid == 0) out[0] = li;
-}
-
 // per: scores a lane (the pair kernel takes the least of 1, 2, 4 that
 // needs at most 32 warps)
 extern "C" int floor_slots(const void* vals, int k, int d, int steps,
@@ -293,25 +210,6 @@ extern "C" int floor_slots(const void* vals, int k, int d, int steps,
   if (per == 4) return launch_slots<4>(vals, k, d, steps, walk, out, st);
   if (per == 2) return launch_slots<2>(vals, k, d, steps, walk, out, st);
   return launch_slots<1>(vals, k, d, steps, walk, out, st);
-}
-
-extern "C" int floor_chase(const void* next, int steps, void* out,
-                           void* stream) {
-  chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int*)next, steps,
-                                                  (int*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int floor_step(const void* mat, const void* vals, int k,
-                          int steps, int read, void* out, void* stream) {
-  int threads = ((k + PER - 1) / PER + 31) / 32 * 32;
-  if (read)
-    step_kernel<true><<<1, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)mat, (const float*)vals, k, steps, (int*)out);
-  else
-    step_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)mat, (const float*)vals, k, steps, (int*)out);
-  return (int)cudaGetLastError();
 }
 
 // the standup kernel's steps (csrc/riou.cu soft_nms_decay_standup_kernel)
@@ -442,17 +340,11 @@ def build():
     src = kernels.BUILD_DIR / "soft_floor.cu"
     src.write_text(SOURCE)
     lib = kernels.build_variant(src, "soft_floor", "riou")[0]
-    lib.floor_chase.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                ctypes.c_void_p, ctypes.c_void_p]
-    lib.floor_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_void_p]
     lib.floor_slots.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p, ctypes.c_void_p]
     lib.floor_standup.argtypes = [ctypes.c_void_p] * 2 + \
         [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
-    for fn in (lib.floor_chase, lib.floor_step, lib.floor_slots,
-               lib.floor_standup):
+    for fn in (lib.floor_slots, lib.floor_standup):
         fn.restype = ctypes.c_int
     return lib
 
@@ -479,26 +371,6 @@ def event_ms(fn, flush=None):
         b.synchronize()
         out.append(a.elapsed_time(b))
     return out
-
-
-def cycle_matrix(K, gen, dev):
-    """A K x K fp32 matrix of values in [0, 0.5) whose row b has its
-    largest entry, 1, at column pi(b), pi one cycle through the K rows."""
-    order = torch.randperm(K, generator=gen)
-    pi = torch.empty(K, dtype=torch.int64)
-    pi[order] = torch.roll(order, -1)
-    mat = torch.rand((K, K), generator=gen) * 0.5
-    mat[torch.arange(K), pi] = 1.0
-    return mat.to(dev)
-
-
-def chase_array(K, gen, dev):
-    """One int in 32 of K * K, each the index of the next in one random
-    cycle through all of them (a line of 128 bytes a step)."""
-    nodes = torch.randperm(K * K // 32, generator=gen) * 32
-    nxt = torch.zeros(K * K, dtype=torch.int32)
-    nxt[nodes] = torch.roll(nodes, -1).int()
-    return nxt.to(dev), int(nodes.numel())
 
 
 def crowded_row(K, side, gen, dev):
@@ -706,37 +578,6 @@ def main():
     out = torch.zeros(1, dtype=torch.int32, device=dev)
     l2 = torch.empty(64 << 20, dtype=torch.int16, device=dev)
     gen = torch.Generator().manual_seed(0)
-    for K in KS:
-        mat = cycle_matrix(K, gen, dev)
-        vals = torch.rand(K, generator=gen).to(dev)
-        nxt, n = chase_array(K, gen, dev)
-        threads = ((K + 3) // 4 + 31) // 32 * 32
-        per = {
-            "chase": (n, lambda: checked(lib.floor_chase(
-                nxt.data_ptr(), n, out.data_ptr(), stream), "chase")),
-            "argmax": (STEPS, lambda: checked(lib.floor_step(
-                mat.data_ptr(), vals.data_ptr(), K, STEPS, 0, out.data_ptr(),
-                stream), "argmax")),
-            "skeleton": (STEPS, lambda: checked(lib.floor_step(
-                mat.data_ptr(), vals.data_ptr(), K, STEPS, 1, out.data_ptr(),
-                stream), "skeleton")),
-            "skeleton cold": (COLD_STEPS, lambda: checked(lib.floor_step(
-                mat.data_ptr(), vals.data_ptr(), K, COLD_STEPS, 1,
-                out.data_ptr(), stream), "skeleton")),
-        }
-        us = {}
-        for name, (steps, fn) in per.items():
-            ms = event_ms(fn, (lambda: l2.fill_(1)) if "cold" in name
-                          else None)
-            us[name] = [1e3 * t / steps for t in ms]
-            print(f"K {K} ({threads} threads) {name}: {steps} steps a "
-                  f"launch, ms {', '.join(repr(t) for t in ms)}; us a step "
-                  f"{', '.join(repr(u) for u in us[name])}")
-        best = {name: min(u) for name, u in us.items()}
-        print(f"K {K}: floor of a dense step (skeleton, least of {REPS}) "
-              f"{best['skeleton']!r} us; chase + argmax "
-              f"{best['chase'] + best['argmax']!r} us; cold, {COLD_STEPS} "
-              f"steps: floor {best['skeleton cold']!r} us")
     variants = [(name, variant(name, src)) for name, src in
                 (v.split("=", 1) for v in args.variant)]
     standup_floor(lib, cs.DeviceTimer(dev), variants, stream, out, l2, gen,

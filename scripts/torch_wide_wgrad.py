@@ -2,18 +2,24 @@
 error against fp64 and its device time by chunks a tap.
 
     python3 scripts/torch_wide_wgrad.py [--old_grad_src SUBM_GRAD_CU] \
-        [--chunks 0 1 2 4 8 16 32]
+        [--chunks 0 1 2 4 8 16 32] [--train vfe256|vfe1] [--no_stages]
 
 The calls: the weight gradients of the vfe256 train step's first convs and
-last conv (chip_smoke.py's VFE256_PATCHES, train batch), and random bf16
-and fp32 features and output gradients of 256 x 256, 200 x 136, 128 x 128
-and 256 x 16 over the rulebooks of stages 0 and 2 of the SECOND car.fhd
-eval forward (chip_smoke.py's fhd inputs). For each: the largest error of
-this tree's kernel, of the fp32 plain version and, with --old_grad_src,
+last conv (chip_smoke.py's VFE256_PATCHES, train batch; with --train vfe1
+every weight gradient of the VFE1_PATCHES train step, whose first is
+[27, 128, 16]), and random bf16 and fp32 features and output gradients of
+256 x 256, 200 x 136, 128 x 128 and 256 x 16 over the rulebooks of stages
+0 and 2 of the SECOND car.fhd eval forward (chip_smoke.py's fhd inputs;
+not with --no_stages). For each: the largest error of this tree's kernel,
+of the fp32 plain version (`gather_gemm_wgrad_plain`), of autograd of the
+fp32 `gather_gemm_plain` (the yardstick chip_smoke.py's
+`check_conv_backward` took before it took fp64) and, with --old_grad_src,
 of another `subm_grad.cu` (built with this tree's flags; the same
 `subm_wgrad` entry) against the plain version in fp64, over the fp64
 result's largest entry, and how many entries rounded to bf16 miss one
-bf16 unit plus 1e-6 of that scale; then, for the stage calls, the
+bf16 unit of the larger of the two plus 1e-6 of that scale (the bound of
+`check_conv_backward`), with the largest such miss over its bound; then,
+for the stage calls, the
 device-only ms (chip_smoke.py's DeviceTimer, L2 flushed, median of 5) with
 each chunk count of --chunks forced (0: `wgrad_plan`'s own), with each
 result's error against the fp32 plain version. Prints the card's name and
@@ -47,14 +53,26 @@ def errors(name, args, fns):
     for tag, fn in fns.items():
         if fn is None:
             got = subm.gather_gemm_wgrad_plain(*args)
+        elif isinstance(fn, str):
+            f, tap_idx, found, dout = args
+            w = torch.zeros(tap_idx.shape[1], f.shape[2], dout.shape[2],
+                            device=f.device, requires_grad=True)
+            with torch.enable_grad():
+                (subm.gather_gemm_plain(f.detach().float(), tap_idx, found,
+                                        w) * dout.detach().float()
+                 ).sum().backward()
+            got = w.grad
         else:
             subm._wgrad_launch = fn
             got = subm.sparse_wgrad(*args)
         b = got.bfloat16().double()
-        miss = (b - want).abs() > 2.0 ** -7 * torch.maximum(
-            b.abs(), want.abs()) + 1e-6 * scale
+        bound = 2.0 ** -7 * torch.maximum(b.abs(), want.abs()) + \
+            1e-6 * scale
+        margin = ((b - want).abs() / bound).max().item()
+        miss = (b - want).abs() > bound
         err = (got.double() - want).abs().max().item() / scale
-        out.append(f"{tag} {err:.3e} (bf16 misses {int(miss.sum())})")
+        out.append(f"{tag} {err:.3e} (bf16 misses {int(miss.sum())}, "
+                   f"largest {margin:.3g} of the bound)")
     subm._wgrad_launch = fns["this"]
     print(f"{name}: scale {scale:.4g}; " + "; ".join(out), flush=True)
 
@@ -65,6 +83,11 @@ def main():
                         help="another subm_grad.cu with this tree's entry")
     parser.add_argument("--chunks", type=int, nargs="*",
                         default=[0, 1, 2, 4, 8, 16, 32])
+    parser.add_argument("--train", choices=("vfe256", "vfe1"),
+                        default="vfe256",
+                        help="whose train step's weight gradients to hold")
+    parser.add_argument("--no_stages", action="store_true",
+                        help="skip the random calls on the stage rulebooks")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -72,7 +95,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {cs.card_line()}")
     kernels.build(("subm", "subm_grad"))
-    fns = {"this": subm._resolve_wgrad(), "plain fp32": None}
+    fns = {"this": subm._resolve_wgrad(), "plain fp32": None,
+           "autograd fp32": "autograd"}
     if args.old_grad_src:
         lib, _ = kernels.build_variant(args.old_grad_src, "wgrad_old",
                                        "subm_grad")
@@ -82,7 +106,8 @@ def main():
     dt = cs.DeviceTimer(dev)
     plan = subm.wgrad_plan
     with torch.no_grad():
-        cfg = cs.patched_config(cs.VFE256_PATCHES)
+        patches = {"vfe256": cs.VFE256_PATCHES, "vfe1": cs.VFE1_PATCHES}
+        cfg = cs.patched_config(patches[args.train])
         state, spec, info, assigner = cs.new_train_state(cfg, dev, True)
         vspec = VoxelizeSpec.from_config(cfg.model.voxel_generator,
                                          cs.TRAIN_VOXELS,
@@ -92,10 +117,13 @@ def main():
             make_train_step(spec, vspec)(state, batch)
             torch.cuda.synchronize()
         for i, (a, _) in enumerate(calls["sparse_wgrad"]):
-            if i in (0, 1, len(calls["sparse_wgrad"]) - 1):
-                errors(f"vfe256 train wgrad {i} {a[0].shape[2]} -> "
+            if args.train == "vfe1" or \
+                    i in (0, 1, len(calls["sparse_wgrad"]) - 1):
+                errors(f"{args.train} train wgrad {i} {a[0].shape[2]} -> "
                        f"{a[3].shape[2]}", a, fns)
         del state, calls
+        if args.no_stages:
+            return
         cfg = cs.load_pipeline_config(cs.CONFIG)
         net, spec, info, assigner, _ = build_voxelnet(
             cfg.model, device=dev, mixed_precision=True, seed=0)

@@ -1429,6 +1429,33 @@ __device__ __forceinline__ int2 sp_warp_best(int key, int idx) {
   return make_int2(wk, wi);
 }
 
+// A standup decay step of one candidate that is not the pick: its current
+// score c, its box q (area aq, qnan: a coordinate is NaN) against the
+// pick's box pb (pnan); all: the decay of a 0 IoU is not 1. Returns the new
+// score: -inf where c is not finite, c times the decay of their standup
+// IoU where they meet (or all), else c. Both standup kernels take it, so
+// their steps stay bit for bit one another's.
+__device__ __forceinline__ float su_decay(float c, float4 q, float aq,
+                                          bool qnan, float4 pb, bool pnan,
+                                          bool all, int gaussian,
+                                          float sigma, float thr) {
+  if (!isfinite(c)) return -INFINITY;
+  const float wx = fminf(pb.z, q.z) - fmaxf(pb.x, q.x);
+  const float wy = fminf(pb.w, q.w) - fmaxf(pb.y, q.y);
+  const bool meet = wx > 0.f && wy > 0.f && !pnan && !qnan;
+  if (!meet && !all) return c;
+  const float ap = (pb.z - pb.x + 0.f) * (pb.w - pb.y + 0.f);
+  const float inter = meet ? (wx + 0.f) * (wy + 0.f) : 0.f;
+  const float r = inter > 0.f ? inter / ((ap + aq) - inter) : 0.f;
+  const float d = gaussian ? expf(-(r * r) / sigma)
+                           : (r > thr ? 1.f - r : 1.f);
+  return c * d;
+}
+
+__device__ __forceinline__ bool has_nan(float4 b) {
+  return b.x != b.x || b.y != b.y || b.z != b.z || b.w != b.w;
+}
+
 // soft_nms_decay_standup_kernel — the same decay steps (it replaces the
 // same `lax.scan`, second_tpu/ops/nms.py:230-244) where standup soft-NMS
 // runs them, with the IoU matrix they read (`standup_iou_matrix`,
@@ -1482,7 +1509,8 @@ __global__ void __launch_bounds__(1024)
   const int j0 = tid * PER;
   cand += row * k;
   scores += row * k;
-  float x1[PER], y1[PER], x2[PER], y2[PER], area[PER], cur[PER];
+  float4 box[PER];
+  float area[PER], cur[PER];
   bool nan[PER];
   int lk = INT32_MIN, li = INT32_MAX;
 #pragma unroll
@@ -1490,11 +1518,8 @@ __global__ void __launch_bounds__(1024)
     const int j = j0 + t;
     const float4 b = j < k ? cand[j] : make_float4(0.f, 0.f, 0.f, 0.f);
     if (j < k) ss_box[j] = b;
-    x1[t] = b.x;
-    y1[t] = b.y;
-    x2[t] = b.z;
-    y2[t] = b.w;
-    nan[t] = b.x != b.x || b.y != b.y || b.z != b.z || b.w != b.w;
+    box[t] = b;
+    nan[t] = has_nan(b);
     area[t] = (b.z - b.x + 0.f) * (b.w - b.y + 0.f);
     cur[t] = j < k ? scores[j] : -INFINITY;
     if (j < k && sp_key(cur[t]) > lk) {
@@ -1515,35 +1540,24 @@ __global__ void __launch_bounds__(1024)
                                   : make_int2(INT32_MIN, INT32_MAX);
     const int b = sp_warp_best(sl.x, sl.y).y;
     const float4 pb = ss_box[b];
-    const bool pnan = pb.x != pb.x || pb.y != pb.y || pb.z != pb.z ||
-                      pb.w != pb.w;
+    const bool pnan = has_nan(pb);
     bool changed = false;
 #pragma unroll
     for (int t = 0; t < PER; ++t) {
       const int j = j0 + t;
       const float c = cur[t];
-      const float wx = fminf(pb.z, x2[t]) - fmaxf(pb.x, x1[t]);
-      const float wy = fminf(pb.w, y2[t]) - fmaxf(pb.y, y1[t]);
-      const bool meet = wx > 0.f && wy > 0.f && !pnan && !nan[t];
       if (j == b) {
         picks[row * m + s] = b;
         pick_scores[row * m + s] = c;
         cur[t] = -INFINITY;
         changed = true;
-      } else if (j < k && isfinite(c)) {
-        if (meet || all) {
-          const float ap = (pb.z - pb.x + 0.f) * (pb.w - pb.y + 0.f);
-          const float inter = meet ? (wx + 0.f) * (wy + 0.f) : 0.f;
-          const float r = inter > 0.f ? inter / ((ap + area[t]) - inter)
-                                      : 0.f;
-          const float d = gaussian ? expf(-(r * r) / sigma)
-                                   : (r > thr ? 1.f - r : 1.f);
-          cur[t] = c * d;
+      } else if (j < k) {
+        const float nc = su_decay(c, box[t], area[t], nan[t], pb, pnan, all,
+                                  gaussian, sigma, thr);
+        if (nc != c) {                  // NaN != NaN: rewritten too
+          cur[t] = nc;
           changed = true;
         }
-      } else if (j < k && c != -INFINITY) {
-        cur[t] = -INFINITY;
-        changed = true;
       }
     }
     if (changed) {
@@ -1570,9 +1584,9 @@ __global__ void __launch_bounds__(1024)
 // shared memory no longer hold them: each lane owns `per` consecutive
 // candidates (per = ceil(K / 1024)), whose boxes it reads from the input
 // (L2-resident) and whose current scores live in a device scratch [R, K];
-// every step it walks them all: the same meet test, IoU, decay and -inf
-// rules in the same operations (so the same bits), and its best (key,
-// index) over them. One barrier a step; a simple design, right first.
+// every step it walks them all through the same step (`su_decay`, so the
+// same bits), and its best (key, index) over them. One barrier a step; a
+// simple design, right first.
 __global__ void __launch_bounds__(1024)
     soft_nms_decay_standup_wide_kernel(const float4* __restrict__ cand,
                                        const float* __restrict__ scores,
@@ -1611,35 +1625,19 @@ __global__ void __launch_bounds__(1024)
                                   : make_int2(INT32_MIN, INT32_MAX);
     const int b = sp_warp_best(sl.x, sl.y).y;
     const float4 pb = cand[b];
-    const bool pnan = pb.x != pb.x || pb.y != pb.y || pb.z != pb.z ||
-                      pb.w != pb.w;
+    const bool pnan = has_nan(pb);
     lk = INT32_MIN;
     li = INT32_MAX;
     for (int j = j0; j < j1; ++j) {
       const float c = cur[j];
-      float nc = c;
+      float nc = -INFINITY;
       if (j == b) {
         picks[row * m + s] = b;
         pick_scores[row * m + s] = c;
-        nc = -INFINITY;
       } else if (isfinite(c)) {
         const float4 q = cand[j];
-        const bool qnan = q.x != q.x || q.y != q.y || q.z != q.z ||
-                          q.w != q.w;
-        const float wx = fminf(pb.z, q.z) - fmaxf(pb.x, q.x);
-        const float wy = fminf(pb.w, q.w) - fmaxf(pb.y, q.y);
-        const bool meet = wx > 0.f && wy > 0.f && !pnan && !qnan;
-        if (meet || all) {
-          const float ap = (pb.z - pb.x + 0.f) * (pb.w - pb.y + 0.f);
-          const float aq = (q.z - q.x + 0.f) * (q.w - q.y + 0.f);
-          const float inter = meet ? (wx + 0.f) * (wy + 0.f) : 0.f;
-          const float r = inter > 0.f ? inter / ((ap + aq) - inter) : 0.f;
-          const float d = gaussian ? expf(-(r * r) / sigma)
-                                   : (r > thr ? 1.f - r : 1.f);
-          nc = c * d;
-        }
-      } else {
-        nc = -INFINITY;
+        nc = su_decay(c, q, (q.z - q.x + 0.f) * (q.w - q.y + 0.f),
+                      has_nan(q), pb, pnan, all, gaussian, sigma, thr);
       }
       if (j == b || nc != c) cur[j] = nc;   // NaN != NaN: rewritten too
       const int key = sp_key(nc);
@@ -2010,17 +2008,61 @@ extern "C" int d3_iou(const void* b1, const void* b2, void* out,
   return (int)cudaGetLastError();
 }
 
+// Bytes of device scratch `nms_overlap` takes: 0 up to NMS_MAX_K
+// candidates, else (the wide route) a standup envelope (float4) and an area
+// a box, then each example's K + 1 row starts.
+extern "C" long long nms_overlap_scratch(int batch, int k) {
+  return k > NMS_MAX_K ? 20LL * batch * k + 4LL * batch * (k + 1LL) : 0;
+}
+
+// The wide route of nms_overlap past NMS_MAX_K candidates (up to
+// NMS_ROTATED_MAX_K), whatever the cluster: its prep, bound, scan and clip
+// kernels.
+static int nms_overlap_wide(const void* cand, const void* valid, void* over,
+                            void* maybe, void* count, void* scratch,
+                            int batch, int k, float thr, int cap,
+                            void* stream) {
+  if ((long long)batch * ((k + NMS_WARPS - 1) / NMS_WARPS) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)batch * k;
+  float4* env = static_cast<float4*>(scratch);
+  float* area = reinterpret_cast<float*>(env + n);
+  int* start = reinterpret_cast<int*>(area + n);
+  nms_wide_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(cand), env, area, n);
+  nms_wide_bound_kernel<<<(unsigned)(batch * ((k + NMS_WARPS - 1) /
+                                              NMS_WARPS)),
+                          NMS_THREADS, 0, st>>>(
+      env, area, static_cast<const uint8_t*>(valid),
+      static_cast<uint32_t*>(maybe), start, k, thr);
+  nms_wide_scan_kernel<<<(unsigned)batch, NMS_THREADS, 0, st>>>(
+      start, static_cast<int*>(count), k);
+  nms_wide_clip_kernel<<<(unsigned)((n * 32 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(cand), static_cast<const uint32_t*>(maybe),
+      start, static_cast<uint32_t*>(over), batch, k, thr, cap);
+  return (int)cudaGetLastError();
+}
+
 // cand [B, K, 5] fp32, valid [B, K] bytes; writes over [B, K, W] and uses
 // maybe [B, K, W] (words, W = ceil(K / 32)) as scratch, count [B] int32.
 // cap: the pairs clipped, first in row-major order; cluster: blocks an
-// example (1, 2, 4, 8 or 16).
+// example (1, 2, 4, 8 or 16) up to NMS_MAX_K candidates; past it (up to
+// NMS_ROTATED_MAX_K) the wide route, whatever the cluster. scratch holds
+// nms_overlap_scratch(batch, k) bytes (null where that is 0).
 extern "C" int nms_overlap(const void* cand, const void* valid, void* over,
-                           void* maybe, void* count, int batch, int k,
-                           float thr, int cap, int cluster, void* stream) {
+                           void* maybe, void* count, void* scratch,
+                           int batch, int k, float thr, int cap, int cluster,
+                           void* stream) {
   if (batch == 0 || k == 0) return 0;
-  if (k < 0 || k > NMS_MAX_K || cap < 0 || cluster < 1 ||
-      cluster > NMS_MAX_CLUSTER || (cluster & (cluster - 1)))
+  if (batch < 0 || k < 0 || k > NMS_ROTATED_MAX_K || cap < 0 ||
+      cluster < 1 || cluster > NMS_MAX_CLUSTER || (cluster & (cluster - 1)))
     return (int)cudaErrorInvalidValue;
+  if (k > NMS_MAX_K) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return nms_overlap_wide(cand, valid, over, maybe, count, scratch, batch,
+                            k, thr, cap, stream);
+  }
   static bool sized = false;
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -2064,43 +2106,6 @@ extern "C" int nms_overlap(const void* cand, const void* valid, void* over,
       static_cast<uint32_t*>(maybe), static_cast<int*>(count), k, thr, cap,
       over_words, maybe_words);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
-}
-
-// Bytes of device scratch `nms_overlap_wide` takes: a standup envelope
-// (float4) and an area a box, then each example's K + 1 row starts.
-extern "C" long long nms_overlap_wide_scratch(int batch, int k) {
-  return 20LL * batch * k + 4LL * batch * (k + 1LL);
-}
-
-// nms_overlap's contract past NMS_MAX_K candidates (up to
-// NMS_ROTATED_MAX_K), whatever the cluster: the same over, maybe and
-// count; scratch holds nms_overlap_wide_scratch(batch, k) bytes.
-extern "C" int nms_overlap_wide(const void* cand, const void* valid,
-                                void* over, void* maybe, void* count,
-                                void* scratch, int batch, int k, float thr,
-                                int cap, void* stream) {
-  if (batch == 0 || k == 0) return 0;
-  if (batch < 0 || k < 0 || k > NMS_ROTATED_MAX_K || cap < 0 ||
-      (long long)batch * ((k + NMS_WARPS - 1) / NMS_WARPS) > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)batch * k;
-  float4* env = static_cast<float4*>(scratch);
-  float* area = reinterpret_cast<float*>(env + n);
-  int* start = reinterpret_cast<int*>(area + n);
-  nms_wide_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(cand), env, area, n);
-  nms_wide_bound_kernel<<<(unsigned)(batch * ((k + NMS_WARPS - 1) /
-                                              NMS_WARPS)),
-                          NMS_THREADS, 0, st>>>(
-      env, area, static_cast<const uint8_t*>(valid),
-      static_cast<uint32_t*>(maybe), start, k, thr);
-  nms_wide_scan_kernel<<<(unsigned)batch, NMS_THREADS, 0, st>>>(
-      start, static_cast<int*>(count), k);
-  nms_wide_clip_kernel<<<(unsigned)((n * 32 + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(cand), static_cast<const uint32_t*>(maybe),
-      start, static_cast<uint32_t*>(over), batch, k, thr, cap);
-  return (int)cudaGetLastError();
 }
 
 // Whether nms_suppress stages a bitmask of K rows in shared memory (1) or

@@ -304,7 +304,7 @@ __device__ __forceinline__ void issue_rows(unsigned char* dst, int ld_bytes,
 // tiles of D, even (DP = 8 NT). Each of the 8 warps owns one channel tile
 // and a share of the tile's rows: 4 x 2 warps at MTC = 4 (32 rows a warp),
 // 2 x 4 at MTC = 2 (16 rows), 1 x 8 at MTC = 1 with 128-row tiles (16 rows).
-// FRESH (calls with C or D past 128): a stage's products go to fresh
+// FRESH (every tiled call: C or D past 64): a stage's products go to fresh
 // registers and are added to the accumulators with compensation, as the
 // fp32 path adds its tiles. A chain of mma.sync over all of a chunk's rows
 // drifts from the exact sum as the chunk grows: without the compensation
@@ -312,9 +312,11 @@ __device__ __forceinline__ void issue_rows(unsigned char* dst, int ld_bytes,
 // from the fp64 sum and the [27, 256, 16] call of the vfe256 train step
 // 8.3e-6, with it 1.6e-7 and 3.0e-7 (the fp32 plain version 5.4e-7 and
 // 2.7e-5; NVIDIA H100 80GB HBM3, 700.00 W, scripts/torch_wide_wgrad.py
-// --old_grad_src). Two
-// blocks an SM (the accumulators, a stage's products and the carried
-// roundings); the calls up to 128 channels keep FRESH off and their
+// --old_grad_src); the [27, 128, 16] call of the VoxelFeatureExtractor
+// [32, 128] train step missed a bf16 unit of an entry against fp64
+// without it (chip_smoke.py's vfe1 train phase). Two blocks an SM (the
+// accumulators, a stage's products and the carried roundings); the
+// untiled calls (C and D at most 64) keep FRESH off and their
 // instantiations as they were.
 template <int MTC, int NT, bool FRESH = false>
 struct MmaPath {
@@ -857,15 +859,16 @@ template <bool WIDE>
 cudaError_t launch_paths(int mma, const Args& a, int chunks, int tiles,
                          cudaStream_t s) {
   if (!mma) return launch<FmaPath, WIDE>(a, chunks, tiles, s);
-  // past 128 channels (tiled calls only): FRESH, one instantiation of full
-  // 64 x 64 tiles (a narrower C or D leaves zero columns in the ring)
-  if constexpr (WIDE)
-    if (a.C > 128 || a.D > 128)
-      return launch<MmaPath<4, 8, true>, WIDE>(a, chunks, tiles, s);
-  const int nt = (a.DB + 15) / 16 * 2;
-  return a.CB <= 16   ? launch_mma<1, WIDE>(nt, a, chunks, tiles, s)
-         : a.CB <= 32 ? launch_mma<2, WIDE>(nt, a, chunks, tiles, s)
-                      : launch_mma<4, WIDE>(nt, a, chunks, tiles, s);
+  // a tiled call: FRESH, one instantiation of full 64 x 64 tiles (a
+  // narrower C or D leaves zero columns in the ring)
+  if constexpr (WIDE) {
+    return launch<MmaPath<4, 8, true>, WIDE>(a, chunks, tiles, s);
+  } else {
+    const int nt = (a.DB + 15) / 16 * 2;
+    return a.CB <= 16   ? launch_mma<1, WIDE>(nt, a, chunks, tiles, s)
+           : a.CB <= 32 ? launch_mma<2, WIDE>(nt, a, chunks, tiles, s)
+                        : launch_mma<4, WIDE>(nt, a, chunks, tiles, s);
+  }
 }
 
 // the widest copy (16, 8 or 4 bytes) that tiles a row of `width` elements

@@ -78,13 +78,10 @@ _PAIRS_ARGTYPES = [ctypes.c_void_p] * 5 + \
 # b1, b2, out, n1, n2, criterion, stream
 _MATRIX_ARGTYPES = [ctypes.c_void_p] * 3 + \
     [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-# cand, valid, over, maybe, count, batch, k, thr, cap, cluster, stream
-_OVERLAP_ARGTYPES = [ctypes.c_void_p] * 5 + \
+# cand, valid, over, maybe, count, scratch, batch, k, thr, cap, cluster,
+# stream
+_OVERLAP_ARGTYPES = [ctypes.c_void_p] * 6 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p]
-# cand, valid, over, maybe, count, scratch, batch, k, thr, cap, stream
-_OVERLAP_WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + \
-    [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
      ctypes.c_void_p]
 # b1, b2, out, clipped, batch, n1, n2, stream
 _D3_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -108,7 +105,6 @@ _SOFT_PAIRS_ARGTYPES = [ctypes.c_void_p] * 7 + \
 _pairs_launch = None
 _matrix_launch = None
 _overlap_launch = None
-_overlap_wide_launch = None
 _suppress_launch = None
 _d3_launch = None
 _standup_launch = None
@@ -132,13 +128,6 @@ def _resolve_overlap():
     global _overlap_launch
     _overlap_launch = function("riou", "nms_overlap", _OVERLAP_ARGTYPES)
     return _overlap_launch
-
-
-def _resolve_overlap_wide():
-    global _overlap_wide_launch
-    _overlap_wide_launch = function("riou", "nms_overlap_wide",
-                                    _OVERLAP_WIDE_ARGTYPES)
-    return _overlap_wide_launch
 
 
 def _resolve_suppress():
@@ -594,8 +583,8 @@ def _check_batch(name, tensor, valid, inner):
 def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
     """`nms_overlap_plain` semantics; the CUDA kernel for CUDA tensors, with
     `cluster` blocks an example (default NMS_CLUSTER) up to NMS_MAX_K
-    candidates, past it the wide route (`nms_overlap_wide`, which takes no
-    cluster shape), up to ROTATED_MAX_K."""
+    candidates, past it the wide route (which takes no cluster shape), up
+    to ROTATED_MAX_K."""
     refuse_grad("nms_overlap", cand)
     dev = cand.device
     if dev.type == "cpu":
@@ -621,20 +610,14 @@ def nms_overlap(cand, valid, iou_threshold, max_pairs, cluster=None):
         return over, count
     cand, valid = cand.contiguous(), valid.contiguous()
     maybe = torch.empty_like(over)
-    if K > NMS_MAX_K:
-        scratch = torch.empty(
-            (_scratch_bytes("nms_overlap_wide_scratch",
-                            [ctypes.c_int, ctypes.c_int], B, K),),
-            dtype=torch.uint8, device=dev)
-        rc = (_overlap_wide_launch or _resolve_overlap_wide())(
-            cand.data_ptr(), valid.data_ptr(), over.data_ptr(),
-            maybe.data_ptr(), count.data_ptr(), scratch.data_ptr(), B, K,
-            iou_threshold, max_pairs, stream_ptr(dev))
-    else:
-        rc = (_overlap_launch or _resolve_overlap())(
-            cand.data_ptr(), valid.data_ptr(), over.data_ptr(),
-            maybe.data_ptr(), count.data_ptr(), B, K,
-            iou_threshold, max_pairs, cluster, stream_ptr(dev))
+    nbytes = _scratch_bytes("nms_overlap_scratch",
+                            [ctypes.c_int, ctypes.c_int], B, K)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev) \
+        if nbytes else None
+    rc = (_overlap_launch or _resolve_overlap())(
+        cand.data_ptr(), valid.data_ptr(), over.data_ptr(), maybe.data_ptr(),
+        count.data_ptr(), scratch.data_ptr() if nbytes else None, B, K,
+        iou_threshold, max_pairs, cluster, stream_ptr(dev))
     check("riou", rc)
     global launches
     launches += 1
